@@ -1,0 +1,64 @@
+"""State carried across from the JAX package, as host numpy arrays.
+
+Two entry points let one operand feed both packages:
+
+- `matrix_from_jax_arrays` takes the arrays that ``aoclsparse_tpu.export_csr``
+  returns and builds this package's handle from them.
+- `bandt_form_from_jax` takes numpy copies of a JAX ``bandt`` ExecForm's
+  arrays and builds this package's ExecForm, so the band kernel can be held
+  against the JAX kernels on the very same band, apart from the planner.
+
+Neither imports JAX: the arrays arrive as numpy.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .core.context import resolve_device
+from .core.matrix import SparseMatrix, as_values, create_csr
+from .core.types import IndexBase
+from .planner.plan import ExecForm
+
+__all__ = ["matrix_from_jax_arrays", "bandt_form_from_jax"]
+
+
+def matrix_from_jax_arrays(
+    m, n, ptr, ind, val, device=None, base: IndexBase = IndexBase.zero
+) -> SparseMatrix:
+    """CSR handle from ``aoclsparse_tpu.export_csr``'s (ptr, ind, val)."""
+    return create_csr(m, n, np.asarray(ptr), np.asarray(ind), np.asarray(val), base, device)
+
+
+def bandt_form_from_jax(form_arrays: Mapping, device=None) -> ExecForm:
+    """This package's ``bandt`` ExecForm from a JAX one's arrays: keys
+    ``bwd_val`` ((W, m)), ``sp_val``/``sp_ind``/``sp_rows`` (None or empty
+    when there is no spill), ``bwd_W``, ``bwd_padL`` and ``bandt_start``,
+    and optionally ``n`` (default m). The form carries no scatter maps, so
+    it serves mv but not a value refresh."""
+    dev = resolve_device(device)
+    vt = as_values(np.ascontiguousarray(form_arrays["bwd_val"]), dev)
+    W, m = vt.shape
+    if int(form_arrays["bwd_W"]) != W:
+        raise ValueError(f"bwd_W={form_arrays['bwd_W']} but bwd_val has {W} rows")
+    sp_ind = form_arrays.get("sp_ind")
+    spilled = sp_ind is not None and np.asarray(sp_ind).size > 0
+
+    def idx(key):
+        return torch.from_numpy(np.ascontiguousarray(form_arrays[key], dtype=np.int64)).to(dev)
+
+    return ExecForm(
+        kind="bandt",
+        m=m,
+        n=int(form_arrays.get("n", m)),
+        bwd_val=vt,
+        bwd_W=W,
+        bwd_padL=int(form_arrays["bwd_padL"]),
+        bandt_start=int(form_arrays["bandt_start"]),
+        sp_val=as_values(np.asarray(form_arrays["sp_val"]), dev) if spilled else None,
+        sp_ind=idx("sp_ind") if spilled else None,
+        sp_rows=idx("sp_rows") if spilled else None,
+    )

@@ -1,0 +1,141 @@
+"""Kernel registry + oracle dispatcher.
+
+PyTorch counterpart of ``aoclsparse_tpu/kernels/registry.py`` (the analog
+of the reference's Kernel-Attribute-Table + Oracle,
+library/src/include/aoclsparse_cntx_dispatcher.hpp:46-78, 272-364). Rows
+declare which backend ("cuda" / "cpu" / "any") and which execution format
+they serve; the Oracle scores (backend exact match, format match, declared
+priority), caches the winner per lookup key, honors explicit KID overrides
+(``Status.invalid_kid`` for unsupported requests, like Dispatch::Oracle) and
+the global ``AOCLSPARSE_TPU_FORCE_KID`` override. The backend of a call is
+the device of its operand. ``debug_dispatcher`` reports which kernel would
+run (aoclsparse_debug_dispatcher analog).
+
+The mv table keeps the JAX package's KID numbers for the kernels ported so
+far: 0 (segsum), and 8, 12 and 13 for the ``bandt`` form. All three band
+KIDs run the one band kernel (kernels/band_spmv.py); 12 is the default and
+streams a bf16 band under the mixed precision policy, 13 is the f64
+instance (the JAX package's double-float KID).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from ..core.context import get_context
+from ..core.types import AoclSparseError, Status
+from .band_spmv import spmv_bandt
+from .plain_spmv import spmv_segsum
+
+__all__ = ["KernelEntry", "Registry", "registry", "debug_dispatcher"]
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelEntry:
+    """One KAT row: Table<K>{kernel, min_cpu_flag, arch_bitmask} analog."""
+
+    kid: int
+    name: str
+    fn: Callable
+    fmt: str  # execution format it consumes: "segsum" | "bandt"
+    backend: str = "any"  # "cuda" | "cpu" | "any"
+    priority: int = 0  # ties -> highest kid wins, like the reference
+
+
+def _backend(device) -> str:
+    return "cuda" if device is not None and torch.device(device).type == "cuda" else "cpu"
+
+
+class Registry:
+    def __init__(self):
+        self._tables: Dict[str, List[KernelEntry]] = {}
+        self._cache: Dict[Tuple, KernelEntry] = {}
+
+    def register(self, op: str, entry: KernelEntry) -> None:
+        tbl = self._tables.setdefault(op, [])
+        if any(e.kid == entry.kid for e in tbl):
+            raise ValueError(f"duplicate kid {entry.kid} for op {op}")
+        tbl.append(entry)
+        self._cache = {k: v for k, v in self._cache.items() if k[0] != op}
+
+    def table(self, op: str) -> List[KernelEntry]:
+        return list(self._tables.get(op, []))
+
+    def _score(self, e: KernelEntry, fmt: Optional[str], backend: str) -> int:
+        """Oracle scoring (cntx_dispatcher.hpp:272-364): exact backend match
+        scores highest; "any" rows are penalized; format mismatch disqualifies."""
+        if fmt is not None and e.fmt != fmt:
+            return -1
+        if e.backend not in ("any", backend):
+            return -1
+        score = 32 if e.backend == backend else 16
+        return score + e.priority
+
+    def select(
+        self, op: str, fmt: Optional[str] = None, kid: Optional[int] = None, device=None
+    ) -> KernelEntry:
+        """Pick the kernel for (op, execution format) on `device`, honoring
+        the KID override."""
+        backend = _backend(device)
+        force_kid = get_context().force_kid
+        if kid is None and force_kid is not None:
+            kid = force_kid
+        tbl = self._tables.get(op)
+        if not tbl:
+            raise AoclSparseError(Status.not_implemented, f"no kernels for op '{op}'")
+        if kid is not None:
+            for e in tbl:
+                if e.kid == kid:
+                    if self._score(e, fmt, backend) < 0:
+                        raise AoclSparseError(
+                            Status.invalid_kid,
+                            f"kid {kid} unsupported for op '{op}' fmt={fmt} backend={backend}",
+                        )
+                    return e
+            raise AoclSparseError(Status.invalid_kid, f"kid {kid} not in table for '{op}'")
+        key = (op, fmt, backend)
+        hit = self._cache.get(key)
+        if hit is not None:
+            return hit
+        best, best_score = None, -1
+        for e in tbl:
+            s = self._score(e, fmt, backend)
+            # ties resolved toward highest kid, like the reference Oracle
+            if s > best_score or (s == best_score and best is not None and e.kid > best.kid):
+                best, best_score = e, s
+        if best is None or best_score < 0:
+            raise AoclSparseError(
+                Status.not_implemented, f"no kernel for op '{op}' fmt={fmt} backend={backend}"
+            )
+        self._cache[key] = best
+        return best
+
+
+#: Global registry with the static mv KAT table.
+registry = Registry()
+registry.register("mv", KernelEntry(0, "torch_segsum", spmv_segsum, "segsum", "any", 0))
+registry.register("mv", KernelEntry(8, "cuda_bandt", spmv_bandt, "bandt", "any", 2))
+registry.register("mv", KernelEntry(12, "cuda_bandv", spmv_bandt, "bandt", "any", 3))
+# f64 instance: explicit KID, or the bandt dispatch of a float64 operand
+# (ops/level2/mv.py), as the JAX package routes its double-float kernel
+registry.register("mv", KernelEntry(13, "cuda_band_f64", spmv_bandt, "bandt", "any", -1))
+
+
+def debug_dispatcher(
+    op: str, fmt: Optional[str] = None, kid: Optional[int] = None, device=None
+) -> dict:
+    """Which kernel would run? (aoclsparse_debug_dispatcher analog)."""
+    e = registry.select(op, fmt=fmt, kid=kid, device=device)
+    ctx = get_context()
+    return {
+        "op": op,
+        "kid": e.kid,
+        "name": e.name,
+        "fmt": e.fmt,
+        "backend": e.backend,
+        "platform": _backend(device),
+        "device_kind": ctx.device_kind,
+    }

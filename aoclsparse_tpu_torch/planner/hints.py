@@ -1,0 +1,47 @@
+"""Hint registration API (aoclsparse_set_*_hint family,
+library/src/analysis/aoclsparse_analysis.cpp:595-777).
+
+PyTorch counterpart of ``aoclsparse_tpu/planner/hints.py:60``. A setter
+validates the descriptor/operation and prepends a Hint node to the handle's
+hint list; `optimize()` (planner/plan.py) then walks the list and prebuilds
+the effective CSR copies and execution forms.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..core.descr import MatrixDescriptor
+from ..core.matrix import Hint, SparseMatrix
+from ..core.types import AoclSparseError, Operation, Status
+from ..core.validate import check_base_match
+
+__all__ = ["set_mv_hint"]
+
+
+def _set_hint(
+    A: SparseMatrix,
+    action: str,
+    trans: Operation,
+    descr: MatrixDescriptor,
+    kid: Optional[int],
+    nop: int,
+) -> None:
+    if A is None or descr is None:
+        raise AoclSparseError(Status.invalid_pointer, "null matrix or descriptor")
+    descr.validate()
+    Operation(trans)
+    # reference: descriptor base must agree with the matrix base
+    # (aoclsparse_set_hint, analysis.cpp:612-619)
+    check_base_match(A, descr)
+    # reference: nop < 0 invalid; nop == 0 only valid with an explicit kid
+    # (analysis.cpp:643-646)
+    if nop < 0 or (nop == 0 and kid is None):
+        raise AoclSparseError(
+            Status.invalid_value, "expected_no_of_calls must be > 0 (or a kid given)"
+        )
+    A.add_hint(Hint(action=action, trans=Operation(trans), descr=descr, kid=kid, nop=nop))
+
+
+def set_mv_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> None:
+    _set_hint(A, "mv", trans, descr, kid, nop)

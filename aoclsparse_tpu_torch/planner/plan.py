@@ -1,0 +1,667 @@
+"""Planner for mv: clean CSR -> effective CSR -> execution form.
+
+PyTorch counterpart of ``aoclsparse_tpu/planner/plan.py`` for the forms this
+package runs (``bandt`` and ``segsum``). Reference analogs:
+
+- clean-CSR construction `aoclsparse_csr_csc_optimize`
+  (analysis/aoclsparse_csr_util.hpp:764-945): validate, sort, split triangles.
+- DOID copies `aoclsparse_matrix_transform` (csr_util.hpp:516-759): general
+  form / transposed / conjugated copies cached per (descriptor, operation).
+- SpMV format selection `aoclsparse_optimize_mv`
+  (analysis/aoclsparse_analysis.cpp:35-385), re-derived for Hopper in
+  `choose_mv_format`.
+
+Structure work (sorting, triangle splits, scatter maps) is host numpy, once
+per structure, exactly as in the JAX package. Values stay tensors on the
+matrix's device, and every value-derived operand is rebuilt by a device
+gather/scatter in `refresh`, so `update_values` never re-plans.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.descr import MatrixDescriptor
+from ..core.formats import CSR
+from ..core.matrix import SparseMatrix
+from ..core.types import (
+    AoclSparseError,
+    DiagType,
+    FillMode,
+    MatrixType,
+    Operation,
+    Status,
+)
+from ..core.validate import host_array
+
+__all__ = [
+    "BANDT_MAX_W",
+    "BWD_CAP",
+    "CleanCSR",
+    "EffectiveCSR",
+    "ExecForm",
+    "Plan",
+    "build_clean_csr",
+    "build_effective_csr",
+    "build_exec_form",
+    "choose_mv_format",
+    "optimize",
+    "get_plan",
+]
+
+
+def _dev_index(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host index map -> int64 device tensor (torch's native index type)."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# clean CSR (validated, sorted, zero-based, triangle-split)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CleanCSR:
+    """Sorted zero-based CSR + triangle split pointers.
+
+    idiag[i] = offset of the diagonal entry of row i (or the position where it
+    would be, if missing); iurow[i] = offset of the first strictly-upper entry.
+    Mirrors aoclsparse_csr_csc_indices (csr_util.cpp:389).
+    """
+
+    ptr: np.ndarray  # (m+1,) int32 host copy (the planner reads structure)
+    ind: np.ndarray  # (nnz,) int32 host copy
+    val: torch.Tensor  # (nnz,) device values (sorted order)
+    perm: np.ndarray  # (nnz_in,) int64: sorted-order source positions
+    idiag: np.ndarray  # (m,)
+    iurow: np.ndarray  # (m,)
+    has_diag: np.ndarray  # (m,) bool: row i stores its diagonal entry
+    fulldiag: bool
+    shape: Tuple[int, int]
+    #: set when the input had duplicate (row, col) entries: maps each sorted
+    #: input entry to its merged slot (values accumulate, matching the dense
+    #: oracle's duplicate-summing semantics)
+    merge_seg: Optional[np.ndarray] = None
+
+    @property
+    def m(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.shape[1]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.ind.size)
+
+    def refresh(self, new_val: torch.Tensor) -> None:
+        dev = new_val.device
+        v = new_val.reshape(-1)[_dev_index(self.perm, dev)]
+        if self.merge_seg is not None:
+            v = torch.zeros(self.nnz, dtype=v.dtype, device=dev).index_add_(
+                0, _dev_index(self.merge_seg, dev), v
+            )
+        self.val = v
+
+
+def _triangle_split(m, ptr, ind_s, rows):
+    """Vectorized idiag/iurow/has_diag over a sorted CSR
+    (aoclsparse_csr_csc_indices analog, csr_util.cpp:389)."""
+    ptr64 = np.asarray(ptr, dtype=np.int64)
+    idiag = np.empty(m, dtype=np.int64)
+    iurow = np.empty(m, dtype=np.int64)
+    has_diag = np.zeros(m, dtype=bool)
+    if ind_s.size == 0 or m == 0:
+        idiag[:] = ptr64[:-1]
+        iurow[:] = ptr64[:-1]
+        return idiag, iurow, has_diag
+    below = (ind_s < rows).astype(np.int64)  # strictly-lower entries
+    on = ind_s == rows
+    csum_below = np.concatenate([[0], np.cumsum(below)])
+    csum_on = np.concatenate([[0], np.cumsum(on.astype(np.int64))])
+    nbelow = csum_below[ptr64[1:]] - csum_below[ptr64[:-1]]
+    non = csum_on[ptr64[1:]] - csum_on[ptr64[:-1]]
+    idiag[:] = ptr64[:-1] + nbelow
+    has_diag[:] = non > 0
+    iurow[:] = idiag + non
+    return idiag, iurow, has_diag
+
+
+def _ranges_concat(starts, stops):
+    """Vectorized concatenate([arange(s, e) for s, e in zip(starts, stops)])."""
+    starts = np.asarray(starts, dtype=np.int64)
+    stops = np.asarray(stops, dtype=np.int64)
+    lens = stops - starts
+    total = int(lens.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.int64), lens
+    firsts = np.zeros(lens.size, dtype=np.int64)
+    np.cumsum(lens[:-1], out=firsts[1:])
+    within = np.arange(total, dtype=np.int64) - np.repeat(firsts, lens)
+    return np.repeat(starts, lens) + within, lens
+
+
+def build_clean_csr(A: CSR) -> CleanCSR:
+    """Validate + sort + split (aoclsparse_csr_csc_optimize analog). Missing
+    diagonal entries are NOT injected into the general matrix; triangle views
+    inject unit diagonals in build_effective_csr."""
+    ptr = host_array(A.ptr)
+    ind = host_array(A.ind)
+    m, n = A.shape
+    dev = A.val.device
+    lens = np.diff(ptr)
+    if np.any(lens < 0) or (ind.size and (ind.min() < 0 or ind.max() >= n)):
+        raise AoclSparseError(Status.invalid_index_value, "corrupt CSR structure")
+    rows = np.repeat(np.arange(m, dtype=np.int64), lens)
+    # within rows, NON-decreasing suffices: equal (row, col) keys are summed
+    # by the duplicate merge below in any order
+    if ind.size > 1:
+        nondec = ind[1:] >= ind[:-1]
+        row_start = rows[1:] != rows[:-1]
+        sorted_already = bool(np.all(nondec | row_start))
+    else:
+        sorted_already = True
+    perm = (
+        np.arange(ind.size, dtype=np.int64) if sorted_already else np.lexsort((ind, rows))
+    )
+    ind_s = ind[perm].astype(np.int32)
+    val = A.val if sorted_already else A.val[_dev_index(perm, dev)]
+    # merge duplicate (row, col) entries by summation (dense-oracle semantics;
+    # the scatter-based execution forms require unique slots)
+    merge_seg = None
+    if ind_s.size > 1:
+        same = (ind_s[1:] == ind_s[:-1]) & (rows[perm][1:] == rows[perm][:-1])
+        if same.any():
+            first = np.concatenate([[True], ~same])
+            merge_seg = (np.cumsum(first) - 1).astype(np.int64)
+            nuniq = int(merge_seg[-1]) + 1
+            val = torch.zeros(nuniq, dtype=val.dtype, device=dev).index_add_(
+                0, _dev_index(merge_seg, dev), val
+            )
+            rows_u = rows[perm][first]
+            ind_s = ind_s[first]
+            lens_u = np.bincount(rows_u, minlength=m).astype(np.int64)
+            ptr = np.concatenate([[0], np.cumsum(lens_u)])
+            rows = rows_u
+    idiag, iurow, has_diag = _triangle_split(m, ptr, ind_s, rows)
+    return CleanCSR(
+        ptr=ptr.astype(np.int32),
+        ind=ind_s,
+        val=val,
+        perm=perm.astype(np.int64),
+        idiag=idiag,
+        iurow=iurow,
+        has_diag=has_diag,
+        fulldiag=bool(has_diag[: min(m, n)].all()) if m and n else True,
+        shape=(m, n),
+        merge_seg=merge_seg,
+    )
+
+
+# ---------------------------------------------------------------------------
+# effective CSR for (descriptor, operation) — the DOID copy
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class EffectiveCSR:
+    """CSR of the matrix the (descr, op) pair denotes, expressed as a
+    structure + a value map over the clean CSR's values:
+
+        val_out = conj? conj(v) : v,  v = src>=0 ? clean.val[src] : const_val
+
+    so a refresh after update_values is one device gather
+    (aoclsparse_matrix_transform analog, csr_util.hpp:516-759)."""
+
+    ptr: np.ndarray
+    ind: np.ndarray
+    src: np.ndarray  # (nnz,) int64, -1 => const_val
+    conj: bool
+    const_val: float
+    shape: Tuple[int, int]
+    val: Optional[torch.Tensor] = None  # materialized values
+    # symmetric/hermitian merges: which entries are mirrored, how to
+    # conjugate ("none" | "all" | "mirror" | "nonmirror"), and the hermitian
+    # diagonal (realified)
+    mirror_mask: Optional[np.ndarray] = None
+    conj_mode: Optional[str] = None
+    herm_diag_mask: Optional[np.ndarray] = None
+
+    @property
+    def m(self) -> int:
+        return self.shape[0]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.ind.size)
+
+    def materialize(self, clean_val: torch.Tensor) -> None:
+        self.val = _apply_conj_pattern(self, _gather_vals(clean_val, self.src, self.const_val))
+
+
+def _gather_vals(val: torch.Tensor, src: np.ndarray, const) -> torch.Tensor:
+    dev = val.device
+    if src.size and not (src >= 0).all():
+        fill = torch.full((src.size,), const, dtype=val.dtype, device=dev)
+        keep = np.nonzero(src >= 0)[0]
+        fill[_dev_index(keep, dev)] = val[_dev_index(src[keep], dev)]
+        return fill
+    return val[_dev_index(src, dev)]
+
+
+def _transpose_structure(ptr, ind, src, m, n):
+    """Transpose a (structure, src-map) pair host-side."""
+    rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(ptr))
+    order = np.lexsort((rows, ind))
+    tptr = np.zeros(n + 1, dtype=np.int64)
+    if ind.size:
+        np.add.at(tptr, ind.astype(np.int64) + 1, 1)
+    tptr = np.cumsum(tptr)
+    return (
+        tptr.astype(np.int32),
+        rows[order].astype(np.int32),
+        src[order],
+    )
+
+
+def build_effective_csr(
+    clean: CleanCSR, descr: MatrixDescriptor, op: Operation, dtype=None
+) -> EffectiveCSR:
+    """Build the general-form CSR for (descr, op) over the clean structure.
+
+    symmetric/hermitian -> mirrored general copy; triangular -> triangle
+    extraction honoring diag_type; op -> structural transpose (+conj).
+    Matches the descriptor semantics of aoclsparse_mv.cpp:52-176 and the
+    copies of aoclsparse_matrix_transform."""
+    descr.validate()
+    op = Operation(op)
+    m, n = clean.shape
+    ptr, ind = clean.ptr, clean.ind
+    mtype = MatrixType(descr.type)
+    lower = FillMode(descr.fill_mode) == FillMode.lower
+    dt = DiagType(descr.diag_type)
+    src_all = np.arange(ind.size, dtype=np.int64)
+
+    if mtype == MatrixType.general:
+        eptr, eind, esrc = ptr, ind, src_all
+        conj_whole = False
+        if op != Operation.none:
+            eptr, eind, esrc = _transpose_structure(eptr, eind, esrc, m, n)
+            m, n = n, m
+            conj_whole = op == Operation.conjugate_transpose
+        out = EffectiveCSR(eptr, eind, esrc, conj_whole, 0.0, (m, n))
+        out.materialize(clean.val)
+        return out
+
+    if m != n:
+        raise AoclSparseError(Status.invalid_size, f"{mtype.name} requires square matrix")
+
+    # triangle extraction over the split pointers
+    lo_r = clean.ptr[:-1].astype(np.int64)
+    hi_r = clean.ptr[1:].astype(np.int64)
+    if lower:
+        tri_lo, tri_hi = lo_r, clean.iurow  # L including diagonal
+        strict_lo, strict_hi = lo_r, clean.idiag  # strictly-L
+    else:
+        tri_lo, tri_hi = clean.idiag, hi_r  # U including diagonal
+        strict_lo, strict_hi = clean.iurow, hi_r  # strictly-U
+
+    def _extract(starts, stops):
+        src, lens = _ranges_concat(starts, stops)
+        eptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+        return eptr, ind[src].astype(np.int32), src
+
+    if mtype == MatrixType.triangular:
+        if dt == DiagType.non_unit:
+            eptr, eind, esrc = _extract(tri_lo, tri_hi)
+        else:
+            # strict triangle; unit diag injects const 1.0 entries
+            eptr, eind, esrc = _extract(strict_lo, strict_hi)
+            if dt == DiagType.unit:
+                eptr, eind, esrc = _inject_diag(eptr, eind, esrc, m)
+        conj_whole = False
+        if op != Operation.none:
+            eptr, eind, esrc = _transpose_structure(eptr, eind, esrc, m, n)
+            conj_whole = op == Operation.conjugate_transpose
+        out = EffectiveCSR(eptr, eind, esrc, conj_whole, 1.0, (m, n))
+        out.materialize(clean.val)
+        return out
+
+    # symmetric / hermitian: tri (with diag) + mirrored strict triangle.
+    #   sym: none/transpose identical; conj-transpose = conj(A).
+    #   herm: none/conj-transpose identical; transpose = conj(A).
+    tptr, tind, tsrc = _extract(tri_lo, tri_hi)
+    sptr, sind, ssrc = _extract(strict_lo, strict_hi)
+    mptr, mind, msrc = _transpose_structure(sptr, sind, ssrc, m, n)
+    # merge rows of (t) and (mirror), vectorized via global (row, col) lexsort
+    trows = np.repeat(np.arange(m, dtype=np.int64), np.diff(tptr.astype(np.int64)))
+    mrows = np.repeat(np.arange(m, dtype=np.int64), np.diff(mptr.astype(np.int64)))
+    allrows = np.concatenate([trows, mrows])
+    allind = np.concatenate([tind.astype(np.int64), mind.astype(np.int64)])
+    allsrc = np.concatenate([tsrc, msrc])
+    allmir = np.concatenate([np.zeros(trows.size, bool), np.ones(mrows.size, bool)])
+    order = np.lexsort((allind, allrows))
+    eind = allind[order].astype(np.int32)
+    esrc = allsrc[order]
+    lens = np.bincount(allrows, minlength=m).astype(np.int64)
+    eptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    herm = mtype == MatrixType.hermitian
+    conj_all = (mtype == MatrixType.symmetric and op == Operation.conjugate_transpose) or (
+        herm and op == Operation.transpose
+    )
+    #   herm, op in {none, conj_transpose} -> conjugate MIRROR entries
+    #   sym + conj_transpose              -> conjugate ALL
+    #   herm + transpose (= conj(A))      -> conjugate NON-mirror entries
+    if herm and not conj_all:
+        conj_mode = "mirror"
+    elif conj_all and not herm:
+        conj_mode = "all"
+    elif conj_all and herm:
+        conj_mode = "nonmirror"
+    else:
+        conj_mode = "none"
+    out = EffectiveCSR(
+        eptr,
+        eind,
+        esrc,
+        False,
+        0.0,
+        (m, n),
+        mirror_mask=allmir[order],
+        conj_mode=conj_mode,
+        herm_diag_mask=(eind == np.arange(m).repeat(np.diff(eptr.astype(np.int64))))
+        if herm
+        else None,
+    )
+    out.materialize(clean.val)
+    return out
+
+
+def _apply_conj_pattern(eff: EffectiveCSR, v: torch.Tensor) -> torch.Tensor:
+    """Apply the stored conjugation pattern + hermitian-diagonal realification
+    (shared by build and refresh so update_values stays consistent)."""
+    if not v.is_complex():
+        return v
+    mode = eff.conj_mode or ("all" if eff.conj else "none")
+    dev = v.device
+    if mode == "all":
+        v = torch.conj_physical(v)
+    elif mode in ("mirror", "nonmirror"):
+        mm = torch.from_numpy(eff.mirror_mask).to(dev)
+        if mode == "nonmirror":
+            mm = ~mm
+        v = torch.where(mm, torch.conj_physical(v), v)
+    if eff.herm_diag_mask is not None:
+        dm = torch.from_numpy(eff.herm_diag_mask).to(dev)
+        v = torch.where(dm, v.real.to(v.dtype), v)
+    return v
+
+
+def _inject_diag(eptr, eind, esrc, m):
+    """Insert a const-valued diagonal entry into every row (unit diag).
+    Vectorized: concatenate the diagonal entries then (row, col)-lexsort."""
+    lens0 = np.diff(eptr.astype(np.int64))
+    rows0 = np.repeat(np.arange(m, dtype=np.int64), lens0)
+    allrows = np.concatenate([rows0, np.arange(m, dtype=np.int64)])
+    allind = np.concatenate([eind.astype(np.int64), np.arange(m, dtype=np.int64)])
+    allsrc = np.concatenate([esrc, np.full(m, -1, dtype=np.int64)])
+    order = np.lexsort((allind, allrows))
+    nptr = np.concatenate([[0], np.cumsum(lens0 + 1)]).astype(np.int32)
+    return nptr, allind[order].astype(np.int32), allsrc[order]
+
+
+# ---------------------------------------------------------------------------
+# execution forms
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ExecForm:
+    """Device-ready SpMV operand in the chosen format. Device arrays are
+    tensors on the matrix's device; `*_dest`/`*_src` are host scatter and
+    gather maps kept for the value refresh."""
+
+    kind: str  # "segsum" | "bandt"
+    m: int
+    n: int
+    # segsum
+    ind: Optional[torch.Tensor] = None
+    val: Optional[torch.Tensor] = None
+    row_ids: Optional[torch.Tensor] = None
+    # peel spill of the band form: COO triplets summed after the band kernel
+    sp_ind: Optional[torch.Tensor] = None
+    sp_val: Optional[torch.Tensor] = None
+    sp_rows: Optional[torch.Tensor] = None
+    sp_src: Optional[np.ndarray] = None
+    # bandt: row-aligned transposed band for the band kernel
+    # (kernels/band_spmv.py): bwd_val[j, i] = A[i, i + lo + j] as a (W, m)
+    # tensor; bwd_padL the left x padding (= max(0, -lo)) and bandt_start
+    # the x window start (= max(lo, 0))
+    bwd_val: Optional[torch.Tensor] = None
+    bwd_dest: Optional[np.ndarray] = None  # (kept,) flat positions into bwd_val
+    bwd_srcpos: Optional[np.ndarray] = None  # (kept,) positions into eff val (None = all)
+    bwd_W: int = 0
+    bwd_padL: int = 0
+    bandt_start: int = 0
+    #: the handle's precision policy, copied on by ops/level2/mv.py
+    precision_mode: str = "full"
+    _bwd_val_bf16: Optional[torch.Tensor] = None
+
+    @property
+    def has_spill(self) -> bool:
+        return self.sp_ind is not None and int(self.sp_ind.shape[0]) > 0
+
+    def band_bf16(self) -> torch.Tensor:
+        """Cached bfloat16 copy of the band for the mixed-precision path
+        (mv KID 12 under set_precision_mode(A, "mixed")). Casting per call
+        would stream the f32 band and defeat the point; refresh() drops it
+        so update_values flows through."""
+        if self._bwd_val_bf16 is None:
+            self._bwd_val_bf16 = self.bwd_val.to(torch.bfloat16)
+        return self._bwd_val_bf16
+
+    def refresh(self, eff_val: torch.Tensor) -> None:
+        self._bwd_val_bf16 = None
+        dev = eff_val.device
+        if self.kind == "segsum":
+            self.val = eff_val
+        elif self.kind == "bandt":
+            buf = torch.zeros(self.bwd_W * self.m, dtype=eff_val.dtype, device=dev)
+            kept = eff_val if self.bwd_srcpos is None else eff_val[_dev_index(self.bwd_srcpos, dev)]
+            buf[_dev_index(self.bwd_dest, dev)] = kept
+            self.bwd_val = buf.reshape(self.bwd_W, self.m)
+            if self.sp_src is not None and self.sp_src.size:
+                self.sp_val = eff_val[_dev_index(self.sp_src, dev)]
+        else:
+            raise AoclSparseError(Status.internal_error, f"bad exec form {self.kind}")
+
+
+#: density cap of the band form: its dense (W, m) band may stream at most
+#: BWD_CAP x the nnz's bytes
+BWD_CAP = 16.0
+#: widest row window served by the band form. The kernel itself would take
+#: more (its shared-memory x window is (256 + W - 1) elements), but beyond
+#: this width the band's padding, not the kernel, decides the cost
+BANDT_MAX_W = 1024
+
+#: dtypes the band kernel has instances for (f32, bf16 band / f32 x, f64);
+#: complex stays off the band form, as in the JAX package
+_BAND_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+
+
+def _bandt_window(rows: np.ndarray, rel: np.ndarray):
+    """(lo, W, spill_mask) of the row-aligned band over relative column
+    offsets rel = col - row: the full [min, max] window, or — above 4096
+    entries — the [0.25, 99.75] percentile core when that saves >= 16 of
+    width and spills at most max(1024, 1%) of the entries. W rounds up to 8."""
+    lo = int(rel.min())
+    W = int(rel.max()) - lo + 1
+    spill_mask = np.zeros(rel.size, dtype=bool)
+    if rel.size > 4096:
+        lo_c = int(np.percentile(rel, 0.25))
+        hi_c = int(np.percentile(rel, 99.75))
+        W_core = hi_c - lo_c + 1
+        outside = (rel < lo_c) | (rel > hi_c)
+        n_out = int(outside.sum())
+        if W_core <= W - 16 and n_out <= max(1024, rel.size // 100):
+            spill_mask = outside
+            lo, W = lo_c, W_core
+    return lo, -(-W // 8) * 8, spill_mask
+
+
+def _rows_rel(eff: EffectiveCSR):
+    rows = np.repeat(np.arange(eff.m, dtype=np.int64), np.diff(eff.ptr.astype(np.int64)))
+    return rows, eff.ind.astype(np.int64) - rows
+
+
+def choose_mv_format(eff: EffectiveCSR) -> str:
+    """Execution-format selection, re-derived for Hopper.
+
+    The JAX package's rule (plan.py:815-879) rests on a TPU fact: gathers run
+    far below the stream rate, so it weighs several gather-free forms. On
+    Hopper the band kernel streams the (W, m) band once and reads x from a
+    shared-memory window, while the gather form (segsum) pays an index and a
+    random x read per nonzero. So: take `bandt` when the peeled row window
+    fits (W <= BANDT_MAX_W, the JAX package's test) and the band's padding
+    stays bounded (m * W <= BWD_CAP * nnz); otherwise `segsum`. Complex and
+    float16 operands have no band kernel instance and take `segsum`."""
+    if eff.m == 0 or eff.nnz == 0 or eff.val.dtype not in _BAND_DTYPES:
+        return "segsum"
+    rows, rel = _rows_rel(eff)
+    _lo, W, _spill = _bandt_window(rows, rel)
+    if W <= BANDT_MAX_W and eff.m * W <= BWD_CAP * eff.nnz:
+        return "bandt"
+    return "segsum"
+
+
+def _build_bandt(eff: EffectiveCSR) -> Optional[ExecForm]:
+    """Row-aligned transposed band for the band kernel:
+    vt[j, i] = A[i, i + lo + j]. Each row gets its own window start, and the
+    kernel streams the band from device memory exactly once. Peel outliers
+    spill to COO triplets summed after the kernel."""
+    m, n = eff.shape
+    if eff.nnz == 0:
+        return None
+    rows, rel = _rows_rel(eff)
+    lo, W, spill_mask = _bandt_window(rows, rel)
+    if W > BANDT_MAX_W:
+        return None
+    cols = eff.ind.astype(np.int64)
+    keep = ~spill_mask
+    dest = (rel - lo)[keep] * m + rows[keep]
+    spilled = bool(spill_mask.any())
+    dev = eff.val.device
+    form = ExecForm(
+        kind="bandt",
+        m=m,
+        n=n,
+        bwd_dest=dest,
+        bwd_srcpos=np.nonzero(keep)[0] if spilled else None,
+        bwd_W=int(W),
+        bwd_padL=int(max(0, -lo)),
+        bandt_start=int(max(lo, 0)),
+        sp_src=np.nonzero(spill_mask)[0] if spilled else None,
+        sp_ind=_dev_index(cols[spill_mask], dev) if spilled else None,
+        sp_rows=_dev_index(rows[spill_mask], dev) if spilled else None,
+    )
+    form.refresh(eff.val)
+    return form
+
+
+def build_exec_form(eff: EffectiveCSR, kind: Optional[str] = None) -> ExecForm:
+    if kind is None:
+        kind = choose_mv_format(eff)
+    m, n = eff.shape
+    if kind == "bandt":
+        form = _build_bandt(eff)
+        if form is not None:
+            return form
+        kind = "segsum"  # row window too wide after all: the gather form
+    if kind == "segsum":
+        rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(eff.ptr.astype(np.int64)))
+        dev = eff.val.device
+        return ExecForm(
+            kind="segsum",
+            m=m,
+            n=n,
+            ind=_dev_index(eff.ind, dev),
+            val=eff.val,
+            row_ids=_dev_index(rows, dev),
+        )
+    raise AoclSparseError(
+        Status.not_implemented,
+        f"execution form '{kind}' is not ported yet (ROADMAP.md queue 1 item 10)",
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plan: the handle's cached optimized state (the `A->mats` + optim_data analog)
+# ---------------------------------------------------------------------------
+
+
+class Plan:
+    def __init__(self, clean: CleanCSR):
+        self.clean = clean
+        self.effective: Dict[Tuple, EffectiveCSR] = {}
+        self.exec_forms: Dict[Tuple, ExecForm] = {}
+
+    def effective_for(
+        self, descr: MatrixDescriptor, op: Operation, dtype=None
+    ) -> EffectiveCSR:
+        key = (descr.type, descr.fill_mode, descr.diag_type, Operation(op))
+        eff = self.effective.get(key)
+        if eff is None:
+            eff = self.effective[key] = build_effective_csr(self.clean, descr, op, dtype)
+        return eff
+
+    def exec_form_for(
+        self, descr: MatrixDescriptor, op: Operation, kind: Optional[str] = None, dtype=None
+    ) -> ExecForm:
+        eff = self.effective_for(descr, op, dtype)
+        key = (descr.type, descr.fill_mode, descr.diag_type, Operation(op), kind)
+        form = self.exec_forms.get(key)
+        if form is None:
+            form = self.exec_forms[key] = build_exec_form(eff, kind)
+        return form
+
+    def refresh_values(self, data: CSR) -> None:
+        """After update_values: re-run every value gather (structure reused)."""
+        self.clean.refresh(data.val)
+        for eff in self.effective.values():
+            eff.materialize(self.clean.val)
+        for key, form in self.exec_forms.items():
+            form.refresh(self.effective[key[:4]].val)
+
+
+# ---------------------------------------------------------------------------
+# public optimize() entry (aoclsparse_optimize, analysis.cpp:426-593)
+# ---------------------------------------------------------------------------
+
+
+def optimize(A: SparseMatrix) -> Plan:
+    """Walk the hint list and prebuild what the hints ask for."""
+    if A is None:
+        raise AoclSparseError(Status.invalid_pointer, "null matrix handle")
+    plan = get_plan(A)
+    for h in A.hints:
+        if h.done:
+            continue
+        if h.action in ("mv", "dotmv", "mm"):
+            plan.exec_form_for(h.descr, h.trans)
+        else:
+            plan.effective_for(h.descr, h.trans)
+        h.done = True
+    return plan
+
+
+def get_plan(A: SparseMatrix) -> Plan:
+    """Return (building if needed) the matrix's plan — the on-the-fly
+    optimize path every op falls back to (aoclsparse_mv.cpp:149-163)."""
+    if A.plan is None:
+        A.plan = Plan(build_clean_csr(A.data))
+    return A.plan

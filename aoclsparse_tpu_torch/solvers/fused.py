@@ -1,0 +1,137 @@
+"""Conjugate gradients driven by the planner's matvec.
+
+PyTorch counterpart of ``aoclsparse_tpu/solvers/fused.py`` (`_build_cg_run`
+:280-355 and `pcg_solve` :377) for the unpreconditioned solve. The update
+order and the convergence test are the reference CG task machine's
+(itsol_functions.hpp:619-870): r = Ax - b, z = M^{-1} r, p = beta*p - z,
+alpha = rz/pq, stop when ||r||_2 <= max(atol, rtol*||b||) or at maxit.
+
+The JAX package compiles the whole loop into one `lax.while_loop`. Here the
+loop is Python: every iteration launches its kernels on the current stream
+and reads one boolean back to the host for the convergence test. Capturing
+the loop in a CUDA graph is later work (ROADMAP.md queue 1 item 9).
+ILU0 and SGS preconditioning arrive with the ILU0 slice (ROADMAP.md queue 1
+item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ..core.descr import GENERAL, MatrixDescriptor
+from ..core.matrix import SparseMatrix, as_values
+from ..core.types import AoclSparseError, Operation, Status, real_dtype_of
+from ..ops.level2.mv import _run_exec_form
+from ..planner.plan import get_plan
+
+__all__ = ["pcg_solve"]
+
+
+def _build_cg_run(matvec: Callable, apply: Optional[Callable], maxit: int):
+    """The CG loop over an arbitrary `matvec` (and optional preconditioner
+    `apply`), as in the JAX package: a real unpreconditioned solve takes the
+    2-reduction branch, everything else the general one. Returns
+    run(b, x0, rtol, atol) -> (x, iterations, final ||r|| as a 0-d tensor)."""
+
+    def run(b, x0, rtol, atol):
+        # norms are real; dots stay UNCONJUGATED for complex dtypes
+        # (the reference CG's complex-symmetric semantics,
+        # itsol_functions.hpp:665-832 via cblas dotu)
+        def nrm(v):
+            return torch.sqrt(torch.sum(torch.abs(v) ** 2))
+
+        def go_on(rnorm, k):
+            # the one host read of the iteration
+            return k < maxit and bool((rnorm > atol) & (rnorm > brtol))
+
+        brtol = rtol * nrm(b)
+        x = x0
+        if apply is None and not b.is_complex():
+            # real unpreconditioned CG: rr = r.r doubles as ||r||^2, so an
+            # iteration takes 2 reductions instead of 3
+            r = matvec(x) - b
+            rr = torch.sum(r * r)
+            p = torch.zeros_like(x)
+            rr_prev = torch.ones((), dtype=b.dtype, device=b.device)
+            k = 0
+            while go_on(torch.sqrt(rr), k):
+                beta = torch.zeros_like(rr) if k == 0 else rr / rr_prev
+                p = beta * p - r
+                q = matvec(p)
+                alpha = rr / torch.sum(p * q)
+                x = x + alpha * p
+                r = r + alpha * q
+                rr_prev, rr = rr, torch.sum(r * r)
+                k += 1
+            return x, k, torch.sqrt(rr)
+
+        r = matvec(x) - b
+        rnorm = nrm(r)
+        p = torch.zeros_like(x)
+        rz = torch.ones((), dtype=b.dtype, device=b.device)
+        k = 0
+        while go_on(rnorm, k):
+            z = apply(r) if apply is not None else r
+            rz_new = torch.sum(r * z)
+            beta = torch.zeros_like(rz) if k == 0 else rz_new / rz
+            p = beta * p - z
+            q = matvec(p)
+            alpha = rz_new / torch.sum(p * q)
+            x = x + alpha * p
+            r = r + alpha * q
+            rz = rz_new
+            k += 1
+            rnorm = nrm(r)
+        return x, k, rnorm
+
+    return run
+
+
+def pcg_solve(
+    A: SparseMatrix,
+    b,
+    x0=None,
+    rtol: float = 1e-8,
+    atol: float = 0.0,
+    maxit: int = 500,
+    precond: Optional[str] = None,
+    descr: MatrixDescriptor = GENERAL,
+) -> Tuple[torch.Tensor, int, float]:
+    """CG on A x = b through A's mv execution form (the band kernel for a
+    band matrix). Returns (x, iterations, final ||r||)."""
+    if A is None:
+        raise AoclSparseError(Status.invalid_pointer, "null matrix handle")
+    if precond in ("ilu0", "sgs"):
+        raise AoclSparseError(
+            Status.not_implemented,
+            f"precond='{precond}' arrives with the ILU0 slice (ROADMAP.md queue 1 item 7)",
+        )
+    if precond is not None:
+        raise AoclSparseError(Status.invalid_value, f"unknown preconditioner '{precond}'")
+    if A.shape[0] != A.shape[1]:
+        raise AoclSparseError(Status.invalid_size, "pcg requires square A")
+    m = A.shape[0]
+    b = as_values(b, A.device).to(A.dtype)
+    if tuple(b.shape) != (m,):
+        raise AoclSparseError(Status.invalid_size, f"b must be ({m},)")
+    x0 = (
+        torch.zeros(m, dtype=A.dtype, device=A.device)
+        if x0 is None
+        else as_values(x0, A.device).to(A.dtype)
+    )
+    form = get_plan(A).exec_form_for(descr, Operation.none, dtype=A.dtype)
+
+    def matvec(v):
+        return _run_exec_form(form, v, None).to(A.dtype)
+
+    run = _build_cg_run(matvec, None, int(maxit))
+    rdt = real_dtype_of(A.dtype)
+    x, k, rnorm = run(
+        b,
+        x0,
+        torch.tensor(rtol, dtype=rdt, device=A.device),
+        torch.tensor(atol, dtype=rdt, device=A.device),
+    )
+    return x, int(k), float(rnorm)
