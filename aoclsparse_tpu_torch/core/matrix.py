@@ -69,6 +69,7 @@ class SparseMatrix:
         self.sort = MatrixSort.unknown
         self.fulldiag: Optional[bool] = None
         self.plan = None  # planner.Plan once optimize() ran
+        self.ilu_state = None  # solvers.ilu0 factorization cache
         #: precision policy opt-in ("full" | "mixed"); see docs/precision.md
         #: and set_precision_mode (ops consult it via _mixed_enabled)
         self.precision_mode = "full"
@@ -178,7 +179,8 @@ def export_csr(h: SparseMatrix, base: Optional[IndexBase] = None):
 def update_values(h: SparseMatrix, values) -> SparseMatrix:
     """Replace all values keeping the pattern (auxiliary.cpp:674-706). The
     cached plan keeps its structure and refreshes every value-derived
-    operand (ExecForm.refresh)."""
+    operand (ExecForm.refresh); the ILU0 factors and the triangular solve
+    forms are dropped and rebuilt at their next use."""
     _require_handle(h)
     if values is None:
         raise AoclSparseError(Status.invalid_pointer, "null values")
@@ -191,6 +193,7 @@ def update_values(h: SparseMatrix, values) -> SparseMatrix:
         f"update_values dtype {vals.dtype} != matrix dtype {A.val.dtype}",
     )
     h.data = dataclasses.replace(A, val=vals)
+    h.ilu_state = None
     if h.plan is not None:
         h.plan.refresh_values(h.data)
     return h
@@ -203,3 +206,4 @@ def destroy(h: SparseMatrix) -> None:
         return
     h.data = None
     h.plan = None
+    h.ilu_state = None

@@ -1,12 +1,15 @@
 """State carried across from the JAX package, as host numpy arrays.
 
-Two entry points let one operand feed both packages:
+Three entry points let one operand feed both packages:
 
 - `matrix_from_jax_arrays` takes the arrays that ``aoclsparse_tpu.export_csr``
   returns and builds this package's handle from them.
 - `bandt_form_from_jax` takes numpy copies of a JAX ``bandt`` ExecForm's
   arrays and builds this package's ExecForm, so the band kernel can be held
   against the JAX kernels on the very same band, apart from the planner.
+- `trsv_form_from_jax` takes numpy copies of a JAX ``win`` TrsvForm's
+  arrays and builds this package's TrsvForm, so the window-solve kernel can
+  solve the very same blocks.
 
 Neither imports JAX: the arrays arrive as numpy.
 """
@@ -22,8 +25,9 @@ from .core.context import resolve_device
 from .core.matrix import SparseMatrix, as_values, create_csr
 from .core.types import IndexBase
 from .planner.plan import ExecForm
+from .planner.triangular import TrsvForm
 
-__all__ = ["matrix_from_jax_arrays", "bandt_form_from_jax"]
+__all__ = ["matrix_from_jax_arrays", "bandt_form_from_jax", "trsv_form_from_jax"]
 
 
 def matrix_from_jax_arrays(
@@ -61,4 +65,34 @@ def bandt_form_from_jax(form_arrays: Mapping, device=None) -> ExecForm:
         sp_val=as_values(np.asarray(form_arrays["sp_val"]), dev) if spilled else None,
         sp_ind=idx("sp_ind") if spilled else None,
         sp_rows=idx("sp_rows") if spilled else None,
+    )
+
+
+def trsv_form_from_jax(arrays: Mapping, device=None) -> TrsvForm:
+    """This package's ``win`` TrsvForm from a JAX one's arrays: keys ``D``
+    ((nblk, nb, nb)), ``Lval`` ((nblk, nb, WL)), ``nb``, ``nblk``, ``m``,
+    ``WL``, ``reversed_`` and ``unit_diag``. The form carries no scatter
+    maps, so it serves solves but not a value refresh."""
+    dev = resolve_device(device)
+    D = as_values(np.ascontiguousarray(arrays["D"]), dev)
+    Lval = as_values(np.ascontiguousarray(arrays["Lval"]), dev)
+    nb, nblk, WL = int(arrays["nb"]), int(arrays["nblk"]), int(arrays["WL"])
+    if tuple(D.shape) != (nblk, nb, nb) or tuple(Lval.shape) != (nblk, nb, WL):
+        raise ValueError(f"D {tuple(D.shape)} / Lval {tuple(Lval.shape)} do not match nblk, nb, WL")
+    return TrsvForm(
+        nb=nb,
+        nblk=nblk,
+        m=int(arrays["m"]),
+        reversed_=bool(arrays["reversed_"]),
+        unit_diag=bool(arrays["unit_diag"]),
+        D=D,
+        Lval=Lval,
+        _D_dest=None,
+        _D_srcpos=None,
+        _D_paddest=None,
+        _L_dest=None,
+        _L_srcpos=None,
+        _L_shape=(nblk, nb, WL),
+        device=dev,
+        WL=WL,
     )

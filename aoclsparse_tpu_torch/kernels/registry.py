@@ -16,6 +16,10 @@ far: 0 (segsum), and 8, 12 and 13 for the ``bandt`` form. All three band
 KIDs run the one band kernel (kernels/band_spmv.py); 12 is the default and
 streams a bf16 band under the mixed precision policy, 13 is the f64
 instance (the JAX package's double-float KID).
+
+The sv table keeps KID 0, the blocked window solve (kernels/trsv_win.py).
+The JAX package's KIDs 1 (level wavefront) and 2 (host substitution) are
+not ported yet; ops/level2/trsv.py answers them with not_implemented.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..core.context import get_context
 from ..core.types import AoclSparseError, Status
 from .band_spmv import spmv_bandt
 from .plain_spmv import spmv_segsum
+from .trsv_win import trsv_win
 
 __all__ = ["KernelEntry", "Registry", "registry", "debug_dispatcher"]
 
@@ -40,7 +45,7 @@ class KernelEntry:
     kid: int
     name: str
     fn: Callable
-    fmt: str  # execution format it consumes: "segsum" | "bandt"
+    fmt: str  # execution format it consumes: "segsum" | "bandt" | "blocked"
     backend: str = "any"  # "cuda" | "cpu" | "any"
     priority: int = 0  # ties -> highest kid wins, like the reference
 
@@ -114,7 +119,7 @@ class Registry:
         return best
 
 
-#: Global registry with the static mv KAT table.
+#: Global registry with the static mv and sv KAT tables.
 registry = Registry()
 registry.register("mv", KernelEntry(0, "torch_segsum", spmv_segsum, "segsum", "any", 0))
 registry.register("mv", KernelEntry(8, "cuda_bandt", spmv_bandt, "bandt", "any", 2))
@@ -122,6 +127,7 @@ registry.register("mv", KernelEntry(12, "cuda_bandv", spmv_bandt, "bandt", "any"
 # f64 instance: explicit KID, or the bandt dispatch of a float64 operand
 # (ops/level2/mv.py), as the JAX package routes its double-float kernel
 registry.register("mv", KernelEntry(13, "cuda_band_f64", spmv_bandt, "bandt", "any", -1))
+registry.register("sv", KernelEntry(0, "cuda_trsv_win", trsv_win, "blocked", "any", 0))
 
 
 def debug_dispatcher(

@@ -1,3 +1,3 @@
 """Sparse BLAS operations."""
 
-from .level2 import dotmv, mv  # noqa: F401
+from .level2 import csrsv, dotmv, mv, trsv, trsv_strided  # noqa: F401

@@ -1,0 +1,127 @@
+"""Level-2 triangular solve: ``trsv``, its strided variant and ``csrsv``.
+
+PyTorch counterpart of ``aoclsparse_tpu/ops/level2/trsv.py``. Reference:
+aoclsparse_?trsv/_kid/_strided (level2/aoclsparse_trsv.cpp:46, the DOID x
+KID table at :198-290), a sequential substitution vectorized within each
+row. Here the planner builds a blocked ``win`` form (planner/triangular.py)
+and a solve is one launch of the window-solve kernel.
+
+Semantics: solve op(tri(A)) x = alpha * b, where tri() takes
+descr.fill_mode's triangle of A honoring diag_type; symmetric descriptors
+are treated as triangular like the reference (trsv.cpp:141-151).
+
+sv KIDs: 0 is the blocked window solve. The JAX package's KID 1 (level
+wavefront) and KID 2 (host substitution) are not ported yet and raise
+``not_implemented`` (ROADMAP.md queue 1 item 12).
+"""
+
+from __future__ import annotations
+
+from numbers import Number
+from typing import Optional
+
+import torch
+
+from ...core.descr import MatrixDescriptor
+from ...core.matrix import SparseMatrix
+from ...core.types import AoclSparseError, MatrixType, Operation, Status
+from ...core.validate import check_base_match, check_dtype_compat
+from ...kernels.registry import registry
+from ...planner.plan import get_plan
+from ...planner.triangular import trsv_form_for
+from .mv import _as_operand
+
+__all__ = ["trsv", "trsv_strided", "csrsv"]
+
+#: sv KIDs of the JAX package that the port does not run yet
+_UNPORTED_KIDS = {1: "level wavefront", 2: "host substitution"}
+
+
+def pad_solve(form, r: torch.Tensor) -> torch.Tensor:
+    """Apply a TrsvForm to a 1-D rhs of length form.m: reverse it for an
+    upper source, pad it to the form's blocks, solve, slice to m and
+    reverse back (solvers/fused.py:45-56)."""
+    if form.reversed_:
+        r = r.flip(0)
+    if form.m_pad != form.m:
+        r = torch.nn.functional.pad(r, (0, form.m_pad - form.m))
+    x = form.solve(r)[: form.m]
+    return x.flip(0) if form.reversed_ else x
+
+
+def _solve(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, rhs: torch.Tensor, kid):
+    if A is None or descr is None or rhs is None:
+        raise AoclSparseError(Status.invalid_pointer, "null argument to trsv")
+    descr.validate()
+    check_base_match(A, descr)
+    op = Operation(op)
+    m, n = A.shape
+    if m != n:
+        raise AoclSparseError(Status.invalid_size, "trsv requires square A")
+    if MatrixType(descr.type) == MatrixType.general:
+        raise AoclSparseError(
+            Status.invalid_value, "trsv requires a triangular or symmetric/hermitian descriptor"
+        )
+    if kid in _UNPORTED_KIDS:
+        raise AoclSparseError(
+            Status.not_implemented,
+            f"trsv kid {kid} ({_UNPORTED_KIDS[kid]}) is not ported yet (ROADMAP.md queue 1 item 12)",
+        )
+    registry.select("sv", kid=kid, device=rhs.device)  # KID validation
+    form = trsv_form_for(get_plan(A), descr, op)
+    return pad_solve(form, rhs)
+
+
+def trsv(alpha, A: SparseMatrix, descr: MatrixDescriptor, op: Operation, b, kid: Optional[int] = None):
+    """x = op(tri(A))^{-1} (alpha * b)  (aoclsparse_?trsv)."""
+    if A is None or descr is None or b is None:
+        raise AoclSparseError(Status.invalid_pointer, "null argument")
+    b = _as_operand(b, A, "b")
+    if b.dim() != 1 or b.shape[0] != A.shape[0]:
+        raise AoclSparseError(
+            Status.invalid_size, f"b must be ({A.shape[0]},), got {tuple(b.shape)}"
+        )
+    check_dtype_compat(A.dtype, b.dtype, "b")
+    dtype = torch.promote_types(A.dtype, b.dtype)
+    # alpha == 1 is the case of every solver inner loop: skip the scale
+    if isinstance(alpha, Number) and alpha == 1.0:
+        rhs = b.to(A.dtype)
+    else:
+        rhs = (alpha * b.to(dtype)).to(A.dtype)
+    return _solve(A, descr, op, rhs, kid).to(dtype)
+
+
+def csrsv(alpha, A, descr, op, b, kid=None):
+    """Deprecated alias of trsv (the reference deprecates aoclsparse_?csrsv
+    in favor of ?trsv, include/aoclsparse_functions.h:1203)."""
+    return trsv(alpha, A, descr, op, b, kid=kid)
+
+
+def trsv_strided(
+    alpha,
+    A: SparseMatrix,
+    descr: MatrixDescriptor,
+    op: Operation,
+    b,
+    incb: int,
+    incx: int = 1,
+    x_out=None,
+    kid: Optional[int] = None,
+):
+    """Strided-rhs variant (aoclsparse_?trsv_strided): reads b[i*incb] and
+    returns x embedded at stride incx, in a copy of x_out when given."""
+    if incb <= 0 or incx <= 0:
+        raise AoclSparseError(Status.invalid_size, "strides must be positive")
+    if A is None or b is None:
+        raise AoclSparseError(Status.invalid_pointer, "null argument")
+    b = _as_operand(b, A, "b")
+    m = A.shape[0]
+    if b.shape[0] < (m - 1) * incb + 1:
+        raise AoclSparseError(Status.invalid_size, "b too small for stride")
+    x = trsv(alpha, A, descr, op, b[: (m - 1) * incb + 1 : incb], kid=kid)
+    if x_out is None:
+        out = torch.zeros((m - 1) * incx + 1, dtype=x.dtype, device=x.device)
+    else:
+        out = _as_operand(x_out, A, "x_out").to(x.dtype).clone()
+    out[: (m - 1) * incx + 1 : incx] = x
+    return out

@@ -1,10 +1,12 @@
 """Hint registration API (aoclsparse_set_*_hint family,
 library/src/analysis/aoclsparse_analysis.cpp:595-777).
 
-PyTorch counterpart of ``aoclsparse_tpu/planner/hints.py:60``. A setter
-validates the descriptor/operation and prepends a Hint node to the handle's
-hint list; `optimize()` (planner/plan.py) then walks the list and prebuilds
-the effective CSR copies and execution forms.
+PyTorch counterpart of ``aoclsparse_tpu/planner/hints.py:60,70,98``. A
+setter validates the descriptor/operation and prepends a Hint node to the
+handle's hint list; `optimize()` (planner/plan.py) then walks the list and
+prebuilds the effective CSR copies and execution forms. The triangular
+solve forms and the ILU0 factors are built lazily by their first call, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from ..core.matrix import Hint, SparseMatrix
 from ..core.types import AoclSparseError, Operation, Status
 from ..core.validate import check_base_match
 
-__all__ = ["set_mv_hint"]
+__all__ = ["set_mv_hint", "set_sv_hint", "set_lu_smoother_hint"]
 
 
 def _set_hint(
@@ -45,3 +47,11 @@ def _set_hint(
 
 def set_mv_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> None:
     _set_hint(A, "mv", trans, descr, kid, nop)
+
+
+def set_sv_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> None:
+    _set_hint(A, "sv", trans, descr, kid, nop)
+
+
+def set_lu_smoother_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> None:
+    _set_hint(A, "lu_smoother", trans, descr, kid, nop)

@@ -86,6 +86,8 @@ class CleanCSR:
     #: input entry to its merged slot (values accumulate, matching the dense
     #: oracle's duplicate-summing semantics)
     merge_seg: Optional[np.ndarray] = None
+    #: host copy of `val`, fetched once by host_val() for the host builders
+    val_host: Optional[np.ndarray] = None
 
     @property
     def m(self) -> int:
@@ -99,7 +101,15 @@ class CleanCSR:
     def nnz(self) -> int:
         return int(self.ind.size)
 
+    def host_val(self) -> np.ndarray:
+        """Host copy of the sorted values, cached: the native ILU0 and the
+        triangular form builders read values on the host."""
+        if self.val_host is None:
+            self.val_host = self.val.detach().cpu().numpy()
+        return self.val_host
+
     def refresh(self, new_val: torch.Tensor) -> None:
+        self.val_host = None
         dev = new_val.device
         v = new_val.reshape(-1)[_dev_index(self.perm, dev)]
         if self.merge_seg is not None:
@@ -609,6 +619,8 @@ class Plan:
         self.clean = clean
         self.effective: Dict[Tuple, EffectiveCSR] = {}
         self.exec_forms: Dict[Tuple, ExecForm] = {}
+        #: triangular solve forms (planner/triangular.py trsv_form_for)
+        self.levels: Optional[Dict[Tuple, object]] = None
 
     def effective_for(
         self, descr: MatrixDescriptor, op: Operation, dtype=None
@@ -636,6 +648,7 @@ class Plan:
             eff.materialize(self.clean.val)
         for key, form in self.exec_forms.items():
             form.refresh(self.effective[key[:4]].val)
+        self.levels = None  # solve forms rebuild from the new values
 
 
 # ---------------------------------------------------------------------------

@@ -1,3 +1,4 @@
 """Iterative solvers."""
 
 from .fused import pcg_solve  # noqa: F401
+from .ilu import ilu_smoother  # noqa: F401

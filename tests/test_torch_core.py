@@ -89,14 +89,31 @@ def test_default_device_is_cuda_and_context_detects_cpu_here():
 def test_registry_table_and_dispatcher():
     kids = {e.kid: e.fmt for e in registry.table("mv")}
     assert kids == {0: "segsum", 8: "bandt", 12: "bandt", 13: "bandt"}
+    assert {e.kid: e.fmt for e in registry.table("sv")} == {0: "blocked"}
     assert tt.debug_dispatcher("mv", fmt="bandt", device="cpu")["kid"] == 12
     assert tt.debug_dispatcher("mv", fmt="segsum", device="cpu")["kid"] == 0
+    assert tt.debug_dispatcher("sv", device="cpu")["name"] == "cuda_trsv_win"
     with pytest.raises(tt.AoclSparseError) as e:
         registry.select("mv", fmt="segsum", kid=8)
     assert e.value.status == tt.Status.invalid_kid
     with pytest.raises(tt.AoclSparseError) as e:
-        registry.select("sv")
+        registry.select("sm")  # trsm: not ported yet
     assert e.value.status == tt.Status.not_implemented
+
+
+def test_port_imports_no_jax():
+    """Every module of the port imports neither jax nor the JAX package."""
+    import subprocess
+    import sys
+
+    code = (
+        "import importlib, pkgutil, sys, aoclsparse_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'aoclsparse_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=str(__import__("pathlib").Path(__file__).parents[1]))
 
 
 def test_force_kid_env(monkeypatch):
