@@ -2,11 +2,13 @@
 
 Same public names and semantics as the JAX package for what is ported so
 far: CSR handles, hints and the planner, ``mv``/``dotmv`` through the
-``bandt`` and ``segsum`` execution forms, blocked ``trsv``, ILU0 and CG
-with no preconditioner, ILU0 or SGS. The band form and the blocked
-triangular solve run hand-written CUDA kernels on Hopper
-(csrc/band_spmv.cu, csrc/trsv_win.cu), built with nvcc at first use; on
-CPU tensors they run the kernels' plain PyTorch versions. The host C++
+``bandt`` and ``segsum`` execution forms, ``mm`` through the ``bandtm``,
+``diag``, ``bwdg`` and gather forms, blocked ``trsv`` and ``trsm``, ILU0
+and CG with no preconditioner, ILU0 or SGS. The band forms, the diagonal
+form and the blocked triangular solves run hand-written CUDA kernels on
+Hopper (csrc/band_spmv.cu, csrc/spmm_band.cu, csrc/spmm_diag.cu,
+csrc/trsv_win.cu), built with nvcc at first use; on CPU tensors they run
+the kernels' plain PyTorch versions. The host C++
 factorization (native/) builds with g++ at first use. Tensors go to
 ``cuda:0`` unless a device is named. ROADMAP.md lists what is still to
 port.
@@ -40,8 +42,16 @@ from .core.matrix import (  # noqa: F401
 from .core.auxiliary import set_precision_mode  # noqa: F401
 from .core.context import get_context  # noqa: F401
 from .kernels.registry import debug_dispatcher  # noqa: F401
-from .ops import csrsv, dotmv, mv, trsv, trsv_strided  # noqa: F401
-from .planner import optimize, set_lu_smoother_hint, set_mv_hint, set_sv_hint  # noqa: F401
+from .ops import csrsv, dotmv, mm, mv, trsm, trsv, trsv_strided  # noqa: F401
+from .planner import (  # noqa: F401
+    optimize,
+    set_lu_smoother_hint,
+    set_memory_hint,
+    set_mm_hint,
+    set_mv_hint,
+    set_sm_hint,
+    set_sv_hint,
+)
 from .solvers import ilu_smoother, pcg_solve  # noqa: F401
 
 __version__ = "0.1.0"

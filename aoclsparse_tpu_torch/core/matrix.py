@@ -27,6 +27,7 @@ from .types import (
     FormatType,
     IndexBase,
     MatrixSort,
+    MemoryPolicy,
     Operation,
     Status,
     check_value_dtype,
@@ -73,6 +74,8 @@ class SparseMatrix:
         #: precision policy opt-in ("full" | "mixed"); see docs/precision.md
         #: and set_precision_mode (ops consult it via _mixed_enabled)
         self.precision_mode = "full"
+        #: set_memory_hint: "restricted" keeps mm on the gather form
+        self.mem_policy = MemoryPolicy.unrestricted
 
     @property
     def shape(self) -> Tuple[int, int]:

@@ -10,8 +10,10 @@ Three entry points let one operand feed both packages:
 - `trsv_form_from_jax` takes numpy copies of a JAX ``win`` TrsvForm's
   arrays and builds this package's TrsvForm, so the window-solve kernel can
   solve the very same blocks.
+- `mm_form_from_jax` does the same for the SpMM forms ``bandtm``, ``diag``,
+  ``bwdg``, ``ell`` and ``ellhyb``.
 
-Neither imports JAX: the arrays arrive as numpy.
+None imports JAX: the arrays arrive as numpy.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from .core.types import IndexBase
 from .planner.plan import ExecForm
 from .planner.triangular import TrsvForm
 
-__all__ = ["matrix_from_jax_arrays", "bandt_form_from_jax", "trsv_form_from_jax"]
+__all__ = ["matrix_from_jax_arrays", "bandt_form_from_jax", "mm_form_from_jax", "trsv_form_from_jax"]
 
 
 def matrix_from_jax_arrays(
@@ -96,3 +98,34 @@ def trsv_form_from_jax(arrays: Mapping, device=None) -> TrsvForm:
         device=dev,
         WL=WL,
     )
+
+
+#: ExecForm fields an SpMM form carries: value tensors, index tensors, ints
+_MM_VALUES = ("bwd_val", "dia_val", "ell_val", "sp_val")
+_MM_INDICES = ("dia_offs", "ell_ind", "sp_ind", "sp_rows")
+_MM_INTS = ("bwd_W", "bwd_G", "bwd_base8", "bwd_n_pad", "bwd_padL", "bandt_start", "dia_L", "dia_n_pad")
+
+
+def mm_form_from_jax(kind: str, arrays: Mapping, m: int, n: int, device=None) -> ExecForm:
+    """This package's SpMM ExecForm of `kind` ("bandtm", "diag", "bwdg",
+    "ell" or "ellhyb") from a JAX one's arrays, keyed by the ExecForm field
+    names both packages share (those the form has; an empty spill may be
+    None). The form carries no scatter maps, so it serves mm but not a
+    value refresh."""
+    if kind not in ("bandtm", "diag", "bwdg", "ell", "ellhyb"):
+        raise ValueError(f"no SpMM form of kind {kind!r}")
+    dev = resolve_device(device)
+    kw = {}
+    for key in _MM_VALUES + _MM_INDICES:
+        a = arrays.get(key)
+        if a is None or (key.startswith("sp_") and np.asarray(a).size == 0):
+            continue
+        a = np.ascontiguousarray(a)
+        if key in _MM_INDICES:
+            kw[key] = torch.from_numpy(a.astype(np.int64)).to(dev)
+        else:
+            kw[key] = as_values(a, dev)
+    kw.update({key: int(arrays[key]) for key in _MM_INTS if key in arrays})
+    if kind == "diag":
+        kw["dia_offs_static"] = tuple(int(o) for o in np.asarray(arrays["dia_offs"]))
+    return ExecForm(kind=kind, m=int(m), n=int(n), **kw)

@@ -22,7 +22,11 @@ import threading
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "build_library", "load_library"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "MAX_SMEM", "build_library", "load_library"]
+
+#: dynamic shared memory one thread block may use on the sm_90a target (an
+#: H100: 227 KB of the SM's 256 KB); the wrappers size their tiles by it
+MAX_SMEM = 232448
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"

@@ -17,9 +17,17 @@ KIDs run the one band kernel (kernels/band_spmv.py); 12 is the default and
 streams a bf16 band under the mixed precision policy, 13 is the f64
 instance (the JAX package's double-float KID).
 
-The sv table keeps KID 0, the blocked window solve (kernels/trsv_win.py).
-The JAX package's KIDs 1 (level wavefront) and 2 (host substitution) are
-not ported yet; ops/level2/trsv.py answers them with not_implemented.
+The sv table keeps KID 0, the blocked window solve (kernels/trsv_win.py),
+which serves trsv and trsm alike (the JAX package has no separate sm
+table). The JAX package's KIDs 1 (level wavefront) and 2 (host
+substitution) are not ported yet; ops/level2/trsv.py answers them with
+not_implemented.
+
+The mm table keeps the JAX package's KIDs 0-5 and 7 (ops/level3/csrmm.py:
+38-57): the plain gather and group forms 0-3, and the hand-written kernels
+of the bandtm form (4, the default there; 5, the block-window twin) and of
+the diag form (7). KID 6 (the general-sparsity composite) is not ported
+yet; ops/level3/csrmm.py answers it with not_implemented.
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ from ..core.context import get_context
 from ..core.types import AoclSparseError, Status
 from .band_spmv import spmv_bandt
 from .plain_spmv import spmv_segsum
+from .spmm_band import spmm_bandmxu, spmm_bandtm
+from .spmm_diag import spmm_diag
+from .spmm_plain import spmm_bwd, spmm_ell, spmm_ellhyb, spmm_segsum
 from .trsv_win import trsv_win
 
 __all__ = ["KernelEntry", "Registry", "registry", "debug_dispatcher"]
@@ -45,7 +56,7 @@ class KernelEntry:
     kid: int
     name: str
     fn: Callable
-    fmt: str  # execution format it consumes: "segsum" | "bandt" | "blocked"
+    fmt: str  # execution format it consumes: "segsum" | "bandt" | "bandtm" | "diag" | ...
     backend: str = "any"  # "cuda" | "cpu" | "any"
     priority: int = 0  # ties -> highest kid wins, like the reference
 
@@ -119,7 +130,7 @@ class Registry:
         return best
 
 
-#: Global registry with the static mv and sv KAT tables.
+#: Global registry with the static mv, sv and mm KAT tables.
 registry = Registry()
 registry.register("mv", KernelEntry(0, "torch_segsum", spmv_segsum, "segsum", "any", 0))
 registry.register("mv", KernelEntry(8, "cuda_bandt", spmv_bandt, "bandt", "any", 2))
@@ -128,6 +139,13 @@ registry.register("mv", KernelEntry(12, "cuda_bandv", spmv_bandt, "bandt", "any"
 # (ops/level2/mv.py), as the JAX package routes its double-float kernel
 registry.register("mv", KernelEntry(13, "cuda_band_f64", spmv_bandt, "bandt", "any", -1))
 registry.register("sv", KernelEntry(0, "cuda_trsv_win", trsv_win, "blocked", "any", 0))
+registry.register("mm", KernelEntry(0, "torch_segsum", spmm_segsum, "segsum", "any", 0))
+registry.register("mm", KernelEntry(1, "torch_ell", spmm_ell, "ell", "any", 0))
+registry.register("mm", KernelEntry(2, "torch_ellhyb", spmm_ellhyb, "ellhyb", "any", 0))
+registry.register("mm", KernelEntry(3, "torch_bwdg", spmm_bwd, "bwdg", "any", 1))
+registry.register("mm", KernelEntry(4, "cuda_bandtm", spmm_bandtm, "bandtm", "any", 2))
+registry.register("mm", KernelEntry(5, "cuda_bandmxu", spmm_bandmxu, "bandtm", "any", 1))
+registry.register("mm", KernelEntry(7, "cuda_diag", spmm_diag, "diag", "any", 1))
 
 
 def debug_dispatcher(

@@ -2,13 +2,15 @@
 triangular-solve form fill, bound with ctypes.
 
 PyTorch-side counterpart of ``aoclsparse_tpu/native/__init__.py:45-247,
-697-773``. The C++ source is the JAX package's own
-``aoclsparse_tpu/native/src/host_kernels.cpp``: this module reads it and
-never edits it. At first use ``g++`` (the host compiler nvcc itself needs)
-compiles it, with the JAX package's flags, into ``aoclsparse_tpu_torch/_build/``
-(listed in ``.gitignore``) under a name carrying a hash of the source and
-flags, so an edited source rebuilds and an unchanged one loads the existing
-file. Nothing is written under ``aoclsparse_tpu/``.
+697-773``. The C++ source, ``native/src/host_kernels.cpp``, is this
+package's own byte-equal copy of the JAX package's
+``aoclsparse_tpu/native/src/host_kernels.cpp`` (a CPU test holds the two
+equal, so both packages factor with the same code). At first use ``g++``
+(the host compiler nvcc itself needs) compiles it, with the JAX package's
+flags, into ``aoclsparse_tpu_torch/_build/`` (listed in ``.gitignore``)
+under a name carrying a hash of the source and flags, so an edited source
+rebuilds and an unchanged one loads the existing file. Nothing under
+``aoclsparse_tpu/`` is read or written.
 
 `ilu0_factor` falls back to `_ilu0_numpy` (the same IKJ sweep in numpy)
 when the library cannot be built; `trsv_win_build` returns None then, and
@@ -31,8 +33,8 @@ from ..kernels.build import BUILD_DIR
 
 __all__ = ["available", "ilu0_factor", "trsv_win_build", "HOST_SOURCE"]
 
-#: the JAX package's host kernels, compiled as they are
-HOST_SOURCE = Path(__file__).resolve().parents[2] / "aoclsparse_tpu" / "native" / "src" / "host_kernels.cpp"
+#: the package's copy of the JAX package's host kernels
+HOST_SOURCE = Path(__file__).resolve().parent / "src" / "host_kernels.cpp"
 #: the JAX package's own g++ flags (aoclsparse_tpu/native/__init__.py:47-59),
 #: so both packages factor with the same machine code
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread", "-std=c++17")

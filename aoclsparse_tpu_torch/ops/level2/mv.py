@@ -26,6 +26,7 @@ from ...core.matrix import SparseMatrix, as_values
 from ...core.types import (
     AoclSparseError,
     MatrixType,
+    MemoryPolicy,
     Operation,
     Status,
 )
@@ -125,7 +126,8 @@ def _spmv_core(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, x, kid=N
             "ELL/DIA/BSR mv paths are not ported yet (ROADMAP.md queue 1 item 10)",
         )
     plan = get_plan(A)
-    kind = None
+    # the restricted memory policy forbids format copies: the gather form
+    kind = "segsum" if A.mem_policy == MemoryPolicy.restricted else None
     if kid is not None:
         # an explicit KID pins the kernel, hence its execution format
         # (invalid_kid when unsupported, cntx_dispatcher.hpp:272-364)

@@ -38,13 +38,14 @@ _UNPORTED_KIDS = {1: "level wavefront", 2: "host substitution"}
 
 
 def pad_solve(form, r: torch.Tensor) -> torch.Tensor:
-    """Apply a TrsvForm to a 1-D rhs of length form.m: reverse it for an
-    upper source, pad it to the form's blocks, solve, slice to m and
-    reverse back (solvers/fused.py:45-56)."""
+    """Apply a TrsvForm to an (m,) or (m, k) rhs, m = form.m: reverse its
+    rows for an upper source, pad them to the form's blocks, solve, slice to
+    m and reverse back (solvers/fused.py:45-56, ops/level2/trsv.py:175-186)."""
     if form.reversed_:
         r = r.flip(0)
     if form.m_pad != form.m:
-        r = torch.nn.functional.pad(r, (0, form.m_pad - form.m))
+        pad = (0, form.m_pad - form.m)
+        r = torch.nn.functional.pad(r, pad if r.dim() == 1 else (0, 0) + pad)
     x = form.solve(r)[: form.m]
     return x.flip(0) if form.reversed_ else x
 

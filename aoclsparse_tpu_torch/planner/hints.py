@@ -1,7 +1,7 @@
 """Hint registration API (aoclsparse_set_*_hint family,
 library/src/analysis/aoclsparse_analysis.cpp:595-777).
 
-PyTorch counterpart of ``aoclsparse_tpu/planner/hints.py:60,70,98``. A
+PyTorch counterpart of ``aoclsparse_tpu/planner/hints.py:60-106``. A
 setter validates the descriptor/operation and prepends a Hint node to the
 handle's hint list; `optimize()` (planner/plan.py) then walks the list and
 prebuilds the effective CSR copies and execution forms. The triangular
@@ -15,10 +15,17 @@ from typing import Optional
 
 from ..core.descr import MatrixDescriptor
 from ..core.matrix import Hint, SparseMatrix
-from ..core.types import AoclSparseError, Operation, Status
+from ..core.types import AoclSparseError, MemoryPolicy, Operation, Status
 from ..core.validate import check_base_match
 
-__all__ = ["set_mv_hint", "set_sv_hint", "set_lu_smoother_hint"]
+__all__ = [
+    "set_lu_smoother_hint",
+    "set_memory_hint",
+    "set_mm_hint",
+    "set_mv_hint",
+    "set_sm_hint",
+    "set_sv_hint",
+]
 
 
 def _set_hint(
@@ -55,3 +62,18 @@ def set_sv_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> Non
 
 def set_lu_smoother_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> None:
     _set_hint(A, "lu_smoother", trans, descr, kid, nop)
+
+
+def set_mm_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> None:
+    _set_hint(A, "mm", trans, descr, kid, nop)
+
+
+def set_sm_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> None:
+    _set_hint(A, "sm", trans, descr, kid, nop)
+
+
+def set_memory_hint(A, policy: MemoryPolicy) -> None:
+    """aoclsparse_set_memory_hint: restricted forbids format copies."""
+    if A is None:
+        raise AoclSparseError(Status.invalid_pointer, "null matrix")
+    A.mem_policy = MemoryPolicy(policy)

@@ -1,7 +1,8 @@
-"""Planner for mv: clean CSR -> effective CSR -> execution form.
+"""Planner for mv and mm: clean CSR -> effective CSR -> execution form.
 
 PyTorch counterpart of ``aoclsparse_tpu/planner/plan.py`` for the forms this
-package runs (``bandt`` and ``segsum``). Reference analogs:
+package runs: ``bandt`` and ``segsum`` for mv; ``bandtm``, ``diag``,
+``bwdg``, ``ell``, ``ellhyb`` and ``segsum`` for mm. Reference analogs:
 
 - clean-CSR construction `aoclsparse_csr_csc_optimize`
   (analysis/aoclsparse_csr_util.hpp:764-945): validate, sort, split triangles.
@@ -9,7 +10,7 @@ package runs (``bandt`` and ``segsum``). Reference analogs:
   form / transposed / conjugated copies cached per (descriptor, operation).
 - SpMV format selection `aoclsparse_optimize_mv`
   (analysis/aoclsparse_analysis.cpp:35-385), re-derived for Hopper in
-  `choose_mv_format`.
+  `choose_mv_format`; the SpMM counterpart in `choose_mm_format`.
 
 Structure work (sorting, triangle splits, scatter maps) is host numpy, once
 per structure, exactly as in the JAX package. Values stay tensors on the
@@ -33,6 +34,7 @@ from ..core.types import (
     DiagType,
     FillMode,
     MatrixType,
+    MemoryPolicy,
     Operation,
     Status,
 )
@@ -48,9 +50,12 @@ __all__ = [
     "build_clean_csr",
     "build_effective_csr",
     "build_exec_form",
+    "choose_mm_format",
     "choose_mv_format",
-    "optimize",
+    "gather_fallback_kind",
     "get_plan",
+    "mm_kind",
+    "optimize",
 ]
 
 
@@ -432,35 +437,57 @@ def _inject_diag(eptr, eind, esrc, m):
 
 @dataclasses.dataclass
 class ExecForm:
-    """Device-ready SpMV operand in the chosen format. Device arrays are
-    tensors on the matrix's device; `*_dest`/`*_src` are host scatter and
-    gather maps kept for the value refresh."""
+    """Device-ready SpMV/SpMM operand in the chosen format. Device arrays
+    are tensors on the matrix's device; `*_dest`/`*_src` are host scatter
+    and gather maps kept for the value refresh."""
 
-    kind: str  # "segsum" | "bandt"
+    kind: str  # "segsum" | "bandt" | "bandtm" | "bwdg" | "diag" | "ell" | "ellhyb"
     m: int
     n: int
     # segsum
     ind: Optional[torch.Tensor] = None
     val: Optional[torch.Tensor] = None
     row_ids: Optional[torch.Tensor] = None
-    # peel spill of the band form: COO triplets summed after the band kernel
+    # ell / ellhyb: (m, w) padded rows, -1 marks padding
+    ell_ind: Optional[torch.Tensor] = None
+    ell_val: Optional[torch.Tensor] = None
+    ell_src: Optional[np.ndarray] = None  # (m, w) positions into eff val, -1 pad
+    # spill: the band forms' peel outliers and ellhyb's row tails, COO
+    # triplets summed after the main product
     sp_ind: Optional[torch.Tensor] = None
     sp_val: Optional[torch.Tensor] = None
     sp_rows: Optional[torch.Tensor] = None
     sp_src: Optional[np.ndarray] = None
-    # bandt: row-aligned transposed band for the band kernel
-    # (kernels/band_spmv.py): bwd_val[j, i] = A[i, i + lo + j] as a (W, m)
-    # tensor; bwd_padL the left x padding (= max(0, -lo)) and bandt_start
-    # the x window start (= max(lo, 0))
+    # band forms. bandt: bwd_val[j, i] = A[i, i + lo + j] as a (W, m)
+    # tensor for the band SpMV kernel (kernels/band_spmv.py); bandtm: the
+    # row-aligned (m, W) layout v[i, j] = A[i, i + lo + j] for the band SpMM
+    # kernels (kernels/spmm_band.py); bwdg: (ngrp, G, W) group windows, the
+    # window of group g starting at padded B row G * (g + bwd_base8).
+    # bwd_padL is the left padding (= max(0, -lo)), bandt_start the window
+    # start (= max(lo, 0))
     bwd_val: Optional[torch.Tensor] = None
     bwd_dest: Optional[np.ndarray] = None  # (kept,) flat positions into bwd_val
     bwd_srcpos: Optional[np.ndarray] = None  # (kept,) positions into eff val (None = all)
     bwd_W: int = 0
     bwd_padL: int = 0
     bandt_start: int = 0
+    bwd_G: int = 8
+    bwd_base8: int = 0
+    bwd_n_pad: int = 0
+    bwd_rel: int = 0
+    # diag: dia_val[d, i] = A[i, i + offs[d]] as a (ndiag, m) tensor
+    dia_val: Optional[torch.Tensor] = None
+    dia_offs: Optional[torch.Tensor] = None  # (ndiag,) int64, sorted
+    dia_dest: Optional[np.ndarray] = None  # (nnz,) flat positions into dia_val
+    dia_offs_static: Optional[Tuple[int, ...]] = None
+    dia_L: int = 0
+    dia_n_pad: int = 0
     #: the handle's precision policy, copied on by ops/level2/mv.py
     precision_mode: str = "full"
     _bwd_val_bf16: Optional[torch.Tensor] = None
+    #: lazily derived operands (the block-window band, bf16 diagonals),
+    #: dropped by refresh()
+    _derived: Optional[Dict[str, torch.Tensor]] = None
 
     @property
     def has_spill(self) -> bool:
@@ -468,27 +495,73 @@ class ExecForm:
 
     def band_bf16(self) -> torch.Tensor:
         """Cached bfloat16 copy of the band for the mixed-precision path
-        (mv KID 12 under set_precision_mode(A, "mixed")). Casting per call
-        would stream the f32 band and defeat the point; refresh() drops it
-        so update_values flows through."""
+        (mv KID 12 and mm KID 3 under set_precision_mode(A, "mixed")).
+        Casting per call would stream the f32 band and defeat the point;
+        refresh() drops it so update_values flows through."""
         if self._bwd_val_bf16 is None:
             self._bwd_val_bf16 = self.bwd_val.to(torch.bfloat16)
         return self._bwd_val_bf16
 
+    def _derive(self, key: str, build) -> torch.Tensor:
+        if self._derived is None:
+            self._derived = {}
+        if key not in self._derived:
+            self._derived[key] = build()
+        return self._derived[key]
+
+    def band_mxu_dt(self, bf16: bool = False) -> torch.Tensor:
+        """(nblk, 256, 128) block windows of the bandtm band for mm KID 5
+        (kernels/spmm_band.py `band_mxu_blocks`), built once on the form's
+        device and cached per dtype. Needs W <= 129: one 256-row window
+        covers a 128-row block plus its band."""
+        from ..kernels.spmm_band import MXU_MAX_W, band_mxu_blocks
+
+        if self.kind != "bandtm" or self.bwd_W > MXU_MAX_W:
+            raise AoclSparseError(
+                Status.invalid_kid,
+                f"the block-window band needs a bandtm form with W <= {MXU_MAX_W}, "
+                f"got {self.kind} W={self.bwd_W}",
+            )
+        if bf16:
+            return self._derive("mxu_bf16", lambda: self.band_mxu_dt().to(torch.bfloat16))
+        return self._derive("mxu", lambda: band_mxu_blocks(self.bwd_val, self.bwd_W))
+
+    def dia_bf16(self) -> torch.Tensor:
+        """Cached bfloat16 diagonals for mm KID 7 in the mixed mode."""
+        return self._derive("dia_bf16", lambda: self.dia_val.to(torch.bfloat16))
+
     def refresh(self, eff_val: torch.Tensor) -> None:
         self._bwd_val_bf16 = None
+        self._derived = None
         dev = eff_val.device
+
+        def scatter(size, dest, srcpos):
+            buf = torch.zeros(size, dtype=eff_val.dtype, device=dev)
+            kept = eff_val if srcpos is None else eff_val[_dev_index(srcpos, dev)]
+            buf[_dev_index(dest, dev)] = kept
+            return buf
+
         if self.kind == "segsum":
             self.val = eff_val
-        elif self.kind == "bandt":
-            buf = torch.zeros(self.bwd_W * self.m, dtype=eff_val.dtype, device=dev)
-            kept = eff_val if self.bwd_srcpos is None else eff_val[_dev_index(self.bwd_srcpos, dev)]
-            buf[_dev_index(self.bwd_dest, dev)] = kept
-            self.bwd_val = buf.reshape(self.bwd_W, self.m)
-            if self.sp_src is not None and self.sp_src.size:
-                self.sp_val = eff_val[_dev_index(self.sp_src, dev)]
+        elif self.kind in ("bandt", "bandtm", "bwdg"):
+            if self.kind == "bwdg":
+                ngrp = -(-self.m // self.bwd_G)
+                shape = (ngrp, self.bwd_G, self.bwd_W)
+            else:
+                shape = (self.bwd_W, self.m) if self.kind == "bandt" else (self.m, self.bwd_W)
+            self.bwd_val = scatter(int(np.prod(shape)), self.bwd_dest, self.bwd_srcpos).reshape(shape)
+        elif self.kind == "diag":
+            ndiag = len(self.dia_offs_static)
+            self.dia_val = scatter(ndiag * self.m, self.dia_dest, None).reshape(ndiag, self.m)
+        elif self.kind in ("ell", "ellhyb"):
+            src = self.ell_src
+            valid = src >= 0
+            buf = scatter(src.size, np.nonzero(valid.reshape(-1))[0], src[valid])
+            self.ell_val = buf.reshape(src.shape)
         else:
             raise AoclSparseError(Status.internal_error, f"bad exec form {self.kind}")
+        if self.sp_src is not None and self.sp_src.size:
+            self.sp_val = eff_val[_dev_index(self.sp_src, dev)]
 
 
 #: density cap of the band form: its dense (W, m) band may stream at most
@@ -583,6 +656,217 @@ def _build_bandt(eff: EffectiveCSR) -> Optional[ExecForm]:
     return form
 
 
+def _build_bandtm(eff: EffectiveCSR) -> Optional[ExecForm]:
+    """Row-aligned (m, W) band for the band SpMM kernels
+    (plan.py:1424-1465 of the JAX package): v[i, j] = A[i, i + lo + j], the
+    same peeled window as `_build_bandt`. None when the window is wider
+    than the kernel's shared-memory plan takes for this dtype."""
+    from ..kernels.spmm_band import band_max_w
+
+    m, n = eff.shape
+    if eff.nnz == 0:
+        return None
+    rows, rel = _rows_rel(eff)
+    lo, W, spill_mask = _bandt_window(rows, rel)
+    if W > band_max_w(eff.val.dtype):
+        return None
+    cols = eff.ind.astype(np.int64)
+    keep = ~spill_mask
+    spilled = bool(spill_mask.any())
+    dev = eff.val.device
+    form = ExecForm(
+        kind="bandtm",
+        m=m,
+        n=n,
+        bwd_dest=rows[keep] * W + (rel - lo)[keep],
+        bwd_srcpos=np.nonzero(keep)[0] if spilled else None,
+        bwd_W=int(W),
+        bwd_padL=int(max(0, -lo)),
+        bandt_start=int(max(lo, 0)),
+        sp_src=np.nonzero(spill_mask)[0] if spilled else None,
+        sp_ind=_dev_index(cols[spill_mask], dev) if spilled else None,
+        sp_rows=_dev_index(rows[spill_mask], dev) if spilled else None,
+    )
+    form.refresh(eff.val)
+    return form
+
+
+#: row-group size of the bwdg form (the JAX package's G = 512 for SpMM)
+BWDG_G = 512
+
+
+def _build_bwdg(eff: EffectiveCSR, G: int = BWDG_G) -> ExecForm:
+    """Group-banded form of mm KID 3 (plan.py:895-989 of the JAX package,
+    kind "bwdg", which peels nothing): rows in groups of G, each group's
+    window of W columns starting at G * group + rel_lo stored densely as
+    (ngrp, G, W). B is padded to n_pad rows with bwd_padL rows in front."""
+    m, n = eff.shape
+    rows, rel_row = _rows_rel(eff)
+    ngrp = -(-m // G)
+    rel = rel_row + rows % G  # column relative to the group's first row
+    if rel.size == 0:
+        W, rel_lo = G, 0
+    else:
+        rel_lo = (int(rel.min()) // G) * G
+        W = -(-(int(rel.max()) - rel_lo + 1) // 8) * 8
+    L = max(0, -rel_lo)
+    base = (rel_lo + L) // G
+    need = G * (base + (-(-W // G)) - 1 + ngrp)
+    form = ExecForm(
+        kind="bwdg",
+        m=m,
+        n=n,
+        bwd_dest=rows * W + (rel - rel_lo),
+        bwd_W=int(W),
+        bwd_G=G,
+        bwd_base8=int(base),
+        bwd_padL=int(L),
+        bwd_n_pad=int(max(-(-(L + n) // G) * G, need)),
+        bwd_rel=int(rel_lo),
+    )
+    form.refresh(eff.val)
+    return form
+
+
+#: the diag form's caps (plan.py:1479-1482 of the JAX package): at most
+#: DIA_MAX diagonals with padding within BWD_CAP x nnz, or DIA_MAX_WIDE with
+#: padding within 8 x nnz
+DIA_MAX = 96
+DIA_MAX_WIDE = 192
+
+
+def _diag_stats(eff: EffectiveCSR):
+    """Distinct generalized diagonals (j - i) of the effective matrix, and
+    each entry's diagonal."""
+    if eff.nnz == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    _rows, d = _rows_rel(eff)
+    return np.unique(d), d
+
+
+def _diag_ok(eff: EffectiveCSR) -> bool:
+    ndiag = int(_diag_stats(eff)[0].size)
+    nnz = max(eff.nnz, 1)
+    return 0 < ndiag and (
+        (ndiag <= DIA_MAX and ndiag * eff.m <= BWD_CAP * nnz)
+        or (ndiag <= DIA_MAX_WIDE and ndiag * eff.m <= 8 * nnz)
+    )
+
+
+def _build_diag(eff: EffectiveCSR) -> ExecForm:
+    """Diagonal form of mm KID 7 (plan.py:1485-1506 of the JAX package):
+    dia_val[d, i] = A[i, i + offs[d]] over the sorted distinct offsets."""
+    m, n = eff.shape
+    offs, d = _diag_stats(eff)
+    rows, _rel = _rows_rel(eff)
+    L = int(max(0, -(offs.min() if offs.size else 0)))
+    max_off = int(offs.max()) if offs.size else 0
+    form = ExecForm(
+        kind="diag",
+        m=m,
+        n=n,
+        dia_offs=_dev_index(offs, eff.val.device),
+        dia_dest=np.searchsorted(offs, d) * m + rows,
+        dia_offs_static=tuple(int(o) for o in offs),
+        dia_L=L,
+        dia_n_pad=int(max(L + n, L + max_off + m)),
+    )
+    form.refresh(eff.val)
+    return form
+
+
+def _build_ell_map(eff: EffectiveCSR, width: int):
+    """(m, width) gather map into effective values and column indices; -1
+    marks padding (plan.py:882-892 of the JAX package)."""
+    ptr = eff.ptr.astype(np.int64)
+    lens = np.diff(ptr)
+    cols = np.arange(width)[None, :]
+    valid = cols < np.minimum(lens, width)[:, None]
+    src = np.where(valid, ptr[:-1, None] + cols, -1)
+    ind = np.where(valid, eff.ind[np.clip(src, 0, max(eff.nnz - 1, 0))], -1)
+    return src, ind
+
+
+#: ellhyb's row width rounds up to a multiple of this (the JAX package's
+#: SUBLANE)
+ELL_ROUND = 8
+
+
+def _build_ell(eff: EffectiveCSR, hybrid: bool) -> ExecForm:
+    """Padded-row forms of mm KIDs 1 and 2 (plan.py:1686-1717 of the JAX
+    package): ell pads every row to the longest; ellhyb to about the 75th
+    percentile row length, the row tails spilling to COO triplets."""
+    m, n = eff.shape
+    lens = np.diff(eff.ptr.astype(np.int64))
+    w_max = int(lens.max()) if lens.size else 0
+    width = max(1, w_max)
+    sp = {}
+    if hybrid:
+        p75 = int(np.percentile(lens, 75)) if lens.size else 1
+        width = min(max(ELL_ROUND, -(-p75 // ELL_ROUND) * ELL_ROUND), max(1, w_max))
+        ptr64 = eff.ptr.astype(np.int64)
+        sp_src, _ = _ranges_concat(np.minimum(ptr64[:-1] + width, ptr64[1:]), ptr64[1:])
+        dev = eff.val.device
+        sp = dict(
+            sp_src=sp_src,
+            sp_ind=_dev_index(eff.ind[sp_src], dev),
+            sp_rows=_dev_index(np.repeat(np.arange(m), np.maximum(lens - width, 0)), dev),
+        )
+    src, ind = _build_ell_map(eff, width)
+    form = ExecForm(
+        kind="ellhyb" if hybrid else "ell",
+        m=m,
+        n=n,
+        ell_ind=_dev_index(ind, eff.val.device),
+        ell_src=src,
+        **sp,
+    )
+    form.refresh(eff.val)
+    return form
+
+
+def gather_fallback_kind(eff: EffectiveCSR) -> str:
+    """Pick among the gather forms (segsum / ell / ellhyb) by fill
+    (plan.py:1614-1622 of the JAX package)."""
+    lens = np.diff(eff.ptr.astype(np.int64))
+    w0 = int(lens.max()) if lens.size else 0
+    if w0 == 0:
+        return "segsum"
+    fill = eff.nnz / float(max(eff.m, 1) * w0)
+    return "ell" if fill >= 0.5 or w0 <= 2 * max(float(lens.mean()), 1.0) else "ellhyb"
+
+
+def choose_mm_format(eff: EffectiveCSR) -> str:
+    """SpMM form selection, re-derived for Hopper.
+
+    The JAX package decides by TPU facts (ops/level3/csrmm.py:146-184):
+    whether Pallas runs, VMEM-driven caps on K and W, Mosaic's dtypes. On
+    Hopper both SpMM kernels stream their operand once and read B rows
+    coalesced along K for any K, so the rule rests on the operand alone:
+
+    - `bandtm` (KID 4) when the peeled row window fits the band kernel's
+      shared-memory plan for the dtype and the band's padding stays
+      bounded (m * W <= BWD_CAP * nnz);
+    - otherwise `diag` (KID 7) when the diagonals pass the JAX package's
+      own diag test (plan.py:845-848): <= DIA_MAX diagonals with padding
+      within BWD_CAP x nnz, or <= DIA_MAX_WIDE within 8 x nnz;
+    - otherwise the gather form `gather_fallback_kind` picks.
+
+    The kernels have f32 and f64 instances (and bf16 diagonals under the
+    mixed mode); other dtypes take the gather forms."""
+    from ..kernels.spmm_band import band_max_w
+
+    if eff.m == 0 or eff.nnz == 0 or eff.val.dtype not in (torch.float32, torch.float64):
+        return gather_fallback_kind(eff)
+    rows, rel = _rows_rel(eff)
+    _lo, W, _spill = _bandt_window(rows, rel)
+    if W <= band_max_w(eff.val.dtype) and eff.m * W <= BWD_CAP * eff.nnz:
+        return "bandtm"
+    if _diag_ok(eff):
+        return "diag"
+    return gather_fallback_kind(eff)
+
+
 def build_exec_form(eff: EffectiveCSR, kind: Optional[str] = None) -> ExecForm:
     if kind is None:
         kind = choose_mv_format(eff)
@@ -592,6 +876,17 @@ def build_exec_form(eff: EffectiveCSR, kind: Optional[str] = None) -> ExecForm:
         if form is not None:
             return form
         kind = "segsum"  # row window too wide after all: the gather form
+    if kind == "bandtm":
+        form = _build_bandtm(eff)
+        if form is not None:
+            return form
+        kind = "bwdg"  # row window too wide: the group form, as in the JAX package
+    if kind == "bwdg":
+        return _build_bwdg(eff)
+    if kind == "diag":
+        return _build_diag(eff)
+    if kind in ("ell", "ellhyb"):
+        return _build_ell(eff, hybrid=kind == "ellhyb")
     if kind == "segsum":
         rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(eff.ptr.astype(np.int64)))
         dev = eff.val.device
@@ -605,7 +900,7 @@ def build_exec_form(eff: EffectiveCSR, kind: Optional[str] = None) -> ExecForm:
         )
     raise AoclSparseError(
         Status.not_implemented,
-        f"execution form '{kind}' is not ported yet (ROADMAP.md queue 1 item 10)",
+        f"execution form '{kind}' is not ported yet (ROADMAP.md queue 1 items 10 and 14)",
     )
 
 
@@ -619,6 +914,8 @@ class Plan:
         self.clean = clean
         self.effective: Dict[Tuple, EffectiveCSR] = {}
         self.exec_forms: Dict[Tuple, ExecForm] = {}
+        #: choose_mm_format's answer per (descriptor, op): structure only
+        self.mm_kinds: Dict[Tuple, str] = {}
         #: triangular solve forms (planner/triangular.py trsv_form_for)
         self.levels: Optional[Dict[Tuple, object]] = None
 
@@ -664,12 +961,26 @@ def optimize(A: SparseMatrix) -> Plan:
     for h in A.hints:
         if h.done:
             continue
-        if h.action in ("mv", "dotmv", "mm"):
+        if h.action in ("mv", "dotmv"):
             plan.exec_form_for(h.descr, h.trans)
+        elif h.action == "mm":
+            plan.exec_form_for(h.descr, h.trans, kind=mm_kind(A, plan, h.descr, h.trans))
         else:
             plan.effective_for(h.descr, h.trans)
         h.done = True
     return plan
+
+
+def mm_kind(A: SparseMatrix, plan: Plan, descr: MatrixDescriptor, op: Operation) -> str:
+    """The form `mm` runs without a kid: `segsum` under the restricted
+    memory policy (no format copies), else `choose_mm_format`'s answer,
+    kept on the plan (it reads the structure only)."""
+    if A.mem_policy == MemoryPolicy.restricted:
+        return "segsum"
+    key = (descr.type, descr.fill_mode, descr.diag_type, Operation(op))
+    if key not in plan.mm_kinds:
+        plan.mm_kinds[key] = choose_mm_format(plan.effective_for(descr, op))
+    return plan.mm_kinds[key]
 
 
 def get_plan(A: SparseMatrix) -> Plan:

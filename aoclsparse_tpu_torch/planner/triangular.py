@@ -12,7 +12,7 @@ window of the block's left-of-diagonal entries. Upper triangles solve on
 reversed indices (reversing rows and columns turns U into L), applied to
 the structure on the host. Each form inverts its diagonal blocks once on
 the device, so a solve is one launch of the window-solve kernel
-(kernels/trsv_win.py, csrc/trsv_win.cu).
+(kernels/trsv_win.py, csrc/trsv_win.cu), with one right-hand side or many.
 
 Structure work is host numpy (or the host C++ builder, native/), once per
 (triangle, operation, nb); every value-dependent array keeps scatter maps
@@ -44,7 +44,7 @@ from ..core.types import (
     to_torch_dtype,
 )
 from ..kernels.trsv_win import DTYPES as SOLVE_DTYPES
-from ..kernels.trsv_win import trsv_win
+from ..kernels.trsv_win import trsm_win, trsv_win
 from .plan import CleanCSR, EffectiveCSR, Plan, _dev_index, build_effective_csr
 
 __all__ = [
@@ -156,11 +156,18 @@ class TrsvForm:
         return self._ops
 
     def solve(self, r: torch.Tensor) -> torch.Tensor:
-        """Solve on a padded (m_pad,) right-hand side in block order: one
-        launch of the window-solve kernel on a CUDA tensor, its plain
-        version on a CPU one."""
+        """Solve on a padded (m_pad,) or (m_pad, k) right-hand side in block
+        order: one launch of the window-solve kernel on a CUDA tensor, its
+        plain version on a CPU one. A single column takes the single-RHS
+        kernel and wider ones the multi-RHS kernel, as the JAX package
+        splits them (planner/triangular.py:145-208)."""
         dinvT, lwT = self.operands()
-        return trsv_win(dinvT, lwT, r.to(dinvT.dtype).contiguous(), self.nb, self.WL)
+        r = r.to(dinvT.dtype)
+        if r.dim() == 1:
+            return trsv_win(dinvT, lwT, r.contiguous(), self.nb, self.WL)
+        if r.shape[1] == 1:
+            return trsv_win(dinvT, lwT, r[:, 0].contiguous(), self.nb, self.WL)[:, None]
+        return trsm_win(dinvT, lwT, r.contiguous(), self.nb, self.WL)
 
 
 def _reverse_structure(eff: EffectiveCSR) -> EffectiveCSR:

@@ -13,9 +13,11 @@ every preconditioned Krylov step, is two blocked window solves over the
 cached factors: unit L, then U on reversed indices, each one launch of the
 window-solve kernel (kernels/trsv_win.py).
 
+A 2-D b (m, k) takes the multi-RHS window solve, one launch a factor.
+
 Not ported yet: the level-scheduled and host-substitution applies (kid=1,
 and the JAX package's fallback for factors whose window is too wide,
-ROADMAP.md queue 1 item 12) and a 2-D b (multi-RHS, with kernel #14).
+ROADMAP.md queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -133,7 +135,8 @@ def _ilu_numpy_forms(st: IluState, lu_clean: CleanCSR, lu: np.ndarray, nb: int) 
 
 
 def ilu_apply(st: IluState, r: torch.Tensor) -> torch.Tensor:
-    """z = U^{-1} L^{-1} r over the cached factors: two window solves."""
+    """z = U^{-1} L^{-1} r over the cached factors, r of (m,) or (m, k):
+    two window solves."""
     return pad_solve(st.u_form, pad_solve(st.l_form, r))
 
 
@@ -161,11 +164,6 @@ def ilu_smoother(
         )
     st = ilu0_factorize(A)
     b = as_values(b, A.device).to(A.dtype)
-    if b.shape[0] != A.shape[0]:
+    if b.dim() not in (1, 2) or b.shape[0] != A.shape[0]:
         raise AoclSparseError(Status.invalid_size, "b size mismatch")
-    if b.dim() != 1:
-        raise AoclSparseError(
-            Status.not_implemented,
-            "ilu_smoother with a 2-D b waits for the multi-RHS solve kernel (ROADMAP.md queue 2 #14)",
-        )
     return ilu_apply(st, b)

@@ -15,27 +15,44 @@ failure (exit code != 0, no result line):
      half-bandwidth 64, seed 7, built as bench.py:220-233) in f32, bf16
      band and f64, and on a small odd-m operand with a peel spill in f32
      and f64;
-   - the window-solve kernel on the ILU0 L and U forms of the SPD operand
+   - the band SpMM kernel on the bench operand's bandtm form at K = 64 in
+     f32 and f64, and with its spill on the small odd-m operand at K = 7;
+     the block-window kernel on the bench form at K = 64 in f32 and bf16;
+   - the diagonal kernel on the 27-point stencil of HPCG's default local
+     grid (104^3: m = 1,124,864, 29,791,000 nnz; hpcg.dat) at K = 64 in
+     f32, bf16 and f64, and on a small odd-m operand with negative offsets;
+   - the window-solve kernels on the ILU0 L and U forms of the SPD operand
      (the bench profile symmetrised plus a Gershgorin diagonal shift,
-     25,296,970 nnz; nb = 256, WL = 64, nblk = 1024) in f32 and f64, and on
-     a small odd-m form whose window reaches back over several blocks;
+     25,296,970 nnz; nb = 256, WL = 64, nblk = 1024) in f32 and f64, with
+     one right-hand side and with K = 16, and on a small odd-m form whose
+     window reaches back over several blocks (K = 300 for the multi-RHS
+     kernel: several column chunks);
 4. drive the main path: create_csr(device="cuda") -> set_mv_hint(nop=1000)
    -> optimize -> mv (default form, kid=8, kid=12, alpha/beta with y, the
-   mixed bf16 band, a float64 handle), each checked against a float64 scipy
-   CSR reference;
+   mixed bf16 band, a float64 handle); and create_csr -> set_mm_hint(nop=
+   1000) -> optimize -> mm at K = 64 on the bench operand (default, kid=4,
+   kid=5, kid=7, kid=0, alpha/beta with C, Order.column, op=transpose, the
+   mixed mode through kid=5 and kid=7, a float64 handle) and on the
+   stencil (default and kid=7, full and mixed), each checked against a
+   float64 scipy CSR reference, with exactly one kernel launch per call;
 5. solvers on the SPD operand, on a handle made by create_csr ->
-   set_mv_hint / set_sv_hint / set_lu_smoother_hint -> optimize:
-   pcg_solve(rtol=1e-6) with no preconditioner (one band launch per
-   iteration); trsv lower non-unit in f32 and upper non-unit on a float64
-   handle, each checked by its f64 scipy residual; ilu_smoother, checked by
-   the residual of L (U x) = b with the port's own factors; and
-   pcg_solve(precond="ilu0") and ("sgs"), each in fewer iterations than
-   with none, with a true relative residual <= 1e-5 and the launch counts
-   the composition implies;
-6. time kernel vs plain version, one mv call, one CG iteration, one
-   ilu_smoother call and one ILU0-PCG iteration with CUDA events or the
-   host clock (median of repeats), with the kernels' stream rates against
-   the card's published HBM peak, and the set-up seconds of ilu0_factorize.
+   set_mv_hint / set_sv_hint / set_lu_smoother_hint / set_sm_hint ->
+   optimize: pcg_solve(rtol=1e-6) with no preconditioner (one band launch
+   per iteration); trsv lower non-unit in f32 and upper non-unit on a
+   float64 handle, each checked by its f64 scipy residual; trsm at K = 16
+   (lower f32, upper f64), checked per column; ilu_smoother with a 1-D and
+   an (m, 16) b, checked by the residual of L (U x) = b with the port's own
+   factors; and pcg_solve(precond="ilu0") and ("sgs"), each in fewer
+   iterations than with none, with a true relative residual <= 1e-5 and
+   the launch counts the composition implies;
+6. time kernel vs plain version vs one PyTorch library call (torch.sparse
+   CSR products and triangular solves, timed here as yardsticks only),
+   against each kernel's bound from this run's inputs (stored operands,
+   and beside it their nonzero entries only); one mv call, one mm
+   call per operand, one trsm call, one CG iteration, one ilu_smoother
+   call and one ILU0-PCG iteration with CUDA events or the host clock
+   (median of repeats), with stream rates against the card's published
+   HBM peak, and the set-up seconds of ilu0_factorize.
 
 Launch counts are reset just before phase 4 and read after phase 5. The
 second-to-last line is {"kernels": [...]}; the last is
@@ -49,6 +66,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import scipy.sparse as sp
@@ -59,7 +77,15 @@ import aoclsparse_tpu_torch as tt
 from aoclsparse_tpu_torch import native
 from aoclsparse_tpu_torch.kernels import build
 from aoclsparse_tpu_torch.kernels.band_spmv import band_spmv, band_spmv_plain, spmv_bandt
-from aoclsparse_tpu_torch.kernels.trsv_win import trsv_win, trsv_win_plain
+from aoclsparse_tpu_torch.kernels.spmm_band import (
+    spmm_band,
+    spmm_band_mxu,
+    spmm_band_mxu_plain,
+    spmm_band_plain,
+    spmm_bandtm,
+)
+from aoclsparse_tpu_torch.kernels.spmm_diag import spmm_diag, spmm_diag_plain
+from aoclsparse_tpu_torch.kernels.trsv_win import trsm_chunk, trsm_win, trsm_win_plain, trsv_win, trsv_win_plain
 from aoclsparse_tpu_torch.planner.triangular import trsv_form_for
 from aoclsparse_tpu_torch.solvers.ilu import ilu0_factorize
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
@@ -81,6 +107,33 @@ KERNELS = {
                      "aoclsparse_tpu/kernels/pallas/trsv.py:74, aoclsparse_tpu/kernels/pallas/trsv.py:114"),
     "trsv_win_f64": ("aoclsparse_tpu_torch/csrc/trsv_win.cu",
                      "aoclsparse_tpu/kernels/pallas/trsv.py:74, aoclsparse_tpu/kernels/pallas/trsv.py:114"),
+    "spmm_band_f32": ("aoclsparse_tpu_torch/csrc/spmm_band.cu",
+                      "aoclsparse_tpu/kernels/pallas/spmv.py:173"),  # pallas_spmm_band_t, mm KID 4
+    "spmm_band_f64": ("aoclsparse_tpu_torch/csrc/spmm_band.cu",
+                      "aoclsparse_tpu/kernels/pallas/spmv.py:173"),
+    "spmm_band_mxu_f32": ("aoclsparse_tpu_torch/csrc/spmm_band.cu",
+                          "aoclsparse_tpu/kernels/pallas/spmv.py:306"),  # pallas_spmm_band_mxu, KID 5
+    "spmm_band_mxu_bf16": ("aoclsparse_tpu_torch/csrc/spmm_band.cu",
+                           "aoclsparse_tpu/kernels/pallas/spmv.py:306"),
+    "spmm_diag_f32": ("aoclsparse_tpu_torch/csrc/spmm_diag.cu",
+                      "aoclsparse_tpu/kernels/pallas/spmv.py:446"),  # pallas_spmm_diag, mm KID 7
+    "spmm_diag_bf16": ("aoclsparse_tpu_torch/csrc/spmm_diag.cu",
+                       "aoclsparse_tpu/kernels/pallas/spmv.py:446"),
+    "spmm_diag_f64": ("aoclsparse_tpu_torch/csrc/spmm_diag.cu",
+                      "aoclsparse_tpu/kernels/pallas/spmv.py:446"),
+    "trsm_win_f32": ("aoclsparse_tpu_torch/csrc/trsv_win.cu",
+                     "aoclsparse_tpu/kernels/pallas/trsv.py:160"),  # pallas_trsm_win_inv
+    "trsm_win_f64": ("aoclsparse_tpu_torch/csrc/trsv_win.cu",
+                     "aoclsparse_tpu/kernels/pallas/trsv.py:160"),
+}
+#: launch counters of the wrappers, by kernel-name prefix
+COUNTERS = {
+    "band_spmv": band_spmv.launches,
+    "trsv_win": trsv_win.launches,
+    "spmm_band": spmm_band.launches,
+    "spmm_band_mxu": spmm_band_mxu.launches,
+    "spmm_diag": spmm_diag.launches,
+    "trsm_win": trsm_win.launches,
 }
 #: kernel vs plain: the same products summed in another order, so the
 #: accumulation dtype's model tolerance (utils/tolerances.py, scale 1);
@@ -91,9 +144,26 @@ KERNEL_TOL = {
     "band_spmv_f64": expected_precision(torch.float64),
     "trsv_win_f32": expected_precision(torch.float32),
     "trsv_win_f64": expected_precision(torch.float64),
+    "spmm_band_f32": expected_precision(torch.float32),
+    "spmm_band_f64": expected_precision(torch.float64),
+    "spmm_band_mxu_f32": expected_precision(torch.float32),
+    "spmm_band_mxu_bf16": expected_precision(torch.float32),
+    "spmm_diag_f32": expected_precision(torch.float32),
+    "spmm_diag_bf16": expected_precision(torch.float32),
+    "spmm_diag_f64": expected_precision(torch.float64),
+    "trsm_win_f32": expected_precision(torch.float32),
+    "trsm_win_f64": expected_precision(torch.float64),
 }
-#: mv against the float64 reference: the operand dtype's model tolerance
+#: mv and mm against the float64 reference: the operand dtype's model tolerance
 MV_TOL = {"f32": expected_precision(torch.float32), "f64": expected_precision(torch.float64)}
+#: peak operation rates for bound_ms, by operand type (NVIDIA H100 SXM data
+#: sheet, dense, no sparsity): f32 and f64 outside the tensor cores (the f32
+#: kernels compute in full f32, no TF32), bf16 on the tensor cores: the
+#: least time the card could take, whatever the kernel itself uses
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "f64": 34e12}
+K_MM = 64  # the SpMM right-hand sides of phases 3, 4 and 6
+K_SM = 16  # the trsm right-hand sides of phases 3, 5 and 6
+SEED_B = 23  # B of the SpMM phases
 
 
 def log(*a):
@@ -137,11 +207,11 @@ def row_nnz(ptr):
     return np.diff(ptr).astype(np.float64)
 
 
-def bandt_form(ptr, ind, val, dev):
+def bandt_form(ptr, ind, val, dev, kind="bandt"):
     A = tt.create_csr(len(ptr) - 1, len(ptr) - 1, ptr, ind, val, device=dev)
-    form = tt.optimize(A).exec_form_for(GEN, NONE, kind="bandt")
-    if form.kind != "bandt":
-        raise AssertionError(f"operand planned as {form.kind}, want bandt")
+    form = tt.optimize(A).exec_form_for(GEN, NONE, kind=kind)
+    if form.kind != kind:
+        raise AssertionError(f"operand planned as {form.kind}, want {kind}")
     return form
 
 
@@ -186,6 +256,90 @@ def wide_window_operand(m=3001, seed=13):
     return S.indptr.astype(np.int64), S.indices.astype(np.int32), S.data
 
 
+def stencil27(nx=104):
+    """The HPCG operand: the 27-point stencil of an nx^3 grid, 26 on the
+    diagonal and -1 for each neighbour (HPCG's default local grid is 104^3,
+    hpcg.dat), built row by row in sorted column order: (ptr, ind, val f32)."""
+    m = nx**3
+    i = np.arange(m, dtype=np.int64)
+    z, y, x = i // (nx * nx), (i // nx) % nx, i % nx
+    offs, masks = [], []
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                offs.append((dz * nx + dy) * nx + dx)
+                masks.append((0 <= z + dz) & (z + dz < nx) & (0 <= y + dy) & (y + dy < nx)
+                             & (0 <= x + dx) & (x + dx < nx))
+    valid = np.stack(masks, axis=1)  # (m, 27), offsets increasing along axis 1
+    cols = (i[:, None] + np.asarray(offs)[None, :])[valid]
+    ptr = np.concatenate([[0], np.cumsum(valid.sum(1))])
+    rows = np.repeat(i, valid.sum(1))
+    return ptr, cols.astype(np.int32), np.where(cols == rows, 26.0, -1.0).astype(np.float32)
+
+
+def diag_operand(m=3001, seed=19):
+    """Odd-m operand of a few diagonals, negative offsets included, none
+    through the middle of the rows: (ptr, ind, val f64)."""
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for off in (-1500, -37, -3, 0, 2, 17, 900):
+        i = np.arange(max(0, -off), min(m, m - off))
+        rows.append(i)
+        cols.append(i + off)
+    r, c = np.concatenate(rows), np.concatenate(cols)
+    S = sp.csr_matrix((rng.standard_normal(r.size), (r, c)), shape=(m, m))
+    S.sort_indices()
+    return S.indptr.astype(np.int64), S.indices.astype(np.int32), S.data
+
+
+def csr_tensor(ptr, ind, val, dev, dtype):
+    """torch.sparse CSR tensor of the operand: the library yardstick only."""
+    m = len(ptr) - 1
+    with warnings.catch_warnings():  # torch marks its sparse CSR support beta
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(np.asarray(ptr, np.int64)), torch.from_numpy(np.asarray(ind, np.int64)),
+            torch.from_numpy(np.asarray(val)).to(dtype), size=(m, m),
+        ).to(dev)
+
+
+def bound_of(nbytes, flops, inst, peak_gbps):
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    the larger of the bytes over the HBM peak and the operations over the
+    peak rate of the instance's arithmetic."""
+    t_bytes = nbytes / (peak_gbps * 1e9) * 1e3
+    t_ops = flops / PEAK_FLOPS[inst] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def nz_bytes(*tensors):
+    """Bytes of the nonzero entries only: what the function needs of a
+    stored form whose padding (band edges, the zero triangle of inverted
+    blocks) holds zeros."""
+    return sum(int(torch.count_nonzero(t)) * t.element_size() for t in tensors)
+
+
+def library_ms(fn, once=False, **kw):
+    """CUDA-event time of a PyTorch library call, or (None, error) when this
+    install refuses it: a yardstick, never part of the port. once: the first
+    call's own time, for calls that take seconds (no warm-up, no repeats)."""
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    try:
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    if once:
+        return t0.elapsed_time(t1), None
+    return cuda_ms(fn, **kw), None
+
+
 def compare(kernel, label, got, want, errs):
     torch.cuda.synchronize()
     g, w = got.double().cpu().numpy(), want.double().cpu().numpy()
@@ -220,6 +374,28 @@ def check_residual(name, T, x, b, tol):
     if not res <= tol:
         raise AssertionError(f"{name}: residual above tolerance")
     return res
+
+
+def check_mm(name, got, ref, tol, launches=None, kernel=None):
+    """mm output against its float64 reference; `launches` (a count taken
+    before the call) requires exactly one launch of `kernel` in it."""
+    check_mv(name, got, ref, tol)
+    if kernel is not None:
+        prefix, inst = kernel.rsplit("_", 1)
+        done = COUNTERS[prefix][inst] - launches
+        if done != 1:
+            raise AssertionError(f"{name}: {done} launches of {kernel}, want exactly 1")
+
+
+def residual_cols(name, T, X, B, tol):
+    """Per-column ||T x_j - b_j|| / ||b_j|| in float64, the worst against `tol`."""
+    Xh = X.double().cpu().numpy()
+    if not (np.all(np.isfinite(Xh)) and Xh.shape == B.shape):
+        raise AssertionError(f"{name}: non-finite or misshapen output")
+    res = float(np.max(np.linalg.norm(T @ Xh - B, axis=0) / np.linalg.norm(B, axis=0)))
+    log(f"  {name}: worst column relative residual {res:.3e} (tol {tol:.1e})")
+    if not res <= tol:
+        raise AssertionError(f"{name}: residual above tolerance")
 
 
 def cuda_ms(fn, reps=15, inner=10, warm=3):
@@ -259,6 +435,11 @@ def iteration_ms(solve, k_lo, k_hi, turns=3):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
+
+    def phase(title):
+        log(f"{title} (at {time.perf_counter() - t_start:.1f} s)")
+
     # 1. the card
     if not torch.cuda.is_available():
         log("no CUDA device: chip_smoke needs one NVIDIA card")
@@ -295,7 +476,7 @@ def main() -> int:
     log(f"host library: {time.perf_counter() - t0:.2f} s")
 
     # 3. kernel vs plain version
-    log("phase 3: kernel vs plain version")
+    phase("phase 3: kernel vs plain version")
     t0 = time.perf_counter()
     ptr, ind, val, x = bench_operand()
     m = n = len(ptr) - 1
@@ -336,6 +517,7 @@ def main() -> int:
     tt.set_mv_hint(C, NONE, GEN, nop=1000)
     tt.set_sv_hint(C, NONE, LOWER, nop=1000)
     tt.set_lu_smoother_hint(C, NONE, GEN, nop=1000)
+    tt.set_sm_hint(C, NONE, LOWER, nop=1000)
     tt.optimize(C)
     torch.cuda.synchronize()
     log(f"  SPD operand: nnz={Sspd.nnz}, create_csr + hints + optimize {time.perf_counter() - t0:.2f} s")
@@ -356,15 +538,20 @@ def main() -> int:
         f"diagonal-block inversion (both factors) {t_invert:.2f} s")
     wrng = np.random.default_rng(17)
     bw = torch.from_numpy(wrng.standard_normal(st.l_form.m_pad).astype(np.float32)).to(dev)
+    bw_m = torch.from_numpy(wrng.standard_normal((st.l_form.m_pad, K_SM)).astype(np.float32)).to(dev)
     for name, form in (("L", st.l_form), ("U", st.u_form)):
         dT, lT = ilu_ops[name]
         label = f"ILU0 {name} (nb={form.nb}, WL={form.WL}, nblk={form.nblk})"
         compare("trsv_win_f32", label, trsv_win(dT, lT, bw, form.nb, form.WL),
                 trsv_win_plain(dT, lT, bw, form.nb, form.WL), errs)
-        dT, lT, b64 = dT.double(), lT.double(), bw.double()
+        compare("trsm_win_f32", f"{label} K={K_SM}", trsm_win(dT, lT, bw_m, form.nb, form.WL),
+                trsm_win_plain(dT, lT, bw_m, form.nb, form.WL), errs)
+        dT, lT, b64, bm64 = dT.double(), lT.double(), bw.double(), bw_m.double()
         compare("trsv_win_f64", label, trsv_win(dT, lT, b64, form.nb, form.WL),
                 trsv_win_plain(dT, lT, b64, form.nb, form.WL), errs)
-        del dT, lT, b64
+        compare("trsm_win_f64", f"{label} K={K_SM}", trsm_win(dT, lT, bm64, form.nb, form.WL),
+                trsm_win_plain(dT, lT, bm64, form.nb, form.WL), errs)
+        del dT, lT, b64, bm64
     wptr, wind, wval = wide_window_operand()
     for inst, dt in (("f32", np.float32), ("f64", np.float64)):
         Wh = tt.create_csr(len(wptr) - 1, len(wptr) - 1, wptr, wind, wval.astype(dt), device="cuda")
@@ -373,15 +560,82 @@ def main() -> int:
             raise AssertionError(f"small form must be odd-m with WL > nb, got m={wf.m} WL={wf.WL}")
         dT, lT = wf.operands()
         bs = torch.from_numpy(wrng.standard_normal(wf.m_pad).astype(dt)).to(dev)
-        compare(f"trsv_win_{inst}", f"small odd-m (m={wf.m}, nb={wf.nb}, WL={wf.WL}, nblk={wf.nblk})",
-                trsv_win(dT, lT, bs, wf.nb, wf.WL), trsv_win_plain(dT, lT, bs, wf.nb, wf.WL), errs)
+        label = f"small odd-m (m={wf.m}, nb={wf.nb}, WL={wf.WL}, nblk={wf.nblk})"
+        compare(f"trsv_win_{inst}", label, trsv_win(dT, lT, bs, wf.nb, wf.WL),
+                trsv_win_plain(dT, lT, bs, wf.nb, wf.WL), errs)
+        kc = trsm_chunk(300, wf.nb, wf.WL, bs.element_size())
+        if not 300 > kc > 0:
+            raise AssertionError(f"K=300 must need several column chunks, got chunk {kc}")
+        bs = torch.from_numpy(wrng.standard_normal((wf.m_pad, 300)).astype(dt)).to(dev)
+        compare(f"trsm_win_{inst}", f"{label} K=300 ({-(-300 // kc)} chunks of {kc})",
+                trsm_win(dT, lT, bs, wf.nb, wf.WL), trsm_win_plain(dT, lT, bs, wf.nb, wf.WL), errs)
     del Wh, wf, dT, lT, bs
 
+    # the SpMM kernels on the bench operand's bandtm form
+    Bm = torch.from_numpy(np.random.default_rng(SEED_B).standard_normal((n, K_MM)).astype(np.float32)).to(dev)
+    Bm64 = Bm.double()
+    tm32 = bandt_form(ptr, ind, val, dev, kind="bandtm")
+    tm64 = bandt_form(ptr, ind, val.astype(np.float64), dev, kind="bandtm")
+    targs = (tm32.bandt_start, tm32.bwd_padL)
+    log(f"  bench bandtm form: W={tm32.bwd_W} padL={tm32.bwd_padL} start={tm32.bandt_start} "
+        f"spill={0 if not tm32.has_spill else tm32.sp_ind.numel()}")
+    compare("spmm_band_f32", f"bench K={K_MM}", spmm_band(tm32.bwd_val, Bm, *targs),
+            spmm_band_plain(tm32.bwd_val, Bm, *targs), errs)
+    compare("spmm_band_f64", f"bench K={K_MM}", spmm_band(tm64.bwd_val, Bm64, *targs),
+            spmm_band_plain(tm64.bwd_val, Bm64, *targs), errs)
+    dt32, dtbf = tm32.band_mxu_dt(), tm32.band_mxu_dt(bf16=True)
+    for kernel, dt_ in (("spmm_band_mxu_f32", dt32), ("spmm_band_mxu_bf16", dtbf)):
+        compare(kernel, f"bench K={K_MM} (nblk={dt_.shape[0]})", spmm_band_mxu(dt_, Bm, *targs, m),
+                spmm_band_mxu_plain(dt_, Bm, *targs, m), errs)
+    for inst, dt in (("f32", np.float32), ("f64", np.float64)):
+        sf = bandt_form(sptr, sind, sval.astype(dt), dev, kind="bandtm")
+        if not (sf.has_spill and sf.m % 2 == 1):
+            raise AssertionError("small operand must be odd-m with a spill")
+        Bs = torch.from_numpy(np.random.default_rng(29).standard_normal((sf.n, 7)).astype(dt)).to(dev)
+        sargs = (sf.bandt_start, sf.bwd_padL)
+        want = spmm_band_plain(sf.bwd_val, Bs, *sargs)
+        want.index_add_(0, sf.sp_rows, (sf.sp_val[:, None] * Bs[sf.sp_ind]).to(want.dtype))
+        compare(f"spmm_band_{inst}", f"small odd-m + spill K=7 (m={sf.m}, W={sf.bwd_W}, "
+                f"spill={sf.sp_ind.numel()})",
+                spmm_bandtm(sf.bwd_val, Bs, sf.sp_val, sf.sp_ind, sf.sp_rows, *sargs), want, errs)
+
+    # the stencil's handle, through the entry points, and the diagonal kernel
+    t0 = time.perf_counter()
+    hptr, hind, hval = stencil27()
+    mh = len(hptr) - 1
+    log(f"  stencil {round(mh ** (1 / 3))}^3 built in {time.perf_counter() - t0:.1f} s (m={mh}, nnz={hind.size})")
+    t0 = time.perf_counter()
+    H = tt.create_csr(mh, mh, hptr, hind, hval, device="cuda")
+    tt.set_mm_hint(H, NONE, GEN, nop=1000)
+    tt.optimize(H)
+    torch.cuda.synchronize()
+    if [f.kind for f in H.plan.exec_forms.values()] != ["diag"]:
+        raise AssertionError(f"stencil planned as {[f.kind for f in H.plan.exec_forms.values()]}, want diag")
+    hf = next(iter(H.plan.exec_forms.values()))
+    log(f"  stencil: create_csr + set_mm_hint + optimize {time.perf_counter() - t0:.2f} s; diag form "
+        f"ndiag={len(hf.dia_offs_static)}, offsets {hf.dia_offs_static[0]}..{hf.dia_offs_static[-1]}")
+    Bh = torch.from_numpy(np.random.default_rng(SEED_B + 1).standard_normal((mh, K_MM)).astype(np.float32)).to(dev)
+    Bh64 = Bh.double()
+    hv64 = hf.dia_val.double()
+    for kernel, dv, Bx in (("spmm_diag_f32", hf.dia_val, Bh), ("spmm_diag_bf16", hf.dia_bf16(), Bh),
+                           ("spmm_diag_f64", hv64, Bh64)):
+        compare(kernel, f"stencil K={K_MM}", spmm_diag(dv, hf.dia_offs, Bx), spmm_diag_plain(dv, hf.dia_offs, Bx),
+                errs)
+    dptr, dind, dval = diag_operand()
+    for inst, dt in (("f32", np.float32), ("bf16", np.float32), ("f64", np.float64)):
+        df = bandt_form(dptr, dind, dval.astype(dt), dev, kind="diag")
+        if not (df.m % 2 == 1 and df.dia_offs_static[0] < 0):
+            raise AssertionError("small diag operand must be odd-m with a negative offset")
+        dv = df.dia_bf16() if inst == "bf16" else df.dia_val
+        Bs = torch.from_numpy(np.random.default_rng(37).standard_normal((df.n, 13)).astype(dt)).to(dev)
+        compare(f"spmm_diag_{inst}", f"small odd-m K=13 (m={df.m}, offsets {df.dia_offs_static})",
+                spmm_diag(dv, df.dia_offs, Bs), spmm_diag_plain(dv, df.dia_offs, Bs), errs)
+
     # 4. the main path, counted
-    log("phase 4: main path (create_csr -> set_mv_hint -> optimize -> mv)")
+    phase("phase 4: main path (create_csr -> set_mv_hint -> optimize -> mv)")
     S = sp.csr_matrix((val.astype(np.float64), ind, ptr), shape=(m, n))
     ref = S @ x.astype(np.float64)
-    for counts in (band_spmv.launches, trsv_win.launches):
+    for counts in COUNTERS.values():
         for k in counts:
             counts[k] = 0
     t0 = time.perf_counter()
@@ -418,8 +672,86 @@ def main() -> int:
     check_mv("mv float64 (kid 13 route)", tt.mv(1.0, A64, GEN, NONE, x64, 0.0), ref, MV_TOL["f64"])
     del A64
 
+    phase(f"phase 4b: main path (create_csr -> set_mm_hint -> optimize -> mm, K={K_MM})")
+
+    def count(kernel):
+        prefix, inst = kernel.rsplit("_", 1)
+        return COUNTERS[prefix][inst]
+
+    def mm_case(name, handle, kernel, ref_, tol, *args, **kw):
+        c0 = count(kernel) if kernel else None
+        got = tt.mm(*args[:1], handle, GEN, *args[1:], **kw)
+        check_mm(name, got, ref_, tol, c0, kernel)
+        return got
+
+    t0 = time.perf_counter()
+    Amm = tt.create_csr(m, n, ptr, ind, val, device="cuda")
+    tt.set_mm_hint(Amm, NONE, GEN, nop=1000)
+    tt.optimize(Amm)
+    torch.cuda.synchronize()
+    log(f"  create_csr + set_mm_hint + optimize: {time.perf_counter() - t0:.2f} s")
+    if [f.kind for f in Amm.plan.exec_forms.values()] != ["bandtm"]:
+        raise AssertionError(f"optimize built {[f.kind for f in Amm.plan.exec_forms.values()]}, want bandtm")
+    Bnp = Bm64.cpu().numpy()
+    ref_mm = S @ Bnp
+    f32tol, f64tol = MV_TOL["f32"], MV_TOL["f64"]
+    mm_case("mm default (bandtm)", Amm, "spmm_band_f32", ref_mm, f32tol, 1.0, NONE, Bm, 0.0)
+    mm_case("mm kid=4", Amm, "spmm_band_f32", ref_mm, f32tol, 1.0, NONE, Bm, 0.0, kid=4)
+    mm_case("mm kid=5 (block windows)", Amm, "spmm_band_mxu_f32", ref_mm, f32tol, 1.0, NONE, Bm, 0.0, kid=5)
+    mm_case("mm kid=7 (diag form)", Amm, "spmm_diag_f32", ref_mm, f32tol, 1.0, NONE, Bm, 0.0, kid=7)
+    mm_case("mm kid=0 (segsum, plain torch)", Amm, None, ref_mm, f32tol, 1.0, NONE, Bm, 0.0, kid=0)
+    Cin = torch.from_numpy(np.random.default_rng(41).standard_normal((m, K_MM)).astype(np.float32)).to(dev)
+    mm_case("mm alpha=1.5 beta=-0.5", Amm, "spmm_band_f32", 1.5 * ref_mm - 0.5 * Cin.double().cpu().numpy(),
+            f32tol, 1.5, NONE, Bm, -0.5, Cin)
+    c0 = count("spmm_band_f32")
+    outT = tt.mm(1.0, Amm, GEN, NONE, Bm.T.contiguous(), 0.0, order=tt.Order.column)
+    if tuple(outT.shape) != (K_MM, m):
+        raise AssertionError(f"Order.column mm returned {tuple(outT.shape)}")
+    check_mm("mm Order.column", outT.T, ref_mm, f32tol, c0, "spmm_band_f32")
+    mm_case("mm op=transpose", Amm, "spmm_band_f32", S.T @ Bnp, f32tol, 1.0, tt.Operation.transpose, Bm, 0.0)
+    if Amm.plan.mm_kinds[(GEN.type, GEN.fill_mode, GEN.diag_type, tt.Operation.transpose)] != "bandtm":
+        raise AssertionError("the transposed bench operand did not take bandtm")
+    sab = abs(S) @ np.abs(Bnp)  # sum_j |a_ij b_j|, the bound's product term
+    row_nz = row_nnz(ptr)[:, None]
+
+    def mixed_case(name, handle, kernel, ref_, sab, nz, roundings, **kw):
+        """docs/precision.md: |c - c*| <= 2^-8 sum |a b| + nnz_row eps_f32 |c*|
+        per bf16 rounding of a product's operands (the B rounding of KID 5
+        is the second)."""
+        tt.set_precision_mode(handle, "mixed")
+        c0 = count(kernel)
+        got = tt.mm(1.0, handle, GEN, NONE, kw.pop("B"), 0.0, **kw).double().cpu().numpy()
+        tt.set_precision_mode(handle, "full")
+        if count(kernel) - c0 != 1:
+            raise AssertionError(f"{name}: {count(kernel) - c0} launches of {kernel}, want 1")
+        lim = roundings * 2.0**-8 * sab + nz * 2.0**-23 * np.abs(ref_)
+        worst = float(np.max(np.abs(got - ref_) / lim))
+        log(f"  {name}: max |err| / documented bound ({roundings} bf16 rounding(s)) {worst:.3f} (must be <= 1)")
+        if not (np.all(np.isfinite(got)) and worst <= 1.0):
+            raise AssertionError(f"{name}: outside the documented error bound")
+
+    mixed_case("mm mixed kid=5 (bf16 windows and B)", Amm, "spmm_band_mxu_bf16", ref_mm, sab, row_nz, 2,
+               B=Bm, kid=5)
+    mixed_case("mm mixed kid=7 (bf16 diagonals)", Amm, "spmm_diag_bf16", ref_mm, sab, row_nz, 1, B=Bm, kid=7)
+    A64mm = tt.create_csr(m, n, ptr, ind, val.astype(np.float64), device="cuda")
+    tt.set_mm_hint(A64mm, NONE, GEN, nop=1000)
+    tt.optimize(A64mm)
+    mm_case("mm float64 default", A64mm, "spmm_band_f64", ref_mm, f64tol, 1.0, NONE, Bm64, 0.0)
+    mm_case("mm float64 kid=7", A64mm, "spmm_diag_f64", ref_mm, f64tol, 1.0, NONE, Bm64, 0.0, kid=7)
+    del A64mm
+    Sh = sp.csr_matrix((hval.astype(np.float64), hind, hptr), shape=(mh, mh))
+    Bhnp = Bh64.cpu().numpy()
+    ref_h = Sh @ Bhnp
+    mm_case("mm stencil default (diag)", H, "spmm_diag_f32", ref_h, f32tol, 1.0, NONE, Bh, 0.0)
+    mm_case("mm stencil kid=7", H, "spmm_diag_f32", ref_h, f32tol, 1.0, NONE, Bh, 0.0, kid=7)
+    hz = row_nnz(hptr)[:, None]
+    sab = abs(Sh) @ np.abs(Bhnp)
+    mixed_case("mm stencil mixed default", H, "spmm_diag_bf16", ref_h, sab, hz, 1, B=Bh)
+    mixed_case("mm stencil mixed kid=7", H, "spmm_diag_bf16", ref_h, sab, hz, 1, B=Bh, kid=7)
+    del sab
+
     # 5. solvers on the SPD operand
-    log("phase 5: CG (pcg_solve, precond=None), trsv, ilu_smoother, ILU0- and SGS-PCG")
+    phase("phase 5: CG (pcg_solve, precond=None), trsv, ilu_smoother, ILU0- and SGS-PCG")
     cform = C.plan.exec_form_for(GEN, NONE)
     if cform.kind != "bandt":
         raise AssertionError(f"SPD operand planned as {cform.kind}")
@@ -473,6 +805,17 @@ def main() -> int:
     Uf = sp.csr_matrix((lu[~low], (rows[~low], cind[~low])), shape=(m, m))
     LU = spla.aslinearoperator(Lf) @ spla.aslinearoperator(Uf)  # applied, never multiplied out
     check_residual("ilu_smoother: L (U x) = b", LU, xsm, bref, expected_precision(torch.float32))
+    Bsm = np.random.default_rng(31).standard_normal((m, K_SM)).astype(np.float32)
+    Bsm_d = torch.from_numpy(Bsm).to(dev)
+    Bsm64 = Bsm.astype(np.float64)
+    c0 = trsm_win.launches["f32"]
+    residual_cols(f"trsm f32 lower non-unit K={K_SM}", sp.tril(Sspd).tocsr(),
+                  tt.trsm(1.0, C, LOWER, NONE, Bsm_d), Bsm64, expected_precision(torch.float32))
+    residual_cols(f"ilu_smoother (m, {K_SM}) b: L (U X) = B", LU, tt.ilu_smoother(C, GEN, Bsm_d), Bsm64,
+                  expected_precision(torch.float32))
+    if trsm_win.launches["f32"] - c0 != 3:
+        raise AssertionError(f"trsm + 2-D ilu_smoother made {trsm_win.launches['f32'] - c0} multi-RHS "
+                             "launches, want 1 + 2")
     run_pcg("ilu0", 1)
     run_pcg("sgs", 2)
     for precond in ("ilu0", "sgs"):
@@ -480,62 +823,127 @@ def main() -> int:
             raise AssertionError(f"precond={precond} took {iters[precond]} iterations, none {iters[None]}")
     C64 = tt.create_csr(m, n, cptr, cind, cval.astype(np.float64), device="cuda")
     tt.set_sv_hint(C64, NONE, UPPER, nop=1000)
+    tt.set_sm_hint(C64, NONE, UPPER, nop=1000)
     tt.optimize(C64)
     check_residual("trsv f64 upper non-unit (reversed form)", sp.triu(Sspd).tocsr(),
                    tt.trsv(1.0, C64, UPPER, NONE, b_d.double()), bref, expected_precision(torch.float64))
+    c0 = trsm_win.launches["f64"]
+    residual_cols(f"trsm f64 upper non-unit K={K_SM} (reversed form)", sp.triu(Sspd).tocsr(),
+                  tt.trsm(1.0, C64, UPPER, NONE, Bsm_d.double()), Bsm64, expected_precision(torch.float64))
+    if trsm_win.launches["f64"] - c0 != 1:
+        raise AssertionError("trsm f64 did not launch the multi-RHS kernel once")
     del C64
-    launches = {f"band_spmv_{k}": v for k, v in band_spmv.launches.items()}
-    launches.update({f"trsv_win_{k}": v for k, v in trsv_win.launches.items()})
+    launches = {f"{prefix}_{k}": v for prefix, counts in COUNTERS.items() for k, v in counts.items()}
     log(f"  main-path launches: {launches}")
     for kernel, count in launches.items():
         if count == 0:
             raise AssertionError(f"kernel {kernel} never launched on the main path")
 
     # 6. timing
-    log("phase 6: timing (CUDA events or host clock, median of repeats)")
+    phase("phase 6: timing (CUDA events or host clock, median of repeats)")
     peak = ctx.hbm_gbps
-    ms, plain_ms = {}, {}
+    ms, plain_ms, bounds, lib = {}, {}, {}, {}
+
+    def turns(kernel, kern, plain, kreps=(15, 10), preps=(15, 10), kwarm=3, pwarm=1):
+        """plain, kernel, kernel, plain: compare within one call, in turns."""
+        p1 = cuda_ms(plain, reps=preps[0], inner=preps[1], warm=pwarm)
+        k1 = cuda_ms(kern, reps=kreps[0], inner=kreps[1], warm=kwarm)
+        k2 = cuda_ms(kern, reps=kreps[0], inner=kreps[1], warm=kwarm)
+        p2 = cuda_ms(plain, reps=preps[0], inner=preps[1], warm=pwarm)
+        ms[kernel], plain_ms[kernel] = min(k1, k2), min(p1, p2)
+        return k1, k2, p1, p2
+
+    def note(kernel, nbytes_, need, flops, lib_fn=None, lib_kw=None):
+        """Record the kernel's bound and its library yardstick; log them.
+        nbytes_ counts the stored operands once each, zero padding included
+        (the bound_ms of the kernels line); need counts only their nonzero
+        entries, the function's own bytes, logged beside it."""
+        inst = kernel.rsplit("_", 1)[1]
+        bounds[kernel] = bound_of(nbytes_, flops, inst, peak)
+        need_ms, need_by = bound_of(need, flops, inst, peak)
+        err = "no library call computes this instance's function"
+        lib[kernel] = None
+        if lib_fn is not None:
+            lib[kernel], err = library_ms(lib_fn, **(lib_kw or {}))
+        lib_s = f"{lib[kernel]:.4f} ms" if lib[kernel] is not None else f"none ({err})"
+        log(f"  {kernel}: kernel {ms[kernel]:.4f} ms, plain {plain_ms[kernel]:.4f} ms, library {lib_s}, "
+            f"bound {bounds[kernel][0]:.4f} ms ({bounds[kernel][1]}; {nbytes_ / 1e6:.1f} MB stored, "
+            f"{flops / 1e9:.2f} GFLOP) = {bounds[kernel][0] / ms[kernel]:.3f} of the bound; "
+            f"nonzeros only {need_ms:.4f} ms ({need_by}; {need / 1e6:.1f} MB) = {need_ms / ms[kernel]:.3f}")
+
+    A32 = csr_tensor(ptr, ind, val, dev, torch.float32)
+    A64 = csr_tensor(ptr, ind, val, dev, torch.float64)
     f64 = bandt_form(ptr, ind, val.astype(np.float64), dev)
     cases = {
-        "band_spmv_f32": (f32.bwd_val, x32, args32),
-        "band_spmv_bf16": (vt_bf, x32, args32),
-        "band_spmv_f64": (f64.bwd_val, x64, (f64.bandt_start, f64.bwd_padL)),
+        "band_spmv_f32": (f32.bwd_val, x32, args32, lambda: A32 @ x32),
+        "band_spmv_bf16": (vt_bf, x32, args32, None),
+        "band_spmv_f64": (f64.bwd_val, x64, (f64.bandt_start, f64.bwd_padL), lambda: A64 @ x64),
     }
-    for kernel, (vt, xv, args) in cases.items():
-        # plain, kernel, kernel, plain: compare within one call, in turns
-        p1 = cuda_ms(lambda: band_spmv_plain(vt, xv, *args))
-        k1 = cuda_ms(lambda: band_spmv(vt, xv, *args))
-        k2 = cuda_ms(lambda: band_spmv(vt, xv, *args))
-        p2 = cuda_ms(lambda: band_spmv_plain(vt, xv, *args))
-        ms[kernel], plain_ms[kernel] = min(k1, k2), min(p1, p2)
-        band_bytes = vt.numel() * vt.element_size()
-        log(f"  {kernel}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
-            f"band stream {band_bytes / ms[kernel] / 1e6:.1f} GB/s "
+    for kernel, (vt, xv, args, lib_fn) in cases.items():
+        turns(kernel, lambda: band_spmv(vt, xv, *args), lambda: band_spmv_plain(vt, xv, *args))
+        band_bytes = nbytes(vt)
+        log(f"  {kernel}: band stream {band_bytes / ms[kernel] / 1e6:.1f} GB/s "
             f"({band_bytes / ms[kernel] / 1e6 / peak:.3f} of peak {peak} GB/s)")
+        note(kernel, nbytes(vt, xv) + m * xv.element_size(), nz_bytes(vt, xv) + m * xv.element_size(),
+             2 * vt.numel(), lib_fn)
     del f64
     fL = st.l_form
     dT32, lT32 = ilu_ops["L"]
-    b32 = bw
-    dT64, lT64, b64 = dT32.double(), lT32.double(), bw.double()
-    for kernel, (dT, lT, bb) in (("trsv_win_f32", (dT32, lT32, b32)), ("trsv_win_f64", (dT64, lT64, b64))):
-        def kern():
-            return trsv_win(dT, lT, bb, fL.nb, fL.WL)
-
-        def plain():
-            return trsv_win_plain(dT, lT, bb, fL.nb, fL.WL)
-
-        # the plain loop walks 1024 blocks from Python: few repeats
-        p1 = cuda_ms(plain, reps=3, inner=1, warm=1)
-        k1 = cuda_ms(kern, reps=5, inner=2, warm=1)
-        k2 = cuda_ms(kern, reps=5, inner=2, warm=1)
-        p2 = cuda_ms(plain, reps=3, inner=1, warm=1)
-        ms[kernel], plain_ms[kernel] = min(k1, k2), min(p1, p2)
-        op_bytes = dT.numel() * dT.element_size() + lT.numel() * lT.element_size()
-        log(f"  {kernel} (ILU0 L form, nb={fL.nb} WL={fL.WL} nblk={fL.nblk}): kernel {k1:.4f}/{k2:.4f} ms, "
-            f"plain {p1:.4f}/{p2:.4f} ms, operand stream {op_bytes / ms[kernel] / 1e6:.1f} GB/s "
-            f"({op_bytes / ms[kernel] / 1e6 / peak:.4f} of peak {peak} GB/s; "
+    dT64, lT64, b64, bm64 = dT32.double(), lT32.double(), bw.double(), bw_m.double()
+    Lf.sort_indices()
+    L32 = csr_tensor(Lf.indptr, Lf.indices, Lf.data, dev, torch.float32)
+    L64 = csr_tensor(Lf.indptr, Lf.indices, Lf.data, dev, torch.float64)
+    # a step: the triangular nb x nb inverted block and the WL x nb window
+    step_flops = 2 * (fL.nb * (fL.nb + 1) // 2 + fL.WL * fL.nb) * fL.nblk
+    for inst, (dT, lT, bb, bmm, Lt) in (("f32", (dT32, lT32, bw, bw_m, L32)), ("f64", (dT64, lT64, b64, bm64, L64))):
+        # the plain loops walk 1024 blocks from Python: few repeats
+        kernel = f"trsv_win_{inst}"
+        turns(kernel, lambda: trsv_win(dT, lT, bb, fL.nb, fL.WL), lambda: trsv_win_plain(dT, lT, bb, fL.nb, fL.WL),
+              kreps=(3, 2), preps=(1, 1), kwarm=1, pwarm=0)
+        op_bytes = nbytes(dT, lT)
+        log(f"  {kernel} (ILU0 L form, nb={fL.nb} WL={fL.WL} nblk={fL.nblk}): operand stream "
+            f"{op_bytes / ms[kernel] / 1e6:.1f} GB/s ({op_bytes / ms[kernel] / 1e6 / peak:.4f} of peak {peak} GB/s; "
             f"{op_bytes / 1e6:.1f} MB per solve)")
-    del dT64, lT64, b64
+        # the library solve re-analyses the triangle each call (seconds): the
+        # first call's own time
+        one = dict(once=True)
+        op_need = nz_bytes(dT, lT)
+        note(kernel, op_bytes + 2 * nbytes(bb), op_need + 2 * nbytes(bb), step_flops,
+             lambda: torch.triangular_solve(bb[:, None], Lt, upper=False, unitriangular=True), one)
+        kernel = f"trsm_win_{inst}"
+        turns(kernel, lambda: trsm_win(dT, lT, bmm, fL.nb, fL.WL), lambda: trsm_win_plain(dT, lT, bmm, fL.nb, fL.WL),
+              kreps=(3, 1), preps=(1, 1), kwarm=1, pwarm=0)
+        note(kernel, op_bytes + 2 * nbytes(bmm), op_need + 2 * nbytes(bmm), step_flops * K_SM,
+             lambda: torch.triangular_solve(bmm, Lt, upper=False, unitriangular=True), one)
+        log(f"  {kernel}: K={K_SM} solve costs {ms[kernel] / ms[f'trsv_win_{inst}']:.2f}x the K=1 solve")
+    del dT64, lT64, b64, bm64
+    mm_flops = 2 * tm32.bwd_val.numel() * K_MM
+    for inst, v, Bx, Ax in (("f32", tm32.bwd_val, Bm, A32), ("f64", tm64.bwd_val, Bm64, A64)):
+        kernel = f"spmm_band_{inst}"
+        turns(kernel, lambda: spmm_band(v, Bx, *targs), lambda: spmm_band_plain(v, Bx, *targs),
+              kreps=(15, 5), preps=(3, 1))
+        c_bytes = nbytes(Bx) * m // n
+        note(kernel, nbytes(v, Bx) + c_bytes, nz_bytes(v, Bx) + c_bytes, mm_flops,
+             lambda: torch.sparse.mm(Ax, Bx), dict(reps=5, inner=2))
+    for inst, dt_ in (("f32", dt32), ("bf16", dtbf)):
+        kernel = f"spmm_band_mxu_{inst}"
+        turns(kernel, lambda: spmm_band_mxu(dt_, Bm, *targs, m), lambda: spmm_band_mxu_plain(dt_, Bm, *targs, m),
+              kreps=(15, 5), preps=(3, 2))
+        # the same band product as spmm_band: the windows' zero triangles
+        # are stored bytes, not operations the function needs
+        note(kernel, nbytes(dt_, Bm) + m * K_MM * 4, nz_bytes(dt_, Bm) + m * K_MM * 4, mm_flops,
+             (lambda: torch.sparse.mm(A32, Bm)) if inst == "f32" else None, dict(reps=5, inner=2))
+    H32 = csr_tensor(hptr, hind, hval, dev, torch.float32)
+    H64 = csr_tensor(hptr, hind, hval, dev, torch.float64)
+    for inst, dv, Bx, Hx in (("f32", hf.dia_val, Bh, H32), ("bf16", hf.dia_bf16(), Bh, None),
+                             ("f64", hv64, Bh64, H64)):
+        kernel = f"spmm_diag_{inst}"
+        turns(kernel, lambda: spmm_diag(dv, hf.dia_offs, Bx), lambda: spmm_diag_plain(dv, hf.dia_offs, Bx),
+              kreps=(15, 5), preps=(3, 1))
+        c_bytes = nbytes(hf.dia_offs) + mh * K_MM * Bx.element_size()
+        note(kernel, nbytes(dv, Bx) + c_bytes, nz_bytes(dv, Bx) + c_bytes, 2 * dv.numel() * K_MM,
+             (lambda: torch.sparse.mm(Hx, Bx)) if Hx is not None else None, dict(reps=5, inner=2))
+    del A64, H64, hv64, Bh64
     gbytes = {  # bench.py:60 useful bytes; bf16 credited as the f32 op
         "f32": ((m + 1 + nnz) * 4 + (nnz + n + m) * 4) / 1e9,
         "f64": ((m + 1 + nnz) * 4 + (nnz + n + m) * 8) / 1e9,
@@ -548,6 +956,14 @@ def main() -> int:
         eff = gb / (t / 1e3)
         log(f"  {name}: {t:.4f} ms/call, effective {eff:.1f} GB/s = {eff / peak:.3f} of peak "
             f"{peak} GB/s (bench.py:60 useful bytes)")
+    # mm: useful bytes (m+1+nnz)*4 + (nnz + (n+m)*K)*vsize, the mv formula with K columns
+    for name, handle, Bx, mrows, nz in (("mm bench (bandtm)", Amm, Bm, m, nnz), ("mm stencil (diag)", H, Bh, mh,
+                                                                                 hind.size)):
+        t = cuda_ms(lambda: tt.mm(1.0, handle, GEN, NONE, Bx, 0.0), reps=15, inner=5)
+        eff = ((mrows + 1 + nz) * 4 + (nz + 2 * mrows * K_MM) * 4) / (t / 1e3) / 1e9
+        log(f"  {name} K={K_MM} f32: {t:.4f} ms/call, effective {eff:.1f} GB/s = {eff / peak:.3f} of peak {peak} GB/s")
+    t_trsm = cuda_ms(lambda: tt.trsm(1.0, C, LOWER, NONE, Bsm_d), reps=5, inner=1, warm=1)
+    log(f"  trsm f32 lower K={K_SM}: {t_trsm:.4f} ms/call (one multi-RHS window solve + padding)")
     t_cg, t_cg_all = iteration_ms(lambda kk: tt.pcg_solve(C, b_d, rtol=0.0, maxit=kk)[1], 10, 60)
     log(f"  CG iteration: {t_cg:.4f} ms (host clock, median of "
         f"{[round(t, 4) for t in t_cg_all]}; includes one host read per iteration)")
@@ -560,6 +976,7 @@ def main() -> int:
     log(f"  ILU0-PCG iteration: {t_pcg:.4f} ms (host clock, median of "
         f"{[round(t, 4) for t in t_pcg_all]})")
     log(f"  set-up: ilu0_factorize {t_factor:.2f} s + diagonal-block inversion {t_invert:.2f} s")
+    phase("done")
 
     kernels = [
         {
@@ -571,6 +988,9 @@ def main() -> int:
             "max_abs_err": errs[kernel],
             "ms": ms[kernel],
             "plain_ms": plain_ms[kernel],
+            "bound_ms": bounds[kernel][0],
+            "bound_by": bounds[kernel][1],
+            "library_ms": lib[kernel],
         }
         for kernel in KERNELS
     ]

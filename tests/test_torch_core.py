@@ -90,6 +90,11 @@ def test_registry_table_and_dispatcher():
     kids = {e.kid: e.fmt for e in registry.table("mv")}
     assert kids == {0: "segsum", 8: "bandt", 12: "bandt", 13: "bandt"}
     assert {e.kid: e.fmt for e in registry.table("sv")} == {0: "blocked"}
+    assert {e.kid: e.fmt for e in registry.table("mm")} == {
+        0: "segsum", 1: "ell", 2: "ellhyb", 3: "bwdg", 4: "bandtm", 5: "bandtm", 7: "diag"
+    }
+    assert tt.debug_dispatcher("mm", fmt="bandtm", device="cpu")["name"] == "cuda_bandtm"
+    assert tt.debug_dispatcher("mm", fmt="diag", device="cpu")["kid"] == 7
     assert tt.debug_dispatcher("mv", fmt="bandt", device="cpu")["kid"] == 12
     assert tt.debug_dispatcher("mv", fmt="segsum", device="cpu")["kid"] == 0
     assert tt.debug_dispatcher("sv", device="cpu")["name"] == "cuda_trsv_win"
@@ -97,7 +102,7 @@ def test_registry_table_and_dispatcher():
         registry.select("mv", fmt="segsum", kid=8)
     assert e.value.status == tt.Status.invalid_kid
     with pytest.raises(tt.AoclSparseError) as e:
-        registry.select("sm")  # trsm: not ported yet
+        registry.select("sm")  # trsm runs through the sv table, as in the JAX package
     assert e.value.status == tt.Status.not_implemented
 
 

@@ -1,8 +1,8 @@
 """ILU(0) of the PyTorch port against aoclsparse_tpu's.
 
 The factorization runs the same C++ source in both packages (the port
-compiles the JAX package's host_kernels.cpp with the same flags), so the
-factored values are compared bit for bit. The apply (two window solves)
+compiles its own byte-equal copy of the JAX package's host_kernels.cpp with
+the same flags), so the factored values are compared bit for bit. The apply (two window solves)
 holds the JAX package's substitution scan to 1e-10 relative in float64, on
 max |a - b| / max(|b|, 1).
 """
@@ -60,6 +60,17 @@ def test_factor_bit_equal_to_jax(ast, dtype):
     assert st.lu.dtype == torch.from_numpy(val).dtype
     np.testing.assert_array_equal(st.lu.numpy(), want)
     assert tilu.ilu0_factorize(T) is st  # cached on the handle
+
+
+def test_host_source_is_the_ports_own_byte_equal_copy():
+    """The port builds from its own copy (nothing under aoclsparse_tpu/ is
+    read at run time), and the copy equals the JAX package's source."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    assert native.HOST_SOURCE == root / "aoclsparse_tpu_torch" / "native" / "src" / "host_kernels.cpp"
+    jax_src = root / "aoclsparse_tpu" / "native" / "src" / "host_kernels.cpp"
+    assert native.HOST_SOURCE.read_bytes() == jax_src.read_bytes()
 
 
 def test_native_factor_matches_numpy_version():
@@ -156,7 +167,8 @@ def test_smoother_argument_statuses():
         (dict(b=b, kid=1), tt.Status.not_implemented),  # level apply: ROADMAP item 12
         (dict(b=b, kid=3), tt.Status.invalid_kid),
         (dict(b=b, op=tt.Operation.transpose), tt.Status.not_implemented),
-        (dict(b=torch.ones(100, 2, dtype=torch.float64)), tt.Status.not_implemented),  # multi-RHS: #14
+        (dict(b=torch.ones(99, 2, dtype=torch.float64)), tt.Status.invalid_size),
+        (dict(b=torch.ones(100, 2, 2, dtype=torch.float64)), tt.Status.invalid_size),
         (dict(b=torch.ones(99, dtype=torch.float64)), tt.Status.invalid_size),
         (dict(b=None), tt.Status.invalid_pointer),
     ]
@@ -164,3 +176,6 @@ def test_smoother_argument_statuses():
         with pytest.raises(tt.AoclSparseError) as e:
             tt.ilu_smoother(T, GEN, **kw)
         assert e.value.status == status, kw
+    # a 2-D b is the multi-RHS apply: column by column the 1-D one
+    X = tt.ilu_smoother(T, GEN, torch.ones(100, 2, dtype=torch.float64))
+    np.testing.assert_allclose(X[:, 1].numpy(), tt.ilu_smoother(T, GEN, b).numpy(), rtol=1e-12, atol=1e-12)
