@@ -1,6 +1,6 @@
 """State carried across from the JAX package, as host numpy arrays.
 
-Three entry points let one operand feed both packages:
+These entry points let one operand feed both packages:
 
 - `matrix_from_jax_arrays` takes the arrays that ``aoclsparse_tpu.export_csr``
   returns and builds this package's handle from them.
@@ -12,6 +12,10 @@ Three entry points let one operand feed both packages:
   solve the very same blocks.
 - `mm_form_from_jax` does the same for the SpMM forms ``bandtm``, ``diag``,
   ``bwdg``, ``ell`` and ``ellhyb``.
+- `gen_form_from_jax` does it for the general-structure ``gen`` form (block
+  permutation, band, hub slabs, spill), and `spill_route_from_jax` for a
+  JAX ``SpillRoute``, so the select, accumulate and route kernels run on
+  the JAX planner's very operands.
 
 None imports JAX: the arrays arrive as numpy.
 """
@@ -27,9 +31,17 @@ from .core.context import resolve_device
 from .core.matrix import SparseMatrix, as_values, create_csr
 from .core.types import IndexBase
 from .planner.plan import ExecForm
+from .planner.spill_route import SpillRoute
 from .planner.triangular import TrsvForm
 
-__all__ = ["matrix_from_jax_arrays", "bandt_form_from_jax", "mm_form_from_jax", "trsv_form_from_jax"]
+__all__ = [
+    "matrix_from_jax_arrays",
+    "bandt_form_from_jax",
+    "gen_form_from_jax",
+    "mm_form_from_jax",
+    "spill_route_from_jax",
+    "trsv_form_from_jax",
+]
 
 
 def matrix_from_jax_arrays(
@@ -114,18 +126,76 @@ def mm_form_from_jax(kind: str, arrays: Mapping, m: int, n: int, device=None) ->
     value refresh."""
     if kind not in ("bandtm", "diag", "bwdg", "ell", "ellhyb"):
         raise ValueError(f"no SpMM form of kind {kind!r}")
-    dev = resolve_device(device)
+    kw = _form_kwargs(arrays, _MM_VALUES, _MM_INDICES, _MM_INTS, resolve_device(device))
+    if kind == "diag":
+        kw["dia_offs_static"] = tuple(int(o) for o in np.asarray(arrays["dia_offs"]))
+    return ExecForm(kind=kind, m=int(m), n=int(n), **kw)
+
+
+#: ExecForm fields a gen form carries beyond the SpMM ones
+_GEN_VALUES = ("hub_slab", "hubr_slab")
+_GEN_INDICES = ("gen_perm", "gen_out", "hub_cols", "hubr_rows")
+_GEN_INTS = ("gen_B", "gen_m_pad")
+
+
+def _form_kwargs(arrays: Mapping, values, indices, ints, dev) -> dict:
     kw = {}
-    for key in _MM_VALUES + _MM_INDICES:
+    for key in values + indices:
         a = arrays.get(key)
         if a is None or (key.startswith("sp_") and np.asarray(a).size == 0):
             continue
         a = np.ascontiguousarray(a)
-        if key in _MM_INDICES:
-            kw[key] = torch.from_numpy(a.astype(np.int64)).to(dev)
-        else:
-            kw[key] = as_values(a, dev)
-    kw.update({key: int(arrays[key]) for key in _MM_INTS if key in arrays})
-    if kind == "diag":
-        kw["dia_offs_static"] = tuple(int(o) for o in np.asarray(arrays["dia_offs"]))
-    return ExecForm(kind=kind, m=int(m), n=int(n), **kw)
+        kw[key] = torch.from_numpy(a.astype(np.int64)).to(dev) if key in indices else as_values(a, dev)
+    kw.update({key: int(arrays[key]) for key in ints if key in arrays})
+    return kw
+
+
+def gen_form_from_jax(arrays: Mapping, m: int, n: int, device=None) -> ExecForm:
+    """This package's ``gen`` ExecForm from a JAX one's arrays, keyed by the
+    field names both packages share: the band (``bwd_val``, in the (W, m_pad)
+    layout when ``gen_bandt`` is true, else (m_pad/8, 8, W)), its geometry,
+    ``gen_perm``/``gen_out``/``gen_flip``, the hub slabs and the spill. The
+    form carries no scatter maps, so it serves mv but not a value
+    refresh."""
+    dev = resolve_device(device)
+    kw = _form_kwargs(arrays, _MM_VALUES + _GEN_VALUES, _MM_INDICES + _GEN_INDICES, _MM_INTS + _GEN_INTS, dev)
+    flip = arrays.get("gen_flip")
+    if flip is not None:
+        kw["gen_flip"] = torch.from_numpy(np.array(flip, dtype=bool)).to(dev)
+    return ExecForm(kind="gen", m=int(m), n=int(n), gen_bandt=bool(arrays["gen_bandt"]), **kw)
+
+
+def spill_route_from_jax(arrays: Mapping, device=None) -> SpillRoute:
+    """This package's SpillRoute from a JAX one's arrays (its dataclass
+    fields: the statics ``k``, ``n``, ``nxblk``, ``nyblk``, ``n_sel_tiles``,
+    ``n_acc_tiles`` and ``m_pad``, the tiles ``sel_idx``/``sel_val``/
+    ``sel_blk``/``acc_idx``/``acc_blk``/``acc_cid`` and the ``masks`` /
+    ``masks_packed`` route, either None). The accumulate kernel's
+    ``acc_start`` is derived from the monotone ``acc_blk``. Without
+    ``_val_slot`` the route serves applies but not a value refresh."""
+    dev = resolve_device(device)
+
+    def i32(key):
+        return torch.from_numpy(np.array(arrays[key], dtype=np.int32)).to(dev)
+
+    def u8(key):
+        a = arrays.get(key)
+        return None if a is None else torch.from_numpy(np.array(a, dtype=np.uint8)).to(dev)
+
+    nyblk = int(arrays["nyblk"])
+    acc_blk = np.asarray(arrays["acc_blk"])
+    slot = arrays.get("_val_slot")
+    return SpillRoute(
+        **{key: int(arrays[key]) for key in ("k", "n", "nxblk", "n_sel_tiles", "n_acc_tiles", "m_pad")},
+        nyblk=nyblk,
+        sel_idx=i32("sel_idx"),
+        sel_val=as_values(np.ascontiguousarray(arrays["sel_val"]), dev),
+        sel_blk=i32("sel_blk"),
+        acc_idx=i32("acc_idx"),
+        acc_blk=i32("acc_blk"),
+        acc_cid=i32("acc_cid"),
+        acc_start=torch.from_numpy(np.searchsorted(acc_blk, np.arange(nyblk + 1)).astype(np.int32)).to(dev),
+        masks=u8("masks"),
+        masks_packed=u8("masks_packed"),
+        _val_slot=None if slot is None else torch.from_numpy(np.asarray(slot, dtype=np.int64)).to(dev),
+    )

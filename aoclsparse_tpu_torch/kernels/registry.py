@@ -11,11 +11,15 @@ the global ``AOCLSPARSE_TPU_FORCE_KID`` override. The backend of a call is
 the device of its operand. ``debug_dispatcher`` reports which kernel would
 run (aoclsparse_debug_dispatcher analog).
 
-The mv table keeps the JAX package's KID numbers for the kernels ported so
-far: 0 (segsum), and 8, 12 and 13 for the ``bandt`` form. All three band
-KIDs run the one band kernel (kernels/band_spmv.py); 12 is the default and
-streams a bf16 band under the mixed precision policy, 13 is the f64
-instance (the JAX package's double-float KID).
+The mv table keeps the JAX package's KID numbers for the forms ported so
+far: 0 (segsum), 1 (ell) and 2 (ellhyb), the gather forms in plain torch;
+7, the general-structure composite (kernels/spmv_gen.py), whose band runs
+the band kernel and whose spill the spill-route kernels; 8, 12 and 13 for
+the ``bandt`` form, all three the one band kernel (kernels/band_spmv.py),
+12 the default, streaming a bf16 band under the mixed precision policy, 13
+the f64 instance (the JAX package's double-float KID); and 14, the
+whole-matrix route (planner/spill_route.py), which a KID cannot pin (mv
+raises invalid_kid for it, as the JAX package does).
 
 The sv table keeps KID 0, the blocked window solve (kernels/trsv_win.py),
 which serves trsv and trsm alike (the JAX package has no separate sm
@@ -40,10 +44,11 @@ import torch
 from ..core.context import get_context
 from ..core.types import AoclSparseError, Status
 from .band_spmv import spmv_bandt
-from .plain_spmv import spmv_segsum
+from .plain_spmv import spmv_ell, spmv_ellhyb, spmv_segsum
 from .spmm_band import spmm_bandmxu, spmm_bandtm
 from .spmm_diag import spmm_diag
 from .spmm_plain import spmm_bwd, spmm_ell, spmm_ellhyb, spmm_segsum
+from .spmv_gen import spmv_gen, spmv_route
 from .trsv_win import trsv_win
 
 __all__ = ["KernelEntry", "Registry", "registry", "debug_dispatcher"]
@@ -133,11 +138,15 @@ class Registry:
 #: Global registry with the static mv, sv and mm KAT tables.
 registry = Registry()
 registry.register("mv", KernelEntry(0, "torch_segsum", spmv_segsum, "segsum", "any", 0))
+registry.register("mv", KernelEntry(1, "torch_ell", spmv_ell, "ell", "any", 0))
+registry.register("mv", KernelEntry(2, "torch_ellhyb", spmv_ellhyb, "ellhyb", "any", 0))
+registry.register("mv", KernelEntry(7, "gen_composite", spmv_gen, "gen", "any", 1))
 registry.register("mv", KernelEntry(8, "cuda_bandt", spmv_bandt, "bandt", "any", 2))
 registry.register("mv", KernelEntry(12, "cuda_bandv", spmv_bandt, "bandt", "any", 3))
 # f64 instance: explicit KID, or the bandt dispatch of a float64 operand
 # (ops/level2/mv.py), as the JAX package routes its double-float kernel
 registry.register("mv", KernelEntry(13, "cuda_band_f64", spmv_bandt, "bandt", "any", -1))
+registry.register("mv", KernelEntry(14, "cuda_spill_route", spmv_route, "route", "any", 1))
 registry.register("sv", KernelEntry(0, "cuda_trsv_win", trsv_win, "blocked", "any", 0))
 registry.register("mm", KernelEntry(0, "torch_segsum", spmm_segsum, "segsum", "any", 0))
 registry.register("mm", KernelEntry(1, "torch_ell", spmm_ell, "ell", "any", 0))

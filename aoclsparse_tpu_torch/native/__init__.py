@@ -1,8 +1,9 @@
-"""Host C++ kernels of the planner: ILU(0) factorization and the blocked
-triangular-solve form fill, bound with ctypes.
+"""Host C++ kernels of the planner: ILU(0) factorization, the blocked
+triangular-solve form fill, reverse Cuthill-McKee ordering and the Benes
+routing plan, bound with ctypes.
 
 PyTorch-side counterpart of ``aoclsparse_tpu/native/__init__.py:45-247,
-697-773``. The C++ source, ``native/src/host_kernels.cpp``, is this
+278-345, 697-848``. The C++ source, ``native/src/host_kernels.cpp``, is this
 package's own byte-equal copy of the JAX package's
 ``aoclsparse_tpu/native/src/host_kernels.cpp`` (a CPU test holds the two
 equal, so both packages factor with the same code). At first use ``g++``
@@ -12,9 +13,10 @@ under a name carrying a hash of the source and flags, so an edited source
 rebuilds and an unchanged one loads the existing file. Nothing under
 ``aoclsparse_tpu/`` is read or written.
 
-`ilu0_factor` falls back to `_ilu0_numpy` (the same IKJ sweep in numpy)
-when the library cannot be built; `trsv_win_build` returns None then, and
-its callers build the form in numpy. `available()` says which one runs.
+`ilu0_factor`, `rcm_permutation` and `benes_plan` fall back to their numpy
+versions (`_ilu0_numpy`, `_rcm_numpy`, `_benes_numpy`) when the library
+cannot be built; `trsv_win_build` returns None then, and its callers build
+the form in numpy. `available()` says which one runs.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import numpy as np
 
 from ..kernels.build import BUILD_DIR
 
-__all__ = ["available", "ilu0_factor", "trsv_win_build", "HOST_SOURCE"]
+__all__ = ["available", "benes_plan", "ilu0_factor", "rcm_permutation", "trsv_win_build", "HOST_SOURCE"]
 
 #: the package's copy of the JAX package's host kernels
 HOST_SOURCE = Path(__file__).resolve().parent / "src" / "host_kernels.cpp"
@@ -45,6 +47,7 @@ _tried = False
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _I32P = ctypes.POINTER(ctypes.c_int32)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
 _VALP = {
     np.dtype(np.float32): ("s", ctypes.POINTER(ctypes.c_float)),
     np.dtype(np.float64): ("d", ctypes.POINTER(ctypes.c_double)),
@@ -93,6 +96,10 @@ def _bind(lib: ctypes.CDLL) -> None:
             ctypes.c_int64, _I64P, _I64P, _I32P, vp, ctypes.c_int64, ctypes.c_int,
             ctypes.c_int64, _I64P, _I64P, vp, vp, _I64P, _I64P, _I64P, _I64P,
         ]
+    lib.rcm.restype = ctypes.c_int64
+    lib.rcm.argtypes = [ctypes.c_int64, _I64P, _I64P, _I64P]
+    lib.benes_plan.restype = None
+    lib.benes_plan.argtypes = [ctypes.c_int64, _I64P, _U8P]
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -229,3 +236,125 @@ def trsv_win_build(m, lo, hi, ind, vals, nb, reversed_):
         "WL": WL, "nblk": nblk, "D": D, "Lw": Lw,
         "D_dest": D_dest, "D_srcpos": D_srcpos, "L_dest": L_dest, "L_srcpos": L_srcpos,
     }
+
+
+def rcm_permutation(m: int, ptr, ind) -> Tuple[np.ndarray, int]:
+    """Reverse Cuthill-McKee ordering on the symmetrized pattern: returns
+    (perm, half bandwidth after), perm[k] = original row placed at position
+    k. The gen form's planner orders the block quotient graph with it."""
+    lib = _load()
+    ptr64, ind64 = _i64(ptr), _i64(ind)
+    if lib is None:
+        return _rcm_numpy(m, ptr64, ind64)
+    perm = np.empty(m, dtype=np.int64)
+    bw = lib.rcm(ctypes.c_int64(m), _ptr(ptr64, _I64P), _ptr(ind64, _I64P), _ptr(perm, _I64P))
+    return perm, int(bw)
+
+
+def _rcm_numpy(m, ptr, ind):
+    """The ordering in numpy, one BFS level at a time: its plain version."""
+    ptr, ind = _i64(ptr), _i64(ind)
+    rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(ptr))
+    keep = (ind < m) & (ind != rows)
+    src = np.concatenate([rows[keep], ind[keep]])
+    dst = np.concatenate([ind[keep], rows[keep]])
+    order2 = np.lexsort((dst, src))
+    src, dst = src[order2], dst[order2]
+    if src.size:  # drop duplicate edges
+        uniq = np.concatenate([[True], (src[1:] != src[:-1]) | (dst[1:] != dst[:-1])])
+        src, dst = src[uniq], dst[uniq]
+    aptr = np.zeros(m + 1, dtype=np.int64)
+    np.add.at(aptr, src + 1, 1)
+    aptr = np.cumsum(aptr)
+    deg = np.diff(aptr)
+    visited = np.zeros(m, dtype=bool)
+    order = []
+    for seed in np.argsort(deg, kind="stable"):
+        if visited[seed]:
+            continue
+        frontier = np.array([seed], dtype=np.int64)
+        visited[seed] = True
+        while frontier.size:
+            order.append(frontier)
+            starts, stops = aptr[frontier], aptr[frontier + 1]
+            if stops.sum() - starts.sum() == 0:
+                nxt = np.zeros(0, dtype=np.int64)
+            else:
+                nxt = np.unique(np.concatenate([dst[a:b] for a, b in zip(starts, stops)]))
+                nxt = nxt[~visited[nxt]]
+            visited[nxt] = True
+            # degree-ascending within the level (the Cuthill-McKee tie-break)
+            frontier = nxt[np.argsort(deg[nxt], kind="stable")] if nxt.size else nxt
+    perm = np.concatenate(order)[::-1].copy() if order else np.zeros(0, np.int64)
+    ip = np.empty(m, dtype=np.int64)
+    ip[perm] = np.arange(m)
+    bw = int(np.abs(ip[rows[keep]] - ip[ind[keep]]).max()) if keep.any() else 0
+    return perm, bw
+
+
+def benes_plan(k: int, src) -> np.ndarray:
+    """Per-stage cross masks of a Benes network realizing the permutation
+    out[j] = in[src[j]] on n = 2**k slots: (2k-1, n) uint8, stage strides
+    2^(k-1), ..., 2, 1, 2, ..., 2^(k-1) (kernels/route.py applies them). The
+    C++ looping solver is O(n log n) and releases the GIL; the numpy
+    version walks the same cycles."""
+    src = _i64(src)
+    n = 1 << int(k)
+    if src.size != n:
+        raise ValueError(f"src must have {n} entries, got {src.size}")
+    if k == 0:
+        return np.zeros((0, 1), dtype=np.uint8)
+    masks = np.empty((2 * int(k) - 1, n), dtype=np.uint8)
+    lib = _load()
+    if lib is None:
+        return _benes_numpy(int(k), src, masks)
+    lib.benes_plan(ctypes.c_int64(int(k)), _ptr(src, _I64P), _ptr(masks, _U8P))
+    return masks
+
+
+def _benes_numpy(k: int, src: np.ndarray, masks: np.ndarray) -> np.ndarray:
+    """The routing plan in numpy: its plain version, for tests."""
+    n = 1 << k
+    q_of = src.copy()
+    a = np.empty(n, dtype=np.int64)
+    a[src] = np.arange(n)
+    out_of = np.arange(n)
+    o_at = np.arange(n)
+    color = np.zeros(n, dtype=np.uint8)
+    for d in range(k - 1):
+        s = 1 << (k - 1 - d)
+        t1, t2 = d, 2 * k - 2 - d
+        done = np.zeros(n, dtype=bool)
+        for j0 in range(n):
+            e = int(o_at[j0])
+            if done[e]:
+                continue
+            c = 0
+            while True:
+                color[e] = c
+                done[e] = True
+                e2 = int(a[int(q_of[e]) ^ s])
+                color[e2] = 1 - c
+                done[e2] = True
+                e3 = int(o_at[int(out_of[e2]) ^ s])
+                if done[e3]:
+                    break
+                e = e3
+        lo = (np.arange(n) & s) == 0
+        ci = color[a[lo.nonzero()[0]]]
+        masks[t1][lo] = ci
+        masks[t1][~lo] = ci  # partner slots share the switch
+        co = color[o_at[lo.nonzero()[0]]]
+        masks[t2][lo] = co
+        masks[t2][~lo] = co
+        q_of = (q_of & ~s) | np.where(color == 1, s, 0)
+        out_of = (out_of & ~s) | np.where(color == 1, s, 0)
+        a[q_of] = np.arange(n)
+        o_at[out_of] = np.arange(n)
+    # the middle stage, stride 1
+    tm = k - 1
+    ev = np.arange(0, n, 2)
+    cr = (q_of[o_at[ev]] != ev).astype(np.uint8)
+    masks[tm][ev] = cr
+    masks[tm][ev + 1] = cr
+    return masks

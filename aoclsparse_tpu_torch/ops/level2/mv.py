@@ -8,9 +8,11 @@ the fused dotmv template (level2/aoclsparse_dotmv.hpp:32).
 The (descr, op) pair resolves through the planner to an EffectiveCSR copy
 and an ExecForm; the registry Oracle picks the kernel row for the form, and
 y = alpha*op(A)x + beta*y is applied in the epilogue. This package runs the
-`bandt` and `segsum` forms. The JAX package's ELL/DIA/BSR native-format
-paths and its host engine (mv KID 11) are not ported yet (ROADMAP.md
-queue 1 item 10).
+`bandt`, `gen` (general structure, its spill through the spill-route
+kernels), `route` (the whole-matrix spill route), `ell`, `ellhyb` and
+`segsum` forms; `mv_operator` keeps a gen operand's iterations in permuted
+space. The JAX package's ELL/DIA/BSR native-format paths and its host
+engine (mv KID 11) are not ported yet (ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -34,10 +36,18 @@ from ...core.validate import check_base_match, check_dtype_compat
 from ...kernels.registry import registry
 from ...planner.plan import get_plan
 
-__all__ = ["mv", "dotmv"]
+__all__ = ["mv", "dotmv", "mv_operator", "MvOperator"]
 
 #: KID of the JAX package's host mv engine (kernels/host.py), not ported yet
 HOST_MV_KID = 11
+
+#: a gen form's spill takes the spill-route engine (select -> Benes route ->
+#: accumulate kernels) from this many float32 entries on, on the devices
+#: listed: the JAX package's gate (mv.py:77-100), with the card in place of
+#: its TPU. Below it, and off the card, the spill is one gather and an
+#: index_add_.
+SPILL_ROUTE_MIN = 49152
+SPILL_ROUTE_DEVICES = ("cuda",)
 
 
 def _as_operand(v, A: SparseMatrix, what: str) -> torch.Tensor:
@@ -85,10 +95,29 @@ def _mixed_enabled(form, dtype) -> bool:
     return dtype == torch.float32 and form.precision_mode == "mixed"
 
 
+def _spill_route_on(form, device: torch.device) -> bool:
+    """Does this gen form's spill ride the spill-route engine on `device`?"""
+    return (
+        device.type in SPILL_ROUTE_DEVICES
+        and form.sp_ind is not None
+        and int(form.sp_ind.shape[0]) >= SPILL_ROUTE_MIN
+        and form.sp_val.dtype == torch.float32
+    )
+
+
 def _run_exec_form(form, x: torch.Tensor, kid: Optional[int]) -> torch.Tensor:
     e = registry.select("mv", fmt=form.kind, kid=kid, device=x.device)
     if form.kind == "segsum":
         return e.fn(form.ind, form.val, form.row_ids, x, form.m)
+    if form.kind == "gen":
+        route = form.spill_route() if _spill_route_on(form, x.device) else None
+        return e.fn(form, x, mixed=_mixed_enabled(form, x.dtype), route=route)
+    if form.kind == "route":
+        return e.fn(form._spill_route, x, form.m)
+    if form.kind == "ell":
+        return e.fn(form.ell_ind, form.ell_val, x)
+    if form.kind == "ellhyb":
+        return e.fn(form.ell_ind, form.ell_val, form.sp_ind, form.sp_val, form.sp_rows, x, form.m)
     if form.kind == "bandt":
         if kid is None and x.dtype == torch.float64:
             # a float64 band runs the f64 instance (KID 13), as the JAX
@@ -133,6 +162,10 @@ def _spmv_core(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, x, kid=N
         # (invalid_kid when unsupported, cntx_dispatcher.hpp:272-364)
         for e in registry.table("mv"):
             if e.kid == kid:
+                if e.fmt == "route":
+                    # not pinnable in the JAX package either (its mv.py:495-514):
+                    # the whole-matrix route is reached through the planner only
+                    raise AoclSparseError(Status.invalid_kid, f"kid {kid} serves format '{e.fmt}', not CSR")
                 kind = e.fmt
                 break
         else:
@@ -182,6 +215,54 @@ def mv(
     if beta_is_zero:
         return ax if isinstance(alpha, Number) and alpha == 1 else alpha * ax
     return alpha * ax + beta * y0
+
+
+class MvOperator:
+    """Iteration-resident SpMV operator (see mv_operator)."""
+
+    def __init__(self, apply, to_space, from_space, space: str):
+        self.apply = apply  # v in the space -> (A v) in the space
+        self.to_space = to_space  # original -> iteration space
+        self.from_space = from_space  # iteration space -> original
+        self.space = space  # "permuted" | "original"
+
+    def __call__(self, v):
+        return self.apply(v)
+
+
+def mv_operator(A: SparseMatrix, descr: Optional[MatrixDescriptor] = None, op: Operation = Operation.none) -> MvOperator:
+    """Resident operator for chained y = A x iteration (power methods,
+    Krylov loops written by the user), mv.py:671-714 of the JAX package.
+
+    `mv` returns y in the original index space, so a gen operand pays two
+    O(m) permutes a call. Here `to_space` permutes once before the loop,
+    `apply` iterates without permutes (a symmetric permutation preserves
+    norms and maps iterates one to one), and `from_space` permutes back
+    once. For every other form the spaces are the identity and `apply` is
+    the mv core."""
+    if A is None:
+        raise AoclSparseError(Status.invalid_pointer, "null matrix handle")
+    descr = MatrixDescriptor() if descr is None else descr
+    op = Operation(op)
+    nx = A.shape[1] if op == Operation.none else A.shape[0]
+    op, _x, _y, _ny = _validate(A, descr, op, torch.zeros(nx, dtype=A.dtype, device=A.device), None)
+    if not isinstance(A.data, CSR):
+        raise AoclSparseError(
+            Status.not_implemented, "ELL/DIA/BSR mv paths are not ported yet (ROADMAP.md queue 1 item 10)"
+        )
+    form = get_plan(A).exec_form_for(descr, op, dtype=A.dtype)
+    form.precision_mode = A.precision_mode
+    if form.kind == "gen" and form.gen_bandt:
+        from ...solvers.fused import _gen_pspace
+
+        matvec_p, to_p, from_p = _gen_pspace(form)
+        return MvOperator(matvec_p, to_p, from_p, "permuted")
+    return MvOperator(
+        lambda v: _run_exec_form(form, _as_operand(v, A, "v").contiguous(), None),
+        lambda v: _as_operand(v, A, "v"),
+        lambda v: v,
+        "original",
+    )
 
 
 def dotmv(

@@ -1,8 +1,10 @@
 """Planner for mv and mm: clean CSR -> effective CSR -> execution form.
 
 PyTorch counterpart of ``aoclsparse_tpu/planner/plan.py`` for the forms this
-package runs: ``bandt`` and ``segsum`` for mv; ``bandtm``, ``diag``,
-``bwdg``, ``ell``, ``ellhyb`` and ``segsum`` for mm. Reference analogs:
+package runs: ``bandt``, ``gen`` (the general-structure composite),
+``route`` (the whole-matrix spill-route engine), ``ell``, ``ellhyb`` and
+``segsum`` for mv; ``bandtm``, ``diag``, ``bwdg``, ``ell``, ``ellhyb`` and
+``segsum`` for mm. Reference analogs:
 
 - clean-CSR construction `aoclsparse_csr_csc_optimize`
   (analysis/aoclsparse_csr_util.hpp:764-945): validate, sort, split triangles.
@@ -43,6 +45,9 @@ from ..core.validate import host_array
 __all__ = [
     "BANDT_MAX_W",
     "BWD_CAP",
+    "GEN_B",
+    "ROUTE_MAX_NNZ",
+    "ROUTE_MIN_NNZ",
     "CleanCSR",
     "EffectiveCSR",
     "ExecForm",
@@ -441,7 +446,7 @@ class ExecForm:
     are tensors on the matrix's device; `*_dest`/`*_src` are host scatter
     and gather maps kept for the value refresh."""
 
-    kind: str  # "segsum" | "bandt" | "bandtm" | "bwdg" | "diag" | "ell" | "ellhyb"
+    kind: str  # "segsum" | "bandt" | "gen" | "route" | "bandtm" | "bwdg" | "diag" | "ell" | "ellhyb"
     m: int
     n: int
     # segsum
@@ -482,12 +487,35 @@ class ExecForm:
     dia_offs_static: Optional[Tuple[int, ...]] = None
     dia_L: int = 0
     dia_n_pad: int = 0
+    # gen (block-RCM-permuted band + hub slabs + spill; kernels/spmv_gen.py):
+    # the band and spill fields above are in PERMUTED coordinates, over
+    # gen_m_pad = nblk * gen_B rows; gen_bandt picks the band's layout, the
+    # (W, m_pad) band of the band kernel or the (m_pad/8, 8, W) group windows
+    gen_perm: Optional[torch.Tensor] = None  # (nblk,) block perm: xp blocks = x blocks[gen_perm]
+    gen_out: Optional[torch.Tensor] = None  # (nblk,) inverse block perm
+    gen_flip: Optional[torch.Tensor] = None  # (nblk,) bool: reverse the block's elements
+    gen_B: int = 128
+    gen_m_pad: int = 0
+    gen_bandt: bool = False
+    hub_cols: Optional[torch.Tensor] = None  # (k,) ORIGINAL column ids
+    hub_slab: Optional[torch.Tensor] = None  # (m_pad, k) dense, permuted rows
+    hub_dest: Optional[np.ndarray] = None
+    hub_src: Optional[np.ndarray] = None
+    hubr_rows: Optional[torch.Tensor] = None  # (kr,) PERMUTED row positions
+    hubr_slab: Optional[torch.Tensor] = None  # (kr, m_pad) dense, permuted columns
+    hubr_dest: Optional[np.ndarray] = None
+    hubr_src: Optional[np.ndarray] = None
+    #: the spill-route engine over the spill (gen, built on first use) or
+    #: over every entry (route): planner/spill_route.py
+    _spill_route: object = None
     #: the handle's precision policy, copied on by ops/level2/mv.py
     precision_mode: str = "full"
     _bwd_val_bf16: Optional[torch.Tensor] = None
     #: lazily derived operands (the block-window band, bf16 diagonals),
     #: dropped by refresh()
     _derived: Optional[Dict[str, torch.Tensor]] = None
+    #: gen_perm_maps' cache (structure only, kept by refresh())
+    _perm_maps: Optional[Tuple] = None
 
     @property
     def has_spill(self) -> bool:
@@ -530,6 +558,50 @@ class ExecForm:
         """Cached bfloat16 diagonals for mm KID 7 in the mixed mode."""
         return self._derive("dia_bf16", lambda: self.dia_val.to(torch.bfloat16))
 
+    def spill_route(self):
+        """The spill-route engine over the gen form's PERMUTED spill
+        triplets, built on first use and kept across value refreshes."""
+        if self._spill_route is None:
+            from .spill_route import build_spill_route
+
+            self._spill_route = build_spill_route(
+                self.sp_rows.cpu().numpy(), self.sp_ind.cpu().numpy(), self.sp_val, self.gen_m_pad
+            )
+        return self._spill_route
+
+    def gen_perm_maps(self):
+        """(src, inv, hub_cols_p) int64 element maps of a gen form, for
+        iteration in permuted space (kernels/spmv_gen.py spmv_gen_p):
+
+            xp = pad(x, m_pad)[src];  y = yp[inv][:m];  xp[hub_cols_p] == x[hub_cols]
+
+        Pure structure: cached, kept across value refreshes."""
+        if self._perm_maps is None:
+            B, nblk = self.gen_B, self.gen_m_pad // self.gen_B
+            bperm = self.gen_perm.cpu().numpy()
+            offs = np.arange(B, dtype=np.int64)
+            if self.gen_flip is not None:
+                o2 = np.where(self.gen_flip.cpu().numpy()[:, None], B - 1 - offs[None, :], offs[None, :])
+            else:
+                o2 = np.broadcast_to(offs[None, :], (nblk, B))
+            src = (bperm[:, None] * B + o2).reshape(-1)
+            inv = np.empty_like(src)
+            inv[src] = np.arange(src.size, dtype=np.int64)
+            dev = self.gen_perm.device
+            hub_p = None
+            if self.hub_cols is not None and self.hub_cols.shape[0]:
+                hub_p = _dev_index(inv[self.hub_cols.cpu().numpy()], dev)
+            self._perm_maps = (_dev_index(src, dev), _dev_index(inv, dev), hub_p)
+        return self._perm_maps
+
+    def nbytes(self) -> int:
+        """Device bytes of the form's operands (the route's included)."""
+        ts = (self.ind, self.val, self.row_ids, self.ell_ind, self.ell_val, self.sp_ind, self.sp_val,
+              self.sp_rows, self.bwd_val, self.dia_val, self.dia_offs, self.gen_perm, self.gen_out,
+              self.gen_flip, self.hub_cols, self.hub_slab, self.hubr_rows, self.hubr_slab)
+        own = sum(t.numel() * t.element_size() for t in ts if t is not None)
+        return own + (self._spill_route.nbytes() if self._spill_route is not None else 0)
+
     def refresh(self, eff_val: torch.Tensor) -> None:
         self._bwd_val_bf16 = None
         self._derived = None
@@ -543,6 +615,22 @@ class ExecForm:
 
         if self.kind == "segsum":
             self.val = eff_val
+        elif self.kind == "route":
+            # every entry rides the engine: values rescatter through its
+            # stored select-slot map
+            self._spill_route.refresh(eff_val)
+        elif self.kind == "gen":
+            mp = self.gen_m_pad
+            shape = (self.bwd_W, mp) if self.gen_bandt else (-(-mp // 8), 8, self.bwd_W)
+            self.bwd_val = scatter(int(np.prod(shape)), self.bwd_dest, self.bwd_srcpos).reshape(shape)
+            if self.hub_src is not None:
+                k = int(self.hub_cols.shape[0])
+                self.hub_slab = scatter(mp * k, self.hub_dest, self.hub_src).reshape(mp, k)
+            if self.hubr_src is not None:
+                kr = int(self.hubr_rows.shape[0])
+                self.hubr_slab = scatter(kr * mp, self.hubr_dest, self.hubr_src).reshape(kr, mp)
+            if self.sp_src is not None and self.sp_src.size and self._spill_route is not None:
+                self._spill_route.refresh(eff_val[_dev_index(self.sp_src, dev)])
         elif self.kind in ("bandt", "bandtm", "bwdg"):
             if self.kind == "bwdg":
                 ngrp = -(-self.m // self.bwd_G)
@@ -609,16 +697,30 @@ def choose_mv_format(eff: EffectiveCSR) -> str:
     far below the stream rate, so it weighs several gather-free forms. On
     Hopper the band kernel streams the (W, m) band once and reads x from a
     shared-memory window, while the gather form (segsum) pays an index and a
-    random x read per nonzero. So: take `bandt` when the peeled row window
-    fits (W <= BANDT_MAX_W, the JAX package's test) and the band's padding
-    stays bounded (m * W <= BWD_CAP * nnz); otherwise `segsum`. Complex and
-    float16 operands have no band kernel instance and take `segsum`."""
+    random x read per nonzero. So:
+
+    - `bandt` when the peeled row window fits (W <= BANDT_MAX_W, the JAX
+      package's test) and the band's padding stays bounded
+      (m * W <= BWD_CAP * nnz);
+    - otherwise, for a square matrix with m >= 2 * GEN_B, `gen`: general
+      structure is made band-compressible (hub slabs, block RCM, a peeled
+      band on the same kernel) and its spill rides the spill-route kernels,
+      as the JAX package does on its TPU with Pallas (plan.py:866-869; here
+      the card stands in for both). When `_build_gen` rejects the matrix,
+      `build_exec_form` goes on to the whole-matrix `route` form or the
+      gather fallback, as in the JAX package;
+    - otherwise `segsum`.
+
+    Complex and float16 operands have no band kernel instance and take
+    `segsum`."""
     if eff.m == 0 or eff.nnz == 0 or eff.val.dtype not in _BAND_DTYPES:
         return "segsum"
     rows, rel = _rows_rel(eff)
     _lo, W, _spill = _bandt_window(rows, rel)
     if W <= BANDT_MAX_W and eff.m * W <= BWD_CAP * eff.nnz:
         return "bandt"
+    if eff.shape[0] == eff.shape[1] and eff.m >= 2 * GEN_B:
+        return "gen"
     return "segsum"
 
 
@@ -825,6 +927,358 @@ def _build_ell(eff: EffectiveCSR, hybrid: bool) -> ExecForm:
     return form
 
 
+# ---------------------------------------------------------------------------
+# gen: the general-structure composite (plan.py:992-1350 of the JAX package)
+# ---------------------------------------------------------------------------
+
+#: gen-form tuning, the JAX package's constants kept as they are, so both
+#: packages build the same forms (re-tuning them from the card's numbers is
+#: later work, ROADMAP.md queue 1 item 14)
+GEN_B = 128  # block-permutation granularity
+GEN_MAX_HUB = 512  # dense hub-slab width cap
+GEN_HUB_MIN = 32  # min entries for a column to be hub-eligible
+GEN_MEM_CAP = 6e9  # band operand byte cap
+GEN_SPILL_FRAC = 0.30  # max fraction of nnz in the spill at one ladder rung
+GEN_STREAM_BPS = 250e9  # dense-stream rate of the cost model
+GEN_GATHER_NS = 13e-9  # per-element irregular gather cost
+GEN_PANEL_NS = 0.33e-9  # per-element 128-wide panel-gather cost
+GEN_MARGIN = 0.6  # accept gen only when its estimate <= margin * the gather form's
+#: widest group window of the G = 8 layout (the JAX package's BWD_MAX_W)
+BWD_MAX_W = 4096
+
+
+def _gen_cost_model(m_pad, W, B, k_hub, n_spill, itemsize):
+    """Estimated per-call time of the gen composite (seconds)."""
+    band = m_pad * W * itemsize / GEN_STREAM_BPS
+    hub = k_hub * m_pad * itemsize / GEN_STREAM_BPS
+    perm = 2 * m_pad * (GEN_PANEL_NS if B >= 8 else GEN_GATHER_NS)
+    return band + hub + perm + n_spill * GEN_GATHER_NS
+
+
+def _block_flips(pb_r, pb_c, pos_r, pos_c, nblk: int, B: int):
+    """Per-block orientation (reverse a block's B elements or not) that
+    minimises the |rel| mass of entries crossing CONSECUTIVE permuted
+    blocks; (nblk,) bool by permuted position, or None. Block RCM keeps
+    each block's inner order, so a chain running against the index
+    direction puts the entries that couple one block's end to the next
+    block's start at offset ~2B; a flip brings them back to the diagonal.
+    An O(nblk) two-state chain DP over boundary crossing costs."""
+    d = pb_c - pb_r
+    fwd = d == 1  # row in block p, column in block p+1 (boundary p)
+    bwd = d == -1  # column in block p, row in block p+1 (boundary p)
+    if not (fwd.any() or bwd.any()) or nblk < 2:
+        return None
+    # cost[p, fp, fq]: |rel| mass crossing boundary p under orientations
+    # (fp, fq) of blocks (p, p+1), saturating at 4B
+    cost = np.zeros((nblk - 1, 2, 2), dtype=np.float64)
+    cap = 4.0 * B
+    for fp in (0, 1):
+        for fq in (0, 1):
+            if fwd.any():
+                pr = (B - 1 - pos_r[fwd]) if fp else pos_r[fwd]
+                pc = (B - 1 - pos_c[fwd]) if fq else pos_c[fwd]
+                np.add.at(cost[:, fp, fq], pb_r[fwd], np.minimum(np.abs(B + pc - pr), cap))
+            if bwd.any():
+                pc2 = (B - 1 - pos_c[bwd]) if fp else pos_c[bwd]
+                pr2 = (B - 1 - pos_r[bwd]) if fq else pos_r[bwd]
+                np.add.at(cost[:, fp, fq], pb_c[bwd], np.minimum(np.abs(pc2 - pr2 - B), cap))
+    back = np.zeros((nblk, 2), dtype=np.int8)
+    prev = np.zeros(2)
+    for p in range(nblk - 1):
+        cand = prev[:, None] + cost[p]
+        back[p + 1] = np.argmin(cand, axis=0)  # ties -> 0 (no flip)
+        prev = cand.min(axis=0)
+    fP = np.zeros(nblk, dtype=bool)
+    f = int(np.argmin(prev))
+    for p in range(nblk - 1, 0, -1):
+        fP[p] = bool(f)
+        f = int(back[p][f])
+    fP[0] = bool(f)
+    return fP if fP.any() else None
+
+
+def _build_bwd_coo(rows, cols, src, m: int, n: int, window: Tuple[int, int], device,
+                   G: int = 8, kind: str = "gen") -> ExecForm:
+    """Group-window geometry (plan.py:895-978 of the JAX package) of a
+    (row, col)-sorted COO triple over a pre-selected (rel_lo, W) window:
+    rows in groups of G, the window of group g starting at column
+    G * g + rel_lo; entries outside it spill. `src` maps each entry to the
+    effective value vector. Returns the form WITHOUT values."""
+    ngrp = -(-m // G)
+    blk = rows // G
+    rel = cols - G * blk
+    rel_lo, W = window
+    spill_mask = (rel < rel_lo) | (rel >= rel_lo + W)
+    keep = ~spill_mask
+    L = max(0, -rel_lo)
+    base = (rel_lo + L) // G
+    need = G * (base + (-(-W // G)) - 1 + ngrp)
+    spilled = bool(spill_mask.any())
+    return ExecForm(
+        kind=kind,
+        m=m,
+        n=n,
+        bwd_dest=((blk * G + rows % G)[keep]) * W + (rel - rel_lo)[keep],
+        bwd_srcpos=src[keep],
+        bwd_W=int(W),
+        bwd_base8=int(base),
+        bwd_padL=int(L),
+        bwd_n_pad=int(max(-(-(L + n) // G) * G, need)),
+        bwd_G=G,
+        bwd_rel=int(rel_lo),
+        sp_src=src[spill_mask] if spilled else None,
+        sp_ind=_dev_index(cols[spill_mask], device) if spilled else None,
+        sp_rows=_dev_index(rows[spill_mask], device) if spilled else None,
+    )
+
+
+def _hub_candidates(cnt: np.ndarray, m: int, nnz: int) -> np.ndarray:
+    """Sorted ids of the densest columns (or rows) worth a dense slab lane:
+    at least max(GEN_HUB_MIN, m / 1024) entries, within a slab budget of
+    max(8 nnz, 4 m) entries and GEN_MAX_HUB lanes."""
+    cand = np.nonzero(cnt >= max(GEN_HUB_MIN, m // 1024))[0]
+    if not cand.size:
+        return cand
+    cand = cand[np.argsort(cnt[cand])[::-1]]
+    take = np.cumsum(np.full(cand.size, float(m))) <= max(8.0 * nnz, 4.0 * m)
+    return np.sort(cand[take][:GEN_MAX_HUB])
+
+
+def _build_gen(eff: EffectiveCSR) -> Optional[ExecForm]:
+    """The general-structure composite (plan.py:1072-1349 of the JAX
+    package): dense hub columns and hub rows leave for dense slabs, the rest
+    is reordered by reverse Cuthill-McKee at B = 128 block granularity (then
+    B = 1), a cost-model ladder picks the peeled window, and what falls
+    outside it spills (past a break-even, spill columns and rows are
+    promoted into the slabs). The band takes the band kernel's (W, m_pad)
+    layout when its row window is at most BANDT_MAX_W and the kernel has
+    the dtype, else the G = 8 group windows. None when even the best window
+    costs more than GEN_MARGIN of the gather form (the caller falls back)."""
+    from .. import native
+
+    m, n = eff.shape
+    if m != n or eff.nnz == 0 or m < 2 * GEN_B:
+        return None
+    dev = eff.val.device
+    rows, _rel = _rows_rel(eff)
+    cols = eff.ind.astype(np.int64)
+    idx = np.arange(cols.size, dtype=np.int64)
+    # hub columns: dense columns ruin any bandwidth ordering
+    hub = _hub_candidates(np.bincount(cols, minlength=n), m, eff.nnz)
+    has_hub = hub.size > 0
+    is_hub = np.zeros(cols.size, dtype=bool)
+    if has_hub:
+        hub_mark = np.zeros(n, dtype=bool)
+        hub_mark[hub] = True
+        is_hub = hub_mark[cols]
+    r2, c2, s2 = rows[~is_hub], cols[~is_hub], idx[~is_hub]
+    # hub rows: a (kr, m_pad) slab against the permuted x
+    hubr = _hub_candidates(np.bincount(r2, minlength=m), m, eff.nnz)
+    has_hubr = hubr.size > 0
+    if has_hubr:
+        hubr_mark = np.zeros(m, dtype=bool)
+        hubr_mark[hubr] = True
+        is_hubr = hubr_mark[r2]
+        hr_r, hr_c, hr_s = r2[is_hubr], c2[is_hubr], s2[is_hubr]
+        r2, c2, s2 = r2[~is_hubr], c2[~is_hubr], s2[~is_hubr]
+    nnz_r = r2.size
+    itemsize = eff.val.element_size()
+    k_hub_total = hub.size + (hubr.size if has_hubr else 0)
+    fallback_t = eff.nnz * GEN_GATHER_NS  # the gather form's estimate to beat
+
+    def _try_granularity(B: int):
+        """RCM on the quotient graph of B-element blocks, then the peel
+        ladder evaluated on the offset distribution; the cheapest window
+        under the cost model, or None."""
+        nblk = -(-m // B)
+        m_pad = nblk * B
+        if nnz_r:
+            qkey, qcnt = np.unique((r2 // B) * nblk + (c2 // B), return_counts=True)
+            if B > 1:
+                # prune weak block couplings: a few random entries per block
+                # pair would make the quotient graph an expander; they spill
+                strong = qcnt >= 4
+                if strong.any():
+                    qkey = qkey[strong]
+            q_r, q_c = qkey // nblk, qkey % nblk
+            qptr = np.zeros(nblk + 1, dtype=np.int64)
+            np.add.at(qptr, q_r + 1, 1)
+            bperm, _bw = native.rcm_permutation(nblk, np.cumsum(qptr), q_c)
+        else:
+            bperm = np.arange(nblk, dtype=np.int64)
+        bpos = np.empty(nblk, dtype=np.int64)
+        bpos[bperm] = np.arange(nblk)
+        fP = None
+        if B > 1 and nnz_r:
+            fP = _block_flips(bpos[r2 // B], bpos[c2 // B], r2 % B, c2 % B, nblk, B)
+
+        def ppos(i):
+            """Original index -> permuted position (flip-aware)."""
+            pb, off = bpos[i // B], i % B
+            if fP is None:
+                return pb * B + off
+            return pb * B + np.where(fP[pb], B - 1 - off, off)
+
+        prows, pcols = ppos(r2), ppos(c2)
+        rel = pcols - 8 * (prows // 8)
+        if rel.size == 0:
+            return None
+        rel_s = np.sort(rel)
+        nmax = rel.size - 1
+        best = None  # (cost, rel_lo, W, n_out)
+        for plo, phi in ((0.0, 100.0), (0.25, 99.75), (1.0, 99.0), (2.5, 97.5), (5.0, 95.0),
+                         (7.5, 92.5), (12.5, 87.5)):
+            lo_c = (int(rel_s[int(plo / 100 * nmax)]) // 8) * 8
+            hi_c = int(rel_s[int(phi / 100 * nmax)])
+            W = -(-(hi_c - lo_c + 1) // 8) * 8
+            if W > BWD_MAX_W or m_pad * W * itemsize > GEN_MEM_CAP:
+                continue
+            n_out = int(np.searchsorted(rel_s, lo_c)) + int(rel.size - np.searchsorted(rel_s, lo_c + W))
+            if n_out > max(4096, int(rel.size * GEN_SPILL_FRAC)):
+                continue
+            cost = _gen_cost_model(m_pad, W, B, k_hub_total, n_out, itemsize)
+            if best is None or cost < best[0]:
+                best = (cost, lo_c, W, n_out)
+        if best is None or best[0] > GEN_MARGIN * fallback_t:
+            return None
+        order = np.lexsort((pcols, prows))
+        pr_s, pc_s, src_s = prows[order], pcols[order], s2[order]
+        rel_lo8, W8 = best[1], best[2]
+        rel8 = pc_s - 8 * (pr_s // 8)
+        spill = (rel8 < rel_lo8) | (rel8 >= rel_lo8 + W8)
+        keep_m = ~spill
+        row_rel = pc_s - pr_s
+        lo_r = int(row_rel[keep_m].min()) if keep_m.any() else 0
+        W_r = -(-(int(row_rel[keep_m].max()) - lo_r + 1) // 8) * 8 if keep_m.any() else 8
+        if eff.val.dtype in _BAND_DTYPES and W_r <= BANDT_MAX_W:
+            # the band kernel's transposed (W, m_pad) layout
+            spilled = bool(spill.any())
+            cand = ExecForm(
+                kind="gen",
+                m=m_pad,
+                n=m_pad,
+                bwd_dest=(row_rel - lo_r)[keep_m] * m_pad + pr_s[keep_m],
+                bwd_srcpos=src_s[keep_m],
+                bwd_W=int(W_r),
+                bwd_padL=int(max(0, -lo_r)),
+                bandt_start=int(max(lo_r, 0)),
+                gen_bandt=True,
+                sp_src=src_s[spill] if spilled else None,
+                sp_ind=_dev_index(pc_s[spill], dev) if spilled else None,
+                sp_rows=_dev_index(pr_s[spill], dev) if spilled else None,
+            )
+        else:
+            cand = _build_bwd_coo(pr_s, pc_s, src_s, m_pad, m_pad, (rel_lo8, W8), dev)
+        return cand, bperm, bpos, m_pad, fP, ppos
+
+    B = GEN_B
+    got = _try_granularity(B)
+    if got is None:
+        B = 1
+        got = _try_granularity(B)
+    if got is None:
+        return None
+    core, bperm, bpos, m_pad, fP, ppos = got
+    core.m, core.n = m, n  # logical size; the band lives in m_pad space
+    core.gen_m_pad = m_pad
+    core.gen_B = B
+    core.gen_perm = _dev_index(bperm, dev)
+    core.gen_out = _dev_index(bpos, dev)
+    core.gen_flip = torch.from_numpy(fP).to(dev) if fP is not None else None
+    # hub entries as (permuted row, ORIGINAL column, src); hub-row entries
+    # as (permuted row, permuted column, src)
+    ei = np.zeros(0, dtype=np.int64)
+    h_pr, h_oc, h_src = (ppos(rows[is_hub]), cols[is_hub], idx[is_hub]) if has_hub else (ei, ei, ei)
+    r_pr, r_pc, r_src = (ppos(hr_r), ppos(hr_c), hr_s) if has_hubr else (ei, ei, ei)
+    # spill -> slab promotion: past thresh entries a spill column (row)
+    # costs more as gathers than as one dense slab lane
+    thresh = max(GEN_HUB_MIN, int((m_pad * itemsize / GEN_STREAM_BPS) / GEN_GATHER_NS) + 1)
+    if core.sp_src is not None and core.sp_src.size:
+        sp_src = core.sp_src
+        sp_pr = core.sp_rows.cpu().numpy()
+        sp_pc = core.sp_ind.cpu().numpy()
+        sp_oc = cols[sp_src]  # original column of each spill entry
+        hist = np.bincount(sp_oc, minlength=n)
+        room = max(0, GEN_MAX_HUB - hub.size)
+        cand_p = np.nonzero(hist >= thresh)[0]
+        if cand_p.size > room:
+            cand_p = cand_p[np.argsort(hist[cand_p])[::-1][:room]]
+        if cand_p.size:
+            pmark = np.zeros(n, dtype=bool)
+            pmark[cand_p] = True
+            mvq = pmark[sp_oc]
+            h_pr = np.concatenate([h_pr, sp_pr[mvq]])
+            h_oc = np.concatenate([h_oc, sp_oc[mvq]])
+            h_src = np.concatenate([h_src, sp_src[mvq]])
+            hub = np.union1d(hub, cand_p)
+            has_hub = True
+            sp_src, sp_pr, sp_pc = sp_src[~mvq], sp_pr[~mvq], sp_pc[~mvq]
+        if sp_src.size:
+            rhist = np.bincount(sp_pr, minlength=m_pad)
+            roomr = max(0, GEN_MAX_HUB - (np.unique(r_pr).size if r_pr.size else 0))
+            cand_r = np.nonzero(rhist >= thresh)[0]
+            if cand_r.size > roomr:
+                cand_r = cand_r[np.argsort(rhist[cand_r])[::-1][:roomr]]
+            if cand_r.size:
+                rmark = np.zeros(m_pad, dtype=bool)
+                rmark[cand_r] = True
+                mvr = rmark[sp_pr]
+                r_pr = np.concatenate([r_pr, sp_pr[mvr]])
+                r_pc = np.concatenate([r_pc, sp_pc[mvr]])
+                r_src = np.concatenate([r_src, sp_src[mvr]])
+                has_hubr = True
+                sp_src, sp_pr, sp_pc = sp_src[~mvr], sp_pr[~mvr], sp_pc[~mvr]
+        if sp_src.size:
+            order_sp = np.argsort(sp_pr, kind="stable")
+            core.sp_src = sp_src[order_sp]
+            core.sp_ind = _dev_index(sp_pc[order_sp], dev)
+            core.sp_rows = _dev_index(sp_pr[order_sp], dev)
+        else:
+            core.sp_src = core.sp_ind = core.sp_rows = None
+    if has_hub:
+        k = hub.size
+        core.hub_cols = _dev_index(hub, dev)
+        core.hub_dest = h_pr * k + np.searchsorted(hub, h_oc)
+        core.hub_src = h_src
+    if has_hubr:
+        slabrows = np.unique(r_pr)
+        core.hubr_rows = _dev_index(slabrows, dev)
+        core.hubr_dest = np.searchsorted(slabrows, r_pr) * m_pad + r_pc
+        core.hubr_src = r_src
+    core.refresh(eff.val)
+    return core
+
+
+#: whole-matrix route gates (plan.py:1561-1579 of the JAX package): worth
+#: the plan-time Benes build past ROUTE_MIN_NNZ, bounded by the router's
+#: slot budget
+ROUTE_MIN_NNZ = 2e6
+ROUTE_MAX_NNZ = 1.5e8
+
+
+def _route_ok(eff: EffectiveCSR) -> bool:
+    """The whole-matrix route serves float32 operands in the nnz window,
+    the JAX package's test with the card (or the kernels' plain versions)
+    in place of its TPU and Pallas."""
+    return eff.val.dtype == torch.float32 and ROUTE_MIN_NNZ <= eff.nnz <= ROUTE_MAX_NNZ
+
+
+def _build_route(eff: EffectiveCSR) -> ExecForm:
+    """Whole-matrix spill-route SpMV (mv KID 14): select, Benes route and
+    accumulate over EVERY entry; row stripes of about 2^19 slots past
+    2^18 entries (plan.py:1582-1611 of the JAX package)."""
+    from .spill_route import build_spill_route, build_striped_route
+
+    m, n = eff.shape
+    rows, _rel = _rows_rel(eff)
+    m_pad = -(-m // 1024) * 1024
+    n_pad_x = -(-n // 1024) * 1024
+    build = build_striped_route if eff.nnz > (1 << 18) else build_spill_route
+    form = ExecForm(kind="route", m=m, n=n)
+    form._spill_route = build(rows, eff.ind.astype(np.int64), eff.val, m_pad=m_pad, n_pad_x=n_pad_x)
+    return form
+
+
 def gather_fallback_kind(eff: EffectiveCSR) -> str:
     """Pick among the gather forms (segsum / ell / ellhyb) by fill
     (plan.py:1614-1622 of the JAX package)."""
@@ -871,6 +1325,16 @@ def build_exec_form(eff: EffectiveCSR, kind: Optional[str] = None) -> ExecForm:
     if kind is None:
         kind = choose_mv_format(eff)
     m, n = eff.shape
+    if kind == "gen":
+        form = _build_gen(eff)
+        if form is not None:
+            return form
+        # the composite rejected the structure: the whole-matrix route when
+        # it qualifies, else a gather form (plan.py:1629-1640 of the JAX
+        # package, without its catch-all: a failed route build raises)
+        kind = "route" if _route_ok(eff) else gather_fallback_kind(eff)
+    if kind == "route":
+        return _build_route(eff)
     if kind == "bandt":
         form = _build_bandt(eff)
         if form is not None:
@@ -900,7 +1364,7 @@ def build_exec_form(eff: EffectiveCSR, kind: Optional[str] = None) -> ExecForm:
         )
     raise AoclSparseError(
         Status.not_implemented,
-        f"execution form '{kind}' is not ported yet (ROADMAP.md queue 1 items 10 and 14)",
+        f"execution form '{kind}' is not ported yet (ROADMAP.md queue 1 item 10)",
     )
 
 
@@ -934,6 +1398,12 @@ class Plan:
         eff = self.effective_for(descr, op, dtype)
         key = (descr.type, descr.fill_mode, descr.diag_type, Operation(op), kind)
         form = self.exec_forms.get(key)
+        if form is None and kind is not None:
+            # an explicit kind the default form already has (mv kid=7 on a
+            # matrix planned as gen): one form, not a second copy
+            default = self.exec_forms.get(key[:4] + (None,))
+            if default is not None and default.kind == kind:
+                form = default
         if form is None:
             form = self.exec_forms[key] = build_exec_form(eff, kind)
         return form

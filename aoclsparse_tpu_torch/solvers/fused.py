@@ -11,6 +11,11 @@ loop is Python: every iteration launches its kernels on the current stream
 and reads one boolean back to the host for the convergence test. Capturing
 the loop in a CUDA graph is later work (ROADMAP.md queue 1 item 9).
 
+On a gen operand (the general-structure composite in its band layout) an
+unpreconditioned solve runs in permuted space (`_gen_pspace`, the JAX
+package's :205-277 and :403-407): b is permuted once, every iteration
+applies P A P^T without permutes, and x is permuted back once.
+
 Preconditioners: "ilu0" (two window solves over the cached factors) and
 "sgs" (two window solves and one strict-lower matvec). The JAX package's
 `_pcg_bandv_ilu0_jit` exists only to pass operands as jit arguments on its
@@ -103,6 +108,34 @@ def _build_cg_run(matvec: Callable, apply: Optional[Callable], maxit: int):
     return run
 
 
+def _gen_pspace(form):
+    """(matvec_p, to_p, from_p) for permuted-space iteration on a gen form
+    in the band layout, else None. A symmetric permutation preserves norms
+    and maps Krylov iterates one to one, so the loop runs on xp = P x and
+    only its ends pay the two O(m) permutes."""
+    from ..kernels.spmv_gen import spmv_gen_p
+    from ..ops.level2.mv import _mixed_enabled, _spill_route_on
+
+    if form.kind != "gen" or not form.gen_bandt:
+        return None
+    src, inv, _hub_p = form.gen_perm_maps()
+    m, m_pad = form.m, form.gen_m_pad
+
+    def to_p(v):
+        vp = torch.zeros(m_pad, dtype=v.dtype, device=v.device)
+        vp[: v.shape[0]] = v
+        return vp[src]
+
+    def from_p(vp):
+        return vp[inv][:m]
+
+    def matvec_p(xp):
+        route = form.spill_route() if _spill_route_on(form, xp.device) else None
+        return spmv_gen_p(form, xp, mixed=_mixed_enabled(form, xp.dtype), route=route)
+
+    return matvec_p, to_p, from_p
+
+
 def _tri(fill, diag) -> MatrixDescriptor:
     return MatrixDescriptor(type=MatrixType.triangular, fill_mode=fill, diag_type=diag)
 
@@ -165,16 +198,21 @@ def pcg_solve(
         else as_values(x0, A.device).to(A.dtype)
     )
     form = get_plan(A).exec_form_for(descr, Operation.none, dtype=A.dtype)
+    form.precision_mode = A.precision_mode
+    rdt = real_dtype_of(A.dtype)
+    tols = (torch.tensor(rtol, dtype=rdt, device=A.device), torch.tensor(atol, dtype=rdt, device=A.device))
+    # permuted space for a gen operand, unpreconditioned only: the cached
+    # ILU/SGS factors live in the original index space
+    pspace = _gen_pspace(form) if precond is None else None
+    if pspace is not None:
+        matvec_p, to_p, from_p = pspace
+        run = _build_cg_run(lambda v: matvec_p(v).to(A.dtype), None, int(maxit))
+        xp, k, rnorm = run(to_p(b), to_p(x0), *tols)
+        return from_p(xp), int(k), float(rnorm)
 
     def matvec(v):
         return _run_exec_form(form, v, None).to(A.dtype)
 
     run = _build_cg_run(matvec, _make_apply(A, precond), int(maxit))
-    rdt = real_dtype_of(A.dtype)
-    x, k, rnorm = run(
-        b,
-        x0,
-        torch.tensor(rtol, dtype=rdt, device=A.device),
-        torch.tensor(atol, dtype=rdt, device=A.device),
-    )
+    x, k, rnorm = run(b, x0, *tols)
     return x, int(k), float(rnorm)

@@ -27,6 +27,12 @@ failure (exit code != 0, no result line):
      one right-hand side and with K = 16, and on a small odd-m form whose
      window reaches back over several blocks (K = 300 for the multi-RHS
      kernel: several column chunks);
+   - the spill-route kernels (select, Benes route, accumulate) on the spill
+     route of the webbase-1M stand-in's gen form (benchmarks/realmat.py,
+     seed 7: m = 1,000,005, about 3.1M nnz; planned through its handle by
+     optimize), on one stripe of the whole-matrix route of the scatter
+     operand (m = 262,144, the diagonal plus 8 uniform random columns a
+     row, seed 23), on a small ragged case and on a k = 7 route;
 4. drive the main path: create_csr(device="cuda") -> set_mv_hint(nop=1000)
    -> optimize -> mv (default form, kid=8, kid=12, alpha/beta with y, the
    mixed bf16 band, a float64 handle); and create_csr -> set_mm_hint(nop=
@@ -45,18 +51,31 @@ failure (exit code != 0, no result line):
    factors; and pcg_solve(precond="ilu0") and ("sgs"), each in fewer
    iterations than with none, with a true relative residual <= 1e-5 and
    the launch counts the composition implies;
+5b. the general-structure path, counted on its own: mv on the webbase
+   stand-in (default: gen with its spill on the route; kid=7; alpha/beta;
+   the mixed bf16 band; mv_operator in permuted space; update_values and a
+   re-run; a float64 handle, which the planner sends to the gather
+   fallback), mv on the scatter operand (the whole-matrix route), each
+   against a float64 scipy reference and with the launches each call
+   implies; and pcg_solve with no preconditioner on the symmetrised
+   webbase, in permuted space, to a true relative residual <= 10 rtol;
 6. time kernel vs plain version vs one PyTorch library call (torch.sparse
-   CSR products and triangular solves, timed here as yardsticks only),
-   against each kernel's bound from this run's inputs (stored operands,
-   and beside it their nonzero entries only); one mv call, one mm
-   call per operand, one trsm call, one CG iteration, one ilu_smoother
-   call and one ILU0-PCG iteration with CUDA events or the host clock
-   (median of repeats), with stream rates against the card's published
-   HBM peak, and the set-up seconds of ilu0_factorize.
+   CSR products and triangular solves, index_add_ and a permutation
+   gather, timed here as yardsticks only), against each kernel's bound
+   from this run's inputs (stored operands, and beside it their nonzero
+   entries only); one mv call, one mm call per operand, one trsm call,
+   one CG iteration, one ilu_smoother call and one ILU0-PCG iteration with
+   CUDA events or the host clock (median of repeats), with stream rates
+   against the card's published HBM peak, and the set-up seconds of
+   ilu0_factorize; the spill-route engine against the gather +
+   index_add_ tail, the webbase band kernel alone, mv on the webbase and
+   scatter operands with a profiler window each (device time by kernel,
+   idle share), and one permuted-space CG iteration.
 
-Launch counts are reset just before phase 4 and read after phase 5. The
-second-to-last line is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}.
+Launch counts are reset just before phase 4 and read after phase 5, and
+reset again just before phase 5b and read after it (the kernels line takes
+the spill-route kernels' counts from 5b). The second-to-last line is
+{"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -77,6 +96,9 @@ import aoclsparse_tpu_torch as tt
 from aoclsparse_tpu_torch import native
 from aoclsparse_tpu_torch.kernels import build
 from aoclsparse_tpu_torch.kernels.band_spmv import band_spmv, band_spmv_plain, spmv_bandt
+from aoclsparse_tpu_torch.kernels.benes import PASS_GROUP, TILE_LOG, benes_route, benes_route_plain
+from aoclsparse_tpu_torch.kernels.route import apply_benes, apply_route, pack_masks, route_masks
+from aoclsparse_tpu_torch.kernels.spill_route import oh_accum, oh_accum_plain, oh_select, oh_select_plain
 from aoclsparse_tpu_torch.kernels.spmm_band import (
     spmm_band,
     spmm_band_mxu,
@@ -86,6 +108,8 @@ from aoclsparse_tpu_torch.kernels.spmm_band import (
 )
 from aoclsparse_tpu_torch.kernels.spmm_diag import spmm_diag, spmm_diag_plain
 from aoclsparse_tpu_torch.kernels.trsv_win import trsm_chunk, trsm_win, trsm_win_plain, trsv_win, trsv_win_plain
+from aoclsparse_tpu_torch.ops.level2.mv import _spill_route_on
+from aoclsparse_tpu_torch.planner.spill_route import build_spill_route, spill_route_apply
 from aoclsparse_tpu_torch.planner.triangular import trsv_form_for
 from aoclsparse_tpu_torch.solvers.ilu import ilu0_factorize
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
@@ -125,7 +149,15 @@ KERNELS = {
                      "aoclsparse_tpu/kernels/pallas/trsv.py:160"),  # pallas_trsm_win_inv
     "trsm_win_f64": ("aoclsparse_tpu_torch/csrc/trsv_win.cu",
                      "aoclsparse_tpu/kernels/pallas/trsv.py:160"),
+    "oh_select_f32": ("aoclsparse_tpu_torch/csrc/spill_route.cu",
+                      "aoclsparse_tpu/kernels/pallas/spill_route.py:66"),  # pallas_oh_select
+    "oh_accum_f32": ("aoclsparse_tpu_torch/csrc/spill_route.cu",
+                     "aoclsparse_tpu/kernels/pallas/spill_route.py:126"),  # pallas_oh_accum
+    "benes_route_f32": ("aoclsparse_tpu_torch/csrc/benes.cu",
+                        "aoclsparse_tpu/kernels/pallas/route_fused.py:73"),  # pallas_benes_apply
 }
+#: the kernels of the general-structure path (phase 5b), counted there
+GEN_PATH = ("oh_select_f32", "oh_accum_f32", "benes_route_f32")
 #: launch counters of the wrappers, by kernel-name prefix
 COUNTERS = {
     "band_spmv": band_spmv.launches,
@@ -134,6 +166,9 @@ COUNTERS = {
     "spmm_band_mxu": spmm_band_mxu.launches,
     "spmm_diag": spmm_diag.launches,
     "trsm_win": trsm_win.launches,
+    "oh_select": oh_select.launches,
+    "oh_accum": oh_accum.launches,
+    "benes_route": benes_route.launches,
 }
 #: kernel vs plain: the same products summed in another order, so the
 #: accumulation dtype's model tolerance (utils/tolerances.py, scale 1);
@@ -153,6 +188,13 @@ KERNEL_TOL = {
     "spmm_diag_f64": expected_precision(torch.float64),
     "trsm_win_f32": expected_precision(torch.float32),
     "trsm_win_f64": expected_precision(torch.float64),
+    # one f32 multiply a slot on both sides: the f32 model is a loose cap
+    "oh_select_f32": expected_precision(torch.float32),
+    # the same contributions summed per row in another order (shared-memory
+    # atomics, whose order changes from run to run)
+    "oh_accum_f32": expected_precision(torch.float32),
+    # a routing moves values and does no arithmetic: bit-equal
+    "benes_route_f32": 0.0,
 }
 #: mv and mm against the float64 reference: the operand dtype's model tolerance
 MV_TOL = {"f32": expected_precision(torch.float32), "f64": expected_precision(torch.float64)}
@@ -201,6 +243,16 @@ def spill_operand(m=4099, seed=11):
     S.sum_duplicates()
     S.sort_indices()
     return S.indptr.astype(np.int64), S.indices.astype(np.int32), S.data, rng.standard_normal(m)
+
+
+def reset_counts():
+    for counts in COUNTERS.values():
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts():
+    return {f"{prefix}_{k}": v for prefix, counts in COUNTERS.items() for k, v in counts.items()}
 
 
 def row_nnz(ptr):
@@ -290,6 +342,111 @@ def diag_operand(m=3001, seed=19):
     S = sp.csr_matrix((rng.standard_normal(r.size), (r, c)), shape=(m, m))
     S.sort_indices()
     return S.indptr.astype(np.int64), S.indices.astype(np.int32), S.data
+
+
+def _dedupe_coo(r, c, m, n):
+    order = np.lexsort((c, r))
+    r, c = r[order], c[order]
+    keep = np.concatenate([[True], (r[1:] != r[:-1]) | (c[1:] != c[:-1])])
+    return r[keep], c[keep]
+
+
+def _finish(r, c, m, n, rng, diag_boost, sym_vals):
+    """COO -> CSR with dedupe, guaranteed full diagonal, optional symmetric
+    values and diagonal dominance (benchmarks/realmat.py:46-73)."""
+    r = np.asarray(r, dtype=np.int64)
+    c = np.asarray(c, dtype=np.int64)
+    mask = (r >= 0) & (r < m) & (c >= 0) & (c < n)
+    r, c = r[mask], c[mask]
+    d = np.arange(min(m, n), dtype=np.int64)
+    r = np.concatenate([r, d])
+    c = np.concatenate([c, d])
+    r, c = _dedupe_coo(r, c, m, n)
+    if sym_vals:
+        lo = np.minimum(r, c)
+        hi = np.maximum(r, c)
+        key = lo * n + hi
+        uq, inv = np.unique(key, return_inverse=True)
+        vals_uq = rng.standard_normal(uq.size)
+        val = vals_uq[inv]
+    else:
+        val = rng.standard_normal(r.size)
+    if diag_boost:
+        val[r == c] = np.abs(val[r == c]) + diag_boost
+    ptr = np.zeros(m + 1, dtype=np.int64)
+    np.add.at(ptr, r + 1, 1)
+    ptr = np.cumsum(ptr)
+    return m, n, ptr, c.astype(np.int32), val.astype(np.float32)
+
+
+def webbase_1m(rng, diag_boost=0.0):
+    """The Williams/webbase-1M stand-in of benchmarks/realmat.py:179-215
+    (copied with _dedupe_coo and _finish, so that this script imports nothing
+    outside the port; a CPU test holds the copy equal for seed 7): n =
+    1,000,005, power-law column (in-link) degrees over ~8000 hub pages,
+    dense site-local links within +-128 and a uniform global tail:
+    (m, n, ptr, ind, val f32)."""
+    m = 1000005
+    n_loc = int(1.40 * m)
+    rows_l = rng.integers(0, m, n_loc)
+    cols_l = np.clip(rows_l + rng.integers(-128, 129, n_loc), 0, m - 1)
+    n_hub = int(0.55 * m)
+    hub_ids = rng.zipf(1.55, n_hub)
+    keep = hub_ids <= 8000
+    hub_ids = hub_ids[keep] - 1
+    hub_pages = rng.permutation(m)[:8000].astype(np.int64)
+    half = hub_ids.size // 2
+    rows_h1 = rng.integers(0, m, half)
+    cols_h1 = hub_pages[hub_ids[:half]]
+    ids2 = hub_ids[half:]
+    uq, cnt = np.unique(ids2, return_counts=True)
+    cnt = np.minimum(cnt, 4700)
+    rows_h2 = np.repeat(hub_pages[uq], cnt)
+    cols_h2 = rng.integers(0, m, rows_h2.size)
+    rows_h = np.concatenate([rows_h1, rows_h2])
+    cols_h = np.concatenate([cols_h1, cols_h2])
+    n_rand = int(0.33 * m)
+    rows_r = rng.integers(0, m, n_rand)
+    cols_r = rng.integers(0, m, n_rand)
+    r = np.concatenate([rows_l, rows_h, rows_r])
+    c = np.concatenate([cols_l, cols_h, cols_r])
+    return _finish(r, c, m, m, rng, diag_boost, sym_vals=False)
+
+
+def scatter_operand(m=262144, per_row=8, seed=23):
+    """The diagonal (4.0) plus `per_row` uniform random columns a row with
+    standard normal values (duplicates summed): structure nothing can band,
+    as in graph and random-structure matrices: (ptr, ind, val f32)."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(m), per_row)
+    cols = rng.integers(0, m, rows.size)
+    vals = rng.standard_normal(rows.size)
+    d = np.arange(m)
+    S = sp.csr_matrix((np.r_[vals, np.full(m, 4.0)], (np.r_[rows, d], np.r_[cols, d])), shape=(m, m))
+    S.sum_duplicates()
+    S.sort_indices()
+    return S.indptr.astype(np.int64), S.indices.astype(np.int32), S.data.astype(np.float32)
+
+
+def route_launches(sr):
+    """Launches of the route kernel in one apply of SpillRoute `sr`
+    (kernels/benes.py): per packed network of k_c stages, one shared-memory
+    launch and 2 ceil((k_c - TILE_LOG) / PASS_GROUP) global passes; the outer
+    stages of a k > 20 split in ceil(d / PASS_GROUP) passes on each side."""
+    if sr.masks_packed is None:
+        return 0
+    nets = int(sr.masks_packed.shape[0])
+    d = nets.bit_length() - 1
+    per_net = 1 + 2 * -(-max(0, sr.k - d - TILE_LOG) // PASS_GROUP)
+    return nets * per_net + 2 * -(-d // PASS_GROUP)
+
+
+def route_desc(sr):
+    nets = 0 if sr.masks_packed is None else int(sr.masks_packed.shape[0])
+    outer = 0 if sr.masks is None else int(sr.masks.shape[0])
+    return (f"k={sr.k} ({nets} packed network(s) of k={sr.k - max(nets, 1).bit_length() + 1}, "
+            f"{outer} outer stage(s)), {sr.n_sel_tiles} select / {sr.acc_idx.shape[0]} accumulate chunks, "
+            f"{route_launches(sr)} route launches an apply")
 
 
 def csr_tensor(ptr, ind, val, dev, dtype):
@@ -414,6 +571,32 @@ def cuda_ms(fn, reps=15, inner=10, warm=3):
         t1.synchronize()
         times.append(t0.elapsed_time(t1) / inner)
     return statistics.median(times)
+
+
+def profile_mv(name, call, calls=5, top=8):
+    """One torch.profiler window over `calls` back-to-back calls after a
+    warm-up: device time per call by kernel, and the device's idle share of
+    the window's host-clock time (kernels on one stream do not overlap)."""
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(t for _k, t, _c in kern)
+    if not kern:
+        log(f"  {name} profile: the profiler recorded no device time (not measured)")
+        return
+    log(f"  {name} profile ({calls} calls): device busy {busy / calls:.1f} us a call of {wall_us / calls:.1f} us "
+        f"on the host clock, idle share {1 - busy / wall_us:.3f}; {sum(c for _k, _t, c in kern) // calls} "
+        f"kernel launches a call; by kernel (us a call):")
+    for key, t, c in sorted(kern, key=lambda r: -r[1])[:top]:
+        log(f"    {t / calls:9.1f}  x{c // calls:<3d} {key[:90]}")
 
 
 def iteration_ms(solve, k_lo, k_hi, turns=3):
@@ -631,13 +814,84 @@ def main() -> int:
         compare(f"spmm_diag_{inst}", f"small odd-m K=13 (m={df.m}, offsets {df.dia_offs_static})",
                 spmm_diag(dv, df.dia_offs, Bs), spmm_diag_plain(dv, df.dia_offs, Bs), errs)
 
+    # the spill-route kernels: on the webbase stand-in's gen spill (through
+    # its handle, planned by optimize), on one stripe of the scatter
+    # operand's whole-matrix route, and on a small ragged case
+    def check_route_kernels(label, sr, xv, yv):
+        contrib = oh_select(xv, sr.sel_idx, sr.sel_val, sr.sel_blk, n_out=sr.n)
+        compare("oh_select_f32", label, contrib, oh_select_plain(xv, sr.sel_idx, sr.sel_val, sr.sel_blk, sr.n), errs)
+        routed = apply_route(contrib, sr.masks, sr.masks_packed, sr.k)
+        compare("benes_route_f32", f"{label} (k={sr.k})", routed,
+                apply_benes(contrib, route_masks(sr.masks, sr.masks_packed, sr.k), sr.k), errs)
+        args = (sr.acc_idx, sr.acc_cid, sr.acc_start, sr.n_acc_tiles, yv)
+        compare("oh_accum_f32", label, oh_accum(routed, *args), oh_accum_plain(routed, *args), errs)
+
+    t0 = time.perf_counter()
+    wm, _wn, wptr, wind, wval = webbase_1m(np.random.default_rng(7))
+    log(f"  webbase-1M stand-in built in {time.perf_counter() - t0:.1f} s (m={wm}, nnz={wind.size})")
+    t0 = time.perf_counter()
+    Wh = tt.create_csr(wm, wm, wptr, wind, wval, device="cuda")
+    tt.set_mv_hint(Wh, NONE, GEN, nop=1000)
+    tt.optimize(Wh)
+    torch.cuda.synchronize()
+    t_wplan = time.perf_counter() - t0
+    wform = next(iter(Wh.plan.exec_forms.values()))
+    if not (wform.kind == "gen" and wform.gen_bandt and _spill_route_on(wform, dev)):
+        raise AssertionError(f"webbase planned as {wform.kind} (band layout {wform.gen_bandt}), "
+                             "want gen in the band layout with its spill on the route")
+    t0 = time.perf_counter()
+    wroute = wform.spill_route()
+    torch.cuda.synchronize()
+    t_wroute = time.perf_counter() - t0
+    log(f"  webbase gen form: create_csr + set_mv_hint + optimize {t_wplan:.2f} s, spill route plan {t_wroute:.2f} s; "
+        f"B={wform.gen_B} m_pad={wform.gen_m_pad} W={wform.bwd_W} start={wform.bandt_start} padL={wform.bwd_padL}, "
+        f"spilled {wform.sp_ind.numel()}, hub columns {wform.hub_cols.numel()}, hub rows "
+        f"{0 if wform.hubr_rows is None else wform.hubr_rows.numel()}, flipped blocks "
+        f"{0 if wform.gen_flip is None else int(wform.gen_flip.sum())}; route {route_desc(wroute)}; "
+        f"form bytes {wform.nbytes() / 1e9:.3f} GB (route {wroute.nbytes() / 1e6:.1f} MB)")
+    rrng = np.random.default_rng(43)
+    xs_d = torch.from_numpy(rrng.standard_normal(wform.gen_m_pad).astype(np.float32)).to(dev)
+    ys_d = torch.from_numpy(rrng.standard_normal(wform.gen_m_pad).astype(np.float32)).to(dev)
+    check_route_kernels("webbase spill", wroute, xs_d, ys_d)
+    t0 = time.perf_counter()
+    qptr, qind, qval = scatter_operand()
+    qm = len(qptr) - 1
+    Qh = tt.create_csr(qm, qm, qptr, qind, qval, device="cuda")
+    tt.set_mv_hint(Qh, NONE, GEN, nop=1000)
+    tt.optimize(Qh)
+    torch.cuda.synchronize()
+    qform = next(iter(Qh.plan.exec_forms.values()))
+    if qform.kind != "route":
+        raise AssertionError(f"scatter operand planned as {qform.kind}, want route")
+    qstripes = qform._spill_route.stripes
+    log(f"  scatter operand (m={qm}, nnz={qind.size}): create_csr + set_mv_hint + optimize "
+        f"{time.perf_counter() - t0:.2f} s -> route form, {len(qstripes)} stripes, each "
+        f"{sorted({s.k for s in qstripes})}; stripe 0 rows [{qform._spill_route.row_lo[0]}, "
+        f"{qform._spill_route.row_hi[0]}): {route_desc(qstripes[0])}; form bytes {qform.nbytes() / 1e6:.1f} MB")
+    xq_d = torch.from_numpy(rrng.standard_normal(qm).astype(np.float32)).to(dev)
+    yq_d = torch.from_numpy(rrng.standard_normal(qform._spill_route.row_hi[0]).astype(np.float32)).to(dev)
+    check_route_kernels("scatter stripe 0", qstripes[0], xq_d, yq_d)
+    # small: 2500 entries over rows [2100, 6000) (untouched leading y
+    # blocks), columns over a ragged x of 5003 (a chunk straddles its end)
+    srows = np.sort(rrng.integers(2100, 6000, 2500))
+    scols = rrng.integers(0, 5003, 2500)
+    ssr = build_spill_route(srows, scols, torch.from_numpy(rrng.standard_normal(2500).astype(np.float32)).to(dev),
+                            6000, n_pad_x=5003)
+    check_route_kernels("small ragged", ssr, torch.from_numpy(rrng.standard_normal(5003).astype(np.float32)).to(dev),
+                        torch.from_numpy(rrng.standard_normal(6000).astype(np.float32)).to(dev))
+    src7 = rrng.permutation(128)
+    v7 = torch.from_numpy(rrng.standard_normal(128).astype(np.float32)).to(dev)
+    p7 = torch.from_numpy(pack_masks(native.benes_plan(7, src7))).to(dev)
+    got7 = benes_route(v7, p7, 7)
+    compare("benes_route_f32", "k=7 random permutation", got7, benes_route_plain(v7, p7, 7), errs)
+    if not torch.equal(got7.cpu(), v7.cpu()[torch.from_numpy(src7)]):
+        raise AssertionError("benes_route_f32 k=7: the route does not realise its permutation")
+
     # 4. the main path, counted
     phase("phase 4: main path (create_csr -> set_mv_hint -> optimize -> mv)")
     S = sp.csr_matrix((val.astype(np.float64), ind, ptr), shape=(m, n))
     ref = S @ x.astype(np.float64)
-    for counts in COUNTERS.values():
-        for k in counts:
-            counts[k] = 0
+    reset_counts()
     t0 = time.perf_counter()
     A = tt.create_csr(m, n, ptr, ind, val, device="cuda")
     tt.set_mv_hint(A, NONE, GEN, nop=1000)
@@ -833,11 +1087,122 @@ def main() -> int:
     if trsm_win.launches["f64"] - c0 != 1:
         raise AssertionError("trsm f64 did not launch the multi-RHS kernel once")
     del C64
-    launches = {f"{prefix}_{k}": v for prefix, counts in COUNTERS.items() for k, v in counts.items()}
+    launches = read_counts()
     log(f"  main-path launches: {launches}")
     for kernel, count in launches.items():
-        if count == 0:
+        if count == 0 and kernel not in GEN_PATH:
             raise AssertionError(f"kernel {kernel} never launched on the main path")
+
+    # 5b. the general-structure path, counted on its own
+    phase("phase 5b: general-structure path (webbase gen + spill route, scatter route, permuted-space CG)")
+    reset_counts()
+    Sw = sp.csr_matrix((wval.astype(np.float64), wind, wptr), shape=(wm, wm))
+    xw = np.random.default_rng(47).standard_normal(wm).astype(np.float32)
+    xw_d = torch.from_numpy(xw).to(dev)
+    refw = Sw @ xw.astype(np.float64)
+    per_call = {"band_spmv_f32": 1, "oh_select_f32": 1, "oh_accum_f32": 1, "benes_route_f32": route_launches(wroute)}
+
+    def counted(name, fn, want):
+        """Run fn; require exactly `want` launches of each kernel named."""
+        c0 = read_counts()
+        out = fn()
+        c1 = read_counts()
+        done = {k: c1[k] - c0[k] for k in want}
+        if done != want:
+            raise AssertionError(f"{name}: launches {done}, want {want}")
+        return out
+
+    check_mv("webbase mv default (gen, spill route)",
+             counted("webbase mv", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0), per_call), refw, MV_TOL["f32"])
+    check_mv("webbase mv kid=7", counted("kid=7", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0, kid=7), per_call),
+             refw, MV_TOL["f32"])
+    yw = torch.from_numpy(np.random.default_rng(53).standard_normal(wm).astype(np.float32)).to(dev)
+    check_mv("webbase mv alpha=1.5 beta=-0.5",
+             counted("alpha/beta", lambda: tt.mv(1.5, Wh, GEN, NONE, xw_d, -0.5, yw), per_call),
+             1.5 * refw - 0.5 * yw.double().cpu().numpy(), MV_TOL["f32"])
+    tt.set_precision_mode(Wh, "mixed")
+    mixed_call = dict(per_call, band_spmv_f32=0, band_spmv_bf16=1)
+    ymix = counted("mixed", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0), mixed_call).double().cpu().numpy()
+    tt.set_precision_mode(Wh, "full")
+    # docs/precision.md: the bf16 band rounds one operand of each band product
+    bound = 2.0**-8 * (abs(Sw) @ np.abs(xw.astype(np.float64))) + row_nnz(wptr) * 2.0**-23 * np.abs(refw)
+    worst = float(np.max(np.abs(ymix - refw) / bound))
+    log(f"  webbase mv mixed (bf16 band): max |err| / documented bound {worst:.3f} (must be <= 1)")
+    if not (np.all(np.isfinite(ymix)) and worst <= 1.0):
+        raise AssertionError("webbase mixed-precision mv outside the documented error bound")
+    op = tt.mv_operator(Wh)
+    if op.space != "permuted":
+        raise AssertionError(f"mv_operator on the gen form iterates in the {op.space} space")
+    check_mv("webbase mv_operator (permuted space, round trip)",
+             counted("mv_operator", lambda: op.from_space(op(op.to_space(xw_d))), per_call), refw, MV_TOL["f32"])
+    wval2 = np.random.default_rng(59).standard_normal(wval.size).astype(np.float32)
+    t0 = time.perf_counter()
+    tt.update_values(Wh, wval2)
+    torch.cuda.synchronize()
+    log(f"  webbase update_values: {time.perf_counter() - t0:.2f} s")
+    refw2 = sp.csr_matrix((wval2.astype(np.float64), wind, wptr), shape=(wm, wm)) @ xw.astype(np.float64)
+    check_mv("webbase mv after update_values",
+             counted("update_values", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0), per_call), refw2, MV_TOL["f32"])
+    t0 = time.perf_counter()
+    W64 = tt.create_csr(wm, wm, wptr, wind, wval.astype(np.float64), device="cuda")
+    tt.set_mv_hint(W64, NONE, GEN, nop=1000)
+    tt.optimize(W64)
+    w64form = next(iter(W64.plan.exec_forms.values()))
+    # at 8 B a value the gen cost model (the JAX package's constants) prices
+    # the band above GEN_MARGIN of the gather form, and the route serves
+    # float32 only: the gather fallback, as the JAX package plans it
+    if w64form.kind not in ("ell", "ellhyb", "segsum"):
+        raise AssertionError(f"float64 webbase planned as {w64form.kind}, want the gather fallback")
+    check_mv(f"webbase mv float64 (gather fallback: {w64form.kind})",
+             counted("f64", lambda: tt.mv(1.0, W64, GEN, NONE, xw_d.double(), 0.0),
+                     {"band_spmv_f64": 0, "oh_select_f32": 0}), refw, MV_TOL["f64"])
+    log(f"  float64 webbase: plan + mv {time.perf_counter() - t0:.2f} s")
+    del W64, w64form
+    Sq = sp.csr_matrix((qval.astype(np.float64), qind, qptr), shape=(qm, qm))
+    xq = np.random.default_rng(61).standard_normal(qm).astype(np.float32)
+    q_call = {"oh_select_f32": len(qstripes), "oh_accum_f32": len(qstripes),
+              "benes_route_f32": sum(route_launches(s) for s in qstripes), "band_spmv_f32": 0}
+    xq_d = torch.from_numpy(xq).to(dev)
+    check_mv("scatter mv default (whole-matrix route)",
+             counted("scatter mv", lambda: tt.mv(1.0, Qh, GEN, NONE, xq_d, 0.0), q_call),
+             Sq @ xq.astype(np.float64), MV_TOL["f32"])
+    # CG in permuted space on the symmetrised webbase
+    t0 = time.perf_counter()
+    Sws, gptr, gind, gval = spd_operand(wptr, wind, wval, wm)
+    G = tt.create_csr(wm, wm, gptr, gind, gval, device="cuda")
+    tt.set_mv_hint(G, NONE, GEN, nop=1000)
+    tt.optimize(G)
+    gform = next(iter(G.plan.exec_forms.values()))
+    if not (gform.kind == "gen" and gform.gen_bandt and _spill_route_on(gform, dev)):
+        raise AssertionError(f"symmetrised webbase planned as {gform.kind}, want gen with a routed spill")
+    groute = gform.spill_route()
+    torch.cuda.synchronize()
+    log(f"  symmetrised webbase (nnz={gind.size}): plan + spill route {time.perf_counter() - t0:.2f} s; "
+        f"W={gform.bwd_W}, spilled {gform.sp_ind.numel()}, hub columns {gform.hub_cols.numel()}, hub rows "
+        f"{0 if gform.hubr_rows is None else gform.hubr_rows.numel()}; route {route_desc(groute)}")
+    bg = np.random.default_rng(67).standard_normal(wm).astype(np.float32)
+    bg_d = torch.from_numpy(bg).to(dev)
+    c0 = read_counts()
+    t0 = time.perf_counter()
+    xg, kg, rg = tt.pcg_solve(G, bg_d, rtol=rtol, maxit=1000)
+    torch.cuda.synchronize()
+    t_gcg = time.perf_counter() - t0
+    c1 = read_counts()
+    true_g = float(np.linalg.norm(bg - Sws @ xg.double().cpu().numpy()) / np.linalg.norm(bg.astype(np.float64)))
+    log(f"  pcg permuted space (symmetrised webbase): {kg} iterations in {t_gcg:.3f} s, ||r||={rg:.3e}, true rel "
+        f"residual {true_g:.3e} (tol {res_tol:.1e}); launches {({k: c1[k] - c0[k] for k in per_call})}")
+    if not (kg < 1000 and np.isfinite(true_g) and true_g <= res_tol):
+        raise AssertionError("permuted-space CG did not converge to the tolerance")
+    g_call = {"band_spmv_f32": kg + 1, "oh_select_f32": kg + 1, "oh_accum_f32": kg + 1,
+              "benes_route_f32": (kg + 1) * route_launches(groute)}
+    if {k: c1[k] - c0[k] for k in g_call} != g_call:
+        raise AssertionError(f"permuted-space CG launches {({k: c1[k] - c0[k] for k in g_call})}, want {g_call}")
+    gen_launches = read_counts()
+    log(f"  general-structure path launches: {gen_launches}")
+    for kernel in GEN_PATH:
+        if gen_launches[kernel] == 0:
+            raise AssertionError(f"kernel {kernel} never launched on the general-structure path")
+        launches[kernel] = gen_launches[kernel]
 
     # 6. timing
     phase("phase 6: timing (CUDA events or host clock, median of repeats)")
@@ -976,6 +1341,76 @@ def main() -> int:
     log(f"  ILU0-PCG iteration: {t_pcg:.4f} ms (host clock, median of "
         f"{[round(t, 4) for t in t_pcg_all]})")
     log(f"  set-up: ilu0_factorize {t_factor:.2f} s + diagonal-block inversion {t_invert:.2f} s")
+
+    # the spill-route kernels on the webbase spill route (after
+    # update_values: the same structure, new values)
+    sr = wroute
+    contrib = oh_select(xs_d, sr.sel_idx, sr.sel_val, sr.sel_blk, n_out=sr.n)
+    routed = apply_route(contrib, sr.masks, sr.masks_packed, sr.k)
+    n_spill = wform.sp_ind.numel()
+    slots = sr.n_sel_tiles * 1024
+    xblk_bytes = int(torch.unique(sr.sel_blk).numel()) * 4096
+    turns("oh_select_f32", lambda: oh_select(xs_d, sr.sel_idx, sr.sel_val, sr.sel_blk, n_out=sr.n),
+          lambda: oh_select_plain(xs_d, sr.sel_idx, sr.sel_val, sr.sel_blk, sr.n))
+    # read index and value, write the contribution (12 B a slot), each x
+    # block once, the chunk's block id; one multiply a slot
+    note("oh_select_f32", slots * 12 + xblk_bytes + nbytes(sr.sel_blk), n_spill * 12 + xblk_bytes, slots)
+    acc_args = (sr.acc_idx, sr.acc_cid, sr.acc_start, sr.n_acc_tiles, ys_d)
+    turns("oh_accum_f32", lambda: oh_accum(routed, *acc_args), lambda: oh_accum_plain(routed, *acc_args))
+    real = sr.acc_cid < sr.n_acc_tiles
+    blk = torch.repeat_interleave(torch.arange(sr.nyblk, device=dev),
+                                  (sr.acc_start[1:] - sr.acc_start[:-1]).long())
+    acc_rows = (blk[real][:, None] * 1024 + sr.acc_idx.reshape(-1, 1024)[real].long()).reshape(-1)
+    acc_vals = routed[: sr.n_acc_tiles * 1024].reshape(-1, 1024)[sr.acc_cid[real].long()].reshape(-1)
+    y_lib = ys_d.clone()
+    # read index and contribution of every real slot (8 B), y in and out,
+    # the chunk lists; one add a slot
+    acc_bytes = sr.n_acc_tiles * 1024 * 8 + 2 * nbytes(ys_d) + nbytes(sr.acc_cid, sr.acc_start)
+    note("oh_accum_f32", acc_bytes, n_spill * 8 + 2 * nbytes(ys_d), sr.n_acc_tiles * 1024,
+         lambda: y_lib.index_add_(0, acc_rows, acc_vals))
+    masks_full = route_masks(sr.masks, sr.masks_packed, sr.k)
+    turns("benes_route_f32", lambda: apply_route(contrib, sr.masks, sr.masks_packed, sr.k),
+          lambda: apply_benes(contrib, masks_full, sr.k), preps=(5, 2))
+    perm = apply_benes(torch.arange(sr.n, dtype=torch.float32, device=dev), masks_full, sr.k).long()
+    if not torch.equal(contrib[perm], routed):
+        raise AssertionError("the decoded permutation does not reproduce the route")
+    # v in and out, the masks once ((8 + ceil((2k-1)/8)) 2^k B for one packed network)
+    route_bytes = 2 * nbytes(contrib) + nbytes(sr.masks_packed) + (0 if sr.masks is None else nbytes(sr.masks))
+    note("benes_route_f32", route_bytes, route_bytes, 0, lambda: contrib[perm])
+    del masks_full, perm, acc_rows, acc_vals, y_lib
+    t_engine = cuda_ms(lambda: spill_route_apply(xs_d, ys_d, sr))
+    t_tail = cuda_ms(lambda: ys_d.clone().index_add_(0, wform.sp_rows, wform.sp_val * xs_d[wform.sp_ind]))
+    log(f"  webbase spill of {n_spill} entries: select + route + accumulate {t_engine:.4f} ms vs the gather + "
+        f"index_add_ tail {t_tail:.4f} ms (the port's path below the gate)")
+    t_wband = cuda_ms(lambda: band_spmv(wform.bwd_val, xs_d, wform.bandt_start, wform.bwd_padL))
+    wband_bytes = nbytes(wform.bwd_val)
+    log(f"  webbase band (W={wform.bwd_W}, {wband_bytes / 1e9:.3f} GB): band kernel {t_wband:.4f} ms = "
+        f"{wband_bytes / t_wband / 1e6:.1f} GB/s ({wband_bytes / t_wband / 1e6 / peak:.3f} of peak)")
+    # mv on the general-structure operands, against torch.sparse CSR @ x
+    for name, handle, xv, (pp, ii, vv), extra in (
+        ("webbase mv (gen, spill route)", Wh, xw_d, (wptr, wind, wval2), {}),
+        ("webbase mv mixed (bf16 band)", Wh, xw_d, (wptr, wind, wval2), {"mixed": True}),
+        ("scatter mv (route)", Qh, xq_d, (qptr, qind, qval), {}),
+    ):
+        if extra:
+            tt.set_precision_mode(handle, "mixed")
+        t = cuda_ms(lambda: tt.mv(1.0, handle, GEN, NONE, xv, 0.0), reps=9, inner=5)
+        if extra:
+            tt.set_precision_mode(handle, "full")
+        mrows, nz = len(pp) - 1, ii.size
+        useful = ((mrows + 1 + nz) * 4 + (nz + 2 * mrows) * 4) / 1e9  # bench.py:60, f32
+        At = csr_tensor(pp, ii, vv, dev, torch.float32)
+        t_lib, err = library_ms(lambda: At @ xv, reps=9, inner=5)
+        lib_s = f"{t_lib:.4f} ms" if t_lib is not None else f"none ({err})"
+        log(f"  {name}: {t:.4f} ms/call, effective {useful / (t / 1e3):.1f} GB/s = "
+            f"{useful / (t / 1e3) / peak:.3f} of peak {peak} GB/s (bench.py:60 useful bytes); "
+            f"torch.sparse CSR @ x {lib_s}")
+        del At
+    profile_mv("webbase mv (gen, spill route)", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0))
+    profile_mv("scatter mv (route)", lambda: tt.mv(1.0, Qh, GEN, NONE, xq_d, 0.0))
+    t_gi, t_gi_all = iteration_ms(lambda kk: tt.pcg_solve(G, bg_d, rtol=0.0, maxit=kk)[1], 5, 25)
+    log(f"  permuted-space CG iteration (symmetrised webbase): {t_gi:.4f} ms (host clock, median of "
+        f"{[round(t, 4) for t in t_gi_all]})")
     phase("done")
 
     kernels = [

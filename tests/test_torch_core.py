@@ -88,7 +88,9 @@ def test_default_device_is_cuda_and_context_detects_cpu_here():
 
 def test_registry_table_and_dispatcher():
     kids = {e.kid: e.fmt for e in registry.table("mv")}
-    assert kids == {0: "segsum", 8: "bandt", 12: "bandt", 13: "bandt"}
+    assert kids == {
+        0: "segsum", 1: "ell", 2: "ellhyb", 7: "gen", 8: "bandt", 12: "bandt", 13: "bandt", 14: "route"
+    }
     assert {e.kid: e.fmt for e in registry.table("sv")} == {0: "blocked"}
     assert {e.kid: e.fmt for e in registry.table("mm")} == {
         0: "segsum", 1: "ell", 2: "ellhyb", 3: "bwdg", 4: "bandtm", 5: "bandtm", 7: "diag"
@@ -97,6 +99,8 @@ def test_registry_table_and_dispatcher():
     assert tt.debug_dispatcher("mm", fmt="diag", device="cpu")["kid"] == 7
     assert tt.debug_dispatcher("mv", fmt="bandt", device="cpu")["kid"] == 12
     assert tt.debug_dispatcher("mv", fmt="segsum", device="cpu")["kid"] == 0
+    assert tt.debug_dispatcher("mv", fmt="gen", device="cpu")["kid"] == 7
+    assert tt.debug_dispatcher("mv", fmt="route", device="cpu")["name"] == "cuda_spill_route"
     assert tt.debug_dispatcher("sv", device="cpu")["name"] == "cuda_trsv_win"
     with pytest.raises(tt.AoclSparseError) as e:
         registry.select("mv", fmt="segsum", kid=8)
@@ -107,7 +111,8 @@ def test_registry_table_and_dispatcher():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports neither jax nor the JAX package."""
+    """Every module of the port, the spill-route engine's among them, and
+    chip_smoke.py import neither jax nor the JAX package."""
     import subprocess
     import sys
 
@@ -115,6 +120,10 @@ def test_port_imports_no_jax():
         "import importlib, pkgutil, sys, aoclsparse_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "new = ('kernels.spill_route', 'kernels.benes', 'kernels.route', 'kernels.spmv_gen',\n"
+        "       'planner.spill_route')\n"
+        "assert all('aoclsparse_tpu_torch.' + n in sys.modules for n in new)\n"
+        "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'aoclsparse_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -180,3 +189,63 @@ def test_interop_carries_csr_and_bandt_form(ast):
     via_handle = tt.mv(1.0, T, tt.MatrixDescriptor(), tt.Operation.none, torch.from_numpy(x), 0.0, kid=8)
     assert near_error(via_form.numpy(), want) <= expected_precision(torch.float64)
     assert near_error(via_handle.numpy(), want) <= expected_precision(torch.float64)
+
+
+def test_native_binds_rcm_and_benes():
+    """The host library's rcm and benes_plan are bound (the numpy versions
+    are the fallback): an RCM order that recovers a scrambled band, and a
+    routing plan that realises its permutation."""
+    from aoclsparse_tpu_torch import native
+    from aoclsparse_tpu_torch.kernels.route import apply_benes
+
+    assert native.available()
+    lib = native._load()
+    assert lib is not None and hasattr(lib, "rcm") and hasattr(lib, "benes_plan")
+    rng = np.random.default_rng(1)
+    m = 400
+    p = rng.permutation(m)
+    r = np.repeat(np.arange(m), 3)
+    c = np.clip(r + np.tile([-1, 0, 1], m), 0, m - 1)
+    r, c = p[r], p[c]
+    order = np.lexsort((c, r))
+    ptr = np.cumsum(np.r_[0, np.bincount(r, minlength=m)])
+    perm, bw = native.rcm_permutation(m, ptr, c[order])
+    assert sorted(perm) == list(range(m)) and bw <= 2
+    src = rng.permutation(256)
+    masks = native.benes_plan(8, src)
+    assert masks.shape == (15, 256) and masks.dtype == np.uint8
+    out = apply_benes(torch.arange(256, dtype=torch.float32), torch.from_numpy(masks), 8)
+    np.testing.assert_array_equal(out.numpy(), src)
+
+
+def test_interop_carries_gen_form(ast, monkeypatch):
+    """A JAX gen form (its G = 8 layout, float64) carried across runs the
+    port's composite to the JAX package's result."""
+    from aoclsparse_tpu.planner.plan import get_plan
+
+    from aoclsparse_tpu_torch.ops.level2.mv import _run_exec_form
+
+    rng = np.random.default_rng(2)
+    m = 1024
+    dense = np.zeros((m, m))
+    for i in range(m):
+        js = np.unique(np.clip(i + rng.integers(-10, 11, 6), 0, m - 1))
+        dense[i, js] = rng.standard_normal(js.size)
+    for h in rng.choice(m, 4, replace=False):
+        dense[rng.choice(m, m // 3, replace=False), h] = 1.0
+    dense[rng.integers(0, m, 200), rng.integers(0, m, 200)] = 1.0
+    ptr = np.r_[0, np.cumsum((dense != 0).sum(1))]
+    J = ast.create_csr(m, m, ptr, np.nonzero(dense)[1].astype(np.int32), dense[dense != 0])
+    jf = get_plan(J).exec_form_for(ast.MatrixDescriptor(), ast.Operation.none, kind="gen")
+    keys = ("bwd_val", "sp_val", "sp_ind", "sp_rows", "gen_perm", "gen_out", "gen_flip", "hub_cols", "hub_slab",
+            "hubr_rows", "hubr_slab")
+    arrays = {k: None if getattr(jf, k) is None else np.asarray(getattr(jf, k)) for k in keys}
+    arrays.update({k: getattr(jf, k) for k in ("bwd_W", "bwd_G", "bwd_base8", "bwd_n_pad", "bwd_padL",
+                                               "bandt_start", "gen_B", "gen_m_pad", "gen_bandt")})
+    form = interop.gen_form_from_jax(arrays, m, m, device="cpu")
+    x = rng.standard_normal(m)
+    want = np.asarray(ast.mv(1.0, J, ast.MatrixDescriptor(), ast.Operation.none, x, 0.0, kid=7))
+    got = _run_exec_form(form, torch.from_numpy(x), 7)
+    assert not form.gen_bandt and form.hub_cols is not None
+    assert near_error(got.numpy(), want) <= expected_precision(torch.float64)
+    assert near_error(got.numpy(), dense @ x) <= expected_precision(torch.float64)

@@ -220,7 +220,10 @@ def test_ported_slice_boundaries():
         tt.mv(1.0, T, GEN, tt.Operation.none, x, 0.0, kid=11)
     assert e.value.status == tt.Status.not_implemented
     with pytest.raises(tt.AoclSparseError) as e:
-        tt.mv(1.0, T, GEN, tt.Operation.none, x, 0.0, kid=1)  # ELL: not in the port's table
+        tt.mv(1.0, T, GEN, tt.Operation.none, x, 0.0, kid=14)  # the route: the planner's only
+    assert e.value.status == tt.Status.invalid_kid
+    with pytest.raises(tt.AoclSparseError) as e:
+        tt.mv(1.0, T, GEN, tt.Operation.none, x, 0.0, kid=5)  # not in the port's mv table
     assert e.value.status == tt.Status.invalid_kid
     with pytest.raises(tt.AoclSparseError) as e:
         tt.mv(1.0, T, GEN, tt.Operation.none, torch.ones(n, dtype=torch.float64, device="meta"), 0.0)

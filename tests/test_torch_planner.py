@@ -146,8 +146,11 @@ def test_complex_hermitian_effective_matches_jax(jplan):
 
 
 def test_choose_mv_format_rederived_for_hopper():
-    """Band operands take the band form; scattered ones and complex ones the
-    gather form (no band kernel instance); explicit kinds still build."""
+    """Band operands take the band form; scattered square ones go to the
+    general-structure composite, whose `_build_gen` rejects random structure and
+    falls back to the gather form (the whole-matrix route waits for 2e6
+    entries); complex ones take the gather form (no band kernel instance);
+    explicit kinds still build."""
     ptr, ind, val = _band_coo(seed=7, m=800, n_far=4)
     A = create_csr(800, 800, ptr, ind, val, device="cpu")
     plan = tplan.get_plan(A)
@@ -156,7 +159,10 @@ def test_choose_mv_format_rederived_for_hopper():
     m = 800
     cols = np.sort(rng.integers(0, m, (m, 3)), axis=1).reshape(-1).astype(np.int32)
     B = create_csr(m, m, np.arange(m + 1) * 3, cols, rng.standard_normal(3 * m), device="cpu")
-    assert tplan.get_plan(B).exec_form_for(MatrixDescriptor(), Operation.none).kind == "segsum"
+    eff = tplan.get_plan(B).effective_for(MatrixDescriptor(), Operation.none)
+    assert tplan.choose_mv_format(eff) == "gen" and tplan._build_gen(eff) is None
+    assert tplan.get_plan(B).exec_form_for(MatrixDescriptor(), Operation.none).kind == "ell"
+    assert tplan.gather_fallback_kind(eff) == "ell"
     assert tplan.get_plan(B).exec_form_for(MatrixDescriptor(), Operation.none, kind="bandt").kind in (
         "bandt",
         "segsum",
