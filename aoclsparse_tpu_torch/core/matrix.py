@@ -8,6 +8,12 @@ and the create/auxiliary API, src/extra/aoclsparse_auxiliary.cpp:366-1014).
   thin mutable object that owns the hint list and the cached Plan.
 - Index-base conversion to zero-base happens at creation; `export_csr`
   restores the requested base.
+- Values may be lazy (core/matrix.py:97-127 of the JAX package): a SpGEMM
+  product computed on the band engine keeps its CSR values as a pending
+  extraction (`set_lazy_values`), since chained `mv` runs straight on the
+  seeded device band. Reading ``.data`` materializes them first, so every
+  consumer stays correct; shape, nnz, dtype and device answer from the
+  pending structure without the extraction gather.
 - `destroy` drops the handle's references; provided for API parity.
 """
 
@@ -62,7 +68,8 @@ class Hint:
 class SparseMatrix:
     """Mutable handle around an immutable CSR of tensors."""
 
-    def __init__(self, data: CSR, input_format: FormatType, base: IndexBase = IndexBase.zero):
+    def __init__(self, data: Optional[CSR], input_format: FormatType, base: IndexBase = IndexBase.zero):
+        self._lazy = None  # (ptr, ind, shape, dtype, thunk) | None
         self.data = data  # zero-based
         self.input_format = FormatType(input_format)
         self.base = IndexBase(base)
@@ -77,9 +84,46 @@ class SparseMatrix:
         #: set_memory_hint: "restricted" keeps mm on the gather form
         self.mem_policy = MemoryPolicy.unrestricted
 
+    # -- lazy-values protocol --------------------------------------------
+    @property
+    def data(self) -> CSR:
+        if self._lazy is not None:
+            ptr, ind, shape, _dtype, thunk = self._lazy
+            self._lazy = None
+            self._data = CSR(ptr, ind, thunk(), shape=shape)
+            # the seeded band form was made together with the thunk: seat
+            # its staleness key now that a concrete value tensor exists
+            if getattr(self, "_seed_bwdg", None) is not None and getattr(self, "_seed_bwdg_val", None) is None:
+                self._seed_bwdg_val = self._data.val
+        return self._data
+
+    @data.setter
+    def data(self, v: Optional[CSR]) -> None:
+        self._lazy = None
+        self._data = v
+
+    def set_lazy_values(self, ptr: torch.Tensor, ind: torch.Tensor, shape, dtype, thunk) -> None:
+        """Install a pending value extraction: the structure (device ptr and
+        ind tensors) is final, the values materialize on the first read of
+        ``.data`` (kernels/spgemm_band.py)."""
+        self._data = None
+        self._lazy = (ptr, ind, tuple(shape), dtype, thunk)
+
+    @property
+    def values_pending(self) -> bool:
+        return self._lazy is not None
+
+    def invalidate(self) -> None:
+        """Drop the cached plan and factorization after a structural change."""
+        self.plan = None
+        self.ilu_state = None
+
+    # -- passthroughs, answered from the pending structure when lazy ------
     @property
     def shape(self) -> Tuple[int, int]:
-        return self.data.shape
+        if self._lazy is not None:
+            return self._lazy[2]
+        return self._data.shape
 
     @property
     def m(self) -> int:
@@ -91,15 +135,21 @@ class SparseMatrix:
 
     @property
     def nnz(self) -> int:
-        return self.data.nnz
+        if self._lazy is not None:
+            return int(self._lazy[1].shape[0])
+        return self._data.nnz
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.data.dtype
+        if self._lazy is not None:
+            return self._lazy[3]
+        return self._data.dtype
 
     @property
     def device(self) -> torch.device:
-        return self.data.device
+        if self._lazy is not None:
+            return self._lazy[1].device
+        return self._data.device
 
     def add_hint(self, hint: Hint) -> None:
         self.hints.insert(0, hint)  # reference prepends (csr_util.cpp:47)
@@ -183,19 +233,24 @@ def update_values(h: SparseMatrix, values) -> SparseMatrix:
     """Replace all values keeping the pattern (auxiliary.cpp:674-706). The
     cached plan keeps its structure and refreshes every value-derived
     operand (ExecForm.refresh); the ILU0 factors and the triangular solve
-    forms are dropped and rebuilt at their next use."""
+    forms are dropped and rebuilt at their next use. On a handle whose
+    values are pending (a band-engine SpGEMM product) the old values are
+    replaced without being materialized."""
     _require_handle(h)
     if values is None:
         raise AoclSparseError(Status.invalid_pointer, "null values")
-    A = h.data
-    vals = as_values(values, A.device).reshape(-1)
-    require(vals.shape[0] == A.val.shape[0], Status.invalid_size, "update_values length mismatch")
+    vals = as_values(values, h.device).reshape(-1)
+    require(vals.shape[0] == h.nnz, Status.invalid_size, "update_values length mismatch")
     require(
-        to_torch_dtype(vals.dtype) == A.val.dtype,
+        to_torch_dtype(vals.dtype) == h.dtype,
         Status.wrong_type,
-        f"update_values dtype {vals.dtype} != matrix dtype {A.val.dtype}",
+        f"update_values dtype {vals.dtype} != matrix dtype {h.dtype}",
     )
-    h.data = dataclasses.replace(A, val=vals)
+    if h.values_pending:
+        ptr, ind, shape, _dtype, _thunk = h._lazy
+        h.data = CSR(ptr, ind, vals, shape=shape)
+    else:
+        h.data = dataclasses.replace(h.data, val=vals)
     h.ilu_state = None
     if h.plan is not None:
         h.plan.refresh_values(h.data)

@@ -16,6 +16,9 @@ These entry points let one operand feed both packages:
   permutation, band, hub slabs, spill), and `spill_route_from_jax` for a
   JAX ``SpillRoute``, so the select, accumulate and route kernels run on
   the JAX planner's very operands.
+- `band_gemm_plan_from_jax` does it for a JAX ``BandGemmPlan`` (geometry,
+  stream ranges, extraction map and the two operand bands), so the band
+  GEMM kernel and its plain version run on the JAX package's band operands.
 
 None imports JAX: the arrays arrive as numpy.
 """
@@ -30,11 +33,13 @@ import torch
 from .core.context import resolve_device
 from .core.matrix import SparseMatrix, as_values, create_csr
 from .core.types import IndexBase
+from .kernels.spgemm_band import BandGemmPlan
 from .planner.plan import ExecForm
 from .planner.spill_route import SpillRoute
 from .planner.triangular import TrsvForm
 
 __all__ = [
+    "band_gemm_plan_from_jax",
     "matrix_from_jax_arrays",
     "bandt_form_from_jax",
     "gen_form_from_jax",
@@ -198,4 +203,31 @@ def spill_route_from_jax(arrays: Mapping, device=None) -> SpillRoute:
         masks=u8("masks"),
         masks_packed=u8("masks_packed"),
         _val_slot=None if slot is None else torch.from_numpy(np.asarray(slot, dtype=np.int64)).to(dev),
+    )
+
+
+#: BandGemmPlan's integer fields (the same names in both packages)
+_BAND_GEMM_INTS = ("G", "WA", "WB", "WC", "d0", "sl0", "nstream", "relC", "nblk")
+
+
+def band_gemm_plan_from_jax(arrays: Mapping, device=None) -> BandGemmPlan:
+    """This package's BandGemmPlan from a JAX one: its integer geometry,
+    ``stream_ranges``, ``extract_idx`` and the operand bands ``bwd_val_A``
+    and ``bwd_val_B`` ((nblk, G, WA) and (nblk, G, WB)) as numpy. The
+    operand forms carry no scatter maps, so the plan serves the numeric
+    stage on these bands but not a value refresh."""
+    dev = resolve_device(device)
+    geo = {key: int(arrays[key]) for key in _BAND_GEMM_INTS}
+    forms = []
+    for side, W in (("A", geo["WA"]), ("B", geo["WB"])):
+        band = as_values(np.ascontiguousarray(arrays[f"bwd_val_{side}"]), dev)
+        if tuple(band.shape) != (geo["nblk"], geo["G"], W):
+            raise ValueError(f"bwd_val_{side} has shape {tuple(band.shape)}, want {(geo['nblk'], geo['G'], W)}")
+        forms.append(ExecForm(kind="bwdg", m=geo["nblk"] * geo["G"], n=0, bwd_val=band, bwd_W=W, bwd_G=geo["G"]))
+    return BandGemmPlan(
+        **geo,
+        stream_ranges=tuple(tuple(int(v) for v in r) for r in arrays["stream_ranges"]),
+        extract_idx=np.asarray(arrays["extract_idx"], dtype=np.int64),
+        formA=forms[0],
+        formB=forms[1],
     )

@@ -1,8 +1,9 @@
 """Build the package's CUDA sources into one shared library, at first use.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``) into a shared library with plain
-C entry points, which kernel wrappers load with ``ctypes``. The library
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``), all started together, and the
+objects are linked into one shared library with plain C entry points, which
+kernel wrappers load with ``ctypes``. The library
 lands in ``aoclsparse_tpu_torch/_build/`` (listed in ``.gitignore``) under a
 name carrying a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads the existing file. Nothing is fetched
@@ -31,17 +32,11 @@ MAX_SMEM = 232448
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode",
-    "arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-    "-Xptxas",
-    "-v",
-)
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: one source to one object
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
+#: the objects to the library
+LINK_FLAGS = (*GENCODE, "-shared")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -69,7 +64,7 @@ def build_library() -> Path:
     """Compile the sources unless a library of the same hash exists; return
     its path."""
     srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in srcs:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -77,13 +72,33 @@ def build_library() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(p) for p in srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    tmp = out.with_name(f"{tag}.tmp.so")
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in srcs]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(o), str(p)], stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True)
+        for p, o in zip(srcs, objs)
+    ]
+    logs, failed = [], []
+    for p, proc in zip(srcs, procs):
+        stdout, stderr = proc.communicate()
+        logs.append(stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"{p.name} (exit {proc.returncode}):\n{stdout}\n{stderr}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for o in objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n{link.stdout}\n{link.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
 

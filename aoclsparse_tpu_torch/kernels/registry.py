@@ -13,8 +13,10 @@ run (aoclsparse_debug_dispatcher analog).
 
 The mv table keeps the JAX package's KID numbers for the forms ported so
 far: 0 (segsum), 1 (ell) and 2 (ellhyb), the gather forms in plain torch;
-7, the general-structure composite (kernels/spmv_gen.py), whose band runs
-the band kernel and whose spill the spill-route kernels; 8, 12 and 13 for
+9 (bwdg), the group-band SpMV in plain torch that a SpGEMM product's
+seeded band runs on; 7, the general-structure composite
+(kernels/spmv_gen.py), whose band runs the band kernel and whose spill the
+spill-route kernels; 8, 12 and 13 for
 the ``bandt`` form, all three the one band kernel (kernels/band_spmv.py),
 12 the default, streaming a bf16 band under the mixed precision policy, 13
 the f64 instance (the JAX package's double-float KID); and 14, the
@@ -44,7 +46,7 @@ import torch
 from ..core.context import get_context
 from ..core.types import AoclSparseError, Status
 from .band_spmv import spmv_bandt
-from .plain_spmv import spmv_ell, spmv_ellhyb, spmv_segsum
+from .plain_spmv import spmv_bwdg, spmv_ell, spmv_ellhyb, spmv_segsum
 from .spmm_band import spmm_bandmxu, spmm_bandtm
 from .spmm_diag import spmm_diag
 from .spmm_plain import spmm_bwd, spmm_ell, spmm_ellhyb, spmm_segsum
@@ -141,6 +143,7 @@ registry.register("mv", KernelEntry(0, "torch_segsum", spmv_segsum, "segsum", "a
 registry.register("mv", KernelEntry(1, "torch_ell", spmv_ell, "ell", "any", 0))
 registry.register("mv", KernelEntry(2, "torch_ellhyb", spmv_ellhyb, "ellhyb", "any", 0))
 registry.register("mv", KernelEntry(7, "gen_composite", spmv_gen, "gen", "any", 1))
+registry.register("mv", KernelEntry(9, "torch_bwdg", spmv_bwdg, "bwdg", "any", 1))
 registry.register("mv", KernelEntry(8, "cuda_bandt", spmv_bandt, "bandt", "any", 2))
 registry.register("mv", KernelEntry(12, "cuda_bandv", spmv_bandt, "bandt", "any", 3))
 # f64 instance: explicit KID, or the bandt dispatch of a float64 operand

@@ -1,9 +1,10 @@
 """Host C++ kernels of the planner: ILU(0) factorization, the blocked
-triangular-solve form fill, reverse Cuthill-McKee ordering and the Benes
-routing plan, bound with ctypes.
+triangular-solve form fill, reverse Cuthill-McKee ordering, the Benes
+routing plan and the SpGEMM symbolic and host numeric stages, bound with
+ctypes.
 
 PyTorch-side counterpart of ``aoclsparse_tpu/native/__init__.py:45-247,
-278-345, 697-848``. The C++ source, ``native/src/host_kernels.cpp``, is this
+278-455, 656-848``. The C++ source, ``native/src/host_kernels.cpp``, is this
 package's own byte-equal copy of the JAX package's
 ``aoclsparse_tpu/native/src/host_kernels.cpp`` (a CPU test holds the two
 equal, so both packages factor with the same code). At first use ``g++``
@@ -13,10 +14,12 @@ under a name carrying a hash of the source and flags, so an edited source
 rebuilds and an unchanged one loads the existing file. Nothing under
 ``aoclsparse_tpu/`` is read or written.
 
-`ilu0_factor`, `rcm_permutation` and `benes_plan` fall back to their numpy
-versions (`_ilu0_numpy`, `_rcm_numpy`, `_benes_numpy`) when the library
-cannot be built; `trsv_win_build` returns None then, and its callers build
-the form in numpy. `available()` says which one runs.
+`ilu0_factor`, `rcm_permutation`, `benes_plan` and `spgemm_nnz` fall back
+to their numpy versions (`_ilu0_numpy`, `_rcm_numpy`, `_benes_numpy`, a
+marker scan) when the library cannot be built; `trsv_win_build`,
+`spgemm_expand`, `spgemm_pattern` and `spgemm_numeric_host` return None
+then, and their callers take their numpy or torch paths, as in the JAX
+package. `available()` says which one runs.
 """
 
 from __future__ import annotations
@@ -33,7 +36,18 @@ import numpy as np
 
 from ..kernels.build import BUILD_DIR
 
-__all__ = ["available", "benes_plan", "ilu0_factor", "rcm_permutation", "trsv_win_build", "HOST_SOURCE"]
+__all__ = [
+    "available",
+    "benes_plan",
+    "ilu0_factor",
+    "rcm_permutation",
+    "spgemm_expand",
+    "spgemm_nnz",
+    "spgemm_numeric_host",
+    "spgemm_pattern",
+    "trsv_win_build",
+    "HOST_SOURCE",
+]
 
 #: the package's copy of the JAX package's host kernels
 HOST_SOURCE = Path(__file__).resolve().parent / "src" / "host_kernels.cpp"
@@ -100,6 +114,18 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rcm.argtypes = [ctypes.c_int64, _I64P, _I64P, _I64P]
     lib.benes_plan.restype = None
     lib.benes_plan.argtypes = [ctypes.c_int64, _I64P, _U8P]
+    lib.spgemm_nnz.restype = ctypes.c_int64
+    lib.spgemm_nnz.argtypes = [ctypes.c_int64, ctypes.c_int64] + [_I64P] * 5
+    lib.spgemm_expand.restype = ctypes.c_int64
+    lib.spgemm_expand.argtypes = [ctypes.c_int64] + [_I64P] * 4 + [_I32P] * 3 + [_I64P, _I32P, ctypes.c_uint8, _I64P]
+    lib.spgemm_pattern_count.restype = ctypes.c_int64
+    lib.spgemm_pattern_count.argtypes = [ctypes.c_int64] + [_I64P] * 6
+    lib.spgemm_pattern_fill.restype = None
+    lib.spgemm_pattern_fill.argtypes = [ctypes.c_int64] + [_I64P] * 6 + [_I32P]
+    for suf, vp in _VALP.values():
+        fn = getattr(lib, f"spgemm_numeric_{suf}")
+        fn.restype = None
+        fn.argtypes = [ctypes.c_int64, _I32P, _I32P, _I32P, vp, vp, vp, ctypes.c_int64]
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -358,3 +384,108 @@ def _benes_numpy(k: int, src: np.ndarray, masks: np.ndarray) -> np.ndarray:
     masks[tm][ev] = cr
     masks[tm][ev + 1] = cr
     return masks
+
+
+_I32_MAX = np.iinfo(np.int32).max
+
+
+def spgemm_expand(mA: int, Aptr, Aind, Bptr, Bind, upper_only: bool = False):
+    """Full symbolic stage: (pa, pb, pc, Cptr, Cind) with the products
+    ordered by (row, col), or None when the library is missing or the
+    product triples would pass int32 (the caller takes its numpy sort
+    path)."""
+    lib = _load()
+    if lib is None:
+        return None
+    Aptr64, Aind64, Bptr64, Bind64 = _i64(Aptr), _i64(Aind), _i64(Bptr), _i64(Bind)
+    P = int(np.diff(Bptr64)[Aind64].sum()) if Aind64.size else 0  # upper bound on products
+    if P >= _I32_MAX or Aind64.size >= _I32_MAX or Bind64.size >= _I32_MAX or (
+        Bind64.size and int(Bind64.max()) >= _I32_MAX
+    ):
+        return None
+    pa, pb, pc = (np.empty(P, dtype=np.int32) for _ in range(3))
+    Cptr = np.zeros(mA + 1, dtype=np.int64)
+    Cind = np.empty(max(P, 1), dtype=np.int32)
+    kept = np.zeros(1, dtype=np.int64)
+    nnzC = lib.spgemm_expand(
+        ctypes.c_int64(mA), _ptr(Aptr64, _I64P), _ptr(Aind64, _I64P), _ptr(Bptr64, _I64P),
+        _ptr(Bind64, _I64P), _ptr(pa, _I32P), _ptr(pb, _I32P), _ptr(pc, _I32P), _ptr(Cptr, _I64P),
+        _ptr(Cind, _I32P), ctypes.c_uint8(1 if upper_only else 0), _ptr(kept, _I64P),
+    )
+    kp = int(kept[0])
+    return pa[:kp], pb[:kp], pc[:kp], Cptr, Cind[:nnzC]
+
+
+def spgemm_pattern(mA: int, Aptr, Aind, Bptr, Bind):
+    """Pattern-only symbolic stage: (Cptr, Cind, P) without the O(P)
+    product triples (the band numeric engine needs only C's pattern). None
+    when the library is missing."""
+    lib = _load()
+    if lib is None:
+        return None
+    Aptr64, Aind64, Bptr64, Bind64 = _i64(Aptr), _i64(Aind), _i64(Bptr), _i64(Bind)
+    if Bind64.size and int(Bind64.max()) >= _I32_MAX:
+        return None
+    Cptr = np.zeros(mA + 1, dtype=np.int64)
+    Pptr = np.zeros(mA + 1, dtype=np.int64)
+    args = (ctypes.c_int64(mA), _ptr(Aptr64, _I64P), _ptr(Aind64, _I64P), _ptr(Bptr64, _I64P),
+            _ptr(Bind64, _I64P), _ptr(Cptr, _I64P), _ptr(Pptr, _I64P))
+    nnzC = int(lib.spgemm_pattern_count(*args))
+    Cind = np.empty(max(nnzC, 1), dtype=np.int32)
+    lib.spgemm_pattern_fill(*args, _ptr(Cind, _I32P))
+    return Cptr, Cind[:nnzC], int(Pptr[mA])
+
+
+def spgemm_nnz(mA: int, nB: int, Aptr, Aind, Bptr, Bind) -> Tuple[np.ndarray, int]:
+    """Symbolic C row pointer (the Gustavson marker scan) and nnz(C)."""
+    lib = _load()
+    Aptr64, Aind64, Bptr64, Bind64 = _i64(Aptr), _i64(Aind), _i64(Bptr), _i64(Bind)
+    Cptr = np.zeros(mA + 1, dtype=np.int64)
+    if lib is not None:
+        total = lib.spgemm_nnz(
+            ctypes.c_int64(mA), ctypes.c_int64(nB), _ptr(Aptr64, _I64P), _ptr(Aind64, _I64P),
+            _ptr(Bptr64, _I64P), _ptr(Bind64, _I64P), _ptr(Cptr, _I64P),
+        )
+        return Cptr, int(total)
+    marker = np.full(nB, -1, dtype=np.int64)
+    total = 0
+    for i in range(mA):
+        for k in range(int(Aptr64[i]), int(Aptr64[i + 1])):
+            kk = int(Aind64[k])
+            cols = Bind64[int(Bptr64[kk]) : int(Bptr64[kk + 1])]
+            fresh = cols[marker[cols] != i]
+            marker[fresh] = i
+            total += int(fresh.size)
+        Cptr[i + 1] = total
+    return Cptr, total
+
+
+def spgemm_numeric_host(pa, pb, pc, aval, bval, nnzC: int):
+    """Threaded host numeric pass over the expansion plan (the reference's
+    numeric Gustavson, level3/aoclsparse_csr2m.cpp:405-545): threads own
+    disjoint output ranges of the sorted pc, so the accumulation is
+    race-free. Returns the (nnzC,) values, or None when the library is
+    missing or the dtype has no instance (the caller takes the device
+    engine)."""
+    lib = _load()
+    if lib is None:
+        return None
+    pa32, pb32, pc32 = (np.ascontiguousarray(np.asarray(a), dtype=np.int32) for a in (pa, pb, pc))
+    av = np.ascontiguousarray(np.asarray(aval))
+    bv = np.ascontiguousarray(np.asarray(bval))
+    dt = np.result_type(av.dtype, bv.dtype)
+    if dt not in _VALP:
+        return None
+    av = av.astype(dt, copy=False)
+    bv = bv.astype(dt, copy=False)
+    suf, vp = _VALP[dt]
+    cv = np.zeros(max(int(nnzC), 1), dtype=dt)
+
+    def vptr(a):
+        return ctypes.c_void_p(a.ctypes.data) if vp is ctypes.c_void_p else _ptr(a, vp)
+
+    getattr(lib, f"spgemm_numeric_{suf}")(
+        ctypes.c_int64(pa32.size), _ptr(pa32, _I32P), _ptr(pb32, _I32P), _ptr(pc32, _I32P),
+        vptr(av), vptr(bv), vptr(cv), ctypes.c_int64(int(nnzC)),
+    )
+    return cv[: int(nnzC)]

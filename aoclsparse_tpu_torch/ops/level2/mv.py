@@ -9,10 +9,13 @@ The (descr, op) pair resolves through the planner to an EffectiveCSR copy
 and an ExecForm; the registry Oracle picks the kernel row for the form, and
 y = alpha*op(A)x + beta*y is applied in the epilogue. This package runs the
 `bandt`, `gen` (general structure, its spill through the spill-route
-kernels), `route` (the whole-matrix spill route), `ell`, `ellhyb` and
-`segsum` forms; `mv_operator` keeps a gen operand's iterations in permuted
-space. The JAX package's ELL/DIA/BSR native-format paths and its host
-engine (mv KID 11) are not ported yet (ROADMAP.md queue 1 item 10).
+kernels), `route` (the whole-matrix spill route), `bwdg` (a SpGEMM
+product's band, or KID 9), `ell`, `ellhyb` and `segsum` forms;
+`mv_operator` keeps a gen operand's iterations in permuted space. A
+product whose values are still pending runs on its seeded band without
+materializing them. The JAX package's ELL/DIA/BSR native-format paths and
+its host engine (mv KID 11) are not ported yet (ROADMAP.md queue 1 item
+10).
 """
 
 from __future__ import annotations
@@ -118,6 +121,8 @@ def _run_exec_form(form, x: torch.Tensor, kid: Optional[int]) -> torch.Tensor:
         return e.fn(form.ell_ind, form.ell_val, x)
     if form.kind == "ellhyb":
         return e.fn(form.ell_ind, form.ell_val, form.sp_ind, form.sp_val, form.sp_rows, x, form.m)
+    if form.kind == "bwdg":
+        return e.fn(form.bwd_val, x, form.bwd_G, form.bwd_W, form.bwd_rel, form.m, _mixed_enabled(form, x.dtype))
     if form.kind == "bandt":
         if kid is None and x.dtype == torch.float64:
             # a float64 band runs the f64 instance (KID 13), as the JAX
@@ -149,6 +154,16 @@ def _spmv_core(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, x, kid=N
             Status.not_implemented,
             "the host mv engine (kid 11) is not ported yet (ROADMAP.md queue 1 item 10)",
         )
+    general_n = MatrixType(descr.type) == MatrixType.general and Operation(op) == Operation.none
+    seed = getattr(A, "_seed_bwdg", None)
+    if general_n and kid is None and A.plan is None and A.values_pending and seed is not None and (
+        A.mem_policy != MemoryPolicy.restricted
+    ):
+        # a lazy band-engine SpGEMM product (mv.py:455-470 of the JAX
+        # package): run straight on its seeded band; reading A.data would
+        # pay the CSR extraction this mode exists to skip
+        seed.precision_mode = A.precision_mode
+        return _run_exec_form(seed, x.contiguous(), None)
     if not isinstance(A.data, CSR):
         raise AoclSparseError(
             Status.not_implemented,

@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``aoclsparse_tpu/planner/plan.py`` for the forms this
 package runs: ``bandt``, ``gen`` (the general-structure composite),
-``route`` (the whole-matrix spill-route engine), ``ell``, ``ellhyb`` and
-``segsum`` for mv; ``bandtm``, ``diag``, ``bwdg``, ``ell``, ``ellhyb`` and
+``route`` (the whole-matrix spill-route engine), ``bwdg`` (a SpGEMM
+product's seeded band, or mv KID 9), ``ell``, ``ellhyb`` and ``segsum`` for
+mv; ``bandtm``, ``diag``, ``bwdg``, ``ell``, ``ellhyb`` and
 ``segsum`` for mm. Reference analogs:
 
 - clean-CSR construction `aoclsparse_csr_csc_optimize`
@@ -1003,7 +1004,8 @@ def _build_bwd_coo(rows, cols, src, m: int, n: int, window: Tuple[int, int], dev
     (row, col)-sorted COO triple over a pre-selected (rel_lo, W) window:
     rows in groups of G, the window of group g starting at column
     G * g + rel_lo; entries outside it spill. `src` maps each entry to the
-    effective value vector. Returns the form WITHOUT values."""
+    effective value vector (None: the identity, as the SpGEMM band operands
+    take it, kernels/spgemm_band.py). Returns the form WITHOUT values."""
     ngrp = -(-m // G)
     blk = rows // G
     rel = cols - G * blk
@@ -1014,12 +1016,17 @@ def _build_bwd_coo(rows, cols, src, m: int, n: int, window: Tuple[int, int], dev
     base = (rel_lo + L) // G
     need = G * (base + (-(-W // G)) - 1 + ngrp)
     spilled = bool(spill_mask.any())
+    if src is None:
+        src = np.arange(rows.size, dtype=np.int64)
+        kept_src = np.nonzero(keep)[0] if spilled else None
+    else:
+        kept_src = src[keep]
     return ExecForm(
         kind=kind,
         m=m,
         n=n,
         bwd_dest=((blk * G + rows % G)[keep]) * W + (rel - rel_lo)[keep],
-        bwd_srcpos=src[keep],
+        bwd_srcpos=kept_src,
         bwd_W=int(W),
         bwd_base8=int(base),
         bwd_padL=int(L),
@@ -1398,15 +1405,30 @@ class Plan:
         eff = self.effective_for(descr, op, dtype)
         key = (descr.type, descr.fill_mode, descr.diag_type, Operation(op), kind)
         form = self.exec_forms.get(key)
-        if form is None and kind is not None:
+        if form is None and kind is not None and kind != "bwdg":
             # an explicit kind the default form already has (mv kid=7 on a
-            # matrix planned as gen): one form, not a second copy
+            # matrix planned as gen): one form, not a second copy. A default
+            # bwdg is a seeded SpGEMM product band (seed_bwdg), whose window
+            # is not the G-aligned one mm KID 3 reads: never shared
             default = self.exec_forms.get(key[:4] + (None,))
             if default is not None and default.kind == kind:
                 form = default
         if form is None:
             form = self.exec_forms[key] = build_exec_form(eff, kind)
         return form
+
+    def seed_bwdg(self, form: ExecForm) -> None:
+        """Seat a ready group-band form as the (general, none) mv form: the
+        SpGEMM band engine's C band (kernels/spgemm_band.py
+        `cband_exec_form`), so `mv` on a product reuses the band the numeric
+        stage computed on the device, without a host relayout or the CSR
+        extraction gather (plan.py:1759-1777 of the JAX package). Its
+        scatter list is the extraction map, so a value refresh follows the
+        normal path."""
+        from ..core.descr import GENERAL
+
+        self.effective_for(GENERAL, Operation.none)
+        self.exec_forms[(GENERAL.type, GENERAL.fill_mode, GENERAL.diag_type, Operation.none, None)] = form
 
     def refresh_values(self, data: CSR) -> None:
         """After update_values: re-run every value gather (structure reused)."""
@@ -1458,4 +1480,8 @@ def get_plan(A: SparseMatrix) -> Plan:
     optimize path every op falls back to (aoclsparse_mv.cpp:149-163)."""
     if A.plan is None:
         A.plan = Plan(build_clean_csr(A.data))
+        # a SpGEMM product's band, unless its values were swapped since
+        seed = getattr(A, "_seed_bwdg", None)
+        if seed is not None and getattr(A, "_seed_bwdg_val", None) is A.data.val:
+            A.plan.seed_bwdg(seed)
     return A.plan

@@ -33,6 +33,13 @@ failure (exit code != 0, no result line):
      optimize), on one stripe of the whole-matrix route of the scatter
      operand (m = 262,144, the diagonal plus 8 uniform random columns a
      row, seed 23), on a small ragged case and on a k = 7 route;
+   - the band GEMM kernel (SpGEMM numeric stage) in f32 and f64 on the band
+     plan of the cant stand-in's A.A (benchmarks/realmat.py:105, copied
+     here, seed 7: m = 62,469, 4,108,752 nnz; G = 128, WA = WB = 560,
+     WC = 1072, 5 streams), on the suite's SpGEMM operand
+     (benchmarks/suite.py:712-713: m = 65,536, half-bandwidth 32, 16
+     nnz/row), on a small case with m off a multiple of G and d0 > 0, and
+     on one whose first groups' streams fall outside [0, nblk);
 4. drive the main path: create_csr(device="cuda") -> set_mv_hint(nop=1000)
    -> optimize -> mv (default form, kid=8, kid=12, alpha/beta with y, the
    mixed bf16 band, a float64 handle); and create_csr -> set_mm_hint(nop=
@@ -59,6 +66,16 @@ failure (exit code != 0, no result line):
    against a float64 scipy reference and with the launches each call
    implies; and pcg_solve with no preconditioner on the symmetrised
    webbase, in permuted space, to a true relative residual <= 10 rtol;
+5c. the SpGEMM path, counted on its own, on the cant stand-in: sp2m
+   request=nnz_count (no band GEMM launch; the band engine attached),
+   request=finalize (one launch; the values pending), a chained mv on the
+   product (no launch, still pending) against float64 scipy A (A x),
+   export_csr against float64 scipy A.A on the product's pattern,
+   update_values(A, 2 val) and a second finalize (4x the values), spmm and
+   csr2m (one launch each), a float64 handle (the f64 instance) and syrk
+   upper on the band engine; then the scatter operand's Q.Q, which no band
+   plan takes, on the device expansion engine (no launch) against float64
+   scipy;
 6. time kernel vs plain version vs one PyTorch library call (torch.sparse
    CSR products and triangular solves, index_add_ and a permutation
    gather, timed here as yardsticks only), against each kernel's bound
@@ -70,11 +87,17 @@ failure (exit code != 0, no result line):
    ilu0_factorize; the spill-route engine against the gather +
    index_add_ tail, the webbase band kernel alone, mv on the webbase and
    scatter operands with a profiler window each (device time by kernel,
-   idle share), and one permuted-space CG iteration.
+   idle share), and one permuted-space CG iteration; the band GEMM kernel
+   against its plain version and cuSPARSE SpGEMM (torch.sparse CSR @ CSR),
+   a finalize, the extraction gather and the chained mv on the band, and
+   the host seconds of the symbolic stage and of the band relayout; a
+   finalize of Q.Q on the device expansion engine against the host engine
+   (pinned) and cuSPARSE SpGEMM.
 
-Launch counts are reset just before phase 4 and read after phase 5, and
-reset again just before phase 5b and read after it (the kernels line takes
-the spill-route kernels' counts from 5b). The second-to-last line is
+Launch counts are reset just before phase 4 and read after phase 5, reset
+again just before phase 5b and read after it, and again around phase 5c
+(the kernels line takes the spill-route kernels' counts from 5b and the
+band GEMM's from 5c). The second-to-last line is
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 """
 
@@ -95,6 +118,7 @@ import torch
 import aoclsparse_tpu_torch as tt
 from aoclsparse_tpu_torch import native
 from aoclsparse_tpu_torch.kernels import build
+from aoclsparse_tpu_torch.kernels.band_gemm import band_gemm, band_gemm_plain
 from aoclsparse_tpu_torch.kernels.band_spmv import band_spmv, band_spmv_plain, spmv_bandt
 from aoclsparse_tpu_torch.kernels.benes import PASS_GROUP, TILE_LOG, benes_route, benes_route_plain
 from aoclsparse_tpu_torch.kernels.route import apply_benes, apply_route, pack_masks, route_masks
@@ -106,9 +130,11 @@ from aoclsparse_tpu_torch.kernels.spmm_band import (
     spmm_band_plain,
     spmm_bandtm,
 )
+from aoclsparse_tpu_torch.kernels.spgemm_band import build_band_gemm_plan, extract_values
 from aoclsparse_tpu_torch.kernels.spmm_diag import spmm_diag, spmm_diag_plain
 from aoclsparse_tpu_torch.kernels.trsv_win import trsm_chunk, trsm_win, trsm_win_plain, trsv_win, trsv_win_plain
 from aoclsparse_tpu_torch.ops.level2.mv import _spill_route_on
+from aoclsparse_tpu_torch.ops.level3.spgemm import _effective
 from aoclsparse_tpu_torch.planner.spill_route import build_spill_route, spill_route_apply
 from aoclsparse_tpu_torch.planner.triangular import trsv_form_for
 from aoclsparse_tpu_torch.solvers.ilu import ilu0_factorize
@@ -155,9 +181,15 @@ KERNELS = {
                      "aoclsparse_tpu/kernels/pallas/spill_route.py:126"),  # pallas_oh_accum
     "benes_route_f32": ("aoclsparse_tpu_torch/csrc/benes.cu",
                         "aoclsparse_tpu/kernels/pallas/route_fused.py:73"),  # pallas_benes_apply
+    "band_gemm_f32": ("aoclsparse_tpu_torch/csrc/band_gemm.cu",
+                      "aoclsparse_tpu/kernels/pallas/spgemm.py:38"),  # pallas_band_gemm
+    "band_gemm_f64": ("aoclsparse_tpu_torch/csrc/band_gemm.cu",
+                      "aoclsparse_tpu/kernels/pallas/spgemm.py:38"),
 }
 #: the kernels of the general-structure path (phase 5b), counted there
 GEN_PATH = ("oh_select_f32", "oh_accum_f32", "benes_route_f32")
+#: the kernels of the SpGEMM path (phase 5c), counted there
+SPGEMM_PATH = ("band_gemm_f32", "band_gemm_f64")
 #: launch counters of the wrappers, by kernel-name prefix
 COUNTERS = {
     "band_spmv": band_spmv.launches,
@@ -169,6 +201,7 @@ COUNTERS = {
     "oh_select": oh_select.launches,
     "oh_accum": oh_accum.launches,
     "benes_route": benes_route.launches,
+    "band_gemm": band_gemm.launches,
 }
 #: kernel vs plain: the same products summed in another order, so the
 #: accumulation dtype's model tolerance (utils/tolerances.py, scale 1);
@@ -195,14 +228,19 @@ KERNEL_TOL = {
     "oh_accum_f32": expected_precision(torch.float32),
     # a routing moves values and does no arithmetic: bit-equal
     "benes_route_f32": 0.0,
+    # the same products summed in another order (exact f32 / f64 FMA)
+    "band_gemm_f32": expected_precision(torch.float32),
+    "band_gemm_f64": expected_precision(torch.float64),
 }
 #: mv and mm against the float64 reference: the operand dtype's model tolerance
 MV_TOL = {"f32": expected_precision(torch.float32), "f64": expected_precision(torch.float64)}
 #: peak operation rates for bound_ms, by operand type (NVIDIA H100 SXM data
-#: sheet, dense, no sparsity): f32 and f64 outside the tensor cores (the f32
-#: kernels compute in full f32, no TF32), bf16 on the tensor cores: the
-#: least time the card could take, whatever the kernel itself uses
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "f64": 34e12}
+#: sheet, dense, no sparsity), the highest at the type's full precision:
+#: f32 outside the tensor cores (they take f32 only as TF32), f64 on the
+#: tensor cores (full-IEEE f64 FMA, 67 TFLOP/s; 34 outside them), bf16 on
+#: the tensor cores: the least time the card could take, whatever the kernel
+#: itself uses
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "f64": 67e12}
 K_MM = 64  # the SpMM right-hand sides of phases 3, 4 and 6
 K_SM = 16  # the trsm right-hand sides of phases 3, 5 and 6
 SEED_B = 23  # B of the SpMM phases
@@ -411,6 +449,130 @@ def webbase_1m(rng, diag_boost=0.0):
     r = np.concatenate([rows_l, rows_h, rows_r])
     c = np.concatenate([cols_l, cols_h, cols_r])
     return _finish(r, c, m, m, rng, diag_boost, sym_vals=False)
+
+
+def _grid_block_mesh(dims, dof, neigh_offsets, rng, corner_frac=0.0):
+    """dof-per-node mesh on a structured grid (benchmarks/realmat.py:76-102):
+    every node couples all its dof to all of each neighbour's at the given
+    grid offsets; a random fraction of the corner offsets is kept."""
+    nx, ny, nz = dims
+    nn = nx * ny * nz
+    idx = np.arange(nn, dtype=np.int64)
+    ix = idx % nx
+    iy = (idx // nx) % ny
+    iz = idx // (nx * ny)
+    src, dst = [], []
+    for (dx, dy, dz, is_corner) in neigh_offsets:
+        jx, jy, jz = ix + dx, iy + dy, iz + dz
+        ok = (jx >= 0) & (jx < nx) & (jy >= 0) & (jy < ny) & (jz >= 0) & (jz < nz)
+        if is_corner and corner_frac < 1.0:
+            ok = ok & (rng.random(nn) < corner_frac)
+        j = jx + nx * (jy + ny * jz)
+        src.append(idx[ok])
+        dst.append(j[ok])
+    src = np.concatenate(src)
+    dst = np.concatenate(dst)
+    di = np.arange(dof, dtype=np.int64)
+    r = (src[:, None, None] * dof + di[None, :, None]) + 0 * di[None, None, :]
+    c = (dst[:, None, None] * dof + di[None, None, :]) + 0 * di[None, :, None]
+    return r.ravel(), c.ravel()
+
+
+def cant(rng, diag_boost=0.0):
+    """The Williams/cant stand-in of benchmarks/realmat.py:105-132 (copied,
+    so that this script imports nothing outside the port; a CPU test holds
+    the copy equal for seed 7): 3-dof nodes on a 631 x 11 x 3 cantilever
+    grid, n = 62,469, a 19-point neighbourhood, a second ring along the
+    beam axis and a fraction of the corners, symmetric values:
+    (m, n, ptr, ind, val f32)."""
+    offsets = []
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                dist = abs(dx) + abs(dy) + abs(dz)
+                if dist == 0:
+                    continue
+                offsets.append((dx, dy, dz, dist == 3))
+    for dz in (-2, 2):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                offsets.append((dx, dy, dz, True))
+    r, c = _grid_block_mesh((3, 11, 631), 3, offsets, rng, corner_frac=0.43)
+    m = 631 * 11 * 3 * 3
+    return _finish(r, c, m, m, rng, diag_boost, sym_vals=True)
+
+
+def suite_banded(rng, m, n, half_bw, row_nnz, dtype=np.float32):
+    """The banded generator of benchmarks/suite.py:37-52 (copied; a CPU test
+    holds it equal): row_nnz - 1 random columns in a window of 2 half_bw
+    plus the diagonal, duplicates nudged: (ptr, ind, val)."""
+    win = 2 * half_bw
+    base = np.clip(np.arange(m) - half_bw, 0, n - win)
+    pick = np.argsort(rng.random((m, win)), axis=1)[:, : row_nnz - 1]
+    cols = base[:, None] + pick
+    cols = np.concatenate([cols, np.minimum(np.arange(m), n - 1)[:, None]], axis=1)
+    cols = np.sort(cols, axis=1)
+    dup = np.concatenate([np.zeros((m, 1), bool), cols[:, 1:] == cols[:, :-1]], axis=1)
+    cols[dup] += 1
+    cols = np.sort(np.clip(cols, 0, n - 1), axis=1)
+    ptr = np.arange(m + 1, dtype=np.int64) * cols.shape[1]
+    val = rng.standard_normal(cols.size).astype(dtype)
+    return ptr, cols.reshape(-1).astype(np.int32), val
+
+
+def offset_band(m, lo, hi, per, seed):
+    """`per` columns a row drawn from [row + lo, row + hi] (clipped, the
+    duplicates summed): (ptr, ind, val f32)."""
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(m), per)
+    c = r + rng.integers(lo, hi + 1, r.size)
+    keep = (c >= 0) & (c < m)
+    S = sp.csr_matrix((rng.standard_normal(int(keep.sum())), (r[keep], c[keep])), shape=(m, m))
+    S.sum_duplicates()
+    S.sort_indices()
+    return S.indptr.astype(np.int64), S.indices.astype(np.int32), S.data.astype(np.float32)
+
+
+def gemm_plan(label, ptr, ind, val, force=False):
+    """The band plan of A.A at the card's G = 128 through a handle on the
+    card, its operand bands filled: (plan, P, nnzC, pattern s, relayout s)."""
+    m = len(ptr) - 1
+    eff = _effective(tt.create_csr(m, m, ptr, ind, val, device="cuda"), GEN, NONE)
+    t0 = time.perf_counter()
+    Cp, Ci, P = native.spgemm_pattern(m, eff.ptr, eff.ind, eff.ptr, eff.ind)
+    t_pat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bp = build_band_gemm_plan(eff, eff, Cp.astype(np.int32), Ci, G=128, force=force)
+    if bp is None:
+        raise AssertionError(f"{label}: the operands gave no band plan")
+    bp.formA.refresh(eff.val)
+    bp.formB.refresh(eff.val)
+    torch.cuda.synchronize()
+    t_relay = time.perf_counter() - t0
+    log(f"  {label}: m={m} nnz={ind.size} P={P} nnzC={Ci.size}; G={bp.G} WA={bp.WA} WB={bp.WB} WC={bp.WC} "
+        f"d0={bp.d0} sl0={bp.sl0} nstream={bp.nstream} nblk={bp.nblk} ranges={bp.stream_ranges}; "
+        f"pattern {t_pat:.2f} s, band relayout {t_relay:.2f} s")
+    return bp, P, int(Ci.size), t_pat, t_relay
+
+
+def csr_keys(ptr, ind, m):
+    """row * m + col of each stored entry (sorted for a sorted CSR)."""
+    return np.repeat(np.arange(len(ptr) - 1, dtype=np.int64), np.diff(ptr)) * m + np.asarray(ind, np.int64)
+
+
+def on_pattern(ptr, ind, ref, m):
+    """The float64 scipy product `ref` read on the pattern (ptr, ind): scipy
+    drops entries that sum to exactly zero, which read as zero here."""
+    ref = ref.tocsr()
+    ref.sort_indices()
+    keys = csr_keys(ptr, ind, m)
+    rkeys = csr_keys(ref.indptr, ref.indices, m)
+    pos = np.searchsorted(keys, rkeys)
+    if not (np.all(pos < keys.size) and np.array_equal(keys[np.minimum(pos, keys.size - 1)], rkeys)):
+        raise AssertionError("scipy's product has entries outside the computed pattern")
+    out = np.zeros(keys.size)
+    out[pos] = ref.data
+    return out
 
 
 def scatter_operand(m=262144, per_row=8, seed=23):
@@ -887,6 +1049,28 @@ def main() -> int:
     if not torch.equal(got7.cpu(), v7.cpu()[torch.from_numpy(src7)]):
         raise AssertionError("benes_route_f32 k=7: the route does not realise its permutation")
 
+    # the band GEMM kernel on the band plans of four products A.A
+    t0 = time.perf_counter()
+    cm, _cn, cptr_, cind_, cval_ = cant(np.random.default_rng(7))
+    log(f"  cant stand-in built in {time.perf_counter() - t0:.1f} s (m={cm}, nnz={cind_.size})")
+    gcant = gemm_plan("cant A.A", cptr_, cind_, cval_)
+    gsuite = gemm_plan("suite SpGEMM operand A.A", *suite_banded(np.random.default_rng(7), 65536, 65536, 32, 16),
+                       force=True)
+    gright = gemm_plan("small, window right of the diagonal", *offset_band(3001, 130, 200, 9, 71))
+    gleft = gemm_plan("small, window far left of the diagonal", *offset_band(5000, -300, 100, 9, 73))
+    if not (gright[0].d0 > 0 and 3001 % gright[0].G):
+        raise AssertionError(f"the small case must have d0 > 0 and m off G, got d0={gright[0].d0}")
+    if not gleft[0].d0 < -1:
+        raise AssertionError(f"the left case must put the first groups' streams out of range, d0={gleft[0].d0}")
+    for label, (bp, *_rest) in (("cant A.A", gcant), ("suite A.A", gsuite), ("small d0 > 0, m off G", gright),
+                                ("small streams out of range", gleft)):
+        a, b = bp.formA.bwd_val, bp.formB.bwd_val
+        for inst, (x_, y_) in (("f32", (a, b)), ("f64", (a.double(), b.double()))):
+            compare(f"band_gemm_{inst}", f"{label} (nblk={bp.nblk}, WC={bp.WC}, {bp.nstream} streams)",
+                    band_gemm(x_, y_, bp.WC, bp.d0, bp.stream_ranges),
+                    band_gemm_plain(x_, y_, bp.WC, bp.d0, bp.stream_ranges), errs)
+    del gsuite, gright, gleft
+
     # 4. the main path, counted
     phase("phase 4: main path (create_csr -> set_mv_hint -> optimize -> mv)")
     S = sp.csr_matrix((val.astype(np.float64), ind, ptr), shape=(m, n))
@@ -1090,7 +1274,7 @@ def main() -> int:
     launches = read_counts()
     log(f"  main-path launches: {launches}")
     for kernel, count in launches.items():
-        if count == 0 and kernel not in GEN_PATH:
+        if count == 0 and kernel not in GEN_PATH + SPGEMM_PATH:
             raise AssertionError(f"kernel {kernel} never launched on the main path")
 
     # 5b. the general-structure path, counted on its own
@@ -1204,6 +1388,104 @@ def main() -> int:
             raise AssertionError(f"kernel {kernel} never launched on the general-structure path")
         launches[kernel] = gen_launches[kernel]
 
+    # 5c. the SpGEMM path, counted on its own
+    phase("phase 5c: SpGEMM on the cant stand-in (sp2m two-stage, lazy product, chained mv, spmm, csr2m, syrk)")
+    reset_counts()
+    t0 = time.perf_counter()
+    Sc = sp.csr_matrix((cval_.astype(np.float64), cind_, cptr_), shape=(cm, cm))
+    SS = Sc @ Sc
+    xc = np.random.default_rng(79).standard_normal(cm).astype(np.float32)
+    xc_d = torch.from_numpy(xc).to(dev)
+    refc = Sc @ (Sc @ xc.astype(np.float64))
+    log(f"  float64 scipy A.A ({SS.nnz} stored entries) and A (A x): {time.perf_counter() - t0:.1f} s")
+    gemm_call = {"band_gemm_f32": 1, "band_gemm_f64": 0}
+    no_gemm = {"band_gemm_f32": 0, "band_gemm_f64": 0}
+    f32tol = MV_TOL["f32"]
+
+    def check_product(name, C, scale, tol=f32tol):
+        """export_csr of product C against scale x float64 scipy A.A."""
+        _m, _n, nnzC, pc, ic, vc = tt.export_csr(C)
+        if C.values_pending or nnzC != refvals.size:
+            raise AssertionError(f"{name}: export left the values pending or changed the pattern")
+        err = near_error(vc.astype(np.float64), scale * refvals)
+        log(f"  {name}: values vs float64 scipy A.A on the product's pattern, max rel err {err:.3e} (tol {tol:.3e})")
+        if not (np.all(np.isfinite(vc)) and err <= tol):
+            raise AssertionError(f"{name}: the product disagrees with float64 scipy")
+
+    Ac = tt.create_csr(cm, cm, cptr_, cind_, cval_, device="cuda")
+    t0 = time.perf_counter()
+    Cc = counted("sp2m nnz_count", lambda: tt.sp2m(NONE, GEN, Ac, NONE, GEN, Ac, request=tt.Request.nnz_count),
+                 no_gemm)
+    t_sym = time.perf_counter() - t0
+    cplan = Cc._spgemm_plan
+    if cplan.band is None or cplan.pa is not None:
+        raise AssertionError("the cant product did not take the band engine (pattern-only symbolic stage)")
+    _m, _n, _nz, pC, iC, _v = tt.export_csr(Cc)
+    refvals = on_pattern(pC, iC, SS, cm)
+    log(f"  sp2m nnz_count: {t_sym:.2f} s (native pattern, band plan, band relayout); nnzC={Cc.nnz} "
+        f"(scipy keeps {SS.nnz}), P={cplan.P}; band G={cplan.band.G} WA={cplan.band.WA} WC={cplan.band.WC} "
+        f"nstream={cplan.band.nstream}")
+    t0 = time.perf_counter()
+    Cc = counted("sp2m finalize", lambda: tt.sp2m(NONE, GEN, Ac, NONE, GEN, Ac, request=tt.Request.finalize, C=Cc),
+                 gemm_call)
+    torch.cuda.synchronize()
+    log(f"  sp2m finalize: {time.perf_counter() - t0:.2f} s (first: the band refresh included)")
+    if not Cc.values_pending:
+        raise AssertionError("the finalized band product is not pending")
+    check_mv("chained mv on the pending product vs float64 scipy A (A x)",
+             counted("chained mv", lambda: tt.mv(1.0, Cc, GEN, NONE, xc_d, 0.0), no_gemm), refc, f32tol)
+    if not Cc.values_pending or Cc.plan is not None:
+        raise AssertionError("the chained mv materialized the product's values")
+    check_product("export_csr after finalize", Cc, 1.0)
+    tt.update_values(Ac, 2.0 * cval_)
+    counted("sp2m finalize after update_values",
+            lambda: tt.sp2m(NONE, GEN, Ac, NONE, GEN, Ac, request=tt.Request.finalize, C=Cc), gemm_call)
+    check_product("finalize after update_values(A, 2 val): 4x", Cc, 4.0)
+    check_product("spmm(A, A)", counted("spmm", lambda: tt.spmm(Ac, Ac), gemm_call), 4.0)
+    check_product("csr2m", counted("csr2m", lambda: tt.csr2m(NONE, GEN, Ac, NONE, GEN, Ac), gemm_call), 4.0)
+    Ac64 = tt.create_csr(cm, cm, cptr_, cind_, cval_.astype(np.float64), device="cuda")
+    check_product("spmm on a float64 handle (f64 instance)",
+                  counted("spmm f64", lambda: tt.spmm(Ac64, Ac64), {"band_gemm_f32": 0, "band_gemm_f64": 1}), 1.0,
+                  MV_TOL["f64"])
+    del Ac64
+    t0 = time.perf_counter()
+    Su = counted("syrk", lambda: tt.syrk(NONE, Ac), gemm_call)
+    if Su._spgemm_plan.band is None:
+        raise AssertionError("syrk on the cant stand-in did not take the band engine")
+    _m, _n, _nu, pu, iu, vu = tt.export_csr(Su)
+    if np.any(iu < np.repeat(np.arange(cm), np.diff(pu))):
+        raise AssertionError("syrk stored entries below the diagonal")
+    # the stand-in's values are symmetric but its corner couplings are not
+    erru = near_error(vu.astype(np.float64), 4.0 * on_pattern(pu, iu, sp.triu(Sc @ Sc.T), cm))
+    log(f"  syrk upper on the band engine ({time.perf_counter() - t0:.2f} s, the full expansion symbolic stage "
+        f"included): max rel err {erru:.3e} vs float64 scipy (tol {f32tol:.3e})")
+    if not erru <= f32tol:
+        raise AssertionError("syrk disagrees with float64 scipy")
+    del Su, pu, iu, vu
+    tt.update_values(Ac, cval_)
+    # a product no band plan takes (the scatter operand's Q.Q): operands on
+    # the card stay there, on the device expansion engine
+    t0 = time.perf_counter()
+    SQQ = Sq @ Sq
+    Cq = counted("sp2m without a band plan", lambda: tt.sp2m(NONE, GEN, Qh, NONE, GEN, Qh), no_gemm)
+    qplan = Cq._spgemm_plan
+    if qplan.band is not None or getattr(qplan, "_dev_trip", None) is None:
+        raise AssertionError("the scatter product did not run on the device expansion engine")
+    _m, _n, _nq, pq, iq, vq = tt.export_csr(Cq)
+    errq = near_error(vq.astype(np.float64), on_pattern(pq, iq, SQQ, qm))
+    log(f"  sp2m Q.Q of the scatter operand (no band plan, P={qplan.P}, nnzC={qplan.nnz}; "
+        f"{time.perf_counter() - t0:.2f} s with scipy's): device expansion engine, max rel err {errq:.3e} vs "
+        f"float64 scipy (tol {f32tol:.3e})")
+    if not (np.all(np.isfinite(vq)) and errq <= f32tol):
+        raise AssertionError("the scatter product disagrees with float64 scipy")
+    del SQQ, pq, iq, vq
+    spg_launches = read_counts()
+    log(f"  SpGEMM path launches: {({k: spg_launches[k] for k in SPGEMM_PATH})}")
+    for kernel in SPGEMM_PATH:
+        if spg_launches[kernel] == 0:
+            raise AssertionError(f"kernel {kernel} never launched on the SpGEMM path")
+        launches[kernel] = spg_launches[kernel]
+
     # 6. timing
     phase("phase 6: timing (CUDA events or host clock, median of repeats)")
     peak = ctx.hbm_gbps
@@ -1218,14 +1500,15 @@ def main() -> int:
         ms[kernel], plain_ms[kernel] = min(k1, k2), min(p1, p2)
         return k1, k2, p1, p2
 
-    def note(kernel, nbytes_, need, flops, lib_fn=None, lib_kw=None):
+    def note(kernel, nbytes_, need, flops, lib_fn=None, lib_kw=None, need_flops=None):
         """Record the kernel's bound and its library yardstick; log them.
         nbytes_ counts the stored operands once each, zero padding included
         (the bound_ms of the kernels line); need counts only their nonzero
-        entries, the function's own bytes, logged beside it."""
+        entries, the function's own bytes, logged beside it, with
+        need_flops (default flops) the operations on those entries."""
         inst = kernel.rsplit("_", 1)[1]
         bounds[kernel] = bound_of(nbytes_, flops, inst, peak)
-        need_ms, need_by = bound_of(need, flops, inst, peak)
+        need_ms, need_by = bound_of(need, flops if need_flops is None else need_flops, inst, peak)
         err = "no library call computes this instance's function"
         lib[kernel] = None
         if lib_fn is not None:
@@ -1411,6 +1694,59 @@ def main() -> int:
     t_gi, t_gi_all = iteration_ms(lambda kk: tt.pcg_solve(G, bg_d, rtol=0.0, maxit=kk)[1], 5, 25)
     log(f"  permuted-space CG iteration (symmetrised webbase): {t_gi:.4f} ms (host clock, median of "
         f"{[round(t, 4) for t in t_gi_all]})")
+
+    # the band GEMM kernel on the cant A.A plan; cuSPARSE SpGEMM (torch.sparse
+    # CSR @ CSR) of the same product as the yardstick
+    bp, P_c, nnzC_c, t_pat_c, t_relay_c = gcant
+    del gcant
+    # the band work, zeros included: per stream, its slab rows times WB for
+    # every group whose block is in range
+    band_flops = 2 * bp.G * bp.WB * sum(
+        (hi - lo) * (min(bp.nblk, bp.nblk - (bp.d0 + s)) - max(0, -(bp.d0 + s)))
+        for s, (lo, hi, _br) in enumerate(bp.stream_ranges) if hi > lo)
+    a32, b32 = bp.formA.bwd_val, bp.formB.bwd_val
+    for inst, tdt in (("f32", torch.float32), ("f64", torch.float64)):
+        kernel = f"band_gemm_{inst}"
+        x_, y_ = a32.to(tdt), b32.to(tdt)
+        turns(kernel, lambda: band_gemm(x_, y_, bp.WC, bp.d0, bp.stream_ranges),
+              lambda: band_gemm_plain(x_, y_, bp.WC, bp.d0, bp.stream_ranges), kreps=(5, 4), preps=(3, 2))
+        At = csr_tensor(cptr_, cind_, cval_, dev, tdt)
+        esz = x_.element_size()
+        note(kernel, nbytes(x_, y_) + bp.nblk * bp.G * bp.WC * esz, nz_bytes(x_, y_) + nnzC_c * esz, band_flops,
+             lambda: At @ At, dict(reps=3, inner=1), need_flops=2 * P_c)
+        log(f"  {kernel}: {band_flops / ms[kernel] / 1e9:.1f} GFLOP/s of band work ({band_flops / 1e9:.2f} GFLOP, "
+            f"zeros included), {2 * P_c / ms[kernel] / 1e9:.1f} GFLOP/s of the product's {P_c} scalar products")
+        del x_, y_, At
+    del a32, b32, bp
+    fin = lambda: tt.sp2m(NONE, GEN, Ac, NONE, GEN, Ac, request=tt.Request.finalize, C=Cc)  # noqa: E731
+    t_fin = cuda_ms(fin, reps=5, inner=2, warm=1)
+    cb = cplan.band._last_cband
+    t_ext = cuda_ms(lambda: extract_values(cplan.band, cb), reps=9, inner=5)
+    t_cmv = cuda_ms(lambda: tt.mv(1.0, Cc, GEN, NONE, xc_d, 0.0), reps=9, inner=5)
+    if not Cc.values_pending:
+        raise AssertionError("timing the chained mv materialized the product")
+    log(f"  cant A.A: sp2m finalize (lazy: the band GEMM, no extraction) {t_fin:.4f} ms a call; the extraction "
+        f"gather of {nnzC_c} values {t_ext:.4f} ms; chained mv on the pending product's band {t_cmv:.4f} ms; "
+        f"host set-up: native pattern {t_pat_c:.2f} s, band relayout (plan maps + operand scatter) "
+        f"{t_relay_c:.2f} s, the whole nnz_count stage {t_sym:.2f} s")
+    profile_mv("sp2m finalize (cant A.A)", fin, calls=3)
+    del cb
+    # the numeric engines of a product without a band plan (scatter Q.Q):
+    # the device expansion engine (the card's default) against the host
+    # engine (pinned: values down, the threaded C++ numeric, C up) and
+    # cuSPARSE SpGEMM, the data for the card's engine gate
+    fin_q = lambda: tt.sp2m(NONE, GEN, Qh, NONE, GEN, Qh, request=tt.Request.finalize, C=Cq)  # noqa: E731
+    t_qdev = cuda_ms(fin_q, reps=5, inner=2, warm=1)
+    qplan._host_engine = True
+    t_qhost = cuda_ms(fin_q, reps=3, inner=1, warm=1)
+    qplan._host_engine = False
+    Qt = csr_tensor(qptr, qind, qval, dev, torch.float32)
+    t_qlib, err = library_ms(lambda: Qt @ Qt, reps=3, inner=1)
+    lib_s = f"{t_qlib:.4f} ms" if t_qlib is not None else f"none ({err})"
+    log(f"  scatter Q.Q (no band plan; P={qplan.P}, nnzC={qplan.nnz}): sp2m finalize on the device expansion "
+        f"engine {t_qdev:.4f} ms, on the host engine (pinned) {t_qhost:.4f} ms; cuSPARSE SpGEMM {lib_s}")
+    profile_mv("sp2m finalize (scatter Q.Q, device expansion engine)", fin_q, calls=3)
+    del Qt
     phase("done")
 
     kernels = [

@@ -89,7 +89,7 @@ def test_default_device_is_cuda_and_context_detects_cpu_here():
 def test_registry_table_and_dispatcher():
     kids = {e.kid: e.fmt for e in registry.table("mv")}
     assert kids == {
-        0: "segsum", 1: "ell", 2: "ellhyb", 7: "gen", 8: "bandt", 12: "bandt", 13: "bandt", 14: "route"
+        0: "segsum", 1: "ell", 2: "ellhyb", 7: "gen", 8: "bandt", 9: "bwdg", 12: "bandt", 13: "bandt", 14: "route"
     }
     assert {e.kid: e.fmt for e in registry.table("sv")} == {0: "blocked"}
     assert {e.kid: e.fmt for e in registry.table("mm")} == {
@@ -99,6 +99,7 @@ def test_registry_table_and_dispatcher():
     assert tt.debug_dispatcher("mm", fmt="diag", device="cpu")["kid"] == 7
     assert tt.debug_dispatcher("mv", fmt="bandt", device="cpu")["kid"] == 12
     assert tt.debug_dispatcher("mv", fmt="segsum", device="cpu")["kid"] == 0
+    assert tt.debug_dispatcher("mv", fmt="bwdg", device="cpu")["name"] == "torch_bwdg"
     assert tt.debug_dispatcher("mv", fmt="gen", device="cpu")["kid"] == 7
     assert tt.debug_dispatcher("mv", fmt="route", device="cpu")["name"] == "cuda_spill_route"
     assert tt.debug_dispatcher("sv", device="cpu")["name"] == "cuda_trsv_win"
@@ -111,8 +112,9 @@ def test_registry_table_and_dispatcher():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the spill-route engine's among them, and
-    chip_smoke.py import neither jax nor the JAX package."""
+    """Every module of the port, the spill-route engine's and the SpGEMM
+    family's among them, and chip_smoke.py import neither jax nor the JAX
+    package."""
     import subprocess
     import sys
 
@@ -121,7 +123,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "new = ('kernels.spill_route', 'kernels.benes', 'kernels.route', 'kernels.spmv_gen',\n"
-        "       'planner.spill_route')\n"
+        "       'planner.spill_route', 'kernels.band_gemm', 'kernels.spgemm_band', 'ops.level3.spgemm')\n"
         "assert all('aoclsparse_tpu_torch.' + n in sys.modules for n in new)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'aoclsparse_tpu')]\n"
