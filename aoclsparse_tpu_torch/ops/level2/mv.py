@@ -20,6 +20,7 @@ its host engine (mv KID 11) are not ported yet (ROADMAP.md queue 1 item
 
 from __future__ import annotations
 
+import os
 from numbers import Number
 from typing import Optional
 
@@ -90,12 +91,27 @@ def _validate(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, x, y):
     return op, x, y, ny
 
 
+def mixed_env() -> Optional[bool]:
+    """The global switch AOCLSPARSE_TPU_MIXED_PRECISION: True for "1" or
+    "true", False for any other non-empty value, None when unset or empty
+    (the handle's mode decides), as the JAX package reads it
+    (ops/level2/mv.py:129-142 there)."""
+    env = os.environ.get("AOCLSPARSE_TPU_MIXED_PRECISION")
+    if env is None or env == "":
+        return None
+    return env in ("1", "true")
+
+
 def _mixed_enabled(form, dtype) -> bool:
     """Precision policy gate (docs/precision.md): bf16-multiply/f32-
     accumulate runs when the handle opted in (set_precision_mode(A,
-    "mixed"), copied onto the form by _spmv_core). Only f32 operands
-    qualify."""
-    return dtype == torch.float32 and form.precision_mode == "mixed"
+    "mixed"), copied onto the form by _spmv_core) or the global switch
+    forces it; the switch at "0" turns it off even on a "mixed" handle.
+    Only f32 operands qualify."""
+    if dtype != torch.float32:
+        return False
+    env = mixed_env()
+    return env if env is not None else form.precision_mode == "mixed"
 
 
 def _spill_route_on(form, device: torch.device) -> bool:

@@ -10,11 +10,13 @@ Without a kid the form is `choose_mm_format`'s (planner/plan.py): the band
 SpMM kernel on band operands, the diagonal kernel on few-diagonal ones
 (stencils), the gather forms otherwise; `MemoryPolicy.restricted` takes
 segsum. `order=Order.column` reads B and C transposed (the caller passes
-B^T and C^T) and returns C^T. The mixed precision mode of the handle
-(`set_precision_mode(A, "mixed")`, docs/precision.md) streams bf16 block
+B^T and C^T) and returns C^T. The mixed precision mode streams bf16 block
 windows through KID 5, bf16 diagonals through KID 7 and bf16 groups
-through KID 3, accumulating in f32; the JAX package reads the
-AOCLSPARSE_TPU_MIXED_PRECISION variable for the same switch.
+through KID 3, accumulating in f32. The AOCLSPARSE_TPU_MIXED_PRECISION
+variable decides it when set ("1" on, "0" off), as in the JAX package
+(csrmm.py:251-336 there); unset, the handle's mode decides
+(`set_precision_mode(A, "mixed")`, docs/precision.md), which the JAX
+package's mm does not read (ROADMAP.md queue 3).
 
 Not ported yet: KID 6, the general-sparsity composite (ROADMAP.md queue 1
 item 14), and the autotune pin `_mm_tuned` (item 16).
@@ -33,7 +35,7 @@ from ...core.types import AoclSparseError, MatrixType, Operation, Order, Status
 from ...core.validate import check_base_match, check_dtype_compat
 from ...kernels.registry import registry
 from ...planner.plan import get_plan, mm_kind
-from ..level2.mv import _as_operand, _is_zero
+from ..level2.mv import _as_operand, _is_zero, mixed_env
 
 __all__ = ["mm"]
 
@@ -56,7 +58,8 @@ def _mm_core(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, B: torch.T
         else:
             raise AoclSparseError(Status.invalid_kid, f"kid {kid} not in table for 'mm'")
     form = plan.exec_form_for(descr, op, kind=kind)
-    return _run_mm_form(form, B, kid, mixed=A.precision_mode == "mixed")
+    env = mixed_env()
+    return _run_mm_form(form, B, kid, mixed=env if env is not None else A.precision_mode == "mixed")
 
 
 def _run_mm_form(form, B: torch.Tensor, kid: Optional[int], mixed: bool = False) -> torch.Tensor:

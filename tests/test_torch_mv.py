@@ -136,6 +136,40 @@ def test_mixed_precision_matches_jax(ast):
     assert not torch.equal(full, got)  # KID 8 keeps the f32 band
 
 
+@pytest.mark.parametrize("env", ["1", "0"])
+@pytest.mark.parametrize("mode", ["mixed", "full"])
+def test_mixed_precision_switch_matches_jax(ast, monkeypatch, env, mode):
+    """AOCLSPARSE_TPU_MIXED_PRECISION decides over the handle's mode in both
+    directions, in mv (the port's default band form, KID 12; the JAX package
+    is asked for KID 12, its CPU default being a gather form) and in mm (KID 7, the
+    bf16 diagonals), as the JAX package reads it. At "0" a "mixed" handle
+    runs in full precision; at "1" a "full" one in mixed. The two results
+    differ by far more than the f32 bound, so each must follow the switch."""
+    m, n, ptr, ind, val = _operand(seed=17, dtype=np.float32)
+    J, T = _pair(ast, m, n, ptr, ind, val)
+    ast.set_precision_mode(J, mode)
+    tt.set_precision_mode(T, mode)
+    monkeypatch.setenv("AOCLSPARSE_TPU_MIXED_PRECISION", env)
+    rng = np.random.default_rng(18)
+    x = rng.standard_normal(n).astype(np.float32)
+    JD, JN = ast.MatrixDescriptor(), ast.Operation.none
+    want = np.asarray(ast.mv(1.0, J, JD, JN, x, 0.0, kid=12))
+    got = tt.mv(1.0, T, GEN, tt.Operation.none, torch.from_numpy(x), 0.0)
+    assert T.plan.exec_form_for(GEN, tt.Operation.none).kind == "bandt"  # KID 12, the port's default
+    assert near_error(got.numpy(), want) <= _tol(np.float32)
+    B = rng.standard_normal((n, 3)).astype(np.float32)
+    import jax
+
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(ast.mm(1.0, J, JD, JN, B, 0.0, kid=7))
+    got = tt.mm(1.0, T, GEN, tt.Operation.none, torch.from_numpy(B), 0.0, kid=7)
+    assert near_error(got.numpy(), want) <= _tol(np.float32)
+    # the switch really moved the result: the other setting is far off
+    monkeypatch.setenv("AOCLSPARSE_TPU_MIXED_PRECISION", "0" if env == "1" else "1")
+    other = tt.mm(1.0, T, GEN, tt.Operation.none, torch.from_numpy(B), 0.0, kid=7)
+    assert near_error(other.numpy(), want) > 10 * _tol(np.float32)
+
+
 def test_update_values_then_mv_matches_jax(ast):
     m, n, ptr, ind, val = _operand(seed=8)
     J, T = _pair(ast, m, n, ptr, ind, val)
