@@ -77,7 +77,7 @@ from .planner import (  # noqa: F401
     set_sm_hint,
     set_sv_hint,
 )
-from .solvers import ilu_smoother, pcg_solve  # noqa: F401
+from .solvers import ilu0_factorize, ilu_smoother, pcg_solve  # noqa: F401
 
 __version__ = "0.1.0"
 

@@ -62,6 +62,17 @@ def test_factor_bit_equal_to_jax(ast, dtype):
     assert tilu.ilu0_factorize(T) is st  # cached on the handle
 
 
+def test_ilu0_factorize_is_exported_as_in_jax(ast):
+    """The package exports ilu0_factorize, as aoclsparse_tpu does, and it is
+    the solver module's function."""
+    assert callable(ast.ilu0_factorize)
+    assert tt.ilu0_factorize is tilu.ilu0_factorize
+    ptr, ind, val = _operand(dtype=np.float64)
+    m = len(ptr) - 1
+    T = tt.create_csr(m, m, ptr, ind, val, device="cpu")
+    assert tt.ilu0_factorize(T) is T.ilu_state
+
+
 def test_host_source_is_the_ports_own_byte_equal_copy():
     """The port builds from its own copy (nothing under aoclsparse_tpu/ is
     read at run time), and the copy equals the JAX package's source."""
