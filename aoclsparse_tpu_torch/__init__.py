@@ -1,22 +1,27 @@
 """aoclsparse_tpu_torch — the PyTorch + CUDA port of aoclsparse_tpu.
 
 Same public names and semantics as the JAX package for what is ported so
-far: CSR handles, hints and the planner, ``mv``/``dotmv``/``mv_operator``
-through the ``bandt``, ``gen`` (general structure), ``route`` and gather
-execution forms, ``mm`` through the ``bandtm``, ``diag``, ``bwdg`` and
-gather forms, blocked ``trsv`` and ``trsm``, ILU0 and CG with no
-preconditioner (in permuted space on a gen operand), ILU0 or SGS, and the
-SpGEMM family (``sp2m``/``csr2m``/``spmm`` with the two-stage protocol and
-lazy band products, ``sp2md``, ``spmmd``, ``syrk``, ``syrkd``, ``sypr``,
-``syprd``, ``add``). The band forms, the diagonal form, the spill-route
-engine, the blocked triangular solves and the SpGEMM band engine run
-hand-written CUDA kernels on Hopper (csrc/band_spmv.cu, csrc/spmm_band.cu,
+far: handles in every storage format (CSR, CSC, COO, BSR, TCSR, ELL, DIA)
+with their conversions, export, copy and Matrix Market I/O (``io``), the
+level-1 sparse-vector ops, hints and the planner, ``mv``/``dotmv``/
+``mv_operator`` through the ``bandt``, ``bwd``, ``gen`` (general
+structure), ``route``, ``diag``, ``sell``, gather and native-format forms
+and the host engine, the format-direct ``csrmv``/``ellmv``/``elltmv``/
+``ellthybmv``/``diamv``/``bsrmv``/``blkcsrmv``, ``mm`` through the
+``bandtm``, ``diag``, ``bwdg`` and gather forms, blocked ``trsv`` and
+``trsm``, ILU0 and CG with no preconditioner (in permuted space on a gen
+operand), ILU0 or SGS, and the SpGEMM family (``sp2m``/``csr2m``/``spmm``
+with the two-stage protocol and lazy band products, ``sp2md``, ``spmmd``,
+``syrk``, ``syrkd``, ``sypr``, ``syprd``, ``add``). The band forms, the
+group-window form, the diagonal form, the spill-route engine, the blocked
+triangular solves and the SpGEMM band engine run hand-written CUDA kernels
+on Hopper (csrc/band_spmv.cu, csrc/spmv_bwd.cu, csrc/spmm_band.cu,
 csrc/spmm_diag.cu, csrc/spill_route.cu, csrc/benes.cu, csrc/trsv_win.cu,
 csrc/band_gemm.cu), built with nvcc at first use; on CPU tensors they run
-the kernels' plain PyTorch versions. The host C++
-factorization (native/) builds with g++ at first use. Tensors go to
-``cuda:0`` unless a device is named. ROADMAP.md lists what is still to
-port.
+the kernels' plain PyTorch versions. The host C++ library (native/) builds
+with g++ at first use. Tensors go to ``cuda:0`` unless a device is named.
+ROADMAP.md lists what is still to port (autotune, itsol, GMRES, SymGS,
+SOR).
 """
 
 from .core.types import (  # noqa: F401
@@ -36,26 +41,62 @@ from .core.types import (  # noqa: F401
     Status,
 )
 from .core.descr import Doid, GENERAL, MatrixDescriptor, get_doid, trans_doid  # noqa: F401
-from .core.formats import CSR  # noqa: F401
+from .core.formats import BSR, COO, CSC, CSR, DIA, ELL, SELL  # noqa: F401
 from .core.matrix import (  # noqa: F401
     SparseMatrix,
+    copy,
+    create_bsr,
+    create_coo,
+    create_csc,
     create_csr,
+    create_dia,
+    create_ell,
+    create_tcsr,
     destroy,
+    export_coo,
+    export_csc,
     export_csr,
+    order_mat,
+    set_value,
     update_values,
 )
-from .core.auxiliary import set_precision_mode  # noqa: F401
+from .core.auxiliary import (  # noqa: F401
+    convert_bsr,
+    convert_csr,
+    convert_format,
+    debug_get,
+    enable_instructions,
+    is_tpu_build,
+    set_precision_mode,
+)
 from .core.context import get_context  # noqa: F401
 from .kernels.registry import debug_dispatcher  # noqa: F401
 from .ops import (  # noqa: F401
     MvOperator,
     add,
+    axpyi,
+    blkcsrmv,
+    bsrmv,
     csr2m,
+    csrmv,
     csrsv,
+    diamv,
+    dotci,
+    doti,
     dotmv,
+    dotui,
+    ellmv,
+    ellthybmv,
+    elltmv,
+    gthr,
+    gthrs,
+    gthrz,
     mm,
     mv,
     mv_operator,
+    roti,
+    sctr,
+    sctrs,
     sp2m,
     sp2md,
     spmm,
@@ -68,12 +109,23 @@ from .ops import (  # noqa: F401
     trsv,
     trsv_strided,
 )
+from .convert.conversions import (  # noqa: F401
+    csr2blkcsr,
+    csr2bsr_nnz,
+    csr2dia_ndiag,
+    csr2ell_width,
+    csr2ellthyb_width,
+    opt_blksize,
+)
 from .planner import (  # noqa: F401
     optimize,
+    set_2m_hint,
+    set_dotmv_hint,
     set_lu_smoother_hint,
     set_memory_hint,
     set_mm_hint,
     set_mv_hint,
+    set_mv_hint_kid,
     set_sm_hint,
     set_sv_hint,
 )

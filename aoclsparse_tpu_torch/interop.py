@@ -3,7 +3,13 @@
 These entry points let one operand feed both packages:
 
 - `matrix_from_jax_arrays` takes the arrays that ``aoclsparse_tpu.export_csr``
-  returns and builds this package's handle from them.
+  returns and builds this package's handle from them; `coo_from_jax_arrays`
+  and `csc_from_jax_arrays` do it for ``export_coo`` and ``export_csc``, and
+  `matrix_from_jax_format` for the fields of a JAX BSR, DIA or ELL handle's
+  data.
+- `bwd_form_from_jax` takes numpy copies of a JAX ``bwd`` ExecForm's arrays
+  (the (nblk, 8, W) group windows, their geometry and the peel spill), so
+  the group-window kernel runs on the JAX planner's very band.
 - `bandt_form_from_jax` takes numpy copies of a JAX ``bandt`` ExecForm's
   arrays and builds this package's ExecForm, so the band kernel can be held
   against the JAX kernels on the very same band, apart from the planner.
@@ -31,8 +37,9 @@ import numpy as np
 import torch
 
 from .core.context import resolve_device
-from .core.matrix import SparseMatrix, as_values, create_csr
-from .core.types import IndexBase
+from .core.formats import BSR, DIA, ELL
+from .core.matrix import SparseMatrix, as_values, create_coo, create_csc, create_csr
+from .core.types import FormatType, IndexBase
 from .kernels.spgemm_band import BandGemmPlan
 from .planner.plan import ExecForm
 from .planner.spill_route import SpillRoute
@@ -40,7 +47,11 @@ from .planner.triangular import TrsvForm
 
 __all__ = [
     "band_gemm_plan_from_jax",
+    "bwd_form_from_jax",
+    "coo_from_jax_arrays",
+    "csc_from_jax_arrays",
     "matrix_from_jax_arrays",
+    "matrix_from_jax_format",
     "bandt_form_from_jax",
     "gen_form_from_jax",
     "mm_form_from_jax",
@@ -54,6 +65,77 @@ def matrix_from_jax_arrays(
 ) -> SparseMatrix:
     """CSR handle from ``aoclsparse_tpu.export_csr``'s (ptr, ind, val)."""
     return create_csr(m, n, np.asarray(ptr), np.asarray(ind), np.asarray(val), base, device)
+
+
+def coo_from_jax_arrays(m, n, row, col, val, device=None, base: IndexBase = IndexBase.zero) -> SparseMatrix:
+    """COO handle from ``aoclsparse_tpu.export_coo``'s (row, col, val)."""
+    return create_coo(m, n, np.asarray(row), np.asarray(col), np.asarray(val), base, device)
+
+
+def csc_from_jax_arrays(m, n, ptr, ind, val, device=None, base: IndexBase = IndexBase.zero) -> SparseMatrix:
+    """CSC handle from ``aoclsparse_tpu.export_csc``'s (col_ptr, row_ind, val)."""
+    return create_csc(m, n, np.asarray(ptr), np.asarray(ind), np.asarray(val), base, device)
+
+
+def matrix_from_jax_format(kind: str, fields: Mapping, device=None) -> SparseMatrix:
+    """Handle over a JAX BSR, DIA or ELL handle's data (zero-based, as the
+    JAX package stores it), from numpy copies of its dataclass fields:
+    bsr ``ptr``, ``ind``, ``val`` (nnzb, bs, bs), ``block_dim``, ``shape``;
+    dia ``dist``, ``val`` (ndiag, m), ``shape``; ell ``ind``, ``val``
+    (m, width), ``width``, ``shape``. The element shape is kept, so a BSR
+    converted from a matrix whose size is no block multiple comes across."""
+    dev = resolve_device(device)
+    shape = tuple(int(v) for v in fields["shape"])
+
+    def idx(key):
+        return torch.from_numpy(np.ascontiguousarray(fields[key], dtype=np.int32)).to(dev)
+
+    val = as_values(np.ascontiguousarray(fields["val"]), dev)
+    if kind == "bsr":
+        data = BSR(idx("ptr"), idx("ind"), val, block_dim=int(fields["block_dim"]), shape=shape)
+        return SparseMatrix(data, FormatType.bsr)
+    if kind == "dia":
+        return SparseMatrix(DIA(idx("dist"), val, shape=shape), FormatType.dia)
+    if kind == "ell":
+        return SparseMatrix(ELL(idx("ind"), val, width=int(fields["width"]), shape=shape), FormatType.ell)
+    raise ValueError(f"no format {kind!r}: bsr, dia or ell")
+
+
+def bwd_form_from_jax(form_arrays: Mapping, device=None) -> ExecForm:
+    """This package's ``bwd`` ExecForm from a JAX one's arrays: keys
+    ``bwd_val`` ((nblk, 8, W)), ``bwd_W``, ``bwd_base8``, ``bwd_padL``,
+    ``bwd_n_pad``, ``m``, ``n`` and ``sp_val``/``sp_ind``/``sp_rows`` (None
+    or empty when there is no spill). The spill's group pointer is derived
+    from its sorted rows. The form carries no scatter maps, so it serves mv
+    but not a value refresh."""
+    from .kernels.spmv_bwd import G, spill_group_ptr
+
+    dev = resolve_device(device)
+    band = as_values(np.ascontiguousarray(form_arrays["bwd_val"]), dev)
+    nblk, g, W = band.shape
+    if g != G or int(form_arrays["bwd_W"]) != W:
+        raise ValueError(f"bwd_val has shape {tuple(band.shape)}, want (nblk, {G}, bwd_W={form_arrays['bwd_W']})")
+    sp_ind = form_arrays.get("sp_ind")
+    spilled = sp_ind is not None and np.asarray(sp_ind).size > 0
+
+    def idx(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(dev)
+
+    return ExecForm(
+        kind="bwd",
+        m=int(form_arrays["m"]),
+        n=int(form_arrays["n"]),
+        bwd_val=band,
+        bwd_W=W,
+        bwd_G=G,
+        bwd_base8=int(form_arrays["bwd_base8"]),
+        bwd_padL=int(form_arrays["bwd_padL"]),
+        bwd_n_pad=int(form_arrays["bwd_n_pad"]),
+        sp_val=as_values(np.asarray(form_arrays["sp_val"]), dev) if spilled else None,
+        sp_ind=idx(sp_ind) if spilled else None,
+        sp_rows=idx(form_arrays["sp_rows"]) if spilled else None,
+        sp_gptr=idx(spill_group_ptr(np.asarray(form_arrays["sp_rows"]), nblk)) if spilled else None,
+    )
 
 
 def bandt_form_from_jax(form_arrays: Mapping, device=None) -> ExecForm:

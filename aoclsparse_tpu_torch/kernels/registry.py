@@ -11,17 +11,30 @@ the global ``AOCLSPARSE_TPU_FORCE_KID`` override. The backend of a call is
 the device of its operand. ``debug_dispatcher`` reports which kernel would
 run (aoclsparse_debug_dispatcher analog).
 
-The mv table keeps the JAX package's KID numbers for the forms ported so
-far: 0 (segsum), 1 (ell) and 2 (ellhyb), the gather forms in plain torch;
-9 (bwdg), the group-band SpMV in plain torch that a SpGEMM product's
-seeded band runs on; 7, the general-structure composite
+The mv table keeps the JAX package's KID numbers and priorities
+(kernels/xla/__init__.py:13-54 there): 0 (segsum), 1 (ell), 2 (ellhyb), 3
+(bsr, a BSR handle's product), 4 (dia, a DIA handle's), 6 (the planner's
+diag form) and 10 (sell, sliced ELL), the gather and shifted forms in plain
+torch; 5, the ``bwd`` group windows, whose hand-written kernel
+(kernels/spmv_bwd.py) serves float32, a bf16 band with float32 x (the mixed
+mode) and float64, while complex and float16 operands take its plain
+formulation by that dtype rule (the JAX package runs KID 5 as an XLA
+formulation; the rule reads the dtype only, never a failed build or
+launch); 9 (bwdg), the group-band SpMV in plain torch that a SpGEMM
+product's seeded band runs on; 7, the general-structure composite
 (kernels/spmv_gen.py), whose band runs the band kernel and whose spill the
-spill-route kernels; 8, 12 and 13 for
-the ``bandt`` form, all three the one band kernel (kernels/band_spmv.py),
-12 the default, streaming a bf16 band under the mixed precision policy, 13
-the f64 instance (the JAX package's double-float KID); and 14, the
-whole-matrix route (planner/spill_route.py), which a KID cannot pin (mv
-raises invalid_kid for it, as the JAX package does).
+spill-route kernels; 8, 12 and 13 for the ``bandt`` form, all three the one
+band kernel (kernels/band_spmv.py), 12 the default, streaming a bf16 band
+under the mixed precision policy, 13 the f64 instance (the JAX package's
+double-float KID); 11, the host engine (kernels/host.py), priority -5, run
+only by an explicit kid; and 14, the whole-matrix route
+(planner/spill_route.py), which a KID cannot pin (mv raises invalid_kid for
+it, as the JAX package does). KID 10 is sell only: the JAX package's opt-in
+that also registers its bwd kernel as KID 10 is not copied.
+
+The level-1 tables (axpyi, doti, dotci, dotui, gthr, gthrz, gthrs, roti,
+sctr, sctrs) each keep the JAX package's one KID-0 row
+(ops/level1.py:236-248 there), registered by ops/level1.py.
 
 The sv table keeps KID 0, the blocked window solve (kernels/trsv_win.py),
 which serves trsv and trsm alike (the JAX package has no separate sm
@@ -46,9 +59,11 @@ import torch
 from ..core.context import get_context
 from ..core.types import AoclSparseError, Status
 from .band_spmv import spmv_bandt
-from .plain_spmv import spmv_bwdg, spmv_ell, spmv_ellhyb, spmv_segsum
+from .host import HOST_MV_KID, spmv_host_csr
+from .plain_spmv import spmv_bsr, spmv_bwdg, spmv_dia, spmv_diag, spmv_ell, spmv_ellhyb, spmv_segsum, spmv_sell
 from .spmm_band import spmm_bandmxu, spmm_bandtm
 from .spmm_diag import spmm_diag
+from .spmv_bwd import spmv_bwd_any
 from .spmm_plain import spmm_bwd, spmm_ell, spmm_ellhyb, spmm_segsum
 from .spmv_gen import spmv_gen, spmv_route
 from .trsv_win import trsv_win
@@ -142,6 +157,10 @@ registry = Registry()
 registry.register("mv", KernelEntry(0, "torch_segsum", spmv_segsum, "segsum", "any", 0))
 registry.register("mv", KernelEntry(1, "torch_ell", spmv_ell, "ell", "any", 0))
 registry.register("mv", KernelEntry(2, "torch_ellhyb", spmv_ellhyb, "ellhyb", "any", 0))
+registry.register("mv", KernelEntry(3, "torch_bsr", spmv_bsr, "bsr", "any", 0))
+registry.register("mv", KernelEntry(4, "torch_dia", spmv_dia, "dia", "any", 0))
+registry.register("mv", KernelEntry(5, "cuda_bwd", spmv_bwd_any, "bwd", "any", 1))
+registry.register("mv", KernelEntry(6, "torch_diag", spmv_diag, "diag", "any", 1))
 registry.register("mv", KernelEntry(7, "gen_composite", spmv_gen, "gen", "any", 1))
 registry.register("mv", KernelEntry(9, "torch_bwdg", spmv_bwdg, "bwdg", "any", 1))
 registry.register("mv", KernelEntry(8, "cuda_bandt", spmv_bandt, "bandt", "any", 2))
@@ -150,6 +169,9 @@ registry.register("mv", KernelEntry(12, "cuda_bandv", spmv_bandt, "bandt", "any"
 # (ops/level2/mv.py), as the JAX package routes its double-float kernel
 registry.register("mv", KernelEntry(13, "cuda_band_f64", spmv_bandt, "bandt", "any", -1))
 registry.register("mv", KernelEntry(14, "cuda_spill_route", spmv_route, "route", "any", 1))
+registry.register("mv", KernelEntry(10, "torch_sell", spmv_sell, "sell", "any", 0))
+# the host engine: an explicit kid only, never the Oracle's pick
+registry.register("mv", KernelEntry(HOST_MV_KID, "host_csr", spmv_host_csr, "host", "any", -5))
 registry.register("sv", KernelEntry(0, "cuda_trsv_win", trsv_win, "blocked", "any", 0))
 registry.register("mm", KernelEntry(0, "torch_segsum", spmm_segsum, "segsum", "any", 0))
 registry.register("mm", KernelEntry(1, "torch_ell", spmm_ell, "ell", "any", 0))

@@ -1,7 +1,7 @@
 """Host C++ kernels of the planner: ILU(0) factorization, the blocked
 triangular-solve form fill, reverse Cuthill-McKee ordering, the Benes
-routing plan and the SpGEMM symbolic and host numeric stages, bound with
-ctypes.
+routing plan, the SpGEMM symbolic and host numeric stages and the masked
+block scan of csr2blkcsr, bound with ctypes.
 
 PyTorch-side counterpart of ``aoclsparse_tpu/native/__init__.py:45-247,
 278-455, 656-848``. The C++ source, ``native/src/host_kernels.cpp``, is this
@@ -14,9 +14,10 @@ under a name carrying a hash of the source and flags, so an edited source
 rebuilds and an unchanged one loads the existing file. Nothing under
 ``aoclsparse_tpu/`` is read or written.
 
-`ilu0_factor`, `rcm_permutation`, `benes_plan` and `spgemm_nnz` fall back
-to their numpy versions (`_ilu0_numpy`, `_rcm_numpy`, `_benes_numpy`, a
-marker scan) when the library cannot be built; `trsv_win_build`,
+`ilu0_factor`, `rcm_permutation`, `benes_plan`, `spgemm_nnz`,
+`blkcsr_count` and `blkcsr_build` fall back to their numpy versions
+(`_ilu0_numpy`, `_rcm_numpy`, `_benes_numpy`, a marker scan,
+`_blkcsr_numpy`) when the library cannot be built; `trsv_win_build`,
 `spgemm_expand`, `spgemm_pattern` and `spgemm_numeric_host` return None
 then, and their callers take their numpy or torch paths, as in the JAX
 package. `available()` says which one runs.
@@ -39,6 +40,8 @@ from ..kernels.build import BUILD_DIR
 __all__ = [
     "available",
     "benes_plan",
+    "blkcsr_build",
+    "blkcsr_count",
     "ilu0_factor",
     "rcm_permutation",
     "spgemm_expand",
@@ -114,6 +117,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rcm.argtypes = [ctypes.c_int64, _I64P, _I64P, _I64P]
     lib.benes_plan.restype = None
     lib.benes_plan.argtypes = [ctypes.c_int64, _I64P, _U8P]
+    lib.blkcsr_count.restype = ctypes.c_int64
+    lib.blkcsr_count.argtypes = [ctypes.c_int64, ctypes.c_int64, _I64P, _I64P, ctypes.c_int64]
+    lib.blkcsr_build.restype = ctypes.c_int64
+    lib.blkcsr_build.argtypes = [ctypes.c_int64, ctypes.c_int64, _I64P, _I64P, ctypes.c_int64,
+                                 _I64P, _I64P, _U8P, _I64P]
     lib.spgemm_nnz.restype = ctypes.c_int64
     lib.spgemm_nnz.argtypes = [ctypes.c_int64, ctypes.c_int64] + [_I64P] * 5
     lib.spgemm_expand.restype = ctypes.c_int64
@@ -489,3 +497,72 @@ def spgemm_numeric_host(pa, pb, pc, aval, bval, nnzC: int):
         vptr(av), vptr(bv), vptr(cv), ctypes.c_int64(int(nnzC)),
     )
     return cv[: int(nnzC)]
+
+
+def _blkcsr_numpy(m, n, ptr, ind, nrowsblk, build):
+    """The greedy masked-block scan in numpy (the library's plain version):
+    Python loops over row groups, a searchsorted per subrow for the consume
+    step (columns are sorted)."""
+    W = 8
+    total = 0
+    brow_ptr = np.zeros(m + 1, dtype=np.int64) if build else None
+    bcols, masks, perm = [], [], []
+    for r0 in range(0, m, nrowsblk):
+        nr = min(nrowsblk, m - r0)
+        cur = ptr[r0 : r0 + nr].astype(np.int64).copy()
+        end = ptr[r0 + 1 : r0 + nr + 1].astype(np.int64)
+        blk0 = total
+        while True:
+            live = [ind[cur[s]] for s in range(nr) if cur[s] < end[s]]
+            if not live:
+                break
+            c0 = int(min(live))
+            cstart = n - W if c0 + W > n else c0
+            for s in range(nr):
+                stop = cur[s] + np.searchsorted(ind[cur[s] : end[s]], c0 + W)
+                if build:
+                    cols = ind[cur[s] : stop]
+                    masks.append(np.bitwise_or.reduce((1 << (cols - cstart)).astype(np.uint8), initial=np.uint8(0)))
+                    perm.append(np.arange(cur[s], stop, dtype=np.int64))
+                cur[s] = stop
+            if build:
+                bcols.append(cstart)
+                masks.extend([np.uint8(0)] * (nrowsblk - nr))
+            total += 1
+        if build:
+            brow_ptr[r0] = blk0
+            brow_ptr[r0 + 1 : r0 + nr + 1] = total
+    if not build:
+        return total
+    prm = np.concatenate(perm) if perm else np.zeros(0, np.int64)
+    return brow_ptr, np.asarray(bcols, dtype=np.int64), np.asarray(masks, dtype=np.uint8), prm
+
+
+def blkcsr_count(m: int, n: int, ptr, ind, nrowsblk: int) -> int:
+    """Number of nrowsblk x 8 blocks of the greedy scan (the reference's
+    opt_blksize counting pass, conversion/aoclsparse_convert.cpp:69-110)."""
+    lib = _load()
+    ptr64, ind64 = _i64(ptr), _i64(ind)
+    if lib is None:
+        return _blkcsr_numpy(m, n, ptr64, ind64, nrowsblk, build=False)
+    return int(lib.blkcsr_count(ctypes.c_int64(m), ctypes.c_int64(n), _ptr(ptr64, _I64P), _ptr(ind64, _I64P),
+                                ctypes.c_int64(nrowsblk)))
+
+
+def blkcsr_build(m: int, n: int, ptr, ind, nrowsblk: int):
+    """The blkcsr structure (the reference's csr2blkcsr,
+    conversion/aoclsparse_convert.cpp:145-290): (blk_row_ptr, blk_col_ind,
+    masks, perm), perm mapping each output value slot to its CSR source."""
+    lib = _load()
+    ptr64, ind64 = _i64(ptr), _i64(ind)
+    if lib is None:
+        return _blkcsr_numpy(m, n, ptr64, ind64, nrowsblk, build=True)
+    nblk = blkcsr_count(m, n, ptr64, ind64, nrowsblk)
+    brow_ptr = np.zeros(m + 1, dtype=np.int64)
+    bcol = np.empty(max(nblk, 1), dtype=np.int64)
+    masks = np.zeros(max(nblk * nrowsblk, 1), dtype=np.uint8)
+    perm = np.empty(max(int(ind64.shape[0]), 1), dtype=np.int64)
+    nval = lib.blkcsr_build(ctypes.c_int64(m), ctypes.c_int64(n), _ptr(ptr64, _I64P), _ptr(ind64, _I64P),
+                            ctypes.c_int64(nrowsblk), _ptr(brow_ptr, _I64P), _ptr(bcol, _I64P),
+                            _ptr(masks, _U8P), _ptr(perm, _I64P))
+    return brow_ptr, bcol[:nblk], masks[: nblk * nrowsblk], perm[: int(nval)]

@@ -8,14 +8,17 @@ the fused dotmv template (level2/aoclsparse_dotmv.hpp:32).
 The (descr, op) pair resolves through the planner to an EffectiveCSR copy
 and an ExecForm; the registry Oracle picks the kernel row for the form, and
 y = alpha*op(A)x + beta*y is applied in the epilogue. This package runs the
-`bandt`, `gen` (general structure, its spill through the spill-route
-kernels), `route` (the whole-matrix spill route), `bwdg` (a SpGEMM
-product's band, or KID 9), `ell`, `ellhyb` and `segsum` forms;
-`mv_operator` keeps a gen operand's iterations in permuted space. A
-product whose values are still pending runs on its seeded band without
-materializing them. The JAX package's ELL/DIA/BSR native-format paths and
-its host engine (mv KID 11) are not ported yet (ROADMAP.md queue 1 item
-10).
+`bandt`, `bwd` (KID 5, the group-window kernel), `gen` (general structure,
+its spill through the spill-route kernels), `route` (the whole-matrix spill
+route), `bwdg` (a SpGEMM product's band, or KID 9), `diag` (KID 6), `sell`
+(KID 10), `ell`, `ellhyb` and `segsum` forms; ELL, DIA and BSR handles run
+their native products (KIDs 1, 4 and 3) on the general, untransposed
+operation, as the reference's format switch does (mv.cpp:179), and go
+through the planner's CSR otherwise. `mv_operator` keeps a gen operand's
+iterations in permuted space. A product whose values are still pending
+runs on its seeded band without materializing them. The host engine (KID
+11, kernels/host.py) runs only when `kid=11` asks for it, and then returns
+a CPU tensor.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from typing import Optional
 import torch
 
 from ...core.descr import MatrixDescriptor
-from ...core.formats import CSR
+import numpy as np
+
+from ...core.formats import BSR, DIA, ELL
 from ...core.matrix import SparseMatrix, as_values
 from ...core.types import (
     AoclSparseError,
@@ -36,14 +41,17 @@ from ...core.types import (
     Operation,
     Status,
 )
-from ...core.validate import check_base_match, check_dtype_compat
+from ...core.validate import check_base_match, check_dtype_compat, host_array
+from ...kernels.host import HOST_MV_KID
 from ...kernels.registry import registry
 from ...planner.plan import get_plan
 
 __all__ = ["mv", "dotmv", "mv_operator", "MvOperator"]
 
-#: KID of the JAX package's host mv engine (kernels/host.py), not ported yet
-HOST_MV_KID = 11
+#: the execution forms a KID may pin on the planner's CSR (mv.py:497-507 of
+#: the JAX package): bsr and dia serve BSR and DIA handles only, and the
+#: whole-matrix route is reached through the planner alone
+CSR_KINDS = ("segsum", "ell", "ellhyb", "bwd", "diag", "gen", "bandt", "bwdg", "sell")
 
 #: a gen form's spill takes the spill-route engine (select -> Benes route ->
 #: accumulate kernels) from this many float32 entries on, on the devices
@@ -126,8 +134,16 @@ def _spill_route_on(form, device: torch.device) -> bool:
 
 def _run_exec_form(form, x: torch.Tensor, kid: Optional[int]) -> torch.Tensor:
     e = registry.select("mv", fmt=form.kind, kid=kid, device=x.device)
-    if form.kind == "segsum":
+    if form.kind in ("segsum", "sell"):
         return e.fn(form.ind, form.val, form.row_ids, x, form.m)
+    if form.kind == "bwd":
+        band = form.band_bf16() if _mixed_enabled(form, x.dtype) else form.bwd_val
+        return e.fn(band, x, form.bwd_base8, form.bwd_padL, form.m, form.sp_val, form.sp_ind, form.sp_rows,
+                    form.sp_gptr)
+    if form.kind == "diag":
+        return e.fn(form.dia_val, form.dia_offs, x, form.m, form.dia_L, form.dia_n_pad)
+    if form.kind == "host":
+        return torch.from_numpy(e.fn(form.host_ptr, form.host_ind, form.host_values(), host_array(x)))
     if form.kind == "gen":
         route = form.spill_route() if _spill_route_on(form, x.device) else None
         return e.fn(form, x, mixed=_mixed_enabled(form, x.dtype), route=route)
@@ -163,13 +179,20 @@ def _run_exec_form(form, x: torch.Tensor, kid: Optional[int]) -> torch.Tensor:
     raise AoclSparseError(Status.internal_error, f"bad exec form {form.kind}")
 
 
+def _native_mv(data, x: torch.Tensor, kid: Optional[int]) -> torch.Tensor:
+    """An ELL, DIA or BSR handle's own product (the reference's format
+    switch, mv.cpp:179; mv.py:472-487 of the JAX package)."""
+    if isinstance(data, ELL):
+        return registry.select("mv", fmt="ell", kid=kid, device=x.device).fn(data.ind, data.val, x)
+    if isinstance(data, DIA):
+        return registry.select("mv", fmt="dia", kid=kid, device=x.device).fn(data.dist, data.val, x, data.m, data.n)
+    e = registry.select("mv", fmt="bsr", kid=kid, device=x.device)
+    brow = torch.repeat_interleave(torch.arange(data.mb, device=x.device), data.ptr.diff(), output_size=data.nnzb)
+    return e.fn(brow, data.ind, data.val, x, data.mb, data.block_dim)[: data.m]
+
+
 def _spmv_core(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, x, kid=None):
     """op(descr(A)) @ x without the alpha/beta epilogue."""
-    if kid == HOST_MV_KID:
-        raise AoclSparseError(
-            Status.not_implemented,
-            "the host mv engine (kid 11) is not ported yet (ROADMAP.md queue 1 item 10)",
-        )
     general_n = MatrixType(descr.type) == MatrixType.general and Operation(op) == Operation.none
     seed = getattr(A, "_seed_bwdg", None)
     if general_n and kid is None and A.plan is None and A.values_pending and seed is not None and (
@@ -180,11 +203,8 @@ def _spmv_core(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, x, kid=N
         # pay the CSR extraction this mode exists to skip
         seed.precision_mode = A.precision_mode
         return _run_exec_form(seed, x.contiguous(), None)
-    if not isinstance(A.data, CSR):
-        raise AoclSparseError(
-            Status.not_implemented,
-            "ELL/DIA/BSR mv paths are not ported yet (ROADMAP.md queue 1 item 10)",
-        )
+    if general_n and isinstance(A.data, (ELL, DIA, BSR)):
+        return _native_mv(A.data, x.contiguous(), kid)
     plan = get_plan(A)
     # the restricted memory policy forbids format copies: the gather form
     kind = "segsum" if A.mem_policy == MemoryPolicy.restricted else None
@@ -193,9 +213,7 @@ def _spmv_core(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, x, kid=N
         # (invalid_kid when unsupported, cntx_dispatcher.hpp:272-364)
         for e in registry.table("mv"):
             if e.kid == kid:
-                if e.fmt == "route":
-                    # not pinnable in the JAX package either (its mv.py:495-514):
-                    # the whole-matrix route is reached through the planner only
+                if e.fmt not in CSR_KINDS:
                     raise AoclSparseError(Status.invalid_kid, f"kid {kid} serves format '{e.fmt}', not CSR")
                 kind = e.fmt
                 break
@@ -212,6 +230,56 @@ def _is_zero(s) -> bool:
     return isinstance(s, Number) and s == 0
 
 
+#: numpy dtypes of the host engine
+_NP_DTYPES = {
+    torch.float32: np.float32,
+    torch.float64: np.float64,
+    torch.complex64: np.complex64,
+    torch.complex128: np.complex128,
+    torch.float16: np.float16,
+}
+
+
+def _mv_host(alpha, A: SparseMatrix, descr: MatrixDescriptor, op: Operation, x, beta, y) -> torch.Tensor:
+    """The whole call on the host engine (mv.py:523-607 of the JAX
+    package): numpy validation, the CSR product and the epilogue; the
+    result is a CPU tensor. Native-format handles keep their own rows
+    (invalid_kid), as in the JAX package."""
+    descr.validate()
+    check_base_match(A, descr)
+    op = Operation(op)
+    m, n = A.shape
+    nx, ny = (n, m) if op == Operation.none else (m, n)
+    xh = host_array(x)
+    if xh.shape != (nx,):
+        raise AoclSparseError(Status.invalid_size, f"x must have shape ({nx},), got {xh.shape}")
+    yh = None if y is None else host_array(y)
+    if yh is not None and yh.shape != (ny,):
+        raise AoclSparseError(Status.invalid_size, f"y must have shape ({ny},), got {yh.shape}")
+    if MatrixType(descr.type) in (MatrixType.symmetric, MatrixType.hermitian, MatrixType.triangular) and m != n:
+        raise AoclSparseError(Status.invalid_size, f"{descr.type.name} requires square A")
+    check_dtype_compat(A.dtype, xh.dtype, "x")
+    if A.dtype not in _NP_DTYPES:
+        raise AoclSparseError(Status.wrong_type, f"the host engine has no {A.dtype}")
+    general_n = MatrixType(descr.type) == MatrixType.general and op == Operation.none
+    if general_n and isinstance(A.data, (ELL, DIA, BSR)):
+        raise AoclSparseError(Status.invalid_kid, "the host mv engine serves the CSR planner path")
+    dtype = np.result_type(_NP_DTYPES[A.dtype], xh.dtype)
+    y0 = np.zeros(ny, dtype=dtype) if yh is None else yh.astype(dtype)
+    beta_is_zero = _is_zero(beta)
+    if A.nnz == 0 or _is_zero(alpha):
+        out = np.zeros(ny, dtype=dtype) if beta_is_zero else (alpha * 0) * np.zeros(ny, dtype=dtype) + beta * y0
+        return torch.from_numpy(np.asarray(out, dtype=dtype))
+    form = get_plan(A).exec_form_for(descr, op, kind="host", dtype=A.dtype)
+    e = registry.select("mv", fmt="host", kid=HOST_MV_KID)
+    ax = e.fn(form.host_ptr, form.host_ind, form.host_values(), xh.astype(dtype, copy=False))
+    if beta_is_zero:
+        out = ax if isinstance(alpha, Number) and alpha == 1 else alpha * ax
+    else:
+        out = alpha * ax + beta * y0
+    return torch.from_numpy(np.asarray(out, dtype=dtype))
+
+
 def mv(
     alpha,
     A: SparseMatrix,
@@ -222,7 +290,15 @@ def mv(
     y=None,
     kid: Optional[int] = None,
 ) -> torch.Tensor:
-    """y = alpha * op(descr(A)) @ x + beta * y  (aoclsparse_?mv)."""
+    """y = alpha * op(descr(A)) @ x + beta * y  (aoclsparse_?mv).
+
+    The result lies on A's device, except with ``kid=11``: the host engine
+    (kernels/host.py) computes the whole call on the host from host copies
+    of x and y and returns a CPU tensor."""
+    if A is None or descr is None or x is None:
+        raise AoclSparseError(Status.invalid_pointer, "null argument to mv")
+    if kid == HOST_MV_KID:
+        return _mv_host(alpha, A, descr, op, x, beta, y)
     op, x, y, ny = _validate(A, descr, op, x, y)
     check_dtype_compat(A.dtype, x.dtype, "x")
     dtype = torch.promote_types(A.dtype, x.dtype)
@@ -277,10 +353,6 @@ def mv_operator(A: SparseMatrix, descr: Optional[MatrixDescriptor] = None, op: O
     op = Operation(op)
     nx = A.shape[1] if op == Operation.none else A.shape[0]
     op, _x, _y, _ny = _validate(A, descr, op, torch.zeros(nx, dtype=A.dtype, device=A.device), None)
-    if not isinstance(A.data, CSR):
-        raise AoclSparseError(
-            Status.not_implemented, "ELL/DIA/BSR mv paths are not ported yet (ROADMAP.md queue 1 item 10)"
-        )
     form = get_plan(A).exec_form_for(descr, op, dtype=A.dtype)
     form.precision_mode = A.precision_mode
     if form.kind == "gen" and form.gen_bandt:
@@ -309,6 +381,7 @@ def dotmv(
     """Fused y = alpha*op(A)x + beta*y then d = <x, y> (conjugated for complex
     x, matching aoclsparse_dotmv.hpp:32). Returns (y, d)."""
     ynew = mv(alpha, A, descr, op, x, beta, y, kid=kid)
-    xv = _as_operand(x, A, "x").to(ynew.dtype)
+    # the host engine's y is a CPU tensor: the dot follows it there
+    xv = (_as_operand(x, A, "x") if ynew.device == A.device else torch.as_tensor(host_array(x))).to(ynew.dtype)
     return ynew, torch.sum(torch.conj_physical(xv) * ynew)
 

@@ -4,7 +4,9 @@ library/src/analysis/aoclsparse_analysis.cpp:595-777).
 PyTorch counterpart of ``aoclsparse_tpu/planner/hints.py:60-106``. A
 setter validates the descriptor/operation and prepends a Hint node to the
 handle's hint list; `optimize()` (planner/plan.py) then walks the list and
-prebuilds the effective CSR copies and execution forms. The triangular
+prebuilds the effective CSR copies and execution forms. A hint's KID
+(`set_mv_hint_kid`) is stored and not acted on, as in the JAX planner: the
+kid of the call picks the kernel. The triangular
 solve forms and the ILU0 factors are built lazily by their first call, as
 in the JAX package.
 """
@@ -19,10 +21,13 @@ from ..core.types import AoclSparseError, MemoryPolicy, Operation, Status
 from ..core.validate import check_base_match
 
 __all__ = [
+    "set_2m_hint",
+    "set_dotmv_hint",
     "set_lu_smoother_hint",
     "set_memory_hint",
     "set_mm_hint",
     "set_mv_hint",
+    "set_mv_hint_kid",
     "set_sm_hint",
     "set_sv_hint",
 ]
@@ -54,6 +59,19 @@ def _set_hint(
 
 def set_mv_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> None:
     _set_hint(A, "mv", trans, descr, kid, nop)
+
+
+def set_mv_hint_kid(A, trans, descr, nop: int, kid: int) -> None:
+    """aoclsparse_set_mv_hint_kid: set_mv_hint with the kid required."""
+    _set_hint(A, "mv", trans, descr, kid, nop)
+
+
+def set_dotmv_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> None:
+    _set_hint(A, "dotmv", trans, descr, kid, nop)
+
+
+def set_2m_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> None:
+    _set_hint(A, "2m", trans, descr, kid, nop)
 
 
 def set_sv_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> None:

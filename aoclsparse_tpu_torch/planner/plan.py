@@ -1,11 +1,13 @@
 """Planner for mv and mm: clean CSR -> effective CSR -> execution form.
 
 PyTorch counterpart of ``aoclsparse_tpu/planner/plan.py`` for the forms this
-package runs: ``bandt``, ``gen`` (the general-structure composite),
-``route`` (the whole-matrix spill-route engine), ``bwdg`` (a SpGEMM
-product's seeded band, or mv KID 9), ``ell``, ``ellhyb`` and ``segsum`` for
-mv; ``bandtm``, ``diag``, ``bwdg``, ``ell``, ``ellhyb`` and
-``segsum`` for mm. Reference analogs:
+package runs: ``bandt``, ``bwd`` (the G = 8 group windows of mv KID 5),
+``gen`` (the general-structure composite), ``route`` (the whole-matrix
+spill-route engine), ``bwdg`` (a SpGEMM product's seeded band, or mv KID
+9), ``diag`` (mv KID 6), ``sell`` (sliced ELL, KID 10), ``host`` (the host
+engine, KID 11), ``ell``, ``ellhyb`` and ``segsum`` for mv; ``bandtm``,
+``diag``, ``bwdg``, ``ell``, ``ellhyb`` and ``segsum`` for mm. Reference
+analogs:
 
 - clean-CSR construction `aoclsparse_csr_csc_optimize`
   (analysis/aoclsparse_csr_util.hpp:764-945): validate, sort, split triangles.
@@ -24,6 +26,7 @@ gather/scatter in `refresh`, so `update_values` never re-plans.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -447,13 +450,21 @@ class ExecForm:
     are tensors on the matrix's device; `*_dest`/`*_src` are host scatter
     and gather maps kept for the value refresh."""
 
-    kind: str  # "segsum" | "bandt" | "gen" | "route" | "bandtm" | "bwdg" | "diag" | "ell" | "ellhyb"
+    kind: str  # "segsum" | "bandt" | "bwd" | "gen" | "route" | "bandtm" | "bwdg" | "diag" | "sell" | "host" | ...
     m: int
     n: int
-    # segsum
+    # segsum; sell: the flattened slices (padding: column 0, value 0)
     ind: Optional[torch.Tensor] = None
     val: Optional[torch.Tensor] = None
     row_ids: Optional[torch.Tensor] = None
+    sell_dest: Optional[np.ndarray] = None  # (nnz,) flat slice positions of the entries
+    sell_total: int = 0
+    # host: numpy CSR of the host engine (kernels/host.py); the values are
+    # fetched from the device at the first call after a refresh
+    host_ptr: Optional[np.ndarray] = None
+    host_ind: Optional[np.ndarray] = None
+    host_val: Optional[np.ndarray] = None
+    _host_pending: Optional[torch.Tensor] = None
     # ell / ellhyb: (m, w) padded rows, -1 marks padding
     ell_ind: Optional[torch.Tensor] = None
     ell_val: Optional[torch.Tensor] = None
@@ -464,11 +475,14 @@ class ExecForm:
     sp_val: Optional[torch.Tensor] = None
     sp_rows: Optional[torch.Tensor] = None
     sp_src: Optional[np.ndarray] = None
+    #: bwd: (nblk + 1,) first spill entry of each 8-row group, for the kernel
+    sp_gptr: Optional[torch.Tensor] = None
     # band forms. bandt: bwd_val[j, i] = A[i, i + lo + j] as a (W, m)
     # tensor for the band SpMV kernel (kernels/band_spmv.py); bandtm: the
     # row-aligned (m, W) layout v[i, j] = A[i, i + lo + j] for the band SpMM
-    # kernels (kernels/spmm_band.py); bwdg: (ngrp, G, W) group windows, the
-    # window of group g starting at padded B row G * (g + bwd_base8).
+    # kernels (kernels/spmm_band.py); bwd (G = 8, kernels/spmv_bwd.py) and
+    # bwdg: (ngrp, G, W) group windows, the window of group g starting at
+    # padded x (B) row G * (g + bwd_base8).
     # bwd_padL is the left padding (= max(0, -lo)), bandt_start the window
     # start (= max(lo, 0))
     bwd_val: Optional[torch.Tensor] = None
@@ -521,6 +535,15 @@ class ExecForm:
     @property
     def has_spill(self) -> bool:
         return self.sp_ind is not None and int(self.sp_ind.shape[0]) > 0
+
+    def host_values(self) -> np.ndarray:
+        """Host copy of a host form's values, fetched at the first call
+        after a refresh (a refresh that is never followed by a host call
+        moves nothing)."""
+        if self.host_val is None:
+            self.host_val = self._host_pending.detach().cpu().numpy()
+            self._host_pending = None
+        return self.host_val
 
     def band_bf16(self) -> torch.Tensor:
         """Cached bfloat16 copy of the band for the mixed-precision path
@@ -616,6 +639,10 @@ class ExecForm:
 
         if self.kind == "segsum":
             self.val = eff_val
+        elif self.kind == "host":
+            self.host_val, self._host_pending = None, eff_val
+        elif self.kind == "sell":
+            self.val = scatter(self.sell_total, self.sell_dest, None)
         elif self.kind == "route":
             # every entry rides the engine: values rescatter through its
             # stored select-slot map
@@ -632,8 +659,8 @@ class ExecForm:
                 self.hubr_slab = scatter(kr * mp, self.hubr_dest, self.hubr_src).reshape(kr, mp)
             if self.sp_src is not None and self.sp_src.size and self._spill_route is not None:
                 self._spill_route.refresh(eff_val[_dev_index(self.sp_src, dev)])
-        elif self.kind in ("bandt", "bandtm", "bwdg"):
-            if self.kind == "bwdg":
+        elif self.kind in ("bandt", "bandtm", "bwd", "bwdg"):
+            if self.kind in ("bwd", "bwdg"):
                 ngrp = -(-self.m // self.bwd_G)
                 shape = (ngrp, self.bwd_G, self.bwd_W)
             else:
@@ -713,8 +740,14 @@ def choose_mv_format(eff: EffectiveCSR) -> str:
     - otherwise `segsum`.
 
     Complex and float16 operands have no band kernel instance and take
-    `segsum`."""
-    if eff.m == 0 or eff.nnz == 0 or eff.val.dtype not in _BAND_DTYPES:
+    `segsum`. AOCLSPARSE_TPU_FORCE_GENERIC (enable_instructions("generic"))
+    sends every operand to the gather forms, as in the JAX package
+    (plan.py:831-879 there)."""
+    if eff.m == 0 or eff.nnz == 0:
+        return "segsum"
+    if os.environ.get("AOCLSPARSE_TPU_FORCE_GENERIC", "0") in ("1", "true"):
+        return gather_fallback_kind(eff)
+    if eff.val.dtype not in _BAND_DTYPES:
         return "segsum"
     rows, rel = _rows_rel(eff)
     _lo, W, _spill = _bandt_window(rows, rel)
@@ -998,19 +1031,50 @@ def _block_flips(pb_r, pb_c, pos_r, pos_c, nblk: int, B: int):
     return fP if fP.any() else None
 
 
-def _build_bwd_coo(rows, cols, src, m: int, n: int, window: Tuple[int, int], device,
+#: edge peel of the bwd form (plan.py:903-904 of the JAX package): the
+#: window keeps the [0.25, 99.75] percentile core of the group-relative
+#: column offsets when that saves >= 16 of width and spills at most
+#: max(1024, 1 %) of the entries
+BWD_PEEL_PCTS = (0.25, 99.75)
+BWD_SPILL_FRAC = 0.01
+
+
+def _bwd_peel_window(rel: np.ndarray, G: int, peel: bool) -> Tuple[int, int, np.ndarray]:
+    """(rel_lo, W, spill_mask) of the group windows over group-relative
+    offsets `rel` (plan.py:922-943 of the JAX package): the full window,
+    start aligned to G and width to 8, or with `peel` past 4096 entries the
+    percentile core."""
+    if rel.size == 0:
+        return 0, G, np.zeros(0, dtype=bool)
+    rel_lo = (int(rel.min()) // G) * G
+    W = -(-(int(rel.max()) - rel_lo + 1) // 8) * 8
+    if peel and rel.size > 4096:
+        lo_c = (int(np.percentile(rel, BWD_PEEL_PCTS[0])) // G) * G
+        hi_c = int(np.percentile(rel, BWD_PEEL_PCTS[1]))
+        W_core = -(-(hi_c - lo_c + 1) // 8) * 8
+        outside = (rel < lo_c) | (rel >= lo_c + W_core)
+        if W_core <= W - 16 and int(outside.sum()) <= max(1024, int(rel.size * BWD_SPILL_FRAC)):
+            return lo_c, W_core, outside
+    return rel_lo, W, np.zeros(rel.size, dtype=bool)
+
+
+def _build_bwd_coo(rows, cols, src, m: int, n: int, window: Optional[Tuple[int, int]], device,
                    G: int = 8, kind: str = "gen") -> ExecForm:
     """Group-window geometry (plan.py:895-978 of the JAX package) of a
-    (row, col)-sorted COO triple over a pre-selected (rel_lo, W) window:
-    rows in groups of G, the window of group g starting at column
-    G * g + rel_lo; entries outside it spill. `src` maps each entry to the
+    (row, col)-sorted COO triple: rows in groups of G, the window of group
+    g starting at column G * g + rel_lo; entries outside it spill. The
+    (rel_lo, W) window is the caller's (the gen ladder), or with None the
+    peeled one of `_bwd_peel_window`. `src` maps each entry to the
     effective value vector (None: the identity, as the SpGEMM band operands
     take it, kernels/spgemm_band.py). Returns the form WITHOUT values."""
     ngrp = -(-m // G)
     blk = rows // G
     rel = cols - G * blk
-    rel_lo, W = window
-    spill_mask = (rel < rel_lo) | (rel >= rel_lo + W)
+    if window is None:
+        rel_lo, W, spill_mask = _bwd_peel_window(rel, G, peel=kind in ("bwd", "gen"))
+    else:
+        rel_lo, W = window
+        spill_mask = (rel < rel_lo) | (rel >= rel_lo + W)
     keep = ~spill_mask
     L = max(0, -rel_lo)
     base = (rel_lo + L) // G
@@ -1037,6 +1101,61 @@ def _build_bwd_coo(rows, cols, src, m: int, n: int, window: Tuple[int, int], dev
         sp_ind=_dev_index(cols[spill_mask], device) if spilled else None,
         sp_rows=_dev_index(rows[spill_mask], device) if spilled else None,
     )
+
+
+def _build_bwd(eff: EffectiveCSR) -> ExecForm:
+    """The G = 8 group-window form of mv KID 5 (plan.py:981-989 of the JAX
+    package), with its spill's group pointer for the kernel
+    (kernels/spmv_bwd.py)."""
+    from ..kernels.spmv_bwd import G, spill_group_ptr
+
+    m, n = eff.shape
+    rows, _rel = _rows_rel(eff)
+    form = _build_bwd_coo(rows, eff.ind.astype(np.int64), None, m, n, None, eff.val.device, G=G, kind="bwd")
+    if form.has_spill:
+        form.sp_gptr = _dev_index(spill_group_ptr(rows[form.sp_src], -(-m // G)), eff.val.device)
+    form.refresh(eff.val)
+    return form
+
+
+#: the sell form's slices: SELL_ROWS rows, each slice padded to a multiple
+#: of SELL_LANE columns (the JAX package's SUBLANE and LANE)
+SELL_ROWS = 8
+SELL_LANE = 128
+
+
+def _build_sell(eff: EffectiveCSR) -> ExecForm:
+    """Sliced-ELL form of mv KID 10 (plan.py:1509-1558 of the JAX package):
+    SELL_ROWS-row slices, each padded to its own SELL_LANE-multiple width,
+    flattened; padding entries get column 0 and value 0, so the product
+    needs no mask."""
+    m, n = eff.shape
+    dev = eff.val.device
+    ptr64 = eff.ptr.astype(np.int64)
+    lens = np.diff(ptr64)
+    nsl = -(-m // SELL_ROWS) if m else 0
+    if nsl == 0 or eff.nnz == 0:
+        empty = torch.zeros(0, dtype=torch.int64, device=dev)
+        return ExecForm(kind="sell", m=m, n=n, ind=empty, val=torch.zeros(0, dtype=eff.val.dtype, device=dev),
+                        row_ids=empty, sell_dest=np.zeros(0, np.int64), sell_total=0)
+    lens_pad = np.zeros(nsl * SELL_ROWS, dtype=np.int64)
+    lens_pad[:m] = lens
+    wmax = lens_pad.reshape(nsl, SELL_ROWS).max(axis=1)
+    widths = np.maximum(SELL_LANE, -(-wmax // SELL_LANE) * SELL_LANE)
+    base = np.concatenate([[0], np.cumsum(widths * SELL_ROWS)])
+    total = int(base[-1])
+    r = np.arange(m)
+    row_off = base[r // SELL_ROWS] + (r % SELL_ROWS) * widths[r // SELL_ROWS]
+    dest = np.repeat(row_off, lens) + (np.arange(int(ptr64[-1])) - np.repeat(ptr64[:-1], lens))
+    ind_buf = np.zeros(total, dtype=np.int64)
+    ind_buf[dest] = eff.ind
+    pos = np.arange(total, dtype=np.int64)
+    sl = np.searchsorted(base, pos, side="right") - 1
+    row_ids = np.minimum(sl * SELL_ROWS + (pos - base[sl]) // widths[sl], m - 1)
+    form = ExecForm(kind="sell", m=m, n=n, ind=_dev_index(ind_buf, dev), row_ids=_dev_index(row_ids, dev),
+                    sell_dest=dest, sell_total=total)
+    form.refresh(eff.val)
+    return form
 
 
 def _hub_candidates(cnt: np.ndarray, m: int, nnz: int) -> np.ndarray:
@@ -1346,7 +1465,15 @@ def build_exec_form(eff: EffectiveCSR, kind: Optional[str] = None) -> ExecForm:
         form = _build_bandt(eff)
         if form is not None:
             return form
-        kind = "segsum"  # row window too wide after all: the gather form
+        kind = "bwd"  # row window too wide after all: the group windows, as in the JAX package
+    if kind == "bwd":
+        return _build_bwd(eff)
+    if kind == "sell":
+        return _build_sell(eff)
+    if kind == "host":
+        form = ExecForm(kind="host", m=m, n=n, host_ptr=eff.ptr.astype(np.int64), host_ind=np.asarray(eff.ind))
+        form.refresh(eff.val)
+        return form
     if kind == "bandtm":
         form = _build_bandtm(eff)
         if form is not None:
@@ -1369,10 +1496,7 @@ def build_exec_form(eff: EffectiveCSR, kind: Optional[str] = None) -> ExecForm:
             val=eff.val,
             row_ids=_dev_index(rows, dev),
         )
-    raise AoclSparseError(
-        Status.not_implemented,
-        f"execution form '{kind}' is not ported yet (ROADMAP.md queue 1 item 10)",
-    )
+    raise AoclSparseError(Status.not_implemented, f"no execution form '{kind}'")
 
 
 # ---------------------------------------------------------------------------
@@ -1479,7 +1603,9 @@ def get_plan(A: SparseMatrix) -> Plan:
     """Return (building if needed) the matrix's plan — the on-the-fly
     optimize path every op falls back to (aoclsparse_mv.cpp:149-163)."""
     if A.plan is None:
-        A.plan = Plan(build_clean_csr(A.data))
+        from ..convert.conversions import to_csr
+
+        A.plan = Plan(build_clean_csr(to_csr(A.data)))
         # a SpGEMM product's band, unless its values were swapped since
         seed = getattr(A, "_seed_bwdg", None)
         if seed is not None and getattr(A, "_seed_bwdg_val", None) is A.data.val:

@@ -89,8 +89,14 @@ def test_default_device_is_cuda_and_context_detects_cpu_here():
 def test_registry_table_and_dispatcher():
     kids = {e.kid: e.fmt for e in registry.table("mv")}
     assert kids == {
-        0: "segsum", 1: "ell", 2: "ellhyb", 7: "gen", 8: "bandt", 9: "bwdg", 12: "bandt", 13: "bandt", 14: "route"
+        0: "segsum", 1: "ell", 2: "ellhyb", 3: "bsr", 4: "dia", 5: "bwd", 6: "diag", 7: "gen", 8: "bandt",
+        9: "bwdg", 10: "sell", 11: "host", 12: "bandt", 13: "bandt", 14: "route"
     }
+    assert {op: [e.kid for e in registry.table(op)] for op in ("axpyi", "doti", "gthrz", "roti", "sctrs")} == {
+        op: [0] for op in ("axpyi", "doti", "gthrz", "roti", "sctrs")
+    }
+    assert tt.debug_dispatcher("mv", fmt="bwd", device="cpu")["name"] == "cuda_bwd"
+    assert tt.debug_dispatcher("mv", fmt="host", device="cpu")["kid"] == 11
     assert {e.kid: e.fmt for e in registry.table("sv")} == {0: "blocked"}
     assert {e.kid: e.fmt for e in registry.table("mm")} == {
         0: "segsum", 1: "ell", 2: "ellhyb", 3: "bwdg", 4: "bandtm", 5: "bandtm", 7: "diag"

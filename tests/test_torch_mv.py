@@ -246,22 +246,23 @@ def test_error_statuses_match_jax(ast):
 
 
 def test_ported_slice_boundaries():
-    """Paths of the JAX package not yet ported fail with not_implemented."""
+    """The KIDs a CSR handle's mv cannot pin are refused as in the JAX
+    package (the whole-matrix route, the native BSR and DIA rows), a device
+    mismatch is invalid_value, and the host engine (kid=11) answers on the
+    CPU."""
     m, n, ptr, ind, val = _operand(seed=14, m=100, n=100)
     T = tt.create_csr(m, n, ptr, ind, val, device="cpu")
     x = torch.ones(n, dtype=torch.float64)
-    with pytest.raises(tt.AoclSparseError) as e:
-        tt.mv(1.0, T, GEN, tt.Operation.none, x, 0.0, kid=11)
-    assert e.value.status == tt.Status.not_implemented
-    with pytest.raises(tt.AoclSparseError) as e:
-        tt.mv(1.0, T, GEN, tt.Operation.none, x, 0.0, kid=14)  # the route: the planner's only
-    assert e.value.status == tt.Status.invalid_kid
-    with pytest.raises(tt.AoclSparseError) as e:
-        tt.mv(1.0, T, GEN, tt.Operation.none, x, 0.0, kid=5)  # not in the port's mv table
-    assert e.value.status == tt.Status.invalid_kid
+    for kid in (14, 3, 4):  # the route: the planner's only; bsr, dia: native handles only
+        with pytest.raises(tt.AoclSparseError) as e:
+            tt.mv(1.0, T, GEN, tt.Operation.none, x, 0.0, kid=kid)
+        assert e.value.status == tt.Status.invalid_kid
     with pytest.raises(tt.AoclSparseError) as e:
         tt.mv(1.0, T, GEN, tt.Operation.none, torch.ones(n, dtype=torch.float64, device="meta"), 0.0)
     assert e.value.status == tt.Status.invalid_value
+    y = tt.mv(1.0, T, GEN, tt.Operation.none, x, 0.0, kid=11)
+    assert y.device.type == "cpu"
+    assert near_error(y.numpy(), tt.mv(1.0, T, GEN, tt.Operation.none, x, 0.0, kid=0).numpy()) <= _tol(np.float64)
 
 
 @pytest.mark.cuda

@@ -150,7 +150,8 @@ def test_choose_mv_format_rederived_for_hopper():
     general-structure composite, whose `_build_gen` rejects random structure and
     falls back to the gather form (the whole-matrix route waits for 2e6
     entries); complex ones take the gather form (no band kernel instance);
-    explicit kinds still build."""
+    explicit kinds still build (a bandt request whose row window is too
+    wide ends on the bwd group windows, as in the JAX package)."""
     ptr, ind, val = _band_coo(seed=7, m=800, n_far=4)
     A = create_csr(800, 800, ptr, ind, val, device="cpu")
     plan = tplan.get_plan(A)
@@ -165,7 +166,7 @@ def test_choose_mv_format_rederived_for_hopper():
     assert tplan.gather_fallback_kind(eff) == "ell"
     assert tplan.get_plan(B).exec_form_for(MatrixDescriptor(), Operation.none, kind="bandt").kind in (
         "bandt",
-        "segsum",
+        "bwd",
     )
     C = create_csr(800, 800, ptr, ind, val.astype(np.complex128), device="cpu")
     assert tplan.get_plan(C).exec_form_for(MatrixDescriptor(), Operation.none).kind == "segsum"
