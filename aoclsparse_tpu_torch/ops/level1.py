@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.context import resolve_device
@@ -88,6 +89,11 @@ def _check_kid(op: str, kid: Optional[int]):
         raise AoclSparseError(Status.invalid_kid, f"kid {kid} not in table for '{op}'")
 
 
+def _scalar(a, dtype, dev) -> torch.Tensor:
+    """A scalar (Python, numpy or tensor) as a 0-d tensor of `dtype`."""
+    return torch.as_tensor(np.asarray(host_array(a))).to(device=dev, dtype=dtype)
+
+
 def _axpyi(a, x, indx, y):
     return y.clone().index_add_(0, indx, (a * x).to(y.dtype))
 
@@ -103,7 +109,7 @@ def axpyi(a, x, indx, y, kid: Optional[int] = None, device=None) -> torch.Tensor
     _check_bounds(indx, y.shape[0])
     if x.shape[0] == 0:
         return y.clone()
-    return _axpyi(a, x, indx, y)
+    return _axpyi(_scalar(a, torch.promote_types(y.dtype, x.dtype), dev), x, indx, y)
 
 
 def _dot(x, indx, y):
@@ -202,7 +208,8 @@ def roti(x, indx, y, c, s, kid: Optional[int] = None, device=None) -> Tuple[torc
     _check_bounds(indx, y.shape[0])
     if x.shape[0] == 0:
         return x.clone(), y.clone()
-    return _roti(x, indx, y, c, s)
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return _roti(x, indx, y, _scalar(c, dt, dev), _scalar(s, dt, dev))
 
 
 def _sctr(x, indx, y):
