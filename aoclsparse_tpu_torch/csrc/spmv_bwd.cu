@@ -31,9 +31,15 @@
 // the window, so x comes from L1/L2) and reads win[b, r, t] for r = 0..7:
 // for each r the warp reads 32 consecutive band values (128 bytes in f32),
 // and the 8 loads of one step are independent. Each lane keeps 8 partial
-// sums; a butterfly of shuffles gives every lane all 8 row sums, lanes 0-7
-// add their row's spill entries and write y[8b + lane] (one 32-byte store).
-// Sums are kept in float32 (float64 for the f64 instance).
+// sums. The group's spill entries are split over the 32 lanes too, each
+// adding its products into the partial sum of its row: the peel spills the
+// clipped windows at the matrix's edges, so a few groups hold ~100 entries
+// each; walked serially by one lane a row they made a tail of dependent
+// loads that cost the bench form (W = 136, m = 262144) 0.037 ms of 0.106 on
+// an H100. A
+// butterfly of shuffles then gives every lane all 8 row sums, and lanes 0-7
+// write y[8b + lane] (one 32-byte store). Sums are kept in float32 (float64
+// for the f64 instance).
 //
 // Instances (plain C entry points, bound with ctypes):
 //   spmv_bwd_f32  : band f32,  x f32, accumulate f32
@@ -80,6 +86,15 @@ spmv_bwd_kernel(const VT* __restrict__ win, const T* __restrict__ x, T* __restri
 #pragma unroll
     for (int r = 0; r < kG; ++r) acc[r] = mul_add(widen(g[r * W + t]), xv, acc[r]);
   }
+  if (sp_gptr != nullptr) {
+    const int64_t e1 = sp_gptr[b + 1];
+    for (int64_t e = sp_gptr[b] + lane; e < e1; e += 32) {
+      const T c = sp_val[e] * __ldg(x + sp_ind[e]);
+      const int64_t r = sp_rows[e] - kG * b;
+#pragma unroll
+      for (int rr = 0; rr < kG; ++rr) acc[rr] += (r == rr) ? c : static_cast<T>(0);
+    }
+  }
 #pragma unroll
   for (int r = 0; r < kG; ++r) {
 #pragma unroll
@@ -90,14 +105,7 @@ spmv_bwd_kernel(const VT* __restrict__ win, const T* __restrict__ x, T* __restri
 #pragma unroll
   for (int r = 1; r < kG; ++r) out = (lane == r) ? acc[r] : out;
   const int64_t i = kG * b + lane;
-  if (i >= m) return;
-  if (sp_gptr != nullptr) {
-    const int64_t e1 = sp_gptr[b + 1];
-    for (int64_t e = sp_gptr[b]; e < e1; ++e) {
-      if (sp_rows[e] == i) out = mul_add(sp_val[e], x[sp_ind[e]], out);
-    }
-  }
-  y[i] = out;
+  if (i < m) y[i] = out;
 }
 
 template <typename VT, typename T>

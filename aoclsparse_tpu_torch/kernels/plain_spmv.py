@@ -3,7 +3,7 @@ execution forms, group-band SpMV over ``bwdg``, diagonal SpMV over ``diag``,
 and the native BSR and DIA products, in plain torch.
 
 PyTorch counterpart of ``aoclsparse_tpu/kernels/xla/spmv.py:51-125``
-(`spmv_segsum`, `spmv_sell`, `spmv_ell`, `spmv_ellhyb`, `spmv_bsr`,
+(`spmv_segsum`, which serves `spmv_sell`'s form too, `spmv_ell`, `spmv_ellhyb`, `spmv_bsr`,
 `spmv_dia`), :553 (`spmv_bwdg`, mv KID 9) and :606 (`spmv_diag`, mv KID
 6). In the JAX package these are XLA-path code, not Pallas kernels, so they
 have no hand-written kernel here either. The ell forms are the gen form's
@@ -28,7 +28,6 @@ __all__ = [
     "spmv_ell",
     "spmv_ellhyb",
     "spmv_segsum",
-    "spmv_sell",
 ]
 
 #: diagonals gathered at once by spmv_dia and spmv_diag: bounds the
@@ -37,7 +36,9 @@ DIAG_CHUNK = 32
 
 
 def spmv_segsum(ind, val, row_ids, x, m: int) -> torch.Tensor:
-    """y = A @ x via gather + row scatter-add over CSR-ordered entries."""
+    """y = A @ x via gather + row scatter-add over CSR-ordered entries; also
+    the product of the flattened sliced-ELL form (mv KID 10), whose padding
+    slots carry value 0 and column 0."""
     y = torch.zeros(m, dtype=torch.promote_types(val.dtype, x.dtype), device=x.device)
     return y.index_add_(0, row_ids, val * x[ind])
 
@@ -68,13 +69,6 @@ def spmv_bwdg(band, x, G: int, W: int, rel: int, m: int, mixed: bool = False) ->
         out = torch.matmul(band.to(torch.bfloat16).float(), win.to(torch.bfloat16).float()[:, :, None])
         return out.reshape(-1)[:m].to(band.dtype)
     return torch.matmul(band, win[:, :, None]).reshape(-1)[:m]
-
-
-def spmv_sell(ind, val, row_ids, x, m: int) -> torch.Tensor:
-    """y = A @ x over the flattened sliced-ELL form (mv KID 10): padding
-    entries carry value 0 and column 0, so no mask; one gather and a row
-    scatter-add, as spmv_segsum."""
-    return spmv_segsum(ind, val, row_ids, x, m)
 
 
 def spmv_bsr(brow, ind, val, x, mb: int, block_dim: int) -> torch.Tensor:

@@ -60,7 +60,7 @@ from ..core.context import get_context
 from ..core.types import AoclSparseError, Status
 from .band_spmv import spmv_bandt
 from .host import HOST_MV_KID, spmv_host_csr
-from .plain_spmv import spmv_bsr, spmv_bwdg, spmv_dia, spmv_diag, spmv_ell, spmv_ellhyb, spmv_segsum, spmv_sell
+from .plain_spmv import spmv_bsr, spmv_bwdg, spmv_dia, spmv_diag, spmv_ell, spmv_ellhyb, spmv_segsum
 from .spmm_band import spmm_bandmxu, spmm_bandtm
 from .spmm_diag import spmm_diag
 from .spmv_bwd import spmv_bwd_any
@@ -169,7 +169,7 @@ registry.register("mv", KernelEntry(12, "cuda_bandv", spmv_bandt, "bandt", "any"
 # (ops/level2/mv.py), as the JAX package routes its double-float kernel
 registry.register("mv", KernelEntry(13, "cuda_band_f64", spmv_bandt, "bandt", "any", -1))
 registry.register("mv", KernelEntry(14, "cuda_spill_route", spmv_route, "route", "any", 1))
-registry.register("mv", KernelEntry(10, "torch_sell", spmv_sell, "sell", "any", 0))
+registry.register("mv", KernelEntry(10, "torch_sell", spmv_segsum, "sell", "any", 0))
 # the host engine: an explicit kid only, never the Oracle's pick
 registry.register("mv", KernelEntry(HOST_MV_KID, "host_csr", spmv_host_csr, "host", "any", -5))
 registry.register("sv", KernelEntry(0, "cuda_trsv_win", trsv_win, "blocked", "any", 0))

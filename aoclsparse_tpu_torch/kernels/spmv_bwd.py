@@ -138,6 +138,8 @@ def spmv_bwd(win, x, base8: int, padL: int, m: int, sp_val=None, sp_ind=None, sp
         for t in (sp_ind, sp_rows, sp_gptr):
             if t.dtype != torch.int64 or t.device != x.device or not t.is_contiguous():
                 raise AoclSparseError(Status.invalid_value, "spill indices must be contiguous int64 on x's device")
+        if sp_val.device != x.device or not sp_val.is_contiguous():
+            raise AoclSparseError(Status.invalid_value, "spill values must be contiguous on x's device")
     y = torch.empty(m, dtype=x.dtype, device=win.device)
     if m == 0:
         return y
@@ -147,7 +149,7 @@ def spmv_bwd(win, x, base8: int, padL: int, m: int, sp_val=None, sp_ind=None, sp
             win.data_ptr(),
             x.data_ptr(),
             y.data_ptr(),
-            sp_val.contiguous().data_ptr() if spilled else null,
+            sp_val.data_ptr() if spilled else null,
             sp_ind.data_ptr() if spilled else null,
             sp_rows.data_ptr() if spilled else null,
             sp_gptr.data_ptr() if spilled else null,

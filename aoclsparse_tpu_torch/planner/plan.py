@@ -621,7 +621,7 @@ class ExecForm:
     def nbytes(self) -> int:
         """Device bytes of the form's operands (the route's included)."""
         ts = (self.ind, self.val, self.row_ids, self.ell_ind, self.ell_val, self.sp_ind, self.sp_val,
-              self.sp_rows, self.bwd_val, self.dia_val, self.dia_offs, self.gen_perm, self.gen_out,
+              self.sp_rows, self.sp_gptr, self.bwd_val, self.dia_val, self.dia_offs, self.gen_perm, self.gen_out,
               self.gen_flip, self.hub_cols, self.hub_slab, self.hubr_rows, self.hubr_slab)
         own = sum(t.numel() * t.element_size() for t in ts if t is not None)
         return own + (self._spill_route.nbytes() if self._spill_route is not None else 0)

@@ -15,6 +15,9 @@ failure (exit code != 0, no result line):
      half-bandwidth 64, seed 7, built as bench.py:220-233) in f32, bf16
      band and f64, and on a small odd-m operand with a peel spill in f32
      and f64;
+   - the group-window kernel (mv KID 5) on the bench operand's bwd form
+     (its peel spill added in the launch) and on the small odd-m operand,
+     whose windows start left of column 0, in f32, bf16 band and f64;
    - the band SpMM kernel on the bench operand's bandtm form at K = 64 in
      f32 and f64, and with its spill on the small odd-m operand at K = 7;
      the block-window kernel on the bench form at K = 64 in f32 and bf16;
@@ -76,6 +79,16 @@ failure (exit code != 0, no result line):
    upper on the band engine; then the scatter operand's Q.Q, which no band
    plan takes, on the device expansion engine (no launch) against float64
    scipy;
+5d. the formats path, counted on its own, on the bench operand at full
+   size: create_coo and create_csc (export_csc) with mv through CSR,
+   convert_format to BSR (block_dim 4, mv kid=3), DIA (mv kid=4) and ELL
+   (mv), set_mv_hint_kid(kid=5) + optimize + mv(kid=5) in f32, the mixed
+   mode and on a float64 handle (one group-window launch each), mv kid=6,
+   kid=10 and kid=11 (the host engine), csrmv / diamv / bsrmv / ellmv on
+   the raw arrays, each against float64 scipy; the level-1 ops on a sparse
+   vector of 2^22 entries against a dense y of 2^24 against numpy; and
+   write_mtx / read_mtx round trips of the cant stand-in and of a
+   symmetric file of its lower triangle written by scipy.io.mmwrite;
 6. time kernel vs plain version vs one PyTorch library call (torch.sparse
    CSR products and triangular solves, index_add_ and a permutation
    gather, timed here as yardsticks only), against each kernel's bound
@@ -92,12 +105,14 @@ failure (exit code != 0, no result line):
    a finalize, the extraction gather and the chained mv on the band, and
    the host seconds of the symbolic stage and of the band relayout; a
    finalize of Q.Q on the device expansion engine against the host engine
-   (pinned) and cuSPARSE SpGEMM.
+   (pinned) and cuSPARSE SpGEMM; the group-window kernel in each instance
+   against its plain version and cuSPARSE CSR @ x, and one mv(kid=5) call
+   and one mv call on each format's handle.
 
 Launch counts are reset just before phase 4 and read after phase 5, reset
-again just before phase 5b and read after it, and again around phase 5c
-(the kernels line takes the spill-route kernels' counts from 5b and the
-band GEMM's from 5c). The second-to-last line is
+again just before phase 5b and read after it, and again around phases 5c
+and 5d (the kernels line takes the spill-route kernels' counts from 5b,
+the band GEMM's from 5c and the group-window kernel's from 5d). The second-to-last line is
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 """
 
@@ -105,12 +120,14 @@ from __future__ import annotations
 
 import json
 import statistics
+from pathlib import Path
 import subprocess
 import sys
 import time
 import warnings
 
 import numpy as np
+import scipy.io
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
@@ -132,6 +149,8 @@ from aoclsparse_tpu_torch.kernels.spmm_band import (
 )
 from aoclsparse_tpu_torch.kernels.spgemm_band import build_band_gemm_plan, extract_values
 from aoclsparse_tpu_torch.kernels.spmm_diag import spmm_diag, spmm_diag_plain
+from aoclsparse_tpu_torch.kernels.spmv_bwd import spmv_bwd, spmv_bwd_plain
+from aoclsparse_tpu_torch.io import read_mtx, write_mtx
 from aoclsparse_tpu_torch.kernels.trsv_win import trsm_chunk, trsm_win, trsm_win_plain, trsv_win, trsv_win_plain
 from aoclsparse_tpu_torch.ops.level2.mv import _spill_route_on
 from aoclsparse_tpu_torch.ops.level3.spgemm import _effective
@@ -185,11 +204,17 @@ KERNELS = {
                       "aoclsparse_tpu/kernels/pallas/spgemm.py:38"),  # pallas_band_gemm
     "band_gemm_f64": ("aoclsparse_tpu_torch/csrc/band_gemm.cu",
                       "aoclsparse_tpu/kernels/pallas/spgemm.py:38"),
+    # pallas_spmv_bwd, mv KID 5
+    "spmv_bwd_f32": ("aoclsparse_tpu_torch/csrc/spmv_bwd.cu", "aoclsparse_tpu/kernels/pallas/spmv.py:1093"),
+    "spmv_bwd_bf16": ("aoclsparse_tpu_torch/csrc/spmv_bwd.cu", "aoclsparse_tpu/kernels/pallas/spmv.py:1093"),
+    "spmv_bwd_f64": ("aoclsparse_tpu_torch/csrc/spmv_bwd.cu", "aoclsparse_tpu/kernels/pallas/spmv.py:1093"),
 }
 #: the kernels of the general-structure path (phase 5b), counted there
 GEN_PATH = ("oh_select_f32", "oh_accum_f32", "benes_route_f32")
 #: the kernels of the SpGEMM path (phase 5c), counted there
 SPGEMM_PATH = ("band_gemm_f32", "band_gemm_f64")
+#: the kernels of the formats path (phase 5d), counted there
+FORMATS_PATH = ("spmv_bwd_f32", "spmv_bwd_bf16", "spmv_bwd_f64")
 #: launch counters of the wrappers, by kernel-name prefix
 COUNTERS = {
     "band_spmv": band_spmv.launches,
@@ -202,6 +227,7 @@ COUNTERS = {
     "oh_accum": oh_accum.launches,
     "benes_route": benes_route.launches,
     "band_gemm": band_gemm.launches,
+    "spmv_bwd": spmv_bwd.launches,
 }
 #: kernel vs plain: the same products summed in another order, so the
 #: accumulation dtype's model tolerance (utils/tolerances.py, scale 1);
@@ -231,6 +257,11 @@ KERNEL_TOL = {
     # the same products summed in another order (exact f32 / f64 FMA)
     "band_gemm_f32": expected_precision(torch.float32),
     "band_gemm_f64": expected_precision(torch.float64),
+    # the same products (and spill terms) summed in another order; bf16: the
+    # same bf16 band values accumulated in f32 on both sides
+    "spmv_bwd_f32": expected_precision(torch.float32),
+    "spmv_bwd_bf16": expected_precision(torch.float32),
+    "spmv_bwd_f64": expected_precision(torch.float64),
 }
 #: mv and mm against the float64 reference: the operand dtype's model tolerance
 MV_TOL = {"f32": expected_precision(torch.float32), "f64": expected_precision(torch.float64)}
@@ -311,6 +342,22 @@ def plain_bandt(vt, x, form):
     if form.has_spill:
         y.index_add_(0, form.sp_rows, (form.sp_val * x[form.sp_ind]).to(y.dtype))
     return y
+
+
+def bwd_args(form):
+    """The kernel wrapper's arguments after (band, x) for a bwd form."""
+    return (form.bwd_base8, form.bwd_padL, form.m, form.sp_val, form.sp_ind, form.sp_rows, form.sp_gptr)
+
+
+def plain_bwd(band, x, form):
+    """The bwd form's contract, spill included, in the plain version."""
+    return spmv_bwd_plain(band, x, form.bwd_base8, form.bwd_padL, form.m, form.sp_val, form.sp_ind, form.sp_rows)
+
+
+def bwd_desc(form):
+    return (f"m={form.m} nblk={form.bwd_val.shape[0]} W={form.bwd_W} window start {form.bwd_rel} "
+            f"base8={form.bwd_base8} padL={form.bwd_padL} spilled={form.sp_ind.numel() if form.has_spill else 0} "
+            f"band {nbytes(form.bwd_val) / 1e6:.1f} MB")
 
 
 def spd_operand(ptr, ind, val, m):
@@ -779,6 +826,200 @@ def iteration_ms(solve, k_lo, k_hi, turns=3):
     return statistics.median(t_iter), t_iter
 
 
+def counted(name, fn, want):
+    """Run fn; require exactly `want` launches of each kernel named."""
+    c0 = read_counts()
+    out = fn()
+    c1 = read_counts()
+    done = {k: c1[k] - c0[k] for k in want}
+    if done != want:
+        raise AssertionError(f"{name}: launches {done}, want {want}")
+    return out
+
+
+def check_equal(name, got, want):
+    """Structure or moved values: equal, element for element."""
+    g, w = np.asarray(got), np.asarray(want)
+    if g.shape != w.shape or not np.array_equal(g, w):
+        raise AssertionError(f"{name}: differs from the reference")
+    log(f"  {name}: equal ({g.size} entries)")
+
+
+def formats_path(ptr, ind, val, x, ref, cant_csr, dev, io_dir):
+    """Phase 5d: the storage formats, conversions, the new mv KIDs, the
+    format-direct routines, level 1 and Matrix Market I/O on the bench
+    operand at full size (and the cant stand-in for the files), each
+    against float64 scipy or numpy. Returns the handles phase 6 times."""
+    m = n = len(ptr) - 1
+    nnz = ind.size
+    S = sp.csr_matrix((val.astype(np.float64), ind, ptr), shape=(m, n))
+    f32tol, f64tol = MV_TOL["f32"], MV_TOL["f64"]
+    x64 = x.double()
+    handles = {}
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        log(f"  {label}: {time.perf_counter() - t0:.2f} s")
+        return out
+
+    rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(ptr))
+    handles["coo"] = A = timed("create_coo", lambda: tt.create_coo(m, n, rows, ind, val, device=dev))
+    check_mv("COO handle mv (planned through CSR)", tt.mv(1.0, A, GEN, NONE, x, 0.0), ref, f32tol)
+    Sc = S.tocsc()
+    Sc.sort_indices()
+    handles["csc"] = A = timed("create_csc", lambda: tt.create_csc(m, n, Sc.indptr, Sc.indices,
+                                                                   Sc.data.astype(np.float32), device=dev))
+    _m, _n, _z, cp, ci, cv = timed("export_csc", lambda: tt.export_csc(A))
+    check_equal("export_csc col_ptr", cp, Sc.indptr)
+    check_equal("export_csc row_ind", ci, Sc.indices)
+    check_equal("export_csc val", cv, Sc.data.astype(np.float32))
+    check_mv("CSC handle mv (planned through CSR)", tt.mv(1.0, A, GEN, NONE, x, 0.0), ref, f32tol)
+    del Sc, cp, ci, cv
+    handles["csr"] = base = tt.create_csr(m, n, ptr, ind, val, device=dev)
+    handles["bsr"] = B = timed("convert_format -> BSR (block_dim 4)",
+                               lambda: tt.convert_format(base, tt.FormatType.bsr, block_dim=4))
+    log(f"  BSR: {B.data.nnzb} blocks of 4 x 4, {nbytes(B.data.val) / 1e6:.1f} MB of values")
+    for kid in (None, 3):
+        check_mv(f"BSR handle mv kid={kid}", tt.mv(1.0, B, GEN, NONE, x, 0.0, kid=kid), ref, f32tol)
+    handles["dia"] = D = timed("convert_format -> DIA", lambda: tt.convert_format(base, tt.FormatType.dia))
+    log(f"  DIA: {D.data.ndiag} diagonals, {nbytes(D.data.val) / 1e6:.1f} MB of values")
+    for kid in (None, 4):
+        check_mv(f"DIA handle mv kid={kid}", tt.mv(1.0, D, GEN, NONE, x, 0.0, kid=kid), ref, f32tol)
+    handles["ell"] = E = timed("convert_format -> ELL", lambda: tt.convert_format(base, tt.FormatType.ell))
+    log(f"  ELL: width {E.data.width}")
+    check_mv("ELL handle mv (KID 1)", tt.mv(1.0, E, GEN, NONE, x, 0.0), ref, f32tol)
+
+    # KID 5: the group-window kernel, one launch a call, in f32, the mixed
+    # mode (bf16 band) and on a float64 handle
+    tt.set_mv_hint_kid(base, NONE, GEN, 1000, 5)
+    timed("set_mv_hint_kid + optimize", lambda: tt.optimize(base))
+    form = base.plan.exec_form_for(GEN, NONE, kind="bwd")
+    log(f"  bwd form of the handle: {bwd_desc(form)}")
+    check_mv("mv kid=5 f32", counted("mv kid=5", lambda: tt.mv(1.0, base, GEN, NONE, x, 0.0, kid=5),
+                                     {"spmv_bwd_f32": 1, "spmv_bwd_bf16": 0, "spmv_bwd_f64": 0}), ref, f32tol)
+    tt.set_precision_mode(base, "mixed")
+    ymix = counted("mv kid=5 mixed", lambda: tt.mv(1.0, base, GEN, NONE, x, 0.0, kid=5),
+                   {"spmv_bwd_f32": 0, "spmv_bwd_bf16": 1, "spmv_bwd_f64": 0}).double().cpu().numpy()
+    tt.set_precision_mode(base, "full")
+    # docs/precision.md: one bf16 rounding of the band's operand per product
+    bound = 2.0**-8 * (abs(S) @ np.abs(x64.cpu().numpy())) + row_nnz(ptr) * 2.0**-23 * np.abs(ref)
+    worst = float(np.max(np.abs(ymix - ref) / bound))
+    log(f"  mv kid=5 mixed (bf16 band): max |err| / documented bound {worst:.3f} (must be <= 1)")
+    if not (np.all(np.isfinite(ymix)) and worst <= 1.0):
+        raise AssertionError("mixed-precision kid=5 mv outside the documented error bound")
+    handles["csr64"] = A64 = tt.create_csr(m, n, ptr, ind, val.astype(np.float64), device=dev)
+    tt.set_mv_hint_kid(A64, NONE, GEN, 1000, 5)
+    tt.optimize(A64)
+    check_mv("mv kid=5 float64 handle", counted("mv kid=5 f64", lambda: tt.mv(1.0, A64, GEN, NONE, x64, 0.0, kid=5),
+                                                {"spmv_bwd_f32": 0, "spmv_bwd_bf16": 0, "spmv_bwd_f64": 1}),
+             ref, f64tol)
+    yin = torch.from_numpy(np.random.default_rng(89).standard_normal(m).astype(np.float32)).to(dev)
+    check_mv("mv kid=5 alpha=1.5 beta=-0.5", tt.mv(1.5, base, GEN, NONE, x, -0.5, yin, kid=5),
+             1.5 * ref - 0.5 * yin.double().cpu().numpy(), f32tol)
+    # KIDs 6 (the diag form), 10 (sliced ELL) and 11 (the host engine)
+    for kid in (6, 10, 11):
+        y = counted(f"mv kid={kid}", lambda: tt.mv(1.0, base, GEN, NONE, x, 0.0, kid=kid),
+                    {"spmv_bwd_f32": 0, "spmv_bwd_f64": 0})
+        if kid == 11 and y.device.type != "cpu":
+            raise AssertionError("the host engine returned a device tensor")
+        check_mv(f"mv kid={kid}", y, ref, f32tol)
+
+    # the format-direct routines on the raw arrays (tensors on the card)
+    vt = torch.from_numpy(val).to(dev)
+    check_mv("csrmv", tt.csrmv(NONE, 1.0, m, n, nnz, vt, ind, ptr, GEN, x, 0.0), ref, f32tol)
+    check_mv("csrmv transpose", tt.csrmv(tt.Operation.transpose, 1.0, m, n, nnz, vt, ind, ptr, GEN, x, 0.0),
+             S.T @ x64.cpu().numpy(), f32tol)
+    check_mv("diamv", tt.diamv(NONE, 1.0, m, n, nnz, D.data.val, D.data.dist, D.data.ndiag, GEN, x, 0.0), ref,
+             f32tol)
+    bd = B.data
+    check_mv("bsrmv", tt.bsrmv(NONE, 1.0, bd.mb, -(-n // 4), 4, bd.val, bd.ind, bd.ptr, GEN, x, 0.0)[:m], ref,
+             f32tol)
+    check_mv("ellmv", tt.ellmv(NONE, 1.0, m, n, nnz, E.data.val, E.data.ind, E.data.width, GEN, x, 0.0), ref,
+             f32tol)
+    del vt
+
+    # level 1: a sparse vector of 2^22 entries against a dense y of 2^24
+    rng = np.random.default_rng(97)
+    n1, k1 = 1 << 24, 1 << 22
+    idx = rng.choice(n1, k1, replace=False)
+    xs_h = rng.standard_normal(k1).astype(np.float32)
+    y_h = rng.standard_normal(n1).astype(np.float32)
+    it, xs_d, y_d = torch.from_numpy(idx).to(dev), torch.from_numpy(xs_h).to(dev), torch.from_numpy(y_h).to(dev)
+    x64h, y64h = xs_h.astype(np.float64), y_h.astype(np.float64)
+    want = y64h.copy()
+    want[idx] += 1.5 * x64h
+    check_mv("axpyi", tt.axpyi(1.5, xs_d, it, y_d), want, f32tol)
+    dot_scale = float(np.sum(np.abs(x64h * y64h[idx])))
+    for name, got, exact in (("doti", tt.doti(xs_d, it, y_d), float(np.sum(x64h * y64h[idx]))),):
+        err = abs(float(got) - exact) / dot_scale
+        log(f"  {name}: |d - d*| / sum |x y| {err:.3e} (tol {f32tol:.3e})")
+        if not err <= f32tol:
+            raise AssertionError(f"{name} disagrees with float64 numpy")
+    xc_h = (xs_h + 1j * rng.standard_normal(k1)).astype(np.complex64)
+    yc_h = (y_h + 1j * rng.standard_normal(n1)).astype(np.complex64)
+    xc_d, yc_d = torch.from_numpy(xc_h).to(dev), torch.from_numpy(yc_h).to(dev)
+    prod = yc_h.astype(np.complex128)[idx]
+    for name, fn, exact in (("dotci", tt.dotci, np.sum(np.conj(xc_h.astype(np.complex128)) * prod)),
+                            ("dotui", tt.dotui, np.sum(xc_h.astype(np.complex128) * prod))):
+        err = abs(complex(fn(xc_d, it, yc_d)) - exact) / float(np.sum(np.abs(xc_h.astype(np.complex128) * prod)))
+        log(f"  {name}: |d - d*| / sum |x y| {err:.3e} (tol {f32tol:.3e})")
+        if not err <= f32tol:
+            raise AssertionError(f"{name} disagrees with complex128 numpy")
+    del xc_d, yc_d, xc_h, yc_h, prod
+    check_equal("gthr", tt.gthr(y_d, it).cpu().numpy(), y_h[idx])
+    gx, gy = tt.gthrz(y_d, it)
+    zeroed = y_h.copy()
+    zeroed[idx] = 0
+    check_equal("gthrz gathered", gx.cpu().numpy(), y_h[idx])
+    check_equal("gthrz zeroed", gy.cpu().numpy(), zeroed)
+    scat = y_h.copy()
+    scat[idx] = xs_h
+    check_equal("sctr", tt.sctr(xs_d, it, y_d).cpu().numpy(), scat)
+    check_equal("gthrs (stride 4)", tt.gthrs(y_d, 4).cpu().numpy(), y_h[::4])
+    scat = y_h.copy()
+    scat[: 4 * k1 : 4] = xs_h
+    check_equal("sctrs (stride 4)", tt.sctrs(xs_d, 4, y_d).cpu().numpy(), scat)
+    rx, ry = tt.roti(xs_d, it, y_d, 0.6, 0.8)
+    want_y = y64h.copy()
+    want_y[idx] = 0.6 * y64h[idx] - 0.8 * x64h
+    check_mv("roti x", rx, 0.6 * x64h + 0.8 * y64h[idx], f32tol)
+    check_mv("roti y", ry, want_y, f32tol)
+    del it, xs_d, y_d, gx, gy, rx, ry, scat, zeroed, want, want_y
+
+    # Matrix Market round trips: the cant stand-in, and a symmetric file of
+    # its lower triangle written by scipy
+    cptr, cind, cval = cant_csr
+    cm = len(cptr) - 1
+    Ccant = tt.create_csr(cm, cm, cptr, cind, cval, device=dev)
+    io_dir.mkdir(exist_ok=True)
+    path = io_dir / "cant.mtx"
+    try:
+        timed(f"write_mtx (cant stand-in, {cind.size} entries)", lambda: write_mtx(str(path), Ccant))
+        back = timed("read_mtx", lambda: read_mtx(str(path), device=dev))
+        _m, _n, _z, bp, bi, bv = tt.export_csr(back)
+        check_equal("cant round trip row_ptr", bp, cptr)
+        check_equal("cant round trip col_ind", bi, cind)
+        check_equal("cant round trip values (f32 written with 17 digits)", bv, cval.astype(np.float64))
+        lower = sp.tril(sp.csr_matrix((cval.astype(np.float64), cind, cptr), shape=(cm, cm))).tocoo()
+        full = (lower + sp.tril(lower, -1).T).tocsr()
+        full.sort_indices()
+        scipy.io.mmwrite(str(path), lower, symmetry="symmetric")
+        sym = timed("read_mtx (scipy-written symmetric lower triangle)", lambda: read_mtx(str(path), device=dev))
+        _m, _n, _z, sp_, si, sv = tt.export_csr(sym)
+        check_equal("symmetric expansion row_ptr", sp_, full.indptr)
+        check_equal("symmetric expansion col_ind", si, full.indices)
+        check_equal("symmetric expansion values", sv, full.data)
+        xc = torch.from_numpy(np.random.default_rng(101).standard_normal(cm)).to(dev)
+        check_mv("mv on the read symmetric handle", tt.mv(1.0, sym, GEN, NONE, xc, 0.0), full @ xc.cpu().numpy(),
+                 f64tol)
+    finally:
+        path.unlink(missing_ok=True)
+    return handles
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -854,6 +1095,29 @@ def main() -> int:
         compare(f"band_spmv_{inst}", f"small odd-m + spill (m={sf.m}, W={sf.bwd_W}, "
                 f"spill={sf.sp_ind.numel()})", got, plain_bandt(sf.bwd_val, xs, sf), errs)
     del f64
+
+    # the group-window kernel on the bench operand's bwd form (its peel
+    # spill added in the launch), and on the small odd-m operand, whose
+    # windows start left of column 0 (padL > 0)
+    bwd32 = bandt_form(ptr, ind, val, dev, kind="bwd")
+    log(f"  bench bwd form: {bwd_desc(bwd32)}")
+    if not bwd32.has_spill:
+        raise AssertionError("the bench bwd form must peel a spill")
+    bwd_bf = bwd32.band_bf16()
+    bwd64 = bandt_form(ptr, ind, val.astype(np.float64), dev, kind="bwd")
+    for kernel, form, band, xv in (("spmv_bwd_f32", bwd32, bwd32.bwd_val, x32),
+                                   ("spmv_bwd_bf16", bwd32, bwd_bf, x32),
+                                   ("spmv_bwd_f64", bwd64, bwd64.bwd_val, x64)):
+        compare(kernel, "bench", spmv_bwd(band, xv, *bwd_args(form)), plain_bwd(band, xv, form), errs)
+    del bwd64
+    for inst, dt in (("f32", np.float32), ("bf16", np.float32), ("f64", np.float64)):
+        sf = bandt_form(sptr, sind, sval.astype(dt), dev, kind="bwd")
+        if not (sf.has_spill and sf.m % 2 == 1 and sf.bwd_padL > 0):
+            raise AssertionError(f"small bwd form must be odd-m with a spill and padL > 0: {bwd_desc(sf)}")
+        band = sf.band_bf16() if inst == "bf16" else sf.bwd_val
+        xs = torch.from_numpy(sx.astype(dt)).to(dev)
+        compare(f"spmv_bwd_{inst}", f"small odd-m, window left of column 0 ({bwd_desc(sf)})",
+                spmv_bwd(band, xs, *bwd_args(sf)), plain_bwd(band, xs, sf), errs)
 
     # the SPD operand's handle, through the entry points, and its ILU0
     t0 = time.perf_counter()
@@ -1274,7 +1538,7 @@ def main() -> int:
     launches = read_counts()
     log(f"  main-path launches: {launches}")
     for kernel, count in launches.items():
-        if count == 0 and kernel not in GEN_PATH + SPGEMM_PATH:
+        if count == 0 and kernel not in GEN_PATH + SPGEMM_PATH + FORMATS_PATH:
             raise AssertionError(f"kernel {kernel} never launched on the main path")
 
     # 5b. the general-structure path, counted on its own
@@ -1285,16 +1549,6 @@ def main() -> int:
     xw_d = torch.from_numpy(xw).to(dev)
     refw = Sw @ xw.astype(np.float64)
     per_call = {"band_spmv_f32": 1, "oh_select_f32": 1, "oh_accum_f32": 1, "benes_route_f32": route_launches(wroute)}
-
-    def counted(name, fn, want):
-        """Run fn; require exactly `want` launches of each kernel named."""
-        c0 = read_counts()
-        out = fn()
-        c1 = read_counts()
-        done = {k: c1[k] - c0[k] for k in want}
-        if done != want:
-            raise AssertionError(f"{name}: launches {done}, want {want}")
-        return out
 
     check_mv("webbase mv default (gen, spill route)",
              counted("webbase mv", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0), per_call), refw, MV_TOL["f32"])
@@ -1486,6 +1740,17 @@ def main() -> int:
             raise AssertionError(f"kernel {kernel} never launched on the SpGEMM path")
         launches[kernel] = spg_launches[kernel]
 
+    # 5d. the formats path, counted on its own
+    phase("phase 5d: storage formats, conversions, mv KIDs 3-6/10/11, format-direct mv, level 1, Matrix Market I/O")
+    reset_counts()
+    fh = formats_path(ptr, ind, val, x32, ref, (cptr_, cind_, cval_), dev, Path(__file__).resolve().parent / "_smoke")
+    fmt_launches = read_counts()
+    log(f"  formats path launches: {({k: fmt_launches[k] for k in FORMATS_PATH})}")
+    for kernel in FORMATS_PATH:
+        if fmt_launches[kernel] == 0:
+            raise AssertionError(f"kernel {kernel} never launched on the formats path")
+        launches[kernel] = fmt_launches[kernel]
+
     # 6. timing
     phase("phase 6: timing (CUDA events or host clock, median of repeats)")
     peak = ctx.hbm_gbps
@@ -1535,6 +1800,21 @@ def main() -> int:
         note(kernel, nbytes(vt, xv) + m * xv.element_size(), nz_bytes(vt, xv) + m * xv.element_size(),
              2 * vt.numel(), lib_fn)
     del f64
+    # the group-window kernel on the bench bwd form, against the same CSR
+    # products; the bf16 instance has no library call of its function
+    bwd64 = bandt_form(ptr, ind, val.astype(np.float64), dev, kind="bwd")
+    for kernel, form, band, xv, lib_fn in (("spmv_bwd_f32", bwd32, bwd32.bwd_val, x32, lambda: A32 @ x32),
+                                           ("spmv_bwd_bf16", bwd32, bwd_bf, x32, None),
+                                           ("spmv_bwd_f64", bwd64, bwd64.bwd_val, x64, lambda: A64 @ x64)):
+        bargs = bwd_args(form)
+        turns(kernel, lambda: spmv_bwd(band, xv, *bargs), lambda: plain_bwd(band, xv, form))
+        log(f"  {kernel}: band stream {nbytes(band) / ms[kernel] / 1e6:.1f} GB/s "
+            f"({nbytes(band) / ms[kernel] / 1e6 / peak:.3f} of peak {peak} GB/s)")
+        # x and y once, the spill's four arrays; the band stored (padding
+        # zeros included) or its nonzeros only
+        io = nbytes(xv, form.sp_val, form.sp_ind, form.sp_rows, form.sp_gptr) + m * xv.element_size()
+        note(kernel, nbytes(band) + io, nz_bytes(band) + io, 2 * band.numel() + 2 * form.sp_ind.numel(), lib_fn)
+    del bwd64
     fL = st.l_form
     dT32, lT32 = ilu_ops["L"]
     dT64, lT64, b64, bm64 = dT32.double(), lT32.double(), bw.double(), bw_m.double()
@@ -1600,10 +1880,31 @@ def main() -> int:
     tt.set_precision_mode(A, "mixed")
     t_mv_mixed = cuda_ms(lambda: tt.mv(1.0, A, GEN, NONE, x32, 0.0))
     tt.set_precision_mode(A, "full")
-    for name, t, gb in (("mv f32", t_mv, gbytes["f32"]), ("mv bf16 band", t_mv_mixed, gbytes["f32"])):
+    t_mv5 = cuda_ms(lambda: tt.mv(1.0, fh["csr"], GEN, NONE, x32, 0.0, kid=5))
+    tt.set_precision_mode(fh["csr"], "mixed")
+    t_mv5_mixed = cuda_ms(lambda: tt.mv(1.0, fh["csr"], GEN, NONE, x32, 0.0, kid=5))
+    tt.set_precision_mode(fh["csr"], "full")
+    for name, t, gb in (("mv f32", t_mv, gbytes["f32"]), ("mv bf16 band", t_mv_mixed, gbytes["f32"]),
+                        ("mv kid=5 f32 (bwd form)", t_mv5, gbytes["f32"]),
+                        ("mv kid=5 mixed (bf16 bwd band)", t_mv5_mixed, gbytes["f32"])):
         eff = gb / (t / 1e3)
         log(f"  {name}: {t:.4f} ms/call, effective {eff:.1f} GB/s = {eff / peak:.3f} of peak "
             f"{peak} GB/s (bench.py:60 useful bytes)")
+    t_mv5_64 = cuda_ms(lambda: tt.mv(1.0, fh["csr64"], GEN, NONE, x64, 0.0, kid=5))
+    log(f"  mv kid=5 float64 handle: {t_mv5_64:.4f} ms/call, effective "
+        f"{gbytes['f64'] / (t_mv5_64 / 1e3):.1f} GB/s (bench.py:60 useful bytes)")
+    for name, key, kid in (("COO handle (through CSR: bandt)", "coo", None), ("CSC handle (through CSR)", "csc", None),
+                           ("BSR handle kid=3", "bsr", 3), ("DIA handle kid=4", "dia", 4),
+                           ("ELL handle kid=1", "ell", None), ("CSR kid=6 (diag form)", "csr", 6),
+                           ("CSR kid=10 (sell)", "csr", 10)):
+        t = cuda_ms(lambda: tt.mv(1.0, fh[key], GEN, NONE, x32, 0.0, kid=kid), reps=7, inner=3)
+        log(f"  mv {name}: {t:.4f} ms/call, effective {gbytes['f32'] / (t / 1e3):.1f} GB/s "
+            f"(bench.py:60 useful bytes, f32)")
+    t0 = time.perf_counter()
+    tt.mv(1.0, fh["csr"], GEN, NONE, x32, 0.0, kid=11)
+    log(f"  mv kid=11 (host engine, its host copies included): {(time.perf_counter() - t0) * 1e3:.1f} ms on the "
+        "host clock")
+    del fh
     # mm: useful bytes (m+1+nnz)*4 + (nnz + (n+m)*K)*vsize, the mv formula with K columns
     for name, handle, Bx, mrows, nz in (("mm bench (bandtm)", Amm, Bm, m, nnz), ("mm stencil (diag)", H, Bh, mh,
                                                                                  hind.size)):

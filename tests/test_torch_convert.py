@@ -19,7 +19,6 @@ from aoclsparse_tpu_torch.convert import conversions as tc
 from aoclsparse_tpu_torch.core.formats import COO, CSR, TCSR
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
 
-CPU = torch.device("cpu")
 TOL = expected_precision(torch.float64)
 
 
@@ -215,3 +214,17 @@ def test_blkcsr_matches_jax(jc, nrb):
             _eq(g, w)
         assert tc.opt_blksize(m, S.nnz, S.indptr, S.indices) == cv.opt_blksize(m, S.nnz, S.indptr, S.indices)
     assert tc.opt_blksize(0, 0, None, None) == (0, 0)
+
+
+def test_blkcsr_numpy_version_matches_the_host_library():
+    """native.blkcsr_build/_count against their numpy version (the plain
+    version used when the library cannot be built): equal outputs."""
+    from aoclsparse_tpu_torch import native
+
+    for S, nrb in ((_sparse(9, 30, 41, density=0.2), 2), (_blocky(10, 48, 64), 4), (_sparse(11, 17, 9), 1)):
+        S.sort_indices()
+        m, n = S.shape
+        ptr, ind = S.indptr.astype(np.int64), S.indices.astype(np.int64)
+        for got, want in zip(native.blkcsr_build(m, n, ptr, ind, nrb), native._blkcsr_numpy(m, n, ptr, ind, nrb, True)):
+            _eq(got, want)
+        assert native.blkcsr_count(m, n, ptr, ind, nrb) == native._blkcsr_numpy(m, n, ptr, ind, nrb, False)
