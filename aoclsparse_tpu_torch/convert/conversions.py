@@ -47,6 +47,7 @@ __all__ = [
     "csr2bsr_nnz",
     "opt_blksize",
     "csr2blkcsr",
+    "sell_layout",
 ]
 
 
@@ -274,12 +275,13 @@ def bsr_to_csr(A: BSR) -> CSR:
     return _csr_from_coo_sorted(i[pos], j[pos], _take(A.val.reshape(-1), pos), (m, n))
 
 
-def csr_to_sell(A: CSR, slice_rows: int = 8, lane: int = 128) -> SELL:
-    """Sliced ELL: per `slice_rows`-row slice, the width is the slice's
-    longest row rounded up to a `lane` multiple (at least one lane); -1 and
-    0 pad."""
-    ptr, ind = host_array(A.ptr).astype(np.int64), host_array(A.ind)
-    m = A.m
+def sell_layout(ptr: np.ndarray, slice_rows: int, lane: int):
+    """The sliced-ELL layout of a CSR row pointer: per `slice_rows`-row
+    slice, the width is the slice's longest row rounded up to a `lane`
+    multiple (at least one lane). Returns (widths, slice offsets, dest), dest
+    the flat position of each stored entry."""
+    ptr = np.asarray(ptr, dtype=np.int64)
+    m = ptr.size - 1
     lens = np.diff(ptr)
     nsl = -(-m // slice_rows) if m else 0
     lens_pad = np.zeros(nsl * slice_rows, dtype=np.int64)
@@ -287,10 +289,17 @@ def csr_to_sell(A: CSR, slice_rows: int = 8, lane: int = 128) -> SELL:
     wmax = lens_pad.reshape(nsl, slice_rows).max(axis=1) if nsl else np.zeros(0, np.int64)
     widths = np.maximum(lane, -(-wmax // lane) * lane)
     sp = np.concatenate([[0], np.cumsum(widths * slice_rows)])
-    tot = int(sp[-1])
     r = np.arange(m)
     row_off = sp[r // slice_rows] + (r % slice_rows) * widths[r // slice_rows]
     dest = np.repeat(row_off, lens) + (np.arange(int(ptr[-1])) - np.repeat(ptr[:-1], lens))
+    return widths, sp, dest
+
+
+def csr_to_sell(A: CSR, slice_rows: int = 8, lane: int = 128) -> SELL:
+    """Sliced ELL (`sell_layout`); -1 and 0 pad."""
+    widths, sp, dest = sell_layout(host_array(A.ptr), slice_rows, lane)
+    ind = host_array(A.ind)
+    tot = int(sp[-1])
     out_ind = np.full(tot, -1, dtype=np.int32)
     out_ind[dest] = ind
     vals = torch.zeros(tot, dtype=A.dtype, device=A.device)

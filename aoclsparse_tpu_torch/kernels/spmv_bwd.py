@@ -143,16 +143,15 @@ def spmv_bwd(win, x, base8: int, padL: int, m: int, sp_val=None, sp_ind=None, sp
     y = torch.empty(m, dtype=x.dtype, device=win.device)
     if m == 0:
         return y
-    null = None
     with torch.cuda.device(win.device):
         rc = _entry(symbol)(
             win.data_ptr(),
             x.data_ptr(),
             y.data_ptr(),
-            sp_val.data_ptr() if spilled else null,
-            sp_ind.data_ptr() if spilled else null,
-            sp_rows.data_ptr() if spilled else null,
-            sp_gptr.data_ptr() if spilled else null,
+            sp_val.data_ptr() if spilled else None,
+            sp_ind.data_ptr() if spilled else None,
+            sp_rows.data_ptr() if spilled else None,
+            sp_gptr.data_ptr() if spilled else None,
             win.shape[0],
             m,
             x.shape[0],

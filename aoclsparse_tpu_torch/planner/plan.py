@@ -1129,24 +1129,16 @@ def _build_sell(eff: EffectiveCSR) -> ExecForm:
     SELL_ROWS-row slices, each padded to its own SELL_LANE-multiple width,
     flattened; padding entries get column 0 and value 0, so the product
     needs no mask."""
+    from ..convert.conversions import sell_layout
+
     m, n = eff.shape
     dev = eff.val.device
-    ptr64 = eff.ptr.astype(np.int64)
-    lens = np.diff(ptr64)
-    nsl = -(-m // SELL_ROWS) if m else 0
-    if nsl == 0 or eff.nnz == 0:
+    if m == 0 or eff.nnz == 0:
         empty = torch.zeros(0, dtype=torch.int64, device=dev)
         return ExecForm(kind="sell", m=m, n=n, ind=empty, val=torch.zeros(0, dtype=eff.val.dtype, device=dev),
                         row_ids=empty, sell_dest=np.zeros(0, np.int64), sell_total=0)
-    lens_pad = np.zeros(nsl * SELL_ROWS, dtype=np.int64)
-    lens_pad[:m] = lens
-    wmax = lens_pad.reshape(nsl, SELL_ROWS).max(axis=1)
-    widths = np.maximum(SELL_LANE, -(-wmax // SELL_LANE) * SELL_LANE)
-    base = np.concatenate([[0], np.cumsum(widths * SELL_ROWS)])
+    widths, base, dest = sell_layout(eff.ptr, SELL_ROWS, SELL_LANE)
     total = int(base[-1])
-    r = np.arange(m)
-    row_off = base[r // SELL_ROWS] + (r % SELL_ROWS) * widths[r // SELL_ROWS]
-    dest = np.repeat(row_off, lens) + (np.arange(int(ptr64[-1])) - np.repeat(ptr64[:-1], lens))
     ind_buf = np.zeros(total, dtype=np.int64)
     ind_buf[dest] = eff.ind
     pos = np.arange(total, dtype=np.int64)
