@@ -17,8 +17,11 @@ group-window form, the diagonal form, the spill-route engine, the blocked
 triangular solves and the SpGEMM band engine run hand-written CUDA kernels
 on Hopper (csrc/band_spmv.cu, csrc/spmv_bwd.cu, csrc/spmm_band.cu,
 csrc/spmm_diag.cu, csrc/spill_route.cu, csrc/benes.cu, csrc/trsv_win.cu,
-csrc/band_gemm.cu), built with nvcc at first use; on CPU tensors they run
-the kernels' plain PyTorch versions. The host C++ library (native/) builds
+csrc/band_gemm.cu), and so do the measurement path's tile-major and
+block-window band SpMV and read probe (csrc/band_spmv_tiles.cu,
+csrc/spmv_mxu.cu, csrc/stream_read.cu; utils/profiling.py times them),
+built with nvcc at first use; on CPU tensors they run the kernels' plain
+PyTorch versions. The host C++ library (native/) builds
 with g++ at first use. Tensors go to ``cuda:0`` unless a device is named.
 ROADMAP.md lists what is still to port (autotune, itsol, GMRES, SymGS,
 SOR).

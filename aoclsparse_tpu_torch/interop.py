@@ -25,6 +25,11 @@ These entry points let one operand feed both packages:
 - `band_gemm_plan_from_jax` does it for a JAX ``BandGemmPlan`` (geometry,
   stream ranges, extraction map and the two operand bands), so the band
   GEMM kernel and its plain version run on the JAX package's band operands.
+- `band_from_jax_tiles` gives back the (W, m) band from the JAX package's
+  tile-major sublane layout (``band_vert_layout_tiles``), the operand of
+  its ``pallas_spmv_band_vc``/``_vd``; `kernels.band_tiles.band_tiles`
+  then makes the port's tile-major operand of it. The block windows of
+  ``pallas_spmv_band_mxu`` are the same array in both packages.
 
 None imports JAX: the arrays arrive as numpy.
 """
@@ -46,6 +51,7 @@ from .planner.spill_route import SpillRoute
 from .planner.triangular import TrsvForm
 
 __all__ = [
+    "band_from_jax_tiles",
     "band_gemm_plan_from_jax",
     "bwd_form_from_jax",
     "coo_from_jax_arrays",
@@ -167,6 +173,19 @@ def bandt_form_from_jax(form_arrays: Mapping, device=None) -> ExecForm:
         sp_ind=idx("sp_ind") if spilled else None,
         sp_rows=idx("sp_rows") if spilled else None,
     )
+
+
+def band_from_jax_tiles(vt3, W: int, TM: int, m=None, device=None) -> torch.Tensor:
+    """The (W, ntile * TM) band, cut to m columns when m is given, from the
+    JAX package's (ntile, W * 8, TM / 8) tile-major layout, whose row
+    j * 8 + s, column c of tile t holds vt[j, t * TM + s * TM / 8 + c]: the
+    inverse of its ``band_vert_layout_tiles``."""
+    band = as_values(np.asarray(vt3), resolve_device(device))
+    ntile, W8, TMd8 = band.shape
+    if W8 != W * 8 or TMd8 * 8 != TM:
+        raise ValueError(f"tile layout has shape {tuple(band.shape)}, want (ntile, {W * 8}, {TM // 8})")
+    vt = band.reshape(ntile, W, TM).transpose(0, 1).reshape(W, ntile * TM)
+    return vt[:, :m].contiguous() if m is not None else vt
 
 
 def trsv_form_from_jax(arrays: Mapping, device=None) -> TrsvForm:

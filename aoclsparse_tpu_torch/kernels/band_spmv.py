@@ -28,6 +28,7 @@ import torch
 
 from ..core.types import AoclSparseError, Status
 from .build import load_library
+from .spmm_plain import add_spill
 
 __all__ = ["band_spmv", "band_spmv_plain", "spmv_bandt", "MAX_W"]
 
@@ -132,7 +133,4 @@ def spmv_bandt(vt, x, sp_val, sp_ind, sp_rows, start: int, padL: int) -> torch.T
     sp_rows, on the same stream. A bf16 matrix's x is widened to the bf16
     instance's float32."""
     xk = x.float() if vt.dtype == torch.bfloat16 else x
-    y = band_spmv(vt, xk.contiguous(), start, padL)
-    if sp_ind is not None and sp_ind.shape[0]:
-        y.index_add_(0, sp_rows, (sp_val * x[sp_ind]).to(y.dtype))
-    return y
+    return add_spill(band_spmv(vt, xk.contiguous(), start, padL), x, sp_val, sp_ind, sp_rows)

@@ -47,10 +47,12 @@ def spmm_ell(ind, val, B) -> torch.Tensor:
 
 
 def add_spill(C, B, sp_val, sp_ind, sp_rows) -> torch.Tensor:
-    """C[sp_rows] += sp_val * B[sp_ind] rows, in place: the entries a form
-    leaves out of its regular part (the peel spill, ellhyb's row tails)."""
+    """C[sp_rows] += sp_val * B[sp_ind] rows (entries, for a 1-D B and C),
+    in place: the entries a form leaves out of its regular part (the peel
+    spill, ellhyb's row tails)."""
     if sp_ind is not None and sp_ind.shape[0]:
-        C.index_add_(0, sp_rows, (sp_val[:, None] * B[sp_ind]).to(C.dtype))
+        v = sp_val if B.dim() == 1 else sp_val[:, None]
+        C.index_add_(0, sp_rows, (v * B[sp_ind]).to(C.dtype))
     return C
 
 

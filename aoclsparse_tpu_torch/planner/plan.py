@@ -526,9 +526,9 @@ class ExecForm:
     #: the handle's precision policy, copied on by ops/level2/mv.py
     precision_mode: str = "full"
     _bwd_val_bf16: Optional[torch.Tensor] = None
-    #: lazily derived operands (the block-window band, bf16 diagonals),
-    #: dropped by refresh()
-    _derived: Optional[Dict[str, torch.Tensor]] = None
+    #: lazily derived operands (the block-window and tile-major bands, bf16
+    #: diagonals), dropped by refresh()
+    _derived: Optional[Dict[object, torch.Tensor]] = None
     #: gen_perm_maps' cache (structure only, kept by refresh())
     _perm_maps: Optional[Tuple] = None
 
@@ -554,7 +554,7 @@ class ExecForm:
             self._bwd_val_bf16 = self.bwd_val.to(torch.bfloat16)
         return self._bwd_val_bf16
 
-    def _derive(self, key: str, build) -> torch.Tensor:
+    def _derive(self, key, build) -> torch.Tensor:
         if self._derived is None:
             self._derived = {}
         if key not in self._derived:
@@ -562,21 +562,38 @@ class ExecForm:
         return self._derived[key]
 
     def band_mxu_dt(self, bf16: bool = False) -> torch.Tensor:
-        """(nblk, 256, 128) block windows of the bandtm band for mm KID 5
-        (kernels/spmm_band.py `band_mxu_blocks`), built once on the form's
-        device and cached per dtype. Needs W <= 129: one 256-row window
-        covers a 128-row block plus its band."""
+        """(nblk, 256, 128) block windows of the band for mm KID 5 and the
+        block-window SpMV (kernels/spmm_band.py `band_mxu_blocks`), built
+        once on the form's device and cached per dtype. A bandtm form's band
+        is row-aligned (m, W) already; a bandt form's (W, m) band is
+        transposed first, as the JAX package does. Needs W <= 129: one
+        256-row window covers a 128-row block plus its band."""
         from ..kernels.spmm_band import MXU_MAX_W, band_mxu_blocks
 
-        if self.kind != "bandtm" or self.bwd_W > MXU_MAX_W:
+        if self.kind not in ("bandt", "bandtm") or self.bwd_W > MXU_MAX_W:
             raise AoclSparseError(
                 Status.invalid_kid,
-                f"the block-window band needs a bandtm form with W <= {MXU_MAX_W}, "
+                f"the block-window band needs a bandt or bandtm form with W <= {MXU_MAX_W}, "
                 f"got {self.kind} W={self.bwd_W}",
             )
         if bf16:
             return self._derive("mxu_bf16", lambda: self.band_mxu_dt().to(torch.bfloat16))
-        return self._derive("mxu", lambda: band_mxu_blocks(self.bwd_val, self.bwd_W))
+        rows = self.bwd_val.t() if self.kind == "bandt" else self.bwd_val
+        return self._derive("mxu", lambda: band_mxu_blocks(rows, self.bwd_W))
+
+    def bandt_tiles(self, TM: int, bf16: bool = False) -> torch.Tensor:
+        """(ntile, W, TM) tile-major band of a bandt form for the tile-major
+        band SpMV kernels (kernels/band_tiles.py `band_tiles`): each TM-row
+        tile's slab is contiguous. The counterpart of the JAX package's
+        `bandt_vertical` (its sublane layout stays behind). Built once on
+        the form's device, cached per (TM, dtype), dropped by refresh()."""
+        from ..kernels.band_tiles import band_tiles
+
+        if self.kind != "bandt":
+            raise AoclSparseError(Status.invalid_kid, f"the tile-major band needs a bandt form, got {self.kind}")
+        if bf16:
+            return self._derive(("tiles_bf16", TM), lambda: band_tiles(self.band_bf16(), TM))
+        return self._derive(("tiles", TM), lambda: band_tiles(self.bwd_val, TM))
 
     def dia_bf16(self) -> torch.Tensor:
         """Cached bfloat16 diagonals for mm KID 7 in the mixed mode."""

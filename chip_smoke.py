@@ -18,6 +18,13 @@ failure (exit code != 0, no result line):
    - the group-window kernel (mv KID 5) on the bench operand's bwd form
      (its peel spill added in the launch) and on the small odd-m operand,
      whose windows start left of column 0, in f32, bf16 band and f64;
+   - the tile-major band kernels (one CTA a tile; persistent, cp.async
+     double-buffered) on the bench bandt form's tile-major band (TM = 256)
+     and the block-window SpMV on its block windows, in f32 and bf16, and
+     on the small odd-m form's with start > 0 and padL > 0 (the last tile
+     and block ragged); the streaming-read probe on the bench band slab
+     (128, 262144) and on a 128 MiB buffer (bench.py:291), also against a
+     float64 sum;
    - the band SpMM kernel on the bench operand's bandtm form at K = 64 in
      f32 and f64, and with its spill on the small odd-m operand at K = 7;
      the block-window kernel on the bench form at K = 64 in f32 and bf16;
@@ -89,9 +96,20 @@ failure (exit code != 0, no result line):
    vector of 2^22 entries against a dense y of 2^24 against numpy; and
    write_mtx / read_mtx round trips of the cant stand-in and of a
    symmetric file of its lower triangle written by scipy.io.mmwrite;
+5e. the measurement path, counted on its own (bench.py:220-350):
+   create_csr -> set_mv_hint(nop=1000) -> optimize -> the bandt form, its
+   tile-major band and its block windows; the two tile-major kernels and
+   the block-window SpMV, each plus the peel spill, in f32 against float64
+   scipy A x and with a bf16 band against docs/precision.md's bound, one
+   launch a call; the streaming-read probe on the band slab against a
+   float64 sum; each kernel timed by utils/profiling.py's chain_bench and
+   put against the published peak by its roofline, and one profiling.trace
+   written to the gitignored _smoke/trace/;
 6. time kernel vs plain version vs one PyTorch library call (torch.sparse
    CSR products and triangular solves, index_add_ and a permutation
-   gather, timed here as yardsticks only), against each kernel's bound
+   gather, timed here as yardsticks only; each behind a device spin that
+   outlasts the host's enqueue, so the events time the device alone),
+   against each kernel's bound
    from this run's inputs (stored operands, and beside it their nonzero
    entries only); one mv call, one mm call per operand, one trsm call,
    one CG iteration, one ilu_smoother call and one ILU0-PCG iteration with
@@ -107,12 +125,16 @@ failure (exit code != 0, no result line):
    finalize of Q.Q on the device expansion engine against the host engine
    (pinned) and cuSPARSE SpGEMM; the group-window kernel in each instance
    against its plain version and cuSPARSE CSR @ x, and one mv(kid=5) call
-   and one mv call on each format's handle.
+   and one mv call on each format's handle; the tile-major kernels and the
+   block-window SpMV against their plain version and cuSPARSE CSR @ x; the
+   read probe on the 128 MiB buffer and on the band slab against its plain
+   version and torch.sum.
 
 Launch counts are reset just before phase 4 and read after phase 5, reset
 again just before phase 5b and read after it, and again around phases 5c
-and 5d (the kernels line takes the spill-route kernels' counts from 5b,
-the band GEMM's from 5c and the group-window kernel's from 5d). The second-to-last line is
+5d and 5e (the kernels line takes the spill-route kernels' counts from 5b,
+the band GEMM's from 5c, the group-window kernel's from 5d and the
+measurement path's kernels' from 5e). The second-to-last line is
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 """
 
@@ -137,6 +159,12 @@ from aoclsparse_tpu_torch import native
 from aoclsparse_tpu_torch.kernels import build
 from aoclsparse_tpu_torch.kernels.band_gemm import band_gemm, band_gemm_plain
 from aoclsparse_tpu_torch.kernels.band_spmv import band_spmv, band_spmv_plain, spmv_bandt
+from aoclsparse_tpu_torch.kernels.band_tiles import (
+    band_spmv_tiles,
+    band_spmv_tiles_dbuf,
+    band_spmv_tiles_plain,
+    spmv_bandt_tiles,
+)
 from aoclsparse_tpu_torch.kernels.benes import PASS_GROUP, TILE_LOG, benes_route, benes_route_plain
 from aoclsparse_tpu_torch.kernels.route import apply_benes, apply_route, pack_masks, route_masks
 from aoclsparse_tpu_torch.kernels.spill_route import oh_accum, oh_accum_plain, oh_select, oh_select_plain
@@ -150,6 +178,8 @@ from aoclsparse_tpu_torch.kernels.spmm_band import (
 from aoclsparse_tpu_torch.kernels.spgemm_band import build_band_gemm_plan, extract_values
 from aoclsparse_tpu_torch.kernels.spmm_diag import spmm_diag, spmm_diag_plain
 from aoclsparse_tpu_torch.kernels.spmv_bwd import spmv_bwd, spmv_bwd_plain
+from aoclsparse_tpu_torch.kernels.spmv_mxu import spmv_band_mxu, spmv_band_mxu_plain, spmv_bandmxu
+from aoclsparse_tpu_torch.kernels.stream_read import stream_read, stream_read_plain
 from aoclsparse_tpu_torch.io import read_mtx, write_mtx
 from aoclsparse_tpu_torch.kernels.trsv_win import trsm_chunk, trsm_win, trsm_win_plain, trsv_win, trsv_win_plain
 from aoclsparse_tpu_torch.ops.level2.mv import _spill_route_on
@@ -157,6 +187,7 @@ from aoclsparse_tpu_torch.ops.level3.spgemm import _effective
 from aoclsparse_tpu_torch.planner.spill_route import build_spill_route, spill_route_apply
 from aoclsparse_tpu_torch.planner.triangular import trsv_form_for
 from aoclsparse_tpu_torch.solvers.ilu import ilu0_factorize
+from aoclsparse_tpu_torch.utils import profiling
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
 
 GEN = tt.MatrixDescriptor()
@@ -208,6 +239,21 @@ KERNELS = {
     "spmv_bwd_f32": ("aoclsparse_tpu_torch/csrc/spmv_bwd.cu", "aoclsparse_tpu/kernels/pallas/spmv.py:1093"),
     "spmv_bwd_bf16": ("aoclsparse_tpu_torch/csrc/spmv_bwd.cu", "aoclsparse_tpu/kernels/pallas/spmv.py:1093"),
     "spmv_bwd_f64": ("aoclsparse_tpu_torch/csrc/spmv_bwd.cu", "aoclsparse_tpu/kernels/pallas/spmv.py:1093"),
+    # pallas_spmv_band_vc (tile-major band) and pallas_spmv_band_vd (its
+    # band double-buffered by manual DMA)
+    "band_spmv_tiles_f32": ("aoclsparse_tpu_torch/csrc/band_spmv_tiles.cu",
+                            "aoclsparse_tpu/kernels/pallas/spmv.py:708"),
+    "band_spmv_tiles_bf16": ("aoclsparse_tpu_torch/csrc/band_spmv_tiles.cu",
+                             "aoclsparse_tpu/kernels/pallas/spmv.py:708"),
+    "band_spmv_tiles_dbuf_f32": ("aoclsparse_tpu_torch/csrc/band_spmv_tiles.cu",
+                                 "aoclsparse_tpu/kernels/pallas/spmv.py:791"),
+    "band_spmv_tiles_dbuf_bf16": ("aoclsparse_tpu_torch/csrc/band_spmv_tiles.cu",
+                                  "aoclsparse_tpu/kernels/pallas/spmv.py:791"),
+    # pallas_spmv_band_mxu (block windows)
+    "spmv_band_mxu_f32": ("aoclsparse_tpu_torch/csrc/spmv_mxu.cu", "aoclsparse_tpu/kernels/pallas/spmv.py:1019"),
+    "spmv_band_mxu_bf16": ("aoclsparse_tpu_torch/csrc/spmv_mxu.cu", "aoclsparse_tpu/kernels/pallas/spmv.py:1019"),
+    # pallas_stream_read (the read-rate probe)
+    "stream_read_f32": ("aoclsparse_tpu_torch/csrc/stream_read.cu", "aoclsparse_tpu/kernels/pallas/spmv.py:364"),
 }
 #: the kernels of the general-structure path (phase 5b), counted there
 GEN_PATH = ("oh_select_f32", "oh_accum_f32", "benes_route_f32")
@@ -215,6 +261,9 @@ GEN_PATH = ("oh_select_f32", "oh_accum_f32", "benes_route_f32")
 SPGEMM_PATH = ("band_gemm_f32", "band_gemm_f64")
 #: the kernels of the formats path (phase 5d), counted there
 FORMATS_PATH = ("spmv_bwd_f32", "spmv_bwd_bf16", "spmv_bwd_f64")
+#: the kernels of the measurement path (phase 5e), counted there
+MEASURE_PATH = ("band_spmv_tiles_f32", "band_spmv_tiles_bf16", "band_spmv_tiles_dbuf_f32",
+                "band_spmv_tiles_dbuf_bf16", "spmv_band_mxu_f32", "spmv_band_mxu_bf16", "stream_read_f32")
 #: launch counters of the wrappers, by kernel-name prefix
 COUNTERS = {
     "band_spmv": band_spmv.launches,
@@ -228,6 +277,10 @@ COUNTERS = {
     "benes_route": benes_route.launches,
     "band_gemm": band_gemm.launches,
     "spmv_bwd": spmv_bwd.launches,
+    "band_spmv_tiles": band_spmv_tiles.launches,
+    "band_spmv_tiles_dbuf": band_spmv_tiles_dbuf.launches,
+    "spmv_band_mxu": spmv_band_mxu.launches,
+    "stream_read": stream_read.launches,
 }
 #: kernel vs plain: the same products summed in another order, so the
 #: accumulation dtype's model tolerance (utils/tolerances.py, scale 1);
@@ -262,6 +315,17 @@ KERNEL_TOL = {
     "spmv_bwd_f32": expected_precision(torch.float32),
     "spmv_bwd_bf16": expected_precision(torch.float32),
     "spmv_bwd_f64": expected_precision(torch.float64),
+    # the same products summed in another order; bf16: the same bf16 band
+    # values (and, for the block windows, x rounded to bf16 on both sides)
+    # accumulated in f32
+    "band_spmv_tiles_f32": expected_precision(torch.float32),
+    "band_spmv_tiles_bf16": expected_precision(torch.float32),
+    "band_spmv_tiles_dbuf_f32": expected_precision(torch.float32),
+    "band_spmv_tiles_dbuf_bf16": expected_precision(torch.float32),
+    "spmv_band_mxu_f32": expected_precision(torch.float32),
+    "spmv_band_mxu_bf16": expected_precision(torch.float32),
+    # the same f32 values summed in f32 in another order
+    "stream_read_f32": expected_precision(torch.float32),
 }
 #: mv and mm against the float64 reference: the operand dtype's model tolerance
 MV_TOL = {"f32": expected_precision(torch.float32), "f64": expected_precision(torch.float64)}
@@ -275,6 +339,12 @@ PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "f64": 67e12}
 K_MM = 64  # the SpMM right-hand sides of phases 3, 4 and 6
 K_SM = 16  # the trsm right-hand sides of phases 3, 5 and 6
 SEED_B = 23  # B of the SpMM phases
+TM_TILES = 256  # the tile of the tile-major band (phases 3, 5e and 6)
+#: device spin a call ahead of a kernel's timed calls (cuda_ms backlog):
+#: about 0.2 ms at the H100's 1.98 GHz boost clock, more than the host takes
+#: to enqueue one wrapper call
+SLEEP_CYCLES = 400_000
+COLD_VALUES = 32 * 1024 * 1024  # the read probe's 128 MiB f32 buffer (bench.py:291)
 
 
 def log(*a):
@@ -764,15 +834,21 @@ def residual_cols(name, T, X, B, tol):
         raise AssertionError(f"{name}: residual above tolerance")
 
 
-def cuda_ms(fn, reps=15, inner=10, warm=3):
+def cuda_ms(fn, reps=15, inner=10, warm=3, backlog=False):
     """Median over `reps` of the mean time of `inner` back-to-back calls,
-    by CUDA events, after `warm` warm-up calls."""
+    by CUDA events, after `warm` warm-up calls: a call's time, which is the
+    host's enqueue time where the host is slower than the device. backlog:
+    the device first spins SLEEP_CYCLES a call (torch.cuda._sleep) while
+    the host enqueues the calls, so that the events time the device's work
+    alone: a kernel's time."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if backlog:
+            torch.cuda._sleep(SLEEP_CYCLES * inner)
         t0.record()
         for _ in range(inner):
             fn()
@@ -1020,6 +1096,84 @@ def formats_path(ptr, ind, val, x, ref, cant_csr, dev, io_dir):
     return handles
 
 
+def measurement_path(ptr, ind, val, x, ref, dev, trace_dir):
+    """Phase 5e: the measurement path of bench.py:220-350 on the port. The
+    bench operand goes through create_csr -> set_mv_hint(nop=1000) ->
+    optimize to its bandt form; the form's tile-major band (bandt_tiles,
+    TM_TILES) runs through the tile-major kernels and its block windows
+    (band_mxu_dt) through the block-window SpMV, each plus the form's peel
+    spill, in f32 (against float64 scipy A x) and with a bf16 band (against
+    docs/precision.md's bound), one launch a call; the streaming-read probe
+    sums the form's band slab (against a float64 sum). Each kernel is then
+    timed by profiling.chain_bench (host clock, one synchronise a chunk) and
+    put against the context's published peak by profiling.roofline, and
+    one profiling.trace of the kernels is written to trace_dir."""
+    m = n = len(ptr) - 1
+    S = sp.csr_matrix((val.astype(np.float64), ind, ptr), shape=(m, n))
+    t0 = time.perf_counter()
+    A = tt.create_csr(m, n, ptr, ind, val, device=dev)
+    tt.set_mv_hint(A, NONE, GEN, nop=1000)
+    form = tt.optimize(A).exec_form_for(GEN, NONE, kind="bandt")
+    tiles = {"f32": form.bandt_tiles(TM_TILES), "bf16": form.bandt_tiles(TM_TILES, bf16=True)}
+    wins = {"f32": form.band_mxu_dt(), "bf16": form.band_mxu_dt(bf16=True)}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"  create_csr + set_mv_hint + optimize + tile-major band + block windows: {time.perf_counter() - t0:.2f} s; "
+        f"bandt W={form.bwd_W} start={form.bandt_start} padL={form.bwd_padL} spilled {form.sp_ind.numel()}; "
+        f"tiles {tuple(tiles['f32'].shape)}, windows {tuple(wins['f32'].shape)}")
+    spill = (form.sp_val, form.sp_ind, form.sp_rows)
+    args = (form.bandt_start, form.bwd_padL, m)
+    none = {k: 0 for k in MEASURE_PATH}
+    # docs/precision.md: per bf16 rounding of a product's operands,
+    # |y - y*| <= 2^-8 sum_j |a_ij x_j| + nnz_row eps_f32 |y*|
+    sax = abs(S) @ np.abs(x.double().cpu().numpy())
+    nz = row_nnz(ptr)
+    for inst in ("f32", "bf16"):
+        vt3, dt = tiles[inst], wins[inst]
+        for kernel, call, roundings in (
+            (f"band_spmv_tiles_{inst}", lambda: spmv_bandt_tiles(vt3, x, *spill, *args), 1),
+            (f"band_spmv_tiles_dbuf_{inst}", lambda: spmv_bandt_tiles(vt3, x, *spill, *args, dbuf=True), 1),
+            (f"spmv_band_mxu_{inst}", lambda: spmv_bandmxu(dt, x, *spill, *args), 2),  # x rounds too
+        ):
+            y = counted(kernel, call, dict(none, **{kernel: 1}))
+            if inst == "f32":
+                check_mv(f"{kernel} + peel spill vs float64 scipy A x", y, ref, MV_TOL["f32"])
+                continue
+            g = y.double().cpu().numpy()
+            worst = float(np.max(np.abs(g - ref) / (roundings * 2.0**-8 * sax + nz * 2.0**-23 * np.abs(ref))))
+            log(f"  {kernel} + peel spill: max |err| / documented bound ({roundings} bf16 rounding(s)) "
+                f"{worst:.3f} (must be <= 1)")
+            if not (np.all(np.isfinite(g)) and worst <= 1.0):
+                raise AssertionError(f"{kernel}: outside the documented error bound")
+    slab = form.bwd_val
+    total = counted("stream_read_f32", lambda: stream_read(slab), dict(none, stream_read_f32=1))
+    check_mv(f"stream_read_f32 on the band slab {tuple(slab.shape)} vs a float64 sum", total,
+             np.asarray(float(slab.double().sum())), MV_TOL["f32"])
+
+    io = nbytes(x) + m * 4  # x read and y written once
+    timed = {
+        **{f"band_spmv_tiles_{i}": (lambda v=v: band_spmv_tiles(v, x, *args), nbytes(v) + io) for i, v in tiles.items()},
+        **{f"band_spmv_tiles_dbuf_{i}": (lambda v=v: band_spmv_tiles_dbuf(v, x, *args), nbytes(v) + io)
+           for i, v in tiles.items()},
+        **{f"spmv_band_mxu_{i}": (lambda d=d: spmv_band_mxu(d, x, *args), nbytes(d) + io) for i, d in wins.items()},
+        "stream_read_f32": (lambda: stream_read(slab), nbytes(slab)),
+    }
+    for kernel, (fn, moved) in timed.items():
+        r = profiling.chain_bench(fn, name=kernel, iters=50, chunks=5)
+        roof = profiling.roofline(moved, r.t_median)
+        log(f"  {kernel}: {r.t_median * 1e3:.4f} ms a call (profiling.chain_bench, host clock, median of "
+            f"{len(r.times)} chunks), {moved / 1e6:.1f} MB: {roof['achieved_gbps']:.1f} GB/s = "
+            f"{roof['fraction_of_peak']:.3f} of the published {roof['peak_gbps']} GB/s (profiling.roofline)")
+    with profiling.trace(str(trace_dir)):
+        for fn, _moved in timed.values():
+            fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    events = json.loads((Path(trace_dir) / "trace.json").read_text()).get("traceEvents", [])
+    kern = sorted({e.get("name", "")[:40] for e in events if e.get("cat") == "kernel"})
+    log(f"  profiling.trace: {trace_dir}/trace.json, {len(events)} events, device kernels {kern}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -1118,6 +1272,36 @@ def main() -> int:
         xs = torch.from_numpy(sx.astype(dt)).to(dev)
         compare(f"spmv_bwd_{inst}", f"small odd-m, window left of column 0 ({bwd_desc(sf)})",
                 spmv_bwd(band, xs, *bwd_args(sf)), plain_bwd(band, xs, sf), errs)
+
+    # the tile-major kernels and the block-window SpMV on the bench bandt
+    # form's tile-major band and block windows, and on the small odd-m
+    # form's with start > 0 and padL > 0 (its last tile and block ragged);
+    # the streaming-read probe on the band slab and on a 128 MiB buffer
+    tiles = {"f32": f32.bandt_tiles(TM_TILES), "bf16": f32.bandt_tiles(TM_TILES, bf16=True)}
+    wins = {"f32": f32.band_mxu_dt(), "bf16": f32.band_mxu_dt(bf16=True)}
+    sf = bandt_form(sptr, sind, sval.astype(np.float32), dev)
+    s_tiles = {"f32": sf.bandt_tiles(TM_TILES), "bf16": sf.bandt_tiles(TM_TILES, bf16=True)}
+    s_wins = {"f32": sf.band_mxu_dt(), "bf16": sf.band_mxu_dt(bf16=True)}
+    xs = torch.from_numpy(sx.astype(np.float32)).to(dev)
+    sargs = (sf.bandt_start + 3, sf.bwd_padL + 3, sf.m)  # the shifts cancel: the same product
+    small = (f"small odd-m (m={sf.m}, W={sf.bwd_W}, start={sargs[0]}, padL={sargs[1]}, "
+             f"{s_tiles['f32'].shape[0]} tiles of {TM_TILES}, {s_wins['f32'].shape[0]} blocks)")
+    log(f"  bench tile-major band {tuple(tiles['f32'].shape)}, block windows {tuple(wins['f32'].shape)}")
+    for inst in ("f32", "bf16"):
+        for label, vt3, dt_, xv, a in (("bench", tiles[inst], wins[inst], x32, (*args32, m)),
+                                       (small, s_tiles[inst], s_wins[inst], xs, sargs)):
+            compare(f"band_spmv_tiles_{inst}", label, band_spmv_tiles(vt3, xv, *a),
+                    band_spmv_tiles_plain(vt3, xv, *a), errs)
+            compare(f"band_spmv_tiles_dbuf_{inst}", label, band_spmv_tiles_dbuf(vt3, xv, *a),
+                    band_spmv_tiles_plain(vt3, xv, *a), errs)
+            compare(f"spmv_band_mxu_{inst}", label, spmv_band_mxu(dt_, xv, *a), spmv_band_mxu_plain(dt_, xv, *a), errs)
+    del sf, s_tiles, s_wins, xs
+    cold = torch.from_numpy(np.random.default_rng(7).standard_normal(COLD_VALUES).astype(np.float32)).to(dev)
+    for label, v in ((f"band slab {tuple(f32.bwd_val.shape)}", f32.bwd_val), ("128 MiB buffer", cold)):
+        got = stream_read(v)
+        compare("stream_read_f32", label, got, stream_read_plain(v), errs)
+        check_mv(f"stream_read_f32 {label} vs a float64 sum", got, np.asarray(float(v.double().sum())),
+                 MV_TOL["f32"])
 
     # the SPD operand's handle, through the entry points, and its ILU0
     t0 = time.perf_counter()
@@ -1538,7 +1722,7 @@ def main() -> int:
     launches = read_counts()
     log(f"  main-path launches: {launches}")
     for kernel, count in launches.items():
-        if count == 0 and kernel not in GEN_PATH + SPGEMM_PATH + FORMATS_PATH:
+        if count == 0 and kernel not in GEN_PATH + SPGEMM_PATH + FORMATS_PATH + MEASURE_PATH:
             raise AssertionError(f"kernel {kernel} never launched on the main path")
 
     # 5b. the general-structure path, counted on its own
@@ -1751,6 +1935,18 @@ def main() -> int:
             raise AssertionError(f"kernel {kernel} never launched on the formats path")
         launches[kernel] = fmt_launches[kernel]
 
+    # 5e. the measurement path, counted on its own
+    phase("phase 5e: measurement path (create_csr -> set_mv_hint -> optimize -> bandt tiles and block windows, "
+          "#5-#7, stream_read, utils/profiling.py)")
+    reset_counts()
+    measurement_path(ptr, ind, val, x32, ref, dev, Path(__file__).resolve().parent / "_smoke" / "trace")
+    meas_launches = read_counts()
+    log(f"  measurement path launches: {({k: meas_launches[k] for k in MEASURE_PATH})}")
+    for kernel in MEASURE_PATH:
+        if meas_launches[kernel] == 0:
+            raise AssertionError(f"kernel {kernel} never launched on the measurement path")
+        launches[kernel] = meas_launches[kernel]
+
     # 6. timing
     phase("phase 6: timing (CUDA events or host clock, median of repeats)")
     peak = ctx.hbm_gbps
@@ -1758,10 +1954,10 @@ def main() -> int:
 
     def turns(kernel, kern, plain, kreps=(15, 10), preps=(15, 10), kwarm=3, pwarm=1):
         """plain, kernel, kernel, plain: compare within one call, in turns."""
-        p1 = cuda_ms(plain, reps=preps[0], inner=preps[1], warm=pwarm)
-        k1 = cuda_ms(kern, reps=kreps[0], inner=kreps[1], warm=kwarm)
-        k2 = cuda_ms(kern, reps=kreps[0], inner=kreps[1], warm=kwarm)
-        p2 = cuda_ms(plain, reps=preps[0], inner=preps[1], warm=pwarm)
+        p1 = cuda_ms(plain, reps=preps[0], inner=preps[1], warm=pwarm, backlog=True)
+        k1 = cuda_ms(kern, reps=kreps[0], inner=kreps[1], warm=kwarm, backlog=True)
+        k2 = cuda_ms(kern, reps=kreps[0], inner=kreps[1], warm=kwarm, backlog=True)
+        p2 = cuda_ms(plain, reps=preps[0], inner=preps[1], warm=pwarm, backlog=True)
         ms[kernel], plain_ms[kernel] = min(k1, k2), min(p1, p2)
         return k1, k2, p1, p2
 
@@ -1777,7 +1973,7 @@ def main() -> int:
         err = "no library call computes this instance's function"
         lib[kernel] = None
         if lib_fn is not None:
-            lib[kernel], err = library_ms(lib_fn, **(lib_kw or {}))
+            lib[kernel], err = library_ms(lib_fn, **dict(lib_kw or {}, backlog=True))
         lib_s = f"{lib[kernel]:.4f} ms" if lib[kernel] is not None else f"none ({err})"
         log(f"  {kernel}: kernel {ms[kernel]:.4f} ms, plain {plain_ms[kernel]:.4f} ms, library {lib_s}, "
             f"bound {bounds[kernel][0]:.4f} ms ({bounds[kernel][1]}; {nbytes_ / 1e6:.1f} MB stored, "
@@ -1815,6 +2011,34 @@ def main() -> int:
         io = nbytes(xv, form.sp_val, form.sp_ind, form.sp_rows, form.sp_gptr) + m * xv.element_size()
         note(kernel, nbytes(band) + io, nz_bytes(band) + io, 2 * band.numel() + 2 * form.sp_ind.numel(), lib_fn)
     del bwd64
+    # the tile-major kernels and the block-window SpMV on the bench form's
+    # operands, against the same CSR product (no library call computes a
+    # bf16 band's product with f32 x); the block windows' zero triangles are
+    # stored bytes and operations the kernel does
+    io = nbytes(x32) + m * 4
+    for inst in ("f32", "bf16"):
+        lib_fn = (lambda: A32 @ x32) if inst == "f32" else None
+        for kernel, kern, plain, op in ((f"band_spmv_tiles_{inst}", band_spmv_tiles, band_spmv_tiles_plain, tiles[inst]),
+                                        (f"band_spmv_tiles_dbuf_{inst}", band_spmv_tiles_dbuf, band_spmv_tiles_plain,
+                                         tiles[inst]),
+                                        (f"spmv_band_mxu_{inst}", spmv_band_mxu, spmv_band_mxu_plain, wins[inst])):
+            turns(kernel, lambda: kern(op, x32, *args32, m), lambda: plain(op, x32, *args32, m))
+            log(f"  {kernel}: operand stream {nbytes(op) / ms[kernel] / 1e6:.1f} GB/s "
+                f"({nbytes(op) / ms[kernel] / 1e6 / peak:.3f} of peak {peak} GB/s)")
+            note(kernel, nbytes(op) + io, nz_bytes(op) + io, 2 * op.numel(), lib_fn)
+    # the read probe: on the 128 MiB buffer (logged), then on the band slab
+    # (the kernels line: the main path's operand); torch.sum is the yardstick
+    t_cold = [cuda_ms(f, backlog=True) for f in (lambda: stream_read(cold), lambda: stream_read_plain(cold),
+                                                 lambda: cold.sum())]
+    log(f"  stream_read_f32 on the 128 MiB buffer: kernel {t_cold[0]:.4f} ms = {nbytes(cold) / t_cold[0] / 1e6:.1f} "
+        f"GB/s ({nbytes(cold) / t_cold[0] / 1e6 / peak:.3f} of peak {peak} GB/s), plain {t_cold[1]:.4f} ms, "
+        f"torch.sum {t_cold[2]:.4f} ms = {nbytes(cold) / t_cold[2] / 1e6:.1f} GB/s")
+    slab = f32.bwd_val
+    turns("stream_read_f32", lambda: stream_read(slab), lambda: stream_read_plain(slab))
+    log(f"  stream_read_f32 on the band slab {tuple(slab.shape)}: {nbytes(slab) / ms['stream_read_f32'] / 1e6:.1f} "
+        f"GB/s ({nbytes(slab) / ms['stream_read_f32'] / 1e6 / peak:.3f} of peak {peak} GB/s)")
+    note("stream_read_f32", nbytes(slab), nz_bytes(slab), slab.numel(), lambda: slab.sum())
+    del cold, tiles, wins
     fL = st.l_form
     dT32, lT32 = ilu_ops["L"]
     dT64, lT64, b64, bm64 = dT32.double(), lT32.double(), bw.double(), bw_m.double()

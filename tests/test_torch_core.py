@@ -118,9 +118,9 @@ def test_registry_table_and_dispatcher():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the spill-route engine's and the SpGEMM
-    family's among them, and chip_smoke.py import neither jax nor the JAX
-    package."""
+    """Every module of the port, the spill-route engine's, the SpGEMM
+    family's and the measurement path's among them, and chip_smoke.py import
+    neither jax nor the JAX package."""
     import subprocess
     import sys
 
@@ -129,7 +129,8 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "new = ('kernels.spill_route', 'kernels.benes', 'kernels.route', 'kernels.spmv_gen',\n"
-        "       'planner.spill_route', 'kernels.band_gemm', 'kernels.spgemm_band', 'ops.level3.spgemm')\n"
+        "       'planner.spill_route', 'kernels.band_gemm', 'kernels.spgemm_band', 'ops.level3.spgemm',\n"
+        "       'kernels.band_tiles', 'kernels.spmv_mxu', 'kernels.stream_read', 'utils.profiling')\n"
         "assert all('aoclsparse_tpu_torch.' + n in sys.modules for n in new)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'aoclsparse_tpu')]\n"
