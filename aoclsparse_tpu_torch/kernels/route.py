@@ -15,11 +15,11 @@ version of the route returns bit-equal values.
   one bit-packed network; above it the 2(k - 20) outer stages stay
   unpacked and the middle splits into 2^(k-20) independent packed
   subnetworks (strides <= 2^19 never cross the top address bits).
-- `apply_route` runs such a plan: the outer stages through
-  `kernels/benes.py` `benes_stages`, each subnetwork through `benes_route`
-  (the hand-written kernel on a CUDA tensor, its plain version on a CPU
-  one). `route_masks` turns a plan back into its (2k-1, n) masks, for the
-  plain stage loop over the whole route.
+- `apply_route` runs such a plan through `kernels/benes.py` `benes_apply`,
+  one entry for the whole plan (the hand-written kernel's three passes on
+  a CUDA tensor, its plain version on a CPU one). `route_masks` turns a
+  plan back into its (2k-1, n) masks, for the plain stage loop over the
+  whole route.
 
 ``StaticRoute`` (the JAX package's partial-permutation wrapper) serves the
 SpGEMM path, which is not ported yet.
@@ -121,22 +121,10 @@ def apply_benes(v: torch.Tensor, masks: torch.Tensor, k: int) -> torch.Tensor:
 
 def apply_route(v: torch.Tensor, outer, packed, k: int) -> torch.Tensor:
     """Route v through a (outer, packed) plan from `plan_route_arrays`;
-    returns a new tensor. The route kernel takes each packed network, the
-    global-pass entry the outer stages."""
-    from .benes import benes_route, benes_stages
+    returns a new tensor. k < 7 (no packed network): the plain stage loop;
+    else the route kernel's one entry for the whole plan."""
+    from .benes import benes_apply
 
     if packed is None:
         return apply_benes(v, outer, k)
-    nsub_nets = packed.shape[0]
-    if nsub_nets == 1:
-        return benes_route(v, packed[0], k)
-    d = int(np.log2(nsub_nets))
-    kc = k - d
-    strides = benes_strides(k)
-    S = len(strides)
-    out = benes_stages(v, outer[:d], strides[:d])
-    nsub = 1 << kc
-    for h in range(nsub_nets):
-        part = out[h * nsub : (h + 1) * nsub]
-        benes_route(part, packed[h], kc, out=part)
-    return benes_stages(out, outer[d:], strides[S - d :], out=out)
+    return benes_apply(v, outer, packed, k)

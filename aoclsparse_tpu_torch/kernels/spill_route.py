@@ -14,6 +14,9 @@ Contracts (``csrc/spill_route.cu``, built by ``kernels/build.py``), over
   c < blk_start[b + 1]) whose tile acc_cid[c] is below n_real,
   contrib[1024 acc_cid[c] + s] added at row acc_idx[c, s]. The JAX
   package's trailing zero tile (acc_cid == n_real) is skipped, not read.
+  The kernel sums each run of equal rows in a chunk by a segmented scan
+  and adds it once; on chunks whose rows are sorted (every plan of
+  planner/spill_route.py) it gives the same bits on every call.
 
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises. `oh_select.launches` / `oh_accum.launches` count launches. Both

@@ -9,7 +9,8 @@ failure (exit code != 0, no result line):
 
 1. require a CUDA card; print nvidia-smi's name and power limit;
 2. build the kernels from aoclsparse_tpu_torch/csrc with nvcc (sm_90a) and
-   the host C++ library with g++; require that the latter loads;
+   the host C++ library with g++; require that the latter loads, and that
+   -Xptxas -v gives the route and accumulate kernels no stack frame;
 3. hold each kernel instance against its plain PyTorch version:
    - the band kernel on the bench operand (m = n = 262144, 64 nnz/row,
      half-bandwidth 64, seed 7, built as bench.py:220-233) in f32, bf16
@@ -42,7 +43,12 @@ failure (exit code != 0, no result line):
      seed 7: m = 1,000,005, about 3.1M nnz; planned through its handle by
      optimize), on one stripe of the whole-matrix route of the scatter
      operand (m = 262,144, the diagonal plus 8 uniform random columns a
-     row, seed 23), on a small ragged case and on a k = 7 route;
+     row, seed 23), on a small ragged case and on a k = 7 route, each route
+     in its scheduled launches (three for k = 21) and each accumulate
+     repeated bit for bit; a k = 22 route, also with its passes capped at
+     96 KB of shared memory (passes A and C split); the accumulate on a hot
+     row (1,500 entries across a y block's two chunks, row 0 at the head)
+     and on chunks whose rows are out of order;
    - the band GEMM kernel (SpGEMM numeric stage) in f32 and f64 on the band
      plan of the cant stand-in's A.A (benchmarks/realmat.py:105, copied
      here, seed 7: m = 62,469, 4,108,752 nnz; G = 128, WA = WB = 560,
@@ -115,8 +121,10 @@ failure (exit code != 0, no result line):
    one CG iteration, one ilu_smoother call and one ILU0-PCG iteration with
    CUDA events or the host clock (median of repeats), with stream rates
    against the card's published HBM peak, and the set-up seconds of
-   ilu0_factorize; the spill-route engine against the gather +
-   index_add_ tail, the webbase band kernel alone, mv on the webbase and
+   ilu0_factorize; the route and the accumulate also cold (after writing
+   a 128 MiB buffer) beside their library calls; the spill-route engine
+   against the gather + index_add_ tail (call and device time), the webbase
+   band kernel alone, mv on the webbase and
    scatter operands with a profiler window each (device time by kernel,
    idle share), and one permuted-space CG iteration; the band GEMM kernel
    against its plain version and cuSPARSE SpGEMM (torch.sparse CSR @ CSR),
@@ -165,8 +173,9 @@ from aoclsparse_tpu_torch.kernels.band_tiles import (
     band_spmv_tiles_plain,
     spmv_bandt_tiles,
 )
-from aoclsparse_tpu_torch.kernels.benes import PASS_GROUP, TILE_LOG, benes_route, benes_route_plain
-from aoclsparse_tpu_torch.kernels.route import apply_benes, apply_route, pack_masks, route_masks
+from aoclsparse_tpu_torch.kernels import benes as benes_mod
+from aoclsparse_tpu_torch.kernels.benes import benes_apply, benes_apply_plain, benes_route, benes_route_plain, route_passes
+from aoclsparse_tpu_torch.kernels.route import apply_benes, apply_route, pack_masks, plan_route_arrays, route_masks
 from aoclsparse_tpu_torch.kernels.spill_route import oh_accum, oh_accum_plain, oh_select, oh_select_plain
 from aoclsparse_tpu_torch.kernels.spmm_band import (
     spmm_band,
@@ -708,16 +717,27 @@ def scatter_operand(m=262144, per_row=8, seed=23):
 
 
 def route_launches(sr):
-    """Launches of the route kernel in one apply of SpillRoute `sr`
-    (kernels/benes.py): per packed network of k_c stages, one shared-memory
-    launch and 2 ceil((k_c - TILE_LOG) / PASS_GROUP) global passes; the outer
-    stages of a k > 20 split in ceil(d / PASS_GROUP) passes on each side."""
+    """Launches of the route kernel in one apply of SpillRoute `sr`: one a
+    pass of kernels/benes.py route_passes over the whole plan (three where
+    k > TILE_LOG, one below)."""
     if sr.masks_packed is None:
         return 0
-    nets = int(sr.masks_packed.shape[0])
-    d = nets.bit_length() - 1
-    per_net = 1 + 2 * -(-max(0, sr.k - d - TILE_LOG) // PASS_GROUP)
-    return nets * per_net + 2 * -(-d // PASS_GROUP)
+    d = int(sr.masks_packed.shape[0]).bit_length() - 1
+    return len(route_passes(sr.k, d, smem=benes_mod.PASS_SMEM))
+
+
+def stack_frames(ptxas_log, names):
+    """{function: bytes of stack frame} from nvcc -Xptxas -v output, for
+    the kernels whose mangled name holds one of `names`."""
+    out, fn = {}, None
+    for line in ptxas_log.splitlines():
+        if "Function properties for" in line:
+            fn = line.rsplit(" ", 1)[-1]
+        elif fn is not None and "bytes stack frame" in line:
+            if any(nm in fn for nm in names):
+                out[fn] = int(line.split("bytes stack frame")[0].split()[-1])
+            fn = None
+    return out
 
 
 def route_desc(sr):
@@ -856,6 +876,25 @@ def cuda_ms(fn, reps=15, inner=10, warm=3, backlog=False):
         t1.synchronize()
         times.append(t0.elapsed_time(t1) / inner)
     return statistics.median(times)
+
+
+def cold_ms(fn, flush, reps=15):
+    """Median device time of one call right after `flush` (a buffer larger
+    than the 50 MB L2) is written, by CUDA events, each behind a device spin
+    that outlasts the host's enqueue of the flush and the call."""
+    fn()
+    torch.cuda.synchronize()
+    ev = []
+    for r in range(reps):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2 * SLEEP_CYCLES)
+        flush.fill_(float(r))
+        t0.record()
+        fn()
+        t1.record()
+        ev.append((t0, t1))
+    torch.cuda.synchronize()
+    return statistics.median(t0.elapsed_time(t1) for t0, t1 in ev)
 
 
 def profile_mv(name, call, calls=5, top=8):
@@ -1209,6 +1248,11 @@ def main() -> int:
         for line in ptxas.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("  ptxas:", line.strip())
+        # the route and accumulate kernels index no register array at run time
+        frames = stack_frames(ptxas.read_text(), ("benes_pass_kernel", "oh_accum_kernel"))
+        log(f"  stack frames of the route and accumulate kernels: {frames}")
+        if len(frames) != 2 or any(frames.values()):
+            raise AssertionError(f"route / accumulate kernels need a stack frame or were not found: {frames}")
     t0 = time.perf_counter()
     # a numpy ILU0 at this size would stand in silently: require the C++ one
     if not native.available():
@@ -1427,14 +1471,26 @@ def main() -> int:
     # the spill-route kernels: on the webbase stand-in's gen spill (through
     # its handle, planned by optimize), on one stripe of the scatter
     # operand's whole-matrix route, and on a small ragged case
-    def check_route_kernels(label, sr, xv, yv):
+    def check_route_kernels(label, sr, xv, yv, sorted_rows=True):
+        """Select, route (in route_launches launches), accumulate, each
+        against its plain version; on a plan with row-sorted chunks (every
+        plan of the planner) the accumulate's two calls give the same bits."""
         contrib = oh_select(xv, sr.sel_idx, sr.sel_val, sr.sel_blk, n_out=sr.n)
         compare("oh_select_f32", label, contrib, oh_select_plain(xv, sr.sel_idx, sr.sel_val, sr.sel_blk, sr.n), errs)
+        c0 = benes_route.launches["f32"]
         routed = apply_route(contrib, sr.masks, sr.masks_packed, sr.k)
-        compare("benes_route_f32", f"{label} (k={sr.k})", routed,
+        done = benes_route.launches["f32"] - c0
+        compare("benes_route_f32", f"{label} (k={sr.k}, {done} launches)", routed,
                 apply_benes(contrib, route_masks(sr.masks, sr.masks_packed, sr.k), sr.k), errs)
+        if done != route_launches(sr):
+            raise AssertionError(f"{label}: {done} route launches, want {route_launches(sr)}")
         args = (sr.acc_idx, sr.acc_cid, sr.acc_start, sr.n_acc_tiles, yv)
-        compare("oh_accum_f32", label, oh_accum(routed, *args), oh_accum_plain(routed, *args), errs)
+        got = oh_accum(routed, *args)
+        compare("oh_accum_f32", label, got, oh_accum_plain(routed, *args), errs)
+        if sorted_rows:
+            if not torch.equal(oh_accum(routed, *args), got):
+                raise AssertionError(f"oh_accum_f32 {label}: two calls on a row-sorted plan differ")
+            log(f"  oh_accum_f32 {label}: two calls bit-equal")
 
     t0 = time.perf_counter()
     wm, _wn, wptr, wind, wval = webbase_1m(np.random.default_rng(7))
@@ -1496,6 +1552,44 @@ def main() -> int:
     compare("benes_route_f32", "k=7 random permutation", got7, benes_route_plain(v7, p7, 7), errs)
     if not torch.equal(got7.cpu(), v7.cpu()[torch.from_numpy(src7)]):
         raise AssertionError("benes_route_f32 k=7: the route does not realise its permutation")
+    # one above the path's largest route: k = 22 (outer stages around four
+    # packed subnetworks) in its scheduled launches, and again with the
+    # passes' shared memory capped at 96 KB, which splits passes A and C
+    k22 = 22
+    src22 = rrng.permutation(1 << k22)
+    t0 = time.perf_counter()
+    o22, p22 = (torch.from_numpy(a).to(dev) for a in plan_route_arrays(k22, native.benes_plan(k22, src22)))
+    v22 = torch.from_numpy(rrng.standard_normal(1 << k22).astype(np.float32)).to(dev)
+    log(f"  k=22 route plan: {time.perf_counter() - t0:.2f} s")
+    want22 = benes_apply_plain(v22, o22, p22, k22)
+    for cap in (benes_mod.PASS_SMEM, 96 * 1024):
+        saved, benes_mod.PASS_SMEM = benes_mod.PASS_SMEM, cap
+        try:
+            c0 = benes_route.launches["f32"]
+            got22 = benes_apply(v22, o22, p22, k22)
+            done = benes_route.launches["f32"] - c0
+        finally:
+            benes_mod.PASS_SMEM = saved
+        compare("benes_route_f32", f"k=22 random permutation, passes within {cap} B ({done} launches)", got22,
+                want22, errs)
+        if done != len(route_passes(k22, 2, smem=cap)) or (cap < saved) != (done > 3):
+            raise AssertionError(f"benes_route_f32 k=22: {done} launches within {cap} B of shared memory")
+    if not torch.equal(got22.cpu(), v22.cpu()[torch.from_numpy(src22)]):
+        raise AssertionError("benes_route_f32 k=22: the route does not realise its permutation")
+    del o22, p22, v22, want22, got22
+    # the accumulate on a hot row: block 0 holds 40 entries of row 0 (the
+    # pad tail's row) at its head and 1,500 of row 17 across its two chunks;
+    # and on chunks whose rows are out of order (a row in several runs)
+    hot = np.sort(np.r_[np.zeros(40, np.int64), np.full(1500, 17), rrng.integers(18, 1024, 100),
+                        rrng.integers(1024, 5000, 3000)])
+    unsorted = rrng.integers(0, 6000, 5000)
+    for label, rows_, m_, sorted_rows in (("hot row", hot, 5000, True), ("rows out of order", unsorted, 6000, False)):
+        sr_ = build_spill_route(rows_, rrng.integers(0, m_, rows_.size),
+                                torch.from_numpy(rrng.standard_normal(rows_.size).astype(np.float32)).to(dev), m_)
+        if label == "hot row" and int(sr_.acc_start[1] - sr_.acc_start[0]) != 2:
+            raise AssertionError("the hot-row case must give y block 0 two chunks")
+        check_route_kernels(label, sr_, torch.from_numpy(rrng.standard_normal(m_).astype(np.float32)).to(dev),
+                            torch.from_numpy(rrng.standard_normal(m_).astype(np.float32)).to(dev), sorted_rows)
 
     # the band GEMM kernel on the band plans of four products A.A
     t0 = time.perf_counter()
@@ -2185,11 +2279,47 @@ def main() -> int:
     # v in and out, the masks once ((8 + ceil((2k-1)/8)) 2^k B for one packed network)
     route_bytes = 2 * nbytes(contrib) + nbytes(sr.masks_packed) + (0 if sr.masks is None else nbytes(sr.masks))
     note("benes_route_f32", route_bytes, route_bytes, 0, lambda: contrib[perm])
-    del masks_full, perm, acc_rows, acc_vals, y_lib
+    # cold: a gen mv streams its 2.9 GB band between two routes, so the
+    # route's and the accumulate's operands come from device memory, not L2
+    flush = torch.empty(COLD_VALUES, dtype=torch.float32, device=dev)
+    for kernel, kern, lib_fn in (
+        ("benes_route_f32", lambda: apply_route(contrib, sr.masks, sr.masks_packed, sr.k), lambda: contrib[perm]),
+        ("oh_accum_f32", lambda: oh_accum(routed, *acc_args), lambda: y_lib.index_add_(0, acc_rows, acc_vals)),
+    ):
+        t_cold, t_cold_lib = cold_ms(kern, flush), cold_ms(lib_fn, flush)
+        log(f"  {kernel} cold (after writing {nbytes(flush) / 2**20:.0f} MiB): kernel {t_cold:.4f} ms, library "
+            f"{t_cold_lib:.4f} ms; warm kernel {ms[kernel]:.4f} ms, library {lib[kernel]:.4f} ms; bound "
+            f"{bounds[kernel][0]:.4f} ms")
+    # the route's passes one at a time (in place), their sum against the
+    # whole route (the gaps between its launches), a pass of one stage (its
+    # load and store phases alone) and a plain copy of v
+    w_ = contrib.clone()
+    d_ = int(sr.masks_packed.shape[0]).bit_length() - 1
+    full = route_passes(sr.k, d_, smem=benes_mod.PASS_SMEM)
+    one = benes_mod.RoutePass(full[0].c, full[0].blo, full[0].bhi, full[0].rows[:1], ((full[0].stages[0][0], 0, 0),),
+                              (0,))
+    pass_ms = {}
+    try:
+        for label, sub in [(f"pass {i}", (p_,)) for i, p_ in enumerate(full)] + [("one stage, one mask row", (one,))]:
+            benes_mod.route_passes = lambda *_a, _s=sub, **_k: _s
+            pass_ms[label] = (cuda_ms(lambda: benes_apply(w_, sr.masks, sr.masks_packed, sr.k, out=w_), backlog=True),
+                              cold_ms(lambda: benes_apply(w_, sr.masks, sr.masks_packed, sr.k, out=w_), flush))
+    finally:
+        benes_mod.route_passes = route_passes
+    t_copy = cuda_ms(lambda: contrib.clone(), backlog=True)
+    log(f"  benes_route_f32 by pass (warm / cold ms): "
+        + "; ".join(f"{k_} {w:.4f} / {c_:.4f}" for k_, (w, c_) in pass_ms.items())
+        + f"; sum of the passes {sum(pass_ms[f'pass {i}'][0] for i in range(len(full))):.4f} warm against the "
+        f"route's {ms['benes_route_f32']:.4f}; v.clone() {t_copy:.4f}")
+    del masks_full, perm, acc_rows, acc_vals, y_lib, flush, w_
     t_engine = cuda_ms(lambda: spill_route_apply(xs_d, ys_d, sr))
     t_tail = cuda_ms(lambda: ys_d.clone().index_add_(0, wform.sp_rows, wform.sp_val * xs_d[wform.sp_ind]))
-    log(f"  webbase spill of {n_spill} entries: select + route + accumulate {t_engine:.4f} ms vs the gather + "
-        f"index_add_ tail {t_tail:.4f} ms (the port's path below the gate)")
+    d_engine = cuda_ms(lambda: spill_route_apply(xs_d, ys_d, sr), backlog=True)
+    d_tail = cuda_ms(lambda: ys_d.clone().index_add_(0, wform.sp_rows, wform.sp_val * xs_d[wform.sp_ind]),
+                     backlog=True)
+    log(f"  webbase spill of {n_spill} entries: select + route + accumulate {t_engine:.4f} ms a call "
+        f"({d_engine:.4f} ms device time, {route_launches(sr) + 2} launches) vs the gather + index_add_ tail "
+        f"{t_tail:.4f} ms a call ({d_tail:.4f} ms device time; the port's path below the gate)")
     t_wband = cuda_ms(lambda: band_spmv(wform.bwd_val, xs_d, wform.bandt_start, wform.bwd_padL))
     wband_bytes = nbytes(wform.bwd_val)
     log(f"  webbase band (W={wform.bwd_W}, {wband_bytes / 1e9:.3f} GB): band kernel {t_wband:.4f} ms = "

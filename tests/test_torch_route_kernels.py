@@ -13,9 +13,9 @@ Tolerances:
 - the select is one f32 multiply a slot (the Pallas kernel pins HIGHEST
   precision so its one-hot pick is exact): bit-equal;
 - the accumulate sums a row's contributions in another order than the
-  one-hot contraction (and, on the card, in shared-memory atomics whose
-  order changes from run to run): utils/tolerances.py's f32 model,
-  expected_precision(float32) on max |a - b| / max(|b|, 1).
+  one-hot contraction (on the card, a segmented scan of each run of equal
+  rows): utils/tolerances.py's f32 model, expected_precision(float32) on
+  max |a - b| / max(|b|, 1).
 """
 
 import dataclasses
@@ -27,7 +27,7 @@ import torch
 from aoclsparse_tpu_torch import native
 from aoclsparse_tpu_torch.interop import spill_route_from_jax
 from aoclsparse_tpu_torch.kernels import route as troute
-from aoclsparse_tpu_torch.kernels.benes import benes_route, benes_route_plain, benes_stages, benes_stages_plain
+from aoclsparse_tpu_torch.kernels.benes import benes_apply, benes_apply_plain, benes_route, benes_route_plain, route_passes
 from aoclsparse_tpu_torch.kernels.spill_route import oh_accum, oh_accum_plain, oh_select, oh_select_plain
 from aoclsparse_tpu_torch.planner.spill_route import build_spill_route, spill_route_apply
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
@@ -242,9 +242,10 @@ def test_cuda_select_and_accum_match_plain(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [7, 12, 13, 16])
+@pytest.mark.parametrize("k", [7, 12, 13, 16, 20])
 def test_cuda_benes_matches_plain(cuda, k):
-    """k <= 12: one shared-memory launch; k > 12: global passes around it."""
+    """k <= 13: one tile pass; k > 13: passes A and C around it (three
+    launches); in place too; and a split plan through the same entry."""
     rng = np.random.default_rng(300 + k)
     n = 1 << k
     src = rng.permutation(n)
@@ -257,15 +258,20 @@ def test_cuda_benes_matches_plain(cuda, k):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), v.cpu()[torch.from_numpy(src)])
-    assert benes_route.launches["f32"] - c0 == 1 + 2 * -(-max(0, k - 12) // 4)
+    assert benes_route.launches["f32"] - c0 == len(route_passes(k)) == (1 if k <= 13 else 3)
     # in place
     w = v.clone()
     benes_route(w, packed, k, out=w)
     assert torch.equal(w, want)
-    # unpacked stages through the global-pass entry
-    rows = torch.from_numpy(masks[:5].copy()).to(cuda)
-    strides = troute.benes_strides(k)[:5]
-    assert torch.equal(benes_stages(v, rows, strides), benes_stages_plain(v, rows, strides))
+    # the same permutation split as a k > FUSED_MAX_K plan: outer stages and
+    # two packed subnetworks, in one entry
+    if k >= 8:
+        d = 1
+        outer = np.concatenate([masks[:d], masks[2 * k - 1 - d :]])
+        mid = masks[d : 2 * k - 1 - d]
+        sub = np.stack([troute.pack_masks(mid[:, h * (n >> d) : (h + 1) * (n >> d)]) for h in range(2)])
+        o, p = torch.from_numpy(outer).to(cuda), torch.from_numpy(sub).to(cuda)
+        assert torch.equal(benes_apply(v, o, p, k), benes_apply_plain(v, o, p, k))
 
 
 @pytest.mark.cuda
