@@ -8,7 +8,8 @@ Contract (``csrc/spmv_bwd.cu``, built by ``kernels/build.py``):
 plus the peel spill: sp_val[e] * x[sp_ind[e]] added into row sp_rows[e].
 ``win`` is the (nblk, 8, W) row-major group-window band of the JAX
 package's ``bwd`` form (its layout kept, so its form arrays feed the kernel
-unchanged); x indices outside [0, n) contribute 0, which is the JAX
+unchanged; both planners round W up to a multiple of 8, which the kernel's
+16-byte loads need and the wrapper checks); x indices outside [0, n) contribute 0, which is the JAX
 package's left-padded x (``padL``) without the copy. Instances: band f32 /
 x f32, band bf16 / x f32 (mixed precision), band f64 / x f64; y is
 float32, or float64 for f64.
@@ -86,6 +87,8 @@ def _check(win: torch.Tensor, x: torch.Tensor, base8: int, padL: int, m: int):
         )
     if win.dim() != 3 or win.shape[1] != G or x.dim() != 1:
         raise AoclSparseError(Status.invalid_size, f"band must be (nblk, {G}, W) and x (n,)")
+    if win.shape[2] % 8:
+        raise AoclSparseError(Status.invalid_size, f"W={win.shape[2]} is not a multiple of 8, as the planner makes it")
     if m > win.shape[0] * G or m < 0:
         raise AoclSparseError(Status.invalid_size, f"m={m} outside the band's {win.shape[0] * G} rows")
     if padL < 0 or 8 * base8 < 0:
@@ -130,6 +133,8 @@ def spmv_bwd(win, x, base8: int, padL: int, m: int, sp_val=None, sp_ind=None, sp
         return spmv_bwd_plain(win, x, base8, padL, m, sp_val, sp_ind, sp_rows)
     if win.device.type != "cuda":
         raise AoclSparseError(Status.not_implemented, f"no bwd kernel for {win.device}")
+    if win.data_ptr() % 16:
+        raise AoclSparseError(Status.invalid_value, "the kernel reads the band in 16-byte loads: align its start")
     if spilled:
         if sp_gptr is None or sp_gptr.shape[0] != win.shape[0] + 1:
             raise AoclSparseError(Status.invalid_value, "a spill on the card needs its (nblk + 1,) group pointer")

@@ -4,12 +4,15 @@
 the peel spill.
 
 Contract, over ``dt`` = `ExecForm.band_mxu_dt` (kernels/spmm_band.py
-`band_mxu_blocks`; W <= 129):
+`band_mxu_blocks`; zero outside 0 <= c - s < W, W <= 129):
 
-    y[128k + s] = sum_{c < 256} dt[k, c, s] * x[start + 128k + c - padL],   128k + s < m
+    y[128k + s] = sum_{0 <= c - s < W, c < 256} dt[k, c, s] * x[start + 128k + c - padL],   128k + s < m
 
-x indices outside [0, n) contribute 0. Instances: dt f32 with x f32, and
-dt bf16 with x rounded to bf16 before the product (as the JAX kernel's
+which is the sum over all 256 window rows, since the windows hold zeros
+outside the parallelogram; the kernel reads only the window rows that meet
+a row's band. A caller with no band width at hand passes W = 256. x
+indices outside [0, n) contribute 0. Instances: dt f32 with x f32, and dt
+bf16 with x rounded to bf16 before the product (as the JAX kernel's
 ``xq.astype(dt.dtype)``); y and the sums are float32.
 
 It replaces the JAX package's ``pallas_spmv_band_mxu``
@@ -47,13 +50,13 @@ def _entry(symbol: str):
     fn = _fns.get(symbol)
     if fn is None:
         fn = getattr(load_library(), symbol)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return fn
 
 
-def _check(dt: torch.Tensor, x: torch.Tensor, start: int, padL: int, m: int):
+def _check(dt: torch.Tensor, x: torch.Tensor, start: int, padL: int, m: int, W: int):
     inst = _INSTANCES.get(dt.dtype)
     if inst is None or x.dtype != torch.float32:
         raise AoclSparseError(
@@ -63,6 +66,8 @@ def _check(dt: torch.Tensor, x: torch.Tensor, start: int, padL: int, m: int):
         raise AoclSparseError(
             Status.invalid_size, f"want dt (nblk, 256, 128) covering m={m} and x (n,), got {tuple(dt.shape)}"
         )
+    if not 1 <= W <= 256:
+        raise AoclSparseError(Status.invalid_size, f"band width W={W} outside [1, 256]")
     if start < 0 or padL < 0:
         raise AoclSparseError(Status.invalid_value, f"start={start} padL={padL} must be >= 0")
     if dt.device != x.device:
@@ -88,21 +93,23 @@ def spmv_band_mxu_plain(dt: torch.Tensor, x: torch.Tensor, start: int, padL: int
     return (dt.float() * wins[:, :, None]).sum(1).reshape(-1)[:m]
 
 
-def spmv_band_mxu(dt: torch.Tensor, x: torch.Tensor, start: int, padL: int, m: int) -> torch.Tensor:
-    """y = (block windows dt) @ x by the contract above, rows [0, m): the
-    plain version on a CPU tensor, one kernel launch on a CUDA tensor
-    (current stream, not synchronised)."""
-    name, symbol = _check(dt, x, start, padL, m)
+def spmv_band_mxu(dt: torch.Tensor, x: torch.Tensor, start: int, padL: int, m: int, W: int) -> torch.Tensor:
+    """y = (block windows dt) @ x by the contract above, rows [0, m), over
+    windows of band width W: the plain version on a CPU tensor, one kernel
+    launch on a CUDA tensor (current stream, not synchronised)."""
+    name, symbol = _check(dt, x, start, padL, m, W)
     if dt.device.type == "cpu":
         return spmv_band_mxu_plain(dt, x, start, padL, m)
     if dt.device.type != "cuda":
         raise AoclSparseError(Status.not_implemented, f"no block-window SpMV kernel for {dt.device}")
+    if dt.data_ptr() % 16:
+        raise AoclSparseError(Status.invalid_value, "the kernel reads the windows in 16-byte loads: align their start")
     y = torch.empty(m, dtype=torch.float32, device=x.device)
     if m == 0:
         return y
     with torch.cuda.device(x.device):
         rc = _entry(symbol)(
-            dt.data_ptr(), x.data_ptr(), y.data_ptr(), dt.shape[0], m, x.shape[0], start, padL,
+            dt.data_ptr(), x.data_ptr(), y.data_ptr(), dt.shape[0], m, x.shape[0], start, padL, W,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
@@ -114,8 +121,8 @@ def spmv_band_mxu(dt: torch.Tensor, x: torch.Tensor, start: int, padL: int, m: i
 spmv_band_mxu.launches = {name: 0 for name, _sym in _INSTANCES.values()}
 
 
-def spmv_bandmxu(dt, x, sp_val, sp_ind, sp_rows, start: int, padL: int, m: int) -> torch.Tensor:
-    """A band form's product through its block windows: one kernel launch,
-    then the planner's peel spill as a scatter-add of sp_val * x[sp_ind]
-    into sp_rows, on the same stream."""
-    return add_spill(spmv_band_mxu(dt, x, start, padL, m), x, sp_val, sp_ind, sp_rows)
+def spmv_bandmxu(dt, x, sp_val, sp_ind, sp_rows, start: int, padL: int, m: int, W: int) -> torch.Tensor:
+    """A band form's product through its block windows (W: the form's
+    bwd_W): one kernel launch, then the planner's peel spill as a
+    scatter-add of sp_val * x[sp_ind] into sp_rows, on the same stream."""
+    return add_spill(spmv_band_mxu(dt, x, start, padL, m, W), x, sp_val, sp_ind, sp_rows)

@@ -10,20 +10,26 @@ failure (exit code != 0, no result line):
 1. require a CUDA card; print nvidia-smi's name and power limit;
 2. build the kernels from aoclsparse_tpu_torch/csrc with nvcc (sm_90a) and
    the host C++ library with g++; require that the latter loads, and that
-   -Xptxas -v gives the route and accumulate kernels no stack frame;
+   -Xptxas -v gives the route, accumulate, block-window and group-window
+   kernels no stack frame and no spills (their registers logged);
 3. hold each kernel instance against its plain PyTorch version:
    - the band kernel on the bench operand (m = n = 262144, 64 nnz/row,
      half-bandwidth 64, seed 7, built as bench.py:220-233) in f32, bf16
      band and f64, and on a small odd-m operand with a peel spill in f32
      and f64;
    - the group-window kernel (mv KID 5) on the bench operand's bwd form
-     (its peel spill added in the launch) and on the small odd-m operand,
-     whose windows start left of column 0, in f32, bf16 band and f64;
+     (W = 136, its peel spill added in the launch), on the small odd-m
+     operand (W = 40), whose windows start left of column 0, and on a
+     W = 8 form, in f32, bf16 band and f64, each called twice for the
+     same bits;
    - the tile-major band kernels (one CTA a tile; persistent, cp.async
      double-buffered) on the bench bandt form's tile-major band (TM = 256)
-     and the block-window SpMV on its block windows, in f32 and bf16, and
-     on the small odd-m form's with start > 0 and padL > 0 (the last tile
-     and block ragged); the streaming-read probe on the bench band slab
+     and the block-window SpMV on its block windows at the form's band
+     width, in f32 and bf16, and on the small odd-m form's with start > 0
+     and padL > 0 (the last tile and block ragged); the block-window SpMV
+     also at W = 256 on the bench windows and on random windows at W = 1
+     and 129, each at its band width called twice for the same bits;
+     the streaming-read probe on the bench band slab
      (128, 262144) and on a 128 MiB buffer (bench.py:291), also against a
      float64 sum;
    - the band SpMM kernel on the bench operand's bandtm form at K = 64 in
@@ -132,9 +138,11 @@ failure (exit code != 0, no result line):
    the host seconds of the symbolic stage and of the band relayout; a
    finalize of Q.Q on the device expansion engine against the host engine
    (pinned) and cuSPARSE SpGEMM; the group-window kernel in each instance
-   against its plain version and cuSPARSE CSR @ x, and one mv(kid=5) call
-   and one mv call on each format's handle; the tile-major kernels and the
-   block-window SpMV against their plain version and cuSPARSE CSR @ x; the
+   against its plain version and cuSPARSE CSR @ x, warm and cold (after
+   writing a 128 MiB buffer), and one mv(kid=5) call and one mv call on
+   each format's handle; the tile-major kernels and the block-window SpMV
+   against their plain version and cuSPARSE CSR @ x (the block windows
+   warm and cold, their bound over the parallelogram they need); the
    read probe on the 128 MiB buffer and on the band slab against its plain
    version and torch.sum.
 
@@ -178,6 +186,7 @@ from aoclsparse_tpu_torch.kernels.benes import benes_apply, benes_apply_plain, b
 from aoclsparse_tpu_torch.kernels.route import apply_benes, apply_route, pack_masks, plan_route_arrays, route_masks
 from aoclsparse_tpu_torch.kernels.spill_route import oh_accum, oh_accum_plain, oh_select, oh_select_plain
 from aoclsparse_tpu_torch.kernels.spmm_band import (
+    band_mxu_blocks,
     spmm_band,
     spmm_band_mxu,
     spmm_band_mxu_plain,
@@ -437,6 +446,20 @@ def bwd_desc(form):
     return (f"m={form.m} nblk={form.bwd_val.shape[0]} W={form.bwd_W} window start {form.bwd_rel} "
             f"base8={form.bwd_base8} padL={form.bwd_padL} spilled={form.sp_ind.numel() if form.has_spill else 0} "
             f"band {nbytes(form.bwd_val) / 1e6:.1f} MB")
+
+
+def diagonal_operand(m=8193, n_far=10, seed=29):
+    """The diagonal plus n_far far entries: a bwd form of W = 8 whose far
+    entries the planner peels into a spill (past 4096 entries, and under
+    0.25 % of them): (ptr, ind, val f64, x f64)."""
+    rng = np.random.default_rng(seed)
+    fr = rng.integers(0, m, n_far)
+    fc = (fr + rng.integers(m // 4, m // 2, n_far)) % m
+    d = np.arange(m)
+    S = sp.csr_matrix((rng.standard_normal(m + n_far), (np.r_[d, fr], np.r_[d, fc])), shape=(m, m))
+    S.sum_duplicates()
+    S.sort_indices()
+    return S.indptr.astype(np.int64), S.indices.astype(np.int32), S.data, rng.standard_normal(m)
 
 
 def spd_operand(ptr, ind, val, m):
@@ -726,18 +749,21 @@ def route_launches(sr):
     return len(route_passes(sr.k, d, smem=benes_mod.PASS_SMEM))
 
 
-def stack_frames(ptxas_log, names):
-    """{function: bytes of stack frame} from nvcc -Xptxas -v output, for
-    the kernels whose mangled name holds one of `names`."""
+def ptxas_resources(ptxas_log, names):
+    """{function: (bytes of stack frame, of spill stores, of spill loads,
+    registers)} from nvcc -Xptxas -v output, for the kernels whose mangled
+    name holds one of `names`."""
     out, fn = {}, None
     for line in ptxas_log.splitlines():
         if "Function properties for" in line:
             fn = line.rsplit(" ", 1)[-1]
+            fn = fn if any(nm in fn for nm in names) else None
         elif fn is not None and "bytes stack frame" in line:
-            if any(nm in fn for nm in names):
-                out[fn] = int(line.split("bytes stack frame")[0].split()[-1])
+            out[fn] = [int(t) for t in line.replace(",", " ").split() if t.isdigit()][:3] + [None]
+        elif fn is not None and "Used" in line and "registers" in line:
+            out[fn][3] = int(line.split("Used")[1].split()[0])
             fn = None
-    return out
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def route_desc(sr):
@@ -808,6 +834,16 @@ def compare(kernel, label, got, want, errs):
     log(f"  {kernel} {label}: max rel err {rel:.3e} (tol {tol:.3e}) max abs {abs_err:.3e}")
     if not rel <= tol:
         raise AssertionError(f"{kernel} {label}: kernel disagrees with its plain version")
+
+
+def same_bits(kernel, label, call):
+    """Two calls of a kernel: the same bits (a fixed sum order, no atomics).
+    Returns the first result."""
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{kernel} {label}: two calls differ")
+    return a
 
 
 def check_mv(name, got, ref, tol):
@@ -1172,7 +1208,7 @@ def measurement_path(ptr, ind, val, x, ref, dev, trace_dir):
         for kernel, call, roundings in (
             (f"band_spmv_tiles_{inst}", lambda: spmv_bandt_tiles(vt3, x, *spill, *args), 1),
             (f"band_spmv_tiles_dbuf_{inst}", lambda: spmv_bandt_tiles(vt3, x, *spill, *args, dbuf=True), 1),
-            (f"spmv_band_mxu_{inst}", lambda: spmv_bandmxu(dt, x, *spill, *args), 2),  # x rounds too
+            (f"spmv_band_mxu_{inst}", lambda: spmv_bandmxu(dt, x, *spill, *args, form.bwd_W), 2),  # x rounds too
         ):
             y = counted(kernel, call, dict(none, **{kernel: 1}))
             if inst == "f32":
@@ -1194,7 +1230,9 @@ def measurement_path(ptr, ind, val, x, ref, dev, trace_dir):
         **{f"band_spmv_tiles_{i}": (lambda v=v: band_spmv_tiles(v, x, *args), nbytes(v) + io) for i, v in tiles.items()},
         **{f"band_spmv_tiles_dbuf_{i}": (lambda v=v: band_spmv_tiles_dbuf(v, x, *args), nbytes(v) + io)
            for i, v in tiles.items()},
-        **{f"spmv_band_mxu_{i}": (lambda d=d: spmv_band_mxu(d, x, *args), nbytes(d) + io) for i, d in wins.items()},
+        # the windows' parallelogram, the bytes the kernel needs
+        **{f"spmv_band_mxu_{i}": (lambda d=d: spmv_band_mxu(d, x, *args, form.bwd_W),
+                                  d.shape[0] * 128 * form.bwd_W * d.element_size() + io) for i, d in wins.items()},
         "stream_read_f32": (lambda: stream_read(slab), nbytes(slab)),
     }
     for kernel, (fn, moved) in timed.items():
@@ -1243,16 +1281,20 @@ def main() -> int:
     lib = build.build_library()
     build.load_library()
     log(f"build: {time.perf_counter() - t0:.2f} s -> {lib.name}")
-    ptxas = lib.with_suffix(".log")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log("  ptxas:", line.strip())
-        # the route and accumulate kernels index no register array at run time
-        frames = stack_frames(ptxas.read_text(), ("benes_pass_kernel", "oh_accum_kernel"))
-        log(f"  stack frames of the route and accumulate kernels: {frames}")
-        if len(frames) != 2 or any(frames.values()):
-            raise AssertionError(f"route / accumulate kernels need a stack frame or were not found: {frames}")
+    ptxas = lib.with_suffix(".log").read_text()
+    for line in ptxas.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log("  ptxas:", line.strip())
+    # the route, accumulate, block-window and group-window kernels index no
+    # register array at run time: no stack frame, no spills
+    names = ("benes_pass_kernel", "oh_accum_kernel", "spmv_mxu_kernel", "spmv_bwd_kernel")
+    res = ptxas_resources(ptxas, names)
+    for fn, (frame, stores, loads, regs) in sorted(res.items()):
+        short = next(fn[fn.index(nm):] for nm in names if nm in fn)[:48]
+        log(f"  {short}: {regs} registers, {frame} bytes stack frame, {stores} / {loads} bytes spill stores / loads")
+    missing = [nm for nm in names if not any(nm in fn for fn in res)]
+    if missing or any(any(v[:3]) for v in res.values()):
+        raise AssertionError(f"kernels with a stack frame or spills, or not found ({missing}): {res}")
     t0 = time.perf_counter()
     # a numpy ILU0 at this size would stand in silently: require the C++ one
     if not native.available():
@@ -1295,8 +1337,10 @@ def main() -> int:
     del f64
 
     # the group-window kernel on the bench operand's bwd form (its peel
-    # spill added in the launch), and on the small odd-m operand, whose
-    # windows start left of column 0 (padL > 0)
+    # spill added in the launch), on the small odd-m operand, whose windows
+    # start left of column 0 (padL > 0), and on a W = 8 form; no W here is a
+    # multiple of 32 (136, 40, 8), so a row's last vectors leave lanes idle;
+    # each twice, for the same bits
     bwd32 = bandt_form(ptr, ind, val, dev, kind="bwd")
     log(f"  bench bwd form: {bwd_desc(bwd32)}")
     if not bwd32.has_spill:
@@ -1306,16 +1350,22 @@ def main() -> int:
     for kernel, form, band, xv in (("spmv_bwd_f32", bwd32, bwd32.bwd_val, x32),
                                    ("spmv_bwd_bf16", bwd32, bwd_bf, x32),
                                    ("spmv_bwd_f64", bwd64, bwd64.bwd_val, x64)):
-        compare(kernel, "bench", spmv_bwd(band, xv, *bwd_args(form)), plain_bwd(band, xv, form), errs)
+        compare(kernel, "bench", same_bits(kernel, "bench", lambda: spmv_bwd(band, xv, *bwd_args(form))),
+                plain_bwd(band, xv, form), errs)
     del bwd64
+    dptr, dind, dval, dx = diagonal_operand()
     for inst, dt in (("f32", np.float32), ("bf16", np.float32), ("f64", np.float64)):
-        sf = bandt_form(sptr, sind, sval.astype(dt), dev, kind="bwd")
-        if not (sf.has_spill and sf.m % 2 == 1 and sf.bwd_padL > 0):
-            raise AssertionError(f"small bwd form must be odd-m with a spill and padL > 0: {bwd_desc(sf)}")
-        band = sf.band_bf16() if inst == "bf16" else sf.bwd_val
-        xs = torch.from_numpy(sx.astype(dt)).to(dev)
-        compare(f"spmv_bwd_{inst}", f"small odd-m, window left of column 0 ({bwd_desc(sf)})",
-                spmv_bwd(band, xs, *bwd_args(sf)), plain_bwd(band, xs, sf), errs)
+        for (pp, ii, vv, xx), want_W in (((sptr, sind, sval, sx), 40), ((dptr, dind, dval, dx), 8)):
+            sf = bandt_form(pp, ii, vv.astype(dt), dev, kind="bwd")
+            if not (sf.has_spill and sf.m % 2 == 1 and sf.bwd_W == want_W and (want_W == 8 or sf.bwd_padL > 0)):
+                raise AssertionError(f"small bwd form must be odd-m with a spill, W={want_W} (and padL > 0 "
+                                     f"for W=40): {bwd_desc(sf)}")
+            band = sf.band_bf16() if inst == "bf16" else sf.bwd_val
+            xs = torch.from_numpy(xx.astype(dt)).to(dev)
+            label = f"small odd-m{', window left of column 0' if sf.bwd_padL else ''} ({bwd_desc(sf)})"
+            compare(f"spmv_bwd_{inst}", label,
+                    same_bits(f"spmv_bwd_{inst}", label, lambda: spmv_bwd(band, xs, *bwd_args(sf))),
+                    plain_bwd(band, xs, sf), errs)
 
     # the tile-major kernels and the block-window SpMV on the bench bandt
     # form's tile-major band and block windows, and on the small odd-m
@@ -1331,15 +1381,31 @@ def main() -> int:
     small = (f"small odd-m (m={sf.m}, W={sf.bwd_W}, start={sargs[0]}, padL={sargs[1]}, "
              f"{s_tiles['f32'].shape[0]} tiles of {TM_TILES}, {s_wins['f32'].shape[0]} blocks)")
     log(f"  bench tile-major band {tuple(tiles['f32'].shape)}, block windows {tuple(wins['f32'].shape)}")
+    # the block windows at the forms' band widths, twice for the same bits;
+    # the bench windows again as a caller with no band width passes them
+    # (W = 256); random windows at W = 1 and W = 129 (the widest a window
+    # holds) on an odd m with start > 0 and padL > 0
+    rng = np.random.default_rng(31)
     for inst in ("f32", "bf16"):
-        for label, vt3, dt_, xv, a in (("bench", tiles[inst], wins[inst], x32, (*args32, m)),
-                                       (small, s_tiles[inst], s_wins[inst], xs, sargs)):
+        for label, vt3, dt_, xv, a, Wd in (("bench", tiles[inst], wins[inst], x32, (*args32, m), f32.bwd_W),
+                                           (small, s_tiles[inst], s_wins[inst], xs, sargs, sf.bwd_W)):
             compare(f"band_spmv_tiles_{inst}", label, band_spmv_tiles(vt3, xv, *a),
                     band_spmv_tiles_plain(vt3, xv, *a), errs)
             compare(f"band_spmv_tiles_dbuf_{inst}", label, band_spmv_tiles_dbuf(vt3, xv, *a),
                     band_spmv_tiles_plain(vt3, xv, *a), errs)
-            compare(f"spmv_band_mxu_{inst}", label, spmv_band_mxu(dt_, xv, *a), spmv_band_mxu_plain(dt_, xv, *a), errs)
-    del sf, s_tiles, s_wins, xs
+            kernel = f"spmv_band_mxu_{inst}"
+            compare(kernel, f"{label}, W={Wd}", same_bits(kernel, label, lambda: spmv_band_mxu(dt_, xv, *a, Wd)),
+                    spmv_band_mxu_plain(dt_, xv, *a), errs)
+        compare(kernel, "bench, W=256", spmv_band_mxu(wins[inst], x32, *args32, m, 256),
+                spmv_band_mxu_plain(wins[inst], x32, *args32, m), errs)
+        for Wr in (1, 129):
+            vt_r = torch.from_numpy(rng.standard_normal((4099, Wr)).astype(np.float32)).to(dev)
+            dt_r = band_mxu_blocks(vt_r, Wr)
+            dt_r = dt_r.to(torch.bfloat16) if inst == "bf16" else dt_r
+            label = f"random windows W={Wr} (m=4099, start=3, padL=5)"
+            compare(kernel, label, same_bits(kernel, label, lambda: spmv_band_mxu(dt_r, xs, 3, 5, 4099, Wr)),
+                    spmv_band_mxu_plain(dt_r, xs, 3, 5, 4099), errs)
+    del sf, s_tiles, s_wins, xs, vt_r, dt_r
     cold = torch.from_numpy(np.random.default_rng(7).standard_normal(COLD_VALUES).astype(np.float32)).to(dev)
     for label, v in ((f"band slab {tuple(f32.bwd_val.shape)}", f32.bwd_val), ("128 MiB buffer", cold)):
         got = stream_read(v)
@@ -2058,7 +2124,8 @@ def main() -> int:
     def note(kernel, nbytes_, need, flops, lib_fn=None, lib_kw=None, need_flops=None):
         """Record the kernel's bound and its library yardstick; log them.
         nbytes_ counts the stored operands once each, zero padding included
-        (the bound_ms of the kernels line); need counts only their nonzero
+        (the block windows: their parallelogram), the bound_ms of the
+        kernels line; need counts only their nonzero
         entries, the function's own bytes, logged beside it, with
         need_flops (default flops) the operations on those entries."""
         inst = kernel.rsplit("_", 1)[1]
@@ -2090,8 +2157,22 @@ def main() -> int:
         note(kernel, nbytes(vt, xv) + m * xv.element_size(), nz_bytes(vt, xv) + m * xv.element_size(),
              2 * vt.numel(), lib_fn)
     del f64
+    flush = torch.empty(COLD_VALUES, dtype=torch.float32, device=dev)
+
+    def cold_note(kernel, kern, lib_fn, need):
+        """The kernel and its library call cold (after writing the 128 MiB
+        flush buffer, as the main path's other operands evict it), beside
+        their warm times and the rate of the `need` bytes."""
+        t_k = cold_ms(kern, flush)
+        t_l = cold_ms(lib_fn, flush) if lib_fn is not None else None
+        lib_s = f"{t_l:.4f} ms" if t_l is not None else "none"
+        log(f"  {kernel} cold (after writing {nbytes(flush) / 2**20:.0f} MiB): kernel {t_k:.4f} ms = "
+            f"{need / t_k / 1e6:.1f} GB/s of the {need / 1e6:.1f} MB it needs, library {lib_s}; warm kernel "
+            f"{ms[kernel]:.4f} ms = {need / ms[kernel] / 1e6:.1f} GB/s; bound {bounds[kernel][0]:.4f} ms")
+
     # the group-window kernel on the bench bwd form, against the same CSR
-    # products; the bf16 instance has no library call of its function
+    # products; the bf16 instance has no library call of its function;
+    # warm and cold
     bwd64 = bandt_form(ptr, ind, val.astype(np.float64), dev, kind="bwd")
     for kernel, form, band, xv, lib_fn in (("spmv_bwd_f32", bwd32, bwd32.bwd_val, x32, lambda: A32 @ x32),
                                            ("spmv_bwd_bf16", bwd32, bwd_bf, x32, None),
@@ -2104,22 +2185,44 @@ def main() -> int:
         # zeros included) or its nonzeros only
         io = nbytes(xv, form.sp_val, form.sp_ind, form.sp_rows, form.sp_gptr) + m * xv.element_size()
         note(kernel, nbytes(band) + io, nz_bytes(band) + io, 2 * band.numel() + 2 * form.sp_ind.numel(), lib_fn)
+        cold_note(kernel, lambda: spmv_bwd(band, xv, *bargs), lib_fn, nbytes(band) + io)
     del bwd64
     # the tile-major kernels and the block-window SpMV on the bench form's
     # operands, against the same CSR product (no library call computes a
-    # bf16 band's product with f32 x); the block windows' zero triangles are
-    # stored bytes and operations the kernel does
+    # bf16 band's product with f32 x). The tile-major bound counts the
+    # stored band; the block-window bound counts the windows' parallelogram
+    # 0 <= c - s < W (128 W values a block), the bytes and operations the
+    # function needs of them, beside (logged) the stored windows' bound,
+    # whose zero triangles the TPU kernel reads and multiplies
     io = nbytes(x32) + m * 4
+    Wm = f32.bwd_W
     for inst in ("f32", "bf16"):
         lib_fn = (lambda: A32 @ x32) if inst == "f32" else None
-        for kernel, kern, plain, op in ((f"band_spmv_tiles_{inst}", band_spmv_tiles, band_spmv_tiles_plain, tiles[inst]),
-                                        (f"band_spmv_tiles_dbuf_{inst}", band_spmv_tiles_dbuf, band_spmv_tiles_plain,
-                                         tiles[inst]),
-                                        (f"spmv_band_mxu_{inst}", spmv_band_mxu, spmv_band_mxu_plain, wins[inst])):
-            turns(kernel, lambda: kern(op, x32, *args32, m), lambda: plain(op, x32, *args32, m))
+        for kernel, op in ((f"band_spmv_tiles_{inst}", tiles[inst]), (f"band_spmv_tiles_dbuf_{inst}", tiles[inst])):
+            kern = band_spmv_tiles if "dbuf" not in kernel else band_spmv_tiles_dbuf
+            turns(kernel, lambda: kern(op, x32, *args32, m), lambda: band_spmv_tiles_plain(op, x32, *args32, m))
             log(f"  {kernel}: operand stream {nbytes(op) / ms[kernel] / 1e6:.1f} GB/s "
                 f"({nbytes(op) / ms[kernel] / 1e6 / peak:.3f} of peak {peak} GB/s)")
             note(kernel, nbytes(op) + io, nz_bytes(op) + io, 2 * op.numel(), lib_fn)
+        kernel, op = f"spmv_band_mxu_{inst}", wins[inst]
+        turns(kernel, lambda: spmv_band_mxu(op, x32, *args32, m, Wm), lambda: spmv_band_mxu_plain(op, x32, *args32, m))
+        para = op.shape[0] * 128 * Wm  # values of the parallelogram
+        need = para * op.element_size() + io
+        stored_ms, stored_by = bound_of(nbytes(op) + io, 2 * op.numel(), inst, peak)
+        log(f"  {kernel}: parallelogram stream {para * op.element_size() / ms[kernel] / 1e6:.1f} GB/s "
+            f"({para * op.element_size() / ms[kernel] / 1e6 / peak:.3f} of peak {peak} GB/s); the stored windows' "
+            f"bound {stored_ms:.4f} ms ({stored_by}; {nbytes(op) / 1e6:.1f} MB) = {stored_ms / ms[kernel]:.3f}")
+        note(kernel, need, nz_bytes(op) + io, 2 * para, lib_fn)
+        cold_note(kernel, lambda: spmv_band_mxu(op, x32, *args32, m, Wm), lib_fn, need)
+        # the same windows read as narrower or wider bands: W = 1 reads next
+        # to nothing, so its time is the launch's latency floor
+        sweep = {Ws: cuda_ms(lambda Ws=Ws: spmv_band_mxu(op, x32, *args32, m, Ws), backlog=True)
+                 for Ws in (1, 64, Wm, 256)}
+        log(f"  {kernel} warm by the band width it is told (the bench windows): "
+            + ", ".join(f"W={Ws} {t:.4f} ms" for Ws, t in sweep.items())
+            + f"; W={Wm} against W=64: {(para - op.shape[0] * 128 * 64) * op.element_size() / 1e6:.1f} MB more "
+            f"in {sweep[Wm] - sweep[64]:.4f} ms more")
+    del flush
     # the read probe: on the 128 MiB buffer (logged), then on the band slab
     # (the kernels line: the main path's operand); torch.sum is the yardstick
     t_cold = [cuda_ms(f, backlog=True) for f in (lambda: stream_read(cold), lambda: stream_read_plain(cold),

@@ -192,7 +192,7 @@ def test_measurement_path_matches_jax(jax_pallas):
         assert near_error(got.numpy(), want) <= TOL
         assert near_error(got.numpy(), ref) <= TOL
     want = np.asarray(jax_pallas.pallas_spmv_band_mxu(jform.band_mxu_dt(), xe, start, TM=256, interpret=True))[:m]
-    got = spmv_bandmxu(form.band_mxu_dt(), xt, *spill, start, padL, m)
+    got = spmv_bandmxu(form.band_mxu_dt(), xt, *spill, start, padL, m, W)
     assert near_error(got.numpy(), want + jspill) <= TOL
     assert near_error(got.numpy(), ref) <= TOL
 

@@ -275,12 +275,16 @@ def test_wrapper_rejects_bad_operands():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("inst", ["f32", "bf16", "f64"])
-@pytest.mark.parametrize("m,half_bw,n_far", [(4099, 40, 30), (262144, 64, 0)])
+@pytest.mark.parametrize("m,half_bw,n_far", [(4099, 40, 30), (262144, 64, 0), (4097, 0, 0)])
 def test_cuda_kernel_matches_plain(cuda, inst, m, half_bw, n_far):
+    """The kernel against its plain version, on a W = 8 form too (half_bw
+    0: the diagonal); a second call gives the same bits."""
     dt = np.float64 if inst == "f64" else np.float32
     S = _banded(21, m, half_bw, 8, n_far=n_far, dtype=dt)
     T = tt.create_csr(m, m, S.indptr, S.indices, S.data, device=cuda)
     form = tplan.get_plan(T).exec_form_for(GEN, NONE, kind="bwd")
+    if half_bw == 0:
+        assert form.bwd_W == 8
     band = form.bwd_val.to(torch.bfloat16) if inst == "bf16" else form.bwd_val
     x = torch.from_numpy(np.random.default_rng(22).standard_normal(m).astype(dt)).to(cuda)
     args = (form.bwd_base8, form.bwd_padL, m, form.sp_val, form.sp_ind, form.sp_rows)
@@ -290,6 +294,7 @@ def test_cuda_kernel_matches_plain(cuda, inst, m, half_bw, n_far):
     assert spmv_bwd.launches[inst] == before + 1
     want = spmv_bwd_plain(band, x, *args)
     assert near_error(got.cpu().numpy(), want.cpu().numpy()) <= (TOL64 if inst == "f64" else TOL32)
+    assert torch.equal(spmv_bwd(band, x, *args, form.sp_gptr), got)
 
 
 @pytest.mark.cuda

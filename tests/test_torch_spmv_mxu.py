@@ -66,7 +66,7 @@ def test_plain_matches_pallas_band_mxu(jax_pallas, W, m, n, start, padL, bf16):
     dt_j = jnp.asarray(dt_np, jnp.bfloat16 if bf16 else jnp.float32)
     xe = jnp.asarray(np.pad(x, (padL, 0)))
     want = np.asarray(jax_pallas.pallas_spmv_band_mxu(dt_j, xe, start, TM=256, interpret=True))[:m]
-    got = spmv_band_mxu(dt, torch.from_numpy(x), start, padL, m)
+    got = spmv_band_mxu(dt, torch.from_numpy(x), start, padL, m, W)
     assert got.dtype == torch.float32 and got.shape == (m,)
     assert near_error(got.numpy(), want) <= TOL
 
@@ -116,7 +116,7 @@ def test_band_mxu_dt_on_bandt_form_equals_jax(jax_pallas, bf16):
     xe = jnp.asarray(np.pad(x, (form.bwd_padL, 0)))
     y_j = np.asarray(jax_pallas.pallas_spmv_band_mxu(jform.band_mxu_dt(bf16=bf16), xe, form.bandt_start, TM=256,
                                                      interpret=True))[:m]
-    y = spmv_band_mxu(dt, torch.from_numpy(x), form.bandt_start, form.bwd_padL, m)
+    y = spmv_band_mxu(dt, torch.from_numpy(x), form.bandt_start, form.bwd_padL, m, form.bwd_W)
     assert near_error(y.numpy(), y_j) <= TOL
 
 
@@ -157,44 +157,50 @@ def test_wrapper_rejects_bad_operands():
     dt = torch.zeros(3, 256, 128)
     x = torch.zeros(384)
     with pytest.raises(AoclSparseError) as e:
-        spmv_band_mxu(dt.double(), x, 0, 0, 384)
+        spmv_band_mxu(dt.double(), x, 0, 0, 384, 129)
     assert e.value.status == Status.wrong_type
     with pytest.raises(AoclSparseError) as e:
-        spmv_band_mxu(dt, x.double(), 0, 0, 384)
+        spmv_band_mxu(dt, x.double(), 0, 0, 384, 129)
     assert e.value.status == Status.wrong_type
     with pytest.raises(AoclSparseError) as e:
-        spmv_band_mxu(torch.zeros(3, 128, 256), x, 0, 0, 384)
+        spmv_band_mxu(torch.zeros(3, 128, 256), x, 0, 0, 384, 129)
     assert e.value.status == Status.invalid_size
     with pytest.raises(AoclSparseError) as e:
-        spmv_band_mxu(dt, x, 0, 0, 385)
+        spmv_band_mxu(dt, x, 0, 0, 385, 129)
     assert e.value.status == Status.invalid_size
     with pytest.raises(AoclSparseError) as e:
-        spmv_band_mxu(dt, x, 0, -2, 384)
+        spmv_band_mxu(dt, x, 0, -2, 384, 129)
     assert e.value.status == Status.invalid_value
     with pytest.raises(AoclSparseError) as e:
-        spmv_band_mxu(dt, x.to("meta"), 0, 0, 384)
+        spmv_band_mxu(dt, x.to("meta"), 0, 0, 384, 129)
     assert e.value.status == Status.invalid_value
     with pytest.raises(AoclSparseError) as e:
-        spmv_band_mxu(dt, torch.zeros(768)[::2], 0, 0, 384)
+        spmv_band_mxu(dt, torch.zeros(768)[::2], 0, 0, 384, 129)
     assert e.value.status == Status.invalid_value
     with pytest.raises(AoclSparseError) as e:
         band_mxu_blocks(torch.zeros(300, 130), 130)
     assert e.value.status == Status.invalid_size
-    assert spmv_band_mxu(dt, x, 0, 0, 0).shape == (0,)
+    assert spmv_band_mxu(dt, x, 0, 0, 0, 129).shape == (0,)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("m,n,W,start,padL", [(700, 690, 129, 9, 0), (4099, 4099, 32, 3, 19),
-                                              (262144, 262144, 128, 0, 64)])
+                                              (262144, 262144, 128, 0, 64), (1001, 1010, 1, 4, 7)])
 def test_cuda_kernel_matches_plain(cuda, bf16, m, n, W, start, padL):
+    """The kernel over the windows' band width, and over W = 256 (a caller
+    with no band width), against the plain full-window product; a second
+    call gives the same bits."""
     vt, x = _band(m + W, W, m, n)
     dt = _windows(vt, W, bf16).to(cuda)
     x_d = torch.from_numpy(x).to(cuda)
     inst = "bf16" if bf16 else "f32"
     before = spmv_band_mxu.launches[inst]
-    got = spmv_band_mxu(dt, x_d, start, padL, m)
+    got = spmv_band_mxu(dt, x_d, start, padL, m, W)
     torch.cuda.synchronize()
     assert spmv_band_mxu.launches[inst] == before + 1
     want = spmv_band_mxu_plain(dt, x_d, start, padL, m)
     assert near_error(got.cpu().numpy(), want.cpu().numpy()) <= TOL
+    full = spmv_band_mxu(dt, x_d, start, padL, m, 256)
+    assert near_error(full.cpu().numpy(), want.cpu().numpy()) <= TOL
+    assert torch.equal(spmv_band_mxu(dt, x_d, start, padL, m, W), got)
