@@ -10,9 +10,11 @@ of row blocks of nb rows,
 with D_k the dense (nb, nb) diagonal block and Lwin_k the dense (nb, WL)
 window of the block's left-of-diagonal entries. Upper triangles solve on
 reversed indices (reversing rows and columns turns U into L), applied to
-the structure on the host. Each form inverts its diagonal blocks once on
-the device, so a solve is one launch of the window-solve kernel
-(kernels/trsv_win.py, csrc/trsv_win.cu), with one right-hand side or many.
+the structure on the host. Each form inverts its diagonal blocks once per
+values on the device and, on the card, builds the kernels' window products
+(kernels/trsv_win.py `win_solve_operands`) once per values too, so a solve
+is one call of the window-solve kernels (kernels/trsv_win.py,
+csrc/trsv_win.cu), with one right-hand side or many.
 
 Structure work is host numpy (or the host C++ builder, native/), once per
 (triangle, operation, nb); every value-dependent array keeps scatter maps
@@ -44,7 +46,7 @@ from ..core.types import (
     to_torch_dtype,
 )
 from ..kernels.trsv_win import DTYPES as SOLVE_DTYPES
-from ..kernels.trsv_win import trsm_win, trsv_win
+from ..kernels.trsv_win import WinSolveOps, trsm_win, trsv_win, win_solve_operands
 from .plan import CleanCSR, EffectiveCSR, Plan, _dev_index, build_effective_csr
 
 __all__ = [
@@ -127,6 +129,8 @@ class TrsvForm:
     #: lazy kernel operands (dinvT, lwT): the inverted diagonal blocks and
     #: the windows, transposed to the kernel's row-vector layout
     _ops: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    #: lazy card operands of the kernels (`win_solve_operands` of _ops)
+    _solve_ops: Optional[WinSolveOps] = None
 
     @property
     def m_pad(self) -> int:
@@ -136,7 +140,7 @@ class TrsvForm:
         """Refill D and Lval from a value vector over the form's source
         space (a tensor, or a host array), by a scatter on the device; the
         kernel operands derive from them and drop."""
-        self._ops = None
+        self._ops = self._solve_ops = None
         dev = self.device
         v = values if isinstance(values, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(values))
         v = v.to(dev)
@@ -155,19 +159,28 @@ class TrsvForm:
             self._ops = (dinvT, self.Lval.transpose(1, 2).contiguous())
         return self._ops
 
+    def solve_ops(self) -> WinSolveOps:
+        """The card's operands of the kernels besides dinvT (P, and for a
+        grouped solve F), built once per form and dropped by `refresh`:
+        planner work once per values, like the diagonal-block inversion."""
+        if self._solve_ops is None:
+            self._solve_ops = win_solve_operands(*self.operands(), self.nb, self.WL)
+        return self._solve_ops
+
     def solve(self, r: torch.Tensor) -> torch.Tensor:
         """Solve on a padded (m_pad,) or (m_pad, k) right-hand side in block
-        order: one launch of the window-solve kernel on a CUDA tensor, its
-        plain version on a CPU one. A single column takes the single-RHS
-        kernel and wider ones the multi-RHS kernel, as the JAX package
-        splits them (planner/triangular.py:145-208)."""
+        order: the window-solve kernels on a CUDA tensor, their plain
+        version on a CPU one (which builds no card operands). A single
+        column takes the single-RHS solve and wider ones the multi-RHS
+        solve, as the JAX package splits them (planner/triangular.py:145-208)."""
         dinvT, lwT = self.operands()
         r = r.to(dinvT.dtype)
+        ops = self.solve_ops() if r.device.type == "cuda" else None
         if r.dim() == 1:
-            return trsv_win(dinvT, lwT, r.contiguous(), self.nb, self.WL)
+            return trsv_win(dinvT, lwT, r.contiguous(), self.nb, self.WL, ops)
         if r.shape[1] == 1:
-            return trsv_win(dinvT, lwT, r[:, 0].contiguous(), self.nb, self.WL)[:, None]
-        return trsm_win(dinvT, lwT, r.contiguous(), self.nb, self.WL)
+            return trsv_win(dinvT, lwT, r[:, 0].contiguous(), self.nb, self.WL, ops)[:, None]
+        return trsm_win(dinvT, lwT, r.contiguous(), self.nb, self.WL, ops)
 
 
 def _reverse_structure(eff: EffectiveCSR) -> EffectiveCSR:

@@ -10,8 +10,9 @@ failure (exit code != 0, no result line):
 1. require a CUDA card; print nvidia-smi's name and power limit;
 2. build the kernels from aoclsparse_tpu_torch/csrc with nvcc (sm_90a) and
    the host C++ library with g++; require that the latter loads, and that
-   -Xptxas -v gives the route, accumulate, block-window and group-window
-   kernels no stack frame and no spills (their registers logged);
+   -Xptxas -v gives the route, accumulate, block-window, group-window and
+   window-solve (passes A, B, C) kernels no stack frame and no spills (their
+   registers logged);
 3. hold each kernel instance against its plain PyTorch version:
    - the band kernel on the bench operand (m = n = 262144, 64 nnz/row,
      half-bandwidth 64, seed 7, built as bench.py:220-233) in f32, bf16
@@ -38,12 +39,17 @@ failure (exit code != 0, no result line):
    - the diagonal kernel on the 27-point stencil of HPCG's default local
      grid (104^3: m = 1,124,864, 29,791,000 nnz; hpcg.dat) at K = 64 in
      f32, bf16 and f64, and on a small odd-m operand with negative offsets;
-   - the window-solve kernels on the ILU0 L and U forms of the SPD operand
-     (the bench profile symmetrised plus a Gershgorin diagonal shift,
-     25,296,970 nnz; nb = 256, WL = 64, nblk = 1024) in f32 and f64, with
-     one right-hand side and with K = 16, and on a small odd-m form whose
-     window reaches back over several blocks (K = 300 for the multi-RHS
-     kernel: several column chunks);
+   - the window-solve kernels (pass A, the chain, grouped on these forms,
+     and pass C, over dinvT, P = lwT @ dinvT and F) on the ILU0 L and U
+     forms of the SPD operand (the bench profile symmetrised plus a
+     Gershgorin diagonal shift, 25,296,970 nnz; nb = 256, WL = 64,
+     nblk = 1024) in f32 and f64, with one right-hand side and with K = 16,
+     logging how much the far part of a group (v F_j, j >= a + 2) weighs
+     there; on operands of the same shape whose tails have a spectral norm
+     of 0.95 (the far part weighs, and must), where a zeroed F must fail
+     the comparison; and on a small odd-m form whose window reaches back
+     over several blocks (the plain chain; K = 300 for the multi-RHS
+     solve: several column chunks), each called twice for the same bits;
    - the spill-route kernels (select, Benes route, accumulate) on the spill
      route of the webbase-1M stand-in's gen form (benchmarks/realmat.py,
      seed 7: m = 1,000,005, about 3.1M nnz; planned through its handle by
@@ -79,7 +85,8 @@ failure (exit code != 0, no result line):
    an (m, 16) b, checked by the residual of L (U x) = b with the port's own
    factors; and pcg_solve(precond="ilu0") and ("sgs"), each in fewer
    iterations than with none, with a true relative residual <= 1e-5 and
-   the launch counts the composition implies;
+   the launch counts the composition implies (a window solve: its passes'
+   launches, kernels/trsv_win.py solve_launches);
 5b. the general-structure path, counted on its own: mv on the webbase
    stand-in (default: gen with its spill on the route; kid=7; alpha/beta;
    the mixed bf16 band; mv_operator in permuted space; update_values and a
@@ -126,8 +133,11 @@ failure (exit code != 0, no result line):
    entries only); one mv call, one mm call per operand, one trsm call,
    one CG iteration, one ilu_smoother call and one ILU0-PCG iteration with
    CUDA events or the host clock (median of repeats), with stream rates
-   against the card's published HBM peak, and the set-up seconds of
-   ilu0_factorize; the route and the accumulate also cold (after writing
+   against the card's published HBM peak, the window solves' passes by a
+   profiler window (each launch's device time, bytes and rate, the chains'
+   time a step) beside the same solve with the plain chain, and the
+   set-up seconds of ilu0_factorize, of the diagonal-block inversion and of
+   P and F; the route and the accumulate also cold (after writing
    a 128 MiB buffer) beside their library calls; the spill-route engine
    against the gather + index_add_ tail (call and device time), the webbase
    band kernel alone, mv on the webbase and
@@ -156,6 +166,8 @@ measurement path's kernels' from 5e). The second-to-last line is
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import json
 import statistics
 from pathlib import Path
@@ -182,6 +194,7 @@ from aoclsparse_tpu_torch.kernels.band_tiles import (
     spmv_bandt_tiles,
 )
 from aoclsparse_tpu_torch.kernels import benes as benes_mod
+from aoclsparse_tpu_torch.kernels import trsv_win as trsv_win_mod
 from aoclsparse_tpu_torch.kernels.benes import benes_apply, benes_apply_plain, benes_route, benes_route_plain, route_passes
 from aoclsparse_tpu_torch.kernels.route import apply_benes, apply_route, pack_masks, plan_route_arrays, route_masks
 from aoclsparse_tpu_torch.kernels.spill_route import oh_accum, oh_accum_plain, oh_select, oh_select_plain
@@ -199,11 +212,21 @@ from aoclsparse_tpu_torch.kernels.spmv_bwd import spmv_bwd, spmv_bwd_plain
 from aoclsparse_tpu_torch.kernels.spmv_mxu import spmv_band_mxu, spmv_band_mxu_plain, spmv_bandmxu
 from aoclsparse_tpu_torch.kernels.stream_read import stream_read, stream_read_plain
 from aoclsparse_tpu_torch.io import read_mtx, write_mtx
-from aoclsparse_tpu_torch.kernels.trsv_win import trsm_chunk, trsm_win, trsm_win_plain, trsv_win, trsv_win_plain
+from aoclsparse_tpu_torch.kernels.trsv_win import (
+    chain_group,
+    chain_plan,
+    solve_launches,
+    trsm_chunk,
+    trsm_win,
+    trsm_win_plain,
+    trsv_win,
+    trsv_win_plain,
+    win_solve_operands,
+)
 from aoclsparse_tpu_torch.ops.level2.mv import _spill_route_on
 from aoclsparse_tpu_torch.ops.level3.spgemm import _effective
 from aoclsparse_tpu_torch.planner.spill_route import build_spill_route, spill_route_apply
-from aoclsparse_tpu_torch.planner.triangular import trsv_form_for
+from aoclsparse_tpu_torch.planner.triangular import invert_diag_blocks, trsv_form_for
 from aoclsparse_tpu_torch.solvers.ilu import ilu0_factorize
 from aoclsparse_tpu_torch.utils import profiling
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
@@ -357,6 +380,7 @@ PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "f64": 67e12}
 K_MM = 64  # the SpMM right-hand sides of phases 3, 4 and 6
 K_SM = 16  # the trsm right-hand sides of phases 3, 5 and 6
 SEED_B = 23  # B of the SpMM phases
+SEED_STRONG = 31  # the window solves' strong-tail operands (phase 3)
 TM_TILES = 256  # the tile of the tile-major band (phases 3, 5e and 6)
 #: device spin a call ahead of a kernel's timed calls (cuda_ms backlog):
 #: about 0.2 ms at the H100's 1.98 GHz boost clock, more than the host takes
@@ -493,6 +517,46 @@ def wide_window_operand(m=3001, seed=13):
     S.sum_duplicates()
     S.sort_indices()
     return S.indptr.astype(np.int64), S.indices.astype(np.int32), S.data
+
+
+def strong_tail_operands(nblk, nb, WL, seed, dev, rho=0.95):
+    """Window-solve operands (Dinv lower triangular, lwT; f64 on dev) whose
+    tails T_k = P_k[:, nb - WL:] of P = lwT @ dinvT are rho Q_k, Q_k random
+    orthogonal (WL <= nb): ||T_k||_2 = rho, so a group's products keep
+    ||F_j|| = rho^(j-a+1) (0.19 after 32 blocks) and a fault in the far part
+    of a group shows. Dinv = I + small lower-triangular noise."""
+    g = torch.Generator().manual_seed(seed)
+    f64 = torch.float64
+    dinv = (torch.eye(nb, dtype=f64) + torch.tril(torch.randn(nblk, nb, nb, generator=g, dtype=f64)) * (0.3 / nb))
+    P = torch.randn(nblk, WL, nb, generator=g, dtype=f64) * (0.3 / WL)
+    P[:, :, nb - WL :] = rho * torch.linalg.qr(torch.randn(nblk, WL, WL, generator=g, dtype=f64))[0]
+    dinv, P = dinv.to(dev), P.to(dev)
+    # lwT dinvT = P: Dinv lwT^T = P^T
+    lwT = torch.linalg.solve_triangular(dinv, P.transpose(1, 2), upper=False).transpose(1, 2).contiguous()
+    return dinv, lwT
+
+
+def far_weight(ops, x, nb, WL):
+    """What the far part of a group adds in a grouped window solve: max |v F_j|
+    over the blocks j >= a + 2 of the groups after the first (a the group's
+    first block, v its window: the chain rows of block a - 1 in the solve x),
+    over max(max |x|, 1); 0 for a solve that is not grouped."""
+    s, nblk = ops.group, ops.P.shape[0]
+    if not s:
+        return 0.0
+    X = x.reshape(nblk, nb, -1).double()
+    j = torch.arange(s, nblk, device=x.device)
+    a = j // s * s
+    j, a = j[j - a >= 2], a[j - a >= 2]
+    far = (ops.F[j].double().transpose(1, 2) @ X[a - 1, nb - WL :]).abs().max()
+    return float(far) / max(float(X.abs().max()), 1.0)
+
+
+def tail_norm(ops, nb, WL, pick="max"):
+    """The largest (or, pick="min", the smallest) spectral norm of the
+    blocks' chain maps T_k = P_k[:, nb - min(WL, nb):]."""
+    T = ops.P[:, :, nb - min(WL, nb) :].double()
+    return float(getattr(torch.linalg.matrix_norm(T, ord=2), pick)())
 
 
 def stencil27(nx=104):
@@ -959,6 +1023,102 @@ def profile_mv(name, call, calls=5, top=8):
         log(f"    {t / calls:9.1f}  x{c // calls:<3d} {key[:90]}")
 
 
+def win_passes(kernel, call, form, K, itemsize, calls=5):
+    """One torch.profiler window over `calls` window solves: each launch's
+    device time a solve, in launch order (pass A; the chain, or for a
+    grouped solve pass L, the group chain and the fix-up F; pass C), the
+    chains' time a dependent step, and the bytes each pass reads and writes
+    with their rate: A dinvT's upper triangle, B and X; a chain its steps'
+    WL x R operand tails and R rows of X read and written a step; F the
+    prefix products, the windows and the rows; C P's other columns, the
+    windows and X's other rows."""
+    nblk, nb, WL = form.nblk, form.nb, form.WL
+    R = min(WL, nb)
+    r0 = nb - R
+    s = chain_group(nblk, nb, WL)
+    full = nblk // s if s else 0
+    nf = nblk - s - max(full - 1, 0) if s else 0  # blocks the fix-up F takes
+    # (label, kernel, values read and written, dependent steps)
+    passes = [("A", "win_block", (nblk * nb * (nb + 1) // 2 + 2 * nblk * nb * K), 0)]
+    passes.append(("L (each group's chain)" if s else "B (the chain)", "win_chain", nblk * WL * R + 2 * nblk * R * K,
+                   s or nblk))
+    if full >= 2:
+        passes.append(("G (the groups' chain)", "win_chain", full * WL * WL + 2 * full * R * K, full))
+    if s:
+        passes.append(("F (fix-up)", "win_fix", nf * (WL * WL + WL * K + 2 * R * K), 0))
+    if r0 and nblk > 1:
+        passes.append(("C", "win_fix", (nblk - 1) * (WL * r0 + WL * K + 2 * r0 * K), 0))
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    # the profiler may miss the window's first kernel: read the last calls - 1
+    # solves, and only if their kernels come in the launch order
+    ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "win_" in e.name),
+                key=lambda e: e.time_range.start)
+    calls -= 1
+    ev = ev[len(ev) - calls * len(passes):] if len(ev) >= calls * len(passes) else []
+    if not ev or any(passes[i % len(passes)][1] not in e.name for i, e in enumerate(ev)):
+        raise AssertionError(f"{kernel}: the profiler's kernels {[e.name[:40] for e in ev[:len(passes)]]} do not "
+                             f"match {calls} solves of the passes {[p[1] for p in passes]}")
+    plan = chain_plan(nb, WL, 1 if K == 1 else trsm_chunk(K, nb, WL, itemsize), itemsize)
+    log(f"  {kernel} passes (profiler, the last {calls} of {calls + 1} solves; "
+        f"{'groups of ' + str(s) + ' blocks' if s else 'plain chain'}; "
+        f"chain CTAs: {plan.threads} threads, {plan.kb} column(s), {plan.tg} slices, {plan.stages} stages of "
+        f"{-(-WL // plan.tt)} tile(s) a step):")
+    total_us = total_b = 0.0
+    for i, (label, _name, vals, steps) in enumerate(passes):
+        us = sum(ev[i + len(passes) * r].device_time for r in range(calls)) / calls
+        nbytes_ = vals * itemsize
+        total_us += us
+        total_b += nbytes_
+        log(f"    {label}: {us:.1f} us a solve, {nbytes_ / 1e6:.1f} MB, {nbytes_ / (us * 1e3):.1f} GB/s"
+            + (f"; {us / steps * 1e3:.1f} ns a step of {steps}" if steps else ""))
+    log(f"    design bytes {total_b / 1e6:.1f} MB a solve; device time {total_us:.1f} us, "
+        f"{total_b / (total_us * 1e3):.1f} GB/s")
+
+
+def plain_chain_note(kernel, call, form, calls=3):
+    """Log the plain-chain solve's device time and its chain's time a step
+    (profiler), beside the grouped solve's."""
+    t = cuda_ms(call, reps=5, inner=3, warm=1, backlog=True)
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    # the last calls - 1 chains: the profiler may miss the window's first kernel
+    chains = [e.device_time for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+              if e.device_type == torch.autograd.DeviceType.CUDA and "win_chain" in e.name][-(calls - 1):]
+    chain_us = sum(chains) / max(len(chains), 1)
+    log(f"  {kernel} with the plain chain (one chain of {form.nblk} steps): {t:.4f} ms a solve, the chain "
+        f"{chain_us:.1f} us = {chain_us / form.nblk * 1e3:.1f} ns a step (profiler)")
+
+
+def plain_chain_solve(dT, P, B, nb, WL):
+    """The window solve's launches with the plain chain (group 0: one chain
+    of nblk steps, no F) on the same operands: the yardstick that shows
+    what grouping the chain saves."""
+    nblk, K = dT.shape[0], (1 if B.dim() == 1 else B.shape[1])
+    kc = 1 if B.dim() == 1 else trsm_chunk(K, nb, WL, B.element_size())
+    plan = chain_plan(nb, WL, kc, B.element_size())
+    X = torch.empty_like(B)
+    fn = trsv_win_mod._entry("win_solve_f32" if B.dtype == torch.float32 else "win_solve_f64")
+    n = ctypes.c_int64(0)
+
+    def call():
+        rc = fn(dT.data_ptr(), P.data_ptr(), None, B.data_ptr(), X.data_ptr(), nblk, nb, WL, K, kc, 0, plan.tg,
+                plan.tt, plan.stages, torch.cuda.current_stream().cuda_stream, ctypes.addressof(n))
+        if rc:
+            raise RuntimeError(f"plain-chain window solve failed: CUDA error {rc}")
+        return X
+
+    return call
+
+
 def iteration_ms(solve, k_lo, k_hi, turns=3):
     """ms of one solver iteration: the difference of two fixed-length
     solves (rtol = 0) on the host clock, median of `turns`."""
@@ -1285,9 +1445,10 @@ def main() -> int:
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
-    # the route, accumulate, block-window and group-window kernels index no
-    # register array at run time: no stack frame, no spills
-    names = ("benes_pass_kernel", "oh_accum_kernel", "spmv_mxu_kernel", "spmv_bwd_kernel")
+    # the route, accumulate, block-window, group-window and window-solve
+    # kernels index no register array at run time: no stack frame, no spills
+    names = ("benes_pass_kernel", "oh_accum_kernel", "spmv_mxu_kernel", "spmv_bwd_kernel", "win_block_kernel",
+             "win_chain_kernel", "win_fix_kernel")
     res = ptxas_resources(ptxas, names)
     for fn, (frame, stores, loads, regs) in sorted(res.items()):
         short = next(fn[fn.index(nm):] for nm in names if nm in fn)[:48]
@@ -1429,32 +1590,82 @@ def main() -> int:
     torch.cuda.synchronize()
     t_factor = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ilu_ops = {"L": st.l_form.operands(), "U": st.u_form.operands()}
+    ilu_ops = {name: form.operands() + (form.solve_ops(),) for name, form in (("L", st.l_form), ("U", st.u_form))}
     torch.cuda.synchronize()
-    t_invert = time.perf_counter() - t0
+    t_ops = time.perf_counter() - t0
+    # the two parts of the forms' operand set-up, each timed again alone
+    t_invert = t_pset = 0.0
+    for form in (st.l_form, st.u_form):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        invert_diag_blocks(form.D)
+        torch.cuda.synchronize()
+        t_invert += time.perf_counter() - t0
+        dT, lT = form.operands()
+        t0 = time.perf_counter()
+        win_solve_operands(dT, lT, form.nb, form.WL)
+        torch.cuda.synchronize()
+        t_pset += time.perf_counter() - t0
     for name, form in (("L", st.l_form), ("U", st.u_form)):
         log(f"  ILU0 {name} form: nb={form.nb} WL={form.WL} nblk={form.nblk} "
             f"reversed={form.reversed_} unit={form.unit_diag} source={form._src_space}")
         if form._src_space != "clean":
             raise AssertionError("the ILU0 forms did not come from the native builder")
-    log(f"  ilu0_factorize (C++ IKJ + native form builds + upload) {t_factor:.2f} s; "
-        f"diagonal-block inversion (both factors) {t_invert:.2f} s")
+    log(f"  ilu0_factorize (C++ IKJ + native form builds + upload) {t_factor:.2f} s; the forms' kernel operands "
+        f"(both factors) {t_ops:.2f} s: diagonal-block inversion {t_invert:.3f} s, P = lwT @ dinvT and F "
+        f"{t_pset:.3f} s (each timed alone)")
     wrng = np.random.default_rng(17)
     bw = torch.from_numpy(wrng.standard_normal(st.l_form.m_pad).astype(np.float32)).to(dev)
     bw_m = torch.from_numpy(wrng.standard_normal((st.l_form.m_pad, K_SM)).astype(np.float32)).to(dev)
+    # each window solve against its plain version, and bit-equal on a second
+    # call; the f64 instance on the f32 form's operands in f64, with its own
+    # card operands
     for name, form in (("L", st.l_form), ("U", st.u_form)):
-        dT, lT = ilu_ops[name]
-        label = f"ILU0 {name} (nb={form.nb}, WL={form.WL}, nblk={form.nblk})"
-        compare("trsv_win_f32", label, trsv_win(dT, lT, bw, form.nb, form.WL),
-                trsv_win_plain(dT, lT, bw, form.nb, form.WL), errs)
-        compare("trsm_win_f32", f"{label} K={K_SM}", trsm_win(dT, lT, bw_m, form.nb, form.WL),
-                trsm_win_plain(dT, lT, bw_m, form.nb, form.WL), errs)
+        dT, lT, ops = ilu_ops[name]
+        nb_, WL_ = form.nb, form.WL
+        label = f"ILU0 {name} (nb={nb_}, WL={WL_}, nblk={form.nblk})"
+        got = same_bits("trsv_win_f32", label, lambda: trsv_win(dT, lT, bw, nb_, WL_, ops))
+        compare("trsv_win_f32", label, got, trsv_win_plain(dT, lT, bw, nb_, WL_), errs)
+        log(f"  {label}: the far part of a group (v F_j, j >= a + 2) weighs {far_weight(ops, got, nb_, WL_):.3e} "
+            f"of max |x| in the f32 solve; largest tail norm ||T_k||_2 {tail_norm(ops, nb_, WL_):.3e}")
+        compare("trsm_win_f32", f"{label} K={K_SM}",
+                same_bits("trsm_win_f32", label, lambda: trsm_win(dT, lT, bw_m, nb_, WL_, ops)),
+                trsm_win_plain(dT, lT, bw_m, nb_, WL_), errs)
         dT, lT, b64, bm64 = dT.double(), lT.double(), bw.double(), bw_m.double()
-        compare("trsv_win_f64", label, trsv_win(dT, lT, b64, form.nb, form.WL),
-                trsv_win_plain(dT, lT, b64, form.nb, form.WL), errs)
-        compare("trsm_win_f64", f"{label} K={K_SM}", trsm_win(dT, lT, bm64, form.nb, form.WL),
-                trsm_win_plain(dT, lT, bm64, form.nb, form.WL), errs)
-        del dT, lT, b64, bm64
+        ops = win_solve_operands(dT, lT, nb_, WL_)
+        compare("trsv_win_f64", label,
+                same_bits("trsv_win_f64", label, lambda: trsv_win(dT, lT, b64, nb_, WL_, ops)),
+                trsv_win_plain(dT, lT, b64, nb_, WL_), errs)
+        compare("trsm_win_f64", f"{label} K={K_SM}",
+                same_bits("trsm_win_f64", label, lambda: trsm_win(dT, lT, bm64, nb_, WL_, ops)),
+                trsm_win_plain(dT, lT, bm64, nb_, WL_), errs)
+        del dT, lT, ops, b64, bm64
+    # the same shape with tails of spectral norm 0.95: the far part of each
+    # group weighs, and a zeroed F must fail the comparison
+    fL = st.l_form
+    sdinv, slwT = strong_tail_operands(fL.nblk, fL.nb, fL.WL, SEED_STRONG, dev)
+    for inst, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        dT, lT = sdinv.transpose(1, 2).contiguous().to(dt), slwT.to(dt)
+        ops = win_solve_operands(dT, lT, fL.nb, fL.WL)
+        bs, bsm = bw.to(dt), bw_m.to(dt)
+        label = f"strong tails (nb={fL.nb}, WL={fL.WL}, nblk={fL.nblk}, ||T_k||_2 >= {tail_norm(ops, fL.nb, fL.WL, 'min'):.4f})"
+        got = same_bits(f"trsv_win_{inst}", label, lambda: trsv_win(dT, lT, bs, fL.nb, fL.WL, ops))
+        compare(f"trsv_win_{inst}", label, got, trsv_win_plain(dT, lT, bs, fL.nb, fL.WL), errs)
+        far = far_weight(ops, got, fL.nb, fL.WL)
+        log(f"  {label}: the far part of a group weighs {far:.3e} of max |x|")
+        if not far >= 100 * KERNEL_TOL["trsv_win_f32"]:
+            raise AssertionError(f"strong-tail operands: the far part of a group weighs only {far:.3e}")
+        compare(f"trsm_win_{inst}", f"{label} K={K_SM}",
+                same_bits(f"trsm_win_{inst}", label, lambda: trsm_win(dT, lT, bsm, fL.nb, fL.WL, ops)),
+                trsm_win_plain(dT, lT, bsm, fL.nb, fL.WL), errs)
+        if inst == "f32":
+            bad = trsv_win(dT, lT, bs, fL.nb, fL.WL, dataclasses.replace(ops, F=torch.zeros_like(ops.F)))
+            err = near_error(bad.double().cpu().numpy(), got.double().cpu().numpy())
+            log(f"  {label}: with F zeroed (a planted fault) max rel err {err:.3e}")
+            if not err > 10 * KERNEL_TOL["trsv_win_f32"]:
+                raise AssertionError("strong-tail operands: a zeroed F passes the comparison")
+        del dT, lT, ops, bs, bsm
+    del sdinv, slwT
     wptr, wind, wval = wide_window_operand()
     for inst, dt in (("f32", np.float32), ("f64", np.float64)):
         Wh = tt.create_csr(len(wptr) - 1, len(wptr) - 1, wptr, wind, wval.astype(dt), device="cuda")
@@ -1462,17 +1673,20 @@ def main() -> int:
         if not (wf.WL > wf.nb and wf.m % 2 == 1):
             raise AssertionError(f"small form must be odd-m with WL > nb, got m={wf.m} WL={wf.WL}")
         dT, lT = wf.operands()
+        ops = wf.solve_ops()
         bs = torch.from_numpy(wrng.standard_normal(wf.m_pad).astype(dt)).to(dev)
         label = f"small odd-m (m={wf.m}, nb={wf.nb}, WL={wf.WL}, nblk={wf.nblk})"
-        compare(f"trsv_win_{inst}", label, trsv_win(dT, lT, bs, wf.nb, wf.WL),
+        compare(f"trsv_win_{inst}", label,
+                same_bits(f"trsv_win_{inst}", label, lambda: trsv_win(dT, lT, bs, wf.nb, wf.WL, ops)),
                 trsv_win_plain(dT, lT, bs, wf.nb, wf.WL), errs)
         kc = trsm_chunk(300, wf.nb, wf.WL, bs.element_size())
         if not 300 > kc > 0:
             raise AssertionError(f"K=300 must need several column chunks, got chunk {kc}")
         bs = torch.from_numpy(wrng.standard_normal((wf.m_pad, 300)).astype(dt)).to(dev)
         compare(f"trsm_win_{inst}", f"{label} K=300 ({-(-300 // kc)} chunks of {kc})",
-                trsm_win(dT, lT, bs, wf.nb, wf.WL), trsm_win_plain(dT, lT, bs, wf.nb, wf.WL), errs)
-    del Wh, wf, dT, lT, bs
+                same_bits(f"trsm_win_{inst}", label, lambda: trsm_win(dT, lT, bs, wf.nb, wf.WL, ops)),
+                trsm_win_plain(dT, lT, bs, wf.nb, wf.WL), errs)
+    del Wh, wf, dT, lT, ops, bs
 
     # the SpMM kernels on the bench operand's bandtm form
     Bm = torch.from_numpy(np.random.default_rng(SEED_B).standard_normal((n, K_MM)).astype(np.float32)).to(dev)
@@ -1827,9 +2041,9 @@ def main() -> int:
         if not (np.isfinite(true_res) and true_res <= res_tol):
             raise AssertionError(f"CG precond={precond}: true residual above tolerance")
         # one band launch per matvec (+ the initial residual); a
-        # preconditioner adds two window solves and, for SGS, its
-        # strict-lower mv
-        want_sv = 0 if precond is None else 2 * k
+        # preconditioner adds two window solves (each its passes' launches,
+        # five on these grouped forms) and, for SGS, its strict-lower mv
+        want_sv = 0 if precond is None else sv_launches[precond] * k
         if nb_l != band_per_iter * k + 1 or ns_l != want_sv:
             raise AssertionError(
                 f"CG precond={precond} launched {nb_l} band / {ns_l} trsv kernels in {k} iterations, "
@@ -1838,6 +2052,10 @@ def main() -> int:
         iters[precond] = k
 
     log(f"  SPD operand W={cform.bwd_W}")
+    sgs_forms = [trsv_form_for(C.plan, LOWER, NONE), trsv_form_for(C.plan, UPPER, NONE)]
+    sv_launches = {pre: sum(solve_launches(f.nblk, f.nb, f.WL) for f in forms)
+                   for pre, forms in (("ilu0", (st.l_form, st.u_form)), ("sgs", sgs_forms))}
+    log(f"  window-solve launches per preconditioner apply: {sv_launches}")
     run_pcg(None, 1)
     xl = tt.trsv(1.0, C, LOWER, NONE, b_d)
     check_residual("trsv f32 lower non-unit", sp.tril(Sspd).tocsr(), xl, bref,
@@ -1859,9 +2077,10 @@ def main() -> int:
                   tt.trsm(1.0, C, LOWER, NONE, Bsm_d), Bsm64, expected_precision(torch.float32))
     residual_cols(f"ilu_smoother (m, {K_SM}) b: L (U X) = B", LU, tt.ilu_smoother(C, GEN, Bsm_d), Bsm64,
                   expected_precision(torch.float32))
-    if trsm_win.launches["f32"] - c0 != 3:
+    want_sm = sum(solve_launches(f.nblk, f.nb, f.WL) for f in (sgs_forms[0], st.l_form, st.u_form))
+    if trsm_win.launches["f32"] - c0 != want_sm:
         raise AssertionError(f"trsm + 2-D ilu_smoother made {trsm_win.launches['f32'] - c0} multi-RHS "
-                             "launches, want 1 + 2")
+                             f"launches, want {want_sm}: 1 + 2 solves, each its passes")
     run_pcg("ilu0", 1)
     run_pcg("sgs", 2)
     for precond in ("ilu0", "sgs"):
@@ -1876,8 +2095,11 @@ def main() -> int:
     c0 = trsm_win.launches["f64"]
     residual_cols(f"trsm f64 upper non-unit K={K_SM} (reversed form)", sp.triu(Sspd).tocsr(),
                   tt.trsm(1.0, C64, UPPER, NONE, Bsm_d.double()), Bsm64, expected_precision(torch.float64))
-    if trsm_win.launches["f64"] - c0 != 1:
-        raise AssertionError("trsm f64 did not launch the multi-RHS kernel once")
+    f64_form = trsv_form_for(C64.plan, UPPER, NONE)
+    want_sm = solve_launches(f64_form.nblk, f64_form.nb, f64_form.WL)
+    if trsm_win.launches["f64"] - c0 != want_sm:
+        raise AssertionError(f"trsm f64 made {trsm_win.launches['f64'] - c0} multi-RHS launches, want one "
+                             f"solve's {want_sm}")
     del C64
     launches = read_counts()
     log(f"  main-path launches: {launches}")
@@ -2124,7 +2346,8 @@ def main() -> int:
     def note(kernel, nbytes_, need, flops, lib_fn=None, lib_kw=None, need_flops=None):
         """Record the kernel's bound and its library yardstick; log them.
         nbytes_ counts the stored operands once each, zero padding included
-        (the block windows: their parallelogram), the bound_ms of the
+        (the block windows: their parallelogram; the window solves: dinvT's
+        upper triangle, the half of the inverted blocks that is not zero), the bound_ms of the
         kernels line; need counts only their nonzero
         entries, the function's own bytes, logged beside it, with
         need_flops (default flops) the operations on those entries."""
@@ -2137,7 +2360,7 @@ def main() -> int:
             lib[kernel], err = library_ms(lib_fn, **dict(lib_kw or {}, backlog=True))
         lib_s = f"{lib[kernel]:.4f} ms" if lib[kernel] is not None else f"none ({err})"
         log(f"  {kernel}: kernel {ms[kernel]:.4f} ms, plain {plain_ms[kernel]:.4f} ms, library {lib_s}, "
-            f"bound {bounds[kernel][0]:.4f} ms ({bounds[kernel][1]}; {nbytes_ / 1e6:.1f} MB stored, "
+            f"bound {bounds[kernel][0]:.4f} ms ({bounds[kernel][1]}; {nbytes_ / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP) = {bounds[kernel][0] / ms[kernel]:.3f} of the bound; "
             f"nonzeros only {need_ms:.4f} ms ({need_by}; {need / 1e6:.1f} MB) = {need_ms / ms[kernel]:.3f}")
 
@@ -2237,35 +2460,53 @@ def main() -> int:
     note("stream_read_f32", nbytes(slab), nz_bytes(slab), slab.numel(), lambda: slab.sum())
     del cold, tiles, wins
     fL = st.l_form
-    dT32, lT32 = ilu_ops["L"]
+    dT32, lT32, ops32 = ilu_ops["L"]
     dT64, lT64, b64, bm64 = dT32.double(), lT32.double(), bw.double(), bw_m.double()
+    ops64 = win_solve_operands(dT64, lT64, fL.nb, fL.WL)
     Lf.sort_indices()
     L32 = csr_tensor(Lf.indptr, Lf.indices, Lf.data, dev, torch.float32)
     L64 = csr_tensor(Lf.indptr, Lf.indices, Lf.data, dev, torch.float64)
     # a step: the triangular nb x nb inverted block and the WL x nb window
     step_flops = 2 * (fL.nb * (fL.nb + 1) // 2 + fL.WL * fL.nb) * fL.nblk
-    for inst, (dT, lT, bb, bmm, Lt) in (("f32", (dT32, lT32, bw, bw_m, L32)), ("f64", (dT64, lT64, b64, bm64, L64))):
+    for inst, (dT, lT, ops, bb, bmm, Lt) in (("f32", (dT32, lT32, ops32, bw, bw_m, L32)),
+                                             ("f64", (dT64, lT64, ops64, b64, bm64, L64))):
         # the plain loops walk 1024 blocks from Python: few repeats
         kernel = f"trsv_win_{inst}"
-        turns(kernel, lambda: trsv_win(dT, lT, bb, fL.nb, fL.WL), lambda: trsv_win_plain(dT, lT, bb, fL.nb, fL.WL),
-              kreps=(3, 2), preps=(1, 1), kwarm=1, pwarm=0)
+        turns(kernel, lambda: trsv_win(dT, lT, bb, fL.nb, fL.WL, ops),
+              lambda: trsv_win_plain(dT, lT, bb, fL.nb, fL.WL), kreps=(15, 5), preps=(1, 1), kwarm=2, pwarm=0)
+        win_passes(kernel, lambda: trsv_win(dT, lT, bb, fL.nb, fL.WL, ops), fL, 1, dT.element_size())
+        plain_chain_note(kernel, plain_chain_solve(dT, ops.P, bb, fL.nb, fL.WL), fL)
         op_bytes = nbytes(dT, lT)
         log(f"  {kernel} (ILU0 L form, nb={fL.nb} WL={fL.WL} nblk={fL.nblk}): operand stream "
             f"{op_bytes / ms[kernel] / 1e6:.1f} GB/s ({op_bytes / ms[kernel] / 1e6 / peak:.4f} of peak {peak} GB/s; "
             f"{op_bytes / 1e6:.1f} MB per solve)")
+        # the bound counts what the function needs of its operands: dinvT's
+        # upper triangle (the inverted blocks' nonzero half; the stored zero
+        # half is never read), lwT, b and x; logged beside the bound of the
+        # stored operands once each
+        tri_bytes = fL.nblk * fL.nb * (fL.nb + 1) // 2 * dT.element_size()
+        stored = op_bytes + 2 * nbytes(bb)
+        log(f"  {kernel}: stored operands once each {stored / 1e6:.1f} MB, bound "
+            f"{bound_of(stored, step_flops, inst, peak)[0]:.4f} ms; the triangle, lwT, b and x "
+            f"{(tri_bytes + nbytes(lT, bb, bb)) / 1e6:.1f} MB")
         # the library solve re-analyses the triangle each call (seconds): the
         # first call's own time
         one = dict(once=True)
         op_need = nz_bytes(dT, lT)
-        note(kernel, op_bytes + 2 * nbytes(bb), op_need + 2 * nbytes(bb), step_flops,
+        note(kernel, tri_bytes + nbytes(lT) + 2 * nbytes(bb), op_need + 2 * nbytes(bb), step_flops,
              lambda: torch.triangular_solve(bb[:, None], Lt, upper=False, unitriangular=True), one)
         kernel = f"trsm_win_{inst}"
-        turns(kernel, lambda: trsm_win(dT, lT, bmm, fL.nb, fL.WL), lambda: trsm_win_plain(dT, lT, bmm, fL.nb, fL.WL),
-              kreps=(3, 1), preps=(1, 1), kwarm=1, pwarm=0)
-        note(kernel, op_bytes + 2 * nbytes(bmm), op_need + 2 * nbytes(bmm), step_flops * K_SM,
+        turns(kernel, lambda: trsm_win(dT, lT, bmm, fL.nb, fL.WL, ops),
+              lambda: trsm_win_plain(dT, lT, bmm, fL.nb, fL.WL), kreps=(15, 5), preps=(1, 1), kwarm=2, pwarm=0)
+        win_passes(kernel, lambda: trsm_win(dT, lT, bmm, fL.nb, fL.WL, ops), fL, K_SM, dT.element_size())
+        plain_chain_note(kernel, plain_chain_solve(dT, ops.P, bmm, fL.nb, fL.WL), fL)
+        stored = op_bytes + 2 * nbytes(bmm)
+        log(f"  {kernel}: stored operands once each {stored / 1e6:.1f} MB, bound "
+            f"{bound_of(stored, step_flops * K_SM, inst, peak)[0]:.4f} ms")
+        note(kernel, tri_bytes + nbytes(lT) + 2 * nbytes(bmm), op_need + 2 * nbytes(bmm), step_flops * K_SM,
              lambda: torch.triangular_solve(bmm, Lt, upper=False, unitriangular=True), one)
         log(f"  {kernel}: K={K_SM} solve costs {ms[kernel] / ms[f'trsv_win_{inst}']:.2f}x the K=1 solve")
-    del dT64, lT64, b64, bm64
+    del dT64, lT64, ops64, b64, bm64
     mm_flops = 2 * tm32.bwd_val.numel() * K_MM
     for inst, v, Bx, Ax in (("f32", tm32.bwd_val, Bm, A32), ("f64", tm64.bwd_val, Bm64, A64)):
         kernel = f"spmm_band_{inst}"
@@ -2345,7 +2586,8 @@ def main() -> int:
         lambda kk: tt.pcg_solve(C, b_d, rtol=0.0, maxit=kk, precond="ilu0")[1], 1, 6)
     log(f"  ILU0-PCG iteration: {t_pcg:.4f} ms (host clock, median of "
         f"{[round(t, 4) for t in t_pcg_all]})")
-    log(f"  set-up: ilu0_factorize {t_factor:.2f} s + diagonal-block inversion {t_invert:.2f} s")
+    log(f"  set-up: ilu0_factorize {t_factor:.2f} s + the forms' kernel operands {t_ops:.2f} s (diagonal-block "
+        f"inversion {t_invert:.3f} s, P = lwT @ dinvT and F {t_pset:.3f} s, each timed alone)")
 
     # the spill-route kernels on the webbase spill route (after
     # update_values: the same structure, new values)

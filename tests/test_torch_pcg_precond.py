@@ -15,7 +15,8 @@ import torch
 
 import aoclsparse_tpu_torch as tt
 from aoclsparse_tpu_torch.kernels.band_spmv import band_spmv
-from aoclsparse_tpu_torch.kernels.trsv_win import trsv_win
+from aoclsparse_tpu_torch.kernels.trsv_win import solve_launches, trsv_win
+from aoclsparse_tpu_torch.planner.triangular import trsv_form_for
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
 
 GEN = tt.MatrixDescriptor()
@@ -129,8 +130,9 @@ def test_slice_end_to_end_matches_jax(ast):
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_cuda_pcg_ilu0_launch_counts(cuda, dtype):
     """ILU0-PCG on the card: one band launch per iteration plus the initial
-    residual, two window-solve launches per iteration; SGS adds one band
-    launch (its strict-lower mv) per iteration."""
+    residual, two window solves per iteration (each its passes' launches,
+    kernels/trsv_win.py solve_launches); SGS adds one band launch (its
+    strict-lower mv) per iteration."""
     m, ptr, ind, val = _spd_band(seed=9, m=5000, dtype=dtype)
     b = np.random.default_rng(10).standard_normal(m).astype(dtype)
     D = tt.create_csr(m, m, ptr, ind, val, device=cuda)
@@ -143,7 +145,13 @@ def test_cuda_pcg_ilu0_launch_counts(cuda, dtype):
         n_band, n_sv = band_spmv.launches[name], trsv_win.launches[name]
         xd, kd, _ = tt.pcg_solve(D, torch.from_numpy(b).to(cuda), rtol=rtol, maxit=2000, precond=precond)
         assert band_spmv.launches[name] - n_band == band_per_iter * kd + 1
-        assert trsv_win.launches[name] - n_sv == 2 * kd
+        if precond == "ilu0":
+            forms = (D.ilu_state.l_form, D.ilu_state.u_form)
+        else:
+            forms = [trsv_form_for(D.plan, tt.MatrixDescriptor(type=tt.MatrixType.triangular, fill_mode=f),
+                                   tt.Operation.none) for f in (tt.FillMode.lower, tt.FillMode.upper)]
+        per_apply = sum(solve_launches(f.nblk, f.nb, f.WL) for f in forms)
+        assert trsv_win.launches[name] - n_sv == per_apply * kd
         xc, kc, _ = tt.pcg_solve(C, torch.from_numpy(b), rtol=rtol, maxit=2000, precond=precond)
         assert abs(kd - kc) <= 1
         np.testing.assert_allclose(xd.cpu().numpy(), xc.numpy(), rtol=tol, atol=tol)

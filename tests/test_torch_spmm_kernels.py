@@ -29,7 +29,13 @@ from aoclsparse_tpu_torch.kernels.spmm_band import (
     spmm_band_plain,
 )
 from aoclsparse_tpu_torch.kernels.spmm_diag import spmm_diag, spmm_diag_plain
-from aoclsparse_tpu_torch.kernels.trsv_win import trsm_chunk, trsm_win, trsm_win_plain
+from aoclsparse_tpu_torch.kernels.trsv_win import (
+    solve_launches,
+    trsm_chunk,
+    trsm_win,
+    trsm_win_plain,
+    win_solve_operands,
+)
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
 
 F32 = expected_precision(torch.float32)
@@ -243,7 +249,9 @@ def test_trsm_chunk_fits_shared_memory():
     assert trsm_chunk(16, 512, 64, 4) == 16
     # 8320 rows of 1 value fit in f64; of 4 values (2 columns padded by a vector) they do not
     assert trsm_chunk(16, 128, 8192, 8) == 1
-    assert trsm_chunk(5, 128, 8192, 4) == 2  # rows of 3 values: 99,840 bytes
+    # the chain takes at most 2 of a chunk's columns a CTA: its window rows
+    # of 3 values (98,304 bytes) fit beside its stages, pass A's 128 rows of 12
+    assert trsm_chunk(5, 128, 8192, 4) == 8
     assert trsm_chunk(16, 8, 60000, 4) == 0
 
 
@@ -305,7 +313,14 @@ def test_cuda_diag_matches_plain(cuda, inst, m, n, offs, K):
 )
 def test_cuda_trsm_matches_plain(cuda, dtype, nblk, nb, WL, K):
     dinvT, lwT, B = _t(*_trsm_operands(nblk + WL + K, nblk, nb, WL, K, dtype), device=cuda)
+    ops = win_solve_operands(dinvT, lwT, nb, WL)
     name = "f64" if dtype == np.float64 else "f32"
-    got = _check_launch(trsm_win.launches, name, lambda: trsm_win(dinvT, lwT, B, nb, WL))
+    before = trsm_win.launches[name]
+    got = trsm_win(dinvT, lwT, B, nb, WL, ops)
+    torch.cuda.synchronize()
+    # pass A, the chain (grouped: pass L, the group chain, the fix-up) and,
+    # where a block has rows outside the chain's, pass C
+    assert trsm_win.launches[name] == before + solve_launches(nblk, nb, WL)
+    assert torch.equal(trsm_win(dinvT, lwT, B, nb, WL, ops), got)
     want = trsm_win_plain(dinvT, lwT, B, nb, WL)
     assert near_error(got.cpu().numpy(), want.cpu().numpy()) <= (F64 if name == "f64" else F32)

@@ -15,7 +15,7 @@ import torch
 
 import aoclsparse_tpu_torch as tt
 from aoclsparse_tpu_torch import interop
-from aoclsparse_tpu_torch.kernels.trsv_win import trsv_win
+from aoclsparse_tpu_torch.kernels.trsv_win import solve_launches, trsv_win
 from aoclsparse_tpu_torch.ops.level2.trsv import pad_solve
 from aoclsparse_tpu_torch.planner import triangular as ttri
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
@@ -323,7 +323,8 @@ def test_cuda_trsv_matches_cpu_port(cuda, dtype):
         n0 = trsv_win.launches[name]
         got = tt.trsv(1.0, D, d, tt.Operation.none, torch.from_numpy(b).to(cuda))
         torch.cuda.synchronize()
-        assert trsv_win.launches[name] == n0 + 1
+        form = ttri.trsv_form_for(D.plan, d, tt.Operation.none)
+        assert trsv_win.launches[name] == n0 + solve_launches(form.nblk, form.nb, form.WL)
         want = tt.trsv(1.0, C, d, tt.Operation.none, torch.from_numpy(b))
         assert got.device.type == "cuda"
         assert near_error(got.cpu().numpy(), want.numpy()) <= expected_precision(tdt)

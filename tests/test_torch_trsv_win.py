@@ -4,8 +4,8 @@ The port's plain version (the CPU side of kernels/trsv_win.py) is held
 against `pallas_trsv_win_inv8` and `pallas_trsv_win_inv` run in interpret
 mode, and against the XLA `trsv_blocked_win_inv` in float64 (which also
 takes WL > nb), on identical operands made from a seed with numpy. The CUDA
-kernel is held against the plain version on the card (marked `cuda`,
-skipped elsewhere).
+kernels (passes over dinvT and the card operands P = lwT @ dinvT and F) are held against the
+plain version on the card (marked `cuda`, skipped elsewhere).
 
 Tolerance: utils/tolerances.py's model, expected_precision(dtype) on
 max |a - b| / max(|b|, 1): the same products summed in another order. The
@@ -18,7 +18,13 @@ import pytest
 import torch
 
 from aoclsparse_tpu_torch import AoclSparseError, Status
-from aoclsparse_tpu_torch.kernels.trsv_win import MAX_NB, trsv_win, trsv_win_plain
+from aoclsparse_tpu_torch.kernels.trsv_win import (
+    MAX_NB,
+    solve_launches,
+    trsv_win,
+    trsv_win_plain,
+    win_solve_operands,
+)
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
 
 
@@ -137,11 +143,18 @@ CUDA_CASES = [
 @pytest.mark.parametrize("nblk,nb,WL", CUDA_CASES)
 def test_cuda_kernel_matches_plain(cuda, dtype, nblk, nb, WL):
     dinvT, lwT, b = _t(*_operands(nblk + WL, nblk, nb, WL, dtype), device=cuda)
+    ops = win_solve_operands(dinvT, lwT, nb, WL)
     name = "f64" if dtype == np.float64 else "f32"
     before = trsv_win.launches[name]
-    got = trsv_win(dinvT, lwT, b, nb, WL)
+    got = trsv_win(dinvT, lwT, b, nb, WL, ops)
     torch.cuda.synchronize()
-    assert trsv_win.launches[name] == before + 1
+    # pass A, the chain (grouped: pass L, the group chain, the fix-up) and,
+    # where a block has rows outside the chain's, pass C
+    assert trsv_win.launches[name] == before + solve_launches(nblk, nb, WL)
+    assert torch.equal(trsv_win(dinvT, lwT, b, nb, WL, ops), got)
     want = trsv_win_plain(dinvT, lwT, b, nb, WL)
     tdt = torch.float64 if dtype == np.float64 else torch.float32
     assert near_error(got.cpu().numpy(), want.cpu().numpy()) <= expected_precision(tdt)
+    with pytest.raises(AoclSparseError) as e:
+        trsv_win(dinvT, lwT, b, nb, WL)  # the card's passes read ops
+    assert e.value.status == Status.invalid_value
