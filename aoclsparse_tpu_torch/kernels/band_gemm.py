@@ -11,7 +11,18 @@ at most MAX_STREAMS), C (nblk, G, WC) is
 
 where a block index g+d0+s outside [0, nblk) contributes nothing and every
 other element of C is 0. Instances: f32 (exact f32 FMA, no TF32: the JAX
-package's Precision.HIGHEST pin) and f64.
+package's Precision.HIGHEST pin) on the CUDA cores, and f64 on the f64
+tensor cores (mma.sync m8n8k4: IEEE f64 products, summed in another
+order).
+
+The kernel's schedule: a CTA owns a 64 x 128 tile of one C_g, a warp a
+32 x 32 sub-tile of it; they walk each meeting stream's slab in chunks of
+32 slab rows, steps of 8, and a warp skips a step when its A fragment
+(32 rows x 8) or its B fragment (8 x 32 columns) holds no nonzero.
+`band_gemm_steps` counts the warp steps that schedule visits and takes on
+given operands; a skipped step's products all have a zero factor, so only
+an Inf or NaN that such a zero meets tells the two apart (NaN in the full
+product).
 
 It replaces the JAX package's ``pallas_band_gemm``
 (kernels/pallas/spgemm.py:38). The plain version is its scan engine
@@ -34,10 +45,13 @@ import torch
 from ..core.types import AoclSparseError, Status
 from .build import load_library
 
-__all__ = ["MAX_STREAMS", "band_gemm", "band_gemm_plain"]
+__all__ = ["MAX_STREAMS", "band_gemm", "band_gemm_plain", "band_gemm_steps"]
 
 #: the planner's stream cap (kernels/spgemm_band.py), the kernel's too
 MAX_STREAMS = 6
+#: the kernel's CTA tile (rows, columns), warp tile, chunk and step depths
+#: (csrc/band_gemm.cu kTM, kTN, 32, kKC, kKS)
+TILE_M, TILE_N, WARP, CHUNK, STEP = 64, 128, 32, 32, 8
 
 _INSTANCES = {torch.float32: ("f32", "band_gemm_f32"), torch.float64: ("f64", "band_gemm_f64")}
 
@@ -125,3 +139,44 @@ def band_gemm(A: torch.Tensor, B: torch.Tensor, WC: int, d0: int, ranges) -> tor
 
 
 band_gemm.launches = {name: 0 for name, _sym in _INSTANCES.values()}
+
+
+def _steps_nonzero(A, B, WC, lo, hi, br, s):
+    """(A_nz (nblk, rows / 32, steps), B_nz (nblk, steps, columns / 32)):
+    whether each warp fragment of stream s's slab holds a nonzero, over the
+    kernel's zero-padded tiles (C's columns in whole CTA tiles)."""
+    nblk, G, _WA = A.shape
+    WB = B.shape[2]
+    nrow, ncol = -(-G // TILE_M), -(-WC // TILE_N)
+    kpad = -(-(hi - lo) // CHUNK) * CHUNK
+    a = torch.zeros(nblk, nrow * TILE_M, kpad, dtype=torch.bool, device=A.device)
+    a[:, :G, : hi - lo] = A[:, :, lo:hi] != 0
+    a_nz = a.view(nblk, nrow * TILE_M // WARP, WARP, kpad // STEP, STEP).any(4).any(2)
+    b = torch.zeros(nblk, kpad, ncol * TILE_N, dtype=torch.bool, device=A.device)
+    b[:, : hi - lo, G * s : G * s + WB] = B[:, br : br + hi - lo] != 0
+    b_nz = b.view(nblk, kpad // STEP, STEP, ncol * TILE_N // WARP, WARP).any(4).any(2)
+    return a_nz, b_nz
+
+
+def band_gemm_steps(A: torch.Tensor, B: torch.Tensor, WC: int, d0: int, ranges) -> Tuple[int, int]:
+    """(taken, visited): the warp steps (32 C rows x 32 C columns x 8 slab
+    rows) that the kernel's schedule visits on these operands, and those
+    whose vote finds a nonzero in both fragments. A taken step costs
+    32 * 32 * 8 FMAs; every other product of the band has a zero factor."""
+    nblk, G, _WA = A.shape
+    WB = B.shape[2]
+    ncol = -(-WC // TILE_N)
+    taken = visited = 0
+    for s, (lo, hi, br) in enumerate(ranges):
+        off = d0 + s
+        g0, g1 = max(0, -off), min(nblk, nblk - off)
+        if hi <= lo or g1 <= g0:
+            continue
+        tiles = [t for t in range(ncol) if G * s < TILE_N * (t + 1) and G * s + WB > TILE_N * t]
+        a_nz, b_nz = _steps_nonzero(A, B, WC, lo, hi, br, s)
+        pairs = torch.einsum("grt,gtc->grc", a_nz[g0:g1].float(), b_nz[g0 + off : g1 + off].float())
+        per = TILE_N // WARP
+        cols = torch.tensor([t * per + j for t in tiles for j in range(per)], device=A.device)
+        taken += int(pairs[:, :, cols].long().sum().item())
+        visited += (g1 - g0) * a_nz.shape[1] * cols.numel() * a_nz.shape[2]
+    return taken, visited

@@ -8,10 +8,14 @@ rows outside [0, n) contributing 0:
     spmm_band_mxu:  C[128k + s, :] = sum_{c < 256} dt[k, c, s] * B[start + 128k + c - padL, :]
 
 over the row-aligned (m, W) band ``v`` of the bandtm form, and over its
-(nblk, 256, 128) block windows ``dt`` (`band_mxu_blocks`). Instances:
+(nblk, 256, 128) block windows ``dt`` (`band_mxu_blocks`, zero outside
+0 <= c - s < W). The block-window kernel takes the band width W in
+[1, 256] and reads and multiplies only the window rows that meet a warp's
+rows' bands (`mxu_walk`); a caller with no band width passes 256. Instances:
 spmm_band f32 and f64 (C in the operand dtype); spmm_band_mxu with dt f32
-or bf16, B and C f32 (the bf16 instance rounds B to bf16 before the
-product and accumulates in f32, as the JAX package's mixed mode does).
+(exact f32 FMA on the CUDA cores) or bf16 (tensor cores), B and C f32 (the
+bf16 instance rounds B to bf16 before the product and accumulates in f32,
+as the JAX package's mixed mode does).
 
 They replace the JAX package's ``pallas_spmm_band_t``
 (kernels/pallas/spmv.py:173, mm KID 4) and ``pallas_spmm_band_mxu``
@@ -45,6 +49,7 @@ __all__ = [
     "spmm_band_plain",
     "spmm_bandmxu",
     "spmm_bandtm",
+    "mxu_walk",
 ]
 
 #: (band dtype, B dtype) -> (instance name, C entry point)
@@ -74,11 +79,11 @@ def band_max_w(dtype) -> int:
     return w // 8 * 8
 
 
-def _entry(symbol: str):
+def _entry(symbol: str, nint: int):
     fn = _fns.get(symbol)
     if fn is None:
         fn = getattr(load_library(), symbol)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * nint + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return fn
@@ -112,10 +117,10 @@ def _window(B: torch.Tensor, rows: int, padL: int, acc) -> torch.Tensor:
     return Be
 
 
-def _launch(symbol, name, counts, out, a, B, dims, start, padL):
+def _launch(symbol, name, counts, out, a, B, dims, start, padL, tail=()):
     with torch.cuda.device(B.device):
-        rc = _entry(symbol)(
-            a.data_ptr(), B.data_ptr(), out.data_ptr(), *dims, start, padL,
+        rc = _entry(symbol, len(dims) + 2 + len(tail))(
+            a.data_ptr(), B.data_ptr(), out.data_ptr(), *dims, start, padL, *tail,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
@@ -191,8 +196,24 @@ def spmm_band_mxu_plain(dt: torch.Tensor, B: torch.Tensor, start: int, padL: int
     return torch.matmul(d.transpose(1, 2), wins).reshape(nblk * 128, K)[:m]
 
 
-def spmm_band_mxu(dt: torch.Tensor, B: torch.Tensor, start: int, padL: int, m: int) -> torch.Tensor:
-    """C = (block windows dt) @ B by the contract above, rows [0, m): the
+def mxu_walk(W: int, bf16: bool):
+    """The block-window kernel's walk over one 128-row block, as
+    [(rows lo, rows hi, window rows lo, window rows hi)]: the f32 instance
+    takes 32-row warps over c in [s0, min(256, s0 + 31 + W)) one window row
+    at a time; the bf16 instance 16-row halves over the 16-deep steps that
+    meet [s, min(256, s + 15 + W)), so its window rows are whole steps."""
+    if not bf16:
+        return [(s0, s0 + 32, s0, min(256, s0 + 31 + W)) for s0 in range(0, 128, 32)]
+    out = []
+    for r in range(0, 128, 16):
+        steps = [c for c in range(0, 256, 16) if c + 15 >= r and c < min(256, r + 15 + W)]
+        out.append((r, r + 16, steps[0], steps[-1] + 16))
+    return out
+
+
+def spmm_band_mxu(dt: torch.Tensor, B: torch.Tensor, start: int, padL: int, m: int, W: int = 256) -> torch.Tensor:
+    """C = (block windows dt) @ B by the contract above, rows [0, m), for
+    windows of band width W (in [1, 256]; 256 for a caller with none): the
     plain version on a CPU tensor, one kernel launch on a CUDA tensor."""
     name, symbol = _check(_MXU, "block-window SpMM", dt, B, 3, start, padL)
     nblk = dt.shape[0]
@@ -200,6 +221,8 @@ def spmm_band_mxu(dt: torch.Tensor, B: torch.Tensor, start: int, padL: int, m: i
         raise AoclSparseError(
             Status.invalid_size, f"want dt (nblk, 256, 128) covering m={m}, got {tuple(dt.shape)}"
         )
+    if not 1 <= W <= 256:
+        raise AoclSparseError(Status.invalid_size, f"band width W={W} outside [1, 256]")
     if dt.device.type == "cpu":
         return spmm_band_mxu_plain(dt, B, start, padL, m)
     if dt.device.type != "cuda":
@@ -208,7 +231,9 @@ def spmm_band_mxu(dt: torch.Tensor, B: torch.Tensor, start: int, padL: int, m: i
     C = torch.empty(m, K, dtype=torch.float32, device=B.device)
     if m == 0 or K == 0:
         return C
-    _launch(symbol, name, spmm_band_mxu.launches, C, dt, B, (nblk, m, n, K), start, padL)
+    if dt.data_ptr() % 16:
+        raise AoclSparseError(Status.invalid_value, "the kernel reads the windows 16 bytes at a time: align dt")
+    _launch(symbol, name, spmm_band_mxu.launches, C, dt, B, (nblk, m, n, K), start, padL, (W,))
     return C
 
 
@@ -221,7 +246,7 @@ def spmm_bandtm(v, B, sp_val, sp_ind, sp_rows, start: int, padL: int) -> torch.T
     return add_spill(spmm_band(v, B, start, padL), B, sp_val, sp_ind, sp_rows)
 
 
-def spmm_bandmxu(dt, B, sp_val, sp_ind, sp_rows, m: int, start: int, padL: int) -> torch.Tensor:
-    """Full block-window dispatch (mm KID 5): the block-window kernel, then
-    the peel spill."""
-    return add_spill(spmm_band_mxu(dt, B, start, padL, m), B, sp_val, sp_ind, sp_rows)
+def spmm_bandmxu(dt, B, sp_val, sp_ind, sp_rows, m: int, start: int, padL: int, W: int = 256) -> torch.Tensor:
+    """Full block-window dispatch (mm KID 5): the block-window kernel at
+    band width W, then the peel spill."""
+    return add_spill(spmm_band_mxu(dt, B, start, padL, m, W), B, sp_val, sp_ind, sp_rows)

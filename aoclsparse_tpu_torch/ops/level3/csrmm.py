@@ -71,7 +71,7 @@ def _run_mm_form(form, B: torch.Tensor, kid: Optional[int], mixed: bool = False)
         spill = (form.sp_val, form.sp_ind, form.sp_rows)
         if e.kid == 5:
             return e.fn(form.band_mxu_dt(bf16=mixed), B, *spill, m=form.m,
-                        start=form.bandt_start, padL=form.bwd_padL)
+                        start=form.bandt_start, padL=form.bwd_padL, W=form.bwd_W)
         return e.fn(form.bwd_val, B, *spill, start=form.bandt_start, padL=form.bwd_padL)
     if form.kind == "diag":
         return e.fn(form.dia_bf16() if mixed else form.dia_val, form.dia_offs, B)

@@ -10,8 +10,9 @@ failure (exit code != 0, no result line):
 1. require a CUDA card; print nvidia-smi's name and power limit;
 2. build the kernels from aoclsparse_tpu_torch/csrc with nvcc (sm_90a) and
    the host C++ library with g++; require that the latter loads, and that
-   -Xptxas -v gives the route, accumulate, block-window, group-window and
-   window-solve (passes A, B, C) kernels no stack frame and no spills (their
+   -Xptxas -v gives the route, accumulate, block-window SpMV, group-window,
+   window-solve (passes A, B, C), block-window SpMM (both instances) and
+   band GEMM (both instances) kernels no stack frame and no spills (their
    registers logged);
 3. hold each kernel instance against its plain PyTorch version:
    - the band kernel on the bench operand (m = n = 262144, 64 nnz/row,
@@ -35,7 +36,10 @@ failure (exit code != 0, no result line):
      float64 sum;
    - the band SpMM kernel on the bench operand's bandtm form at K = 64 in
      f32 and f64, and with its spill on the small odd-m operand at K = 7;
-     the block-window kernel on the bench form at K = 64 in f32 and bf16;
+     the block-window kernel on the bench form at K = 64 in f32 and bf16,
+     told the form's band width and W = 256, and on random windows at
+     W = 1, 64 and 128 (m = 4099, start > 0, padL > 0, K = 64 and 9), each
+     at its band width called twice for the same bits;
    - the diagonal kernel on the 27-point stencil of HPCG's default local
      grid (104^3: m = 1,124,864, 29,791,000 nnz; hpcg.dat) at K = 64 in
      f32, bf16 and f64, and on a small odd-m operand with negative offsets;
@@ -47,7 +51,10 @@ failure (exit code != 0, no result line):
      logging how much the far part of a group (v F_j, j >= a + 2) weighs
      there; on operands of the same shape whose tails have a spectral norm
      of 0.95 (the far part weighs, and must), where a zeroed F must fail
-     the comparison; and on a small odd-m form whose window reaches back
+     the comparison; on the ILU0 L and U forms of the 5-point 2-D
+     Laplacian on a 90^2 grid (a real factor whose far part weighs:
+     grouped, nb = 128, WL = 96, 64 blocks, groups of 8), in f32 and f64;
+     and on a small odd-m form whose window reaches back
      over several blocks (the plain chain; K = 300 for the multi-RHS
      solve: several column chunks), each called twice for the same bits;
    - the spill-route kernels (select, Benes route, accumulate) on the spill
@@ -66,8 +73,11 @@ failure (exit code != 0, no result line):
      here, seed 7: m = 62,469, 4,108,752 nnz; G = 128, WA = WB = 560,
      WC = 1072, 5 streams), on the suite's SpGEMM operand
      (benchmarks/suite.py:712-713: m = 65,536, half-bandwidth 32, 16
-     nnz/row), on a small case with m off a multiple of G and d0 > 0, and
-     on one whose first groups' streams fall outside [0, nblk);
+     nnz/row), on a small case with m off a multiple of G and d0 > 0 (and
+     on the same plan with dense random bands, where no warp step skips),
+     and on one whose first groups' streams fall outside [0, nblk), each
+     twice for the same bits, logging each plan's taken and skipped warp
+     steps;
 4. drive the main path: create_csr(device="cuda") -> set_mv_hint(nop=1000)
    -> optimize -> mv (default form, kid=8, kid=12, alpha/beta with y, the
    mixed bf16 band, a float64 handle); and create_csr -> set_mm_hint(nop=
@@ -130,7 +140,8 @@ failure (exit code != 0, no result line):
    outlasts the host's enqueue, so the events time the device alone),
    against each kernel's bound
    from this run's inputs (stored operands, and beside it their nonzero
-   entries only); one mv call, one mm call per operand, one trsm call,
+   entries only); one mv call, one mm call per operand (and mm kid=5, the
+   block windows, on the bench operand), one trsm call,
    one CG iteration, one ilu_smoother call and one ILU0-PCG iteration with
    CUDA events or the host clock (median of repeats), with stream rates
    against the card's published HBM peak, the window solves' passes by a
@@ -185,7 +196,7 @@ import torch
 import aoclsparse_tpu_torch as tt
 from aoclsparse_tpu_torch import native
 from aoclsparse_tpu_torch.kernels import build
-from aoclsparse_tpu_torch.kernels.band_gemm import band_gemm, band_gemm_plain
+from aoclsparse_tpu_torch.kernels.band_gemm import band_gemm, band_gemm_plain, band_gemm_steps
 from aoclsparse_tpu_torch.kernels.band_spmv import band_spmv, band_spmv_plain, spmv_bandt
 from aoclsparse_tpu_torch.kernels.band_tiles import (
     band_spmv_tiles,
@@ -200,6 +211,7 @@ from aoclsparse_tpu_torch.kernels.route import apply_benes, apply_route, pack_ma
 from aoclsparse_tpu_torch.kernels.spill_route import oh_accum, oh_accum_plain, oh_select, oh_select_plain
 from aoclsparse_tpu_torch.kernels.spmm_band import (
     band_mxu_blocks,
+    mxu_walk,
     spmm_band,
     spmm_band_mxu,
     spmm_band_mxu_plain,
@@ -496,6 +508,15 @@ def spd_operand(ptr, ind, val, m):
     sval32 = Ssym.data.astype(np.float32)
     Sspd = sp.csr_matrix((sval32.astype(np.float64), Ssym.indices, Ssym.indptr), shape=(m, m))
     return Sspd, Ssym.indptr.astype(np.int64), Ssym.indices.astype(np.int32), sval32
+
+
+def laplacian_2d(nx):
+    """CSR (ptr, ind, val f64) of the 5-point 2-D Laplacian on an nx x nx
+    grid (4 on the diagonal, -1 to each grid neighbour)."""
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+    L = (sp.kron(sp.eye(nx), T) + sp.kron(T, sp.eye(nx))).tocsr()
+    L.sort_indices()
+    return L.indptr.astype(np.int32), L.indices.astype(np.int32), L.data
 
 
 def wide_window_operand(m=3001, seed=13):
@@ -1000,27 +1021,40 @@ def cold_ms(fn, flush, reps=15):
 def profile_mv(name, call, calls=5, top=8):
     """One torch.profiler window over `calls` back-to-back calls after a
     warm-up: device time per call by kernel, and the device's idle share of
-    the window's host-clock time (kernels on one stream do not overlap)."""
+    the calls' host-clock time (kernels on one stream do not overlap). The
+    profiler may miss a window's first kernel, so one untimed call opens the
+    window, and only device events that start inside the timed calls'
+    record_function range count (the range's own annotation on the device
+    track excepted)."""
     call()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            call()
+        call()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(t for _k, t, _c in kern)
-    if not kern:
+        with torch.profiler.record_function("timed calls"):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    mark = next((e for e in events if e.name == "timed calls"), None)
+    by_kernel = {}
+    for e in events:
+        if (mark is not None and e.device_type == torch.autograd.DeviceType.CUDA and e.name != mark.name
+                and e.time_range.start >= mark.time_range.start and e.time_range.elapsed_us() > 0):
+            t, c = by_kernel.get(e.name, (0.0, 0))
+            by_kernel[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    if not by_kernel:
         log(f"  {name} profile: the profiler recorded no device time (not measured)")
         return
+    busy = sum(t for t, _c in by_kernel.values())
     log(f"  {name} profile ({calls} calls): device busy {busy / calls:.1f} us a call of {wall_us / calls:.1f} us "
-        f"on the host clock, idle share {1 - busy / wall_us:.3f}; {sum(c for _k, _t, c in kern) // calls} "
+        f"on the host clock, idle share {1 - busy / wall_us:.3f}; {sum(c for _t, c in by_kernel.values()) / calls:g} "
         f"kernel launches a call; by kernel (us a call):")
-    for key, t, c in sorted(kern, key=lambda r: -r[1])[:top]:
-        log(f"    {t / calls:9.1f}  x{c // calls:<3d} {key[:90]}")
+    for key, (t, c) in sorted(by_kernel.items(), key=lambda r: -r[1][0])[:top]:
+        log(f"    {t / calls:9.1f}  x{c / calls:<4g} {key[:90]}")
 
 
 def win_passes(kernel, call, form, K, itemsize, calls=5):
@@ -1445,10 +1479,12 @@ def main() -> int:
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
-    # the route, accumulate, block-window, group-window and window-solve
-    # kernels index no register array at run time: no stack frame, no spills
+    # the route, accumulate, block-window SpMV and SpMM, group-window,
+    # window-solve and band GEMM kernels index no register array at run
+    # time: no stack frame, no spills
     names = ("benes_pass_kernel", "oh_accum_kernel", "spmv_mxu_kernel", "spmv_bwd_kernel", "win_block_kernel",
-             "win_chain_kernel", "win_fix_kernel")
+             "win_chain_kernel", "win_fix_kernel", "spmm_band_mxu_f32_kernel", "spmm_band_mxu_bf16_kernel",
+             "band_gemm_kernel")
     res = ptxas_resources(ptxas, names)
     for fn, (frame, stores, loads, regs) in sorted(res.items()):
         short = next(fn[fn.index(nm):] for nm in names if nm in fn)[:48]
@@ -1666,6 +1702,25 @@ def main() -> int:
                 raise AssertionError("strong-tail operands: a zeroed F passes the comparison")
         del dT, lT, ops, bs, bsm
     del sdinv, slwT
+    # a real factor whose group chain weighs: ILU0 of the 5-point 2-D
+    # Laplacian on a 90^2 grid (a grouped win form), L and U, f32 and f64
+    lptr, lind, lval = laplacian_2d(90)
+    for inst, dt in (("f32", np.float32), ("f64", np.float64)):
+        lm = len(lptr) - 1
+        lst = ilu0_factorize(tt.create_csr(lm, lm, lptr, lind, lval.astype(dt), device="cuda"))
+        for name, form in (("L", lst.l_form), ("U", lst.u_form)):
+            dT, lT = form.operands()
+            ops = form.solve_ops()
+            if not ops.group > 1:
+                raise AssertionError(f"the 90^2 Laplacian's ILU0 {name} form must be grouped, got {ops.group}")
+            bs = torch.from_numpy(wrng.standard_normal(form.m_pad).astype(dt)).to(dev)
+            label = (f"90^2 Laplacian ILU0 {name} (nb={form.nb}, WL={form.WL}, nblk={form.nblk}, "
+                     f"groups of {ops.group})")
+            got = same_bits(f"trsv_win_{inst}", label, lambda: trsv_win(dT, lT, bs, form.nb, form.WL, ops))
+            compare(f"trsv_win_{inst}", label, got, trsv_win_plain(dT, lT, bs, form.nb, form.WL), errs)
+            log(f"  {label}: the far part of a group weighs {far_weight(ops, got, form.nb, form.WL):.3e} of max "
+                f"|x|; largest tail norm {tail_norm(ops, form.nb, form.WL):.3e}")
+    del lst, dT, lT, ops, bs
     wptr, wind, wval = wide_window_operand()
     for inst, dt in (("f32", np.float32), ("f64", np.float64)):
         Wh = tt.create_csr(len(wptr) - 1, len(wptr) - 1, wptr, wind, wval.astype(dt), device="cuda")
@@ -1701,9 +1756,26 @@ def main() -> int:
     compare("spmm_band_f64", f"bench K={K_MM}", spmm_band(tm64.bwd_val, Bm64, *targs),
             spmm_band_plain(tm64.bwd_val, Bm64, *targs), errs)
     dt32, dtbf = tm32.band_mxu_dt(), tm32.band_mxu_dt(bf16=True)
+    W_mm = tm32.bwd_W
+    # the block-window kernel at the form's band width (and W = 256, as a
+    # caller with none passes it), twice for the same bits; random windows
+    # at W = 1, 64 and 128 on an odd m with start > 0 and padL > 0, and K = 9
+    # (4-byte B copies)
+    mrng = np.random.default_rng(37)
     for kernel, dt_ in (("spmm_band_mxu_f32", dt32), ("spmm_band_mxu_bf16", dtbf)):
-        compare(kernel, f"bench K={K_MM} (nblk={dt_.shape[0]})", spmm_band_mxu(dt_, Bm, *targs, m),
+        label = f"bench K={K_MM} (nblk={dt_.shape[0]}, W={W_mm})"
+        compare(kernel, label, same_bits(kernel, label, lambda: spmm_band_mxu(dt_, Bm, *targs, m, W_mm)),
                 spmm_band_mxu_plain(dt_, Bm, *targs, m), errs)
+        compare(kernel, f"bench K={K_MM}, W=256", spmm_band_mxu(dt_, Bm, *targs, m, 256),
+                spmm_band_mxu_plain(dt_, Bm, *targs, m), errs)
+        for Wr, Kr in ((1, K_MM), (64, 9), (128, K_MM)):
+            vt_r = torch.from_numpy(mrng.standard_normal((4099, Wr)).astype(np.float32)).to(dev)
+            dt_r = band_mxu_blocks(vt_r, Wr).to(dt_.dtype)
+            B_r = torch.from_numpy(mrng.standard_normal((4100, Kr)).astype(np.float32)).to(dev)
+            label = f"random windows W={Wr} (m=4099, K={Kr}, start=3, padL=5)"
+            compare(kernel, label, same_bits(kernel, label, lambda: spmm_band_mxu(dt_r, B_r, 3, 5, 4099, Wr)),
+                    spmm_band_mxu_plain(dt_r, B_r, 3, 5, 4099), errs)
+    del vt_r, dt_r, B_r
     for inst, dt in (("f32", np.float32), ("f64", np.float64)):
         sf = bandt_form(sptr, sind, sval.astype(dt), dev, kind="bandtm")
         if not (sf.has_spill and sf.m % 2 == 1):
@@ -1884,14 +1956,25 @@ def main() -> int:
         raise AssertionError(f"the small case must have d0 > 0 and m off G, got d0={gright[0].d0}")
     if not gleft[0].d0 < -1:
         raise AssertionError(f"the left case must put the first groups' streams out of range, d0={gleft[0].d0}")
-    for label, (bp, *_rest) in (("cant A.A", gcant), ("suite A.A", gsuite), ("small d0 > 0, m off G", gright),
-                                ("small streams out of range", gleft)):
-        a, b = bp.formA.bwd_val, bp.formB.bwd_val
+    # each plan's bands as they are (most warp steps skip) and, on the small
+    # d0 > 0 plan, filled with random values (no step skips), twice for the
+    # same bits
+    drng = np.random.default_rng(43)
+    dense = tuple(torch.from_numpy(drng.standard_normal(tuple(t.shape)).astype(np.float32)).to(dev)
+                  for t in (gright[0].formA.bwd_val, gright[0].formB.bwd_val))
+    for label, bp, pair in (("cant A.A", gcant[0], None), ("suite A.A", gsuite[0], None),
+                            ("small d0 > 0, m off G", gright[0], None),
+                            ("small d0 > 0, dense bands", gright[0], dense),
+                            ("small streams out of range", gleft[0], None)):
+        a, b = (bp.formA.bwd_val, bp.formB.bwd_val) if pair is None else pair
+        taken, visited = band_gemm_steps(a, b, bp.WC, bp.d0, bp.stream_ranges)
+        log(f"  band_gemm {label}: {taken} of {visited} warp steps taken, {visited - taken} skipped")
         for inst, (x_, y_) in (("f32", (a, b)), ("f64", (a.double(), b.double()))):
-            compare(f"band_gemm_{inst}", f"{label} (nblk={bp.nblk}, WC={bp.WC}, {bp.nstream} streams)",
-                    band_gemm(x_, y_, bp.WC, bp.d0, bp.stream_ranges),
+            kernel = f"band_gemm_{inst}"
+            full = f"{label} (nblk={bp.nblk}, WC={bp.WC}, {bp.nstream} streams)"
+            compare(kernel, full, same_bits(kernel, full, lambda: band_gemm(x_, y_, bp.WC, bp.d0, bp.stream_ranges)),
                     band_gemm_plain(x_, y_, bp.WC, bp.d0, bp.stream_ranges), errs)
-    del gsuite, gright, gleft
+    del gsuite, gright, gleft, dense
 
     # 4. the main path, counted
     phase("phase 4: main path (create_csr -> set_mv_hint -> optimize -> mv)")
@@ -2517,12 +2600,20 @@ def main() -> int:
              lambda: torch.sparse.mm(Ax, Bx), dict(reps=5, inner=2))
     for inst, dt_ in (("f32", dt32), ("bf16", dtbf)):
         kernel = f"spmm_band_mxu_{inst}"
-        turns(kernel, lambda: spmm_band_mxu(dt_, Bm, *targs, m), lambda: spmm_band_mxu_plain(dt_, Bm, *targs, m),
-              kreps=(15, 5), preps=(3, 2))
-        # the same band product as spmm_band: the windows' zero triangles
-        # are stored bytes, not operations the function needs
-        note(kernel, nbytes(dt_, Bm) + m * K_MM * 4, nz_bytes(dt_, Bm) + m * K_MM * 4, mm_flops,
+        turns(kernel, lambda: spmm_band_mxu(dt_, Bm, *targs, m, W_mm),
+              lambda: spmm_band_mxu_plain(dt_, Bm, *targs, m), kreps=(15, 5), preps=(3, 2))
+        # the same band product as spmm_band: the bound counts the windows'
+        # parallelogram 0 <= c - s < W (128 W values a block), B and C, what
+        # the function needs; the stored windows' bound (zero triangles and
+        # all, which the TPU kernel read and multiplied) is logged beside it
+        para = dt_.shape[0] * 128 * W_mm * dt_.element_size()
+        note(kernel, para + nbytes(Bm) + m * K_MM * 4, nz_bytes(dt_, Bm) + m * K_MM * 4, mm_flops,
              (lambda: torch.sparse.mm(A32, Bm)) if inst == "f32" else None, dict(reps=5, inner=2))
+        stored_ms, stored_by = bound_of(nbytes(dt_, Bm) + m * K_MM * 4, mm_flops, inst, peak)
+        walk = [hi - lo for _a, _b, lo, hi in mxu_walk(W_mm, inst == "bf16")]
+        log(f"  {kernel}: stored windows' bound {stored_ms:.4f} ms ({stored_by}) = "
+            f"{stored_ms / ms[kernel]:.3f}; window rows walked by each {128 // len(walk)} rows: "
+            f"{walk} of 256")
     H32 = csr_tensor(hptr, hind, hval, dev, torch.float32)
     H64 = csr_tensor(hptr, hind, hval, dev, torch.float64)
     for inst, dv, Bx, Hx in (("f32", hf.dia_val, Bh, H32), ("bf16", hf.dia_bf16(), Bh, None),
@@ -2568,9 +2659,10 @@ def main() -> int:
         "host clock")
     del fh
     # mm: useful bytes (m+1+nnz)*4 + (nnz + (n+m)*K)*vsize, the mv formula with K columns
-    for name, handle, Bx, mrows, nz in (("mm bench (bandtm)", Amm, Bm, m, nnz), ("mm stencil (diag)", H, Bh, mh,
-                                                                                 hind.size)):
-        t = cuda_ms(lambda: tt.mm(1.0, handle, GEN, NONE, Bx, 0.0), reps=15, inner=5)
+    for name, handle, Bx, mrows, nz, kid in (("mm bench (bandtm)", Amm, Bm, m, nnz, None),
+                                             ("mm bench kid=5 (block windows)", Amm, Bm, m, nnz, 5),
+                                             ("mm stencil (diag)", H, Bh, mh, hind.size, None)):
+        t = cuda_ms(lambda: tt.mm(1.0, handle, GEN, NONE, Bx, 0.0, kid=kid), reps=15, inner=5)
         eff = ((mrows + 1 + nz) * 4 + (nz + 2 * mrows * K_MM) * 4) / (t / 1e3) / 1e9
         log(f"  {name} K={K_MM} f32: {t:.4f} ms/call, effective {eff:.1f} GB/s = {eff / peak:.3f} of peak {peak} GB/s")
     t_trsm = cuda_ms(lambda: tt.trsm(1.0, C, LOWER, NONE, Bsm_d), reps=5, inner=1, warm=1)
@@ -2712,8 +2804,18 @@ def main() -> int:
               lambda: band_gemm_plain(x_, y_, bp.WC, bp.d0, bp.stream_ranges), kreps=(5, 4), preps=(3, 2))
         At = csr_tensor(cptr_, cind_, cval_, dev, tdt)
         esz = x_.element_size()
-        note(kernel, nbytes(x_, y_) + bp.nblk * bp.G * bp.WC * esz, nz_bytes(x_, y_) + nnzC_c * esz, band_flops,
-             lambda: At @ At, dict(reps=3, inner=1), need_flops=2 * P_c)
+        # the bound: the operands and the C band once each, and the FMAs of
+        # the warp steps whose fragments both hold a nonzero (32 x 32 x 8
+        # each), what the kernel's skip leaves; the full band's bound, zeros
+        # included, is logged beside it
+        taken, visited = band_gemm_steps(x_, y_, bp.WC, bp.d0, bp.stream_ranges)
+        step_flops = 2 * 32 * 32 * 8 * taken
+        band_bytes = nbytes(x_, y_) + bp.nblk * bp.G * bp.WC * esz
+        note(kernel, band_bytes, nz_bytes(x_, y_) + nnzC_c * esz, step_flops, lambda: At @ At, dict(reps=3, inner=1),
+             need_flops=2 * P_c)
+        full_ms, full_by = bound_of(band_bytes, band_flops, inst, peak)
+        log(f"  {kernel}: {taken} of {visited} warp steps taken ({step_flops / 1e9:.2f} GFLOP); the full band's "
+            f"bound {full_ms:.4f} ms ({full_by}) = {full_ms / ms[kernel]:.3f}")
         log(f"  {kernel}: {band_flops / ms[kernel] / 1e9:.1f} GFLOP/s of band work ({band_flops / 1e9:.2f} GFLOP, "
             f"zeros included), {2 * P_c / ms[kernel] / 1e9:.1f} GFLOP/s of the product's {P_c} scalar products")
         del x_, y_, At

@@ -26,7 +26,7 @@ import torch
 
 import aoclsparse_tpu_torch as tt
 from aoclsparse_tpu_torch import interop
-from aoclsparse_tpu_torch.kernels.band_gemm import band_gemm, band_gemm_plain
+from aoclsparse_tpu_torch.kernels.band_gemm import band_gemm, band_gemm_plain, band_gemm_steps
 from aoclsparse_tpu_torch.kernels.spgemm_band import band_gemm_values, band_geometry, build_band_gemm_plan
 from aoclsparse_tpu_torch.ops.level3.spgemm import _effective, _numeric_plan, _symbolic
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
@@ -312,6 +312,31 @@ def test_kernel_matches_plain_on_card(cuda, dtype, m, offA, offB, G):
     assert band_gemm.launches[inst] == before[inst] + 1
     want = band_gemm_plain(A, B, bp.WC, bp.d0, bp.stream_ranges)
     assert near_error(got.cpu().double().numpy(), want.cpu().double().numpy()) <= (F32 if inst == "f32" else F64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,offA,offB,G", CARD_CASES)
+def test_kernel_dense_and_sparse_bands_on_card(cuda, dtype, m, offA, offB, G):
+    """The kernel's skip vote on both sides: the plan's sparse bands (some
+    warp steps skipped) and the same plan with dense bands (every step in
+    the slab and the streams' columns taken), against the plain version,
+    the same bits twice."""
+    bp, eA, eB, _plan = _port_plan(_banded(13, m, *offA, 9, np.float32), _banded(14, m, *offB, 9, np.float32), G=G)
+    bp.formA.refresh(eA.val)
+    bp.formB.refresh(eB.val)
+    rng = np.random.default_rng(21)
+    sparse = (bp.formA.bwd_val.to(cuda, dtype), bp.formB.bwd_val.to(cuda, dtype))
+    dense = tuple(torch.from_numpy(rng.standard_normal(tuple(t.shape))).to(cuda, dtype) for t in sparse)
+    takes = []
+    for A, B in (sparse, dense):
+        got = band_gemm(A, B, bp.WC, bp.d0, bp.stream_ranges)
+        assert torch.equal(band_gemm(A, B, bp.WC, bp.d0, bp.stream_ranges), got)
+        want = band_gemm_plain(A, B, bp.WC, bp.d0, bp.stream_ranges)
+        assert near_error(got.cpu().double().numpy(), want.cpu().double().numpy()) <= (
+            F32 if dtype == torch.float32 else F64)
+        takes.append(band_gemm_steps(A, B, bp.WC, bp.d0, bp.stream_ranges))
+    assert takes[0][0] < takes[0][1] and takes[0][0] < takes[1][0]
 
 
 @pytest.mark.cuda

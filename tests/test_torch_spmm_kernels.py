@@ -292,6 +292,27 @@ def test_cuda_mxu_matches_plain(cuda, bf16, m, start, padL, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("W,m,start,padL,K", [(1, 300, 0, 8, 64), (64, 1001, 4, 70, 9), (128, 645, 11, 70, 24),
+                                              (129, 513, 0, 64, 70), (128, 262144, 0, 64, 64)])
+def test_cuda_mxu_band_width_matches_plain(cuda, bf16, W, m, start, padL, K):
+    """The block-window kernel told the windows' band width W: it reads and
+    multiplies only the window rows that meet a warp's bands (W = 1, 64,
+    128, 129; K off a multiple of 4 takes its 4-byte B copies), and W = 256
+    gives the same result."""
+    v, B = _t(*_band(m + W, m, W, m, K), device=cuda)
+    dt = band_mxu_blocks(v, W)
+    if bf16:
+        dt = dt.to(torch.bfloat16)
+    name = "bf16" if bf16 else "f32"
+    got = _check_launch(spmm_band_mxu.launches, name, lambda: spmm_band_mxu(dt, B, start, padL, m, W))
+    want = spmm_band_mxu_plain(dt, B, start, padL, m)
+    assert near_error(got.cpu().numpy(), want.cpu().numpy()) <= F32
+    assert torch.equal(spmm_band_mxu(dt, B, start, padL, m, W), got)
+    assert near_error(spmm_band_mxu(dt, B, start, padL, m, 256).cpu().numpy(), want.cpu().numpy()) <= F32
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("inst", ["f32", "bf16", "f64"])
 @pytest.mark.parametrize("m,n,offs,K", DIAG_CASES + [(20000, 20000, (-10101, -101, -100, -99, -1, 0, 1, 99, 100, 101, 10101), 64)])
 def test_cuda_diag_matches_plain(cuda, inst, m, n, offs, K):

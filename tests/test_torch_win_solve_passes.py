@@ -379,6 +379,38 @@ def test_emulated_passes_on_ilu0_factor_forms(dtype):
             assert near_error(got.numpy(), want.numpy()) <= _tol(dtype)
 
 
+def _laplacian_ilu0(nx, dtype, device="cpu"):
+    """ILU0 of the 5-point 2-D Laplacian on an nx x nx grid: at nx = 90 a
+    grouped win form (nb 128, WL 96, 64 blocks, groups of 8) whose tails
+    are far from zero (the far part of a group weighs about 1e-2 of max |x|),
+    a real factor on which the group chain and its fix-up matter."""
+    m = nx * nx
+    i = np.arange(m)
+    r = np.concatenate([i, i[i % nx > 0], i[i % nx < nx - 1], i[i >= nx], i[i < m - nx]])
+    c = np.concatenate([i, i[i % nx > 0] - 1, i[i % nx < nx - 1] + 1, i[i >= nx] - nx, i[i < m - nx] + nx])
+    v = np.where(r == c, 4.0, -1.0).astype(dtype)
+    order = np.lexsort((c, r))
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=m))]).astype(np.int32)
+    A = tt.create_csr(m, m, ptr, c[order].astype(np.int32), v[order], device=device)
+    return ilu0_factorize(A)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_emulated_passes_on_grouped_laplacian_factor(dtype):
+    """The 90^2 Laplacian's ILU0 L and U forms: grouped, with a far part
+    that weighs; the emulated passes hold to the plain version."""
+    st = _laplacian_ilu0(90, dtype)
+    rng = np.random.default_rng(8)
+    for form in (st.l_form, st.u_form):
+        dT, lT = form.operands()
+        ops = form.solve_ops()
+        assert (form.nb, form.WL, dT.shape[0], ops.group) == (128, 96, 64, 8)
+        b = torch.from_numpy(rng.standard_normal(form.m_pad).astype(dtype))
+        got = _emulate(dT, ops, b, form.nb, form.WL)
+        assert near_error(got.numpy(), trsv_win_plain(dT, lT, b, form.nb, form.WL).numpy()) <= _tol(dtype)
+        assert _far_weight(ops, got, form.nb, form.WL) >= 5e-3
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_nonfinite_b_divergence(dtype):
     """Inf in b at row q of block k: the emulated passes keep rows before q
@@ -568,3 +600,22 @@ def test_cuda_planted_faults_fail_the_comparison(cuda, fault, K):
     F = torch.zeros_like(ops.F) if fault == "F zeroed" else torch.roll(ops.F, -ops.group, dims=0).contiguous()
     _got, err = _card_check(dinvT, lwT, b, nb, WL, dataclasses.replace(ops, F=F), np.float32)
     assert err > 10 * _tol(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("K", [None, 16])
+def test_cuda_kernels_match_plain_on_grouped_laplacian_factor(cuda, K, dtype):
+    """The 90^2 Laplacian's ILU0 L and U forms on the card (a real factor
+    whose group chain and fix-up weigh): within the tolerance of the plain
+    version, the same bits twice, the scheduled launches."""
+    st = _laplacian_ilu0(90, dtype, device=cuda)
+    rng = np.random.default_rng(10)
+    for form in (st.l_form, st.u_form):
+        dT, lT = form.operands()
+        shape = (form.m_pad,) if K is None else (form.m_pad, K)
+        b = torch.from_numpy(rng.standard_normal(shape).astype(dtype)).to(dT.device)
+        ops = win_solve_operands(dT, lT, form.nb, form.WL)
+        assert ops.group == 8
+        _got, err = _card_check(dT, lT, b, form.nb, form.WL, ops, dtype)
+        assert err <= _tol(dtype)
