@@ -33,8 +33,11 @@
 //   spmm_band: 134.2 MB of band + 67.1 MB of B + 67.1 MB of C = 268 MB at
 //   3350 GB/s = 0.080 ms; 2.15 G FMA at 33.5 T FMA/s (67 TFLOP/s f32) =
 //   0.064 ms. Bytes and FMAs are close, so the design reads B from device
-//   memory about (TM + W - 1) / TM times, not W times, and keeps the FMA
-//   loop fed from registers and shared memory.
+//   memory about (TM + W - 1) / TM times, not W times, keeps the FMA loop
+//   fed from registers and 16-byte shared loads, and streams the band
+//   while the FMAs run. A first design staged the whole band tile and B
+//   window before any FMA (85 KB at W = 128, load, barrier, compute) and
+//   fed 16 FMAs with 8 four-byte shared loads: 0.3118 ms (PERF.md §6).
 //   spmm_band_mxu: what the function needs is the windows' parallelogram
 //   (134.2 MB f32, 67.1 MB bf16) + 67.1 MB of B + 67.1 MB of C: 0.080 ms
 //   f32, 0.060 ms bf16 (the stored windows, zero triangles and all: 0.120 /
@@ -47,15 +50,23 @@
 //   (spmv.py:292) and accumulates in f32, which is what a bf16 tensor-core
 //   product computes.
 //
-// Design, spmm_band: a CTA of 256 threads owns a tile of kTM = 64 rows and
-// kKC = 64 RHS columns. It stages the tile's band rows (contiguous in v)
-// and the B rows [start + i0 - padL, + kTM + W - 1) of its column chunk in
-// dynamic shared memory once. Thread (ty, tx) owns rows 4ty..4ty+3 and
-// columns tx + 16q, q < 4: a register window of four B rows slides down by
-// one row per j, so each j costs one new B row (4 values) and four band
-// values from shared memory for 16 FMAs. Sums run over j in increasing
-// order in the operand dtype. The B window's row stride kKCS = kKC + 4
-// keeps the two row groups of a warp on distinct banks.
+// Design, spmm_band: a CTA of 128 threads owns a tile of kBandTM = 128
+// rows and one 256-byte column chunk of B (64 f32 / 32 f64 columns). The
+// band is streamed through a three-stage cp.async ring in chunks of JC
+// band columns j (16 f32 / 8 f64), stored j-major (vs[j][r], row stride
+// kBandTM + 8, so each copy's 8 rows x 4 j land on 32 distinct banks and a
+// thread's 8 band values for one j are two (f64: four) 16-byte loads). The
+// tile's B rows [start + i0 - padL, + kBandTM + W - 1) flow through a ring
+// of kBandRing = 256 rows: a chunk brings only its JC new rows. Copies run
+// two chunks ahead of the FMAs, and shared memory (90 KB, two CTAs an SM)
+// no longer grows with W. Thread (g, l) owns rows 8g .. 8g + 7 and the two
+// 16-byte column vectors l and l + 8 of the chunk: a register window of
+// eight B rows slides down one row per j, so each j costs two 16-byte B
+// loads and the eight band values for 8 x 8 (f64: 8 x 4) FMAs (a tile of
+// 8 x 4 on 256 threads ran slower in both dtypes); j is unrolled by 8, the
+// window's height, so the rotation is register naming, not moves. B is read
+// (128 + W - 1) / 128 times a row (about 2x at W = 128, not 3x). Sums run
+// over j in increasing order in the operand dtype.
 //
 // Design, spmm_band_mxu: a CTA of 8 warps owns one 128-row block and
 // kMxuKC = 64 columns; warp w owns rows s0 = 32 (w / 2) .. s0 + 31 and 32
@@ -94,9 +105,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTM = 64;        // spmm_band: rows per CTA (16 groups of 4)
-constexpr int kKC = 64;        // RHS columns per CTA (16 lanes x 4)
-constexpr int kKCS = kKC + 4;  // shared row stride of a staged B row
+constexpr int kBandTM = 128;          // spmm_band: rows per CTA (16 groups of 8)
+constexpr int kBandCV = 2;            // 16-byte column vectors a thread owns
+constexpr int kBandLanes = 16 / kBandCV;  // column lanes: 16 x 16 bytes = a 256-byte chunk of a B row
+constexpr int kBandThreads = kBandTM / 8 * kBandLanes;
+constexpr int kBandRing = 256;        // B rows of the ring (a power of two)
+constexpr int kBandTMS = kBandTM + 8;  // row stride of the j-major band chunk
+constexpr int kBandStages = 3;        // band chunks in the ring; B rows run kBandStages - 1 chunks ahead
 constexpr int kMB = 128;       // spmm_band_mxu: rows per block
 constexpr int kWB = 256;       // window rows per block
 constexpr int kCS = 32;        // window rows staged per slice
@@ -106,72 +121,7 @@ constexpr int kMxuStages = 3;  // its cp.async ring
 __device__ __forceinline__ float mul_add(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double mul_add(double a, double b, double c) { return fma(a, b, c); }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-spmm_band_kernel(const T* __restrict__ v, const T* __restrict__ B, T* __restrict__ C, int64_t m,
-                 int64_t n, int64_t K, int W, int64_t start, int64_t padL) {
-  extern __shared__ __align__(16) unsigned char band_smem[];
-  T* bs = reinterpret_cast<T*>(band_smem);  // (kTM + W - 1) x kKCS window of B
-  T* vs = bs + (kTM + W - 1) * kKCS;        // kTM x (W + 1) band tile
-  const int WS = W + 1;
-  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * kTM;
-  const int64_t k0 = static_cast<int64_t>(blockIdx.y) * kKC;
-  const int tid = threadIdx.x;
-
-  const int nrows = static_cast<int>(m - i0 < kTM ? m - i0 : kTM);
-  const T* vtile = v + i0 * W;  // rows i0.. of v are contiguous
-  for (int e = tid; e < kTM * W; e += kThreads) {
-    const int r = e / W, j = e - r * W;
-    vs[r * WS + j] = r < nrows ? vtile[e] : static_cast<T>(0);
-  }
-  const int64_t brow0 = start + i0 - padL;
-  const int span = kTM + W - 1;
-  for (int e = tid; e < span * kKC; e += kThreads) {
-    const int t = e / kKC, c = e - t * kKC;
-    const int64_t br = brow0 + t, bc = k0 + c;
-    bs[t * kKCS + c] = (br >= 0 && br < n && bc < K) ? B[br * K + bc] : static_cast<T>(0);
-  }
-  __syncthreads();
-
-  const int ty = tid / 16, tx = tid % 16;
-  const int r0 = ty * 4;
-  T acc[4][4];
-  T win[4][4];  // win[a][q] = B window row r0 + a + j, column tx + 16q
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      acc[a][q] = static_cast<T>(0);
-      win[a][q] = a == 0 ? static_cast<T>(0) : bs[(r0 + a - 1) * kKCS + tx + 16 * q];
-    }
-  for (int j = 0; j < W; ++j) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      win[0][q] = win[1][q];
-      win[1][q] = win[2][q];
-      win[2][q] = win[3][q];
-      win[3][q] = bs[(r0 + 3 + j) * kKCS + tx + 16 * q];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const T va = vs[(r0 + a) * WS + j];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[a][q] = mul_add(va, win[a][q], acc[a][q]);
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int64_t i = i0 + r0 + a;
-    if (i >= m) break;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int64_t c = k0 + tx + 16 * q;
-      if (c < K) C[i * K + c] = acc[a][q];
-    }
-  }
-}
-
-// ---- spmm_band_mxu ----------------------------------------------------------
+// ---- cp.async ----------------------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -190,6 +140,197 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// ---- spmm_band ----------------------------------------------------------------
+
+__device__ __forceinline__ void copy_elem(float* dst, const float* src, bool in) { cp_async4(dst, src, in ? 4 : 0); }
+__device__ __forceinline__ void copy_elem(double* dst, const double* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(in ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void load16(const double* p, double (&v)[2]) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  v[0] = a.x; v[1] = a.y;
+}
+__device__ __forceinline__ void store16(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store16(double* p, const double (&v)[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+
+// a thread's kBandCV 16-byte vectors of one staged B row: at p and every
+// kBandLanes vectors on
+template <typename T>
+__device__ __forceinline__ void load_row(const T* p, T (&v)[kBandCV * 16 / sizeof(T)]) {
+  constexpr int V = 16 / sizeof(T);
+#pragma unroll
+  for (int u = 0; u < kBandCV; ++u) {
+    T t[V];
+    load16(p + u * kBandLanes * V, t);
+#pragma unroll
+    for (int c = 0; c < V; ++c) v[u * V + c] = t[c];
+  }
+}
+
+template <typename T>
+struct BandCfg {
+  static constexpr int V = 16 / sizeof(T);                // columns of a 16-byte vector
+  static constexpr int KC = 16 * V;                       // columns a CTA owns
+  static constexpr int JC = sizeof(T) == 4 ? 16 : 8;      // band columns j a chunk
+  static constexpr int kRingBytes = kBandRing * KC * static_cast<int>(sizeof(T));
+  static constexpr int kChunkBytes = JC * kBandTMS * static_cast<int>(sizeof(T));
+  static constexpr int kSmem = kRingBytes + kBandStages * kChunkBytes;  // 91,648 bytes in both dtypes
+  // the rows one chunk reads and the rows of the chunks in flight fit the ring
+  static_assert(kBandStages * JC + kBandTM - 1 <= kBandRing, "B ring too small");
+};
+
+// cp.async of chunk q: the band values vs[jl][r] = v[i0 + r, q JC + jl]
+// (zero past the tile's rows and past W; a copy instruction's 32 lanes take
+// 8 rows x 4 consecutive j), and the chunk's new B rows of the ring:
+// chunk 0 rows [0, JC + kBandTM - 1), chunk q > 0 rows [q JC + kBandTM - 1,
+// (q + 1) JC + kBandTM - 1) of the tile's window (zero outside [0, n) and
+// past column K), row t at ring slot t % kBandRing.
+template <typename T>
+__device__ __forceinline__ void band_stage(T* ring, T* vs, const T* __restrict__ v, const T* __restrict__ B,
+                                           int q, int64_t i0, int nrows, int W, int64_t brow0, int64_t n,
+                                           int64_t K, int64_t k0, bool bvec) {
+  using L = BandCfg<T>;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kRowGroups = kBandTM / 8, kCombos = kRowGroups * (L::JC / 4), kWarps = kBandThreads / 32;
+#pragma unroll
+  for (int k = 0; k < kCombos / kWarps; ++k) {
+    const int combo = warp + kWarps * k;
+    const int r = (combo % kRowGroups) * 8 + (lane >> 2);
+    const int jl = (combo / kRowGroups) * 4 + (lane & 3);
+    const int j = q * L::JC + jl;
+    const bool in = r < nrows && j < W;
+    copy_elem(vs + jl * kBandTMS + r, in ? v + (i0 + r) * W + j : v, in);
+  }
+  const int t0 = q == 0 ? 0 : q * L::JC + kBandTM - 1;
+  const int t1 = (q + 1) * L::JC + kBandTM - 1;
+  if (bvec) {
+    for (int e = tid; e < (t1 - t0) * 16; e += kBandThreads) {
+      const int t = t0 + e / 16, l = e % 16;
+      const int64_t br = brow0 + t, col = k0 + l * L::V;
+      const bool in = br >= 0 && br < n && col < K;
+      cp_async16(ring + (t & (kBandRing - 1)) * L::KC + l * L::V, in ? B + br * K + col : B, in ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < (t1 - t0) * L::KC; e += kBandThreads) {
+      const int t = t0 + e / L::KC, c = e % L::KC;
+      const int64_t br = brow0 + t, col = k0 + c;
+      const bool in = br >= 0 && br < n && col < K;
+      copy_elem(ring + (t & (kBandRing - 1)) * L::KC + c, in ? B + br * K + col : B, in);
+    }
+  }
+}
+
+// The FMAs of chunk q (its first jn <= JC band columns; kFull: jn == JC)
+// into the thread's 8 x CV sums, sliding the register window one B row a j.
+template <typename T, bool kFull>
+__device__ __forceinline__ void band_chunk(const T* ring, const T* vsq, int q, int jn, int g8, int lane,
+                                           T (&acc)[8][kBandCV * 16 / sizeof(T)],
+                                           T (&win)[8][kBandCV * 16 / sizeof(T)]) {
+  using L = BandCfg<T>;
+  constexpr int V = L::V, KC = L::KC, JC = L::JC, CV = kBandCV * V;
+#pragma unroll
+  for (int jb = 0; jb < JC; jb += 8) {
+    if (!kFull && jb >= jn) break;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      if (!kFull && jb + jj >= jn) break;
+      const int j = q * JC + jb + jj;
+      load_row(ring + ((g8 + j + 7) & (kBandRing - 1)) * KC + lane * V, win[(jj + 7) & 7]);
+      const T* vj = vsq + (jb + jj) * kBandTMS + g8;
+      T val[8];
+#pragma unroll
+      for (int a = 0; a < 8; a += V) {
+        T t[V];
+        load16(vj + a, t);
+#pragma unroll
+        for (int c = 0; c < V; ++c) val[a + c] = t[c];
+      }
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int c = 0; c < CV; ++c) acc[a][c] = mul_add(val[a], win[(jj + a) & 7][c], acc[a][c]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBandThreads, 2)
+spmm_band_kernel(const T* __restrict__ v, const T* __restrict__ B, T* __restrict__ C, int64_t m,
+                 int64_t n, int64_t K, int W, int64_t start, int64_t padL, int bvec) {
+  using L = BandCfg<T>;
+  constexpr int V = L::V, KC = L::KC, JC = L::JC;
+  extern __shared__ __align__(128) unsigned char band_smem[];
+  T* ring = reinterpret_cast<T*>(band_smem);
+  T* vs0 = reinterpret_cast<T*>(band_smem + L::kRingBytes);
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * kBandTM;
+  const int64_t k0 = static_cast<int64_t>(blockIdx.y) * KC;
+  const int nrows = static_cast<int>(m - i0 < kBandTM ? m - i0 : kBandTM);
+  const int64_t brow0 = start + i0 - padL;
+  const int nq = (W + JC - 1) / JC;
+  const int g8 = (threadIdx.x / kBandLanes) * 8, lane = threadIdx.x % kBandLanes;
+  constexpr int CV = kBandCV * V;  // columns a thread owns: vector u at lane * V + u * kBandLanes * V
+
+  T acc[8][CV], win[8][CV];  // win[(j + a) % 8] = B window row g8 + a + j at step j
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int c = 0; c < CV; ++c) acc[a][c] = static_cast<T>(0);
+#pragma unroll
+  for (int k = 0; k < kBandStages - 1; ++k) {
+    if (k < nq) band_stage<T>(ring, vs0 + k * JC * kBandTMS, v, B, k, i0, nrows, W, brow0, n, K, k0, bvec);
+    cp_async_commit();
+  }
+  for (int q = 0; q < nq; ++q) {
+    cp_async_wait<kBandStages - 2>();
+    __syncthreads();  // chunk q landed; every thread is done with chunk q - 1, whose stage is next
+    const int qn = q + kBandStages - 1;
+    if (qn < nq)
+      band_stage<T>(ring, vs0 + (qn % kBandStages) * JC * kBandTMS, v, B, qn, i0, nrows, W, brow0, n, K, k0, bvec);
+    cp_async_commit();
+    if (q == 0) {
+#pragma unroll
+      for (int k = 0; k < 7; ++k) load_row(ring + (g8 + k) * KC + lane * V, win[k]);
+    }
+    const T* vsq = vs0 + (q % kBandStages) * JC * kBandTMS;
+    const int jn = min(JC, W - q * JC);
+    if (jn == JC)  // every chunk but a ragged last one: no bound checks in the loop
+      band_chunk<T, true>(ring, vsq, q, jn, g8, lane, acc, win);
+    else
+      band_chunk<T, false>(ring, vsq, q, jn, g8, lane, acc, win);
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int64_t i = i0 + g8 + a;
+    if (i >= m) break;
+#pragma unroll
+    for (int u = 0; u < kBandCV; ++u) {
+      const int64_t c0 = k0 + lane * V + u * kBandLanes * V;
+      if (K % V == 0 && c0 < K) {
+        T o[V];
+#pragma unroll
+        for (int c = 0; c < V; ++c) o[c] = acc[a][u * V + c];
+        store16(C + i * K + c0, o);
+      } else {
+#pragma unroll
+        for (int c = 0; c < V; ++c)
+          if (c0 + c < K) C[i * K + c0 + c] = acc[a][u * V + c];
+      }
+    }
+  }
+}
+
+// ---- spmm_band_mxu ----------------------------------------------------------
 
 // Shared-memory layout of one ring stage: the slice's window values
 // ds[cc][s] (row stride kDS) and its B rows bs[cc][col] (f32, stride kMxuKC).
@@ -429,16 +570,15 @@ template <typename T>
 int launch_band(const void* v, const void* B, void* C, int64_t m, int64_t n, int64_t K, int64_t W,
                 int64_t start, int64_t padL, void* stream) {
   if (m <= 0 || K <= 0) return 0;
-  const size_t smem = static_cast<size_t>((kTM + W - 1) * kKCS + kTM * (W + 1)) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(spmm_band_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  using L = BandCfg<T>;
+  cudaError_t err = cudaFuncSetAttribute(spmm_band_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((m + kTM - 1) / kTM),
-                  static_cast<unsigned>((K + kKC - 1) / kKC));
-  spmm_band_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int bvec = K % L::V == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  const dim3 grid(static_cast<unsigned>((m + kBandTM - 1) / kBandTM),
+                  static_cast<unsigned>((K + L::KC - 1) / L::KC));
+  spmm_band_kernel<T><<<grid, kBandThreads, L::kSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(v), static_cast<const T*>(B), static_cast<T*>(C), m, n, K,
-      static_cast<int>(W), start, padL);
+      static_cast<int>(W), start, padL, bvec);
   return static_cast<int>(cudaGetLastError());
 }
 

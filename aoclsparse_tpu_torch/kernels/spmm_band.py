@@ -36,10 +36,14 @@ import ctypes
 import torch
 
 from ..core.types import AoclSparseError, Status
-from .build import MAX_SMEM, load_library
+from .build import load_library
 from .spmm_plain import add_spill
 
 __all__ = [
+    "BAND_JC",
+    "BAND_RING",
+    "BAND_STAGES",
+    "BAND_TM",
     "MXU_MAX_W",
     "band_max_w",
     "band_mxu_blocks",
@@ -62,9 +66,17 @@ _MXU = {
     (torch.bfloat16, torch.float32): ("bf16", "spmm_band_mxu_bf16"),
 }
 
-#: the band kernel's tile (csrc/spmm_band.cu kTM, kKC + 4): a CTA stages
-#: (TM + W - 1) B rows of KCS values and a TM x (W + 1) band tile
-_TM, _KCS = 64, 68
+#: the band kernel's schedule (csrc/spmm_band.cu): rows of a CTA tile, B
+#: rows of its ring, band columns j of a chunk by element size, and the
+#: stages of its band ring (copies run BAND_STAGES - 1 chunks ahead)
+BAND_TM, BAND_RING, BAND_STAGES = 128, 256, 3
+BAND_JC = {4: 16, 8: 8}
+#: the widest band the planner gives the band kernel (its bandtm gate), by
+#: element size (4 bytes and narrower, 8, 16). The kernel streams the band
+#: and B through rings whose size does not depend on W, so these are the
+#: widths an earlier design's shared-memory tile held, kept so that the
+#: planner picks the same forms.
+_BAND_MAX_W = {4: 400, 8: 184, 16: 72}
 #: one 256-row window covers a 128-row block plus a band of W <= 129
 MXU_MAX_W = 129
 
@@ -72,11 +84,9 @@ _fns = {}
 
 
 def band_max_w(dtype) -> int:
-    """Widest band (a multiple of 8) whose tile fits the band kernel's
-    shared memory in `dtype`: 400 in f32, 184 in f64."""
-    item = max(torch.empty(0, dtype=dtype).element_size(), 4)
-    w = (MAX_SMEM // item - (_TM - 1) * _KCS - _TM) // (_KCS + _TM)
-    return w // 8 * 8
+    """Widest band the band kernel is given in `dtype`: 400 in f32, 184 in
+    f64 (the planner's bandtm gate)."""
+    return _BAND_MAX_W[max(torch.empty(0, dtype=dtype).element_size(), 4)]
 
 
 def _entry(symbol: str, nint: int):

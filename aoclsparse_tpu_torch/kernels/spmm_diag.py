@@ -15,6 +15,12 @@ It replaces the JAX package's ``pallas_spmm_diag``
 (kernels/xla/spmm.py:263-332), whose unrolled and scan XLA variants exist
 for the TPU's VMEM budget; the plain version here is their arithmetic.
 
+The kernel runs a schedule built once per offset set (`diag_schedule`):
+`diag_windows` groups the sorted offsets into windows whose B rows and
+values fit one shared-memory stage, `diag_runs` splits each window into
+runs of at most `RUN_MAX` consecutive offsets, and the two go to the card
+as one small int64 table.
+
 `spmm_diag` has one rule: a CPU tensor takes `spmm_diag_plain`, a CUDA
 tensor launches the kernel or raises. `spmm_diag.launches` counts kernel
 launches per instance.
@@ -23,13 +29,27 @@ launches per instance.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
 
 import torch
 
 from ..core.types import AoclSparseError, Status
-from .build import load_library
+from .build import MAX_SMEM, load_library
 
-__all__ = ["spmm_diag", "spmm_diag_plain"]
+__all__ = [
+    "DIAG_ROWS",
+    "DiagSchedule",
+    "RUN_MAX",
+    "STAGES",
+    "STAGE_BUDGET",
+    "diag_runs",
+    "diag_schedule",
+    "diag_windows",
+    "spmm_diag",
+    "spmm_diag_plain",
+]
 
 #: (values dtype, B dtype) -> (instance name, C entry point)
 _INSTANCES = {
@@ -37,6 +57,18 @@ _INSTANCES = {
     (torch.bfloat16, torch.float32): ("bf16", "spmm_diag_bf16"),
     (torch.float64, torch.float64): ("f64", "spmm_diag_f64"),
 }
+
+#: rows of one CTA tile, by instance (csrc/spmm_diag.cu: one thread per
+#: 8 rows and 16 bytes of a 128-byte column chunk)
+DIAG_ROWS = {"f32": 512, "bf16": 512, "f64": 384}
+#: staged bytes of one B row: a 128-byte column chunk (32 f32 / 16 f64 columns)
+ROW_BYTES = 128
+#: most offsets of one run (the kernel's unrolled run lengths 1..4)
+RUN_MAX = 4
+#: stages of the kernel's shared-memory ring (csrc/spmm_diag.cu kStages),
+#: and the bytes one stage may take
+STAGES = 2
+STAGE_BUDGET = MAX_SMEM // STAGES
 
 _fns = {}
 
@@ -47,10 +79,107 @@ def _entry(symbol: str):
         fn = getattr(load_library(), symbol)
         fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_void_p] * 2 + [
             ctypes.c_int64
-        ] * 3 + [ctypes.c_void_p]
+        ] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return fn
+
+
+def _stage_bytes(nd: int, span: int, rows: int, val_bytes: int, row_bytes: int) -> int:
+    """Bytes of one stage: nd x rows values, then rows + span B rows
+    (rounded up to 128 so that the ring's second stage stays aligned)."""
+    return -(-(nd * rows * val_bytes + (rows + span) * row_bytes) // 128) * 128
+
+
+def diag_windows(offs: Sequence[int], rows: int, budget: int = STAGE_BUDGET, val_bytes: int = 4,
+                 row_bytes: int = ROW_BYTES) -> List[Tuple[int, int]]:
+    """Group sorted offsets into windows [(d0, d1)] of consecutive
+    diagonals d0 <= d < d1, in order. An offset joins the open window while
+    its gap to the window's last offset is below `rows` (so the window's
+    staged B rows are shared, not just adjacent) and the window's stage,
+    (d1 - d0) x rows values of val_bytes and (last - first + rows) B rows of
+    row_bytes, fits `budget` bytes; otherwise it opens the next window. A
+    lone offset always makes a window of its own."""
+    offs = [int(o) for o in offs]
+    if any(b <= a for a, b in zip(offs, offs[1:])):
+        raise AoclSparseError(Status.invalid_value, "diagonal offsets must be strictly increasing")
+    if offs and _stage_bytes(1, 0, rows, val_bytes, row_bytes) > budget:
+        raise AoclSparseError(Status.invalid_size, f"a {rows}-row stage does not fit {budget} bytes")
+    out, d0 = [], 0
+    for d in range(1, len(offs) + 1):
+        if d < len(offs) and offs[d] - offs[d - 1] < rows and _stage_bytes(
+            d + 1 - d0, offs[d] - offs[d0], rows, val_bytes, row_bytes
+        ) <= budget:
+            continue
+        out.append((d0, d))
+        d0 = d
+    return out
+
+
+def diag_runs(offs: Sequence[int], d0: int, d1: int) -> List[Tuple[int, int, int]]:
+    """Runs [(dd, c, p)] of window [d0, d1): c <= RUN_MAX consecutive
+    offsets from d0 + dd on, whose first sits p rows into the window's
+    stage (offs[d0 + dd] - offs[d0]), in increasing offset order."""
+    out, d = [], d0
+    while d < d1:
+        c = 1
+        while c < RUN_MAX and d + c < d1 and offs[d + c] == offs[d] + c:
+            c += 1
+        out.append((d - d0, c, int(offs[d]) - int(offs[d0])))
+        d += c
+    return out
+
+
+@dataclass(frozen=True)
+class DiagSchedule:
+    """The diagonal kernel's schedule for one offset set and instance: its
+    windows [(d0, d1)], their spans (last - first offset) and runs, the CTA
+    tile's rows, the bytes of one ring stage, and the int64 table the kernel
+    reads: per window (first offset, d0, d1 - d0, span, first run, end run),
+    then per run (dd, c, p)."""
+
+    windows: Tuple[Tuple[int, int], ...]
+    spans: Tuple[int, ...]
+    runs: Tuple[Tuple[Tuple[int, int, int], ...], ...]
+    rows: int
+    stage_bytes: int
+    val_bytes: int
+    table: torch.Tensor
+
+    def staged_bytes(self, m: int, K: int, elem_bytes: int) -> Tuple[int, int]:
+        """(B bytes, value bytes) the kernel stages in one call on (m, K)
+        operands: every row tile and 128-byte column chunk stages each
+        window's rows + span B rows and nd x rows values."""
+        tiles = -(-m // self.rows) * -(-K // (ROW_BYTES // elem_bytes))
+        b = sum((self.rows + sp) * ROW_BYTES for sp in self.spans)
+        v = sum((d1 - d0) * self.rows * self.val_bytes for d0, d1 in self.windows)
+        return tiles * b, tiles * v
+
+
+def diag_schedule(offs: Sequence[int], inst: str, device=None) -> DiagSchedule:
+    """The schedule of `offs` (sorted) for instance `inst` ("f32", "bf16",
+    "f64"), its table on `device`; built once per (offsets, instance,
+    device) and cached."""
+    return _schedule(tuple(int(o) for o in offs), inst, None if device is None else torch.device(device))
+
+
+@functools.lru_cache(maxsize=256)
+def _schedule(offs: Tuple[int, ...], inst: str, device) -> DiagSchedule:
+    rows = DIAG_ROWS[inst]
+    val_bytes = {"f32": 4, "bf16": 2, "f64": 8}[inst]
+    wins = diag_windows(offs, rows, STAGE_BUDGET, val_bytes)
+    runs = [diag_runs(offs, d0, d1) for d0, d1 in wins]
+    spans = [offs[d1 - 1] - offs[d0] for d0, d1 in wins]
+    wtab, rtab, r0 = [], [], 0
+    for (d0, d1), sp, rw in zip(wins, spans, runs):
+        wtab.append((offs[d0], d0, d1 - d0, sp, r0, r0 + len(rw)))
+        rtab.extend(rw)
+        r0 += len(rw)
+    flat = [x for row in wtab for x in row] + [x for row in rtab for x in row]
+    stage = max((_stage_bytes(d1 - d0, sp, rows, val_bytes, ROW_BYTES) for (d0, d1), sp in zip(wins, spans)),
+                default=0)
+    return DiagSchedule(tuple(wins), tuple(spans), tuple(tuple(r) for r in runs), rows, stage, val_bytes,
+                        torch.tensor(flat, dtype=torch.int64, device=device))
 
 
 def _check(dvals: torch.Tensor, offs: torch.Tensor, B: torch.Tensor):
@@ -88,10 +217,12 @@ def spmm_diag_plain(dvals: torch.Tensor, offs: torch.Tensor, B: torch.Tensor) ->
     return C
 
 
-def spmm_diag(dvals: torch.Tensor, offs: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+def spmm_diag(dvals: torch.Tensor, offs: torch.Tensor, B: torch.Tensor, offs_static=None) -> torch.Tensor:
     """C = A_dia @ B by the contract above: the plain version on a CPU
     tensor, one kernel launch on a CUDA tensor (current stream, not
-    synchronised)."""
+    synchronised). `offs_static`, the offsets as Python ints (the diag
+    form's `dia_offs_static`), finds the cached schedule without reading
+    `offs` back from the card."""
     name, symbol = _check(dvals, offs, B)
     if B.device.type == "cpu":
         return spmm_diag_plain(dvals, offs, B)
@@ -104,10 +235,15 @@ def spmm_diag(dvals: torch.Tensor, offs: torch.Tensor, B: torch.Tensor) -> torch
         return C
     if ndiag == 0:
         return C.zero_()
+    if offs_static is None:
+        offs_static = offs.tolist()
+    elif len(offs_static) != ndiag:
+        raise AoclSparseError(Status.invalid_size, f"{len(offs_static)} static offsets for {ndiag} diagonals")
+    sched = diag_schedule(offs_static, name, B.device)
     with torch.cuda.device(B.device):
         rc = _entry(symbol)(
-            dvals.data_ptr(), offs.data_ptr(), ndiag, B.data_ptr(), C.data_ptr(), m, n, K,
-            torch.cuda.current_stream().cuda_stream,
+            dvals.data_ptr(), sched.table.data_ptr(), len(sched.windows), B.data_ptr(), C.data_ptr(), m, n, K,
+            sched.stage_bytes, torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"spmm_diag_{name} launch failed: CUDA error {rc}")

@@ -74,7 +74,7 @@ def _run_mm_form(form, B: torch.Tensor, kid: Optional[int], mixed: bool = False)
                         start=form.bandt_start, padL=form.bwd_padL, W=form.bwd_W)
         return e.fn(form.bwd_val, B, *spill, start=form.bandt_start, padL=form.bwd_padL)
     if form.kind == "diag":
-        return e.fn(form.dia_bf16() if mixed else form.dia_val, form.dia_offs, B)
+        return e.fn(form.dia_bf16() if mixed else form.dia_val, form.dia_offs, B, offs_static=form.dia_offs_static)
     if form.kind == "segsum":
         return e.fn(form.ind, form.val, form.row_ids, B, form.m)
     if form.kind == "ell":

@@ -11,9 +11,9 @@ failure (exit code != 0, no result line):
 2. build the kernels from aoclsparse_tpu_torch/csrc with nvcc (sm_90a) and
    the host C++ library with g++; require that the latter loads, and that
    -Xptxas -v gives the route, accumulate, block-window SpMV, group-window,
-   window-solve (passes A, B, C), block-window SpMM (both instances) and
-   band GEMM (both instances) kernels no stack frame and no spills (their
-   registers logged);
+   window-solve (passes A, B, C), block-window SpMM (both instances), band
+   GEMM (both instances), band SpMM and diagonal SpMM (every instance)
+   kernels no stack frame and no spills (their registers logged);
 3. hold each kernel instance against its plain PyTorch version:
    - the band kernel on the bench operand (m = n = 262144, 64 nnz/row,
      half-bandwidth 64, seed 7, built as bench.py:220-233) in f32, bf16
@@ -35,14 +35,18 @@ failure (exit code != 0, no result line):
      (128, 262144) and on a 128 MiB buffer (bench.py:291), also against a
      float64 sum;
    - the band SpMM kernel on the bench operand's bandtm form at K = 64 in
-     f32 and f64, and with its spill on the small odd-m operand at K = 7;
+     f32 and f64, called twice for the same bits, with its spill on the
+     small odd-m operand at K = 7, and on random bands at W = 1 and at the
+     cap (400 f32, 184 f64) with K = 300 and m below one tile;
      the block-window kernel on the bench form at K = 64 in f32 and bf16,
      told the form's band width and W = 256, and on random windows at
      W = 1, 64 and 128 (m = 4099, start > 0, padL > 0, K = 64 and 9), each
      at its band width called twice for the same bits;
    - the diagonal kernel on the 27-point stencil of HPCG's default local
      grid (104^3: m = 1,124,864, 29,791,000 nnz; hpcg.dat) at K = 64 in
-     f32, bf16 and f64, and on a small odd-m operand with negative offsets;
+     f32, bf16 and f64, called twice for the same bits, on a small odd-m
+     operand with negative offsets, and on 192 diagonals, a lone far
+     diagonal with offsets past +-n, and the 12^3 stencil (K = 1, 13, 300);
    - the window-solve kernels (pass A, the chain, grouped on these forms,
      and pass C, over dinvT, P = lwT @ dinvT and F) on the ILU0 L and U
      forms of the SPD operand (the bench profile symmetrised plus a
@@ -140,8 +144,10 @@ failure (exit code != 0, no result line):
    outlasts the host's enqueue, so the events time the device alone),
    against each kernel's bound
    from this run's inputs (stored operands, and beside it their nonzero
-   entries only); one mv call, one mm call per operand (and mm kid=5, the
-   block windows, on the bench operand), one trsm call,
+   entries only), with the diagonal kernel's offset windows and the bytes
+   it stages a call, and the band kernel's tile and rings; one mv call,
+   one mm call per operand (and mm kid=5, the block windows, on the bench
+   operand), one trsm call,
    one CG iteration, one ilu_smoother call and one ILU0-PCG iteration with
    CUDA events or the host clock (median of repeats), with stream rates
    against the card's published HBM peak, the window solves' passes by a
@@ -210,6 +216,11 @@ from aoclsparse_tpu_torch.kernels.benes import benes_apply, benes_apply_plain, b
 from aoclsparse_tpu_torch.kernels.route import apply_benes, apply_route, pack_masks, plan_route_arrays, route_masks
 from aoclsparse_tpu_torch.kernels.spill_route import oh_accum, oh_accum_plain, oh_select, oh_select_plain
 from aoclsparse_tpu_torch.kernels.spmm_band import (
+    BAND_JC,
+    BAND_RING,
+    BAND_STAGES,
+    BAND_TM,
+    band_max_w,
     band_mxu_blocks,
     mxu_walk,
     spmm_band,
@@ -219,7 +230,7 @@ from aoclsparse_tpu_torch.kernels.spmm_band import (
     spmm_bandtm,
 )
 from aoclsparse_tpu_torch.kernels.spgemm_band import build_band_gemm_plan, extract_values
-from aoclsparse_tpu_torch.kernels.spmm_diag import spmm_diag, spmm_diag_plain
+from aoclsparse_tpu_torch.kernels.spmm_diag import diag_schedule, spmm_diag, spmm_diag_plain
 from aoclsparse_tpu_torch.kernels.spmv_bwd import spmv_bwd, spmv_bwd_plain
 from aoclsparse_tpu_torch.kernels.spmv_mxu import spmv_band_mxu, spmv_band_mxu_plain, spmv_bandmxu
 from aoclsparse_tpu_torch.kernels.stream_read import stream_read, stream_read_plain
@@ -1084,19 +1095,27 @@ def win_passes(kernel, call, form, K, itemsize, calls=5):
         passes.append(("C", "win_fix", (nblk - 1) * (WL * r0 + WL * K + 2 * r0 * K), 0))
     call()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-    # the profiler may miss the window's first kernel: read the last calls - 1
-    # solves, and only if their kernels come in the launch order
-    ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "win_" in e.name),
-                key=lambda e: e.time_range.start)
+    # the profiler may miss the window's first kernel, or (seen once) every
+    # kernel of a window: read the last calls - 1 solves, and only if their
+    # kernels come in the launch order; open up to three windows before
+    # giving up
+    for attempt in range(1, 4):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        got = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "win_" in e.name),
+                     key=lambda e: e.time_range.start)
+        want = (calls - 1) * len(passes)
+        ev = got[len(got) - want:] if len(got) >= want else []
+        if ev and all(passes[i % len(passes)][1] in e.name for i, e in enumerate(ev)):
+            break
+        log(f"  {kernel}: profiler window {attempt} recorded {len(got)} window-solve kernels, "
+            f"{[e.name[:24] for e in got[:len(passes)]]}, not {calls} solves of {len(passes)}")
+    else:
+        raise AssertionError(f"{kernel}: in three profiler windows the kernels did not match {calls - 1} solves "
+                             f"of the passes {[p[1] for p in passes]}")
     calls -= 1
-    ev = ev[len(ev) - calls * len(passes):] if len(ev) >= calls * len(passes) else []
-    if not ev or any(passes[i % len(passes)][1] not in e.name for i, e in enumerate(ev)):
-        raise AssertionError(f"{kernel}: the profiler's kernels {[e.name[:40] for e in ev[:len(passes)]]} do not "
-                             f"match {calls} solves of the passes {[p[1] for p in passes]}")
     plan = chain_plan(nb, WL, 1 if K == 1 else trsm_chunk(K, nb, WL, itemsize), itemsize)
     log(f"  {kernel} passes (profiler, the last {calls} of {calls + 1} solves; "
         f"{'groups of ' + str(s) + ' blocks' if s else 'plain chain'}; "
@@ -1480,11 +1499,11 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
     # the route, accumulate, block-window SpMV and SpMM, group-window,
-    # window-solve and band GEMM kernels index no register array at run
-    # time: no stack frame, no spills
+    # window-solve, band GEMM, band SpMM and diagonal SpMM kernels index no
+    # register array at run time: no stack frame, no spills
     names = ("benes_pass_kernel", "oh_accum_kernel", "spmv_mxu_kernel", "spmv_bwd_kernel", "win_block_kernel",
              "win_chain_kernel", "win_fix_kernel", "spmm_band_mxu_f32_kernel", "spmm_band_mxu_bf16_kernel",
-             "band_gemm_kernel")
+             "band_gemm_kernel", "spmm_band_kernel", "spmm_diag_kernel")
     res = ptxas_resources(ptxas, names)
     for fn, (frame, stores, loads, regs) in sorted(res.items()):
         short = next(fn[fn.index(nm):] for nm in names if nm in fn)[:48]
@@ -1751,10 +1770,22 @@ def main() -> int:
     targs = (tm32.bandt_start, tm32.bwd_padL)
     log(f"  bench bandtm form: W={tm32.bwd_W} padL={tm32.bwd_padL} start={tm32.bandt_start} "
         f"spill={0 if not tm32.has_spill else tm32.sp_ind.numel()}")
-    compare("spmm_band_f32", f"bench K={K_MM}", spmm_band(tm32.bwd_val, Bm, *targs),
-            spmm_band_plain(tm32.bwd_val, Bm, *targs), errs)
-    compare("spmm_band_f64", f"bench K={K_MM}", spmm_band(tm64.bwd_val, Bm64, *targs),
-            spmm_band_plain(tm64.bwd_val, Bm64, *targs), errs)
+    for kernel, v_, B_ in (("spmm_band_f32", tm32.bwd_val, Bm), ("spmm_band_f64", tm64.bwd_val, Bm64)):
+        label = f"bench K={K_MM}"
+        compare(kernel, label, same_bits(kernel, label, lambda: spmm_band(v_, B_, *targs)),
+                spmm_band_plain(v_, B_, *targs), errs)
+    # random bands at W = 1 and at the planner's cap, K = 300 (several
+    # column chunks), m below one 128-row tile and off a multiple of it
+    brng = np.random.default_rng(41)
+    for inst, dt in (("f32", np.float32), ("f64", np.float64)):
+        for mr, Wr, Kr in ((90, 1, 300), (4099, band_max_w(torch.float32 if inst == "f32" else torch.float64), 300)):
+            v_r = torch.from_numpy(brng.standard_normal((mr, Wr)).astype(dt)).to(dev)
+            B_r = torch.from_numpy(brng.standard_normal((mr + 7, Kr)).astype(dt)).to(dev)
+            label = f"random band W={Wr} (m={mr}, K={Kr}, start=3, padL={Wr // 2})"
+            compare(f"spmm_band_{inst}", label, same_bits(f"spmm_band_{inst}", label,
+                                                          lambda: spmm_band(v_r, B_r, 3, Wr // 2)),
+                    spmm_band_plain(v_r, B_r, 3, Wr // 2), errs)
+    del v_r, B_r
     dt32, dtbf = tm32.band_mxu_dt(), tm32.band_mxu_dt(bf16=True)
     W_mm = tm32.bwd_W
     # the block-window kernel at the form's band width (and W = 256, as a
@@ -1806,10 +1837,12 @@ def main() -> int:
     Bh = torch.from_numpy(np.random.default_rng(SEED_B + 1).standard_normal((mh, K_MM)).astype(np.float32)).to(dev)
     Bh64 = Bh.double()
     hv64 = hf.dia_val.double()
+    hoffs = hf.dia_offs_static
     for kernel, dv, Bx in (("spmm_diag_f32", hf.dia_val, Bh), ("spmm_diag_bf16", hf.dia_bf16(), Bh),
                            ("spmm_diag_f64", hv64, Bh64)):
-        compare(kernel, f"stencil K={K_MM}", spmm_diag(dv, hf.dia_offs, Bx), spmm_diag_plain(dv, hf.dia_offs, Bx),
-                errs)
+        label = f"stencil K={K_MM} (windows {diag_schedule(hoffs, kernel[10:], dev).windows})"
+        compare(kernel, label, same_bits(kernel, label, lambda: spmm_diag(dv, hf.dia_offs, Bx, offs_static=hoffs)),
+                spmm_diag_plain(dv, hf.dia_offs, Bx), errs)
     dptr, dind, dval = diag_operand()
     for inst, dt in (("f32", np.float32), ("bf16", np.float32), ("f64", np.float64)):
         df = bandt_form(dptr, dind, dval.astype(dt), dev, kind="diag")
@@ -1819,6 +1852,23 @@ def main() -> int:
         Bs = torch.from_numpy(np.random.default_rng(37).standard_normal((df.n, 13)).astype(dt)).to(dev)
         compare(f"spmm_diag_{inst}", f"small odd-m K=13 (m={df.m}, offsets {df.dia_offs_static})",
                 spmm_diag(dv, df.dia_offs, Bs), spmm_diag_plain(dv, df.dia_offs, Bs), errs)
+    # 192 diagonals; a lone far diagonal with offsets past +-n; the 12^3
+    # stencil at K = 1, 13 and 300, each called twice for the same bits
+    st12 = tuple((dz * 12 + dy) * 12 + dx for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    drng = np.random.default_rng(43)
+    for mr, nr, offs_r, Kr in ((5000, 5000, tuple(range(-96, 96)), 64), (1999, 1500, (-3000, -1, 0, 5, 1900), 300),
+                               (1728, 1728, st12, 1), (1727, 1728, st12, 13), (1728, 1728, st12, 300)):
+        for inst, dt in (("f32", np.float32), ("bf16", np.float32), ("f64", np.float64)):
+            dv_r = torch.from_numpy(drng.standard_normal((len(offs_r), mr)).astype(dt)).to(dev)
+            dv_r = dv_r.to(torch.bfloat16) if inst == "bf16" else dv_r
+            B_r = torch.from_numpy(drng.standard_normal((nr, Kr)).astype(dt)).to(dev)
+            od_r = torch.tensor(offs_r, device=dev)
+            label = (f"{len(offs_r)} offsets {offs_r[0]}..{offs_r[-1]} (m={mr}, n={nr}, K={Kr}, windows "
+                     f"{len(diag_schedule(offs_r, inst, dev).windows)})")
+            compare(f"spmm_diag_{inst}", label,
+                    same_bits(f"spmm_diag_{inst}", label, lambda: spmm_diag(dv_r, od_r, B_r, offs_static=offs_r)),
+                    spmm_diag_plain(dv_r, od_r, B_r), errs)
+    del dv_r, B_r
 
     # the spill-route kernels: on the webbase stand-in's gen spill (through
     # its handle, planned by optimize), on one stripe of the scatter
@@ -2598,6 +2648,11 @@ def main() -> int:
         c_bytes = nbytes(Bx) * m // n
         note(kernel, nbytes(v, Bx) + c_bytes, nz_bytes(v, Bx) + c_bytes, mm_flops,
              lambda: torch.sparse.mm(Ax, Bx), dict(reps=5, inner=2))
+        es = v.element_size()
+        Wb = v.shape[1]
+        log(f"  {kernel}: tile {BAND_TM} rows x {256 // es} columns, band chunks of {BAND_JC[es]} j in a "
+            f"{BAND_STAGES}-stage ring, B through a {BAND_RING}-row ring ({(BAND_TM + Wb - 1) / BAND_TM:.2f} reads a "
+            f"B row at W={Wb}); {m * K_MM * Wb / ms[kernel] / 1e9:.1f} G FMA/s")
     for inst, dt_ in (("f32", dt32), ("bf16", dtbf)):
         kernel = f"spmm_band_mxu_{inst}"
         turns(kernel, lambda: spmm_band_mxu(dt_, Bm, *targs, m, W_mm),
@@ -2619,11 +2674,18 @@ def main() -> int:
     for inst, dv, Bx, Hx in (("f32", hf.dia_val, Bh, H32), ("bf16", hf.dia_bf16(), Bh, None),
                              ("f64", hv64, Bh64, H64)):
         kernel = f"spmm_diag_{inst}"
-        turns(kernel, lambda: spmm_diag(dv, hf.dia_offs, Bx), lambda: spmm_diag_plain(dv, hf.dia_offs, Bx),
-              kreps=(15, 5), preps=(3, 1))
+        turns(kernel, lambda: spmm_diag(dv, hf.dia_offs, Bx, offs_static=hoffs),
+              lambda: spmm_diag_plain(dv, hf.dia_offs, Bx), kreps=(15, 5), preps=(3, 1))
         c_bytes = nbytes(hf.dia_offs) + mh * K_MM * Bx.element_size()
         note(kernel, nbytes(dv, Bx) + c_bytes, nz_bytes(dv, Bx) + c_bytes, 2 * dv.numel() * K_MM,
              (lambda: torch.sparse.mm(Hx, Bx)) if Hx is not None else None, dict(reps=5, inner=2))
+        sched = diag_schedule(hoffs, inst, dev)
+        b_st, v_st = sched.staged_bytes(mh, K_MM, Bx.element_size())
+        wins = [(hoffs[d0], hoffs[d1 - 1]) for d0, d1 in sched.windows]
+        staged = b_st + v_st + mh * K_MM * Bx.element_size()
+        log(f"  {kernel}: {len(wins)} windows (offsets {wins}), tiles of {sched.rows} rows x 128 bytes, stages of "
+            f"{sched.stage_bytes} bytes; staged per call: B {b_st / 1e9:.3f} GB ({b_st / nbytes(Bx):.2f}x B), "
+            f"values {v_st / 1e9:.3f} GB; staged and written {staged / ms[kernel] / 1e6:.1f} GB/s")
     del A64, H64, hv64, Bh64
     gbytes = {  # bench.py:60 useful bytes; bf16 credited as the f32 op
         "f32": ((m + 1 + nnz) * 4 + (nnz + n + m) * 4) / 1e9,

@@ -266,15 +266,32 @@ def _check_launch(counts, name, fn):
     return got
 
 
+# W = "cap" is band_max_w of the dtype (400 f32, 184 f64); W = 1; K = 1, 7
+# and 300 (several column chunks); m = 90 below one 128-row tile
+CUDA_BAND_CASES = [c + (64,) for c in BAND_CASES] + [
+    (4099, 4000, 184, 7, 90, 7),
+    (262144, 262144, 128, 0, 64, 64),
+    (300, 300, 1, 0, 0, 1),
+    (1000, 1000, 1, 3, 2, 300),
+    (5000, 5000, "cap", 0, 200, 64),
+    (2000, 2100, "cap", 9, 13, 7),
+    (90, 100, 33, 2, 5, 300),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("m,n,W,start,padL,K", [c + (64,) for c in BAND_CASES] + [(4099, 4000, 184, 7, 90, 7), (262144, 262144, 128, 0, 64, 64)])
+@pytest.mark.parametrize("m,n,W,start,padL,K", CUDA_BAND_CASES)
 def test_cuda_band_matches_plain(cuda, dtype, m, n, W, start, padL, K):
+    """Against the plain version, and the same bits on a second call."""
+    if W == "cap":
+        W = band_max_w(torch.from_numpy(np.zeros(0, dtype)).dtype)
     v, B = _t(*_band(m + W, m, W, n, K, dtype), device=cuda)
     name = "f64" if dtype == np.float64 else "f32"
     got = _check_launch(spmm_band.launches, name, lambda: spmm_band(v, B, start, padL))
     want = spmm_band_plain(v, B, start, padL)
     assert near_error(got.cpu().numpy(), want.cpu().numpy()) <= (F64 if name == "f64" else F32)
+    assert torch.equal(spmm_band(v, B, start, padL), got)
 
 
 @pytest.mark.cuda
@@ -312,10 +329,25 @@ def test_cuda_mxu_band_width_matches_plain(cuda, bf16, W, m, start, padL, K):
     assert near_error(spmm_band_mxu(dt, B, start, padL, m, 256).cpu().numpy(), want.cpu().numpy()) <= F32
 
 
+STENCIL12 = tuple((dz * 12 + dy) * 12 + dx for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+# the 12^3 27-point stencil (odd m, K = 1 and 13); 192 diagonals; a lone
+# far diagonal; offsets past +-n; K = 300 (several column chunks)
+CUDA_DIAG_CASES = DIAG_CASES + [
+    (20000, 20000, (-10101, -101, -100, -99, -1, 0, 1, 99, 100, 101, 10101), 64),
+    (1728, 1728, STENCIL12, 13),
+    (1727, 1728, STENCIL12, 1),
+    (5000, 5000, tuple(range(-96, 96)), 64),
+    (2000, 2000, (-1, 0, 1, 1900), 300),
+    (1999, 1500, (-3000, -1, 0, 5, 2500), 7),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("inst", ["f32", "bf16", "f64"])
-@pytest.mark.parametrize("m,n,offs,K", DIAG_CASES + [(20000, 20000, (-10101, -101, -100, -99, -1, 0, 1, 99, 100, 101, 10101), 64)])
+@pytest.mark.parametrize("m,n,offs,K", CUDA_DIAG_CASES)
 def test_cuda_diag_matches_plain(cuda, inst, m, n, offs, K):
+    """Against the plain version, and the same bits on a second call (with
+    the static offsets the diag form passes)."""
     dt = np.float64 if inst == "f64" else np.float32
     dv, B = _t(*_diag_operand(m, m, n, offs, K, dt), device=cuda)
     if inst == "bf16":
@@ -324,6 +356,7 @@ def test_cuda_diag_matches_plain(cuda, inst, m, n, offs, K):
     got = _check_launch(spmm_diag.launches, inst, lambda: spmm_diag(dv, od, B))
     want = spmm_diag_plain(dv, od, B)
     assert near_error(got.cpu().numpy(), want.cpu().numpy()) <= (F64 if inst == "f64" else F32)
+    assert torch.equal(spmm_diag(dv, od, B, offs_static=offs), got)
 
 
 @pytest.mark.cuda
