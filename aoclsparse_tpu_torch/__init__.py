@@ -8,23 +8,24 @@ level-1 sparse-vector ops, hints and the planner, ``mv``/``dotmv``/
 structure), ``route``, ``diag``, ``sell``, gather and native-format forms
 and the host engine, the format-direct ``csrmv``/``ellmv``/``elltmv``/
 ``ellthybmv``/``diamv``/``bsrmv``/``blkcsrmv``, ``mm`` through the
-``bandtm``, ``diag``, ``bwdg`` and gather forms, blocked ``trsv`` and
-``trsm``, ILU0 and CG with no preconditioner (in permuted space on a gen
-operand), ILU0 or SGS, and the SpGEMM family (``sp2m``/``csr2m``/``spmm``
+``bandtm``, ``diag``, ``bwdg`` and gather forms, ``trsv`` and ``trsm``
+(blocked ``win``, ``dwin`` and ``gather`` forms, the level engine and the
+host engine), ILU0, SymGS and SOR, and CG with no preconditioner (in
+permuted space on a gen operand), ILU0 or SGS, and the SpGEMM family (``sp2m``/``csr2m``/``spmm``
 with the two-stage protocol and lazy band products, ``sp2md``, ``spmmd``,
 ``syrk``, ``syrkd``, ``sypr``, ``syprd``, ``add``). The band forms, the
 group-window form, the diagonal form, the spill-route engine, the blocked
 triangular solves and the SpGEMM band engine run hand-written CUDA kernels
 on Hopper (csrc/band_spmv.cu, csrc/spmv_bwd.cu, csrc/spmm_band.cu,
 csrc/spmm_diag.cu, csrc/spill_route.cu, csrc/benes.cu, csrc/trsv_win.cu,
-csrc/band_gemm.cu), and so do the measurement path's tile-major and
+csrc/trsv_blocked.cu, csrc/band_gemm.cu), and so do the measurement path's tile-major and
 block-window band SpMV and read probe (csrc/band_spmv_tiles.cu,
 csrc/spmv_mxu.cu, csrc/stream_read.cu; utils/profiling.py times them),
 built with nvcc at first use; on CPU tensors they run the kernels' plain
 PyTorch versions. The host C++ library (native/) builds
 with g++ at first use. Tensors go to ``cuda:0`` unless a device is named.
-ROADMAP.md lists what is still to port (autotune, itsol, GMRES, SymGS,
-SOR).
+ROADMAP.md lists what is still to port (autotune, itsol, GMRES, bf16
+and complex triangles).
 """
 
 from .core.types import (  # noqa: F401
@@ -130,9 +131,11 @@ from .planner import (  # noqa: F401
     set_mv_hint,
     set_mv_hint_kid,
     set_sm_hint,
+    set_sorv_hint,
     set_sv_hint,
+    set_symgs_hint,
 )
-from .solvers import ilu0_factorize, ilu_smoother, pcg_solve  # noqa: F401
+from .solvers import ilu0_factorize, ilu_smoother, pcg_solve, sorv, symgs, symgs_mv  # noqa: F401
 
 __version__ = "0.1.0"
 

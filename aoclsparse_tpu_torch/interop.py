@@ -189,16 +189,33 @@ def band_from_jax_tiles(vt3, W: int, TM: int, m=None, device=None) -> torch.Tens
 
 
 def trsv_form_from_jax(arrays: Mapping, device=None) -> TrsvForm:
-    """This package's ``win`` TrsvForm from a JAX one's arrays: keys ``D``
-    ((nblk, nb, nb)), ``Lval`` ((nblk, nb, WL)), ``nb``, ``nblk``, ``m``,
-    ``WL``, ``reversed_`` and ``unit_diag``. The form carries no scatter
+    """This package's TrsvForm from a JAX one's arrays: keys ``D``
+    ((nblk, nb, nb)), ``Lval``, ``nb``, ``nblk``, ``m``, ``WL``,
+    ``reversed_`` and ``unit_diag``, and ``kind`` ("win" when absent). Lval
+    is (nblk, nb, WL) for ``win``, (nblk, ndg, nb) for ``dwin``, which also
+    takes ``dwin_offs`` (its ndg offsets), and (nblk, nb, W) for ``gather``,
+    which also takes ``Lind`` (nblk, nb, W). The form carries no scatter
     maps, so it serves solves but not a value refresh."""
     dev = resolve_device(device)
+    kind = str(arrays.get("kind", "win"))
     D = as_values(np.ascontiguousarray(arrays["D"]), dev)
     Lval = as_values(np.ascontiguousarray(arrays["Lval"]), dev)
     nb, nblk, WL = int(arrays["nb"]), int(arrays["nblk"]), int(arrays["WL"])
-    if tuple(D.shape) != (nblk, nb, nb) or tuple(Lval.shape) != (nblk, nb, WL):
-        raise ValueError(f"D {tuple(D.shape)} / Lval {tuple(Lval.shape)} do not match nblk, nb, WL")
+    Lind, offs = None, None
+    if kind == "win":
+        want = (nblk, nb, WL)
+    elif kind == "dwin":
+        offs = tuple(int(o) for o in np.asarray(arrays["dwin_offs"]))
+        want = (nblk, len(offs), nb)
+    elif kind == "gather":
+        Lind = torch.from_numpy(np.array(arrays["Lind"], dtype=np.int32)).to(dev)
+        want = (nblk, nb, Lval.shape[2] if Lval.dim() == 3 else -1)
+        if tuple(Lind.shape) != want:
+            raise ValueError(f"Lind {tuple(Lind.shape)} does not match Lval {tuple(Lval.shape)}")
+    else:
+        raise ValueError(f"no TrsvForm of kind {kind!r}")
+    if tuple(D.shape) != (nblk, nb, nb) or tuple(Lval.shape) != want:
+        raise ValueError(f"D {tuple(D.shape)} / Lval {tuple(Lval.shape)} do not match the {kind} form's {want}")
     return TrsvForm(
         nb=nb,
         nblk=nblk,
@@ -212,9 +229,12 @@ def trsv_form_from_jax(arrays: Mapping, device=None) -> TrsvForm:
         _D_paddest=None,
         _L_dest=None,
         _L_srcpos=None,
-        _L_shape=(nblk, nb, WL),
+        _L_shape=tuple(Lval.shape),
         device=dev,
+        kind=kind,
         WL=WL,
+        Lind=Lind,
+        dwin_offs=offs,
     )
 
 

@@ -36,11 +36,13 @@ The level-1 tables (axpyi, doti, dotci, dotui, gthr, gthrz, gthrs, roti,
 sctr, sctrs) each keep the JAX package's one KID-0 row
 (ops/level1.py:236-248 there), registered by ops/level1.py.
 
-The sv table keeps KID 0, the blocked window solve (kernels/trsv_win.py),
-which serves trsv and trsm alike (the JAX package has no separate sm
-table). The JAX package's KIDs 1 (level wavefront) and 2 (host
-substitution) are not ported yet; ops/level2/trsv.py answers them with
-not_implemented.
+The sv table keeps the JAX package's three rows (ops/level2/trsv.py:32-38
+there), which serve trsv and trsm alike (the JAX package has no separate sm
+table): KID 0, the blocked solve (the window-solve kernels of a ``win``
+form, kernels/trsv_win.py, or the chain kernel of a ``dwin`` or ``gather``
+form, kernels/trsv_blocked.py); KID 1, the level-scheduled wavefront
+(kernels/trsv_level.py, priority -1: opt-in); KID 2, the host sequential
+substitution (native/, priority -2: an explicit kid only).
 
 The mm table keeps the JAX package's KIDs 0-5 and 7 (ops/level3/csrmm.py:
 38-57): the plain gather and group forms 0-3, and the hand-written kernels
@@ -58,6 +60,7 @@ import torch
 
 from ..core.context import get_context
 from ..core.types import AoclSparseError, Status
+from ..native import trsv_seq
 from .band_spmv import spmv_bandt
 from .host import HOST_MV_KID, spmv_host_csr
 from .plain_spmv import spmv_bsr, spmv_bwdg, spmv_dia, spmv_diag, spmv_ell, spmv_ellhyb, spmv_segsum
@@ -66,6 +69,7 @@ from .spmm_diag import spmm_diag
 from .spmv_bwd import spmv_bwd_any
 from .spmm_plain import spmm_bwd, spmm_ell, spmm_ellhyb, spmm_segsum
 from .spmv_gen import spmv_gen, spmv_route
+from .trsv_level import solve_levels
 from .trsv_win import trsv_win
 
 __all__ = ["KernelEntry", "Registry", "registry", "debug_dispatcher"]
@@ -173,6 +177,8 @@ registry.register("mv", KernelEntry(10, "torch_sell", spmv_segsum, "sell", "any"
 # the host engine: an explicit kid only, never the Oracle's pick
 registry.register("mv", KernelEntry(HOST_MV_KID, "host_csr", spmv_host_csr, "host", "any", -5))
 registry.register("sv", KernelEntry(0, "cuda_trsv_win", trsv_win, "blocked", "any", 0))
+registry.register("sv", KernelEntry(1, "torch_level_wavefront", solve_levels, "level", "any", -1))
+registry.register("sv", KernelEntry(2, "host_sequential", trsv_seq, "host", "any", -2))
 registry.register("mm", KernelEntry(0, "torch_segsum", spmm_segsum, "segsum", "any", 0))
 registry.register("mm", KernelEntry(1, "torch_ell", spmm_ell, "ell", "any", 0))
 registry.register("mm", KernelEntry(2, "torch_ellhyb", spmm_ellhyb, "ellhyb", "any", 0))

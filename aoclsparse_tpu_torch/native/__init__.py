@@ -1,10 +1,11 @@
 """Host C++ kernels of the planner: ILU(0) factorization, the blocked
-triangular-solve form fill, reverse Cuthill-McKee ordering, the Benes
+triangular-solve form fill, the level schedule of a triangle, the host
+sequential triangular solves, reverse Cuthill-McKee ordering, the Benes
 routing plan, the SpGEMM symbolic and host numeric stages and the masked
 block scan of csr2blkcsr, bound with ctypes.
 
-PyTorch-side counterpart of ``aoclsparse_tpu/native/__init__.py:45-247,
-278-455, 656-848``. The C++ source, ``native/src/host_kernels.cpp``, is this
+PyTorch-side counterpart of ``aoclsparse_tpu/native/__init__.py:45-455,
+558-848``. The C++ source, ``native/src/host_kernels.cpp``, is this
 package's own byte-equal copy of the JAX package's
 ``aoclsparse_tpu/native/src/host_kernels.cpp`` (a CPU test holds the two
 equal, so both packages factor with the same code). At first use ``g++``
@@ -14,9 +15,10 @@ under a name carrying a hash of the source and flags, so an edited source
 rebuilds and an unchanged one loads the existing file. Nothing under
 ``aoclsparse_tpu/`` is read or written.
 
-`ilu0_factor`, `rcm_permutation`, `benes_plan`, `spgemm_nnz`,
-`blkcsr_count` and `blkcsr_build` fall back to their numpy versions
-(`_ilu0_numpy`, `_rcm_numpy`, `_benes_numpy`, a marker scan,
+`ilu0_factor`, `level_schedule`, `trsv_seq`, `trsm_seq`,
+`rcm_permutation`, `benes_plan`, `spgemm_nnz`, `blkcsr_count` and
+`blkcsr_build` fall back to their numpy versions (`_ilu0_numpy`, a row
+loop, `_trsv_seq_numpy`, `_rcm_numpy`, `_benes_numpy`, a marker scan,
 `_blkcsr_numpy`) when the library cannot be built; `trsv_win_build`,
 `spgemm_expand`, `spgemm_pattern` and `spgemm_numeric_host` return None
 then, and their callers take their numpy or torch paths, as in the JAX
@@ -43,11 +45,14 @@ __all__ = [
     "blkcsr_build",
     "blkcsr_count",
     "ilu0_factor",
+    "level_schedule",
     "rcm_permutation",
     "spgemm_expand",
     "spgemm_nnz",
     "spgemm_numeric_host",
     "spgemm_pattern",
+    "trsm_seq",
+    "trsv_seq",
     "trsv_win_build",
     "HOST_SOURCE",
 ]
@@ -113,6 +118,15 @@ def _bind(lib: ctypes.CDLL) -> None:
             ctypes.c_int64, _I64P, _I64P, _I32P, vp, ctypes.c_int64, ctypes.c_int,
             ctypes.c_int64, _I64P, _I64P, vp, vp, _I64P, _I64P, _I64P, _I64P,
         ]
+    lib.level_schedule.restype = ctypes.c_int64
+    lib.level_schedule.argtypes = [ctypes.c_int64, _I64P, _I64P, _I64P]
+    for suf, vp in _VALP.values():
+        fn = getattr(lib, f"trsv_seq_{suf}")
+        fn.restype = None
+        fn.argtypes = [ctypes.c_int64, _I64P, _I64P, vp, vp, vp, ctypes.c_int]
+        fn = getattr(lib, f"trsm_seq_{suf}")
+        fn.restype = None
+        fn.argtypes = [ctypes.c_int64, ctypes.c_int64, _I64P, _I64P, vp, vp, vp, ctypes.c_int]
     lib.rcm.restype = ctypes.c_int64
     lib.rcm.argtypes = [ctypes.c_int64, _I64P, _I64P, _I64P]
     lib.benes_plan.restype = None
@@ -270,6 +284,88 @@ def trsv_win_build(m, lo, hi, ind, vals, nb, reversed_):
         "WL": WL, "nblk": nblk, "D": D, "Lw": Lw,
         "D_dest": D_dest, "D_srcpos": D_srcpos, "L_dest": L_dest, "L_srcpos": L_srcpos,
     }
+
+
+def level_schedule(m: int, ptr, ind) -> Tuple[np.ndarray, int]:
+    """Wavefront levels of a lower triangle's strictly-lower dependency DAG:
+    (level of each row, number of levels)."""
+    lib = _load()
+    ptr64, ind64 = _i64(ptr), _i64(ind)
+    levels = np.zeros(m, dtype=np.int64)
+    if lib is not None:
+        nlev = lib.level_schedule(ctypes.c_int64(m), _ptr(ptr64, _I64P), _ptr(ind64, _I64P), _ptr(levels, _I64P))
+        return levels, int(nlev)
+    nlev = 0
+    for i in range(m):
+        lv = 0
+        for k in range(int(ptr64[i]), int(ptr64[i + 1])):
+            j = int(ind64[k])
+            if j >= i:
+                break
+            lv = max(lv, int(levels[j]) + 1)
+        levels[i] = lv
+        nlev = max(nlev, lv + 1)
+    return levels, nlev
+
+
+def trsv_seq(m: int, ptr, ind, val, b, lower: bool) -> np.ndarray:
+    """Sequential substitution over a host CSR triangle that carries its
+    diagonal (the host engine, sv KID 2; the reference's scalar
+    substitution, level2/aoclsparse_trsv_kr.hpp). A zero or missing pivot
+    divides through to Inf/NaN, as the device forms do."""
+    ptr64, ind64 = _i64(ptr), _i64(ind)
+    v = np.ascontiguousarray(np.asarray(val))
+    dt = np.result_type(v.dtype, np.asarray(b).dtype)
+    v = v.astype(dt, copy=False)
+    bh = np.ascontiguousarray(np.asarray(b), dtype=dt)
+    lib = _load()
+    if lib is None or dt not in _VALP:
+        return _trsv_seq_numpy(m, ptr64, ind64, v, bh, lower)
+    suf, vp = _VALP[dt]
+    x = np.zeros(m, dtype=dt)
+    getattr(lib, f"trsv_seq_{suf}")(
+        ctypes.c_int64(m), _ptr(ptr64, _I64P), _ptr(ind64, _I64P), _ptr(v, vp), _ptr(bh, vp), _ptr(x, vp),
+        ctypes.c_int(1 if lower else 0),
+    )
+    return x
+
+
+def trsm_seq(m: int, ptr, ind, val, B, lower: bool) -> np.ndarray:
+    """Multi-RHS sequential substitution (the host engine of trsm, KID 2):
+    B (m, k), columns solved independently, threaded across columns in
+    C++ like the reference's OpenMP split (level3/aoclsparse_trsm.hpp:149)."""
+    ptr64, ind64 = _i64(ptr), _i64(ind)
+    v = np.ascontiguousarray(np.asarray(val))
+    Bh = np.asarray(B)
+    k = Bh.shape[1]
+    dt = np.result_type(v.dtype, Bh.dtype)
+    v = v.astype(dt, copy=False)
+    bt = np.ascontiguousarray(Bh.T, dtype=dt)  # (k, m): each solve sweeps a contiguous vector
+    lib = _load()
+    if lib is None or dt not in _VALP:
+        return np.stack([_trsv_seq_numpy(m, ptr64, ind64, v, bt[j], lower) for j in range(k)], axis=1)
+    suf, vp = _VALP[dt]
+    x = np.zeros((k, m), dtype=dt)
+    getattr(lib, f"trsm_seq_{suf}")(
+        ctypes.c_int64(m), ctypes.c_int64(k), _ptr(ptr64, _I64P), _ptr(ind64, _I64P), _ptr(v, vp),
+        _ptr(bt, vp), _ptr(x, vp), ctypes.c_int(1 if lower else 0),
+    )
+    return x.T
+
+
+def _trsv_seq_numpy(m, ptr, ind, val, b, lower):
+    """Row-loop substitution, vectorised within each row."""
+    dt = np.result_type(val.dtype, b.dtype)
+    x = np.zeros(m, dtype=dt)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for i in range(m) if lower else range(m - 1, -1, -1):
+            k0, k1 = int(ptr[i]), int(ptr[i + 1])
+            cols, vals = ind[k0:k1], val[k0:k1]
+            off = (cols < i) if lower else (cols > i)
+            s = vals[off] @ x[cols[off]] if off.any() else dt.type(0)
+            dmask = cols == i
+            x[i] = (b[i] - s) / (vals[dmask][0] if dmask.any() else dt.type(0))
+    return x
 
 
 def rcm_permutation(m: int, ptr, ind) -> Tuple[np.ndarray, int]:

@@ -3,16 +3,24 @@
 PyTorch counterpart of ``aoclsparse_tpu/ops/level2/trsv.py``. Reference:
 aoclsparse_?trsv/_kid/_strided (level2/aoclsparse_trsv.cpp:46, the DOID x
 KID table at :198-290), a sequential substitution vectorized within each
-row. Here the planner builds a blocked ``win`` form (planner/triangular.py)
-and a solve is one launch of the window-solve kernel.
+row. Here the planner builds a blocked form (planner/triangular.py) and a
+solve is one call of its kernel: the window solve of a ``win`` form, the
+chain kernel of a ``dwin`` or ``gather`` form.
 
 Semantics: solve op(tri(A)) x = alpha * b, where tri() takes
 descr.fill_mode's triangle of A honoring diag_type; symmetric descriptors
 are treated as triangular like the reference (trsv.cpp:141-151).
 
-sv KIDs: 0 is the blocked window solve. The JAX package's KID 1 (level
-wavefront) and KID 2 (host substitution) are not ported yet and raise
-``not_implemented`` (ROADMAP.md queue 1 item 12).
+sv KIDs, as in the JAX package: 0 the blocked solve, 1 the level-scheduled
+wavefront (kernels/trsv_level.py), 2 the host sequential substitution
+(native/), which returns a CPU tensor, as mv KID 11 does. With no kid, a
+triangle whose blocked form is refused (``memory_error``: a padded ELL
+past the cap) takes the level engine where its DAG is shallow (nlev <=
+4096 and its runs pad to at most 16 * nnz), as in the JAX package
+(:110-154 there). Past that the JAX package escapes to its host engine;
+the port raises ``memory_error`` and names kid=2 instead, the policy of its
+mv, which runs the host engine only for an explicit kid (ROADMAP.md queue
+3).
 """
 
 from __future__ import annotations
@@ -28,13 +36,20 @@ from ...core.types import AoclSparseError, MatrixType, Operation, Status
 from ...core.validate import check_base_match, check_dtype_compat
 from ...kernels.registry import registry
 from ...planner.plan import get_plan
-from ...planner.triangular import trsv_form_for
+from ...planner.triangular import (
+    trsv_form_for,
+    trsv_host_form_for,
+    trsv_level_form_for,
+    trsv_level_stats_for,
+)
 from .mv import _as_operand
 
 __all__ = ["trsv", "trsv_strided", "csrsv"]
 
-#: sv KIDs of the JAX package that the port does not run yet
-_UNPORTED_KIDS = {1: "level wavefront", 2: "host substitution"}
+#: the level engine's reach as the default's fallback: levels, and padded
+#: run entries per stored nonzero (ops/level2/trsv.py:152 there)
+LEVEL_MAX_NLEV = 4096
+LEVEL_MAX_PAD = 16
 
 
 def pad_solve(form, r: torch.Tensor) -> torch.Tensor:
@@ -63,13 +78,34 @@ def _solve(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, rhs: torch.T
         raise AoclSparseError(
             Status.invalid_value, "trsv requires a triangular or symmetric/hermitian descriptor"
         )
-    if kid in _UNPORTED_KIDS:
+    entry = registry.select("sv", kid=kid, device=rhs.device)  # KID validation + engine
+    plan = get_plan(A)
+    if entry.fmt == "host":
+        return trsv_host_form_for(plan, descr, op).solve(rhs)
+    if entry.fmt == "level":
+        return trsv_level_form_for(plan, descr, op).solve(rhs)
+    key = (descr.fill_mode, descr.diag_type, op)
+    try:
+        if kid is None and key in plan.trsv_refused:
+            raise AoclSparseError(Status.memory_error, "blocked form refused (cached)")
+        form = trsv_form_for(plan, descr, op)
+    except AoclSparseError as e:
+        if e.status != Status.memory_error or kid is not None:
+            raise
+        # a refused blocked form: remember it, and the level statistics,
+        # read from the structure before any level form is built
+        plan.trsv_refused.add(key)
+        if key not in plan.trsv_level_stats:
+            plan.trsv_level_stats[key] = trsv_level_stats_for(plan, descr, op)
+        nlev, padded = plan.trsv_level_stats[key]
+        if nlev <= LEVEL_MAX_NLEV and padded <= LEVEL_MAX_PAD * max(A.nnz, 1):
+            return trsv_level_form_for(plan, descr, op).solve(rhs)
         raise AoclSparseError(
-            Status.not_implemented,
-            f"trsv kid {kid} ({_UNPORTED_KIDS[kid]}) is not ported yet (ROADMAP.md queue 1 item 12)",
-        )
-    registry.select("sv", kid=kid, device=rhs.device)  # KID validation
-    form = trsv_form_for(get_plan(A), descr, op)
+            Status.memory_error,
+            f"triangle too wide for the blocked forms and too deep or padded for the level engine "
+            f"({nlev} levels, {padded} padded entries); call kid=2 (the host engine, which returns a "
+            f"CPU tensor) or kid=1",
+        ) from None
     return pad_solve(form, rhs)
 
 

@@ -3,13 +3,14 @@
 PyTorch counterpart of ``aoclsparse_tpu/ops/level3/trsm.py``. Reference:
 aoclsparse_?trsm/_kid (level3/aoclsparse_trsm.{cpp,hpp}), which runs TRSV
 column by column across the right-hand sides. Here the planner's blocked
-``win`` form solves all columns at once: one launch of the multi-RHS
-window-solve kernel (kernels/trsv_win.py `trsm_win`), through the same
-`_solve` as trsv.
+form solves all columns at once, through the same `_solve` as trsv: the
+multi-RHS window solve of a ``win`` form (kernels/trsv_win.py `trsm_win`),
+one launch of the chain kernel of a ``dwin`` or ``gather`` form
+(kernels/trsv_blocked.py).
 
-sv KIDs as for trsv: 0 is the blocked window solve; 1 (level wavefront)
-and 2 (the host engine, the JAX package's column-threaded C++ sweep) are
-not ported yet and raise ``not_implemented`` (ROADMAP.md queue 1 item 12).
+sv KIDs as for trsv: 0 the blocked solve, 1 the level wavefront (all
+columns a level at once), 2 the host engine (the column-threaded C++
+sweep, native/ trsm_seq), which returns a CPU tensor.
 """
 
 from __future__ import annotations

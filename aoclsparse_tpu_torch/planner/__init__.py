@@ -9,6 +9,8 @@ from .hints import (  # noqa: F401
     set_mv_hint,
     set_mv_hint_kid,
     set_sm_hint,
+    set_sorv_hint,
     set_sv_hint,
+    set_symgs_hint,
 )
 from .plan import get_plan, optimize  # noqa: F401

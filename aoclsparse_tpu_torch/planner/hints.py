@@ -29,7 +29,9 @@ __all__ = [
     "set_mv_hint",
     "set_mv_hint_kid",
     "set_sm_hint",
+    "set_sorv_hint",
     "set_sv_hint",
+    "set_symgs_hint",
 ]
 
 
@@ -88,6 +90,14 @@ def set_mm_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> Non
 
 def set_sm_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> None:
     _set_hint(A, "sm", trans, descr, kid, nop)
+
+
+def set_symgs_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> None:
+    _set_hint(A, "symgs", trans, descr, kid, nop)
+
+
+def set_sorv_hint(A, trans, descr, nop: int = 1, kid: Optional[int] = None) -> None:
+    _set_hint(A, "sorv", trans, descr, kid, nop)
 
 
 def set_memory_hint(A, policy: MemoryPolicy) -> None:

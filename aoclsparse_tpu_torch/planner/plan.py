@@ -1522,6 +1522,10 @@ class Plan:
         self.mm_kinds: Dict[Tuple, str] = {}
         #: triangular solve forms (planner/triangular.py trsv_form_for)
         self.levels: Optional[Dict[Tuple, object]] = None
+        #: (fill, diag, op) keys whose blocked solve form was refused, and
+        #: their level statistics (ops/level2/trsv.py): structure only
+        self.trsv_refused: set = set()
+        self.trsv_level_stats: Dict[Tuple, Tuple[int, int]] = {}
 
     def effective_for(
         self, descr: MatrixDescriptor, op: Operation, dtype=None

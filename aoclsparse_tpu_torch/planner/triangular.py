@@ -1,35 +1,47 @@
 """Blocked triangular-solve planning.
 
-PyTorch counterpart of ``aoclsparse_tpu/planner/triangular.py`` for the
-``win`` form. The reference's TRSV is a sequential per-row sweep
+PyTorch counterpart of ``aoclsparse_tpu/planner/triangular.py``. The
+reference's TRSV is a sequential per-row sweep
 (level2/aoclsparse_trsv_kt.cpp:65); the planner re-architects it as a chain
 of row blocks of nb rows,
 
-    x_k = D_k^{-1} (b_k - Lwin_k @ x[blk0 - WL, blk0)),
+    x_k = D_k^{-1} (b_k - s_k),
 
-with D_k the dense (nb, nb) diagonal block and Lwin_k the dense (nb, WL)
-window of the block's left-of-diagonal entries. Upper triangles solve on
+with D_k the dense (nb, nb) diagonal block and s_k the block's
+left-of-diagonal entries times the solved x, in one of three layouts:
+
+- ``win``: a dense (nb, WL) window ending at each block's first row, where
+  nblk*nb*WL stays near the nonzeros (banded triangles). A solve is one
+  call of the window-solve kernels (kernels/trsv_win.py, csrc/trsv_win.cu),
+  which also read the window products the form builds once per values on
+  the card (`win_solve_operands`).
+- ``dwin``: the left part as a few element diagonals (nblk, ndg, nb), for
+  wide windows with at most AOCLSPARSE_TPU_TRSV_DWIN_MAX distinct left
+  offsets (stencil and FEM triangles: HPCG's 27-point stencil has 13).
+- ``gather``: a padded ELL (nblk, nb, W) of column indices and values, for
+  the rest, refused with ``memory_error`` past AOCLSPARSE_TPU_TRSV_WIN_CAP
+  bytes (a hub row makes W huge).
+
+The last two run on one launch of the blocked-solve chain kernel
+(kernels/trsv_blocked.py, csrc/trsv_blocked.cu). Each form inverts its
+diagonal blocks once per values on the device. Upper triangles solve on
 reversed indices (reversing rows and columns turns U into L), applied to
-the structure on the host. Each form inverts its diagonal blocks once per
-values on the device and, on the card, builds the kernels' window products
-(kernels/trsv_win.py `win_solve_operands`) once per values too, so a solve
-is one call of the window-solve kernels (kernels/trsv_win.py,
-csrc/trsv_win.cu), with one right-hand side or many.
+the structure on the host.
 
-Structure work is host numpy (or the host C++ builder, native/), once per
-(triangle, operation, nb); every value-dependent array keeps scatter maps
-into its value source, so `TrsvForm.refresh` rebuilds the operands on the
-device from new values without re-planning.
+Structure work is host numpy (or the host C++ builder, native/, for
+``win``), once per (triangle, operation, nb); every value-dependent array
+keeps scatter maps into its value source, so `TrsvForm.refresh` rebuilds
+the operands on the device from new values without re-planning.
 
-Not ported yet (ROADMAP.md queue 1 item 12): the ``gather`` (padded-ELL)
-and ``dwin`` (diagonal-window) forms, which the JAX package builds when the
-dense window would be too large, and the level and host engines. Building
-such a triangle raises ``not_implemented``; nothing falls back silently.
+Besides the blocked forms: `TrsvHostForm` (sv KID 2, the host sequential
+substitution of native/) and the level-scheduled form of
+kernels/trsv_level.py (sv KID 1), with their builders.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -45,23 +57,32 @@ from ..core.types import (
     Status,
     to_torch_dtype,
 )
+from ..kernels.trsv_blocked import trsv_dwin, trsv_gather
 from ..kernels.trsv_win import DTYPES as SOLVE_DTYPES
 from ..kernels.trsv_win import WinSolveOps, trsm_win, trsv_win, win_solve_operands
 from .plan import CleanCSR, EffectiveCSR, Plan, _dev_index, build_effective_csr
 
 __all__ = [
     "TrsvForm",
+    "TrsvHostForm",
     "adaptive_nb",
     "build_trsv_form",
     "build_trsv_form_native",
     "check_solve_dtype",
     "invert_diag_blocks",
     "trsv_form_for",
+    "trsv_host_form_for",
+    "trsv_level_form_for",
+    "trsv_level_stats_for",
 ]
 
 DEFAULT_BLOCK = 64
 #: the widest left window a ``win`` form may carry (the JAX package's cap)
 MAX_WL = 8192
+#: the farthest left offset a ``dwin`` form may carry (the JAX package's)
+MAX_DWIN_OFFSET = 65536
+#: the widest block of a ``dwin`` or ``gather`` form (`adaptive_nb`)
+CHAIN_NB = 64
 
 _ITEM12 = "ROADMAP.md queue 1 item 12"
 
@@ -80,7 +101,15 @@ def adaptive_nb(m: int, dtype=None) -> int:
     its Pallas solve can run, takes min(256, max(128, base)) for m >= 1024
     (planner/triangular.py:52-68). The port always has its kernel for f32
     and f64, so it takes that branch for them: a step streams nb*nb + WL*nb
-    values, and smaller blocks cut the dense diagonal-block traffic."""
+    values, and smaller blocks cut the dense diagonal-block traffic.
+
+    A ``dwin`` or ``gather`` form takes at most CHAIN_NB = 64 rows a block
+    (`build_trsv_form` builds it again at that width): its chain kernel
+    (csrc/trsv_blocked.cu) runs on one SM, and past 64 rows its step time
+    grows faster than the step count falls. A solve of the 104^3 stencil's
+    lower triangle (f32, one right-hand side; chip_smoke.py phase 6 on an
+    NVIDIA H100 80GB HBM3 at 700 W) took 64.75 ms at nb = 32, 43.85 at 64,
+    47.10 at 128 and 70.62 at 256 (1.84, 2.50, 5.36 and 16.07 us a step)."""
     base = int(min(512, max(DEFAULT_BLOCK, 1 << int(np.ceil(np.log2(max(m / 512, 1)))))))
     if m >= 8 * 128 and (dtype is None or to_torch_dtype(dtype) in SOLVE_DTYPES):
         return int(min(256, max(128, base)))
@@ -100,9 +129,12 @@ def invert_diag_blocks(D: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class TrsvForm:
     """Blocked lower-triangular operand (after the reversal permutation when
-    the triangle was upper), kind ``win``: D (nblk, nb, nb) dense diagonal
-    blocks and Lval (nblk, nb, WL) dense left windows ending at each block's
-    first row, tensors on the matrix's device."""
+    the triangle was upper): D (nblk, nb, nb) dense diagonal blocks and the
+    left part Lval, tensors on the matrix's device. By kind, Lval is
+    (nblk, nb, WL) dense windows ending at each block's first row (``win``),
+    (nblk, ndg, nb) element diagonals at the offsets dwin_offs (``dwin``;
+    WL the largest offset rounded up to 8), or (nblk, nb, W) padded-ELL
+    values with column indices Lind (``gather``)."""
 
     nb: int  # block size
     nblk: int  # number of blocks (m_pad = nblk * nb)
@@ -123,14 +155,20 @@ class TrsvForm:
     device: torch.device = torch.device("cpu")
     kind: str = "win"
     WL: int = 0
+    #: gather: (nblk, nb, W) int32 column indices into the padded x
+    Lind: Optional[torch.Tensor] = None
+    #: dwin: the ascending left offsets of Lval's diagonals
+    dwin_offs: Optional[Tuple[int, ...]] = None
     #: "eff": maps index an effective CSR's values; "clean": the clean
     #: structure's positions (native builds, e.g. ILU0's factored values)
     _src_space: str = "eff"
-    #: lazy kernel operands (dinvT, lwT): the inverted diagonal blocks and
-    #: the windows, transposed to the kernel's row-vector layout
+    #: lazy kernel operands (dinvT, left): the inverted diagonal blocks
+    #: transposed, and the windows transposed (win) or Lval as it is
     _ops: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-    #: lazy card operands of the kernels (`win_solve_operands` of _ops)
+    #: lazy card operands of the window-solve kernels (`win_solve_operands`)
     _solve_ops: Optional[WinSolveOps] = None
+    #: lazy dwin offsets as an int32 tensor on the device
+    _offs_t: Optional[torch.Tensor] = None
 
     @property
     def m_pad(self) -> int:
@@ -153,34 +191,48 @@ class TrsvForm:
         self.Lval = L.reshape(self._L_shape)
 
     def operands(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(dinvT, lwT) of the window-solve kernel, built once per form."""
+        """(dinvT, left operand) of the form's kernel, built once per form:
+        lwT, the windows transposed, for ``win``; Lval itself otherwise."""
         if self._ops is None:
             dinvT = invert_diag_blocks(self.D).transpose(1, 2).contiguous()
-            self._ops = (dinvT, self.Lval.transpose(1, 2).contiguous())
+            left = self.Lval.transpose(1, 2).contiguous() if self.kind == "win" else self.Lval
+            self._ops = (dinvT, left)
         return self._ops
 
     def solve_ops(self) -> WinSolveOps:
-        """The card's operands of the kernels besides dinvT (P, and for a
-        grouped solve F), built once per form and dropped by `refresh`:
-        planner work once per values, like the diagonal-block inversion."""
+        """The card's operands of the window-solve kernels besides dinvT (P,
+        and for a grouped solve F), built once per form and dropped by
+        `refresh`: planner work once per values, like the diagonal-block
+        inversion. ``win`` forms only."""
         if self._solve_ops is None:
             self._solve_ops = win_solve_operands(*self.operands(), self.nb, self.WL)
         return self._solve_ops
 
+    def offsets(self) -> torch.Tensor:
+        """The dwin offsets as an int32 tensor on the form's device."""
+        if self._offs_t is None:
+            self._offs_t = torch.tensor(self.dwin_offs, dtype=torch.int32, device=self.device)
+        return self._offs_t
+
     def solve(self, r: torch.Tensor) -> torch.Tensor:
         """Solve on a padded (m_pad,) or (m_pad, k) right-hand side in block
-        order: the window-solve kernels on a CUDA tensor, their plain
-        version on a CPU one (which builds no card operands). A single
-        column takes the single-RHS solve and wider ones the multi-RHS
-        solve, as the JAX package splits them (planner/triangular.py:145-208)."""
-        dinvT, lwT = self.operands()
-        r = r.to(dinvT.dtype)
+        order, by kind (planner/triangular.py:115-226 there): the window-solve
+        kernels for ``win`` (a single column takes the single-RHS solve and
+        wider ones the multi-RHS solve, as the JAX package splits them), the
+        blocked-solve chain kernel for ``dwin`` and ``gather``; their plain
+        versions on a CPU tensor (which build no card operands)."""
+        dinvT, left = self.operands()
+        r = r.to(dinvT.dtype).contiguous()
+        if self.kind == "dwin":
+            return trsv_dwin(dinvT, left, self.offsets(), r, self.nb, self.WL)
+        if self.kind == "gather":
+            return trsv_gather(dinvT, self.Lind, left, r, self.nb)
         ops = self.solve_ops() if r.device.type == "cuda" else None
         if r.dim() == 1:
-            return trsv_win(dinvT, lwT, r.contiguous(), self.nb, self.WL, ops)
+            return trsv_win(dinvT, left, r, self.nb, self.WL, ops)
         if r.shape[1] == 1:
-            return trsv_win(dinvT, lwT, r[:, 0].contiguous(), self.nb, self.WL, ops)[:, None]
-        return trsm_win(dinvT, lwT, r.contiguous(), self.nb, self.WL, ops)
+            return trsv_win(dinvT, left, r[:, 0].contiguous(), self.nb, self.WL, ops)[:, None]
+        return trsm_win(dinvT, left, r, self.nb, self.WL, ops)
 
 
 def _reverse_structure(eff: EffectiveCSR) -> EffectiveCSR:
@@ -212,9 +264,11 @@ def build_trsv_form(
     nb: int = DEFAULT_BLOCK,
     val_override=None,
 ) -> TrsvForm:
-    """The numpy builder (planner/triangular.py:263-433, ``win`` branch).
-    val_override: host values over eff's structure to fill the form with
-    instead of eff.val (ILU0 passes its host-factored values)."""
+    """The numpy builder (planner/triangular.py:263-433): ``win`` where the
+    dense window stays near the nonzeros, else ``dwin``, else ``gather``
+    (``memory_error`` past the cap). val_override: host values over eff's
+    structure to fill the form with instead of eff.val (ILU0 passes its
+    host-factored values)."""
     m = eff.m
     dt = DiagType(descr.diag_type)
     lower = FillMode(descr.fill_mode) == FillMode.lower
@@ -253,14 +307,62 @@ def build_trsv_form(
     r_in_blk = rows % nb
     WL_need = int((blk0 - cols)[lmask].max()) if lmask.any() else 0
     WL = max(8, -(-WL_need // 8) * 8)
-    if not ((nblk * nb * WL) <= max(8 * cols.size, 64 * nb * nb) and WL <= MAX_WL):
-        raise AoclSparseError(
-            Status.not_implemented,
-            f"left window WL={WL} too wide for the dense window form; the gather and "
-            f"dwin forms are not ported yet ({_ITEM12})",
-        )
-    t_l = (cols - blk0 + WL)[lmask]
-    L_dest = ((blk_of_row[lmask] * nb + r_in_blk[lmask]) * WL + t_l).astype(np.int64)
+    itemsize = eff.val.element_size()
+    cap = float(os.environ.get("AOCLSPARSE_TPU_TRSV_WIN_CAP", "1.2e9"))
+    L_ind = None
+    dwin_offs = None
+    if (nblk * nb * WL) <= max(8 * cols.size, 64 * nb * nb) and WL <= MAX_WL:
+        kind = "win"
+        t_l = (cols - blk0 + WL)[lmask]
+        L_dest = ((blk_of_row[lmask] * nb + r_in_blk[lmask]) * WL + t_l).astype(np.int64)
+        L_shape = (nblk, nb, WL)
+    elif nb > CHAIN_NB:
+        # the chain kernel's forms take narrower blocks (adaptive_nb)
+        return build_trsv_form(descr, op, eff, CHAIN_NB, val_override)
+    else:
+        # the diagonal window first: wide windows whose left part carries
+        # few distinct element diagonals (stencils, FEM), O(ndg * m_pad)
+        # storage where the dense window would be GBs (:343-367 there)
+        offs_left = (rows - cols)[lmask]
+        uoff = np.unique(offs_left) if offs_left.size else np.zeros(0, np.int64)
+        dwin_max = int(os.environ.get("AOCLSPARSE_TPU_TRSV_DWIN_MAX", "192"))
+        if (
+            offs_left.size > 0
+            and uoff.size <= dwin_max
+            and int(uoff[-1]) <= MAX_DWIN_OFFSET
+            and float(uoff.size * nblk * nb) * itemsize <= cap
+        ):
+            kind = "dwin"
+            ndg = int(uoff.size)
+            d_idx = np.searchsorted(uoff, offs_left)
+            L_dest = ((blk_of_row[lmask] * ndg + d_idx) * nb + r_in_blk[lmask]).astype(np.int64)
+            L_shape = (nblk, ndg, nb)
+            WL = max(8, -(-int(uoff[-1]) // 8) * 8)
+            dwin_offs = tuple(int(v) for v in uoff)
+        else:
+            # the padded-ELL left part, W = the widest row's left count; a
+            # hub row blows it up, so its true size is guarded (:369-395)
+            csum_left = np.concatenate([[0], np.cumsum(lmask.astype(np.int64))])
+            left_counts = csum_left[ptr64[1:]] - csum_left[ptr64[:-1]]
+            W = max(int(left_counts.max()) if m else 0, 1)
+            nbytes = float(nblk * nb * W) * (4 + itemsize)
+            if nbytes > cap:
+                raise AoclSparseError(
+                    Status.memory_error,
+                    f"padded-ELL left window would need ~{nbytes / 1e9:.1f} GB"
+                    f" ((nblk,nb,W)=({nblk},{nb},{W})); use the level engine"
+                    " (kid=1) or the host engine (kid=2), or raise"
+                    " AOCLSPARSE_TPU_TRSV_WIN_CAP",
+                )
+            kind = "gather"
+            pos_in_row = np.arange(cols.size, dtype=np.int64) - np.repeat(ptr64[:-1], lens)
+            t_l = pos_in_row[lmask]
+            ind_np = np.zeros((nblk, nb, W), dtype=np.int32)
+            ind_np[blk_of_row[lmask], r_in_blk[lmask], t_l] = cols[lmask].astype(np.int32)
+            L_ind = torch.from_numpy(ind_np).to(eff.val.device)
+            L_dest = ((blk_of_row[lmask] * nb + r_in_blk[lmask]) * W + t_l).astype(np.int64)
+            L_shape = (nblk, nb, W)
+            WL = 0
     L_srcpos = src[lmask].astype(np.int64)
     dmask = (cols >= blk0) & (cols < blk0 + nb)
     D_dest = ((blk_of_row[dmask] * nb + r_in_blk[dmask]) * nb + (cols - blk0)[dmask]).astype(
@@ -289,9 +391,12 @@ def build_trsv_form(
         _D_paddest=D_paddest,
         _L_dest=L_dest,
         _L_srcpos=L_srcpos,
-        _L_shape=(nblk, nb, WL),
+        _L_shape=L_shape,
         device=eff.val.device,
+        kind=kind,
         WL=WL,
+        Lind=L_ind,
+        dwin_offs=dwin_offs,
     )
     form.refresh(values)
     return form
@@ -443,3 +548,121 @@ def _transpose_eff(eff: EffectiveCSR) -> EffectiveCSR:
     )
     out.val = eff.val[_dev_index(order, eff.val.device)]
     return out
+
+
+@dataclasses.dataclass
+class TrsvHostForm:
+    """Host-resident triangle for the sequential host substitution, sv KID
+    2 (native/ trsv_seq and trsm_seq; planner/triangular.py:674-700 there).
+    Everything stays numpy; a solve takes a tensor and returns a CPU tensor,
+    as the host mv engine (KID 11) does. The reference's role: the scalar
+    substitution of level2/aoclsparse_trsv_kr.hpp. Cached under
+    plan.levels, which drops on update_values."""
+
+    m: int
+    ptr: np.ndarray  # (m+1,) int64
+    ind: np.ndarray  # (nnz,) int64
+    val: np.ndarray  # (nnz,) host values, diagonal materialized
+    lower: bool
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        """x of an (m,) or (m, k) right-hand side, k columns threaded in C++
+        like the reference's OpenMP split (level3/aoclsparse_trsm.hpp:149)."""
+        from .. import native
+
+        bh = b.detach().cpu().numpy()
+        if bh.ndim == 1:
+            return torch.from_numpy(native.trsv_seq(self.m, self.ptr, self.ind, self.val, bh, self.lower))
+        return torch.from_numpy(native.trsm_seq(self.m, self.ptr, self.ind, self.val, bh, self.lower))
+
+
+def _host_eff_vals(eff: EffectiveCSR, clean: CleanCSR) -> np.ndarray:
+    """An effective triangle's values on the host: the clean values at src,
+    const_val where src is -1 (planner/triangular.py:703-715 there; real
+    dtypes only, so no conjugation)."""
+    cv = clean.host_val()
+    src = np.asarray(eff.src, dtype=np.int64)
+    return np.where(src >= 0, cv[np.maximum(src, 0)], np.asarray(eff.const_val, dtype=cv.dtype))
+
+
+def _sv_key_descr(plan: Plan, descr: MatrixDescriptor) -> MatrixDescriptor:
+    check_solve_dtype(plan.clean.val.dtype)
+    tri = _tri_descr(descr)
+    if DiagType(tri.diag_type) == DiagType.zero:
+        raise AoclSparseError(Status.invalid_value, "cannot solve with zero diagonal")
+    if plan.levels is None:
+        plan.levels = {}
+    return tri
+
+
+def trsv_host_form_for(plan: Plan, descr: MatrixDescriptor, op: Operation) -> TrsvHostForm:
+    """Cached host-engine form, sv KID 2 (planner/triangular.py:718-759
+    there): a transposed solve takes the host-transposed structure; no
+    reversal, the sequential sweep runs either direction."""
+    tri = _sv_key_descr(plan, descr)
+    op = Operation(op)
+    key = ("trsv_host", tri.fill_mode, tri.diag_type, op)
+    form = plan.levels.get(key)
+    if form is not None:
+        return form
+    eff = build_effective_csr(plan.clean, tri, Operation.none)
+    hval = _host_eff_vals(eff, plan.clean)
+    ptr, ind = eff.ptr.astype(np.int64), eff.ind.astype(np.int64)
+    lower = FillMode(tri.fill_mode) == FillMode.lower
+    if op != Operation.none:
+        rows = np.repeat(np.arange(eff.m, dtype=np.int64), np.diff(ptr))
+        order = np.lexsort((rows, ind))
+        tptr = np.zeros(eff.m + 1, dtype=np.int64)
+        np.add.at(tptr, ind + 1, 1)
+        ptr, ind, hval = np.cumsum(tptr), rows[order], hval[order]
+        lower = not lower
+    form = TrsvHostForm(
+        m=eff.m,
+        ptr=np.ascontiguousarray(ptr),
+        ind=np.ascontiguousarray(ind),
+        val=np.ascontiguousarray(hval),
+        lower=lower,
+    )
+    plan.levels[key] = form
+    return form
+
+
+def _oriented_triangle(plan: Plan, tri: MatrixDescriptor, op: Operation):
+    """(eff, ptr, ind, src, reversed_): the effective triangle (transposed
+    for op != none) and its structure oriented lower, as the blocked form
+    orients it (planner/triangular.py:792-842 there)."""
+    eff = build_effective_csr(plan.clean, tri, Operation.none)
+    if op != Operation.none:
+        eff = _transpose_eff(eff)
+    lower = FillMode(tri.fill_mode) == FillMode.lower
+    if lower if op == Operation.none else not lower:
+        return eff, eff.ptr, eff.ind, np.arange(eff.nnz, dtype=np.int64), False
+    rev = _reverse_structure(eff)
+    return eff, rev.ptr, rev.ind, rev.src, True
+
+
+def trsv_level_stats_for(plan: Plan, descr: MatrixDescriptor, op: Operation):
+    """(nlev, padded run entries) of the level-scheduled form without
+    building it: the routing check of the default trsv's fallback."""
+    from ..kernels.trsv_level import level_form_stats
+
+    tri = _sv_key_descr(plan, descr)
+    eff, ptr, ind, _src, _rev = _oriented_triangle(plan, tri, Operation(op))
+    return level_form_stats(ptr, ind, eff.m)
+
+
+def trsv_level_form_for(plan: Plan, descr: MatrixDescriptor, op: Operation):
+    """Cached level-scheduled (wavefront) form, sv KID 1
+    (kernels/trsv_level.py; planner/triangular.py:762-789 there), with the
+    blocked form's orientation rules. Rebuilt after update_values."""
+    from ..kernels.trsv_level import build_level_form
+
+    tri = _sv_key_descr(plan, descr)
+    op = Operation(op)
+    key = ("trsv_level", tri.fill_mode, tri.diag_type, op)
+    form = plan.levels.get(key)
+    if form is None:
+        eff, ptr, ind, src, rev = _oriented_triangle(plan, tri, op)
+        form = build_level_form(ptr, ind, src, eff.m, rev, DiagType(tri.diag_type) == DiagType.unit, eff.val)
+        plan.levels[key] = form
+    return form

@@ -9,15 +9,21 @@ L/U substitution (:115-162) and the entry point aoclsparse_?ilu_smoother
 
 The one-time factorization is host planner work (the C++ IKJ sweep of
 native/, numpy when the library is missing). The apply, which runs in
-every preconditioned Krylov step, is two blocked window solves over the
-cached factors: unit L, then U on reversed indices, each one launch of the
-window-solve kernel (kernels/trsv_win.py).
+every preconditioned Krylov step, is two blocked solves over the cached
+factors: unit L, then U on reversed indices. The forms come from the
+native ``win`` builder, else from the numpy builder (``win``, ``dwin`` or
+``gather``, planner/triangular.py), so a solve is the window-solve kernels
+(kernels/trsv_win.py) or one launch of the chain kernel
+(kernels/trsv_blocked.py). A 2-D b (m, k) solves all columns at once.
 
-A 2-D b (m, k) takes the multi-RHS window solve, one launch a factor.
-
-Not ported yet: the level-scheduled and host-substitution applies (kid=1,
-and the JAX package's fallback for factors whose window is too wide,
-ROADMAP.md queue 1 item 12).
+kid 1 applies the level-scheduled sweeps (kernels/trsv_level.py); so does
+the default where both blocked forms were refused (``memory_error``: a
+padded ELL past the cap), unless the factor's DAG is deeper than 8192
+levels in all. There the JAX package escapes to its host substitution;
+the port raises ``memory_error`` naming kid=2, which runs that host
+substitution (the reference's own apply, ilu0.hpp:115-162) and returns a
+CPU tensor. The JAX package answers kid=2 with invalid_kid (ROADMAP.md
+queue 3).
 """
 
 from __future__ import annotations
@@ -58,12 +64,19 @@ U_DESCR = MatrixDescriptor(
 )
 
 
+#: the level sweeps' reach as the default apply: levels of L and U together
+LEVEL_MAX_NLEV = 8192
+
+
 @dataclasses.dataclass
 class IluState:
     lu: torch.Tensor  # (nnz,) LU values on the clean structure, on A's device
     lu_clean: CleanCSR  # clean structure with the LU values
-    l_form: Optional[TrsvForm] = None  # unit-L solve form
+    l_form: Optional[TrsvForm] = None  # unit-L solve form (None: refused)
     u_form: Optional[TrsvForm] = None  # U solve form (reversed indices)
+    l_level: Optional[object] = None  # LevelForm twins, built by the first level apply
+    u_level: Optional[object] = None
+    _host_tri: Optional[tuple] = None  # host CSR triangles of the kid=2 apply
 
 
 def _ilu0_host(m, ptr, ind, val) -> np.ndarray:
@@ -88,7 +101,8 @@ def ilu0_factorize(A: SparseMatrix) -> IluState:
     """Factorize once; cached on the handle (the reference's working-copy
     model, aoclsparse_optimize_ilu analysis.cpp:390-425) until
     update_values drops it. The solve forms come from the native builder,
-    else from the numpy builder."""
+    else from the numpy builder; where that refuses them (memory_error),
+    both stay None and the applies take the level sweeps."""
     if A.ilu_state is not None:
         return A.ilu_state
     if A.shape[0] != A.shape[1]:
@@ -114,7 +128,12 @@ def ilu0_factorize(A: SparseMatrix) -> IluState:
     st.l_form = build_trsv_form_native(lu_clean, L_DESCR, Operation.none, nb, lu, dev)
     st.u_form = build_trsv_form_native(lu_clean, U_DESCR, Operation.none, nb, lu, dev)
     if st.l_form is None or st.u_form is None:
-        _ilu_numpy_forms(st, lu_clean, lu, nb)
+        try:
+            _ilu_numpy_forms(st, lu_clean, lu, nb)
+        except AoclSparseError as e:
+            if e.status != Status.memory_error:
+                raise
+            st.l_form = st.u_form = None
     A.ilu_state = st
     return st
 
@@ -134,10 +153,91 @@ def _ilu_numpy_forms(st: IluState, lu_clean: CleanCSR, lu: np.ndarray, nb: int) 
         setattr(st, f"{slot}_form", form)
 
 
+def _level_forms(st: IluState):
+    """The level-scheduled twins of the factor sweeps, built once
+    (solvers/ilu.py:226 there)."""
+    if st.l_level is None:
+        from ..kernels.trsv_level import build_level_form
+        from ..planner.triangular import _reverse_structure
+
+        eff_l = build_effective_csr(st.lu_clean, L_DESCR, Operation.none)
+        eff_u = build_effective_csr(st.lu_clean, U_DESCR, Operation.none)
+        st.l_level = build_level_form(
+            eff_l.ptr, eff_l.ind, np.arange(eff_l.nnz, dtype=np.int64), eff_l.m, False, True, eff_l.val
+        )
+        rev = _reverse_structure(eff_u)
+        st.u_level = build_level_form(rev.ptr, rev.ind, rev.src, eff_u.m, True, False, eff_u.val)
+    return st.l_level, st.u_level
+
+
+def _level_depth(st: IluState) -> int:
+    """nlev(L) + nlev(U) from the structure alone, before any level form
+    is built (solvers/ilu.py:207 there)."""
+    from ..kernels.trsv_level import level_form_stats
+    from ..planner.triangular import _reverse_structure
+
+    eff_l = build_effective_csr(st.lu_clean, L_DESCR, Operation.none)
+    rev = _reverse_structure(build_effective_csr(st.lu_clean, U_DESCR, Operation.none))
+    return level_form_stats(eff_l.ptr, eff_l.ind, eff_l.m)[0] + level_form_stats(rev.ptr, rev.ind, rev.m)[0]
+
+
 def ilu_apply(st: IluState, r: torch.Tensor) -> torch.Tensor:
     """z = U^{-1} L^{-1} r over the cached factors, r of (m,) or (m, k):
-    two window solves."""
+    two blocked solves, or the level sweeps where the blocked forms were
+    refused."""
+    if st.l_form is None:
+        l_lvl, u_lvl = _level_forms(st)
+        return u_lvl.solve(l_lvl.solve(r))
     return pad_solve(st.u_form, pad_solve(st.l_form, r))
+
+
+def _host_lu_apply(st: IluState, b: torch.Tensor) -> torch.Tensor:
+    """Sequential host substitution over the cached LU values, the
+    reference's own apply (ilu0.hpp:115-162; solvers/ilu.py:315 there), on
+    host CSR triangles built once per factor: a CPU tensor."""
+    from .. import native
+
+    if st._host_tri is None:
+        cl = st.lu_clean
+        ptr = cl.ptr.astype(np.int64)
+        ind = cl.ind.astype(np.int64)
+        lu = cl.host_val()
+        idiag = cl.idiag.astype(np.int64)
+        m = cl.m
+        # unit lower: the strict lower part and a 1.0 diagonal at each row's end
+        lptr = np.zeros(m + 1, dtype=np.int64)
+        np.cumsum(idiag - ptr[:-1] + 1, out=lptr[1:])
+        diag_slot = lptr[1:] - 1
+        keep = np.ones(int(lptr[-1]), dtype=bool)
+        keep[diag_slot] = False
+        take = _ranges_concat(ptr[:-1], idiag)
+        lind = np.empty(int(lptr[-1]), dtype=np.int64)
+        lval = np.empty(int(lptr[-1]), dtype=lu.dtype)
+        lind[keep], lval[keep] = ind[take], lu[take]
+        lind[diag_slot], lval[diag_slot] = np.arange(m), 1.0
+        # upper with its diagonal
+        uptr = np.zeros(m + 1, dtype=np.int64)
+        np.cumsum(ptr[1:] - idiag, out=uptr[1:])
+        take_u = _ranges_concat(idiag, ptr[1:])
+        st._host_tri = (m, lptr, lind, lval, uptr, ind[take_u], lu[take_u])
+    m, lptr, lind, lval, uptr, uind, uval = st._host_tri
+    bh = b.detach().cpu().numpy().astype(lval.dtype, copy=False)
+    if bh.ndim == 1:
+        y = native.trsv_seq(m, lptr, lind, lval, bh, True)
+        return torch.from_numpy(native.trsv_seq(m, uptr, uind, uval, y, False))
+    y = native.trsm_seq(m, lptr, lind, lval, bh, True)
+    return torch.from_numpy(native.trsm_seq(m, uptr, uind, uval, y, False))
+
+
+def _ranges_concat(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """The index ranges [lo_i, hi_i) concatenated (vectorised)."""
+    cnt = (hi - lo).astype(np.int64)
+    total = int(cnt.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.int64)
+    starts = np.zeros(lo.size, dtype=np.int64)
+    np.cumsum(cnt[:-1], out=starts[1:])
+    return np.arange(total, dtype=np.int64) + np.repeat(lo - starts, cnt)
 
 
 def ilu_smoother(
@@ -149,21 +249,28 @@ def ilu_smoother(
 ):
     """x = U^{-1} L^{-1} b over the cached ILU0 factors
     (aoclsparse_?ilu_smoother). The LU working values are inspectable as
-    ``A.ilu_state.lu`` (the precond_csr_val analog). kid 0/None is the
-    blocked window solve."""
+    ``A.ilu_state.lu`` (the precond_csr_val analog). kid 0/None: the
+    blocked solves (the level sweeps where the blocked forms were refused);
+    1: the level sweeps; 2: the host substitution, a CPU tensor."""
     if A is None or b is None:
         raise AoclSparseError(Status.invalid_pointer, "null argument")
     if Operation(op) != Operation.none:
         raise AoclSparseError(Status.not_implemented, "ilu_smoother supports op=none (parity)")
-    if kid not in (None, 0, 1):
+    if kid not in (None, 0, 1, 2):
         raise AoclSparseError(Status.invalid_kid, f"ilu_smoother kid {kid}")
-    if kid == 1:
-        raise AoclSparseError(
-            Status.not_implemented,
-            "the level-scheduled ILU apply (kid 1) is not ported yet (ROADMAP.md queue 1 item 12)",
-        )
     st = ilu0_factorize(A)
     b = as_values(b, A.device).to(A.dtype)
     if b.dim() not in (1, 2) or b.shape[0] != A.shape[0]:
         raise AoclSparseError(Status.invalid_size, "b size mismatch")
+    if kid == 2:
+        return _host_lu_apply(st, b)
+    if kid == 1 or st.l_form is None:
+        if kid is None and _level_depth(st) > LEVEL_MAX_NLEV:
+            raise AoclSparseError(
+                Status.memory_error,
+                "the factor's blocked forms were refused and its DAG is too deep for the level sweeps; "
+                "call kid=2 (the host substitution, which returns a CPU tensor)",
+            )
+        l_lvl, u_lvl = _level_forms(st)
+        return u_lvl.solve(l_lvl.solve(b))
     return ilu_apply(st, b)

@@ -12,8 +12,9 @@ failure (exit code != 0, no result line):
    the host C++ library with g++; require that the latter loads, and that
    -Xptxas -v gives the route, accumulate, block-window SpMV, group-window,
    window-solve (passes A, B, C), block-window SpMM (both instances), band
-   GEMM (both instances), band SpMM and diagonal SpMM (every instance)
-   kernels no stack frame and no spills (their registers logged);
+   GEMM (both instances), band SpMM, diagonal SpMM (every instance) and
+   blocked-solve chain (every instance) kernels no stack frame and no
+   spills (their registers logged);
 3. hold each kernel instance against its plain PyTorch version:
    - the band kernel on the bench operand (m = n = 262144, 64 nnz/row,
      half-bandwidth 64, seed 7, built as bench.py:220-233) in f32, bf16
@@ -72,6 +73,13 @@ failure (exit code != 0, no result line):
      96 KB of shared memory (passes A and C split); the accumulate on a hot
      row (1,500 entries across a y block's two chunks, row 0 at the head)
      and on chunks whose rows are out of order;
+   - the blocked-solve chain kernel (csrc/trsv_blocked.cu) on the dwin
+     forms of the ILU0 L and U factors of the 104^3 stencil (f32 and f64
+     handles, K = 1 and 16), on the gather forms of the scatter operand's
+     lower and upper triangles (f32 and f64, K = 1 and 16), and on small
+     synthetic forms (one block; a ragged last block; an offset past
+     m_pad; a unit diagonal; K = 1 and 3), each called twice for the same
+     bits;
    - the band GEMM kernel (SpGEMM numeric stage) in f32 and f64 on the band
      plan of the cant stand-in's A.A (benchmarks/realmat.py:105, copied
      here, seed 7: m = 62,469, 4,108,752 nnz; G = 128, WA = WB = 560,
@@ -100,7 +108,13 @@ failure (exit code != 0, no result line):
    factors; and pcg_solve(precond="ilu0") and ("sgs"), each in fewer
    iterations than with none, with a true relative residual <= 1e-5 and
    the launch counts the composition implies (a window solve: its passes'
-   launches, kernels/trsv_win.py solve_launches);
+   launches, kernels/trsv_win.py solve_launches); then on the 104^3
+   stencil: ilu0_factorize (its factors cached since phase 3),
+   ilu_smoother, pcg_solve(precond="ilu0") and ("sgs") to rtol 1e-6 with a
+   true relative residual <= 1e-5 (two dwin launches an iteration),
+   symgs, symgs_mv and sorv against float64 scipy sweeps, trsv kid=1
+   (level engine) and kid=2 (host engine) against kid=0, and trsv on a
+   float64 handle (the f64 dwin instance);
 5b. the general-structure path, counted on its own: mv on the webbase
    stand-in (default: gen with its spill on the route; kid=7; alpha/beta;
    the mixed bf16 band; mv_operator in permuted space; update_values and a
@@ -109,6 +123,8 @@ failure (exit code != 0, no result line):
    against a float64 scipy reference and with the launches each call
    implies; and pcg_solve with no preconditioner on the symmetrised
    webbase, in permuted space, to a true relative residual <= 10 rtol;
+   and trsv on the scatter operand's triangles (gather forms on the chain
+   kernel: f32 lower, f64 upper), each by its float64 residual;
 5c. the SpGEMM path, counted on its own, on the cant stand-in: sp2m
    request=nnz_count (no band GEMM launch; the band engine attached),
    request=finalize (one launch; the values pending), a chained mv on the
@@ -171,13 +187,19 @@ failure (exit code != 0, no result line):
    against their plain version and cuSPARSE CSR @ x (the block windows
    warm and cold, their bound over the parallelogram they need); the
    read probe on the 128 MiB buffer and on the band slab against its plain
-   version and torch.sum.
+   version and torch.sum; the chain kernel's dwin (stencil ILU0 L) and
+   gather (scatter lower) instances against their plain versions and
+   torch.triangular_solve on the CSR triangle, the stencil's trsv by kid,
+   its ilu_smoother, ILU0-/SGS-PCG and CG iteration times, and profiles of
+   the level engine's solve and of ILU0-PCG iterations.
 
 Launch counts are reset just before phase 4 and read after phase 5, reset
 again just before phase 5b and read after it, and again around phases 5c
 5d and 5e (the kernels line takes the spill-route kernels' counts from 5b,
 the band GEMM's from 5c, the group-window kernel's from 5d and the
-measurement path's kernels' from 5e). The second-to-last line is
+measurement path's kernels' from 5e; the gather instances of the chain
+kernel count in 5b, its dwin instances on the main path). The
+second-to-last line is
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 """
 
@@ -200,7 +222,7 @@ import scipy.sparse.linalg as spla
 import torch
 
 import aoclsparse_tpu_torch as tt
-from aoclsparse_tpu_torch import native
+from aoclsparse_tpu_torch import interop, native
 from aoclsparse_tpu_torch.kernels import build
 from aoclsparse_tpu_torch.kernels.band_gemm import band_gemm, band_gemm_plain, band_gemm_steps
 from aoclsparse_tpu_torch.kernels.band_spmv import band_spmv, band_spmv_plain, spmv_bandt
@@ -235,6 +257,7 @@ from aoclsparse_tpu_torch.kernels.spmv_bwd import spmv_bwd, spmv_bwd_plain
 from aoclsparse_tpu_torch.kernels.spmv_mxu import spmv_band_mxu, spmv_band_mxu_plain, spmv_bandmxu
 from aoclsparse_tpu_torch.kernels.stream_read import stream_read, stream_read_plain
 from aoclsparse_tpu_torch.io import read_mtx, write_mtx
+from aoclsparse_tpu_torch.kernels.trsv_blocked import trsv_dwin, trsv_dwin_plain, trsv_gather, trsv_gather_plain
 from aoclsparse_tpu_torch.kernels.trsv_win import (
     chain_group,
     chain_plan,
@@ -249,6 +272,7 @@ from aoclsparse_tpu_torch.kernels.trsv_win import (
 from aoclsparse_tpu_torch.ops.level2.mv import _spill_route_on
 from aoclsparse_tpu_torch.ops.level3.spgemm import _effective
 from aoclsparse_tpu_torch.planner.spill_route import build_spill_route, spill_route_apply
+from aoclsparse_tpu_torch.planner import triangular as ttri
 from aoclsparse_tpu_torch.planner.triangular import invert_diag_blocks, trsv_form_for
 from aoclsparse_tpu_torch.solvers.ilu import ilu0_factorize
 from aoclsparse_tpu_torch.utils import profiling
@@ -318,9 +342,15 @@ KERNELS = {
     "spmv_band_mxu_bf16": ("aoclsparse_tpu_torch/csrc/spmv_mxu.cu", "aoclsparse_tpu/kernels/pallas/spmv.py:1019"),
     # pallas_stream_read (the read-rate probe)
     "stream_read_f32": ("aoclsparse_tpu_torch/csrc/stream_read.cu", "aoclsparse_tpu/kernels/pallas/spmv.py:364"),
+    # the chain of the dwin and gather blocked solves: the JAX package runs
+    # them as XLA scans (trsv_blocked_dwin, trsv_blocked), no Pallas kernel
+    "trsv_dwin_f32": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:103"),
+    "trsv_dwin_f64": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:103"),
+    "trsv_gather_f32": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:152"),
+    "trsv_gather_f64": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:152"),
 }
 #: the kernels of the general-structure path (phase 5b), counted there
-GEN_PATH = ("oh_select_f32", "oh_accum_f32", "benes_route_f32")
+GEN_PATH = ("oh_select_f32", "oh_accum_f32", "benes_route_f32", "trsv_gather_f32", "trsv_gather_f64")
 #: the kernels of the SpGEMM path (phase 5c), counted there
 SPGEMM_PATH = ("band_gemm_f32", "band_gemm_f64")
 #: the kernels of the formats path (phase 5d), counted there
@@ -345,6 +375,8 @@ COUNTERS = {
     "band_spmv_tiles_dbuf": band_spmv_tiles_dbuf.launches,
     "spmv_band_mxu": spmv_band_mxu.launches,
     "stream_read": stream_read.launches,
+    "trsv_dwin": trsv_dwin.launches,
+    "trsv_gather": trsv_gather.launches,
 }
 #: kernel vs plain: the same products summed in another order, so the
 #: accumulation dtype's model tolerance (utils/tolerances.py, scale 1);
@@ -390,6 +422,12 @@ KERNEL_TOL = {
     "spmv_band_mxu_bf16": expected_precision(torch.float32),
     # the same f32 values summed in f32 in another order
     "stream_read_f32": expected_precision(torch.float32),
+    # the same products summed in another order (the slices of a step's
+    # sums meet in a fixed order), the dtype's model tolerance
+    "trsv_dwin_f32": expected_precision(torch.float32),
+    "trsv_dwin_f64": expected_precision(torch.float64),
+    "trsv_gather_f32": expected_precision(torch.float32),
+    "trsv_gather_f64": expected_precision(torch.float64),
 }
 #: mv and mm against the float64 reference: the operand dtype's model tolerance
 MV_TOL = {"f32": expected_precision(torch.float32), "f64": expected_precision(torch.float64)}
@@ -1464,6 +1502,191 @@ def measurement_path(ptr, ind, val, x, ref, dev, trace_dir):
     log(f"  profiling.trace: {trace_dir}/trace.json, {len(events)} events, device kernels {kern}")
 
 
+def synthetic_chain_form(kind, nblk, nb, m, seed, dtype, dev, offs=None, W=None, unit=False):
+    """A dwin or gather TrsvForm of chosen shape from random values, carried
+    by interop.trsv_form_from_jax as the JAX package's arrays would be: the
+    diagonal blocks 4 I (or I, unit) plus 0.1-scaled strictly lower noise,
+    identity rows past m; the left part 0.1-scaled noise on entries left of
+    each block (offs[d] > r for dwin; columns below the block for gather),
+    zero elsewhere and past m."""
+    rng = np.random.default_rng(seed)
+    m_pad = nblk * nb
+    D = np.tril(0.1 * rng.standard_normal((nblk, nb, nb)), -1) + (1.0 if unit else 4.0) * np.eye(nb)
+    rows = np.arange(m_pad).reshape(nblk, nb)
+    D[rows >= m] = 0.0
+    D[:, np.arange(nb), np.arange(nb)] = np.where(rows >= m, 1.0, D[:, np.arange(nb), np.arange(nb)])
+    arrays = dict(D=D.astype(dtype), nb=nb, nblk=nblk, m=m, reversed_=False, unit_diag=unit, kind=kind)
+    if kind == "dwin":
+        offs = np.asarray(offs)
+        Dv = 0.1 * rng.standard_normal((nblk, len(offs), nb))
+        Dv[:, np.arange(nb)[None, :] >= offs[:, None]] = 0.0  # entries inside the block live in D
+        Dv[(rows >= m)[:, None, :].repeat(len(offs), 1)] = 0.0
+        arrays.update(Lval=Dv.astype(dtype), dwin_offs=offs, WL=max(8, -(-int(offs.max()) // 8) * 8))
+    else:
+        blk0 = (np.arange(nblk) * nb)[:, None, None]
+        Lind = (rng.integers(0, np.maximum(blk0, 1), (nblk, nb, W)) * (blk0 > 0)).astype(np.int32)
+        Lval = np.where(blk0 > 0, 0.1 * rng.standard_normal((nblk, nb, W)), 0.0)
+        Lval[rows >= m] = 0.0
+        arrays.update(Lval=Lval.astype(dtype), Lind=Lind, WL=0)
+    return interop.trsv_form_from_jax(arrays, device=dev)
+
+
+def check_chain_form(form, label, K, errs):
+    """The chain kernel of a form against its plain version on a random
+    right-hand side ((m_pad,) for K = 1, else (m_pad, K)), twice for the
+    same bits."""
+    dT, left = form.operands()
+    inst = "f32" if dT.dtype == torch.float32 else "f64"
+    kernel = f"trsv_{form.kind}_{inst}"
+    shape = (form.m_pad,) if K == 1 else (form.m_pad, K)
+    b = torch.from_numpy(np.random.default_rng(K).standard_normal(shape)).to(dT.device, dT.dtype)
+    full = f"{label} (nb={form.nb}, nblk={form.nblk}, {form.kind}"
+    if form.kind == "dwin":
+        full += f" ndg={len(form.dwin_offs)} WL={form.WL}) K={K}"
+        got = same_bits(kernel, full, lambda: trsv_dwin(dT, left, form.offsets(), b, form.nb, form.WL))
+        want = trsv_dwin_plain(dT.transpose(1, 2), left, b, form.nb, form.WL, form.dwin_offs)
+    else:
+        full += f" W={left.shape[2]}) K={K}"
+        got = same_bits(kernel, full, lambda: trsv_gather(dT, form.Lind, left, b, form.nb))
+        want = trsv_gather_plain(dT.transpose(1, 2), form.Lind, left, b, form.nb)
+    compare(kernel, full, got, want, errs)
+
+
+def chain_kernel_checks(H, H64, Q, Q64, dev, errs):
+    """Phase 3's checks of the blocked-solve chain kernel: the dwin form on
+    the ILU0 L and U factors of the 104^3 stencil (f32 and f64, K = 1 and
+    K_SM), the gather form on the scatter operand's lower and upper
+    triangles (m = 262,144; its solves stay bounded: 4.0 on the diagonal
+    against about four N(0, 1) entries a row left of it, so the operand
+    needs no dominant diagonal made for it), and small edge forms: one
+    block, a ragged last block, an offset past m_pad, a unit diagonal.
+    Returns the ILU0 states of H and H64."""
+    states = []
+    for handle in (H, H64):
+        t0 = time.perf_counter()
+        st_ = ilu0_factorize(handle)
+        ops = [f.operands() for f in (st_.l_form, st_.u_form)]
+        torch.cuda.synchronize()
+        f = st_.l_form
+        log(f"  stencil ILU0 ({handle.dtype}): ilu0_factorize + operands {time.perf_counter() - t0:.2f} s; L and U "
+            f"{st_.l_form.kind}/{st_.u_form.kind}, nb={f.nb} nblk={f.nblk} ndg={len(f.dwin_offs)} WL={f.WL}")
+        if (st_.l_form.kind, st_.u_form.kind) != ("dwin", "dwin"):
+            raise AssertionError("the stencil's ILU0 factors did not take dwin forms")
+        del ops
+        states.append(st_)
+    for st_ in states:
+        for name, form in (("L", st_.l_form), ("U", st_.u_form)):
+            for K in (1, K_SM):
+                check_chain_form(form, f"104^3 stencil ILU0 {name}", K, errs)
+    for handle in (Q, Q64):
+        for tri in (LOWER, UPPER):
+            form = trsv_form_for(handle.plan or tt.optimize(handle), tri, NONE)
+            if form.kind != "gather":
+                raise AssertionError(f"the scatter operand's triangle took {form.kind}, want gather")
+            for K in (1, K_SM):
+                check_chain_form(form, f"scatter {tri.fill_mode.name}", K, errs)
+            form._ops = None  # the inverted blocks, dropped
+    for dtype in (np.float32, np.float64):
+        edges = [
+            ("one block, ragged", synthetic_chain_form("dwin", 1, 64, 50, 1, dtype, dev, offs=(3, 9, 40))),
+            ("ragged last block", synthetic_chain_form("dwin", 8, 128, 1000, 2, dtype, dev, offs=(1, 127, 128, 300))),
+            ("an offset past m_pad", synthetic_chain_form("dwin", 8, 128, 1024, 3, dtype, dev, offs=(1, 130, 5000))),
+            ("unit diagonal", synthetic_chain_form("dwin", 8, 128, 1024, 4, dtype, dev, offs=(2, 200), unit=True)),
+            ("one block", synthetic_chain_form("gather", 1, 64, 64, 5, dtype, dev, W=3)),
+            ("ragged last block", synthetic_chain_form("gather", 9, 96, 800, 6, dtype, dev, W=5)),
+            ("unit diagonal", synthetic_chain_form("gather", 8, 128, 1024, 7, dtype, dev, W=2, unit=True)),
+        ]
+        for label, form in edges:
+            for K in (1, 3):
+                check_chain_form(form, f"edge: {label}", K, errs)
+    return states
+
+
+def stencil_solvers(H, H64, hst, hptr, hind, hval, dev, rtol, res_tol):
+    """Phase 5 on the 104^3 stencil, through the entry points:
+    ilu0_factorize (cached from phase 3), ilu_smoother, pcg_solve with
+    precond "ilu0" and "sgs" (a true relative residual <= res_tol, each
+    iteration one apply: two dwin launches), symgs / symgs_mv / sorv against
+    a float64 scipy sweep, trsv kid=1 and kid=2 against kid=0, and trsv on
+    the float64 handle (the f64 instance). Returns the iteration counts."""
+    mh = len(hptr) - 1
+    Sh = sp.csr_matrix((hval.astype(np.float64), hind, hptr), shape=(mh, mh))
+    Lh, Uh, Dh = sp.tril(Sh, -1).tocsr(), sp.triu(Sh, 1).tocsr(), sp.diags(Sh.diagonal())
+    b = np.random.default_rng(71).standard_normal(mh).astype(np.float32)
+    b_d, bref = torch.from_numpy(b).to(dev), b.astype(np.float64)
+    f32tol = expected_precision(torch.float32)
+    if tt.ilu0_factorize(H) is not hst:
+        raise AssertionError("ilu0_factorize did not return the handle's cached factors")
+    c0 = trsv_dwin.launches["f32"]
+    xs = tt.ilu_smoother(H, GEN, b_d)
+    lu = hst.lu.double().cpu().numpy()
+    rows = np.repeat(np.arange(mh), np.diff(hptr))
+    low = hind < rows
+    Lf = sp.csr_matrix((np.r_[lu[low], np.ones(mh)], (np.r_[rows[low], np.arange(mh)], np.r_[hind[low], np.arange(mh)])),
+                       shape=(mh, mh))
+    Uf = sp.csr_matrix((lu[~low], (rows[~low], hind[~low])), shape=(mh, mh))
+    check_residual("stencil ilu_smoother: L (U x) = b", spla.aslinearoperator(Lf) @ spla.aslinearoperator(Uf), xs,
+                   bref, f32tol)
+    if trsv_dwin.launches["f32"] - c0 != 2:
+        raise AssertionError(f"ilu_smoother made {trsv_dwin.launches['f32'] - c0} dwin launches, want 2")
+    iters = {}
+    for precond in ("ilu0", "sgs"):
+        c0 = trsv_dwin.launches["f32"]
+        t0 = time.perf_counter()
+        xp, k, rnorm = tt.pcg_solve(H, b_d, rtol=rtol, maxit=1000, precond=precond)
+        torch.cuda.synchronize()
+        t_solve = time.perf_counter() - t0
+        dl = trsv_dwin.launches["f32"] - c0
+        true_res = float(np.linalg.norm(bref - Sh @ xp.double().cpu().numpy()) / np.linalg.norm(bref))
+        log(f"  stencil pcg precond={precond}: {k} iterations in {t_solve:.3f} s (set-up included), ||r||={rnorm:.3e}, "
+            f"true rel residual {true_res:.3e} (tol {res_tol:.1e}), dwin launches {dl}")
+        if not (k < 1000 and np.isfinite(true_res) and true_res <= res_tol):
+            raise AssertionError(f"stencil CG precond={precond}: not converged to the tolerance")
+        if dl != 2 * k:
+            raise AssertionError(f"stencil CG precond={precond}: {dl} dwin launches in {k} iterations, want {2 * k}")
+        iters[precond] = k
+    # one symmetric Gauss-Seidel sweep (symgs_ref) and one forward SOR
+    # sweep, each against scipy in float64
+    x0 = np.random.default_rng(73).standard_normal(mh).astype(np.float32)
+    x0_d = torch.from_numpy(x0).to(dev)
+    x0r = x0.astype(np.float64)
+    x1 = spla.spsolve_triangular((Lh + Dh).tocsr(), bref - 0.5 * (Uh @ x0r), lower=True)
+    want = spla.spsolve_triangular((Uh + Dh).tocsr(), bref - Lh @ x1, lower=False)
+    c0 = trsv_dwin.launches["f32"]
+    check_mv("stencil symgs (alpha 0.5)", tt.symgs(NONE, H, GEN, 0.5, b_d, x0_d), want, f32tol)
+    xg, yg = tt.symgs_mv(NONE, H, GEN, 0.5, b_d, x0_d)
+    check_mv("stencil symgs_mv: x", xg, want, f32tol)
+    check_mv("stencil symgs_mv: y = A x", yg, Sh @ want, f32tol)
+    omega, alpha = 1.2, 0.7
+    want = spla.spsolve_triangular((Dh + omega * Lh).tocsr(),
+                                   omega * bref - (omega * Uh + (omega - 1.0) * Dh) @ (alpha * x0r), lower=True)
+    check_mv(f"stencil sorv (omega {omega}, alpha {alpha})", tt.sorv(tt.SorType.forward, GEN, H, omega, alpha, x0_d, b_d),
+             want, f32tol)
+    if trsv_dwin.launches["f32"] - c0 != 5:
+        raise AssertionError(f"symgs, symgs_mv, sorv made {trsv_dwin.launches['f32'] - c0} dwin launches, want 5")
+    # the three sv engines on the stencil's lower triangle
+    x_0 = tt.trsv(1.0, H, LOWER, NONE, b_d)
+    ref0 = x_0.double().cpu().numpy()
+    check_residual("stencil trsv kid=0 (dwin)", sp.tril(Sh).tocsr(), x_0, bref, f32tol)
+    for kid in (1, 2):
+        check_mv(f"stencil trsv kid={kid} against kid=0", tt.trsv(1.0, H, LOWER, NONE, b_d, kid=kid), ref0, f32tol)
+    nlev = H.plan.levels[("trsv_level", tt.FillMode.lower, tt.DiagType.non_unit, NONE)].nlev
+    log(f"  stencil level form: {nlev} levels")
+    c0 = trsv_dwin.launches["f64"]
+    check_residual("stencil trsv f64 upper non-unit (reversed dwin form)", sp.triu(Sh).tocsr(),
+                   tt.trsv(1.0, H64, UPPER, NONE, b_d.double()), bref, expected_precision(torch.float64))
+    if trsv_dwin.launches["f64"] - c0 != 1:
+        raise AssertionError("the f64 stencil trsv did not launch the f64 dwin instance once")
+    return iters
+
+
+def coo_csr(rows, cols, vals, m):
+    """(ptr, ind, val) of an m x m COO triangle, sorted by row and column."""
+    S = sp.csr_matrix((vals, (rows, cols)), shape=(m, m))
+    S.sort_indices()
+    return S.indptr, S.indices, S.data
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -1499,11 +1722,12 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
     # the route, accumulate, block-window SpMV and SpMM, group-window,
-    # window-solve, band GEMM, band SpMM and diagonal SpMM kernels index no
-    # register array at run time: no stack frame, no spills
+    # window-solve, band GEMM, band SpMM, diagonal SpMM and blocked-solve
+    # chain kernels index no register array at run time: no stack frame,
+    # no spills
     names = ("benes_pass_kernel", "oh_accum_kernel", "spmv_mxu_kernel", "spmv_bwd_kernel", "win_block_kernel",
              "win_chain_kernel", "win_fix_kernel", "spmm_band_mxu_f32_kernel", "spmm_band_mxu_bf16_kernel",
-             "band_gemm_kernel", "spmm_band_kernel", "spmm_diag_kernel")
+             "band_gemm_kernel", "spmm_band_kernel", "spmm_diag_kernel", "trsv_blocked_kernel")
     res = ptxas_resources(ptxas, names)
     for fn, (frame, stores, loads, regs) in sorted(res.items()):
         short = next(fn[fn.index(nm):] for nm in names if nm in fn)[:48]
@@ -2026,6 +2250,14 @@ def main() -> int:
                     band_gemm_plain(x_, y_, bp.WC, bp.d0, bp.stream_ranges), errs)
     del gsuite, gright, gleft, dense
 
+    # the blocked-solve chain kernel on the stencil's ILU0 factors (f32 and
+    # f64 handles), the scatter operand's triangles and small edge forms
+    t0 = time.perf_counter()
+    Hd = tt.create_csr(mh, mh, hptr, hind, hval.astype(np.float64), device="cuda")
+    Qd = tt.create_csr(qm, qm, qptr, qind, qval.astype(np.float64), device="cuda")
+    hst, hst64 = chain_kernel_checks(H, Hd, Qh, Qd, dev, errs)
+    log(f"  blocked-solve chain kernel checks: {time.perf_counter() - t0:.1f} s")
+
     # 4. the main path, counted
     phase("phase 4: main path (create_csr -> set_mv_hint -> optimize -> mv)")
     S = sp.csr_matrix((val.astype(np.float64), ind, ptr), shape=(m, n))
@@ -2234,6 +2466,9 @@ def main() -> int:
         raise AssertionError(f"trsm f64 made {trsm_win.launches['f64'] - c0} multi-RHS launches, want one "
                              f"solve's {want_sm}")
     del C64
+    phase("phase 5, 104^3 stencil: ilu0_factorize, ilu_smoother, ILU0- and SGS-PCG, symgs, symgs_mv, sorv, "
+          "trsv kids 0-2, f64 trsv")
+    stencil_iters = stencil_solvers(H, Hd, hst, hptr, hind, hval, dev, rtol, res_tol)
     launches = read_counts()
     log(f"  main-path launches: {launches}")
     for kernel, count in launches.items():
@@ -2334,6 +2569,16 @@ def main() -> int:
               "benes_route_f32": (kg + 1) * route_launches(groute)}
     if {k: c1[k] - c0[k] for k in g_call} != g_call:
         raise AssertionError(f"permuted-space CG launches {({k: c1[k] - c0[k] for k in g_call})}, want {g_call}")
+    # the scatter operand's triangles: gather forms on the chain kernel
+    bq = np.random.default_rng(89).standard_normal(qm)
+    for handle, tri, Tq, inst, dt_ in ((Qh, LOWER, sp.tril(Sq), "f32", torch.float32),
+                                       (Qd, UPPER, sp.triu(Sq), "f64", torch.float64)):
+        c0 = trsv_gather.launches[inst]
+        check_residual(f"scatter trsv {inst} {tri.fill_mode.name} (gather)", Tq.tocsr(),
+                       tt.trsv(1.0, handle, tri, NONE, torch.from_numpy(bq).to(dev, dt_)), bq,
+                       expected_precision(dt_))
+        if trsv_gather.launches[inst] - c0 != 1:
+            raise AssertionError(f"scatter trsv {inst}: {trsv_gather.launches[inst] - c0} gather launches, want 1")
     gen_launches = read_counts()
     log(f"  general-structure path launches: {gen_launches}")
     for kernel in GEN_PATH:
@@ -2742,6 +2987,102 @@ def main() -> int:
         f"{[round(t, 4) for t in t_pcg_all]})")
     log(f"  set-up: ilu0_factorize {t_factor:.2f} s + the forms' kernel operands {t_ops:.2f} s (diagonal-block "
         f"inversion {t_invert:.3f} s, P = lwT @ dinvT and F {t_pset:.3f} s, each timed alone)")
+
+    # the blocked-solve chain kernel: one dwin solve of the stencil's ILU0 L
+    # factor and one gather solve of the scatter operand's lower triangle,
+    # each instance against its plain version and the library's sparse
+    # triangular solve (cuSPARSE through torch.triangular_solve on the CSR
+    # triangle, which analyses it anew each call: its first call's own time,
+    # as for the window solves). The bound counts what the function needs:
+    # dinvT's upper triangle, the left operand (Dv, or Lval and Lind), b and
+    # x; beside it (logged) the nonzero bound: the triangle's strict entries
+    # (value and int32 index), its diagonal, b and x
+    one = dict(once=True)
+    hrows = np.repeat(np.arange(mh), np.diff(hptr))
+    hlow = hind < hrows
+    for inst, st_, dt_ in (("f32", hst, torch.float32), ("f64", hst64, torch.float64)):
+        form = st_.l_form
+        dT, Dv = form.operands()
+        offs_t = form.offsets()
+        bb = torch.from_numpy(np.random.default_rng(79).standard_normal(form.m_pad)).to(dev, dt_)
+        kernel = f"trsv_dwin_{inst}"
+        turns(kernel, lambda: trsv_dwin(dT, Dv, offs_t, bb, form.nb, form.WL),
+              lambda: trsv_dwin_plain(dT.transpose(1, 2), Dv, bb, form.nb, form.WL, form.dwin_offs),
+              kreps=(9, 3), preps=(1, 1), kwarm=1, pwarm=0)
+        lu = st_.lu.double().cpu().numpy()
+        Lt = csr_tensor(*coo_csr(np.r_[hrows[hlow], np.arange(mh)], np.r_[hind[hlow], np.arange(mh)],
+                                     np.r_[lu[hlow], np.ones(mh)], mh), dev, dt_)
+        tri_bytes = form.nblk * form.nb * (form.nb + 1) // 2 * dT.element_size()
+        io = 2 * mh * dT.element_size()
+        flops = 2 * form.nblk * (form.nb * (form.nb + 1) // 2 + Dv.shape[1] * form.nb)
+        nz_need = int(hlow.sum()) * (dT.element_size() + 4) + io
+        note(kernel, tri_bytes + nbytes(Dv, offs_t) + io, nz_need, flops,
+             lambda: torch.triangular_solve(bb[:mh, None], Lt, upper=False, unitriangular=True), one,
+             need_flops=2 * int(hlow.sum()))
+        log(f"  {kernel} (stencil ILU0 L, nb={form.nb} nblk={form.nblk} ndg={Dv.shape[1]} WL={form.WL}): "
+            f"{ms[kernel] * 1e3 / form.nblk:.3f} us a step; plain {plain_ms[kernel] * 1e3 / form.nblk:.3f} us a step")
+        del Lt
+    # the chain forms' block size (planner/triangular.py adaptive_nb): one
+    # solve of the stencil's lower triangle, f32, K = 1, at nb = 32 to 256,
+    # each form built at that width (CHAIN_NB lifted for the sweep)
+    chain_nb, ttri.CHAIN_NB = ttri.CHAIN_NB, 256
+    for nb_ in (32, 64, 128, 256):
+        key = ("trsv", LOWER.fill_mode, LOWER.diag_type, NONE, nb_)
+        kept = H.plan.levels.pop(key, None)  # a cached form of this key may be narrower
+        f_ = trsv_form_for(H.plan, LOWER, NONE, nb=nb_)
+        if f_.kind == "dwin":
+            dT_, Dv_ = f_.operands()
+            b_ = torch.ones(f_.m_pad, dtype=torch.float32, device=dev)
+            t = cuda_ms(lambda: trsv_dwin(dT_, Dv_, f_.offsets(), b_, nb_, f_.WL), reps=3, inner=1, warm=1,
+                        backlog=True)
+            log(f"  dwin solve of the stencil's lower triangle at nb={nb_} ({f_.nblk} blocks): {t:.4f} ms, "
+                f"{t * 1e3 / f_.nblk:.3f} us a step")
+            del dT_, Dv_
+        H.plan.levels.pop(key)
+        if kept is not None:
+            H.plan.levels[key] = kept
+        del f_
+    ttri.CHAIN_NB = chain_nb
+    Sq = sp.csr_matrix((qval.astype(np.float64), qind, qptr), shape=(qm, qm))
+    Sql = sp.tril(Sq).tocsr()
+    for inst, handle, dt_ in (("f32", Qh, torch.float32), ("f64", Qd, torch.float64)):
+        form = trsv_form_for(handle.plan, LOWER, NONE)
+        dT, Lv = form.operands()
+        bq = torch.from_numpy(np.random.default_rng(83).standard_normal(form.m_pad)).to(dev, dt_)
+        kernel = f"trsv_gather_{inst}"
+        turns(kernel, lambda: trsv_gather(dT, form.Lind, Lv, bq, form.nb),
+              lambda: trsv_gather_plain(dT.transpose(1, 2), form.Lind, Lv, bq, form.nb),
+              kreps=(9, 3), preps=(1, 1), kwarm=1, pwarm=0)
+        Qlt = csr_tensor(Sql.indptr, Sql.indices, Sql.data, dev, dt_)
+        tri_bytes = form.nblk * form.nb * (form.nb + 1) // 2 * dT.element_size()
+        io = 2 * qm * dT.element_size()
+        n_left = int(torch.count_nonzero(Lv))
+        flops = 2 * form.nblk * form.nb * (form.nb + 1) // 2 + 2 * n_left
+        nz_need = (Sql.nnz - qm) * (dT.element_size() + 4) + qm * dT.element_size() + io
+        note(kernel, tri_bytes + nbytes(Lv, form.Lind) + io, nz_need, flops,
+             lambda: torch.triangular_solve(bq[:qm, None], Qlt, upper=False), one, need_flops=2 * Sql.nnz)
+        log(f"  {kernel} (scatter lower, nb={form.nb} nblk={form.nblk} W={Lv.shape[2]}): "
+            f"{ms[kernel] * 1e3 / form.nblk:.3f} us a step")
+        del Qlt
+    # the sv engines and the stencil's preconditioned CG iterations
+    bs_d = torch.from_numpy(np.random.default_rng(71).standard_normal(mh).astype(np.float32)).to(dev)
+    for kid in (0, 1, 2):
+        t = cuda_ms(lambda: tt.trsv(1.0, H, LOWER, NONE, bs_d, kid=kid), reps=3, inner=1, warm=1)
+        log(f"  stencil trsv kid={kid} (lower, {('dwin chain kernel', 'level engine', 'host engine')[kid]}): "
+            f"{t:.4f} ms/call")
+    profile_mv("stencil trsv kid=1 (level engine)", lambda: tt.trsv(1.0, H, LOWER, NONE, bs_d, kid=1), calls=1)
+    t_hsm = cuda_ms(lambda: tt.ilu_smoother(H, GEN, bs_d), reps=3, inner=1, warm=1)
+    log(f"  stencil ilu_smoother: {t_hsm:.4f} ms/call (two dwin solves)")
+    for precond in ("ilu0", "sgs"):
+        t_it, t_all = iteration_ms(
+            lambda kk: tt.pcg_solve(H, bs_d, rtol=0.0, maxit=kk, precond=precond)[1], 2, 6)
+        log(f"  stencil {precond.upper()}-PCG iteration: {t_it:.4f} ms (host clock, median of "
+            f"{[round(t, 4) for t in t_all]}; {stencil_iters[precond]} iterations to rtol {rtol:g})")
+    t_it, t_all = iteration_ms(lambda kk: tt.pcg_solve(H, bs_d, rtol=0.0, maxit=kk)[1], 5, 25)
+    log(f"  stencil CG iteration (no preconditioner): {t_it:.4f} ms (host clock, median of "
+        f"{[round(t, 4) for t in t_all]})")
+    profile_mv("stencil ILU0-PCG iteration (2 fixed iterations)",
+               lambda: tt.pcg_solve(H, bs_d, rtol=0.0, maxit=2, precond="ilu0"), calls=1, top=6)
 
     # the spill-route kernels on the webbase spill route (after
     # update_values: the same structure, new values)

@@ -97,7 +97,7 @@ def test_registry_table_and_dispatcher():
     }
     assert tt.debug_dispatcher("mv", fmt="bwd", device="cpu")["name"] == "cuda_bwd"
     assert tt.debug_dispatcher("mv", fmt="host", device="cpu")["kid"] == 11
-    assert {e.kid: e.fmt for e in registry.table("sv")} == {0: "blocked"}
+    assert {e.kid: e.fmt for e in registry.table("sv")} == {0: "blocked", 1: "level", 2: "host"}
     assert {e.kid: e.fmt for e in registry.table("mm")} == {
         0: "segsum", 1: "ell", 2: "ellhyb", 3: "bwdg", 4: "bandtm", 5: "bandtm", 7: "diag"
     }

@@ -175,7 +175,7 @@ def test_smoother_argument_statuses():
     T = tt.create_csr(100, 100, ptr, ind, val, device="cpu")
     b = torch.ones(100, dtype=torch.float64)
     cases = [
-        (dict(b=b, kid=1), tt.Status.not_implemented),  # level apply: ROADMAP item 12
+        (dict(b=b, kid=-1), tt.Status.invalid_kid),  # kids 1 (levels) and 2 (host) are ported
         (dict(b=b, kid=3), tt.Status.invalid_kid),
         (dict(b=b, op=tt.Operation.transpose), tt.Status.not_implemented),
         (dict(b=torch.ones(99, 2, dtype=torch.float64)), tt.Status.invalid_size),

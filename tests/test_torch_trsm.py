@@ -113,8 +113,8 @@ def test_trsm_errors(pairs):
         return e.value.status
 
     B = torch.zeros(M, 2, dtype=torch.float64)
-    assert status(1.0, T, L, tt.Operation.none, B, kid=2) == tt.Status.not_implemented
-    assert status(1.0, T, L, tt.Operation.none, B, kid=1) == tt.Status.not_implemented
+    # kids 1 (level engine) and 2 (host engine) are ported; 3 is no sv kid
+    assert status(1.0, T, L, tt.Operation.none, B, kid=3) == tt.Status.invalid_kid
     assert status(1.0, T, L, tt.Operation.none, B[:-1]) == tt.Status.invalid_size
     assert status(1.0, T, L, tt.Operation.none, B[:, 0]) == tt.Status.invalid_size
     assert status(1.0, T, tt.MatrixDescriptor(), tt.Operation.none, B) == tt.Status.invalid_value

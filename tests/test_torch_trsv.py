@@ -172,19 +172,18 @@ def test_error_statuses_match_jax(ast):
 
 
 def test_unported_routes_raise_not_implemented():
-    """The JAX package's level (kid 1) and host (kid 2) engines and bf16 /
-    complex triangles are not ported yet: not_implemented, never a silent
-    fallback."""
+    """bf16 and complex triangles are not ported yet: not_implemented from
+    every sv engine (the blocked solve, kid 1 the level engine, kid 2 the
+    host engine), never a silent fallback."""
     ptr, ind, val, _ = _operand(seed=5, m=60, halfw=3, far=0)
-    T = tt.create_csr(60, 60, ptr, ind, val, device="cpu")
     d = tt.MatrixDescriptor(type=tt.MatrixType.triangular)
-    b = torch.ones(60, dtype=torch.float64)
-    for kid in (1, 2):
-        assert _status(lambda: tt.trsv(1.0, T, d, tt.Operation.none, b, kid=kid)) == int(tt.Status.not_implemented)
     for v in (torch.from_numpy(val).to(torch.bfloat16), val.astype(np.complex128)):
         C = tt.create_csr(60, 60, ptr, ind, v, device="cpu")
         rhs = torch.ones(60, dtype=C.dtype)
-        assert _status(lambda: tt.trsv(1.0, C, d, tt.Operation.none, rhs)) == int(tt.Status.not_implemented)
+        for kid in (None, 0, 1, 2):
+            assert _status(lambda: tt.trsv(1.0, C, d, tt.Operation.none, rhs, kid=kid)) == int(
+                tt.Status.not_implemented
+            )
 
 
 def test_update_values_flows_into_the_solve():
@@ -207,8 +206,10 @@ def test_update_values_flows_into_the_solve():
 
 
 def test_too_wide_window_raises_not_implemented():
-    """A triangle whose dense window passes the cap takes the JAX package's
-    gather or dwin form, which the port does not have yet."""
+    """A triangle whose dense window passes the cap, with hundreds of
+    distinct left offsets: it used to raise not_implemented; now it takes
+    the padded-ELL ``gather`` form (planner/triangular.py), which solves
+    it, transposed too, to float64 rounding against numpy."""
     m = 1100
     rng = np.random.default_rng(7)
     dense = np.tril(rng.standard_normal((m, m))) * (np.abs(rng.standard_normal((m, m))) < 0.02)
@@ -217,8 +218,10 @@ def test_too_wide_window_raises_not_implemented():
     A = tt.create_csr(m, m, ptr, np.nonzero(dense)[1].astype(np.int32), dense[dense != 0], device="cpu")
     tri = tt.MatrixDescriptor(type=tt.MatrixType.triangular, fill_mode=tt.FillMode.lower)
     b = torch.ones(m, dtype=torch.float64)
-    for op in (tt.Operation.none, tt.Operation.transpose):
-        assert _status(lambda: tt.trsv(1.0, A, tri, op, b)) == int(tt.Status.not_implemented)
+    for op, T in ((tt.Operation.none, dense), (tt.Operation.transpose, dense.T)):
+        assert ttri.trsv_form_for(A.plan or tt.optimize(A), tri, op).kind == "gather"
+        x = tt.trsv(1.0, A, tri, op, b).numpy()
+        assert near_error(x, np.linalg.solve(T, np.ones(m))) <= 10 * expected_precision(torch.float64)
 
 
 # (builder, fill, diag, op); the native builder serves op=none only, in
