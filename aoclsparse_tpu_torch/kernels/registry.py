@@ -41,7 +41,10 @@ there), which serve trsv and trsm alike (the JAX package has no separate sm
 table): KID 0, the blocked solve (the window-solve kernels of a ``win``
 form, kernels/trsv_win.py, or the chain kernel of a ``dwin`` or ``gather``
 form, kernels/trsv_blocked.py); KID 1, the level-scheduled wavefront
-(kernels/trsv_level.py, priority -1: opt-in); KID 2, the host sequential
+(kernels/trsv_level.py, the kernel csrc/trsv_level.cu on the card;
+priority -1: never the registry's pick, though on the card the default
+solve takes it where planner/triangular.py `sv_engine_for` says the DAG is
+shallow against the chain); KID 2, the host sequential
 substitution (native/, priority -2: an explicit kid only).
 
 The mm table keeps the JAX package's KIDs 0-5 and 7 (ops/level3/csrmm.py:
@@ -69,7 +72,7 @@ from .spmm_diag import spmm_diag
 from .spmv_bwd import spmv_bwd_any
 from .spmm_plain import spmm_bwd, spmm_ell, spmm_ellhyb, spmm_segsum
 from .spmv_gen import spmv_gen, spmv_route
-from .trsv_level import solve_levels
+from .trsv_level import trsv_level
 from .trsv_win import trsv_win
 
 __all__ = ["KernelEntry", "Registry", "registry", "debug_dispatcher"]
@@ -177,7 +180,7 @@ registry.register("mv", KernelEntry(10, "torch_sell", spmv_segsum, "sell", "any"
 # the host engine: an explicit kid only, never the Oracle's pick
 registry.register("mv", KernelEntry(HOST_MV_KID, "host_csr", spmv_host_csr, "host", "any", -5))
 registry.register("sv", KernelEntry(0, "cuda_trsv_win", trsv_win, "blocked", "any", 0))
-registry.register("sv", KernelEntry(1, "torch_level_wavefront", solve_levels, "level", "any", -1))
+registry.register("sv", KernelEntry(1, "cuda_trsv_level", trsv_level, "level", "any", -1))
 registry.register("sv", KernelEntry(2, "host_sequential", trsv_seq, "host", "any", -2))
 registry.register("mm", KernelEntry(0, "torch_segsum", spmm_segsum, "segsum", "any", 0))
 registry.register("mm", KernelEntry(1, "torch_ell", spmm_ell, "ell", "any", 0))

@@ -12,21 +12,26 @@ descr.fill_mode's triangle of A honoring diag_type; symmetric descriptors
 are treated as triangular like the reference (trsv.cpp:141-151).
 
 sv KIDs, as in the JAX package: 0 the blocked solve, 1 the level-scheduled
-wavefront (kernels/trsv_level.py), 2 the host sequential substitution
-(native/), which returns a CPU tensor, as mv KID 11 does. With no kid, a
-triangle whose blocked form is refused (``memory_error``: a padded ELL
-past the cap) takes the level engine where its DAG is shallow (nlev <=
-4096 and its runs pad to at most 16 * nnz), as in the JAX package
-(:110-154 there). Past that the JAX package escapes to its host engine;
-the port raises ``memory_error`` and names kid=2 instead, the policy of its
-mv, which runs the host engine only for an explicit kid (ROADMAP.md queue
-3).
+wavefront (kernels/trsv_level.py, its kernel csrc/trsv_level.cu on the
+card), 2 the host sequential substitution (native/), which returns a CPU
+tensor, as mv KID 11 does. With no kid, on the card, a triangle whose
+blocked form would run the chain kernel (``dwin``, ``gather``) takes the
+level kernel where its DAG is shallow against the chain
+(planner/triangular.py `sv_engine_for`; `default_solver` gives the same
+choice to the smoothers and preconditioners); the CPU's default stays the
+blocked form. With no kid, a triangle whose blocked form is refused
+(``memory_error``: a padded ELL past the cap) takes the level engine where
+its DAG is shallow (nlev <= 4096 and its runs pad to at most 16 * nnz), as
+in the JAX package (:110-154 there). Past that the JAX package escapes to
+its host engine; the port raises ``memory_error`` and names kid=2 instead,
+the policy of its mv, which runs the host engine only for an explicit kid
+(ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
 
 from numbers import Number
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -35,8 +40,10 @@ from ...core.matrix import SparseMatrix
 from ...core.types import AoclSparseError, MatrixType, Operation, Status
 from ...core.validate import check_base_match, check_dtype_compat
 from ...kernels.registry import registry
-from ...planner.plan import get_plan
+from ...planner.plan import Plan, get_plan
 from ...planner.triangular import (
+    LEVEL_MAX_NLEV,
+    sv_engine_for,
     trsv_form_for,
     trsv_host_form_for,
     trsv_level_form_for,
@@ -46,9 +53,9 @@ from .mv import _as_operand
 
 __all__ = ["trsv", "trsv_strided", "csrsv"]
 
-#: the level engine's reach as the default's fallback: levels, and padded
-#: run entries per stored nonzero (ops/level2/trsv.py:152 there)
-LEVEL_MAX_NLEV = 4096
+#: the level engine's reach as the default's fallback: levels
+#: (LEVEL_MAX_NLEV, from the planner), and padded run entries per stored
+#: nonzero (ops/level2/trsv.py:152 there)
 LEVEL_MAX_PAD = 16
 
 
@@ -63,6 +70,17 @@ def pad_solve(form, r: torch.Tensor) -> torch.Tensor:
         r = torch.nn.functional.pad(r, pad if r.dim() == 1 else (0, 0) + pad)
     x = form.solve(r)[: form.m]
     return x.flip(0) if form.reversed_ else x
+
+
+def default_solver(plan: Plan, descr: MatrixDescriptor, op: Operation, device) -> Callable:
+    """The default solve of a triangle of `plan` on `device` as a function
+    of an (m,) or (m, k) rhs: the level form's where `sv_engine_for` picks
+    the level kernel, else the blocked form's (`pad_solve`). The smoothers
+    and preconditioners resolve it once and call it every sweep."""
+    form = trsv_form_for(plan, descr, op)
+    if sv_engine_for(plan, descr, op, device, form=form) == "level":
+        return trsv_level_form_for(plan, descr, op).solve
+    return lambda r: pad_solve(form, r)
 
 
 def _solve(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, rhs: torch.Tensor, kid):
@@ -106,6 +124,8 @@ def _solve(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, rhs: torch.T
             f"({nlev} levels, {padded} padded entries); call kid=2 (the host engine, which returns a "
             f"CPU tensor) or kid=1",
         ) from None
+    if kid is None:
+        return default_solver(plan, descr, op, rhs.device)(rhs)
     return pad_solve(form, rhs)
 
 

@@ -36,13 +36,21 @@ the operands on the device from new values without re-planning.
 Besides the blocked forms: `TrsvHostForm` (sv KID 2, the host sequential
 substitution of native/) and the level-scheduled form of
 kernels/trsv_level.py (sv KID 1), with their builders.
+
+`sv_engine_for` is the default solve's choice between a blocked form and the
+level kernel (csrc/trsv_level.cu), the port's counterpart of the JAX
+package's `_trsv_engine` pin (ops/level2/trsv.py:105-109 there, which
+`autotune_trsv` sets): on the card a ``dwin`` or ``gather`` form, whose
+chain kernel takes one dependent step a block, gives way to the level
+kernel where `nlev` levels cost less than `nblk` chain steps
+(`level_wins`); a ``win`` form's grouped chain takes few steps and stays.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +78,9 @@ __all__ = [
     "build_trsv_form_native",
     "check_solve_dtype",
     "invert_diag_blocks",
+    "level_wins",
+    "pick_sv_engine",
+    "sv_engine_for",
     "trsv_form_for",
     "trsv_host_form_for",
     "trsv_level_form_for",
@@ -83,6 +94,21 @@ MAX_WL = 8192
 MAX_DWIN_OFFSET = 65536
 #: the widest block of a ``dwin`` or ``gather`` form (`adaptive_nb`)
 CHAIN_NB = 64
+#: the forms whose solve is the chain kernel (csrc/trsv_blocked.cu)
+CHAIN_KINDS = ("dwin", "gather")
+#: the level engine's reach in levels, as the default's choice and as the
+#: fallback of a refused blocked form (ops/level2/trsv.py:152 there)
+LEVEL_MAX_NLEV = 4096
+#: the devices on which the default solve may take the level kernel; the
+#: CPU's default stays the blocked form (a test adds "cpu" to drive the
+#: routing through the plain versions)
+SV_LEVEL_DEVICES = ("cuda",)
+#: the gate's constants in microseconds, measured by chip_smoke.py phase 6
+#: on an NVIDIA H100 80GB HBM3 at 700 W: the level kernel's time a level
+#: (a solve of the 104^3 stencil's lower triangle over its 722 levels) and
+#: the chain kernel's time a step (its dwin solve over 17,576 blocks of 64)
+T_LEVEL_US = 2.43
+T_STEP_US = 2.48
 
 _ITEM12 = "ROADMAP.md queue 1 item 12"
 
@@ -666,3 +692,36 @@ def trsv_level_form_for(plan: Plan, descr: MatrixDescriptor, op: Operation):
         form = build_level_form(ptr, ind, src, eff.m, rev, DiagType(tri.diag_type) == DiagType.unit, eff.val)
         plan.levels[key] = form
     return form
+
+
+def level_wins(kind: str, nblk: int, nlev: int) -> bool:
+    """The gate: a chain-kernel form (``dwin``, ``gather``) of nblk blocks
+    gives way to the level kernel when its nlev levels, at most
+    LEVEL_MAX_NLEV, cost less than its chain steps on the card."""
+    return kind in CHAIN_KINDS and nlev <= LEVEL_MAX_NLEV and nlev * T_LEVEL_US < nblk * T_STEP_US
+
+
+def pick_sv_engine(form: Optional[TrsvForm], nlev_of: Callable[[], int], device) -> str:
+    """"level" or "blocked" for a solve on `device` whose blocked form is
+    `form`; nlev_of() gives the triangle's level count (read from the
+    structure, cached by the caller) and runs only for a chain form on a
+    device of SV_LEVEL_DEVICES."""
+    if form is None or torch.device(device).type not in SV_LEVEL_DEVICES or form.kind not in CHAIN_KINDS:
+        return "blocked"
+    return "level" if level_wins(form.kind, form.nblk, nlev_of()) else "blocked"
+
+
+def sv_engine_for(plan: Plan, descr: MatrixDescriptor, op: Operation, device,
+                  form: Optional[TrsvForm] = None) -> str:
+    """The default solve's engine for a triangle of a matrix plan ("level"
+    or "blocked"), with its blocked form (`trsv_form_for`, or `form` where
+    the caller has it) and the level count cached in plan.trsv_level_stats
+    (`trsv_level_stats_for`)."""
+    key = (descr.fill_mode, descr.diag_type, Operation(op))
+
+    def nlev() -> int:
+        if key not in plan.trsv_level_stats:
+            plan.trsv_level_stats[key] = trsv_level_stats_for(plan, descr, op)
+        return plan.trsv_level_stats[key][0]
+
+    return pick_sv_engine(form if form is not None else trsv_form_for(plan, descr, op), nlev, device)

@@ -16,8 +16,12 @@ native ``win`` builder, else from the numpy builder (``win``, ``dwin`` or
 (kernels/trsv_win.py) or one launch of the chain kernel
 (kernels/trsv_blocked.py). A 2-D b (m, k) solves all columns at once.
 
-kid 1 applies the level-scheduled sweeps (kernels/trsv_level.py); so does
-the default where both blocked forms were refused (``memory_error``: a
+On the card the default solves each factor whose blocked form runs the
+chain kernel (``dwin``, ``gather``) by the level kernel where its DAG is
+shallow against the chain (planner/triangular.py `pick_sv_engine`, the
+rule of every default solve); kid 0 pins the blocked forms. kid 1 applies
+the level-scheduled sweeps (kernels/trsv_level.py); so does the default
+where both blocked forms were refused (``memory_error``: a
 padded ELL past the cap), unless the factor's DAG is deeper than 8192
 levels in all. There the JAX package escapes to its host substitution;
 the port raises ``memory_error`` naming kid=2, which runs that host
@@ -29,7 +33,7 @@ queue 3).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +56,7 @@ from ..planner.triangular import (
     build_trsv_form,
     build_trsv_form_native,
     check_solve_dtype,
+    pick_sv_engine,
 )
 
 __all__ = ["IluState", "ilu0_factorize", "ilu_smoother"]
@@ -76,6 +81,7 @@ class IluState:
     u_form: Optional[TrsvForm] = None  # U solve form (reversed indices)
     l_level: Optional[object] = None  # LevelForm twins, built by the first level apply
     u_level: Optional[object] = None
+    level_nlev: Optional[Tuple[int, int]] = None  # levels of L and U, from the structure
     _host_tri: Optional[tuple] = None  # host CSR triangles of the kid=2 apply
 
 
@@ -170,25 +176,44 @@ def _level_forms(st: IluState):
     return st.l_level, st.u_level
 
 
+def _factor_nlev(st: IluState) -> Tuple[int, int]:
+    """(nlev(L), nlev(U)) from the structure alone, before any level form
+    is built (solvers/ilu.py:207 there), cached on the state."""
+    if st.level_nlev is None:
+        from ..kernels.trsv_level import level_form_stats
+        from ..planner.triangular import _reverse_structure
+
+        eff_l = build_effective_csr(st.lu_clean, L_DESCR, Operation.none)
+        rev = _reverse_structure(build_effective_csr(st.lu_clean, U_DESCR, Operation.none))
+        st.level_nlev = (level_form_stats(eff_l.ptr, eff_l.ind, eff_l.m)[0],
+                         level_form_stats(rev.ptr, rev.ind, rev.m)[0])
+    return st.level_nlev
+
+
 def _level_depth(st: IluState) -> int:
-    """nlev(L) + nlev(U) from the structure alone, before any level form
-    is built (solvers/ilu.py:207 there)."""
-    from ..kernels.trsv_level import level_form_stats
-    from ..planner.triangular import _reverse_structure
-
-    eff_l = build_effective_csr(st.lu_clean, L_DESCR, Operation.none)
-    rev = _reverse_structure(build_effective_csr(st.lu_clean, U_DESCR, Operation.none))
-    return level_form_stats(eff_l.ptr, eff_l.ind, eff_l.m)[0] + level_form_stats(rev.ptr, rev.ind, rev.m)[0]
+    """nlev(L) + nlev(U)."""
+    return sum(_factor_nlev(st))
 
 
-def ilu_apply(st: IluState, r: torch.Tensor) -> torch.Tensor:
+def _factor_solve(st: IluState, i: int, r: torch.Tensor, pin_blocked: bool) -> torch.Tensor:
+    """Solve with factor i (0: L, 1: U) by the default's engine, or by its
+    blocked form when pinned."""
+    form = (st.l_form, st.u_form)[i]
+    if not pin_blocked and pick_sv_engine(form, lambda: _factor_nlev(st)[i], r.device) == "level":
+        return _level_forms(st)[i].solve(r)
+    return pad_solve(form, r)
+
+
+def ilu_apply(st: IluState, r: torch.Tensor, pin_blocked: bool = False) -> torch.Tensor:
     """z = U^{-1} L^{-1} r over the cached factors, r of (m,) or (m, k):
-    two blocked solves, or the level sweeps where the blocked forms were
+    each factor by the default's engine (its blocked form, or on the card
+    the level kernel where `pick_sv_engine` picks it; `pin_blocked` keeps
+    the blocked forms), or the level sweeps where the blocked forms were
     refused."""
     if st.l_form is None:
         l_lvl, u_lvl = _level_forms(st)
         return u_lvl.solve(l_lvl.solve(r))
-    return pad_solve(st.u_form, pad_solve(st.l_form, r))
+    return _factor_solve(st, 1, _factor_solve(st, 0, r, pin_blocked), pin_blocked)
 
 
 def _host_lu_apply(st: IluState, b: torch.Tensor) -> torch.Tensor:
@@ -249,9 +274,10 @@ def ilu_smoother(
 ):
     """x = U^{-1} L^{-1} b over the cached ILU0 factors
     (aoclsparse_?ilu_smoother). The LU working values are inspectable as
-    ``A.ilu_state.lu`` (the precond_csr_val analog). kid 0/None: the
-    blocked solves (the level sweeps where the blocked forms were refused);
-    1: the level sweeps; 2: the host substitution, a CPU tensor."""
+    ``A.ilu_state.lu`` (the precond_csr_val analog). kid None: the
+    default's engines (`ilu_apply`); 0: the blocked solves (the level
+    sweeps where the blocked forms were refused); 1: the level sweeps; 2:
+    the host substitution, a CPU tensor."""
     if A is None or b is None:
         raise AoclSparseError(Status.invalid_pointer, "null argument")
     if Operation(op) != Operation.none:
@@ -273,4 +299,4 @@ def ilu_smoother(
             )
         l_lvl, u_lvl = _level_forms(st)
         return u_lvl.solve(l_lvl.solve(b))
-    return ilu_apply(st, b)
+    return ilu_apply(st, b, pin_blocked=kid == 0)

@@ -10,8 +10,10 @@ steps over the L/D/U splitting:
 
 Triangular descriptors quick-exit to a single TRSV (symgs.hpp:130-149).
 With no kid the sweep runs over the planner's cached forms: the strict
-triangles' mv forms and the blocked solve forms (one kernel call each,
-planner/triangular.py), the JAX package's `_symgs_fused` without its jit.
+triangles' mv forms and the default solves (`default_solver`: the blocked
+form's kernel call, or on the card the level kernel where the DAG is
+shallow against the chain), the JAX package's `_symgs_fused` without its
+jit.
 An explicit kid takes the composed mv/trsv calls, the kid passed to both
 solves.
 """
@@ -27,9 +29,9 @@ from ..core.matrix import SparseMatrix, as_values
 from ..core.types import AoclSparseError, DiagType, FillMode, MatrixType, Operation, Status
 from ..core.validate import check_base_match
 from ..ops.level2.mv import _run_exec_form, mv
-from ..ops.level2.trsv import pad_solve, trsv
+from ..ops.level2.trsv import default_solver, trsv
 from ..planner.plan import get_plan
-from ..planner.triangular import check_solve_dtype, trsv_form_for
+from ..planner.triangular import check_solve_dtype
 
 __all__ = ["lu_view_selection", "symgs", "symgs_mv"]
 
@@ -101,12 +103,13 @@ def _symgs_core(trans, A, descr, alpha, b, x0, fuse_mv, kid):
     x0 = torch.zeros(m, dtype=A.dtype, device=A.device) if x0 is None else as_values(x0, A.device).to(A.dtype)
     if kid is None:
         plan = get_plan(A)
-        lf, uf = trsv_form_for(plan, tri_l, l_op), trsv_form_for(plan, tri_u, u_op)
+        solve_l = default_solver(plan, tri_l, l_op, A.device)
+        solve_u = default_solver(plan, tri_u, u_op, A.device)
         us_form = plan.exec_form_for(tri_us, u_op, dtype=A.dtype)
         ls_form = plan.exec_form_for(tri_ls, l_op, dtype=A.dtype)
         q = alpha * _run_exec_form(us_form, x0, None).to(A.dtype)
-        x1 = pad_solve(lf, b - q)
-        x = pad_solve(uf, b - _run_exec_form(ls_form, x1, None).to(A.dtype))
+        x1 = solve_l(b - q)
+        x = solve_u(b - _run_exec_form(ls_form, x1, None).to(A.dtype))
         y = None
         if fuse_mv:
             y = _run_exec_form(plan.exec_form_for(descr, trans, dtype=A.dtype), x, None).to(A.dtype)

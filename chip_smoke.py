@@ -12,9 +12,9 @@ failure (exit code != 0, no result line):
    the host C++ library with g++; require that the latter loads, and that
    -Xptxas -v gives the route, accumulate, block-window SpMV, group-window,
    window-solve (passes A, B, C), block-window SpMM (both instances), band
-   GEMM (both instances), band SpMM, diagonal SpMM (every instance) and
-   blocked-solve chain (every instance) kernels no stack frame and no
-   spills (their registers logged);
+   GEMM (both instances), band SpMM, diagonal SpMM (every instance),
+   blocked-solve chain (every instance) and level-solve (every instance)
+   kernels no stack frame and no spills (their registers logged);
 3. hold each kernel instance against its plain PyTorch version:
    - the band kernel on the bench operand (m = n = 262144, 64 nnz/row,
      half-bandwidth 64, seed 7, built as bench.py:220-233) in f32, bf16
@@ -80,6 +80,10 @@ failure (exit code != 0, no result line):
      synthetic forms (one block; a ragged last block; an offset past
      m_pad; a unit diagonal; K = 1 and 3), each called twice for the same
      bits;
+   - the level-solve kernel (csrc/trsv_level.cu) on the level forms of the
+     same ILU0 L and U factors (722 levels each; f32 and f64, K = 1 and 16)
+     and of the scatter operand's lower and upper triangles (f32 and f64,
+     K = 1 and 16), each called twice for the same bits;
    - the band GEMM kernel (SpGEMM numeric stage) in f32 and f64 on the band
      plan of the cant stand-in's A.A (benchmarks/realmat.py:105, copied
      here, seed 7: m = 62,469, 4,108,752 nnz; G = 128, WA = WB = 560,
@@ -109,12 +113,16 @@ failure (exit code != 0, no result line):
    iterations than with none, with a true relative residual <= 1e-5 and
    the launch counts the composition implies (a window solve: its passes'
    launches, kernels/trsv_win.py solve_launches); then on the 104^3
-   stencil: ilu0_factorize (its factors cached since phase 3),
-   ilu_smoother, pcg_solve(precond="ilu0") and ("sgs") to rtol 1e-6 with a
-   true relative residual <= 1e-5 (two dwin launches an iteration),
-   symgs, symgs_mv and sorv against float64 scipy sweeps, trsv kid=1
-   (level engine) and kid=2 (host engine) against kid=0, and trsv on a
-   float64 handle (the f64 dwin instance);
+   stencil, where the default solve takes the level kernel
+   (planner/triangular.py sv_engine_for): ilu0_factorize (its factors
+   cached since phase 3), ilu_smoother (default: two level launches;
+   kid=0: two dwin launches), pcg_solve(precond="ilu0") and ("sgs") to
+   rtol 1e-6 with a true relative residual <= 1e-5 (two level launches an
+   iteration, no chain launch), symgs, symgs_mv (level) and sorv (its own
+   dwin form) against float64 scipy sweeps, trsv by default and kid=1
+   (level kernel) and kid=2 (host engine) against kid=0 (dwin), and trsv
+   on a float64 handle by default and kid=0 (the f64 level and dwin
+   instances);
 5b. the general-structure path, counted on its own: mv on the webbase
    stand-in (default: gen with its spill on the route; kid=7; alpha/beta;
    the mixed bf16 band; mv_operator in permuted space; update_values and a
@@ -123,8 +131,9 @@ failure (exit code != 0, no result line):
    against a float64 scipy reference and with the launches each call
    implies; and pcg_solve with no preconditioner on the symmetrised
    webbase, in permuted space, to a true relative residual <= 10 rtol;
-   and trsv on the scatter operand's triangles (gather forms on the chain
-   kernel: f32 lower, f64 upper), each by its float64 residual;
+   and trsv on the scatter operand's triangles (f32 lower, f64 upper) by
+   default (the level kernel) and kid=0 (gather forms on the chain kernel),
+   each by its float64 residual;
 5c. the SpGEMM path, counted on its own, on the cant stand-in: sp2m
    request=nnz_count (no band GEMM launch; the band engine attached),
    request=finalize (one launch; the values pending), a chained mv on the
@@ -188,17 +197,23 @@ failure (exit code != 0, no result line):
    warm and cold, their bound over the parallelogram they need); the
    read probe on the 128 MiB buffer and on the band slab against its plain
    version and torch.sum; the chain kernel's dwin (stencil ILU0 L) and
-   gather (scatter lower) instances against their plain versions and
-   torch.triangular_solve on the CSR triangle, the stencil's trsv by kid,
-   its ilu_smoother, ILU0-/SGS-PCG and CG iteration times, and profiles of
-   the level engine's solve and of ILU0-PCG iterations.
+   gather (scatter lower) instances and the level kernel on the same
+   triangles against their plain versions and torch.triangular_solve on
+   the CSR triangle, the level kernel's dependency round trip (a
+   bidiagonal chain, one level a row) and the sv gate's constants (us a
+   level, us a chain step) as measured, the stencil's trsv by kid, its
+   ilu_smoother by default and kid=0, ILU0-/SGS-PCG iteration times by the
+   level kernel and, in turn, with the gate closed (the chain kernel), the
+   CG iteration, and profiles of the default solve and of ILU0-PCG
+   iterations.
 
 Launch counts are reset just before phase 4 and read after phase 5, reset
 again just before phase 5b and read after it, and again around phases 5c
 5d and 5e (the kernels line takes the spill-route kernels' counts from 5b,
 the band GEMM's from 5c, the group-window kernel's from 5d and the
 measurement path's kernels' from 5e; the gather instances of the chain
-kernel count in 5b, its dwin instances on the main path). The
+kernel count in 5b, its dwin instances and the level kernel's on the
+main path). The
 second-to-last line is
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 """
@@ -258,6 +273,7 @@ from aoclsparse_tpu_torch.kernels.spmv_mxu import spmv_band_mxu, spmv_band_mxu_p
 from aoclsparse_tpu_torch.kernels.stream_read import stream_read, stream_read_plain
 from aoclsparse_tpu_torch.io import read_mtx, write_mtx
 from aoclsparse_tpu_torch.kernels.trsv_blocked import trsv_dwin, trsv_dwin_plain, trsv_gather, trsv_gather_plain
+from aoclsparse_tpu_torch.kernels.trsv_level import build_level_form, trsv_level, trsv_level_plain
 from aoclsparse_tpu_torch.kernels.trsv_win import (
     chain_group,
     chain_plan,
@@ -274,7 +290,7 @@ from aoclsparse_tpu_torch.ops.level3.spgemm import _effective
 from aoclsparse_tpu_torch.planner.spill_route import build_spill_route, spill_route_apply
 from aoclsparse_tpu_torch.planner import triangular as ttri
 from aoclsparse_tpu_torch.planner.triangular import invert_diag_blocks, trsv_form_for
-from aoclsparse_tpu_torch.solvers.ilu import ilu0_factorize
+from aoclsparse_tpu_torch.solvers.ilu import _level_forms, ilu0_factorize
 from aoclsparse_tpu_torch.utils import profiling
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
 
@@ -348,6 +364,10 @@ KERNELS = {
     "trsv_dwin_f64": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:103"),
     "trsv_gather_f32": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:152"),
     "trsv_gather_f64": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:152"),
+    # the level-scheduled solve (sv KID 1): the JAX package runs it as XLA
+    # level loops (_solve_levels_jit, _solve_runs_jit), no Pallas kernel
+    "trsv_level_f32": ("aoclsparse_tpu_torch/csrc/trsv_level.cu", "aoclsparse_tpu/kernels/xla/trsv_level.py:138"),
+    "trsv_level_f64": ("aoclsparse_tpu_torch/csrc/trsv_level.cu", "aoclsparse_tpu/kernels/xla/trsv_level.py:138"),
 }
 #: the kernels of the general-structure path (phase 5b), counted there
 GEN_PATH = ("oh_select_f32", "oh_accum_f32", "benes_route_f32", "trsv_gather_f32", "trsv_gather_f64")
@@ -377,6 +397,7 @@ COUNTERS = {
     "stream_read": stream_read.launches,
     "trsv_dwin": trsv_dwin.launches,
     "trsv_gather": trsv_gather.launches,
+    "trsv_level": trsv_level.launches,
 }
 #: kernel vs plain: the same products summed in another order, so the
 #: accumulation dtype's model tolerance (utils/tolerances.py, scale 1);
@@ -428,6 +449,10 @@ KERNEL_TOL = {
     "trsv_dwin_f64": expected_precision(torch.float64),
     "trsv_gather_f32": expected_precision(torch.float32),
     "trsv_gather_f64": expected_precision(torch.float64),
+    # the same products summed in another order (32 lanes a row meeting in
+    # a fixed butterfly), the dtype's model tolerance
+    "trsv_level_f32": expected_precision(torch.float32),
+    "trsv_level_f64": expected_precision(torch.float64),
 }
 #: mv and mm against the float64 reference: the operand dtype's model tolerance
 MV_TOL = {"f32": expected_precision(torch.float32), "f64": expected_precision(torch.float64)}
@@ -937,6 +962,17 @@ def nz_bytes(*tensors):
     stored form whose padding (band edges, the zero triangle of inverted
     blocks) holds zeros."""
     return sum(int(torch.count_nonzero(t)) * t.element_size() for t in tensors)
+
+
+def ratio(a, b):
+    """a / b to four places, "none" where a is None (no library time)."""
+    return "none" if a is None else f"{a / b:.4f}"
+
+
+def level_bytes(form, b):
+    """Bytes a level solve must move: its compact CSR (lrow, lptr, lcol,
+    lval, dinv) and b read once, x written once."""
+    return nbytes(form.lrow, form.lptr, form.lcol, form.lval, form.dinv, b) + b.numel() * b.element_size()
 
 
 def library_ms(fn, once=False, **kw):
@@ -1602,13 +1638,49 @@ def chain_kernel_checks(H, H64, Q, Q64, dev, errs):
     return states
 
 
+def check_level_form(form, label, K, errs):
+    """The level kernel on a LevelForm against its plain version on a
+    random right-hand side ((m,) for K = 1, else (m, K)), twice for the
+    same bits."""
+    inst = "f32" if form.lval.dtype == torch.float32 else "f64"
+    kernel = f"trsv_level_{inst}"
+    shape = (form.m,) if K == 1 else (form.m, K)
+    b = torch.from_numpy(np.random.default_rng(K).standard_normal(shape)).to(form.lval.device, form.lval.dtype)
+    full = f"{label} (m={form.m}, {form.nlev} levels, {form.lcol.numel()} strict entries) K={K}"
+    got = same_bits(kernel, full, lambda: trsv_level(form, b))
+    compare(kernel, full, got, trsv_level_plain(form, b), errs)
+
+
+def level_kernel_checks(hst, hst64, Q, Q64, errs):
+    """Phase 3's checks of the level-solve kernel: the level forms of the
+    104^3 stencil's ILU0 L and U factors (f32 and f64, K = 1 and K_SM; the
+    forms the ILU0 apply takes on the card, cached on the factors' states)
+    and of the scatter operand's lower and upper triangles (cached on their
+    plans, as trsv takes them)."""
+    for st_ in (hst, hst64):
+        t0 = time.perf_counter()
+        forms = _level_forms(st_)
+        log(f"  stencil ILU0 level forms ({st_.lu.dtype}): {time.perf_counter() - t0:.2f} s, "
+            f"{forms[0].nlev} / {forms[1].nlev} levels")
+        for name, form in zip(("L", "U"), forms):
+            for K in (1, K_SM):
+                check_level_form(form, f"104^3 stencil ILU0 {name}", K, errs)
+    for handle in (Q, Q64):
+        for tri in (LOWER, UPPER):
+            form = ttri.trsv_level_form_for(handle.plan, tri, NONE)
+            for K in (1, K_SM):
+                check_level_form(form, f"scatter {tri.fill_mode.name}", K, errs)
+
+
 def stencil_solvers(H, H64, hst, hptr, hind, hval, dev, rtol, res_tol):
     """Phase 5 on the 104^3 stencil, through the entry points:
-    ilu0_factorize (cached from phase 3), ilu_smoother, pcg_solve with
-    precond "ilu0" and "sgs" (a true relative residual <= res_tol, each
-    iteration one apply: two dwin launches), symgs / symgs_mv / sorv against
-    a float64 scipy sweep, trsv kid=1 and kid=2 against kid=0, and trsv on
-    the float64 handle (the f64 instance). Returns the iteration counts."""
+    ilu0_factorize (cached from phase 3), ilu_smoother (the default: two
+    level-kernel launches; kid=0: two dwin launches), pcg_solve with precond
+    "ilu0" and "sgs" (a true relative residual <= res_tol, each iteration one
+    apply: two level-kernel launches and no chain launch), symgs / symgs_mv
+    (the level kernel) and sorv (its own dwin form) against a float64 scipy
+    sweep, trsv by default (the level kernel) and kid=0, 1, 2, and trsv on
+    the float64 handle (both f64 instances). Returns the iteration counts."""
     mh = len(hptr) - 1
     Sh = sp.csr_matrix((hval.astype(np.float64), hind, hptr), shape=(mh, mh))
     Lh, Uh, Dh = sp.tril(Sh, -1).tocsr(), sp.triu(Sh, 1).tocsr(), sp.diags(Sh.diagonal())
@@ -1617,33 +1689,34 @@ def stencil_solvers(H, H64, hst, hptr, hind, hval, dev, rtol, res_tol):
     f32tol = expected_precision(torch.float32)
     if tt.ilu0_factorize(H) is not hst:
         raise AssertionError("ilu0_factorize did not return the handle's cached factors")
-    c0 = trsv_dwin.launches["f32"]
-    xs = tt.ilu_smoother(H, GEN, b_d)
     lu = hst.lu.double().cpu().numpy()
     rows = np.repeat(np.arange(mh), np.diff(hptr))
     low = hind < rows
     Lf = sp.csr_matrix((np.r_[lu[low], np.ones(mh)], (np.r_[rows[low], np.arange(mh)], np.r_[hind[low], np.arange(mh)])),
                        shape=(mh, mh))
     Uf = sp.csr_matrix((lu[~low], (rows[~low], hind[~low])), shape=(mh, mh))
-    check_residual("stencil ilu_smoother: L (U x) = b", spla.aslinearoperator(Lf) @ spla.aslinearoperator(Uf), xs,
-                   bref, f32tol)
-    if trsv_dwin.launches["f32"] - c0 != 2:
-        raise AssertionError(f"ilu_smoother made {trsv_dwin.launches['f32'] - c0} dwin launches, want 2")
+    LU = spla.aslinearoperator(Lf) @ spla.aslinearoperator(Uf)
+    for kid, want in ((None, {"trsv_level_f32": 2, "trsv_dwin_f32": 0}),
+                      (0, {"trsv_level_f32": 0, "trsv_dwin_f32": 2})):
+        xs = counted(f"stencil ilu_smoother kid={kid}", lambda: tt.ilu_smoother(H, GEN, b_d, kid=kid), want)
+        check_residual(f"stencil ilu_smoother kid={kid}: L (U x) = b", LU, xs, bref, f32tol)
     iters = {}
     for precond in ("ilu0", "sgs"):
-        c0 = trsv_dwin.launches["f32"]
+        c0 = read_counts()
         t0 = time.perf_counter()
         xp, k, rnorm = tt.pcg_solve(H, b_d, rtol=rtol, maxit=1000, precond=precond)
         torch.cuda.synchronize()
         t_solve = time.perf_counter() - t0
-        dl = trsv_dwin.launches["f32"] - c0
+        c1 = read_counts()
+        dl, dc = c1["trsv_level_f32"] - c0["trsv_level_f32"], c1["trsv_dwin_f32"] - c0["trsv_dwin_f32"]
         true_res = float(np.linalg.norm(bref - Sh @ xp.double().cpu().numpy()) / np.linalg.norm(bref))
         log(f"  stencil pcg precond={precond}: {k} iterations in {t_solve:.3f} s (set-up included), ||r||={rnorm:.3e}, "
-            f"true rel residual {true_res:.3e} (tol {res_tol:.1e}), dwin launches {dl}")
+            f"true rel residual {true_res:.3e} (tol {res_tol:.1e}), level-kernel launches {dl}, dwin launches {dc}")
         if not (k < 1000 and np.isfinite(true_res) and true_res <= res_tol):
             raise AssertionError(f"stencil CG precond={precond}: not converged to the tolerance")
-        if dl != 2 * k:
-            raise AssertionError(f"stencil CG precond={precond}: {dl} dwin launches in {k} iterations, want {2 * k}")
+        if (dl, dc) != (2 * k, 0):
+            raise AssertionError(f"stencil CG precond={precond}: {dl} level / {dc} dwin launches in {k} iterations, "
+                                 f"want {2 * k} / 0")
         iters[precond] = k
     # one symmetric Gauss-Seidel sweep (symgs_ref) and one forward SOR
     # sweep, each against scipy in float64
@@ -1652,7 +1725,7 @@ def stencil_solvers(H, H64, hst, hptr, hind, hval, dev, rtol, res_tol):
     x0r = x0.astype(np.float64)
     x1 = spla.spsolve_triangular((Lh + Dh).tocsr(), bref - 0.5 * (Uh @ x0r), lower=True)
     want = spla.spsolve_triangular((Uh + Dh).tocsr(), bref - Lh @ x1, lower=False)
-    c0 = trsv_dwin.launches["f32"]
+    c0 = read_counts()
     check_mv("stencil symgs (alpha 0.5)", tt.symgs(NONE, H, GEN, 0.5, b_d, x0_d), want, f32tol)
     xg, yg = tt.symgs_mv(NONE, H, GEN, 0.5, b_d, x0_d)
     check_mv("stencil symgs_mv: x", xg, want, f32tol)
@@ -1662,21 +1735,30 @@ def stencil_solvers(H, H64, hst, hptr, hind, hval, dev, rtol, res_tol):
                                    omega * bref - (omega * Uh + (omega - 1.0) * Dh) @ (alpha * x0r), lower=True)
     check_mv(f"stencil sorv (omega {omega}, alpha {alpha})", tt.sorv(tt.SorType.forward, GEN, H, omega, alpha, x0_d, b_d),
              want, f32tol)
-    if trsv_dwin.launches["f32"] - c0 != 5:
-        raise AssertionError(f"symgs, symgs_mv, sorv made {trsv_dwin.launches['f32'] - c0} dwin launches, want 5")
-    # the three sv engines on the stencil's lower triangle
-    x_0 = tt.trsv(1.0, H, LOWER, NONE, b_d)
+    c1 = read_counts()
+    done = {k: c1[k] - c0[k] for k in ("trsv_level_f32", "trsv_dwin_f32")}
+    if done != {"trsv_level_f32": 4, "trsv_dwin_f32": 1}:
+        raise AssertionError(f"symgs, symgs_mv, sorv made {done} launches, want 4 level (two sweeps each) and "
+                             "1 dwin (sorv's own form)")
+    # the sv engines on the stencil's lower triangle: the default (the level
+    # kernel), kid 0 (the chain kernel), 1 (the level kernel), 2 (host)
+    x_0 = counted("stencil trsv kid=0", lambda: tt.trsv(1.0, H, LOWER, NONE, b_d, kid=0),
+                  {"trsv_dwin_f32": 1, "trsv_level_f32": 0})
     ref0 = x_0.double().cpu().numpy()
     check_residual("stencil trsv kid=0 (dwin)", sp.tril(Sh).tocsr(), x_0, bref, f32tol)
-    for kid in (1, 2):
-        check_mv(f"stencil trsv kid={kid} against kid=0", tt.trsv(1.0, H, LOWER, NONE, b_d, kid=kid), ref0, f32tol)
+    for kid, want in ((None, {"trsv_dwin_f32": 0, "trsv_level_f32": 1}), (1, {"trsv_dwin_f32": 0, "trsv_level_f32": 1}),
+                      (2, {"trsv_dwin_f32": 0, "trsv_level_f32": 0})):
+        check_mv(f"stencil trsv kid={kid} against kid=0",
+                 counted(f"stencil trsv kid={kid}", lambda: tt.trsv(1.0, H, LOWER, NONE, b_d, kid=kid), want), ref0,
+                 f32tol)
     nlev = H.plan.levels[("trsv_level", tt.FillMode.lower, tt.DiagType.non_unit, NONE)].nlev
-    log(f"  stencil level form: {nlev} levels")
-    c0 = trsv_dwin.launches["f64"]
-    check_residual("stencil trsv f64 upper non-unit (reversed dwin form)", sp.triu(Sh).tocsr(),
-                   tt.trsv(1.0, H64, UPPER, NONE, b_d.double()), bref, expected_precision(torch.float64))
-    if trsv_dwin.launches["f64"] - c0 != 1:
-        raise AssertionError("the f64 stencil trsv did not launch the f64 dwin instance once")
+    log(f"  stencil level form: {nlev} levels; the default's engine: "
+        f"{ttri.sv_engine_for(H.plan, LOWER, NONE, dev)}")
+    for kid, want in ((None, {"trsv_level_f64": 1, "trsv_dwin_f64": 0}), (0, {"trsv_level_f64": 0, "trsv_dwin_f64": 1})):
+        check_residual(f"stencil trsv f64 upper non-unit kid={kid} (reversed form)", sp.triu(Sh).tocsr(),
+                       counted(f"stencil f64 trsv kid={kid}", lambda: tt.trsv(1.0, H64, UPPER, NONE, b_d.double(),
+                                                                              kid=kid), want),
+                       bref, expected_precision(torch.float64))
     return iters
 
 
@@ -1727,7 +1809,7 @@ def main() -> int:
     # no spills
     names = ("benes_pass_kernel", "oh_accum_kernel", "spmv_mxu_kernel", "spmv_bwd_kernel", "win_block_kernel",
              "win_chain_kernel", "win_fix_kernel", "spmm_band_mxu_f32_kernel", "spmm_band_mxu_bf16_kernel",
-             "band_gemm_kernel", "spmm_band_kernel", "spmm_diag_kernel", "trsv_blocked_kernel")
+             "band_gemm_kernel", "spmm_band_kernel", "spmm_diag_kernel", "trsv_blocked_kernel", "trsv_level_kernel")
     res = ptxas_resources(ptxas, names)
     for fn, (frame, stores, loads, regs) in sorted(res.items()):
         short = next(fn[fn.index(nm):] for nm in names if nm in fn)[:48]
@@ -2257,6 +2339,9 @@ def main() -> int:
     Qd = tt.create_csr(qm, qm, qptr, qind, qval.astype(np.float64), device="cuda")
     hst, hst64 = chain_kernel_checks(H, Hd, Qh, Qd, dev, errs)
     log(f"  blocked-solve chain kernel checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    level_kernel_checks(hst, hst64, Qh, Qd, errs)
+    log(f"  level-solve kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # 4. the main path, counted
     phase("phase 4: main path (create_csr -> set_mv_hint -> optimize -> mv)")
@@ -2569,16 +2654,18 @@ def main() -> int:
               "benes_route_f32": (kg + 1) * route_launches(groute)}
     if {k: c1[k] - c0[k] for k in g_call} != g_call:
         raise AssertionError(f"permuted-space CG launches {({k: c1[k] - c0[k] for k in g_call})}, want {g_call}")
-    # the scatter operand's triangles: gather forms on the chain kernel
+    # the scatter operand's triangles: the default takes the level kernel
+    # (29 and 27 levels against 4,096 chain blocks), kid=0 the gather forms
+    # on the chain kernel
     bq = np.random.default_rng(89).standard_normal(qm)
     for handle, tri, Tq, inst, dt_ in ((Qh, LOWER, sp.tril(Sq), "f32", torch.float32),
                                        (Qd, UPPER, sp.triu(Sq), "f64", torch.float64)):
-        c0 = trsv_gather.launches[inst]
-        check_residual(f"scatter trsv {inst} {tri.fill_mode.name} (gather)", Tq.tocsr(),
-                       tt.trsv(1.0, handle, tri, NONE, torch.from_numpy(bq).to(dev, dt_)), bq,
-                       expected_precision(dt_))
-        if trsv_gather.launches[inst] - c0 != 1:
-            raise AssertionError(f"scatter trsv {inst}: {trsv_gather.launches[inst] - c0} gather launches, want 1")
+        for kid, want in ((None, {f"trsv_level_{inst}": 1, f"trsv_gather_{inst}": 0}),
+                          (0, {f"trsv_level_{inst}": 0, f"trsv_gather_{inst}": 1})):
+            check_residual(f"scatter trsv {inst} {tri.fill_mode.name} kid={kid}", Tq.tocsr(),
+                           counted(f"scatter trsv {inst} kid={kid}",
+                                   lambda: tt.trsv(1.0, handle, tri, NONE, torch.from_numpy(bq).to(dev, dt_), kid=kid),
+                                   want), bq, expected_precision(dt_))
     gen_launches = read_counts()
     log(f"  general-structure path launches: {gen_launches}")
     for kernel in GEN_PATH:
@@ -2998,6 +3085,7 @@ def main() -> int:
     # x; beside it (logged) the nonzero bound: the triangle's strict entries
     # (value and int32 index), its diagonal, b and x
     one = dict(once=True)
+    t_level, t_step = {}, {}  # the gate's constants as measured here, us
     hrows = np.repeat(np.arange(mh), np.diff(hptr))
     hlow = hind < hrows
     for inst, st_, dt_ in (("f32", hst, torch.float32), ("f64", hst64, torch.float64)):
@@ -3021,6 +3109,17 @@ def main() -> int:
              need_flops=2 * int(hlow.sum()))
         log(f"  {kernel} (stencil ILU0 L, nb={form.nb} nblk={form.nblk} ndg={Dv.shape[1]} WL={form.WL}): "
             f"{ms[kernel] * 1e3 / form.nblk:.3f} us a step; plain {plain_ms[kernel] * 1e3 / form.nblk:.3f} us a step")
+        # the level kernel on the factor's level form, the same b and library call
+        lform, lkernel, bl = _level_forms(st_)[0], f"trsv_level_{inst}", bb[:mh]
+        turns(lkernel, lambda: trsv_level(lform, bl), lambda: trsv_level_plain(lform, bl),
+              kreps=(9, 5), preps=(1, 1), kwarm=1, pwarm=0)
+        lbytes = level_bytes(lform, bl)
+        note(lkernel, lbytes, lbytes, 2 * lform.lcol.numel() + 2 * mh,
+             lambda: torch.triangular_solve(bb[:mh, None], Lt, upper=False, unitriangular=True), one)
+        t_level[inst], t_step[inst] = ms[lkernel] * 1e3 / lform.nlev, ms[kernel] * 1e3 / form.nblk
+        log(f"  {lkernel} (stencil ILU0 L, {lform.nlev} levels, {lform.lcol.numel()} strict entries): "
+            f"{t_level[inst]:.3f} us a level; {ms[kernel] / ms[lkernel]:.2f}x faster than the chain, "
+            f"the library's solve {ratio(lib[lkernel], ms[lkernel])}x its time")
         del Lt
     # the chain forms' block size (planner/triangular.py adaptive_nb): one
     # solve of the stencil's lower triangle, f32, K = 1, at nb = 32 to 256,
@@ -3043,6 +3142,22 @@ def main() -> int:
             H.plan.levels[key] = kept
         del f_
     ttri.CHAIN_NB = chain_nb
+    # the level kernel's dependency round trip: a bidiagonal chain, one
+    # level a row, so a solve is m dependent rounds; the latency floor of a
+    # level solve is nlev times it
+    mc = 20000
+    Cb = sp.diags([np.full(mc - 1, -0.5), np.full(mc, 2.0)], [-1, 0]).tocsr()
+    cform = build_level_form(Cb.indptr, Cb.indices, np.arange(Cb.nnz), mc, False, False,
+                             torch.from_numpy(Cb.data.astype(np.float32)).to(dev))
+    bc = torch.ones(mc, dtype=torch.float32, device=dev)
+    t_trip = cuda_ms(lambda: trsv_level(cform, bc), reps=5, inner=3, warm=1, backlog=True) / mc
+    nlev_h = _level_forms(hst)[0].nlev
+    log(f"  trsv_level_f32 dependency round trip (bidiagonal, {mc} levels): {t_trip * 1e3:.3f} us a level; "
+        f"the stencil factor's latency floor {nlev_h} x {t_trip * 1e3:.3f} us = {nlev_h * t_trip:.4f} ms")
+    log(f"  the sv gate's constants as measured (f32 / f64): t_level {t_level['f32']:.3f} / {t_level['f64']:.3f} us "
+        f"a level, t_step {t_step['f32']:.3f} / {t_step['f64']:.3f} us a step; the planner's T_LEVEL_US "
+        f"{ttri.T_LEVEL_US}, T_STEP_US {ttri.T_STEP_US}")
+    del cform, Cb
     Sq = sp.csr_matrix((qval.astype(np.float64), qind, qptr), shape=(qm, qm))
     Sql = sp.tril(Sq).tocsr()
     for inst, handle, dt_ in (("f32", Qh, torch.float32), ("f64", Qd, torch.float64)):
@@ -3063,21 +3178,38 @@ def main() -> int:
              lambda: torch.triangular_solve(bq[:qm, None], Qlt, upper=False), one, need_flops=2 * Sql.nnz)
         log(f"  {kernel} (scatter lower, nb={form.nb} nblk={form.nblk} W={Lv.shape[2]}): "
             f"{ms[kernel] * 1e3 / form.nblk:.3f} us a step")
+        # the level kernel on the triangle's level form (logged beside the
+        # stencil's, which the kernels line carries)
+        lform, bl = ttri.trsv_level_form_for(handle.plan, LOWER, NONE), bq[:qm]
+        t_k = cuda_ms(lambda: trsv_level(lform, bl), reps=9, inner=5, warm=1, backlog=True)
+        t_p = cuda_ms(lambda: trsv_level_plain(lform, bl), reps=3, inner=1, warm=1, backlog=True)
+        t_b, by = bound_of(level_bytes(lform, bl), 2 * lform.lcol.numel() + 2 * qm, inst, peak)
+        log(f"  trsv_level_{inst} (scatter lower, {lform.nlev} levels, {lform.lcol.numel()} strict entries): kernel "
+            f"{t_k:.4f} ms ({t_k * 1e3 / lform.nlev:.3f} us a level), plain {t_p:.4f} ms, library "
+            f"{ratio(lib[kernel], 1.0)} ms, "
+            f"bound {t_b:.4f} ms ({by}), latency floor {lform.nlev * t_trip:.4f} ms; chain {ms[kernel]:.4f} ms")
         del Qlt
     # the sv engines and the stencil's preconditioned CG iterations
     bs_d = torch.from_numpy(np.random.default_rng(71).standard_normal(mh).astype(np.float32)).to(dev)
-    for kid in (0, 1, 2):
+    for kid, what in ((None, "the default: level kernel"), (0, "dwin chain kernel"), (1, "level kernel"),
+                      (2, "host engine")):
         t = cuda_ms(lambda: tt.trsv(1.0, H, LOWER, NONE, bs_d, kid=kid), reps=3, inner=1, warm=1)
-        log(f"  stencil trsv kid={kid} (lower, {('dwin chain kernel', 'level engine', 'host engine')[kid]}): "
-            f"{t:.4f} ms/call")
-    profile_mv("stencil trsv kid=1 (level engine)", lambda: tt.trsv(1.0, H, LOWER, NONE, bs_d, kid=1), calls=1)
-    t_hsm = cuda_ms(lambda: tt.ilu_smoother(H, GEN, bs_d), reps=3, inner=1, warm=1)
-    log(f"  stencil ilu_smoother: {t_hsm:.4f} ms/call (two dwin solves)")
+        log(f"  stencil trsv kid={kid} (lower, {what}): {t:.4f} ms/call")
+    profile_mv("stencil trsv (the default: level kernel)", lambda: tt.trsv(1.0, H, LOWER, NONE, bs_d), calls=3)
+    for kid, what in ((None, "two level-kernel solves"), (0, "two dwin solves")):
+        t_hsm = cuda_ms(lambda: tt.ilu_smoother(H, GEN, bs_d, kid=kid), reps=3, inner=1, warm=1)
+        log(f"  stencil ilu_smoother kid={kid}: {t_hsm:.4f} ms/call ({what})")
+    # the preconditioned iterations by the default (the level kernel) and,
+    # in turn, with the gate closed (the chain kernel, the solve before it)
+    devices = ttri.SV_LEVEL_DEVICES
     for precond in ("ilu0", "sgs"):
-        t_it, t_all = iteration_ms(
-            lambda kk: tt.pcg_solve(H, bs_d, rtol=0.0, maxit=kk, precond=precond)[1], 2, 6)
-        log(f"  stencil {precond.upper()}-PCG iteration: {t_it:.4f} ms (host clock, median of "
-            f"{[round(t, 4) for t in t_all]}; {stencil_iters[precond]} iterations to rtol {rtol:g})")
+        for label, gate_devices in (("level kernel", devices), ("chain kernel, gate closed", ())):
+            ttri.SV_LEVEL_DEVICES = gate_devices
+            t_it, t_all = iteration_ms(
+                lambda kk: tt.pcg_solve(H, bs_d, rtol=0.0, maxit=kk, precond=precond)[1], 2, 6)
+            log(f"  stencil {precond.upper()}-PCG iteration ({label}): {t_it:.4f} ms (host clock, median of "
+                f"{[round(t, 4) for t in t_all]}; {stencil_iters[precond]} iterations to rtol {rtol:g})")
+    ttri.SV_LEVEL_DEVICES = devices
     t_it, t_all = iteration_ms(lambda kk: tt.pcg_solve(H, bs_d, rtol=0.0, maxit=kk)[1], 5, 25)
     log(f"  stencil CG iteration (no preconditioner): {t_it:.4f} ms (host clock, median of "
         f"{[round(t, 4) for t in t_all]})")

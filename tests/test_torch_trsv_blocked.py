@@ -435,9 +435,12 @@ def test_cuda_kernel_matches_plain(cuda, dtype):
 
 @pytest.mark.cuda
 def test_cuda_trsv_and_pcg_on_the_stencil(cuda):
-    """trsv (kids 0, 1, 2) and ILU0-/SGS-PCG on the 24^3 stencil on the
-    card, through the chain kernel."""
+    """trsv (the default and kids 0, 1, 2) and ILU0-/SGS-PCG on the 24^3
+    stencil on the card: kid=0 through the chain kernel, the default and
+    kid=1 through the level kernel (the gate picks it: 162 levels against
+    216 chain blocks)."""
     from aoclsparse_tpu_torch.kernels import trsv_blocked as tb
+    from aoclsparse_tpu_torch.kernels.trsv_level import trsv_level
 
     ptr, ind, val = stencil27(24)
     m = len(ptr) - 1
@@ -446,11 +449,11 @@ def test_cuda_trsv_and_pcg_on_the_stencil(cuda):
     b = np.random.default_rng(17).standard_normal(m)
     bd = torch.from_numpy(b).to(cuda)
     lo = _tri(tt, tt.FillMode.lower)
-    c0 = tb.trsv_dwin.launches["f64"]
+    c0, l0 = tb.trsv_dwin.launches["f64"], trsv_level.launches["f64"]
     want = spla.spsolve_triangular(sp.tril(S).tocsr(), b, lower=True)
-    for kid in (None, 1, 2):
+    for kid in (None, 0, 1, 2):
         assert near_error(tt.trsv(1.0, A, lo, NONE, bd, kid=kid).cpu().numpy(), want) <= TOL64
-    assert tb.trsv_dwin.launches["f64"] - c0 == 1
+    assert tb.trsv_dwin.launches["f64"] - c0 == 1 and trsv_level.launches["f64"] - l0 == 2
     for pre in ("ilu0", "sgs"):
         x, _k, _r = tt.pcg_solve(A, bd, rtol=1e-8, precond=pre)
         assert np.linalg.norm(S @ x.cpu().numpy() - b) <= 1.01e-8 * np.linalg.norm(b)
