@@ -10,8 +10,13 @@ and the host engine, the format-direct ``csrmv``/``ellmv``/``elltmv``/
 ``ellthybmv``/``diamv``/``bsrmv``/``blkcsrmv``, ``mm`` through the
 ``bandtm``, ``diag``, ``bwdg`` and gather forms, ``trsv`` and ``trsm``
 (blocked ``win``, ``dwin`` and ``gather`` forms, the level engine and the
-host engine), ILU0, SymGS and SOR, and CG with no preconditioner (in
-permuted space on a gen operand), ILU0 or SGS, and the SpGEMM family (``sp2m``/``csr2m``/``spmm``
+host engine), ILU0, SymGS and SOR, CG with no preconditioner (in
+permuted space on a gen operand), ILU0 or SGS and restarted GMRES with
+none (likewise) or ILU0 (``pcg_solve``, ``pgmres_solve``, the matrix-free
+``make_cg_operator``/``make_gmres_operator``), the iterative-solver
+framework (``itsol_*`` handles with the options registry, the RCI stepper
+``itsol_rci_solve`` and ``RciJob``, the forward ``itsol_solve`` and
+``itsol_solve_operator``), and the SpGEMM family (``sp2m``/``csr2m``/``spmm``
 with the two-stage protocol and lazy band products, ``sp2md``, ``spmmd``,
 ``syrk``, ``syrkd``, ``sypr``, ``syprd``, ``add``). The band forms, the
 group-window form, the diagonal form, the spill-route engine, the blocked
@@ -24,8 +29,8 @@ csrc/spmv_mxu.cu, csrc/stream_read.cu; utils/profiling.py times them),
 built with nvcc at first use; on CPU tensors they run the kernels' plain
 PyTorch versions. The host C++ library (native/) builds
 with g++ at first use. Tensors go to ``cuda:0`` unless a device is named.
-ROADMAP.md lists what is still to port (autotune, itsol, GMRES, bf16
-and complex triangles).
+ROADMAP.md lists what is still to port (autotune, bf16 and complex
+triangles).
 """
 
 from .core.types import (  # noqa: F401
@@ -135,7 +140,25 @@ from .planner import (  # noqa: F401
     set_sv_hint,
     set_symgs_hint,
 )
-from .solvers import ilu0_factorize, ilu_smoother, pcg_solve, sorv, symgs, symgs_mv  # noqa: F401
+from .solvers import (  # noqa: F401
+    RciJob,
+    ilu0_factorize,
+    ilu_smoother,
+    itsol_handle_prn_options,
+    itsol_init,
+    itsol_option_set,
+    itsol_rci_input,
+    itsol_rci_solve,
+    itsol_solve,
+    itsol_solve_operator,
+    make_cg_operator,
+    make_gmres_operator,
+    pcg_solve,
+    pgmres_solve,
+    sorv,
+    symgs,
+    symgs_mv,
+)
 
 __version__ = "0.1.0"
 

@@ -1,18 +1,23 @@
-"""Preconditioned conjugate gradients driven by the planner's matvec.
+"""Preconditioned CG and restarted GMRES driven by the planner's matvec.
 
 PyTorch counterpart of ``aoclsparse_tpu/solvers/fused.py`` (`_make_apply`
-:63-104, `_build_cg_run` :280-355 and `pcg_solve` :377). The update order
-and the convergence test are the reference CG task machine's
-(itsol_functions.hpp:619-870): r = Ax - b, z = M^{-1} r, p = beta*p - z,
-alpha = rz/pq, stop when ||r||_2 <= max(atol, rtol*||b||) or at maxit.
+:63-104, `_build_cg_run` :280-355, `make_cg_operator` :358, `pcg_solve`
+:377, `_build_gmres_run` :485, `make_gmres_operator` :611 and
+`pgmres_solve` :629). The CG update order and convergence test are the
+reference CG task machine's (itsol_functions.hpp:619-870): r = Ax - b,
+z = M^{-1} r, p = beta*p - z, alpha = rz/pq, stop when
+||r||_2 <= max(atol, rtol*||b||) or at maxit. GMRES is right-preconditioned
+and restarted (itsol_functions.hpp:893-1290), with the JAX package's
+counts: see `_build_gmres_run`.
 
 The JAX package compiles the whole loop into one `lax.while_loop`. Here the
 loop is Python: every iteration launches its kernels on the current stream
-and reads one boolean back to the host for the convergence test. Capturing
-the loop in a CUDA graph is later work (ROADMAP.md queue 1 item 9).
+and reads back to the host what its convergence test needs (CG: one
+boolean; a GMRES inner step: its Hessenberg column). Capturing the loop in
+a CUDA graph is later work (ROADMAP.md queue 1 item 9).
 
 On a gen operand (the general-structure composite in its band layout) an
-unpreconditioned solve runs in permuted space (`_gen_pspace`, the JAX
+unpreconditioned CG or GMRES solve runs in permuted space (`_gen_pspace`, the JAX
 package's :205-277 and :403-407): b is permuted once, every iteration
 applies P A P^T without permutes, and x is permuted back once.
 
@@ -29,8 +34,10 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..core.context import resolve_device
 from ..core.descr import GENERAL, MatrixDescriptor
 from ..core.matrix import SparseMatrix, as_values
 from ..core.types import (
@@ -46,7 +53,7 @@ from ..ops.level2.mv import _run_exec_form
 from ..ops.level2.trsv import default_solver
 from ..planner.plan import get_plan
 
-__all__ = ["pcg_solve"]
+__all__ = ["make_cg_operator", "make_gmres_operator", "pcg_solve", "pgmres_solve"]
 
 
 def _build_cg_run(matvec: Callable, apply: Optional[Callable], maxit: int):
@@ -172,6 +179,63 @@ def _make_apply(A: SparseMatrix, precond: Optional[str]) -> Optional[Callable]:
     raise AoclSparseError(Status.invalid_value, f"unknown preconditioner '{precond}'")
 
 
+def _host_vector(v, device) -> torch.Tensor:
+    """A tensor stays where it is; a host array goes to `device` (cuda:0
+    unless named)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.as_tensor(np.asarray(v), device=resolve_device(device))
+
+
+def _tolerances(rtol, atol, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    rdt = real_dtype_of(dtype)
+    return torch.tensor(rtol, dtype=rdt, device=device), torch.tensor(atol, dtype=rdt, device=device)
+
+
+def _operator(run: Callable, device) -> Callable:
+    """The reusable `solve(b, x0=None, rtol=1e-8, atol=0.0) -> (x,
+    iterations, final residual)` of a matrix-free loop `run`: a tensor b
+    stays on its device, a host array goes to `device` (cuda:0 unless
+    named)."""
+
+    def solve(b, x0=None, rtol: float = 1e-8, atol: float = 0.0):
+        b = _host_vector(b, device)
+        x0 = torch.zeros_like(b) if x0 is None else _host_vector(x0, b.device).to(device=b.device, dtype=b.dtype)
+        x, k, rnorm = run(b, x0, *_tolerances(rtol, atol, b.dtype, b.device))
+        return x, int(k), float(rnorm)
+
+    return solve
+
+
+def make_cg_operator(matvec: Callable, precond: Optional[Callable] = None, maxit: int = 500, device=None):
+    """Matrix-free CG (solvers/fused.py:358 there): `matvec` (and an
+    optional preconditioner `precond`) are any callables on tensors.
+    Returns a reusable `solve(b, x0=None, rtol=1e-8, atol=0.0) -> (x,
+    iterations, final ||r||)`; a host b goes to `device` (cuda:0 unless
+    named)."""
+    return _operator(_build_cg_run(matvec, precond, int(maxit)), device)
+
+
+def _operands(A: SparseMatrix, b, x0, descr: MatrixDescriptor, name: str):
+    """(b, x0, mv form) of a solve on A's device, validated."""
+    if A is None:
+        raise AoclSparseError(Status.invalid_pointer, "null matrix handle")
+    if A.shape[0] != A.shape[1]:
+        raise AoclSparseError(Status.invalid_size, f"{name} requires square A")
+    m = A.shape[0]
+    b = as_values(b, A.device).to(A.dtype)
+    if tuple(b.shape) != (m,):
+        raise AoclSparseError(Status.invalid_size, f"b must be ({m},)")
+    x0 = (
+        torch.zeros(m, dtype=A.dtype, device=A.device)
+        if x0 is None
+        else as_values(x0, A.device).to(A.dtype)
+    )
+    form = get_plan(A).exec_form_for(descr, Operation.none, dtype=A.dtype)
+    form.precision_mode = A.precision_mode
+    return b, x0, form
+
+
 def pcg_solve(
     A: SparseMatrix,
     b,
@@ -185,23 +249,8 @@ def pcg_solve(
     """Preconditioned CG on A x = b through A's mv execution form (the band
     kernel for a band matrix) and `precond` (None, "ilu0" or "sgs").
     Returns (x, iterations, final ||r||)."""
-    if A is None:
-        raise AoclSparseError(Status.invalid_pointer, "null matrix handle")
-    if A.shape[0] != A.shape[1]:
-        raise AoclSparseError(Status.invalid_size, "pcg requires square A")
-    m = A.shape[0]
-    b = as_values(b, A.device).to(A.dtype)
-    if tuple(b.shape) != (m,):
-        raise AoclSparseError(Status.invalid_size, f"b must be ({m},)")
-    x0 = (
-        torch.zeros(m, dtype=A.dtype, device=A.device)
-        if x0 is None
-        else as_values(x0, A.device).to(A.dtype)
-    )
-    form = get_plan(A).exec_form_for(descr, Operation.none, dtype=A.dtype)
-    form.precision_mode = A.precision_mode
-    rdt = real_dtype_of(A.dtype)
-    tols = (torch.tensor(rtol, dtype=rdt, device=A.device), torch.tensor(atol, dtype=rdt, device=A.device))
+    b, x0, form = _operands(A, b, x0, descr, "pcg")
+    tols = _tolerances(rtol, atol, A.dtype, A.device)
     # permuted space for a gen operand, unpreconditioned only: the cached
     # ILU/SGS factors live in the original index space
     pspace = _gen_pspace(form) if precond is None else None
@@ -217,3 +266,150 @@ def pcg_solve(
     run = _build_cg_run(matvec, _make_apply(A, precond), int(maxit))
     x, k, rnorm = run(b, x0, *tols)
     return x, int(k), float(rnorm)
+
+
+#: host numpy dtypes of the GMRES Hessenberg data, by vector dtype
+_HOST_DTYPE = {
+    torch.float32: np.float32,
+    torch.float64: np.float64,
+    torch.complex64: np.complex64,
+    torch.complex128: np.complex128,
+    torch.bfloat16: np.float32,
+}
+
+
+def _build_gmres_run(matvec: Callable, apply: Optional[Callable], mr: int, maxit: int):
+    """Right-preconditioned restarted GMRES over an arbitrary `matvec` and
+    optional right preconditioner `apply` (solvers/fused.py:485 there).
+    Returns run(b, x0, rtol, atol) -> (x, inner iterations, the final
+    residual estimate |g[j+1]|).
+
+    The counts are the JAX package's masked scan's. A cycle takes at most
+    `mr` Arnoldi steps; a step is taken while the Givens estimate is above
+    max(atol, rtol ||b||), and the cycle stops after the step that brings
+    it there: the JAX scan runs its remaining steps masked, which change
+    nothing, so this loop leaves them out. The inner count adds the steps
+    taken; maxit is tested only between cycles (so the count may pass it by
+    up to mr - 1). The estimate, not the true residual, is returned. apply
+    runs in every step (w = A M^{-1} v_j) and once a cycle, on V[:mr] y.
+
+    Orthogonalization is classical Gram-Schmidt on the device
+    (h = conj(V) w, w -= h V); each step reads its Hessenberg column and
+    ||w|| to the host in one transfer, where the complex Givens rotations
+    ([c, s; -conj(s), c], c real, LAPACK ?lartg's phase convention) and,
+    at the cycle's end, the back substitution run in the vector dtype."""
+
+    def op(v):
+        return matvec(apply(v)) if apply is not None else matvec(v)
+
+    def nrm(v):
+        return torch.sqrt(torch.sum(torch.abs(v) ** 2))
+
+    def run(b, x0, rtol, atol):
+        dt, dev = b.dtype, b.device
+        hdt = _HOST_DTYPE[dt]
+        hrdt = np.dtype(hdt).type(0).real.dtype.type
+        wide = torch.complex128 if b.is_complex() else torch.float64
+        tol = torch.maximum(atol, rtol * nrm(b)).item()
+
+        def cycle(x):
+            r0 = b - matvec(x)
+            beta_t = nrm(r0)
+            beta = hrdt(beta_t.item())
+            V = torch.zeros((mr + 1, b.shape[0]), dtype=dt, device=dev)
+            V[0] = r0 / beta_t if beta > 0 else r0
+            H = np.zeros((mr + 1, mr), dtype=hdt)
+            g = np.zeros(mr + 1, dtype=hdt)
+            g[0] = beta
+            c = np.zeros(mr, dtype=hrdt)
+            s = np.zeros(mr, dtype=hdt)
+            res, n_inner = beta, 0
+            while n_inner < mr and res > tol:
+                j = n_inner
+                w = op(V[j])
+                hc = torch.conj(V[: j + 1]) @ w
+                w = w - hc @ V[: j + 1]
+                hh_t = nrm(w)
+                V[j + 1] = w / torch.where(hh_t > 0, hh_t, torch.ones_like(hh_t))
+                col = torch.cat([hc, hh_t.to(dt)[None]]).to(wide).cpu().numpy()
+                hcol = np.zeros(mr + 1, dtype=hdt)
+                hcol[: j + 1] = col[: j + 1]
+                hcol[j + 1] = hrdt(col[j + 1].real)
+                for i in range(j):  # the previous rotations
+                    r1, r2 = hcol[i], hcol[i + 1]
+                    hcol[i] = c[i] * r1 + s[i] * r2
+                    hcol[i + 1] = -np.conj(s[i]) * r1 + c[i] * r2
+                f, gg = hcol[j], hcol[j + 1]
+                af = hrdt(abs(f))
+                d = np.sqrt(af * af + hrdt(abs(gg)) ** 2)
+                phase = f / af if af > 0 else hdt(1)
+                if d > 0:
+                    cj, sj, rj = af / d, phase * np.conj(gg) / d, phase * d
+                else:
+                    cj, sj, rj = hrdt(1), hdt(0), f
+                hcol[j], hcol[j + 1] = rj, 0
+                H[:, j] = hcol
+                c[j], s[j] = cj, sj
+                gj = g[j]
+                g[j] = cj * gj
+                g[j + 1] = -np.conj(sj) * gj
+                res = hrdt(abs(g[j + 1]))
+                n_inner += 1
+            # back substitution on the rotated H, rows j < n_inner
+            y = np.zeros(mr, dtype=hdt)
+            for j in range(n_inner - 1, -1, -1):
+                diag = H[j, j] if abs(H[j, j]) > 0 else hdt(1)
+                y[j] = (g[j] - H[j] @ y) / diag
+            upd = torch.from_numpy(y[:n_inner]).to(device=dev, dtype=dt) @ V[:n_inner]
+            upd = apply(upd) if apply is not None else upd
+            return x + upd, res, n_inner
+
+        x, it = x0, 0
+        res = nrm(b - matvec(x0)).item()
+        while res > tol and it < maxit:
+            x, res, n_inner = cycle(x)
+            it += n_inner
+        return x, it, float(res)
+
+    return run
+
+
+def make_gmres_operator(matvec: Callable, precond: Optional[Callable] = None, maxit: int = 500,
+                        restart: int = 20, device=None):
+    """Matrix-free restarted GMRES, right-preconditioned by the optional
+    `precond` (solvers/fused.py:611 there). Returns a reusable `solve(b,
+    x0=None, rtol=1e-8, atol=0.0) -> (x, iterations, residual estimate)`; a
+    host b goes to `device` (cuda:0 unless named)."""
+    return _operator(_build_gmres_run(matvec, precond, int(restart), int(maxit)), device)
+
+
+def pgmres_solve(
+    A: SparseMatrix,
+    b,
+    x0=None,
+    rtol: float = 1e-8,
+    atol: float = 0.0,
+    maxit: int = 500,
+    restart: int = 20,
+    precond: Optional[str] = None,
+    descr: MatrixDescriptor = GENERAL,
+) -> Tuple[torch.Tensor, int, float]:
+    """Right-preconditioned restarted GMRES on A x = b through A's mv
+    execution form and `precond` (None or "ilu0"), `restart` Arnoldi steps
+    a cycle (solvers/fused.py:629 there). Returns (x, inner iterations,
+    final residual estimate)."""
+    b, x0, form = _operands(A, b, x0, descr, "pgmres")
+    tols = _tolerances(rtol, atol, A.dtype, A.device)
+    mr = int(restart)
+    # permuted space for a gen operand, unpreconditioned only (see pcg_solve)
+    pspace = _gen_pspace(form) if precond is None else None
+    if pspace is not None:
+        matvec_p, to_p, from_p = pspace
+        run = _build_gmres_run(lambda v: matvec_p(v).to(A.dtype), None, mr, int(maxit))
+        xp, k, rnorm = run(to_p(b), to_p(x0), *tols)
+        return from_p(xp), k, rnorm
+
+    def matvec(v):
+        return _run_exec_form(form, v, None).to(A.dtype)
+
+    return _build_gmres_run(matvec, _make_apply(A, precond), mr, int(maxit))(b, x0, *tols)

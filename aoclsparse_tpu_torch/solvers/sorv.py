@@ -9,9 +9,13 @@ sweep of successive over-relaxation:
 The reference supports the forward sweep on general matrices and needs a
 full nonzero diagonal (aoclsparse_csr_check_full_diag, sorv.hpp:36-79);
 backward and symmetric sweeps return not_implemented, here too. The
-(D + omega*L) solve is a blocked triangular solve over a copy of the lower
-triangle whose off-diagonal values are scaled by omega, a form cached per
-omega on the plan (dropped by update_values). The JAX package also runs
+(D + omega*L) solve runs over a copy of the lower triangle whose
+off-diagonal values are scaled by omega, by the default solve's engine
+(planner/triangular.py `sv_engine_for`, as in trsv and symgs): the blocked
+form's kernel, or on the card the level kernel where the triangle's DAG is
+shallow against the blocked form's chain (the scaled triangle has the lower
+triangle's pattern, so its level count). Each form is cached per omega on
+the plan (dropped by update_values). The JAX package also runs
 complex SOR through that solve; the port's triangular solves take real
 f32/f64 only, so complex (and bf16) handles raise not_implemented
 (ROADMAP.md queue 1 item 12).
@@ -30,8 +34,8 @@ from ..core.types import AoclSparseError, DiagType, FillMode, MatrixType, Operat
 from ..core.validate import check_base_match
 from ..ops.level2.mv import mv
 from ..ops.level2.trsv import pad_solve
-from ..planner.plan import _dev_index, build_effective_csr, get_plan
-from ..planner.triangular import adaptive_nb, build_trsv_form, check_solve_dtype
+from ..planner.plan import Plan, _dev_index, build_effective_csr, get_plan
+from ..planner.triangular import adaptive_nb, build_trsv_form, check_solve_dtype, sv_engine_for
 
 __all__ = ["sorv"]
 
@@ -63,15 +67,23 @@ def sorv(sor_type: SorType, descr: MatrixDescriptor, A: SparseMatrix, omega, alp
         plan.levels = {}
     key = ("sorv", omega)
     form = plan.levels.get(key)
-    tri_l = MatrixDescriptor(type=MatrixType.triangular, fill_mode=FillMode.lower)
     if form is None:
-        # the diagonal plus omega times the strict lower triangle
-        eff = build_effective_csr(plan.clean, tri_l, Operation.none)
-        rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(eff.ptr.astype(np.int64)))
-        is_diag = torch.from_numpy(eff.ind.astype(np.int64) == rows).to(eff.val.device)
-        eff.val = torch.where(is_diag, eff.val, omega * eff.val)
-        form = build_trsv_form(tri_l, Operation.none, eff, adaptive_nb(m, dtype=A.dtype))
+        form = build_trsv_form(_TRI_L, Operation.none, _scaled_lower(plan, omega), adaptive_nb(m, dtype=A.dtype))
         plan.levels[key] = form
+    if sv_engine_for(plan, _TRI_L, Operation.none, A.device, form=form) == "level":
+        lkey = ("sorv_level", omega)
+        lform = plan.levels.get(lkey)
+        if lform is None:
+            from ..kernels.trsv_level import build_level_form
+
+            eff = _scaled_lower(plan, omega)
+            lform = build_level_form(eff.ptr, eff.ind, np.arange(eff.nnz, dtype=np.int64), m, False, False, eff.val)
+            plan.levels[lkey] = lform
+        solve = lform.solve
+    else:
+        def solve(r):
+            return pad_solve(form, r)
+
     dkey = ("sorv", "diag")
     diag = plan.levels.get(dkey)
     if diag is None:
@@ -85,4 +97,17 @@ def sorv(sor_type: SorType, descr: MatrixDescriptor, A: SparseMatrix, omega, alp
         base=A.base,  # the internal mv carries the handle's base
     )
     u_x0 = mv(1.0, A, tri_us, Operation.none, x0, 0.0)
-    return pad_solve(form, omega * b - (omega * u_x0 + (omega - 1.0) * diag * x0))
+    return solve(omega * b - (omega * u_x0 + (omega - 1.0) * diag * x0))
+
+
+_TRI_L = MatrixDescriptor(type=MatrixType.triangular, fill_mode=FillMode.lower)
+
+
+def _scaled_lower(plan: Plan, omega: float):
+    """The effective lower triangle with its off-diagonal values scaled by
+    omega: the diagonal plus omega times the strict lower triangle."""
+    eff = build_effective_csr(plan.clean, _TRI_L, Operation.none)
+    rows = np.repeat(np.arange(eff.m, dtype=np.int64), np.diff(eff.ptr.astype(np.int64)))
+    is_diag = torch.from_numpy(eff.ind.astype(np.int64) == rows).to(eff.val.device)
+    eff.val = torch.where(is_diag, eff.val, omega * eff.val)
+    return eff

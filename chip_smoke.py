@@ -118,8 +118,8 @@ failure (exit code != 0, no result line):
    cached since phase 3), ilu_smoother (default: two level launches;
    kid=0: two dwin launches), pcg_solve(precond="ilu0") and ("sgs") to
    rtol 1e-6 with a true relative residual <= 1e-5 (two level launches an
-   iteration, no chain launch), symgs, symgs_mv (level) and sorv (its own
-   dwin form) against float64 scipy sweeps, trsv by default and kid=1
+   iteration, no chain launch), symgs, symgs_mv and sorv (level) against
+   float64 scipy sweeps, trsv by default and kid=1
    (level kernel) and kid=2 (host engine) against kid=0 (dwin), and trsv
    on a float64 handle by default and kid=0 (the f64 level and dwin
    instances);
@@ -163,6 +163,22 @@ failure (exit code != 0, no result line):
    float64 sum; each kernel timed by utils/profiling.py's chain_bench and
    put against the published peak by its roofline, and one profiling.trace
    written to the gitignored _smoke/trace/;
+5f. the solver framework, counted on its own: on the nonsymmetric bench
+   operand (the bench profile plus the SPD operand's Gershgorin shift, not
+   symmetrised: bandt, ILU0 on win forms) itsol_solve GMRES with ILU0 in
+   f32 and on a float64 handle, with no preconditioner at restart 4 (at
+   the default 20 it converges within one cycle), pgmres_solve with
+   "ilu0" and with none, itsol_rci_solve driven by hand with mv and a
+   Jacobi User preconditioner, itsol_solve_operator and make_gmres_operator
+   on mv (the matrix paths' iterations and x, bit for bit); on the 104^3
+   stencil itsol_solve CG with "cg preconditioner" = "sgs" (within one
+   iteration of pcg_solve's, its sweeps on the level kernel); on the
+   webbase stand-in with the same shift (gen, spill route) pgmres_solve
+   with none in permuted space (b and x0 permuted in, x out, once each):
+   each to a true relative residual <= 10 rtol by a float64 scipy product,
+   with the launches its counts imply (unit calls' launches times the
+   solve's matvecs and preconditioner applies) and the RCI and fused
+   GMRES within one restart of each other;
 6. time kernel vs plain version vs one PyTorch library call (torch.sparse
    CSR products and triangular solves, index_add_ and a permutation
    gather, timed here as yardsticks only; each behind a device spin that
@@ -205,17 +221,21 @@ failure (exit code != 0, no result line):
    ilu_smoother by default and kid=0, ILU0-/SGS-PCG iteration times by the
    level kernel and, in turn, with the gate closed (the chain kernel), the
    CG iteration, and profiles of the default solve and of ILU0-PCG
-   iterations.
+   iterations; the solver framework's iterations (ILU0-GMRES and GMRES by
+   pgmres_solve on the nonsymmetric bench operand, itsol SGS-CG on the
+   stencil, permuted GMRES on the shifted webbase: the difference of two
+   fixed-length solves, whole cycles) and a profile of two ILU0-GMRES
+   cycles.
 
 Launch counts are reset just before phase 4 and read after phase 5, reset
-again just before phase 5b and read after it, and again around phases 5c
-5d and 5e (the kernels line takes the spill-route kernels' counts from 5b,
+again just before phase 5b and read after it, and again around phases 5c,
+5d, 5e and 5f (the kernels line takes the spill-route kernels' counts from 5b,
 the band GEMM's from 5c, the group-window kernel's from 5d and the
 measurement path's kernels' from 5e; the gather instances of the chain
 kernel count in 5b, its dwin instances and the level kernel's on the
-main path). The
-second-to-last line is
-{"kernels": [...]}; the last is {"ok": true, "device": {...}}.
+main path; 5f launches only kernels counted before, and checks its own
+counts). The second-to-last line is {"kernels": [...]}; the last is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -290,6 +310,7 @@ from aoclsparse_tpu_torch.ops.level3.spgemm import _effective
 from aoclsparse_tpu_torch.planner.spill_route import build_spill_route, spill_route_apply
 from aoclsparse_tpu_torch.planner import triangular as ttri
 from aoclsparse_tpu_torch.planner.triangular import invert_diag_blocks, trsv_form_for
+from aoclsparse_tpu_torch.solvers import fused as fused_mod
 from aoclsparse_tpu_torch.solvers.ilu import _level_forms, ilu0_factorize
 from aoclsparse_tpu_torch.utils import profiling
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
@@ -378,6 +399,9 @@ FORMATS_PATH = ("spmv_bwd_f32", "spmv_bwd_bf16", "spmv_bwd_f64")
 #: the kernels of the measurement path (phase 5e), counted there
 MEASURE_PATH = ("band_spmv_tiles_f32", "band_spmv_tiles_bf16", "band_spmv_tiles_dbuf_f32",
                 "band_spmv_tiles_dbuf_bf16", "spmv_band_mxu_f32", "spmv_band_mxu_bf16", "stream_read_f32")
+#: the kernels of the solver framework's path (phase 5f), counted there
+SOLVER_PATH = ("band_spmv_f32", "band_spmv_f64", "trsv_win_f32", "trsv_win_f64", "trsv_level_f32", "oh_select_f32",
+               "oh_accum_f32", "benes_route_f32")
 #: launch counters of the wrappers, by kernel-name prefix
 COUNTERS = {
     "band_spmv": band_spmv.launches,
@@ -577,11 +601,20 @@ def spd_operand(ptr, ind, val, m):
     (scipy CSR with the f32-rounded values in f64, ptr, ind, val f32)."""
     S = sp.csr_matrix((val.astype(np.float64), ind, ptr), shape=(m, m))
     Ssym = ((S + S.T) * 0.5).tocsr()
-    Ssym = (Ssym + sp.diags(np.asarray(abs(Ssym).sum(axis=1)).ravel() + 1.0)).tocsr()
-    Ssym.sort_indices()
-    sval32 = Ssym.data.astype(np.float32)
-    Sspd = sp.csr_matrix((sval32.astype(np.float64), Ssym.indices, Ssym.indptr), shape=(m, m))
-    return Sspd, Ssym.indptr.astype(np.int64), Ssym.indices.astype(np.int32), sval32
+    return shifted_operand(Ssym.indptr, Ssym.indices, Ssym.data, m)
+
+
+def shifted_operand(ptr, ind, val, m):
+    """The operand plus a Gershgorin diagonal shift (each diagonal entry its
+    row's absolute sum plus 1): strictly row-diagonally dominant, and
+    nonsymmetric unless the operand is symmetric. (scipy CSR with the
+    f32-rounded values in f64, ptr, ind, val f32)."""
+    S = sp.csr_matrix((np.asarray(val, dtype=np.float64), ind, ptr), shape=(m, m))
+    S = (S + sp.diags(np.asarray(abs(S).sum(axis=1)).ravel() + 1.0)).tocsr()
+    S.sort_indices()
+    val32 = S.data.astype(np.float32)
+    S32 = sp.csr_matrix((val32.astype(np.float64), S.indices, S.indptr), shape=(m, m))
+    return S32, S.indptr.astype(np.int64), S.indices.astype(np.int32), val32
 
 
 def laplacian_2d(nx):
@@ -1678,9 +1711,10 @@ def stencil_solvers(H, H64, hst, hptr, hind, hval, dev, rtol, res_tol):
     level-kernel launches; kid=0: two dwin launches), pcg_solve with precond
     "ilu0" and "sgs" (a true relative residual <= res_tol, each iteration one
     apply: two level-kernel launches and no chain launch), symgs / symgs_mv
-    (the level kernel) and sorv (its own dwin form) against a float64 scipy
-    sweep, trsv by default (the level kernel) and kid=0, 1, 2, and trsv on
-    the float64 handle (both f64 instances). Returns the iteration counts."""
+    (the level kernel) and sorv (the level kernel, through the same gate)
+    against a float64 scipy sweep, trsv by default (the level kernel) and
+    kid=0, 1, 2, and trsv on the float64 handle (both f64 instances).
+    Returns the iteration counts."""
     mh = len(hptr) - 1
     Sh = sp.csr_matrix((hval.astype(np.float64), hind, hptr), shape=(mh, mh))
     Lh, Uh, Dh = sp.tril(Sh, -1).tocsr(), sp.triu(Sh, 1).tocsr(), sp.diags(Sh.diagonal())
@@ -1737,9 +1771,9 @@ def stencil_solvers(H, H64, hst, hptr, hind, hval, dev, rtol, res_tol):
              want, f32tol)
     c1 = read_counts()
     done = {k: c1[k] - c0[k] for k in ("trsv_level_f32", "trsv_dwin_f32")}
-    if done != {"trsv_level_f32": 4, "trsv_dwin_f32": 1}:
-        raise AssertionError(f"symgs, symgs_mv, sorv made {done} launches, want 4 level (two sweeps each) and "
-                             "1 dwin (sorv's own form)")
+    if done != {"trsv_level_f32": 5, "trsv_dwin_f32": 0}:
+        raise AssertionError(f"symgs, symgs_mv, sorv made {done} launches, want 5 level (two sweeps each, one "
+                             "for sorv's (D + omega L) solve) and no dwin")
     # the sv engines on the stencil's lower triangle: the default (the level
     # kernel), kid 0 (the chain kernel), 1 (the level kernel), 2 (host)
     x_0 = counted("stencil trsv kid=0", lambda: tt.trsv(1.0, H, LOWER, NONE, b_d, kid=0),
@@ -1760,6 +1794,347 @@ def stencil_solvers(H, H64, hst, hptr, hind, hval, dev, rtol, res_tol):
                                                                               kid=kid), want),
                        bref, expected_precision(torch.float64))
     return iters
+
+
+def launches_of(fn):
+    """The counters' growth over one call of fn (nonzero entries only)."""
+    c0 = read_counts()
+    fn()
+    torch.cuda.synchronize()
+    c1 = read_counts()
+    return {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+
+
+def expect_launches(name, delta, parts):
+    """Hold the counters' growth over a solve (delta) to what its counts
+    imply: the sum of n times each unit call's launches, for parts of
+    (n, unit launches, label)."""
+    want = {}
+    for n_, unit, _label in parts:
+        for k, v in unit.items():
+            want[k] = want.get(k, 0) + n_ * v
+    got = {k: v for k, v in delta.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{name}: launches {got}, want {want} = "
+                             + " + ".join(f"{n_} {label} x {unit}" for n_, unit, label in parts))
+    log(f"  {name}: launches {got} = " + " + ".join(f"{n_} {label}" for n_, _unit, label in parts))
+
+
+def fused_gmres_launches(name, delta, it, restart, per_mv, per_apply=None):
+    """The fused GMRES's launches: one matvec for the initial residual, one
+    a cycle and one a step; the preconditioner once a step and once a
+    cycle (on V y). A cycle that starts converged (its true residual under
+    the tolerance where the estimate was not) takes no step, so the cycles
+    are ceil(it / restart), or one more."""
+    errs_ = []
+    for cyc in (-(-it // restart), -(-it // restart) + 1):
+        parts = [(1 + cyc + it, per_mv, "matvecs (1 + cycles + steps)")]
+        if per_apply is not None:
+            parts.append((it + cyc, per_apply, "applies (steps + cycles)"))
+        try:
+            expect_launches(f"{name} ({cyc} cycles)", delta, parts)
+            return cyc
+        except AssertionError as e:
+            errs_.append(str(e))
+    raise AssertionError("; ".join(errs_))
+
+
+def itsol_run(A, b, opts, dtype, precond=None, matvec=None):
+    """One forward solve through an itsol handle on b's device:
+    (x, iterations, cycles, launches, seconds). The monitoring callback
+    counts the stopping-criterion bounces: a GMRES solve's cycles."""
+    h = tt.itsol_init(dtype, device=b.device)
+    for key, v in opts.items():
+        tt.itsol_option_set(h, key, v)
+    bounces = []
+
+    def monitor(u, rinfo):
+        bounces.append(int(rinfo[30]))
+        return 0
+
+    c0 = read_counts()
+    t0 = time.perf_counter()
+    n = b.shape[0]
+    if matvec is None:
+        x, rinfo, status = tt.itsol_solve(h, n, A, GEN, b, precond=precond, monitoring=monitor)
+    else:
+        x, rinfo, status = tt.itsol_solve_operator(h, n, matvec, b, precond=precond, monitoring=monitor)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    c1 = read_counts()
+    if status != tt.Status.success:
+        raise AssertionError(f"itsol solve {opts} ended with {status.name}")
+    if x.device != b.device:
+        raise AssertionError(f"itsol solve returned x on {x.device}, b on {b.device}")
+    return x, int(rinfo[30]), len(bounces), {k: c1[k] - c0[k] for k in c1}, t
+
+
+def solver_framework(ptr, ind, val, H, hptr, hind, hval, wptr, wind, wval, dev, rtol, sgs_iters):
+    """Phase 5f: the iterative-solver framework through its entry points.
+
+    On the nonsymmetric bench operand (the bench profile with the SPD
+    operand's Gershgorin shift, not symmetrised; bandt, ILU0 on win forms):
+    itsol_solve GMRES with ILU0 in f32 and on a float64 handle (the band
+    kernel's f64 instance, the f64 window solves), itsol_solve GMRES with
+    no preconditioner at restart 4 (at the default 20 it converges inside
+    one cycle: several cycles run only at a shorter restart), pgmres_solve
+    with "ilu0" and with none, itsol_rci_solve driven by hand with mv and a
+    Jacobi User preconditioner, itsol_solve_operator and
+    make_gmres_operator on `lambda v: mv(...)`; on the 104^3 stencil
+    itsol_solve CG with "cg preconditioner" = "sgs" (its symgs sweeps on
+    the level kernel); on the webbase stand-in with the same shift
+    (gen, its spill on the route) pgmres_solve with none, in permuted
+    space. Each solve: a true relative residual by a float64 scipy product
+    <= 10 rtol, the launches its counts imply, the RCI and fused forms of a
+    method within restart (GMRES) or 1 (CG) iterations, the matrix-free
+    and matrix paths equal. Returns what phase 6 times."""
+    res_tol = 10 * rtol
+    m = len(ptr) - 1
+    GM = {"iterative method": "GMRES", "gmres rel tolerance": rtol, "gmres abs tolerance": 0.0}
+    t0 = time.perf_counter()
+    Sn, nptr, nind, nval = shifted_operand(ptr, ind, val, m)
+    N = tt.create_csr(m, m, nptr, nind, nval, device=dev)
+    tt.set_mv_hint(N, NONE, GEN, nop=1000)
+    tt.set_lu_smoother_hint(N, NONE, GEN, nop=1000)
+    tt.optimize(N)
+    nform = N.plan.exec_form_for(GEN, NONE)
+    nst = tt.ilu0_factorize(N)
+    torch.cuda.synchronize()
+    kinds = None if nst.l_form is None else (nst.l_form.kind, nst.u_form.kind)
+    log(f"  nonsymmetric bench operand: nnz={Sn.nnz}, plan {nform.kind} (W={nform.bwd_W}), ILU0 forms {kinds}"
+        + ("" if kinds is None else f" (nb={nst.l_form.nb}, WL={nst.l_form.WL}, nblk={nst.l_form.nblk})")
+        + f"; create_csr + hints + optimize + ilu0_factorize {time.perf_counter() - t0:.2f} s")
+    if nform.kind != "bandt" or kinds != ("win", "win"):
+        raise AssertionError(f"nonsymmetric bench operand planned as {nform.kind} with ILU0 forms {kinds}, "
+                             "want bandt and win forms")
+    b = np.random.default_rng(79).standard_normal(m).astype(np.float32)
+    b_d, bref = torch.from_numpy(b).to(dev), b.astype(np.float64)
+    bnorm = float(np.linalg.norm(bref))
+    per_mv = launches_of(lambda: tt.mv(1.0, N, GEN, NONE, b_d, 0.0))
+    per_ilu = launches_of(lambda: tt.ilu_smoother(N, GEN, b_d))
+    log(f"  unit launches: mv {per_mv}, ILU0 apply {per_ilu}")
+    out = {"N": N, "b": b_d, "bnorm": bnorm}
+
+    # ILU0-GMRES through itsol_solve, f32 and f64, and pgmres_solve
+    x, it, cyc, delta, t = itsol_run(N, b_d, dict(GM, **{"gmres preconditioner": "ILU0"}), torch.float32)
+    res = check_residual("itsol ILU0-GMRES f32", Sn, x, bref, res_tol)
+    log(f"  itsol ILU0-GMRES f32 (restart 20): {it} iterations, {cyc} cycles in {t:.3f} s, true rel residual "
+        f"{res:.3e} (tol {res_tol:.1e})")
+    # RCI GMRES: one mv a step and one a cycle (its start), one apply a step
+    # (the update reuses the stored preconditioned vectors)
+    expect_launches("itsol ILU0-GMRES f32", delta, [(it + cyc, per_mv, "mv (steps + cycles)"),
+                                                     (it, per_ilu, "applies (steps)")])
+    c0 = read_counts()
+    xf, itf, rf = tt.pgmres_solve(N, b_d, rtol=rtol, atol=0.0, restart=20, precond="ilu0")
+    torch.cuda.synchronize()
+    c1 = read_counts()
+    resf = check_residual("pgmres ILU0", Sn, xf, bref, res_tol)
+    log(f"  pgmres_solve precond=ilu0: {itf} iterations, estimate {rf:.3e}, true rel residual {resf:.3e}")
+    fused_gmres_launches("pgmres ilu0", {k: c1[k] - c0[k] for k in c1}, itf, 20, per_mv, per_ilu)
+    if abs(it - itf) > 20:
+        raise AssertionError(f"ILU0-GMRES: RCI {it} and fused {itf} iterations differ by more than the restart")
+    out["ilu_gmres"] = (itf, rf)
+    N64 = tt.create_csr(m, m, nptr, nind, nval.astype(np.float64), device=dev)
+    tt.set_mv_hint(N64, NONE, GEN, nop=1000)
+    tt.optimize(N64)
+    st64 = tt.ilu0_factorize(N64)
+    b64 = b_d.double()
+    per_mv64 = launches_of(lambda: tt.mv(1.0, N64, GEN, NONE, b64, 0.0))
+    per_ilu64 = launches_of(lambda: tt.ilu_smoother(N64, GEN, b64))
+    if (st64.l_form.kind, st64.u_form.kind) != ("win", "win"):
+        raise AssertionError("float64 nonsymmetric operand: ILU0 forms not win")
+    x, it, cyc, delta, t = itsol_run(N64, b64, dict(GM, **{"gmres preconditioner": "ILU0"}), torch.float64)
+    res = check_residual("itsol ILU0-GMRES f64", Sn, x, bref, res_tol)
+    log(f"  itsol ILU0-GMRES f64: {it} iterations, {cyc} cycles in {t:.3f} s, true rel residual {res:.3e}")
+    expect_launches("itsol ILU0-GMRES f64", delta, [(it + cyc, per_mv64, "mv (steps + cycles)"),
+                                                     (it, per_ilu64, "applies (steps)")])
+    del N64, st64, b64
+
+    # unpreconditioned GMRES: several cycles at restart 4
+    g4 = dict(GM, **{"gmres restart iterations": 4})
+    x_mat, it_mat, cyc, delta, t = itsol_run(N, b_d, g4, torch.float32)
+    res = check_residual("itsol GMRES", Sn, x_mat, bref, res_tol)
+    log(f"  itsol GMRES (restart 4): {it_mat} iterations, {cyc} cycles in {t:.3f} s, true rel residual {res:.3e}")
+    if cyc < 2:
+        raise AssertionError(f"unpreconditioned GMRES at restart 4 took {cyc} cycle(s)")
+    expect_launches("itsol GMRES", delta, [(it_mat + cyc, per_mv, "mv (steps + cycles)")])
+    c0 = read_counts()
+    xf, itf, rf = tt.pgmres_solve(N, b_d, rtol=rtol, atol=0.0, restart=4)
+    torch.cuda.synchronize()
+    c1 = read_counts()
+    resf = check_residual("pgmres none", Sn, xf, bref, res_tol)
+    log(f"  pgmres_solve precond=None (restart 4): {itf} iterations, estimate {rf:.3e}, true rel residual {resf:.3e}")
+    fused_gmres_launches("pgmres none", {k: c1[k] - c0[k] for k in c1}, itf, 4, per_mv)
+    if abs(it_mat - itf) > 4:
+        raise AssertionError(f"GMRES: RCI {it_mat} and fused {itf} iterations differ by more than the restart")
+    out["gmres"] = (itf, rf)
+    # the matrix-free forms: itsol_solve_operator against itsol_solve, and
+    # make_gmres_operator against pgmres_solve, on the same mv: the same
+    # iterations, x within the f32 model (the same steps; the card's
+    # reductions need not repeat their bits)
+    matvec = lambda v: tt.mv(1.0, N, GEN, NONE, v, 0.0)  # noqa: E731
+    x_op, it_op, _cyc, _delta, _t = itsol_run(None, b_d, g4, torch.float32, matvec=matvec)
+    xo, ito, _ro = tt.make_gmres_operator(matvec, maxit=500, restart=4)(b_d, rtol=rtol)
+    dx = (near_error(x_op.cpu().numpy(), x_mat.cpu().numpy()), near_error(xo.cpu().numpy(), xf.cpu().numpy()))
+    if not (it_op == it_mat and ito == itf and max(dx) <= MV_TOL["f32"]):
+        raise AssertionError(f"matrix-free and matrix paths differ: itsol {it_op} / {it_mat}, fused {ito} / {itf} "
+                             f"iterations, x by {dx}")
+    log(f"  itsol_solve_operator and make_gmres_operator on mv: the matrix paths' iterations ({it_op}, {ito}); "
+        f"x apart by {dx[0]:.3e} and {dx[1]:.3e} (bit for bit: {torch.equal(x_op, x_mat)}, {torch.equal(xo, xf)})")
+
+    # the RCI stepper by hand: mv and a Jacobi User preconditioner
+    dinv = torch.from_numpy((1.0 / Sn.diagonal()).astype(np.float32)).to(dev)
+    h = tt.itsol_init(torch.float32, device=dev)
+    for key, v in dict(GM, **{"gmres preconditioner": "User"}).items():
+        tt.itsol_option_set(h, key, v)
+    tt.itsol_rci_input(h, m, b_d)
+    rci = tt.itsol_rci_solve(h)
+    jobs = {tt.RciJob.mv: 0, tt.RciJob.precond: 0, tt.RciJob.stopping_criterion: 0}
+    c0 = read_counts()
+    job, u = rci.step()
+    while job != tt.RciJob.stop:
+        jobs[job] += 1
+        if job == tt.RciJob.mv:
+            job, u = rci.step(tt.mv(1.0, N, GEN, NONE, u, 0.0))
+        elif job == tt.RciJob.precond:
+            job, u = rci.step(dinv * u)
+        else:
+            job, u = rci.step()
+    torch.cuda.synchronize()
+    c1 = read_counts()
+    h.rci = None
+    h.options.unlock_all()
+    it = int(h.rinfo[30])
+    if rci.status != tt.Status.success or jobs[tt.RciJob.precond] != it:
+        raise AssertionError(f"RCI Jacobi-GMRES: status {rci.status.name}, {jobs} for {it} iterations")
+    res = check_residual("RCI Jacobi-GMRES", Sn, rci.x, bref, res_tol)
+    log(f"  itsol_rci_solve by hand (GMRES, Jacobi User preconditioner): {it} iterations, jobs "
+        f"{ {j.name: c for j, c in jobs.items()} }, true rel residual {res:.3e}")
+    expect_launches("RCI Jacobi-GMRES", {k: c1[k] - c0[k] for k in c1}, [(jobs[tt.RciJob.mv], per_mv, "mv jobs")])
+
+    # HPCG's stencil: SGS-CG through itsol_solve
+    mh = len(hptr) - 1
+    Sh = sp.csr_matrix((hval.astype(np.float64), hind, hptr), shape=(mh, mh))
+    bh = np.random.default_rng(71).standard_normal(mh).astype(np.float32)
+    bh_d = torch.from_numpy(bh).to(dev)
+    per_mv_h = launches_of(lambda: tt.mv(1.0, H, GEN, NONE, bh_d, 0.0))
+    per_sgs = launches_of(lambda: tt.symgs(NONE, H, GEN, 1.0, bh_d))
+    if per_sgs.get("trsv_level_f32") != 2 or per_sgs.get("trsv_dwin_f32", 0):
+        raise AssertionError(f"the stencil's SGS apply launched {per_sgs}: want two level solves, no chain")
+    log(f"  stencil unit launches: mv {per_mv_h}, SGS apply (symgs) {per_sgs}")
+    cg = {"cg preconditioner": "sgs", "cg rel tolerance": rtol, "cg abs tolerance": 0.0}
+    x, it, _cyc, delta, t = itsol_run(H, bh_d, cg, torch.float32)
+    res = check_residual("itsol SGS-CG (stencil)", Sh, x, bh.astype(np.float64), res_tol)
+    log(f"  itsol SGS-CG on the stencil: {it} iterations in {t:.3f} s (pcg_solve sgs: {sgs_iters}), true rel residual "
+        f"{res:.3e}")
+    # RCI CG: one mv a step and one for the initial residual, one apply a step
+    expect_launches("itsol SGS-CG (stencil)", delta, [(it + 1, per_mv_h, "mv (steps + 1)"),
+                                                      (it, per_sgs, "applies (steps)")])
+    if abs(it - sgs_iters) > 1:
+        raise AssertionError(f"itsol SGS-CG took {it} iterations, pcg_solve {sgs_iters}")
+    out.update(H=H, bh=bh_d, sgs_cg=it)
+
+    # the webbase stand-in with the shift: permuted-space GMRES
+    t0 = time.perf_counter()
+    wm = len(wptr) - 1
+    Sw, w2ptr, w2ind, w2val = shifted_operand(wptr, wind, wval, wm)
+    Wn = tt.create_csr(wm, wm, w2ptr, w2ind, w2val, device=dev)
+    tt.set_mv_hint(Wn, NONE, GEN, nop=1000)
+    tt.optimize(Wn)
+    wform = Wn.plan.exec_form_for(GEN, NONE)
+    if not (wform.kind == "gen" and wform.gen_bandt and _spill_route_on(wform, dev)):
+        raise AssertionError(f"shifted webbase planned as {wform.kind}, want gen with a routed spill")
+    wroute = wform.spill_route()
+    torch.cuda.synchronize()
+    log(f"  shifted webbase (nnz={w2ind.size}): plan + spill route {time.perf_counter() - t0:.2f} s; W={wform.bwd_W}, "
+        f"spilled {wform.sp_ind.numel()}; route {route_desc(wroute)}")
+    bw = np.random.default_rng(83).standard_normal(wm).astype(np.float32)
+    bw_d = torch.from_numpy(bw).to(dev)
+    per_mv_w = launches_of(lambda: tt.mv(1.0, Wn, GEN, NONE, bw_d, 0.0))
+    permutes = {"to": 0, "from": 0}
+    real = fused_mod._gen_pspace
+
+    def counted_pspace(form):
+        mv_p, to_p, from_p = real(form)
+
+        def to_c(v):
+            permutes["to"] += 1
+            return to_p(v)
+
+        def from_c(v):
+            permutes["from"] += 1
+            return from_p(v)
+
+        return mv_p, to_c, from_c
+
+    fused_mod._gen_pspace = counted_pspace
+    try:
+        c0 = read_counts()
+        t0 = time.perf_counter()
+        xw, itw, rw = tt.pgmres_solve(Wn, bw_d, rtol=rtol, atol=0.0, maxit=3000, restart=20)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        c1 = read_counts()
+    finally:
+        fused_mod._gen_pspace = real
+    res = check_residual("permuted GMRES (webbase)", Sw, xw, bw.astype(np.float64), res_tol)
+    log(f"  pgmres_solve permuted space (shifted webbase, restart 20): {itw} iterations in {t:.3f} s, estimate "
+        f"{rw:.3e}, true rel residual {res:.3e}; permutes {permutes}")
+    if permutes != {"to": 2, "from": 1}:
+        raise AssertionError(f"permuted GMRES permuted {permutes}: want b and x0 in once, x out once")
+    fused_gmres_launches("permuted GMRES (webbase)", {k: c1[k] - c0[k] for k in c1}, itw, 20, per_mv_w)
+    out.update(W=Wn, bw=bw_d, wgmres=(itw, rw))
+    return out
+
+
+def fixed_restart(restart, it, res, bnorm, digits=30.0):
+    """The restart r of a fixed-length GMRES timing (rtol = atol = 0, r and
+    2 r steps, whole cycles): its f32 Givens estimate falls at about the
+    convergent solve's rate (log10(||b|| / res) / it digits a step) and must
+    stay `digits` above ||b|| * 1e-30 or so, clear of underflow, else the
+    loop stops short. restart where 2 restart steps keep there, else less."""
+    rate = max(np.log10(bnorm / max(res, 1e-300)) / max(it, 1), 1e-3)
+    steps = digits / rate
+    return restart if 2 * restart <= steps else max(1, int(steps // 2))
+
+
+def solver_timings(sf):
+    """Phase 6's solver-framework times: ms an iteration, host clock, the
+    difference of two fixed-length solves (rtol = atol = 0), median of
+    three turns; one profiler window of two ILU0-GMRES cycles."""
+    N, b_d, bnorm = sf["N"], sf["b"], sf["bnorm"]
+    out = {}
+    for name, precond, restart, key in (("ILU0-GMRES", "ilu0", 20, "ilu_gmres"), ("GMRES", None, 20, "gmres")):
+        r = fixed_restart(restart, *sf[key], bnorm)
+        t_it, t_all = iteration_ms(lambda kk: tt.pgmres_solve(N, b_d, rtol=0.0, atol=0.0, maxit=kk, restart=r,
+                                                              precond=precond)[1], r, 2 * r)
+        out[name] = t_it
+        log(f"  {name} iteration (pgmres_solve, nonsymmetric bench operand, restart {r}, {r} and {2 * r} steps): "
+            f"{t_it:.4f} ms (host clock, median of {[round(t, 4) for t in t_all]})")
+        if precond == "ilu0":
+            profile_mv(f"ILU0-GMRES, two cycles of {r} steps", lambda: tt.pgmres_solve(
+                N, b_d, rtol=0.0, atol=0.0, maxit=2 * r, restart=r, precond="ilu0"), calls=1, top=8)
+
+    def sgs_cg(kk):
+        # the RCI CG stops once its count passes the limit: kk - 1 runs kk
+        h = tt.itsol_init(torch.float32)
+        for key, v in {"cg preconditioner": "sgs", "cg rel tolerance": 0.0, "cg abs tolerance": 0.0,
+                       "cg iteration limit": kk - 1}.items():
+            tt.itsol_option_set(h, key, v)
+        _x, rinfo, _status = tt.itsol_solve(h, sf["bh"].shape[0], sf["H"], GEN, sf["bh"])
+        return int(rinfo[30])
+
+    t_it, t_all = iteration_ms(sgs_cg, 2, 6)
+    out["SGS-CG"] = t_it
+    log(f"  itsol SGS-CG iteration (104^3 stencil): {t_it:.4f} ms (host clock, median of "
+        f"{[round(t, 4) for t in t_all]}; {sf['sgs_cg']} iterations to rtol 1e-6)")
+    r = fixed_restart(20, *sf["wgmres"], float(sf["bw"].double().norm()))
+    t_it, t_all = iteration_ms(lambda kk: tt.pgmres_solve(sf["W"], sf["bw"], rtol=0.0, atol=0.0, maxit=kk,
+                                                          restart=r)[1], r, 2 * r)
+    out["permuted GMRES"] = t_it
+    log(f"  permuted-space GMRES iteration (shifted webbase, restart {r}, {r} and {2 * r} steps): {t_it:.4f} ms "
+        f"(host clock, median of {[round(t, 4) for t in t_all]})")
+    return out
 
 
 def coo_csr(rows, cols, vals, m):
@@ -2794,6 +3169,17 @@ def main() -> int:
             raise AssertionError(f"kernel {kernel} never launched on the measurement path")
         launches[kernel] = meas_launches[kernel]
 
+    # 5f. the solver framework, counted on its own
+    phase("phase 5f: solver framework (itsol RCI and forward interfaces, options, restarted GMRES, matrix-free "
+          "operators)")
+    reset_counts()
+    sf = solver_framework(ptr, ind, val, H, hptr, hind, hval, wptr, wind, wval, dev, rtol, stencil_iters["sgs"])
+    sf_launches = read_counts()
+    log(f"  solver framework launches: {({k: sf_launches[k] for k in SOLVER_PATH})}")
+    for kernel in SOLVER_PATH:
+        if sf_launches[kernel] == 0:
+            raise AssertionError(f"kernel {kernel} never launched on the solver framework's path")
+
     # 6. timing
     phase("phase 6: timing (CUDA events or host clock, median of repeats)")
     peak = ctx.hbm_gbps
@@ -3384,6 +3770,8 @@ def main() -> int:
         f"engine {t_qdev:.4f} ms, on the host engine (pinned) {t_qhost:.4f} ms; cuSPARSE SpGEMM {lib_s}")
     profile_mv("sp2m finalize (scatter Q.Q, device expansion engine)", fin_q, calls=3)
     del Qt
+    # the solver framework's iterations (phase 5f's operands)
+    solver_timings(sf)
     phase("done")
 
     kernels = [

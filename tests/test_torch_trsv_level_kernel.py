@@ -476,6 +476,37 @@ def test_routing_symgs(routed):
         assert d == exp and near_error(x.numpy(), want) <= tol
 
 
+@pytest.mark.parametrize("omega, alpha", [(1.2, 0.7), (0.8, 0.0)])
+def test_routing_sorv(routed, monkeypatch, ast, omega, alpha):
+    """sorv's (D + omega L) solve takes the level solve on the stencil's
+    chain-kernel triangle once the gate admits the device, and the chain
+    where it does not (the CPU's default); both agree with scipy's sweep
+    and with the JAX package's sorv."""
+    A, S = _stencil_handle()
+    m = S.shape[0]
+    b, x0 = rhs(m, 1, seed=3), rhs(m, 1, seed=4)
+    Ls, Us, D = sp.tril(S, -1), sp.triu(S, 1), sp.diags(S.diagonal())
+    want = spla.spsolve_triangular((D + omega * Ls).tocsr(), omega * b - (omega * Us + (omega - 1.0) * D) @ (alpha * x0),
+                                   lower=True)
+    ptr, ind, val = stencil27(24)
+    jax_x = np.asarray(ast.sorv(ast.SorType.forward, ast.MatrixDescriptor(), ast.create_csr(m, m, ptr, ind, val), omega,
+                                alpha, x0, b))
+    tol = expected_precision(torch.float64)
+
+    def call():
+        return tt.sorv(tt.SorType.forward, tt.MatrixDescriptor(), A, omega, alpha, torch.from_numpy(x0),
+                       torch.from_numpy(b))
+
+    x, d = _delta(routed, call)
+    assert d == {"level": 1, "chain": 0}
+    assert near_error(x.numpy(), want) <= tol and near_error(x.numpy(), jax_x) <= tol
+    form = A.plan.levels[("sorv", omega)]
+    assert form.kind == "dwin" and ttri.sv_engine_for(A.plan, _lower(), NONE, "cpu", form=form) == "level"
+    monkeypatch.setattr(ttri, "SV_LEVEL_DEVICES", ("cuda",))  # the CPU's default: the gate closed
+    x, d = _delta(routed, call)
+    assert d == {"level": 0, "chain": 1} and near_error(x.numpy(), jax_x) <= tol
+
+
 @pytest.mark.parametrize("precond", ["sgs", "ilu0"])
 def test_routing_pcg(routed, monkeypatch, precond):
     """pcg_solve's preconditioner applies through the level solve (two a
@@ -553,8 +584,8 @@ def test_cuda_nonfinite_rhs(cuda):
 
 @pytest.mark.cuda
 def test_cuda_default_routes_to_the_kernel(cuda):
-    """On the card the stencil's default trsv and ILU0-PCG take the level
-    kernel (no chain launch); kid=0 keeps the chain kernel."""
+    """On the card the stencil's default trsv, ILU0-PCG and sorv take the
+    level kernel (no chain launch); kid=0 keeps the chain kernel."""
     ptr, ind, val = stencil27(24)
     m = len(ptr) - 1
     S = sp.csr_matrix((val, ind, ptr), shape=(m, m))
@@ -572,3 +603,10 @@ def test_cuda_default_routes_to_the_kernel(cuda):
     x, k, _r = tt.pcg_solve(A, bd, rtol=1e-8, precond="ilu0")
     assert trsv_level.launches["f64"] - c0 >= 2 * k and tb.trsv_dwin.launches["f64"] - d0 == 1
     assert np.linalg.norm(S @ x.cpu().numpy() - b) <= 1.01e-8 * np.linalg.norm(b)
+    # sorv's (D + omega L) solve: the level kernel too
+    Ls, Us, D = sp.tril(S, -1), sp.triu(S, 1), sp.diags(S.diagonal())
+    want = spla.spsolve_triangular((D + 1.2 * Ls).tocsr(), 1.2 * b - (1.2 * Us + 0.2 * D) @ (0.7 * b), lower=True)
+    c0 = trsv_level.launches["f64"]
+    x = tt.sorv(tt.SorType.forward, tt.MatrixDescriptor(), A, 1.2, 0.7, bd, bd)
+    assert near_error(x.cpu().numpy(), want) <= expected_precision(torch.float64)
+    assert (trsv_level.launches["f64"] - c0, tb.trsv_dwin.launches["f64"] - d0) == (1, 1)
