@@ -10,7 +10,10 @@ and the host engine, the format-direct ``csrmv``/``ellmv``/``elltmv``/
 ``ellthybmv``/``diamv``/``bsrmv``/``blkcsrmv``, ``mm`` through the
 ``bandtm``, ``diag``, ``bwdg`` and gather forms, ``trsv`` and ``trsm``
 (blocked ``win``, ``dwin`` and ``gather`` forms, the level engine and the
-host engine), ILU0, SymGS and SOR, CG with no preconditioner (in
+host engine; f32, f64, bf16, complex64 and complex128 triangles, complex
+ones on the level kernel or the blocked forms' plain loops; bf16 ``dwin``
+and ``gather`` forms raise ``not_implemented`` on the card), ILU0, SymGS
+and SOR, CG with no preconditioner (in
 permuted space on a gen operand), ILU0 or SGS and restarted GMRES with
 none (likewise) or ILU0 (``pcg_solve``, ``pgmres_solve``, the matrix-free
 ``make_cg_operator``/``make_gmres_operator``), the iterative-solver
@@ -23,14 +26,14 @@ group-window form, the diagonal form, the spill-route engine, the blocked
 triangular solves and the SpGEMM band engine run hand-written CUDA kernels
 on Hopper (csrc/band_spmv.cu, csrc/spmv_bwd.cu, csrc/spmm_band.cu,
 csrc/spmm_diag.cu, csrc/spill_route.cu, csrc/benes.cu, csrc/trsv_win.cu,
-csrc/trsv_blocked.cu, csrc/band_gemm.cu), and so do the measurement path's tile-major and
+csrc/trsv_blocked.cu, csrc/trsv_level.cu, csrc/band_gemm.cu), and so do the measurement path's tile-major and
 block-window band SpMV and read probe (csrc/band_spmv_tiles.cu,
 csrc/spmv_mxu.cu, csrc/stream_read.cu; utils/profiling.py times them),
 built with nvcc at first use; on CPU tensors they run the kernels' plain
 PyTorch versions. The host C++ library (native/) builds
 with g++ at first use. Tensors go to ``cuda:0`` unless a device is named.
-ROADMAP.md lists what is still to port (autotune, bf16 and complex
-triangles).
+ROADMAP.md lists what is still to port (autotune, the plan cache,
+checkpoints).
 """
 
 from .core.types import (  # noqa: F401

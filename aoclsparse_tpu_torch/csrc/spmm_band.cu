@@ -89,9 +89,24 @@
 // would meet is never read: where it is Inf or NaN the kernel gives the
 // band product's finite value and the full-window product NaN (0 * Inf).
 //
+// spmm_band on a bf16 band (a bf16 handle's bandtm form): B and C f32,
+// f32 sums, which is what pallas_spmm_band_t computes there: its
+// _kernel_mm casts each band column and the B window to the f32 output
+// (spmv.py:152, :167-168; a bf16 B rounds nothing on the way to f32). The
+// instance is the f32 one with the band in 2-byte values: a chunk holds
+// JC = 32 band columns in the f32 chunk's 64 bytes a row, stored as
+// column pairs (vs2[jp][r] = v[i0 + r, 2 jp .. 2 jp + 1], one 4-byte
+// cp.async a pair, row stride kBandTMS pairs, so a copy instruction's 8
+// rows x 4 pairs land on 32 distinct banks as the f32 chunk's do); a
+// thread's 8 band values of a pair are two 16-byte loads that serve two
+// j. So its rings, its 91,648 bytes of shared memory and its 8 x 8 register
+// tiles are the f32 instance's, and the band moves half the bytes. W must
+// be even (the planner rounds W up to 8).
+//
 // Instances (plain C entry points, bound with ctypes):
 //   spmm_band_f32      : v f32, B f32, C f32 (f32 accumulation)
 //   spmm_band_f64      : v f64, B f64, C f64
+//   spmm_band_bf16     : v bf16, B f32, C f32 (f32 accumulation)
 //   spmm_band_mxu_f32  : dt f32, B f32, C f32
 //   spmm_band_mxu_bf16 : dt bf16, B f32 rounded to bf16, C f32
 // Each launches on the given stream, does not synchronise, allocates
@@ -177,14 +192,15 @@ __device__ __forceinline__ void load_row(const T* p, T (&v)[kBandCV * 16 / sizeo
   }
 }
 
-template <typename T>
+// T: B's, C's and the sums' dtype; VT: the band's (T, or bf16 with T f32)
+template <typename T, typename VT>
 struct BandCfg {
   static constexpr int V = 16 / sizeof(T);                // columns of a 16-byte vector
   static constexpr int KC = 16 * V;                       // columns a CTA owns
-  static constexpr int JC = sizeof(T) == 4 ? 16 : 8;      // band columns j a chunk
+  static constexpr int JC = 64 / static_cast<int>(sizeof(VT));  // band columns j a chunk: 32 bf16, 16 f32, 8 f64
   static constexpr int kRingBytes = kBandRing * KC * static_cast<int>(sizeof(T));
-  static constexpr int kChunkBytes = JC * kBandTMS * static_cast<int>(sizeof(T));
-  static constexpr int kSmem = kRingBytes + kBandStages * kChunkBytes;  // 91,648 bytes in both dtypes
+  static constexpr int kChunkBytes = JC * kBandTMS * static_cast<int>(sizeof(VT));
+  static constexpr int kSmem = kRingBytes + kBandStages * kChunkBytes;  // 91,648 bytes in every instance
   // the rows one chunk reads and the rows of the chunks in flight fit the ring
   static_assert(kBandStages * JC + kBandTM - 1 <= kBandRing, "B ring too small");
 };
@@ -195,21 +211,26 @@ struct BandCfg {
 // chunk 0 rows [0, JC + kBandTM - 1), chunk q > 0 rows [q JC + kBandTM - 1,
 // (q + 1) JC + kBandTM - 1) of the tile's window (zero outside [0, n) and
 // past column K), row t at ring slot t % kBandRing.
-template <typename T>
-__device__ __forceinline__ void band_stage(T* ring, T* vs, const T* __restrict__ v, const T* __restrict__ B,
+template <typename T, typename VT>
+__device__ __forceinline__ void band_stage(T* ring, VT* vs, const VT* __restrict__ v, const T* __restrict__ B,
                                            int q, int64_t i0, int nrows, int W, int64_t brow0, int64_t n,
                                            int64_t K, int64_t k0, bool bvec) {
-  using L = BandCfg<T>;
+  using L = BandCfg<T, VT>;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  constexpr int kRowGroups = kBandTM / 8, kCombos = kRowGroups * (L::JC / 4), kWarps = kBandThreads / 32;
+  // a copy takes one band value (f32, f64) or a column pair (bf16)
+  constexpr int kPer = sizeof(VT) == 2 ? 2 : 1;
+  constexpr int kRowGroups = kBandTM / 8, kCombos = kRowGroups * (L::JC / kPer / 4), kWarps = kBandThreads / 32;
 #pragma unroll
   for (int k = 0; k < kCombos / kWarps; ++k) {
     const int combo = warp + kWarps * k;
     const int r = (combo % kRowGroups) * 8 + (lane >> 2);
-    const int jl = (combo / kRowGroups) * 4 + (lane & 3);
-    const int j = q * L::JC + jl;
+    const int jl = (combo / kRowGroups) * 4 + (lane & 3);  // the value's j, or the pair's
+    const int j = q * L::JC + jl * kPer;
     const bool in = r < nrows && j < W;
-    copy_elem(vs + jl * kBandTMS + r, in ? v + (i0 + r) * W + j : v, in);
+    if constexpr (kPer == 2)
+      cp_async4(vs + (jl * kBandTMS + r) * 2, in ? v + (i0 + r) * W + j : v, in ? 4 : 0);
+    else
+      copy_elem(vs + jl * kBandTMS + r, in ? v + (i0 + r) * W + j : v, in);
   }
   const int t0 = q == 0 ? 0 : q * L::JC + kBandTM - 1;
   const int t1 = (q + 1) * L::JC + kBandTM - 1;
@@ -230,13 +251,36 @@ __device__ __forceinline__ void band_stage(T* ring, T* vs, const T* __restrict__
   }
 }
 
+// the band values of rows g8 .. g8 + 7 at chunk column jl: two (f64: four)
+// 16-byte loads of the j-major chunk; bf16: two 16-byte loads of the
+// column pair's 8 rows, widened (a bf16 is the top half of its f32)
+template <typename T>
+__device__ __forceinline__ void band_vals(const T* vsq, int jl, int g8, T (&val)[8]) {
+  constexpr int V = 16 / sizeof(T);
+  const T* vj = vsq + jl * kBandTMS + g8;
+#pragma unroll
+  for (int a = 0; a < 8; a += V) {
+    T t[V];
+    load16(vj + a, t);
+#pragma unroll
+    for (int c = 0; c < V; ++c) val[a + c] = t[c];
+  }
+}
+__device__ __forceinline__ void band_vals(const __nv_bfloat16* vsq, int jl, int g8, float (&val)[8]) {
+  const uint4* p = reinterpret_cast<const uint4*>(vsq + ((jl >> 1) * kBandTMS + g8) * 2);
+  const uint4 u0 = p[0], u1 = p[1];
+  const uint32_t w[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+#pragma unroll
+  for (int a = 0; a < 8; ++a) val[a] = __uint_as_float((jl & 1) ? (w[a] & 0xffff0000u) : (w[a] << 16));
+}
+
 // The FMAs of chunk q (its first jn <= JC band columns; kFull: jn == JC)
 // into the thread's 8 x CV sums, sliding the register window one B row a j.
-template <typename T, bool kFull>
-__device__ __forceinline__ void band_chunk(const T* ring, const T* vsq, int q, int jn, int g8, int lane,
+template <typename T, typename VT, bool kFull>
+__device__ __forceinline__ void band_chunk(const T* ring, const VT* vsq, int q, int jn, int g8, int lane,
                                            T (&acc)[8][kBandCV * 16 / sizeof(T)],
                                            T (&win)[8][kBandCV * 16 / sizeof(T)]) {
-  using L = BandCfg<T>;
+  using L = BandCfg<T, VT>;
   constexpr int V = L::V, KC = L::KC, JC = L::JC, CV = kBandCV * V;
 #pragma unroll
   for (int jb = 0; jb < JC; jb += 8) {
@@ -246,15 +290,8 @@ __device__ __forceinline__ void band_chunk(const T* ring, const T* vsq, int q, i
       if (!kFull && jb + jj >= jn) break;
       const int j = q * JC + jb + jj;
       load_row(ring + ((g8 + j + 7) & (kBandRing - 1)) * KC + lane * V, win[(jj + 7) & 7]);
-      const T* vj = vsq + (jb + jj) * kBandTMS + g8;
       T val[8];
-#pragma unroll
-      for (int a = 0; a < 8; a += V) {
-        T t[V];
-        load16(vj + a, t);
-#pragma unroll
-        for (int c = 0; c < V; ++c) val[a + c] = t[c];
-      }
+      band_vals(vsq, jb + jj, g8, val);
 #pragma unroll
       for (int a = 0; a < 8; ++a)
 #pragma unroll
@@ -263,15 +300,15 @@ __device__ __forceinline__ void band_chunk(const T* ring, const T* vsq, int q, i
   }
 }
 
-template <typename T>
+template <typename T, typename VT>
 __global__ void __launch_bounds__(kBandThreads, 2)
-spmm_band_kernel(const T* __restrict__ v, const T* __restrict__ B, T* __restrict__ C, int64_t m,
+spmm_band_kernel(const VT* __restrict__ v, const T* __restrict__ B, T* __restrict__ C, int64_t m,
                  int64_t n, int64_t K, int W, int64_t start, int64_t padL, int bvec) {
-  using L = BandCfg<T>;
+  using L = BandCfg<T, VT>;
   constexpr int V = L::V, KC = L::KC, JC = L::JC;
   extern __shared__ __align__(128) unsigned char band_smem[];
   T* ring = reinterpret_cast<T*>(band_smem);
-  T* vs0 = reinterpret_cast<T*>(band_smem + L::kRingBytes);
+  VT* vs0 = reinterpret_cast<VT*>(band_smem + L::kRingBytes);
   const int64_t i0 = static_cast<int64_t>(blockIdx.x) * kBandTM;
   const int64_t k0 = static_cast<int64_t>(blockIdx.y) * KC;
   const int nrows = static_cast<int>(m - i0 < kBandTM ? m - i0 : kBandTM);
@@ -287,7 +324,7 @@ spmm_band_kernel(const T* __restrict__ v, const T* __restrict__ B, T* __restrict
     for (int c = 0; c < CV; ++c) acc[a][c] = static_cast<T>(0);
 #pragma unroll
   for (int k = 0; k < kBandStages - 1; ++k) {
-    if (k < nq) band_stage<T>(ring, vs0 + k * JC * kBandTMS, v, B, k, i0, nrows, W, brow0, n, K, k0, bvec);
+    if (k < nq) band_stage<T, VT>(ring, vs0 + k * JC * kBandTMS, v, B, k, i0, nrows, W, brow0, n, K, k0, bvec);
     cp_async_commit();
   }
   for (int q = 0; q < nq; ++q) {
@@ -295,18 +332,19 @@ spmm_band_kernel(const T* __restrict__ v, const T* __restrict__ B, T* __restrict
     __syncthreads();  // chunk q landed; every thread is done with chunk q - 1, whose stage is next
     const int qn = q + kBandStages - 1;
     if (qn < nq)
-      band_stage<T>(ring, vs0 + (qn % kBandStages) * JC * kBandTMS, v, B, qn, i0, nrows, W, brow0, n, K, k0, bvec);
+      band_stage<T, VT>(ring, vs0 + (qn % kBandStages) * JC * kBandTMS, v, B, qn, i0, nrows, W, brow0, n, K, k0,
+                        bvec);
     cp_async_commit();
     if (q == 0) {
 #pragma unroll
       for (int k = 0; k < 7; ++k) load_row(ring + (g8 + k) * KC + lane * V, win[k]);
     }
-    const T* vsq = vs0 + (q % kBandStages) * JC * kBandTMS;
+    const VT* vsq = vs0 + (q % kBandStages) * JC * kBandTMS;
     const int jn = min(JC, W - q * JC);
     if (jn == JC)  // every chunk but a ragged last one: no bound checks in the loop
-      band_chunk<T, true>(ring, vsq, q, jn, g8, lane, acc, win);
+      band_chunk<T, VT, true>(ring, vsq, q, jn, g8, lane, acc, win);
     else
-      band_chunk<T, false>(ring, vsq, q, jn, g8, lane, acc, win);
+      band_chunk<T, VT, false>(ring, vsq, q, jn, g8, lane, acc, win);
   }
   cp_async_wait<0>();
 #pragma unroll
@@ -566,18 +604,21 @@ spmm_band_mxu_bf16_kernel(const __nv_bfloat16* __restrict__ dt, const float* __r
   }
 }
 
-template <typename T>
+template <typename T, typename VT>
 int launch_band(const void* v, const void* B, void* C, int64_t m, int64_t n, int64_t K, int64_t W,
                 int64_t start, int64_t padL, void* stream) {
   if (m <= 0 || K <= 0) return 0;
-  using L = BandCfg<T>;
-  cudaError_t err = cudaFuncSetAttribute(spmm_band_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  // the bf16 band moves in 4-byte column pairs
+  if (sizeof(VT) == 2 && (W % 2 || reinterpret_cast<uintptr_t>(v) % 4)) return static_cast<int>(cudaErrorInvalidValue);
+  using L = BandCfg<T, VT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(spmm_band_kernel<T, VT>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int bvec = K % L::V == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0;
   const dim3 grid(static_cast<unsigned>((m + kBandTM - 1) / kBandTM),
                   static_cast<unsigned>((K + L::KC - 1) / L::KC));
-  spmm_band_kernel<T><<<grid, kBandThreads, L::kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(v), static_cast<const T*>(B), static_cast<T*>(C), m, n, K,
+  spmm_band_kernel<T, VT><<<grid, kBandThreads, L::kSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const VT*>(v), static_cast<const T*>(B), static_cast<T*>(C), m, n, K,
       static_cast<int>(W), start, padL, bvec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -605,12 +646,17 @@ extern "C" {
 
 int spmm_band_f32(const void* v, const void* B, void* C, int64_t m, int64_t n, int64_t K,
                   int64_t W, int64_t start, int64_t padL, void* stream) {
-  return launch_band<float>(v, B, C, m, n, K, W, start, padL, stream);
+  return launch_band<float, float>(v, B, C, m, n, K, W, start, padL, stream);
 }
 
 int spmm_band_f64(const void* v, const void* B, void* C, int64_t m, int64_t n, int64_t K,
                   int64_t W, int64_t start, int64_t padL, void* stream) {
-  return launch_band<double>(v, B, C, m, n, K, W, start, padL, stream);
+  return launch_band<double, double>(v, B, C, m, n, K, W, start, padL, stream);
+}
+
+int spmm_band_bf16(const void* v, const void* B, void* C, int64_t m, int64_t n, int64_t K,
+                   int64_t W, int64_t start, int64_t padL, void* stream) {
+  return launch_band<float, __nv_bfloat16>(v, B, C, m, n, K, W, start, padL, stream);
 }
 
 int spmm_band_mxu_f32(const void* dt, const void* B, void* C, int64_t nblk, int64_t m, int64_t n,

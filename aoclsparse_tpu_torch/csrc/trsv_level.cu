@@ -48,8 +48,17 @@
 // level-synchronous grid with a grid barrier a level, and 8 lanes a row in
 // place of 32.
 //
+// Complex instances: the same kernel over float2 / double2 values (real,
+// imaginary), each multiply-add a complex one (two FMAs a part), the lanes'
+// butterfly and the row's (b - sum) * dinv in complex arithmetic; the
+// release/acquire flags and the deal are the real instances'. The JAX
+// package runs complex solves on the same XLA level loops, and no chain or
+// window kernel has a complex instance, so on the card a complex triangle
+// takes this kernel wherever its level count allows
+// (planner/triangular.py pick_sv_engine).
+//
 // Instances (plain C entry points, bound with ctypes):
-//   trsv_level_f32, trsv_level_f64
+//   trsv_level_f32, trsv_level_f64, trsv_level_c64, trsv_level_c128
 // Each launches one kernel on the given stream, does not synchronise,
 // allocates nothing, adds 1 to *launches, and returns the first CUDA error of
 // the occupancy query or the launch (0 on success; cudaErrorInvalidValue for
@@ -67,8 +76,42 @@ constexpr int kWarps = kThreads / 32;
 // the launch instead of hanging the card
 constexpr long long kMaxPolls = 1ll << 28;
 
+// the value arithmetic of the kernel, real and complex (float2 / double2:
+// x the real part, y the imaginary part)
 __device__ __forceinline__ float mul_add(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double mul_add(double a, double b, double c) { return fma(a, b, c); }
+__device__ __forceinline__ float2 mul_add(float2 a, float2 b, float2 c) {
+  return make_float2(fmaf(a.x, b.x, fmaf(-a.y, b.y, c.x)), fmaf(a.x, b.y, fmaf(a.y, b.x, c.y)));
+}
+__device__ __forceinline__ double2 mul_add(double2 a, double2 b, double2 c) {
+  return make_double2(fma(a.x, b.x, fma(-a.y, b.y, c.x)), fma(a.x, b.y, fma(a.y, b.x, c.y)));
+}
+template <typename T>
+__device__ __forceinline__ T zero() { return T(0); }
+template <>
+__device__ __forceinline__ float2 zero<float2>() { return make_float2(0.f, 0.f); }
+template <>
+__device__ __forceinline__ double2 zero<double2>() { return make_double2(0.0, 0.0); }
+// a + the value of lane (lane ^ s)
+__device__ __forceinline__ float shfl_add(float a, int s) { return a + __shfl_xor_sync(0xffffffffu, a, s); }
+__device__ __forceinline__ double shfl_add(double a, int s) { return a + __shfl_xor_sync(0xffffffffu, a, s); }
+__device__ __forceinline__ float2 shfl_add(float2 a, int s) {
+  return make_float2(shfl_add(a.x, s), shfl_add(a.y, s));
+}
+__device__ __forceinline__ double2 shfl_add(double2 a, int s) {
+  return make_double2(shfl_add(a.x, s), shfl_add(a.y, s));
+}
+// a row's value: (b - sum) * dinv
+__device__ __forceinline__ float finish(float b, float acc, float d) { return (b - acc) * d; }
+__device__ __forceinline__ double finish(double b, double acc, double d) { return (b - acc) * d; }
+__device__ __forceinline__ float2 finish(float2 b, float2 acc, float2 d) {
+  const float r = b.x - acc.x, i = b.y - acc.y;
+  return make_float2(r * d.x - i * d.y, r * d.y + i * d.x);
+}
+__device__ __forceinline__ double2 finish(double2 b, double2 acc, double2 d) {
+  const double r = b.x - acc.x, i = b.y - acc.y;
+  return make_double2(r * d.x - i * d.y, r * d.y + i * d.x);
+}
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
@@ -97,7 +140,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c0 = 0; c0 < K; c0 += KC) {
       T acc[KC];
 #pragma unroll
-      for (int c = 0; c < KC; ++c) acc[c] = T(0);
+      for (int c = 0; c < KC; ++c) acc[c] = zero<T>();
       for (int j = beg + lane; j < end; j += 32) {
         const int col = __ldg(lcol + j);
         const T v = __ldg(lval + j);
@@ -115,13 +158,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int s = 16; s > 0; s >>= 1) {
 #pragma unroll
-        for (int c = 0; c < KC; ++c) acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], s);
+        for (int c = 0; c < KC; ++c) acc[c] = shfl_add(acc[c], s);
       }
       if (lane == 0) {
         const int64_t o = static_cast<int64_t>(row) * K + c0;
 #pragma unroll
         for (int c = 0; c < KC; ++c)
-          if (KC == 1 || c0 + c < K) X[o + c] = (__ldg(B + o + c) - acc[c]) * d;
+          if (KC == 1 || c0 + c < K) X[o + c] = finish(__ldg(B + o + c), acc[c], d);
       }
     }
     if (lane == 0) st_release(ready + row, epoch);
@@ -187,6 +230,18 @@ int trsv_level_f64(const void* lrow, const void* lptr, const void* lcol, const v
                    const void* B, void* X, void* ready, int64_t m, int64_t K, int64_t epoch, void* stream,
                    int64_t* launches) {
   return launch<double>(lrow, lptr, lcol, lval, dinv, B, X, ready, m, K, epoch, stream, launches);
+}
+
+int trsv_level_c64(const void* lrow, const void* lptr, const void* lcol, const void* lval, const void* dinv,
+                   const void* B, void* X, void* ready, int64_t m, int64_t K, int64_t epoch, void* stream,
+                   int64_t* launches) {
+  return launch<float2>(lrow, lptr, lcol, lval, dinv, B, X, ready, m, K, epoch, stream, launches);
+}
+
+int trsv_level_c128(const void* lrow, const void* lptr, const void* lcol, const void* lval, const void* dinv,
+                    const void* B, void* X, void* ready, int64_t m, int64_t K, int64_t epoch, void* stream,
+                    int64_t* launches) {
+  return launch<double2>(lrow, lptr, lcol, lval, dinv, B, X, ready, m, K, epoch, stream, launches);
 }
 
 }  // extern "C"

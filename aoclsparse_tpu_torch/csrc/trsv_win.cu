@@ -72,10 +72,11 @@
 //      X_k[r] <- X_k[r] - P_k[:, r]^T W_(k-1), W_(k-1) being the final
 //      chain rows of block k - 1. When WL >= nb, r0 = 0 and there is no
 //      pass C.
-// So a solve is 3 launches, 2 when WL >= nb; a grouped one 4 or 5
-// (kernels/trsv_win.py solve_launches).
+// So a solve is 3 launches, 2 when WL >= nb; a grouped one 4 or 5; the
+// bf16 instance adds its rounding launch (kernels/trsv_win.py
+// solve_launches).
 //
-// Every sum runs in the operand dtype in a fixed order (no atomics): the
+// Every sum runs in the operand dtype (f32 for bf16) in a fixed order (no atomics): the
 // same inputs give the same bits. The order differs from the contract's
 // (B - W lwT) dinvT, within the dtype's model tolerance; the grouped form
 // adds one rounding of each product F to the dtype (they are built in
@@ -86,16 +87,38 @@
 // rows r < q as a triangular solve gives them, where the contract's dense
 // product (0 * Inf) gives NaN.
 //
+// The bf16 instance (win_solve_bf16) computes what the Pallas kernels
+// compute on bf16 operands, where each jnp.dot accumulates in f32 and
+// rounds to bf16 (preferred_element_type=w.dtype, kernels/pallas/trsv.py:
+// 65-66, 106-108, 153-154) and the carried window is bf16 VMEM scratch.
+// dinvT, B and X are bf16; P and F are f32, built from the bf16 blocks in
+// float64 and rounded once to f32 (kernels/trsv_win.py
+// win_solve_operands). f32 and not bf16, because the split form rounds
+// where the Pallas kernel does not: a bf16 P would add a rounding of every
+// window product to the Pallas kernel's roundings of s = w lwT and b - s,
+// while with f32 products the kernel's only roundings are its outputs'.
+// Every pass reads bf16 and sums in f32 into an f32 work copy of X; the
+// chain rounds each chain row to bf16 as it enters the window (the Pallas
+// kernel's bf16 window), so the rows the next blocks read are the bf16
+// values they read there, and a last launch (win_round_kernel) rounds the
+// work copy to the bf16 X. The chain's operand stages stay f32, so its
+// shared-memory plan is the f32 instance's. An emulation of these passes
+// differs from the Pallas kernel in interpret mode by one bf16 rounding
+// (tests/test_torch_win_solve_passes.py), far inside the bf16 model
+// tolerance (utils/tolerances.py: 4 sqrt(2^-6) = 0.5).
+//
 // Instances (plain C entry points, bound with ctypes):
-//   win_solve_f32, win_solve_f64
+//   win_solve_f32, win_solve_f64, win_solve_bf16
 // Each launches the passes on the given stream, does not synchronise,
-// allocates nothing, adds to *launches the number of kernels it launched,
-// and returns the first CUDA error of an attribute call or a launch (0 on
-// success). KC is the column chunk of passes A, C and F
+// allocates nothing (the bf16 instance's f32 work copy of X is the
+// caller's `work`, null for the others), adds to *launches the number of
+// kernels it launched, and returns the first CUDA error of an attribute
+// call or a launch (0 on success). KC is the column chunk of passes A, C and F
 // (16, 8, 4, 2 or 1); group is s, or 0 for the plain chain (F unused); tg,
 // tt and stages are the chain's slices, tile rows and ring depth
 // (kernels/trsv_win.py chain_plan).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,6 +134,18 @@ constexpr int kMaxStages = 16;
 
 __device__ __forceinline__ float mul_add(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double mul_add(double a, double b, double c) { return fma(a, b, c); }
+
+// an operand value in the sums' dtype (bf16 operands widen to f32)
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+
+// a chain row as it enters the window: rounded to bf16 by the bf16
+// instance (rb != 0), as it is
+__device__ __forceinline__ float window_value(float x, int rb) {
+  return rb ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+__device__ __forceinline__ double window_value(double x, int) { return x; }
 
 __host__ __device__ constexpr int64_t round_up(int64_t v, int64_t m) { return (v + m - 1) / m * m; }
 
@@ -196,9 +231,10 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
 
 // ---- pass A: X_k <- dinvT_k^T B_k over the upper triangle ------------------
 
-template <typename T, int KC>
+// TI: the operands' dtype; T: the sums' and X's (bf16 operands: f32)
+template <typename TI, typename T, int KC>
 __global__ void __launch_bounds__(KC == 1 ? kMaxThreads : kChunkThreads)
-win_block_kernel(const T* __restrict__ dinvT, const T* __restrict__ B, T* __restrict__ X, int nb, int64_t K,
+win_block_kernel(const TI* __restrict__ dinvT, const TI* __restrict__ B, T* __restrict__ X, int nb, int64_t K,
                  int64_t nchunk) {
   constexpr int KCP = row_stride<T, KC>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -210,10 +246,10 @@ win_block_kernel(const T* __restrict__ dinvT, const T* __restrict__ B, T* __rest
   const int r = threadIdx.x;
   const int64_t blk0 = k * nb;
   if (r < nb) {
-    const T* br = B + (blk0 + r) * K + c0;
+    const TI* br = B + (blk0 + r) * K + c0;
     T v[KC];
 #pragma unroll
-    for (int c = 0; c < KC; ++c) v[c] = c < kc ? br[c] : static_cast<T>(0);
+    for (int c = 0; c < KC; ++c) v[c] = c < kc ? widen(br[c]) : static_cast<T>(0);
     store_row<T, KC>(bs + r * KCP, v);
   }
   __syncthreads();
@@ -221,10 +257,12 @@ win_block_kernel(const T* __restrict__ dinvT, const T* __restrict__ B, T* __rest
   T acc[KC];
 #pragma unroll
   for (int c = 0; c < KC; ++c) acc[c] = static_cast<T>(0);
-  const T* dk = dinvT + k * nb * static_cast<int64_t>(nb) + r;
-#pragma unroll 8
+  const TI* dk = dinvT + k * nb * static_cast<int64_t>(nb) + r;
+  // the bf16 instance widens each value: a shallower unroll keeps its KC = 8
+  // chunk's sums and staged rows in registers (8 deep spilled)
+#pragma unroll (sizeof(TI) < sizeof(T) ? 4 : 8)
   for (int q = 0; q <= r; ++q) {
-    const T d = __ldg(dk + static_cast<int64_t>(q) * nb);
+    const T d = widen(__ldg(dk + static_cast<int64_t>(q) * nb));
     T v[KC];
     load_row<T, KC>(bs + q * KCP, v);
 #pragma unroll
@@ -341,7 +379,7 @@ __device__ __forceinline__ void chain_rows(T* acc, const T* p, int rs, const T* 
 template <typename T, int KC>
 __global__ void __launch_bounds__(KC == 1 ? kMaxThreads : kChunkThreads)
 win_chain_kernel(const ChainAddr<T> ad, T* __restrict__ X, int64_t ksteps, int64_t gsteps, int nbm, int WL, int R,
-                 int64_t K, int tg, int tt, int stages, int vec) {
+                 int64_t K, int tg, int tt, int stages, int vec, int rb) {
   constexpr int KCP = row_stride<T, KC>();
   constexpr int CS = sum_stride<KC>();
   constexpr int V = 16 / static_cast<int>(sizeof(T));
@@ -431,7 +469,7 @@ win_chain_kernel(const ChainAddr<T> ad, T* __restrict__ X, int64_t ksteps, int64
       if (tg == 1) {
 #pragma unroll
         for (int c = 0; c < KC; ++c) {
-          const T x = cs[c] - acc[c];
+          const T x = window_value(cs[c] - acc[c], rb);
           wrow[c] = x;
           if (c < kc) xrow[c] = x;
         }
@@ -439,7 +477,7 @@ win_chain_kernel(const ChainAddr<T> ad, T* __restrict__ X, int64_t ksteps, int64
         for (int c = g; c < KC; c += tg) {
           T sum = red[rl * CS + c];
           for (int h = 1; h < tg; ++h) sum += red[(h * R + rl) * CS + c];
-          const T x = cs[c] - sum;
+          const T x = window_value(cs[c] - sum, rb);
           wrow[c] = x;
           if (c < kc) xrow[c] = x;
         }
@@ -465,7 +503,7 @@ win_chain_kernel(const ChainAddr<T> ad, T* __restrict__ X, int64_t ksteps, int64
 template <typename T, int KC>
 __global__ void __launch_bounds__(KC == 1 ? kMaxThreads : kChunkThreads)
 win_fix_kernel(const T* __restrict__ Q, int64_t qstride, int qn, T* __restrict__ X, int nb, int WL, int64_t K,
-               int64_t nchunk, int64_t nblk, int64_t group) {
+               int64_t nchunk, int64_t nblk, int64_t group, int rb) {
   constexpr int KCP = row_stride<T, KC>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* w = reinterpret_cast<T*>(smem_raw);  // WL rows of the window
@@ -509,10 +547,20 @@ win_fix_kernel(const T* __restrict__ Q, int64_t qstride, int qn, T* __restrict__
 #pragma unroll
     for (int c = 0; c < KC; ++c) acc[c] = mul_add(v[c], q, acc[c]);
   }
+  // pass F writes chain rows, which the bf16 instance rounds as window rows
   T* xr = X + (j * nb + orow + r) * K + c0;
+  const int rw = group ? rb : 0;
 #pragma unroll
   for (int c = 0; c < KC; ++c)
-    if (c < kc) xr[c] = xr[c] - acc[c];
+    if (c < kc) xr[c] = window_value(xr[c] - acc[c], rw);
+}
+
+// ---- the bf16 instance's last launch: X <- its f32 work copy, rounded ------
+
+__global__ void win_round_kernel(const float* __restrict__ W, __nv_bfloat16* __restrict__ X, int64_t n) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    X[i] = __float2bfloat16_rn(W[i]);
 }
 
 template <typename K_>
@@ -523,7 +571,7 @@ int set_smem(K_ kernel, size_t bytes) {
 
 template <typename T, int KB>
 int launch_chain(const ChainAddr<T>& ad, void* X, int64_t ksteps, int64_t gsteps, int nbm, int WL, int R, int64_t K,
-                 int64_t tg, int64_t tt, int64_t stages, cudaStream_t s, int64_t& launches) {
+                 int64_t tg, int64_t tt, int64_t stages, int rb, cudaStream_t s, int64_t& launches) {
   constexpr int V = 16 / static_cast<int>(sizeof(T));
   const int rp = (R + 31) / 32 * 32;
   const size_t smem = static_cast<size_t>(chain_head_values<T, KB>(R, WL, static_cast<int>(tg)) +
@@ -536,14 +584,14 @@ int launch_chain(const ChainAddr<T>& ad, void* X, int64_t ksteps, int64_t gsteps
   const dim3 grid(static_cast<unsigned>((K + KB - 1) / KB), static_cast<unsigned>((ksteps + gsteps - 1) / gsteps));
   win_chain_kernel<T, KB><<<grid, static_cast<unsigned>(rp * tg), smem, s>>>(
       ad, static_cast<T*>(X), ksteps, gsteps, nbm, WL, R, K, static_cast<int>(tg), static_cast<int>(tt),
-      static_cast<int>(stages), vec ? 1 : 0);
+      static_cast<int>(stages), vec ? 1 : 0, rb);
   if ((err = static_cast<int>(cudaGetLastError())) == 0) ++launches;
   return err;
 }
 
 template <typename T, int KC>
 int launch_fix(const void* Q, int64_t qstride, int qn, void* X, int64_t nb, int64_t WL, int64_t K, int64_t nblk,
-               int64_t group, int nr, cudaStream_t s, int64_t& launches) {
+               int64_t group, int nr, int rb, cudaStream_t s, int64_t& launches) {
   constexpr int KCP = row_stride<T, KC>();
   const int64_t nchunk = (K + KC - 1) / KC;
   const int64_t blocks = nblk - (group ? group : 1);
@@ -553,16 +601,20 @@ int launch_fix(const void* Q, int64_t qstride, int qn, void* X, int64_t nb, int6
   if ((err = set_smem(win_fix_kernel<T, KC>, smem)) != 0) return err;
   win_fix_kernel<T, KC><<<static_cast<unsigned>(blocks * nchunk), static_cast<unsigned>((nr + 31) / 32 * 32), smem,
                           s>>>(static_cast<const T*>(Q), qstride, qn, static_cast<T*>(X), static_cast<int>(nb),
-                               static_cast<int>(WL), K, nchunk, nblk, group);
+                               static_cast<int>(WL), K, nchunk, nblk, group, rb);
   if ((err = static_cast<int>(cudaGetLastError())) == 0) ++launches;
   return err;
 }
 
-// the passes of one solve; F and `group` (> 0) for a grouped solve
-template <typename T, int KC>
+// the passes of one solve; F and `group` (> 0) for a grouped solve. TI is
+// the operands' dtype, T the sums' and X's: for TI != T (bf16) X is the f32
+// work copy, which the chain rounds into the window (rb) and the caller
+// rounds to the output
+template <typename TI, typename T, int KC>
 int launch_kc(const void* dinvT, const void* P, const void* F, const void* B, void* X, int64_t nblk, int64_t nb,
               int64_t WL, int64_t K, int64_t group, int64_t tg, int64_t tt, int64_t stages, void* stream,
               int64_t& launches) {
+  constexpr int rb = std::is_same<TI, T>::value ? 0 : 1;
   constexpr int KCP = row_stride<T, KC>();
   constexpr int KB = chain_cols<KC>();
   constexpr int kThreads = KC == 1 ? kMaxThreads : kChunkThreads;
@@ -580,10 +632,10 @@ int launch_kc(const void* dinvT, const void* P, const void* F, const void* B, vo
 
   // A
   const size_t smem_a = static_cast<size_t>(nb) * KCP * sizeof(T);
-  if ((err = set_smem(win_block_kernel<T, KC>, smem_a)) != 0) return err;
-  win_block_kernel<T, KC><<<static_cast<unsigned>(nblk * nchunk), static_cast<unsigned>((nb + 31) / 32 * 32),
-                            smem_a, s>>>(static_cast<const T*>(dinvT), static_cast<const T*>(B),
-                                         static_cast<T*>(X), static_cast<int>(nb), K, nchunk);
+  if ((err = set_smem(win_block_kernel<TI, T, KC>, smem_a)) != 0) return err;
+  win_block_kernel<TI, T, KC><<<static_cast<unsigned>(nblk * nchunk), static_cast<unsigned>((nb + 31) / 32 * 32),
+                                smem_a, s>>>(static_cast<const TI*>(dinvT), static_cast<const TI*>(B),
+                                             static_cast<T*>(X), static_cast<int>(nb), K, nchunk);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   ++launches;
 
@@ -592,7 +644,7 @@ int launch_kc(const void* dinvT, const void* P, const void* F, const void* B, vo
   const ChainAddr<T> blocks{Pt, WL * nb, static_cast<int>(nb), r0, nb};
   const int nbm = static_cast<int>(nb % WL);
   if ((err = launch_chain<T, KB>(blocks, X, nblk, group ? group : nblk, nbm, static_cast<int>(WL), R, K, tg, tt,
-                                 stages, s, launches)) != 0)
+                                 stages, rb, s, launches)) != 0)
     return err;
   if (group) {
     // G: the chain over the full groups' last blocks, through their products
@@ -600,37 +652,51 @@ int launch_kc(const void* dinvT, const void* P, const void* F, const void* B, vo
     if (full >= 2) {
       const ChainAddr<T> groups{Ft + (group - 1) * WL * WL, group * WL * WL, static_cast<int>(WL),
                                 (group - 1) * nb + r0, group * nb};
-      if ((err = launch_chain<T, KB>(groups, X, full, full, 0, static_cast<int>(WL), R, K, tg, tt, stages, s,
+      if ((err = launch_chain<T, KB>(groups, X, full, full, 0, static_cast<int>(WL), R, K, tg, tt, stages, rb, s,
                                      launches)) != 0)
         return err;
     }
     // F: every other block of the groups after the first
-    if ((err = launch_fix<T, KC>(Ft, WL * WL, static_cast<int>(WL), X, nb, WL, K, nblk, group, R, s, launches)) !=
-        0)
+    if ((err = launch_fix<T, KC>(Ft, WL * WL, static_cast<int>(WL), X, nb, WL, K, nblk, group, R, rb, s,
+                                 launches)) != 0)
       return err;
   }
 
   // C
   if (r0 > 0 && nblk > 1)
-    if ((err = launch_fix<T, KC>(Pt, WL * nb, static_cast<int>(nb), X, nb, WL, K, nblk, 0, r0, s, launches)) != 0)
+    if ((err = launch_fix<T, KC>(Pt, WL * nb, static_cast<int>(nb), X, nb, WL, K, nblk, 0, r0, rb, s, launches)) !=
+        0)
       return err;
   return 0;
 }
 
-template <typename T>
-int launch(const void* dinvT, const void* P, const void* F, const void* B, void* X, int64_t nblk, int64_t nb,
-           int64_t WL, int64_t K, int64_t KC, int64_t group, int64_t tg, int64_t tt, int64_t stages, void* stream,
-           int64_t* launches) {
+// X is the output; the bf16 instance (TI != T) sums into `work` (f32, the
+// shape of X) and rounds it to X in a last launch
+template <typename TI, typename T>
+int launch(const void* dinvT, const void* P, const void* F, const void* B, void* X, void* work, int64_t nblk,
+           int64_t nb, int64_t WL, int64_t K, int64_t KC, int64_t group, int64_t tg, int64_t tt, int64_t stages,
+           void* stream, int64_t* launches) {
+  constexpr bool rounds = !std::is_same<TI, T>::value;
+  void* Xw = rounds ? work : X;
   int64_t n = 0;
   int err = 0;
+  if (rounds && !work) return static_cast<int>(cudaErrorInvalidValue);
   if (nblk > 0 && K > 0) {
     switch (KC) {
-      case 16: err = launch_kc<T, 16>(dinvT, P, F, B, X, nblk, nb, WL, K, group, tg, tt, stages, stream, n); break;
-      case 8: err = launch_kc<T, 8>(dinvT, P, F, B, X, nblk, nb, WL, K, group, tg, tt, stages, stream, n); break;
-      case 4: err = launch_kc<T, 4>(dinvT, P, F, B, X, nblk, nb, WL, K, group, tg, tt, stages, stream, n); break;
-      case 2: err = launch_kc<T, 2>(dinvT, P, F, B, X, nblk, nb, WL, K, group, tg, tt, stages, stream, n); break;
-      case 1: err = launch_kc<T, 1>(dinvT, P, F, B, X, nblk, nb, WL, K, group, tg, tt, stages, stream, n); break;
+      case 16: err = launch_kc<TI, T, 16>(dinvT, P, F, B, Xw, nblk, nb, WL, K, group, tg, tt, stages, stream, n); break;
+      case 8: err = launch_kc<TI, T, 8>(dinvT, P, F, B, Xw, nblk, nb, WL, K, group, tg, tt, stages, stream, n); break;
+      case 4: err = launch_kc<TI, T, 4>(dinvT, P, F, B, Xw, nblk, nb, WL, K, group, tg, tt, stages, stream, n); break;
+      case 2: err = launch_kc<TI, T, 2>(dinvT, P, F, B, Xw, nblk, nb, WL, K, group, tg, tt, stages, stream, n); break;
+      case 1: err = launch_kc<TI, T, 1>(dinvT, P, F, B, Xw, nblk, nb, WL, K, group, tg, tt, stages, stream, n); break;
       default: err = static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (rounds && err == 0) {
+      const int64_t total = nblk * nb * K;
+      const int64_t blocks = (total + 255) / 256;
+      win_round_kernel<<<static_cast<unsigned>(blocks < 65536 ? blocks : 65536), 256, 0,
+                         static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(work),
+                                                              static_cast<__nv_bfloat16*>(X), total);
+      if ((err = static_cast<int>(cudaGetLastError())) == 0) ++n;
     }
   }
   if (launches) *launches += n;
@@ -641,16 +707,24 @@ int launch(const void* dinvT, const void* P, const void* F, const void* B, void*
 
 extern "C" {
 
-int win_solve_f32(const void* dinvT, const void* P, const void* F, const void* B, void* X, int64_t nblk, int64_t nb,
-                  int64_t WL, int64_t K, int64_t KC, int64_t group, int64_t tg, int64_t tt, int64_t stages,
-                  void* stream, int64_t* launches) {
-  return launch<float>(dinvT, P, F, B, X, nblk, nb, WL, K, KC, group, tg, tt, stages, stream, launches);
+int win_solve_f32(const void* dinvT, const void* P, const void* F, const void* B, void* X, void* work, int64_t nblk,
+                  int64_t nb, int64_t WL, int64_t K, int64_t KC, int64_t group, int64_t tg, int64_t tt,
+                  int64_t stages, void* stream, int64_t* launches) {
+  return launch<float, float>(dinvT, P, F, B, X, work, nblk, nb, WL, K, KC, group, tg, tt, stages, stream, launches);
 }
 
-int win_solve_f64(const void* dinvT, const void* P, const void* F, const void* B, void* X, int64_t nblk, int64_t nb,
-                  int64_t WL, int64_t K, int64_t KC, int64_t group, int64_t tg, int64_t tt, int64_t stages,
-                  void* stream, int64_t* launches) {
-  return launch<double>(dinvT, P, F, B, X, nblk, nb, WL, K, KC, group, tg, tt, stages, stream, launches);
+int win_solve_f64(const void* dinvT, const void* P, const void* F, const void* B, void* X, void* work, int64_t nblk,
+                  int64_t nb, int64_t WL, int64_t K, int64_t KC, int64_t group, int64_t tg, int64_t tt,
+                  int64_t stages, void* stream, int64_t* launches) {
+  return launch<double, double>(dinvT, P, F, B, X, work, nblk, nb, WL, K, KC, group, tg, tt, stages, stream,
+                                launches);
+}
+
+int win_solve_bf16(const void* dinvT, const void* P, const void* F, const void* B, void* X, void* work, int64_t nblk,
+                   int64_t nb, int64_t WL, int64_t K, int64_t KC, int64_t group, int64_t tg, int64_t tt,
+                   int64_t stages, void* stream, int64_t* launches) {
+  return launch<__nv_bfloat16, float>(dinvT, P, F, B, X, work, nblk, nb, WL, K, KC, group, tg, tt, stages, stream,
+                                      launches);
 }
 
 }  // extern "C"

@@ -2,7 +2,9 @@
 plain PyTorch versions, and the form dispatches with the peel spill.
 
 Contracts (``csrc/spmm_band.cu``, built by ``kernels/build.py``), with B
-rows outside [0, n) contributing 0:
+rows outside [0, n) contributing 0 (the band instances: f32 and f64 with B
+and C in the operand dtype; a bf16 band with B and C f32, f32 sums, as the
+JAX kernel casts a bf16 band and B to its f32 output):
 
     spmm_band:      C[i, :] = sum_{j < W} v[i, j] * B[start + i + j - padL, :]
     spmm_band_mxu:  C[128k + s, :] = sum_{c < 256} dt[k, c, s] * B[start + 128k + c - padL, :]
@@ -12,7 +14,8 @@ over the row-aligned (m, W) band ``v`` of the bandtm form, and over its
 0 <= c - s < W). The block-window kernel takes the band width W in
 [1, 256] and reads and multiplies only the window rows that meet a warp's
 rows' bands (`mxu_walk`); a caller with no band width passes 256. Instances:
-spmm_band f32 and f64 (C in the operand dtype); spmm_band_mxu with dt f32
+spmm_band f32 and f64 (C in the operand dtype) and bf16 band with f32 B and
+C (an even W: the band moves in column pairs); spmm_band_mxu with dt f32
 (exact f32 FMA on the CUDA cores) or bf16 (tensor cores), B and C f32 (the
 bf16 instance rounds B to bf16 before the product and accumulates in f32,
 as the JAX package's mixed mode does).
@@ -60,6 +63,7 @@ __all__ = [
 _BAND = {
     (torch.float32, torch.float32): ("f32", "spmm_band_f32"),
     (torch.float64, torch.float64): ("f64", "spmm_band_f64"),
+    (torch.bfloat16, torch.float32): ("bf16", "spmm_band_bf16"),
 }
 _MXU = {
     (torch.float32, torch.float32): ("f32", "spmm_band_mxu_f32"),
@@ -67,16 +71,19 @@ _MXU = {
 }
 
 #: the band kernel's schedule (csrc/spmm_band.cu): rows of a CTA tile, B
-#: rows of its ring, band columns j of a chunk by element size, and the
-#: stages of its band ring (copies run BAND_STAGES - 1 chunks ahead)
+#: rows of its ring, band columns j of a chunk by the band's element size
+#: (64 bytes a row: 32 bf16, 16 f32, 8 f64), and the stages of its band ring
+#: (copies run BAND_STAGES - 1 chunks ahead)
 BAND_TM, BAND_RING, BAND_STAGES = 128, 256, 3
-BAND_JC = {4: 16, 8: 8}
+BAND_JC = {2: 32, 4: 16, 8: 8}
 #: the widest band the planner gives the band kernel (its bandtm gate), by
-#: element size (4 bytes and narrower, 8, 16). The kernel streams the band
-#: and B through rings whose size does not depend on W, so these are the
-#: widths an earlier design's shared-memory tile held, kept so that the
-#: planner picks the same forms.
-_BAND_MAX_W = {4: 400, 8: 184, 16: 72}
+#: element size (2, 4, 8, 16 bytes). The kernel streams the band and B
+#: through rings whose size does not depend on W, so these are the widths
+#: an earlier design's shared-memory tile held, kept so that the planner
+#: picks the same forms. That tile held the band and the B window; a bf16
+#: band's B window is f32, as the f32 instance's, and its chunk takes the f32
+#: chunk's bytes (twice the columns), so the bf16 gate is the f32 one.
+_BAND_MAX_W = {2: 400, 4: 400, 8: 184, 16: 72}
 #: one 256-row window covers a 128-row block plus a band of W <= 129
 MXU_MAX_W = 129
 
@@ -84,9 +91,9 @@ _fns = {}
 
 
 def band_max_w(dtype) -> int:
-    """Widest band the band kernel is given in `dtype`: 400 in f32, 184 in
-    f64 (the planner's bandtm gate)."""
-    return _BAND_MAX_W[max(torch.empty(0, dtype=dtype).element_size(), 4)]
+    """Widest band the band kernel is given in `dtype`: 400 in bf16 and
+    f32, 184 in f64 (the planner's bandtm gate)."""
+    return _BAND_MAX_W[max(torch.empty(0, dtype=dtype).element_size(), 2)]
 
 
 def _entry(symbol: str, nint: int):
@@ -162,6 +169,8 @@ def spmm_band(v: torch.Tensor, B: torch.Tensor, start: int, padL: int) -> torch.
         raise AoclSparseError(
             Status.invalid_size, f"band width {W} > {band_max_w(v.dtype)} for {v.dtype}"
         )
+    if v.dtype == torch.bfloat16 and (W % 2 or v.data_ptr() % 4):
+        raise AoclSparseError(Status.invalid_size, f"a bf16 band moves in column pairs: W={W} must be even, v 4-byte aligned")
     if v.device.type == "cpu":
         return spmm_band_plain(v, B, start, padL)
     if v.device.type != "cuda":

@@ -23,7 +23,8 @@ triangle, both built once per structure:
 
 `trsv_level` has the rule of every port kernel: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel (one launch a solve) or
-raises. `trsv_level.launches` counts launches per instance. The form keeps
+raises. The kernel has f32, f64, complex64 and complex128 instances; a
+bf16 form solves on the CPU only. `trsv_level.launches` counts launches per instance. The form keeps
 source positions into the effective values, so `refresh()` regathers both
 layouts' values on the device.
 """
@@ -41,6 +42,7 @@ from ..core.types import AoclSparseError, Status
 from .build import load_library
 
 __all__ = [
+    "DTYPES",
     "LevelForm",
     "build_level_form",
     "level_form_stats",
@@ -53,7 +55,11 @@ __all__ = [
 _INSTANCES = {
     torch.float32: ("f32", "trsv_level_f32"),
     torch.float64: ("f64", "trsv_level_f64"),
+    torch.complex64: ("c64", "trsv_level_c64"),
+    torch.complex128: ("c128", "trsv_level_c128"),
 }
+#: operand dtypes the kernel has instances for
+DTYPES = tuple(_INSTANCES)
 #: the largest epoch before the ready flags are zeroed again
 EPOCH_MAX = 2**31 - 1
 
@@ -170,9 +176,8 @@ def trsv_level(form: LevelForm, b: torch.Tensor) -> torch.Tensor:
     """x = T^{-1} b over `form`, b (m,) or (m, K) of the form's dtype. The
     plain version on a CPU tensor; one launch of csrc/trsv_level.cu on a
     CUDA tensor, on the current stream, not synchronised."""
-    inst = _INSTANCES.get(b.dtype)
-    if inst is None or form.lval.dtype != b.dtype:
-        raise AoclSparseError(Status.wrong_type, f"level solve has no instance for {form.lval.dtype}/{b.dtype}")
+    if form.lval.dtype != b.dtype:
+        raise AoclSparseError(Status.wrong_type, f"a level form of {form.lval.dtype} with b of {b.dtype}")
     if b.dim() not in (1, 2) or b.shape[0] != form.m:
         raise AoclSparseError(Status.invalid_size, f"b must be ({form.m},) or ({form.m}, K), got {tuple(b.shape)}")
     if b.device != form.lval.device:
@@ -181,6 +186,9 @@ def trsv_level(form: LevelForm, b: torch.Tensor) -> torch.Tensor:
         return trsv_level_plain(form, b)
     if b.device.type != "cuda":
         raise AoclSparseError(Status.not_implemented, f"no level-solve kernel for {b.device}")
+    inst = _INSTANCES.get(b.dtype)
+    if inst is None:
+        raise AoclSparseError(Status.wrong_type, f"level solve has no instance for {b.dtype}")
     name, symbol = inst
     B = (b[:, None] if b.dim() == 1 else b).contiguous()
     X = torch.empty_like(B)

@@ -7,7 +7,10 @@ Contract (``csrc/trsv_win.cu``, built by ``kernels/build.py``):
 
 over blocks k of nb rows: dinvT (nblk, nb, nb) = the inverted diagonal
 blocks transposed, lwT (nblk, WL, nb) = the left windows transposed, b and
-x of nblk*nb values, all f32 or all f64, accumulated in that dtype.
+x of nblk*nb values, all f32, all f64 or all bf16. f32 and f64 accumulate
+in their dtype; bf16 computes what the Pallas kernels compute on bf16
+operands: each product sums in f32 and rounds to bf16, so s = w @ lwT[k],
+b_k - s and x_k each round to bf16, and so does the window.
 
 It replaces the JAX package's ``pallas_trsv_win_inv8``
 (kernels/pallas/trsv.py:74) and ``pallas_trsv_win_inv`` (:114), one
@@ -35,6 +38,11 @@ through the products F of their tails, and a parallel fix-up.
 planner/triangular.py, for a form on the card), which the caller passes as
 ``ops=``. The kernels read dinvT's upper triangle only, so dinvT[k] must be
 upper triangular, as inverted lower-triangular blocks transposed are.
+
+The bf16 instance reads bf16 dinvT and b and f32 ``P`` and ``F`` (the
+source's header says why), sums in f32 into an f32 work copy of x, which
+the chain rounds to bf16 as rows enter the window, and rounds the copy to
+the bf16 x in one more launch.
 
 `trsv_win` and `trsm_win` have one rule: a CPU tensor takes the plain
 version (``ops`` is not read), a CUDA tensor launches the kernels or
@@ -76,7 +84,11 @@ __all__ = [
 _INSTANCES = {
     torch.float32: ("f32", "win_solve_f32"),
     torch.float64: ("f64", "win_solve_f64"),
+    torch.bfloat16: ("bf16", "win_solve_bf16"),
 }
+#: operand dtype -> the dtype of its sums, of P and F and of the work copy
+#: of x (and so of the chain's shared-memory plan)
+WORK_DTYPE = {torch.float32: torch.float32, torch.float64: torch.float64, torch.bfloat16: torch.float32}
 #: column chunk sizes the kernels are built for
 _CHUNKS = (16, 8, 4, 2, 1)
 #: the multi-RHS passes run one thread a row of a block, at most this many
@@ -103,7 +115,7 @@ def _entry(symbol: str):
     fn = _fns.get(symbol)
     if fn is None:
         fn = getattr(load_library(), symbol)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 9 + [ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 9 + [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return fn
@@ -186,16 +198,16 @@ def chain_group(nblk: int, nb: int, WL: int) -> int:
     return s if nblk > s else 0
 
 
-def solve_launches(nblk: int, nb: int, WL: int) -> int:
+def solve_launches(nblk: int, nb: int, WL: int, dtype=torch.float32) -> int:
     """Kernel launches of one solve on the card: pass A and the chain; for
     a grouped solve (`chain_group`) the chain over the groups where two or
     more are full, and the fix-up of the groups after the first; pass C
     where a block has rows outside the chain's (WL < nb) and a block
-    follows the first."""
+    follows the first; the bf16 instance's rounding of x."""
     if nblk == 0:
         return 0
     s = chain_group(nblk, nb, WL)
-    n = 2 + (WL < nb and nblk > 1)
+    n = 2 + (WL < nb and nblk > 1) + (dtype == torch.bfloat16)
     if s:
         n += 1 + (nblk // s >= 2)
     return n
@@ -219,8 +231,10 @@ class WinSolveOps:
 def win_solve_operands(dinvT: torch.Tensor, lwT: torch.Tensor, nb: int, WL: int) -> WinSolveOps:
     """The card's solve operands of (dinvT, lwT): set-up work, once per
     values, on the operands' device. Both products run in float64 and round
-    once to the operand dtype, so they do not depend on the TF32 setting of
-    float32 matrix products; F takes s - 1 batched products over the groups."""
+    once to the operand dtype's work dtype (`WORK_DTYPE`: f32 for bf16), so
+    they do not depend on the TF32 setting of float32 matrix products; F
+    takes s - 1 batched products over the groups."""
+    work = WORK_DTYPE.get(dinvT.dtype, dinvT.dtype)
     P = torch.matmul(lwT.to(torch.float64), dinvT.to(torch.float64))
     nblk = P.shape[0]
     s = chain_group(nblk, nb, WL)
@@ -234,8 +248,8 @@ def win_solve_operands(dinvT: torch.Tensor, lwT: torch.Tensor, nb: int, WL: int)
         Fg[:, 0] = Tg[:, 0]
         for i in range(1, s):
             Fg[:, i] = -torch.matmul(Fg[:, i - 1], Tg[:, i])
-        F = Fg.reshape(ng * s, WL, WL)[:nblk].to(dinvT.dtype).contiguous()
-    return WinSolveOps(P.to(dinvT.dtype).contiguous(), F, s)
+        F = Fg.reshape(ng * s, WL, WL)[:nblk].to(work).contiguous()
+    return WinSolveOps(P.to(work).contiguous(), F, s)
 
 
 def _check(dinvT, lwT, b, nb: int, WL: int, ops: Optional[WinSolveOps], rhs_dims=1):
@@ -243,10 +257,15 @@ def _check(dinvT, lwT, b, nb: int, WL: int, ops: Optional[WinSolveOps], rhs_dims
     this shape); return the instance (name, symbol)."""
     inst = _INSTANCES.get(dinvT.dtype)
     extra = () if ops is None else tuple(t for t in (ops.P, ops.F) if t is not None)
-    if inst is None or any(t.dtype != dinvT.dtype for t in (lwT, b) + extra):
+    if (
+        inst is None
+        or any(t.dtype != dinvT.dtype for t in (lwT, b))
+        or any(t.dtype != WORK_DTYPE[dinvT.dtype] for t in extra)
+    ):
         raise AoclSparseError(
             Status.wrong_type,
-            f"window solve has no instance for {dinvT.dtype}/{lwT.dtype}/{b.dtype}",
+            f"window solve has no instance for {dinvT.dtype}/{lwT.dtype}/{b.dtype}"
+            + ("" if ops is None else f" with P/F of {ops.P.dtype}"),
         )
     nblk = dinvT.shape[0] if dinvT.dim() == 3 else -1
     if not (
@@ -274,7 +293,7 @@ def _check(dinvT, lwT, b, nb: int, WL: int, ops: Optional[WinSolveOps], rhs_dims
             )
     if not (1 <= nb <= MAX_NB and WL >= 1):
         raise AoclSparseError(Status.invalid_size, f"nb={nb} (1..{MAX_NB}) WL={WL} (>= 1)")
-    if chain_plan(nb, WL, 1, dinvT.element_size()) is None:
+    if chain_plan(nb, WL, 1, _work_size(dinvT.dtype)) is None:
         raise AoclSparseError(
             Status.invalid_size, f"window WL={WL} + nb={nb} exceeds one block's shared memory"
         )
@@ -286,9 +305,16 @@ def _check(dinvT, lwT, b, nb: int, WL: int, ops: Optional[WinSolveOps], rhs_dims
     return inst
 
 
+def _work_size(dtype) -> int:
+    """Bytes of one value of the sums (`WORK_DTYPE`): the chain's
+    shared-memory plan counts in them."""
+    return torch.empty(0, dtype=WORK_DTYPE.get(dtype, dtype)).element_size()
+
+
 def _launch(symbol, name, dinvT, ops, B, nb, WL, K, kc):
     """The passes of csrc/trsv_win.cu on B's device, current stream, not
-    synchronised; returns X and the number of kernels the entry launched."""
+    synchronised; returns X and the number of kernels the entry launched
+    (the bf16 instance sums into an f32 work copy of X, made here)."""
     nblk = dinvT.shape[0]
     if ops is None:
         raise AoclSparseError(
@@ -298,7 +324,8 @@ def _launch(symbol, name, dinvT, ops, B, nb, WL, K, kc):
     X = torch.empty_like(B)
     if nblk == 0 or K == 0:
         return X, 0
-    plan = chain_plan(nb, WL, kc, B.element_size())
+    plan = chain_plan(nb, WL, kc, _work_size(B.dtype))
+    work = torch.empty(B.shape, dtype=torch.float32, device=B.device) if B.dtype == torch.bfloat16 else None
     n = ctypes.c_int64(0)
     with torch.cuda.device(B.device):
         rc = _entry(symbol)(
@@ -307,6 +334,7 @@ def _launch(symbol, name, dinvT, ops, B, nb, WL, K, kc):
             ops.F.data_ptr() if ops.group else None,
             B.data_ptr(),
             X.data_ptr(),
+            None if work is None else work.data_ptr(),
             nblk,
             nb,
             WL,
@@ -324,14 +352,23 @@ def _launch(symbol, name, dinvT, ops, B, nb, WL, K, kc):
     return X, n.value
 
 
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b; in bf16 summed in f32 and rounded once to bf16, as a Pallas
+    ``jnp.dot(..., preferred_element_type=bf16)`` computes it."""
+    if a.dtype == torch.bfloat16:
+        return (a.float() @ b.float()).to(torch.bfloat16)
+    return a @ b
+
+
 def trsv_win_plain(dinvT: torch.Tensor, lwT: torch.Tensor, b: torch.Tensor, nb: int, WL: int):
-    """The kernel's contract in plain PyTorch: a Python loop over blocks."""
+    """The kernel's contract in plain PyTorch: a Python loop over blocks
+    (any dtype; bf16 rounds where the Pallas kernels round)."""
     nblk = dinvT.shape[0]
     w = torch.zeros(WL, dtype=b.dtype, device=b.device)
     bk = b.reshape(nblk, nb)
     out = []
     for k in range(nblk):
-        xk = (bk[k] - w @ lwT[k]) @ dinvT[k]
+        xk = _dot(bk[k] - _dot(w, lwT[k]), dinvT[k])
         out.append(xk)
         w = torch.cat([w, xk])[-WL:]
     return torch.cat(out) if out else b.new_empty(0)
@@ -371,14 +408,15 @@ def trsm_chunk(K: int, nb: int, WL: int, itemsize: int) -> int:
 
 def trsm_win_plain(dinvT: torch.Tensor, lwT: torch.Tensor, B: torch.Tensor, nb: int, WL: int):
     """The multi-RHS contract in plain PyTorch: a Python loop over blocks,
-    two matrix products and a window shift each."""
+    two matrix products and a window shift each (any dtype; bf16 rounds
+    where the Pallas kernel rounds)."""
     nblk = dinvT.shape[0]
     K = B.shape[1]
     w = torch.zeros(WL, K, dtype=B.dtype, device=B.device)
     bk = B.reshape(nblk, nb, K)
     out = []
     for k in range(nblk):
-        xk = dinvT[k].T @ (bk[k] - lwT[k].T @ w)
+        xk = _dot(dinvT[k].T, bk[k] - _dot(lwT[k].T, w))
         out.append(xk)
         w = torch.cat([w, xk])[-WL:]
     return torch.cat(out) if out else B.new_empty(0, K)
@@ -393,7 +431,7 @@ def trsm_win(dinvT: torch.Tensor, lwT: torch.Tensor, B: torch.Tensor, nb: int, W
     if nb > TRSM_MAX_NB:
         raise AoclSparseError(Status.invalid_size, f"nb={nb} > {TRSM_MAX_NB} for the multi-RHS solve")
     K = B.shape[1]
-    kc = trsm_chunk(max(K, 1), nb, WL, B.element_size())
+    kc = trsm_chunk(max(K, 1), nb, WL, _work_size(B.dtype))
     if kc == 0:
         raise AoclSparseError(
             Status.invalid_size, f"window WL={WL} + nb={nb} exceeds one block's shared memory"

@@ -64,9 +64,14 @@ def _mm_core(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, B: torch.T
 
 def _run_mm_form(form, B: torch.Tensor, kid: Optional[int], mixed: bool = False) -> torch.Tensor:
     """form @ B through the mm table's kernel for the form (and kid). The
-    mixed mode applies to float32 B only."""
+    mixed mode applies to float32 B only. A bf16 handle's band and diagonal
+    kernels take B widened to f32 (exact) and return f32, as the JAX
+    package's band kernel does (kernels/pallas/spmv.py:199 there); `mm`
+    rounds to the result dtype."""
     e = registry.select("mm", fmt=form.kind, kid=kid, device=B.device)
     mixed = mixed and B.dtype == torch.float32
+    if B.dtype == torch.bfloat16 and form.kind in ("bandtm", "diag"):
+        B = B.float()
     if form.kind == "bandtm":
         spill = (form.sp_val, form.sp_ind, form.sp_rows)
         if e.kid == 5:

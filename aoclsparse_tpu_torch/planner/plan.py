@@ -78,6 +78,13 @@ def _dev_index(a: np.ndarray, device: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def host_values(t: torch.Tensor) -> np.ndarray:
+    """A value tensor on the host as numpy; bf16 widens to float32 (numpy
+    has no bfloat16), so host work on bf16 values runs in f32."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 @dataclasses.dataclass
 class CleanCSR:
     """Sorted zero-based CSR + triangle split pointers.
@@ -117,9 +124,9 @@ class CleanCSR:
 
     def host_val(self) -> np.ndarray:
         """Host copy of the sorted values, cached: the native ILU0 and the
-        triangular form builders read values on the host."""
+        triangular form builders read values on the host (`host_values`)."""
         if self.val_host is None:
-            self.val_host = self.val.detach().cpu().numpy()
+            self.val_host = host_values(self.val)
         return self.val_host
 
     def refresh(self, new_val: torch.Tensor) -> None:
@@ -747,6 +754,20 @@ def choose_mv_format(eff: EffectiveCSR) -> str:
     - `bandt` when the peeled row window fits (W <= BANDT_MAX_W, the JAX
       package's test) and the band's padding stays bounded
       (m * W <= BWD_CAP * nnz);
+    - `diag` where the diagonals pass the JAX package's diag test
+      (`_diag_ok`) and either the band does not fit or it is more than
+      twice as wide as there are diagonals (2 * ndiag < W), tested before
+      `bandt` and `gen` as in the JAX rule (plan.py:838-851 there): HPCG's
+      27-point stencil (27 diagonals, W about 2 nx^2) runs mv KID 6 and not
+      the whole-matrix `route`, while a full band (the bench operand: 129
+      diagonals in W = 136) stays on `bandt`. A divergence (ROADMAP item
+      22): W and the fit are the port's peeled row window (`_bandt_window`,
+      BANDT_MAX_W), not the JAX rule's unpeeled group window (`_bwd_window`,
+      BWD_MAX_W), which is never narrower. So a band with a few far
+      outliers stays on `bandt` (the band kernel, outliers spilled) where
+      the JAX rule takes `diag` (here plain torch), and the port picks
+      `diag` less often; the stencil and the bench band get the same form
+      under both windows;
     - otherwise, for a square matrix with m >= 2 * GEN_B, `gen`: general
       structure is made band-compressible (hub slabs, block RCM, a peeled
       band on the same kernel) and its spill rides the spill-route kernels,
@@ -768,7 +789,11 @@ def choose_mv_format(eff: EffectiveCSR) -> str:
         return "segsum"
     rows, rel = _rows_rel(eff)
     _lo, W, _spill = _bandt_window(rows, rel)
-    if W <= BANDT_MAX_W and eff.m * W <= BWD_CAP * eff.nnz:
+    bandt_ok = W <= BANDT_MAX_W and eff.m * W <= BWD_CAP * eff.nnz
+    ndiag = int(_diag_stats(eff)[0].size)
+    if _diag_ok(eff, ndiag) and (not bandt_ok or 2 * ndiag < W):
+        return "diag"
+    if bandt_ok:
         return "bandt"
     if eff.shape[0] == eff.shape[1] and eff.m >= 2 * GEN_B:
         return "gen"
@@ -897,8 +922,9 @@ def _diag_stats(eff: EffectiveCSR):
     return np.unique(d), d
 
 
-def _diag_ok(eff: EffectiveCSR) -> bool:
-    ndiag = int(_diag_stats(eff)[0].size)
+def _diag_ok(eff: EffectiveCSR, ndiag: Optional[int] = None) -> bool:
+    if ndiag is None:
+        ndiag = int(_diag_stats(eff)[0].size)
     nnz = max(eff.nnz, 1)
     return 0 < ndiag and (
         (ndiag <= DIA_MAX and ndiag * eff.m <= BWD_CAP * nnz)
@@ -1441,11 +1467,13 @@ def choose_mm_format(eff: EffectiveCSR) -> str:
       within BWD_CAP x nnz, or <= DIA_MAX_WIDE within 8 x nnz;
     - otherwise the gather form `gather_fallback_kind` picks.
 
-    The kernels have f32 and f64 instances (and bf16 diagonals under the
-    mixed mode); other dtypes take the gather forms."""
+    The kernels have f32, f64 and bf16 instances (a bf16 band or bf16
+    diagonals with f32 B and C, the instances the mixed mode also uses), so
+    a bf16 handle takes `bandtm` or `diag` by the same rule; complex takes
+    the gather forms."""
     from ..kernels.spmm_band import band_max_w
 
-    if eff.m == 0 or eff.nnz == 0 or eff.val.dtype not in (torch.float32, torch.float64):
+    if eff.m == 0 or eff.nnz == 0 or eff.val.dtype not in (torch.float32, torch.float64, torch.bfloat16):
         return gather_fallback_kind(eff)
     rows, rel = _rows_rel(eff)
     _lo, W, _spill = _bandt_window(rows, rel)

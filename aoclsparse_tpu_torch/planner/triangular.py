@@ -65,10 +65,12 @@ from ..core.types import (
     Status,
     to_torch_dtype,
 )
-from ..kernels.trsv_blocked import trsv_dwin, trsv_gather
-from ..kernels.trsv_win import DTYPES as SOLVE_DTYPES
-from ..kernels.trsv_win import WinSolveOps, trsm_win, trsv_win, win_solve_operands
-from .plan import CleanCSR, EffectiveCSR, Plan, _dev_index, build_effective_csr
+from ..kernels.trsv_blocked import DTYPES as CHAIN_DTYPES
+from ..kernels.trsv_blocked import trsv_dwin, trsv_dwin_plain, trsv_gather, trsv_gather_plain
+from ..kernels.trsv_level import DTYPES as LEVEL_DTYPES
+from ..kernels.trsv_win import DTYPES as WIN_DTYPES
+from ..kernels.trsv_win import WinSolveOps, trsm_win, trsm_win_plain, trsv_win, trsv_win_plain, win_solve_operands
+from .plan import CleanCSR, EffectiveCSR, Plan, _dev_index, build_effective_csr, host_values
 
 __all__ = [
     "TrsvForm",
@@ -77,6 +79,7 @@ __all__ = [
     "build_trsv_form",
     "build_trsv_form_native",
     "check_solve_dtype",
+    "has_solve_kernel",
     "invert_diag_blocks",
     "level_wins",
     "pick_sv_engine",
@@ -110,24 +113,37 @@ SV_LEVEL_DEVICES = ("cuda",)
 T_LEVEL_US = 2.43
 T_STEP_US = 2.48
 
-_ITEM12 = "ROADMAP.md queue 1 item 12"
+#: the dtypes of a triangular solve: those of the JAX package's handles
+SOLVE_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.complex64, torch.complex128)
+#: the blocked forms' solve kernels by kind, and the dtypes they have
+#: instances for; a complex form runs its kernel's plain version, chosen by
+#: dtype in `solve`, as the JAX package runs every complex solve on its XLA
+#: scans (planner/triangular.py:133-221 there gates its Pallas routes off);
+#: a bf16 ``dwin``/``gather`` form does so on the CPU and raises on the card
+KERNEL_DTYPES = {"win": WIN_DTYPES, "dwin": CHAIN_DTYPES, "gather": CHAIN_DTYPES}
 
 
 def check_solve_dtype(dtype) -> None:
-    """Real f32/f64 triangles only; bf16 and complex are not ported yet."""
+    """The handle dtypes a triangular solve takes: f32, f64, bf16, complex64
+    and complex128, as in the JAX package."""
     if to_torch_dtype(dtype) not in SOLVE_DTYPES:
-        raise AoclSparseError(
-            Status.not_implemented,
-            f"triangular solves of {dtype} are not ported yet ({_ITEM12})",
-        )
+        raise AoclSparseError(Status.not_implemented, f"no triangular solve for {dtype}")
+
+
+def has_solve_kernel(kind: str, dtype) -> bool:
+    """Whether a form of `kind` and `dtype` has a solve kernel instance on
+    the card; else its solve is the plain route (`TrsvForm.solve`)."""
+    return to_torch_dtype(dtype) in KERNEL_DTYPES[kind]
 
 
 def adaptive_nb(m: int, dtype=None) -> int:
     """Block size. The JAX package aims at about 512 scan steps, then, where
     its Pallas solve can run, takes min(256, max(128, base)) for m >= 1024
-    (planner/triangular.py:52-68). The port always has its kernel for f32
-    and f64, so it takes that branch for them: a step streams nb*nb + WL*nb
-    values, and smaller blocks cut the dense diagonal-block traffic.
+    (planner/triangular.py:52-68). The port has its window-solve kernel for
+    f32, f64 and bf16, so it takes that branch for them: a step streams
+    nb*nb + WL*nb values, and smaller blocks cut the dense diagonal-block
+    traffic. Complex takes the base branch, as in the JAX package: its
+    solves run the plain block loops, where halving nb doubles the steps.
 
     A ``dwin`` or ``gather`` form takes at most CHAIN_NB = 64 rows a block
     (`build_trsv_form` builds it again at that width): its chain kernel
@@ -137,7 +153,7 @@ def adaptive_nb(m: int, dtype=None) -> int:
     NVIDIA H100 80GB HBM3 at 700 W) took 64.75 ms at nb = 32, 43.85 at 64,
     47.10 at 128 and 70.62 at 256 (1.84, 2.50, 5.36 and 16.07 us a step)."""
     base = int(min(512, max(DEFAULT_BLOCK, 1 << int(np.ceil(np.log2(max(m / 512, 1)))))))
-    if m >= 8 * 128 and (dtype is None or to_torch_dtype(dtype) in SOLVE_DTYPES):
+    if m >= 8 * 128 and (dtype is None or to_torch_dtype(dtype) in WIN_DTYPES):
         return int(min(256, max(128, base)))
     return base
 
@@ -146,10 +162,12 @@ def invert_diag_blocks(D: torch.Tensor) -> torch.Tensor:
     """Invert the (nblk, nb, nb) lower-triangular diagonal blocks in one
     batched triangular solve against the identity, on D's device
     (kernels/xla/trsv.py:55 `invert_diag_blocks`). Planner work, once per
-    form."""
+    form. bf16 blocks invert in f32 and round once to bf16 (the batched
+    solve has no bf16 kernel)."""
     nb = D.shape[1]
-    eye = torch.eye(nb, dtype=D.dtype, device=D.device).expand(D.shape[0], nb, nb)
-    return torch.linalg.solve_triangular(D, eye, upper=False)
+    work = torch.float32 if D.dtype == torch.bfloat16 else D.dtype
+    eye = torch.eye(nb, dtype=work, device=D.device).expand(D.shape[0], nb, nb)
+    return torch.linalg.solve_triangular(D.to(work), eye, upper=False).to(D.dtype)
 
 
 @dataclasses.dataclass
@@ -195,6 +213,9 @@ class TrsvForm:
     _solve_ops: Optional[WinSolveOps] = None
     #: lazy dwin offsets as an int32 tensor on the device
     _offs_t: Optional[torch.Tensor] = None
+    #: the operand dtype (the handle's); values of another dtype are cast to
+    #: it on refresh (bf16 handles' host values come as float32)
+    dtype: Optional[torch.dtype] = None
 
     @property
     def m_pad(self) -> int:
@@ -207,7 +228,7 @@ class TrsvForm:
         self._ops = self._solve_ops = None
         dev = self.device
         v = values if isinstance(values, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(values))
-        v = v.to(dev)
+        v = v.to(dev, self.dtype or v.dtype)
         D = torch.zeros(self.nblk * self.nb * self.nb, dtype=v.dtype, device=dev)
         D[_dev_index(self._D_dest, dev)] = v[_dev_index(self._D_srcpos, dev)]
         D[_dev_index(self._D_paddest, dev)] = 1.0
@@ -246,9 +267,20 @@ class TrsvForm:
         kernels for ``win`` (a single column takes the single-RHS solve and
         wider ones the multi-RHS solve, as the JAX package splits them), the
         blocked-solve chain kernel for ``dwin`` and ``gather``; their plain
-        versions on a CPU tensor (which build no card operands)."""
+        versions on a CPU tensor (which build no card operands). Complex
+        (no window or chain instance, `has_solve_kernel`) takes the plain
+        route on any device; a bf16 ``dwin`` or ``gather`` form (no chain
+        instance) takes it on the CPU and raises `not_implemented` on the
+        card (ROADMAP item 29)."""
         dinvT, left = self.operands()
         r = r.to(dinvT.dtype).contiguous()
+        if not has_solve_kernel(self.kind, dinvT.dtype):
+            if r.device.type != "cpu" and not dinvT.dtype.is_complex:
+                raise AoclSparseError(
+                    Status.not_implemented,
+                    f"no {dinvT.dtype} instance of the chain kernel for a {self.kind} form on "
+                    f"{r.device} (ROADMAP item 29)")
+            return self._solve_plain(dinvT, left, r)
         if self.kind == "dwin":
             return trsv_dwin(dinvT, left, self.offsets(), r, self.nb, self.WL)
         if self.kind == "gather":
@@ -259,6 +291,17 @@ class TrsvForm:
         if r.shape[1] == 1:
             return trsv_win(dinvT, left, r[:, 0].contiguous(), self.nb, self.WL, ops)[:, None]
         return trsm_win(dinvT, left, r, self.nb, self.WL, ops)
+
+    def _solve_plain(self, dinvT: torch.Tensor, left: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+        """The plain route: the kind's kernel contract as a Python loop over
+        blocks (kernels/trsv_win.py, kernels/trsv_blocked.py)."""
+        if self.kind == "dwin":
+            return trsv_dwin_plain(dinvT.transpose(1, 2), left, r, self.nb, self.WL, self.dwin_offs)
+        if self.kind == "gather":
+            return trsv_gather_plain(dinvT.transpose(1, 2), self.Lind, left, r, self.nb)
+        if r.dim() == 1:
+            return trsv_win_plain(dinvT, left, r, self.nb, self.WL)
+        return trsm_win_plain(dinvT, left, r, self.nb, self.WL)
 
 
 def _reverse_structure(eff: EffectiveCSR) -> EffectiveCSR:
@@ -423,6 +466,7 @@ def build_trsv_form(
         WL=WL,
         Lind=L_ind,
         dwin_offs=dwin_offs,
+        dtype=eff.val.dtype,
     )
     form.refresh(values)
     return form
@@ -435,13 +479,16 @@ def build_trsv_form_native(
     nb: int,
     values: np.ndarray,
     device: torch.device,
+    dtype: Optional[torch.dtype] = None,
 ) -> Optional[TrsvForm]:
     """The host C++ builder (planner/triangular.py:436-568, host upload
     only): the triangle is cut straight off the clean structure's split
     pointers, D and Lw are filled in one O(nnz) sweep, and both are
-    uploaded. `values` are host values over clean positions, and so are the
-    refresh maps. Returns None when the builder does not apply (op !=
-    none, dtype, window cap, library missing); callers then build in numpy."""
+    uploaded. `values` are host values over clean positions (f32 or f64;
+    a bf16 handle's come widened to f32, and `dtype` rounds the uploads
+    back), and so are the refresh maps. Returns None when the builder does
+    not apply (op != none, dtype, window cap, library missing); callers
+    then build in numpy."""
     from .. import native
 
     if Operation(op) != Operation.none:
@@ -489,8 +536,8 @@ def build_trsv_form_native(
         m=m,
         reversed_=reversed_,
         unit_diag=(dt == DiagType.unit),
-        D=torch.from_numpy(D.reshape(nblk, nb, nb)).to(device),
-        Lval=torch.from_numpy(got["Lw"].reshape(nblk, nb, WL)).to(device),
+        D=torch.from_numpy(D.reshape(nblk, nb, nb)).to(device, dtype),
+        Lval=torch.from_numpy(got["Lw"].reshape(nblk, nb, WL)).to(device, dtype),
         _D_dest=got["D_dest"],
         _D_srcpos=got["D_srcpos"],
         _D_paddest=D_paddest,
@@ -500,6 +547,7 @@ def build_trsv_form_native(
         device=torch.device(device),
         WL=WL,
         _src_space="clean",
+        dtype=dtype,
     )
     return form
 
@@ -533,7 +581,8 @@ def trsv_form_for(
         return form
     if op == Operation.none:
         form = build_trsv_form_native(
-            plan.clean, tri, Operation.none, nb, plan.clean.host_val(), plan.clean.val.device
+            plan.clean, tri, Operation.none, nb, plan.clean.host_val(), plan.clean.val.device,
+            plan.clean.val.dtype,
         )
     if form is None:
         form = _build_trsv_form_for(plan, tri, op, nb)
@@ -544,12 +593,21 @@ def trsv_form_for(
 def _build_trsv_form_for(plan: Plan, tri_descr: MatrixDescriptor, op: Operation, nb: int):
     """The numpy route: the effective triangle built without op; a
     transposed solve transposes the structure on the host and flips the
-    triangle's orientation (planner/triangular.py:620-645). Real dtypes
-    only, so conjugate-transpose is transpose."""
-    eff = build_effective_csr(plan.clean, tri_descr, Operation.none)
+    triangle's orientation, and a conjugate transpose conjugates the
+    values first (planner/triangular.py:620-645)."""
+    eff = _conj_for(build_effective_csr(plan.clean, tri_descr, Operation.none), op)
     if Operation(op) != Operation.none:
         return build_trsv_form(tri_descr, Operation.transpose, _transpose_eff(eff), nb)
     return build_trsv_form(tri_descr, Operation.none, eff, nb)
+
+
+def _conj_for(eff: EffectiveCSR, op: Operation) -> EffectiveCSR:
+    """The effective triangle with conjugated values for a conjugate
+    transpose of a complex triangle (the JAX package's conj=True
+    materialization), else as it is."""
+    if Operation(op) == Operation.conjugate_transpose and eff.val.is_complex():
+        return dataclasses.replace(eff, val=torch.conj_physical(eff.val))
+    return eff
 
 
 def _transpose_eff(eff: EffectiveCSR) -> EffectiveCSR:
@@ -593,19 +651,22 @@ class TrsvHostForm:
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """x of an (m,) or (m, k) right-hand side, k columns threaded in C++
-        like the reference's OpenMP split (level3/aoclsparse_trsm.hpp:149)."""
+        like the reference's OpenMP split (level3/aoclsparse_trsm.hpp:149),
+        in b's dtype."""
         from .. import native
 
-        bh = b.detach().cpu().numpy()
+        bh = host_values(b)
         if bh.ndim == 1:
-            return torch.from_numpy(native.trsv_seq(self.m, self.ptr, self.ind, self.val, bh, self.lower))
-        return torch.from_numpy(native.trsm_seq(self.m, self.ptr, self.ind, self.val, bh, self.lower))
+            x = native.trsv_seq(self.m, self.ptr, self.ind, self.val, bh, self.lower)
+        else:
+            x = native.trsm_seq(self.m, self.ptr, self.ind, self.val, bh, self.lower)
+        return torch.from_numpy(x).to(b.dtype)
 
 
 def _host_eff_vals(eff: EffectiveCSR, clean: CleanCSR) -> np.ndarray:
     """An effective triangle's values on the host: the clean values at src,
-    const_val where src is -1 (planner/triangular.py:703-715 there; real
-    dtypes only, so no conjugation)."""
+    const_val where src is -1 (planner/triangular.py:703-715 there; the
+    triangles of a solve carry no conjugation of their own)."""
     cv = clean.host_val()
     src = np.asarray(eff.src, dtype=np.int64)
     return np.where(src >= 0, cv[np.maximum(src, 0)], np.asarray(eff.const_val, dtype=cv.dtype))
@@ -623,8 +684,9 @@ def _sv_key_descr(plan: Plan, descr: MatrixDescriptor) -> MatrixDescriptor:
 
 def trsv_host_form_for(plan: Plan, descr: MatrixDescriptor, op: Operation) -> TrsvHostForm:
     """Cached host-engine form, sv KID 2 (planner/triangular.py:718-759
-    there): a transposed solve takes the host-transposed structure; no
-    reversal, the sequential sweep runs either direction."""
+    there): a transposed solve takes the host-transposed structure, a
+    conjugate transpose the conjugated values; no reversal, the sequential
+    sweep runs either direction."""
     tri = _sv_key_descr(plan, descr)
     op = Operation(op)
     key = ("trsv_host", tri.fill_mode, tri.diag_type, op)
@@ -633,6 +695,8 @@ def trsv_host_form_for(plan: Plan, descr: MatrixDescriptor, op: Operation) -> Tr
         return form
     eff = build_effective_csr(plan.clean, tri, Operation.none)
     hval = _host_eff_vals(eff, plan.clean)
+    if op == Operation.conjugate_transpose and np.iscomplexobj(hval):
+        hval = np.conj(hval)
     ptr, ind = eff.ptr.astype(np.int64), eff.ind.astype(np.int64)
     lower = FillMode(tri.fill_mode) == FillMode.lower
     if op != Operation.none:
@@ -655,9 +719,10 @@ def trsv_host_form_for(plan: Plan, descr: MatrixDescriptor, op: Operation) -> Tr
 
 def _oriented_triangle(plan: Plan, tri: MatrixDescriptor, op: Operation):
     """(eff, ptr, ind, src, reversed_): the effective triangle (transposed
-    for op != none) and its structure oriented lower, as the blocked form
-    orients it (planner/triangular.py:792-842 there)."""
-    eff = build_effective_csr(plan.clean, tri, Operation.none)
+    for op != none, conjugated for a conjugate transpose) and its structure
+    oriented lower, as the blocked form orients it (planner/triangular.py:
+    792-842 there)."""
+    eff = _conj_for(build_effective_csr(plan.clean, tri, Operation.none), op)
     if op != Operation.none:
         eff = _transpose_eff(eff)
     lower = FillMode(tri.fill_mode) == FillMode.lower
@@ -704,9 +769,19 @@ def level_wins(kind: str, nblk: int, nlev: int) -> bool:
 def pick_sv_engine(form: Optional[TrsvForm], nlev_of: Callable[[], int], device) -> str:
     """"level" or "blocked" for a solve on `device` whose blocked form is
     `form`; nlev_of() gives the triangle's level count (read from the
-    structure, cached by the caller) and runs only for a chain form on a
-    device of SV_LEVEL_DEVICES."""
-    if form is None or torch.device(device).type not in SV_LEVEL_DEVICES or form.kind not in CHAIN_KINDS:
+    structure, cached by the caller) and runs only where the count decides,
+    on a device of SV_LEVEL_DEVICES. By dtype: a dtype with no level-kernel
+    instance (bf16) stays blocked (a bf16 ``dwin``/``gather`` form then
+    raises in `TrsvForm.solve` on the card); a dtype whose blocked form has
+    no kernel instance (complex: no window or chain instance) takes the
+    level kernel wherever its levels are at most LEVEL_MAX_NLEV, whatever
+    the form's kind, and the plain block loops past that; the rest follow
+    `level_wins`."""
+    if form is None or torch.device(device).type not in SV_LEVEL_DEVICES or form.D.dtype not in LEVEL_DTYPES:
+        return "blocked"
+    if not has_solve_kernel(form.kind, form.D.dtype):
+        return "level" if nlev_of() <= LEVEL_MAX_NLEV else "blocked"
+    if form.kind not in CHAIN_KINDS:
         return "blocked"
     return "level" if level_wins(form.kind, form.nblk, nlev_of()) else "blocked"
 

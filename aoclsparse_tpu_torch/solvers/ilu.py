@@ -28,6 +28,15 @@ the port raises ``memory_error`` naming kid=2, which runs that host
 substitution (the reference's own apply, ilu0.hpp:115-162) and returns a
 CPU tensor. The JAX package answers kid=2 with invalid_kid (ROADMAP.md
 queue 3).
+
+Every handle dtype of the JAX package factors and applies: f32, f64,
+complex64 and complex128 in their dtype (the host IKJ sweep has complex
+instances), bf16 on f32 host values rounded once to bf16 (numpy has no
+bfloat16; the JAX package factors its bf16 host copy in bf16 arithmetic,
+so the two factors differ within the bf16 model tolerance). A complex
+factor's blocked forms solve by their plain route, and on the card by the
+level kernel where its levels allow (planner/triangular.py
+`pick_sv_engine`).
 """
 
 from __future__ import annotations
@@ -49,7 +58,7 @@ from ..core.types import (
     Status,
 )
 from ..ops.level2.trsv import pad_solve
-from ..planner.plan import CleanCSR, build_effective_csr, get_plan
+from ..planner.plan import CleanCSR, build_effective_csr, get_plan, host_values
 from ..planner.triangular import (
     TrsvForm,
     adaptive_nb,
@@ -117,10 +126,13 @@ def ilu0_factorize(A: SparseMatrix) -> IluState:
     clean = get_plan(A).clean
     lu = _ilu0_host(clean.m, clean.ptr, clean.ind, clean.host_val())
     dev = clean.val.device
+    lu_t = torch.from_numpy(lu).to(A.dtype)
+    if A.dtype == torch.bfloat16:
+        lu = lu_t.float().numpy()  # the host copy holds the rounded factor
     lu_clean = CleanCSR(
         ptr=clean.ptr,
         ind=clean.ind,
-        val=torch.from_numpy(lu).to(dev),
+        val=lu_t.to(dev),
         perm=np.arange(lu.size, dtype=np.int64),
         idiag=clean.idiag,
         iurow=clean.iurow,
@@ -130,9 +142,9 @@ def ilu0_factorize(A: SparseMatrix) -> IluState:
         val_host=lu,
     )
     st = IluState(lu=lu_clean.val, lu_clean=lu_clean)
-    nb = adaptive_nb(lu_clean.m, dtype=lu.dtype)
-    st.l_form = build_trsv_form_native(lu_clean, L_DESCR, Operation.none, nb, lu, dev)
-    st.u_form = build_trsv_form_native(lu_clean, U_DESCR, Operation.none, nb, lu, dev)
+    nb = adaptive_nb(lu_clean.m, dtype=A.dtype)
+    st.l_form = build_trsv_form_native(lu_clean, L_DESCR, Operation.none, nb, lu, dev, A.dtype)
+    st.u_form = build_trsv_form_native(lu_clean, U_DESCR, Operation.none, nb, lu, dev, A.dtype)
     if st.l_form is None or st.u_form is None:
         try:
             _ilu_numpy_forms(st, lu_clean, lu, nb)
@@ -246,12 +258,12 @@ def _host_lu_apply(st: IluState, b: torch.Tensor) -> torch.Tensor:
         take_u = _ranges_concat(idiag, ptr[1:])
         st._host_tri = (m, lptr, lind, lval, uptr, ind[take_u], lu[take_u])
     m, lptr, lind, lval, uptr, uind, uval = st._host_tri
-    bh = b.detach().cpu().numpy().astype(lval.dtype, copy=False)
+    bh = host_values(b).astype(lval.dtype, copy=False)
     if bh.ndim == 1:
         y = native.trsv_seq(m, lptr, lind, lval, bh, True)
-        return torch.from_numpy(native.trsv_seq(m, uptr, uind, uval, y, False))
+        return torch.from_numpy(native.trsv_seq(m, uptr, uind, uval, y, False)).to(b.dtype)
     y = native.trsm_seq(m, lptr, lind, lval, bh, True)
-    return torch.from_numpy(native.trsm_seq(m, uptr, uind, uval, y, False))
+    return torch.from_numpy(native.trsm_seq(m, uptr, uind, uval, y, False)).to(b.dtype)
 
 
 def _ranges_concat(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:

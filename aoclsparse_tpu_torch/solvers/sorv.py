@@ -15,10 +15,9 @@ off-diagonal values are scaled by omega, by the default solve's engine
 form's kernel, or on the card the level kernel where the triangle's DAG is
 shallow against the blocked form's chain (the scaled triangle has the lower
 triangle's pattern, so its level count). Each form is cached per omega on
-the plan (dropped by update_values). The JAX package also runs
-complex SOR through that solve; the port's triangular solves take real
-f32/f64 only, so complex (and bf16) handles raise not_implemented
-(ROADMAP.md queue 1 item 12).
+the plan (dropped by update_values). Complex handles take complex omega
+and alpha, as in the JAX package (:12-14, :75-77 there): the reference
+declares csorv/zsorv but stubs them, and both packages run the sweep.
 """
 
 from __future__ import annotations
@@ -60,7 +59,7 @@ def sorv(sor_type: SorType, descr: MatrixDescriptor, A: SparseMatrix, omega, alp
     if not plan.clean.fulldiag:
         raise AoclSparseError(Status.invalid_value, "sorv requires a full nonzero diagonal")
     check_solve_dtype(A.dtype)
-    omega = float(omega)
+    omega = complex(omega) if A.dtype.is_complex else float(omega)
     x0 = torch.zeros(m, dtype=A.dtype, device=A.device) if isinstance(alpha, Number) and alpha == 0 else alpha * x
 
     if plan.levels is None:

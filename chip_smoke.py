@@ -11,10 +11,11 @@ failure (exit code != 0, no result line):
 2. build the kernels from aoclsparse_tpu_torch/csrc with nvcc (sm_90a) and
    the host C++ library with g++; require that the latter loads, and that
    -Xptxas -v gives the route, accumulate, block-window SpMV, group-window,
-   window-solve (passes A, B, C), block-window SpMM (both instances), band
-   GEMM (both instances), band SpMM, diagonal SpMM (every instance),
-   blocked-solve chain (every instance) and level-solve (every instance)
-   kernels no stack frame and no spills (their registers logged);
+   window-solve (passes A, B, C and the bf16 rounding; every instance),
+   block-window SpMM (both instances), band GEMM (both instances), band
+   SpMM (every instance), diagonal SpMM (every instance), blocked-solve
+   chain (every instance) and level-solve (every instance, complex
+   included) kernels no stack frame and no spills (their registers logged);
 3. hold each kernel instance against its plain PyTorch version:
    - the band kernel on the bench operand (m = n = 262144, 64 nnz/row,
      half-bandwidth 64, seed 7, built as bench.py:220-233) in f32, bf16
@@ -38,7 +39,9 @@ failure (exit code != 0, no result line):
    - the band SpMM kernel on the bench operand's bandtm form at K = 64 in
      f32 and f64, called twice for the same bits, with its spill on the
      small odd-m operand at K = 7, and on random bands at W = 1 and at the
-     cap (400 f32, 184 f64) with K = 300 and m below one tile;
+     cap (400 f32, 184 f64) with K = 300 and m below one tile; the bf16
+     band instance (B and C f32) on the bench band rounded to bf16 and on
+     random bf16 bands at W = 2 and 400;
      the block-window kernel on the bench form at K = 64 in f32 and bf16,
      told the form's band width and W = 256, and on random windows at
      W = 1, 64 and 128 (m = 4099, start > 0, padL > 0, K = 64 and 9), each
@@ -62,6 +65,9 @@ failure (exit code != 0, no result line):
      and on a small odd-m form whose window reaches back
      over several blocks (the plain chain; K = 300 for the multi-RHS
      solve: several column chunks), each called twice for the same bits;
+     and the bf16 instance (f32 P and F) on the SPD operand's ILU0 L form
+     rounded to bf16, K = 1 and K = 16, against the plain version, which
+     rounds where the Pallas kernels round;
    - the spill-route kernels (select, Benes route, accumulate) on the spill
      route of the webbase-1M stand-in's gen form (benchmarks/realmat.py,
      seed 7: m = 1,000,005, about 3.1M nnz; planned through its handle by
@@ -83,7 +89,9 @@ failure (exit code != 0, no result line):
    - the level-solve kernel (csrc/trsv_level.cu) on the level forms of the
      same ILU0 L and U factors (722 levels each; f32 and f64, K = 1 and 16)
      and of the scatter operand's lower and upper triangles (f32 and f64,
-     K = 1 and 16), each called twice for the same bits;
+     K = 1 and 16), and its complex64 and complex128 instances on the level
+     forms of the ILU0 factors of the stencil shifted by i I (SIGMA), K = 1
+     and 16, each called twice for the same bits;
    - the band GEMM kernel (SpGEMM numeric stage) in f32 and f64 on the band
      plan of the cant stand-in's A.A (benchmarks/realmat.py:105, copied
      here, seed 7: m = 62,469, 4,108,752 nnz; G = 128, WA = WB = 560,
@@ -113,7 +121,9 @@ failure (exit code != 0, no result line):
    iterations than with none, with a true relative residual <= 1e-5 and
    the launch counts the composition implies (a window solve: its passes'
    launches, kernels/trsv_win.py solve_launches); then on the 104^3
-   stencil, where the default solve takes the level kernel
+   stencil, whose default mv form and strict triangles' mv forms are diag
+   (the mv rule's diag branch; mv KID 6, plain spmv_diag) and where the
+   default solve takes the level kernel
    (planner/triangular.py sv_engine_for): ilu0_factorize (its factors
    cached since phase 3), ilu_smoother (default: two level launches;
    kid=0: two dwin launches), pcg_solve(precond="ilu0") and ("sgs") to
@@ -179,6 +189,19 @@ failure (exit code != 0, no result line):
    with the launches its counts imply (unit calls' launches times the
    solve's matvecs and preconditioner applies) and the RCI and fused
    GMRES within one restart of each other;
+5g. the bf16 and complex path, counted on its own: bf16 trsv and trsm
+   (K = 16) on the bench operand's lower triangle with the Gershgorin
+   shift (the window solves' bf16 instance), bf16 mm at K = 64 on the bench
+   operand (bandtm, the band SpMM's bf16 instance; a bf16 result), each
+   against float64 scipy on the bf16 values within the bf16 model
+   tolerance; on the 104^3 stencil shifted by i I in complex64 trsv,
+   ilu_smoother, sorv (complex omega and alpha), ILU0-GMRES through
+   pgmres_solve and itsol_solve and SGS-CG through itsol_solve (each sweep
+   two launches of the level kernel's complex64 instance), trsv on a
+   complex128 handle (the complex128 instance), and complex64 ILU0-GMRES on
+   the shifted bench operand, whose win forms have no complex kernel
+   instance: the plain block loops; each by its residual (10 rtol for the
+   solvers) and its launches;
 6. time kernel vs plain version vs one PyTorch library call (torch.sparse
    CSR products and triangular solves, index_add_ and a permutation
    gather, timed here as yardsticks only; each behind a device spin that
@@ -217,11 +240,18 @@ failure (exit code != 0, no result line):
    triangles against their plain versions and torch.triangular_solve on
    the CSR triangle, the level kernel's dependency round trip (a
    bidiagonal chain, one level a row) and the sv gate's constants (us a
-   level, us a chain step) as measured, the stencil's trsv by kid, its
+   level, us a chain step) as measured, the level kernel's complex
+   instances on the complex stencil's ILU0 L beside cuSPARSE's complex
+   solve, mv KID 6 (the plain spmv_diag) on the stencil beside its bound
+   and cuSPARSE, the complex plain win route (one bench ILU0 L solve), the
+   window solves' bf16 instances (no library call) and the band SpMM's
+   (beside cuSPARSE's f32 product on the bf16-rounded values), the
+   stencil's trsv by kid, its
    ilu_smoother by default and kid=0, ILU0-/SGS-PCG iteration times by the
    level kernel and, in turn, with the gate closed (the chain kernel), the
    CG iteration, and profiles of the default solve and of ILU0-PCG
-   iterations; the solver framework's iterations (ILU0-GMRES and GMRES by
+   iterations (and profiles of SGS-PCG and CG iterations, with the idle
+   share); the solver framework's iterations (ILU0-GMRES and GMRES by
    pgmres_solve on the nonsymmetric bench operand, itsol SGS-CG on the
    stencil, permuted GMRES on the shifted webbase: the difference of two
    fixed-length solves, whole cycles) and a profile of two ILU0-GMRES
@@ -229,12 +259,12 @@ failure (exit code != 0, no result line):
 
 Launch counts are reset just before phase 4 and read after phase 5, reset
 again just before phase 5b and read after it, and again around phases 5c,
-5d, 5e and 5f (the kernels line takes the spill-route kernels' counts from 5b,
-the band GEMM's from 5c, the group-window kernel's from 5d and the
-measurement path's kernels' from 5e; the gather instances of the chain
-kernel count in 5b, its dwin instances and the level kernel's on the
-main path; 5f launches only kernels counted before, and checks its own
-counts). The second-to-last line is {"kernels": [...]}; the last is
+5d, 5e, 5f and 5g (the kernels line takes the spill-route kernels' counts
+from 5b, the band GEMM's from 5c, the group-window kernel's from 5d, the
+measurement path's kernels' from 5e and the bf16 and complex instances'
+from 5g; the gather instances of the chain kernel count in 5b, its dwin
+instances and the level kernel's real ones on the main path; 5f launches
+only kernels counted before, and checks its own counts). The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
 
@@ -287,6 +317,7 @@ from aoclsparse_tpu_torch.kernels.spmm_band import (
     spmm_bandtm,
 )
 from aoclsparse_tpu_torch.kernels.spgemm_band import build_band_gemm_plan, extract_values
+from aoclsparse_tpu_torch.kernels.plain_spmv import spmv_diag
 from aoclsparse_tpu_torch.kernels.spmm_diag import diag_schedule, spmm_diag, spmm_diag_plain
 from aoclsparse_tpu_torch.kernels.spmv_bwd import spmv_bwd, spmv_bwd_plain
 from aoclsparse_tpu_torch.kernels.spmv_mxu import spmv_band_mxu, spmv_band_mxu_plain, spmv_bandmxu
@@ -311,7 +342,7 @@ from aoclsparse_tpu_torch.planner.spill_route import build_spill_route, spill_ro
 from aoclsparse_tpu_torch.planner import triangular as ttri
 from aoclsparse_tpu_torch.planner.triangular import invert_diag_blocks, trsv_form_for
 from aoclsparse_tpu_torch.solvers import fused as fused_mod
-from aoclsparse_tpu_torch.solvers.ilu import _level_forms, ilu0_factorize
+from aoclsparse_tpu_torch.solvers.ilu import _factor_nlev, _level_forms, ilu0_factorize
 from aoclsparse_tpu_torch.utils import profiling
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
 
@@ -389,6 +420,14 @@ KERNELS = {
     # level loops (_solve_levels_jit, _solve_runs_jit), no Pallas kernel
     "trsv_level_f32": ("aoclsparse_tpu_torch/csrc/trsv_level.cu", "aoclsparse_tpu/kernels/xla/trsv_level.py:138"),
     "trsv_level_f64": ("aoclsparse_tpu_torch/csrc/trsv_level.cu", "aoclsparse_tpu/kernels/xla/trsv_level.py:138"),
+    # the bf16 instances of the window solves (#12-#14) and of the band
+    # SpMM (#8), and the complex instances of the level solve
+    "trsv_win_bf16": ("aoclsparse_tpu_torch/csrc/trsv_win.cu",
+                      "aoclsparse_tpu/kernels/pallas/trsv.py:74, aoclsparse_tpu/kernels/pallas/trsv.py:114"),
+    "trsm_win_bf16": ("aoclsparse_tpu_torch/csrc/trsv_win.cu", "aoclsparse_tpu/kernels/pallas/trsv.py:160"),
+    "spmm_band_bf16": ("aoclsparse_tpu_torch/csrc/spmm_band.cu", "aoclsparse_tpu/kernels/pallas/spmv.py:173"),
+    "trsv_level_c64": ("aoclsparse_tpu_torch/csrc/trsv_level.cu", "aoclsparse_tpu/kernels/xla/trsv_level.py:138"),
+    "trsv_level_c128": ("aoclsparse_tpu_torch/csrc/trsv_level.cu", "aoclsparse_tpu/kernels/xla/trsv_level.py:138"),
 }
 #: the kernels of the general-structure path (phase 5b), counted there
 GEN_PATH = ("oh_select_f32", "oh_accum_f32", "benes_route_f32", "trsv_gather_f32", "trsv_gather_f64")
@@ -399,7 +438,12 @@ FORMATS_PATH = ("spmv_bwd_f32", "spmv_bwd_bf16", "spmv_bwd_f64")
 #: the kernels of the measurement path (phase 5e), counted there
 MEASURE_PATH = ("band_spmv_tiles_f32", "band_spmv_tiles_bf16", "band_spmv_tiles_dbuf_f32",
                 "band_spmv_tiles_dbuf_bf16", "spmv_band_mxu_f32", "spmv_band_mxu_bf16", "stream_read_f32")
-#: the kernels of the solver framework's path (phase 5f), counted there
+#: the kernels of the bf16 and complex path (phase 5g), counted there
+LOWPREC_PATH = ("trsv_win_bf16", "trsm_win_bf16", "spmm_band_bf16", "trsv_level_c64", "trsv_level_c128")
+#: the complex stencil of phases 3, 5g and 6: HPCG's operand shifted by
+#: i SIGMA I, the shifted-Laplacian setting of Helmholtz preconditioning
+SIGMA = 1.0
+#: the solver framework's path (phase 5f), counted there
 SOLVER_PATH = ("band_spmv_f32", "band_spmv_f64", "trsv_win_f32", "trsv_win_f64", "trsv_level_f32", "oh_select_f32",
                "oh_accum_f32", "benes_route_f32")
 #: launch counters of the wrappers, by kernel-name prefix
@@ -477,6 +521,19 @@ KERNEL_TOL = {
     # a fixed butterfly), the dtype's model tolerance
     "trsv_level_f32": expected_precision(torch.float32),
     "trsv_level_f64": expected_precision(torch.float64),
+    # the kernel sums in f32 over the bf16 operands and rounds the window and
+    # x; the plain version rounds each product as the Pallas kernel does:
+    # four bf16 units in the last place (2^-5), far inside the bf16 model
+    # tolerance (0.5); the two differ by one rounding of x on the emulated
+    # operands (tests/test_torch_win_solve_passes.py) and on the SPD ILU0 L
+    "trsv_win_bf16": 4 * 2.0**-7,
+    "trsm_win_bf16": 4 * 2.0**-7,
+    # the same bf16 band values and f32 B, f32 sums in another order
+    "spmm_band_bf16": expected_precision(torch.float32),
+    # complex multiply-adds in another order (a fixed butterfly): the
+    # model tolerance of the real part's dtype
+    "trsv_level_c64": expected_precision(torch.complex64),
+    "trsv_level_c128": expected_precision(torch.complex128),
 }
 #: mv and mm against the float64 reference: the operand dtype's model tolerance
 MV_TOL = {"f32": expected_precision(torch.float32), "f64": expected_precision(torch.float64)}
@@ -486,7 +543,10 @@ MV_TOL = {"f32": expected_precision(torch.float32), "f64": expected_precision(to
 #: tensor cores (full-IEEE f64 FMA, 67 TFLOP/s; 34 outside them), bf16 on
 #: the tensor cores: the least time the card could take, whatever the kernel
 #: itself uses
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "f64": 67e12}
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "f64": 67e12, "c64": 67e12, "c128": 67e12}
+#: a dtype's instance name in the kernels' names
+INST = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16", torch.complex64: "c64",
+        torch.complex128: "c128"}
 K_MM = 64  # the SpMM right-hand sides of phases 3, 4 and 6
 K_SM = 16  # the trsm right-hand sides of phases 3, 5 and 6
 SEED_B = 23  # B of the SpMM phases
@@ -1025,9 +1085,14 @@ def library_ms(fn, once=False, **kw):
     return cuda_ms(fn, **kw), None
 
 
+def host64(t):
+    """A tensor on the host in float64 (complex128 for a complex one)."""
+    return t.detach().to(torch.complex128 if t.is_complex() else torch.float64).cpu().numpy()
+
+
 def compare(kernel, label, got, want, errs):
     torch.cuda.synchronize()
-    g, w = got.double().cpu().numpy(), want.double().cpu().numpy()
+    g, w = host64(got), host64(want)
     if not (np.all(np.isfinite(g)) and g.shape == w.shape):
         raise AssertionError(f"{kernel} {label}: non-finite or misshapen kernel output")
     rel = near_error(g, w)
@@ -1050,7 +1115,7 @@ def same_bits(kernel, label, call):
 
 
 def check_mv(name, got, ref, tol):
-    g = got.double().cpu().numpy()
+    g = host64(got)
     if not (np.all(np.isfinite(g)) and g.shape == ref.shape):
         raise AssertionError(f"{name}: non-finite or misshapen mv output")
     err = near_error(g, ref)
@@ -1061,7 +1126,7 @@ def check_mv(name, got, ref, tol):
 
 def check_residual(name, T, x, b, tol):
     """||T x - b|| / ||b|| in float64 with scipy, against `tol`."""
-    xh = x.double().cpu().numpy()
+    xh = host64(x)
     if not (np.all(np.isfinite(xh)) and xh.shape == b.shape):
         raise AssertionError(f"{name}: non-finite or misshapen output")
     res = float(np.linalg.norm(T @ xh - b) / np.linalg.norm(b))
@@ -1084,7 +1149,7 @@ def check_mm(name, got, ref, tol, launches=None, kernel=None):
 
 def residual_cols(name, T, X, B, tol):
     """Per-column ||T x_j - b_j|| / ||b_j|| in float64, the worst against `tol`."""
-    Xh = X.double().cpu().numpy()
+    Xh = host64(X)
     if not (np.all(np.isfinite(Xh)) and Xh.shape == B.shape):
         raise AssertionError(f"{name}: non-finite or misshapen output")
     res = float(np.max(np.linalg.norm(T @ Xh - B, axis=0) / np.linalg.norm(B, axis=0)))
@@ -1175,15 +1240,17 @@ def profile_mv(name, call, calls=5, top=8):
         log(f"    {t / calls:9.1f}  x{c / calls:<4g} {key[:90]}")
 
 
-def win_passes(kernel, call, form, K, itemsize, calls=5):
+def win_passes(kernel, call, form, K, itemsize, calls=5, rounds=False):
     """One torch.profiler window over `calls` window solves: each launch's
     device time a solve, in launch order (pass A; the chain, or for a
-    grouped solve pass L, the group chain and the fix-up F; pass C), the
-    chains' time a dependent step, and the bytes each pass reads and writes
-    with their rate: A dinvT's upper triangle, B and X; a chain its steps'
-    WL x R operand tails and R rows of X read and written a step; F the
-    prefix products, the windows and the rows; C P's other columns, the
-    windows and X's other rows."""
+    grouped solve pass L, the group chain and the fix-up F; pass C; the
+    bf16 instance's rounding, `rounds`), the chains' time a dependent step,
+    and the bytes each pass reads and writes with their rate: A dinvT's
+    upper triangle, B and X; a chain its steps' WL x R operand tails and R
+    rows of X read and written a step; F the prefix products, the windows
+    and the rows; C P's other columns, the windows and X's other rows; the
+    rounding X's f32 work copy read and its bf16 values written (counted in
+    `itemsize` values: the bf16 instance's are its f32 sums')."""
     nblk, nb, WL = form.nblk, form.nb, form.WL
     R = min(WL, nb)
     r0 = nb - R
@@ -1200,6 +1267,8 @@ def win_passes(kernel, call, form, K, itemsize, calls=5):
         passes.append(("F (fix-up)", "win_fix", nf * (WL * WL + WL * K + 2 * R * K), 0))
     if r0 and nblk > 1:
         passes.append(("C", "win_fix", (nblk - 1) * (WL * r0 + WL * K + 2 * r0 * K), 0))
+    if rounds:
+        passes.append(("R (x to bf16)", "win_round", nblk * nb * K * 3 // 2, 0))
     call()
     torch.cuda.synchronize()
     # the profiler may miss the window's first kernel, or (seen once) every
@@ -1270,7 +1339,7 @@ def plain_chain_solve(dT, P, B, nb, WL):
     n = ctypes.c_int64(0)
 
     def call():
-        rc = fn(dT.data_ptr(), P.data_ptr(), None, B.data_ptr(), X.data_ptr(), nblk, nb, WL, K, kc, 0, plan.tg,
+        rc = fn(dT.data_ptr(), P.data_ptr(), None, B.data_ptr(), X.data_ptr(), None, nblk, nb, WL, K, kc, 0, plan.tg,
                 plan.tt, plan.stages, torch.cuda.current_stream().cuda_stream, ctypes.addressof(n))
         if rc:
             raise RuntimeError(f"plain-chain window solve failed: CUDA error {rc}")
@@ -1675,10 +1744,13 @@ def check_level_form(form, label, K, errs):
     """The level kernel on a LevelForm against its plain version on a
     random right-hand side ((m,) for K = 1, else (m, K)), twice for the
     same bits."""
-    inst = "f32" if form.lval.dtype == torch.float32 else "f64"
-    kernel = f"trsv_level_{inst}"
+    kernel = f"trsv_level_{INST[form.lval.dtype]}"
     shape = (form.m,) if K == 1 else (form.m, K)
-    b = torch.from_numpy(np.random.default_rng(K).standard_normal(shape)).to(form.lval.device, form.lval.dtype)
+    rng = np.random.default_rng(K)
+    b = rng.standard_normal(shape)
+    if form.lval.dtype.is_complex:
+        b = b + 1j * rng.standard_normal(shape)
+    b = torch.from_numpy(b).to(form.lval.device, form.lval.dtype)
     full = f"{label} (m={form.m}, {form.nlev} levels, {form.lcol.numel()} strict entries) K={K}"
     got = same_bits(kernel, full, lambda: trsv_level(form, b))
     compare(kernel, full, got, trsv_level_plain(form, b), errs)
@@ -1705,6 +1777,40 @@ def level_kernel_checks(hst, hst64, Q, Q64, errs):
                 check_level_form(form, f"scatter {tri.fill_mode.name}", K, errs)
 
 
+def widen_level_form(form, dtype):
+    """A LevelForm with its values in `dtype` (its structure shared), with
+    its own ready flags."""
+    return dataclasses.replace(
+        form, lval=form.lval.to(dtype), dinv=form.dinv.to(dtype), _ready=None, _epoch=0,
+        _run_vals=tuple((lv.to(dtype), di.to(dtype)) for lv, di in form._run_vals))
+
+
+def complex_stencil(hptr, hind, hval, dtype):
+    """The stencil's values shifted by i SIGMA I, in `dtype`."""
+    rows = np.repeat(np.arange(len(hptr) - 1), np.diff(hptr))
+    return (hval.astype(np.float64) + 1j * SIGMA * (rows == hind)).astype(dtype)
+
+
+def complex_level_checks(Hc, errs):
+    """Phase 3's checks of the level kernel's complex instances: the level
+    forms of the complex stencil's ILU0 L and U factors (722 levels each),
+    complex64, and complex128 on the same forms' values widened, K = 1 and
+    K_SM, each twice for the same bits. Returns the complex64 ILU0 state
+    (phase 5g applies it)."""
+    t0 = time.perf_counter()
+    stc = tt.ilu0_factorize(Hc)
+    t_f = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    forms = _level_forms(stc)
+    log(f"  complex stencil (A + {SIGMA} i I) ILU0: factorize {t_f:.2f} s (forms {stc.l_form.kind} / "
+        f"{stc.u_form.kind}), level forms {time.perf_counter() - t0:.2f} s, {forms[0].nlev} / {forms[1].nlev} levels")
+    for name, form in zip(("L", "U"), forms):
+        for f_ in (form, widen_level_form(form, torch.complex128)):
+            for K in (1, K_SM):
+                check_level_form(f_, f"complex 104^3 stencil ILU0 {name}", K, errs)
+    return stc
+
+
 def stencil_solvers(H, H64, hst, hptr, hind, hval, dev, rtol, res_tol):
     """Phase 5 on the 104^3 stencil, through the entry points:
     ilu0_factorize (cached from phase 3), ilu_smoother (the default: two
@@ -1723,6 +1829,16 @@ def stencil_solvers(H, H64, hst, hptr, hind, hval, dev, rtol, res_tol):
     f32tol = expected_precision(torch.float32)
     if tt.ilu0_factorize(H) is not hst:
         raise AssertionError("ilu0_factorize did not return the handle's cached factors")
+    # the mv rule's diag branch: the stencil and its strict triangles (the
+    # SGS sweeps' matvecs) take the diag form (mv KID 6), not the route
+    strict_l = tt.MatrixDescriptor(type=tt.MatrixType.triangular, fill_mode=tt.FillMode.lower,
+                                   diag_type=tt.DiagType.zero)
+    forms = {"A": H.plan.exec_form_for(GEN, NONE), "strict L": H.plan.exec_form_for(strict_l, NONE)}
+    log("  stencil mv forms: " + ", ".join(f"{k} {f.kind} ({len(f.dia_offs_static or ())} diagonals)"
+                                          for k, f in forms.items()))
+    if any(f.kind != "diag" for f in forms.values()):
+        raise AssertionError(f"the stencil's default mv forms are {[f.kind for f in forms.values()]}, want diag")
+    check_mv("stencil mv (diag form)", tt.mv(1.0, H, GEN, NONE, b_d, 0.0), Sh @ bref, f32tol)
     lu = hst.lu.double().cpu().numpy()
     rows = np.repeat(np.arange(mh), np.diff(hptr))
     low = hind < rows
@@ -1869,7 +1985,7 @@ def itsol_run(A, b, opts, dtype, precond=None, matvec=None):
     return x, int(rinfo[30]), len(bounces), {k: c1[k] - c0[k] for k in c1}, t
 
 
-def solver_framework(ptr, ind, val, H, hptr, hind, hval, wptr, wind, wval, dev, rtol, sgs_iters):
+def solver_framework(nonsym, H, hptr, hind, hval, wptr, wind, wval, dev, rtol, sgs_iters):
     """Phase 5f: the iterative-solver framework through its entry points.
 
     On the nonsymmetric bench operand (the bench profile with the SPD
@@ -1889,10 +2005,10 @@ def solver_framework(ptr, ind, val, H, hptr, hind, hval, wptr, wind, wval, dev, 
     method within restart (GMRES) or 1 (CG) iterations, the matrix-free
     and matrix paths equal. Returns what phase 6 times."""
     res_tol = 10 * rtol
-    m = len(ptr) - 1
+    Sn, nptr, nind, nval = nonsym
+    m = len(nptr) - 1
     GM = {"iterative method": "GMRES", "gmres rel tolerance": rtol, "gmres abs tolerance": 0.0}
     t0 = time.perf_counter()
-    Sn, nptr, nind, nval = shifted_operand(ptr, ind, val, m)
     N = tt.create_csr(m, m, nptr, nind, nval, device=dev)
     tt.set_mv_hint(N, NONE, GEN, nop=1000)
     tt.set_lu_smoother_hint(N, NONE, GEN, nop=1000)
@@ -2087,6 +2203,179 @@ def solver_framework(ptr, ind, val, H, hptr, hind, hval, wptr, wind, wval, dev, 
     return out
 
 
+def lowprec_complex_path(ptr, ind, val, nonsym, hptr, hind, hval, Hc, hstc, dev, rtol):
+    """Phase 5g: bf16 and complex solves through the entry points, at full
+    width. bf16: trsv and trsm (K = K_SM) on the lower triangle of the bench
+    operand with phase 5f's Gershgorin shift (the raw bench values give a
+    triangle no solve holds to a tolerance), its win form on the window
+    solves' bf16 instance, against float64 scipy on the bf16 values; mm on
+    the bench operand at K = K_MM (bandtm, the band SpMM's bf16 instance, a
+    bf16 result). Complex: on the 104^3 stencil shifted by i SIGMA I
+    (complex64) trsv, ilu_smoother and sorv (complex omega and alpha), each
+    a residual or a float64 scipy sweep, ILU0-GMRES through pgmres_solve and
+    through itsol_solve, and SGS-CG through itsol_solve (complex-symmetric:
+    unconjugated dots), to a true relative residual <= 10 rtol, their
+    sweeps on the level kernel's complex64 instance; trsv on a complex128
+    handle of it (the complex128 instance); and ILU0-GMRES on the
+    nonsymmetric bench operand in complex64 shifted the same way, whose win
+    forms have no complex kernel instance and too many levels for the level
+    kernel: the plain route. Each call's launches are the ones its counts
+    imply. Returns what phase 6 times."""
+    res_tol = 10 * rtol
+    bf_tol = expected_precision(torch.bfloat16)
+    c_tol = expected_precision(torch.complex64)
+    m = len(ptr) - 1
+    out = {}
+    # bf16 trsv and trsm on the shifted bench operand's lower triangle
+    t0 = time.perf_counter()
+    _Sn, nptr, nind, nval = nonsym
+    v16 = torch.from_numpy(nval).to(torch.bfloat16)
+    N16 = tt.create_csr(m, m, nptr, nind, v16, device=dev)
+    tt.set_sv_hint(N16, NONE, LOWER, nop=1000)
+    tt.set_sm_hint(N16, NONE, LOWER, nop=1000)
+    tt.optimize(N16)
+    form = trsv_form_for(N16.plan, LOWER, NONE)
+    torch.cuda.synchronize()
+    log(f"  bf16 shifted bench operand: win form nb={form.nb} WL={form.WL} nblk={form.nblk} ({form.D.dtype}); "
+        f"create_csr + hints + optimize + form {time.perf_counter() - t0:.2f} s")
+    if form.kind != "win" or form.D.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 bench triangle planned as {form.kind} in {form.D.dtype}, want a bf16 win form")
+    Sl16 = sp.tril(sp.csr_matrix((v16.double().numpy(), nind, nptr), shape=(m, m))).tocsr()
+    rng = np.random.default_rng(89)
+    b16 = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(dev, torch.bfloat16)
+    bref = host64(b16)
+    n_sv = solve_launches(form.nblk, form.nb, form.WL, torch.bfloat16)
+    x16 = counted("bf16 trsv", lambda: tt.trsv(1.0, N16, LOWER, NONE, b16), {"trsv_win_bf16": n_sv})
+    if x16.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 trsv returned {x16.dtype}")
+    check_residual("bf16 trsv lower non-unit (shifted bench)", Sl16, x16, bref, bf_tol)
+    check_mv("bf16 trsv against float64 scipy", x16, spla.spsolve_triangular(Sl16, bref, lower=True), bf_tol)
+    B16 = torch.from_numpy(rng.standard_normal((m, K_SM)).astype(np.float32)).to(dev, torch.bfloat16)
+    X16 = counted(f"bf16 trsm K={K_SM}", lambda: tt.trsm(1.0, N16, LOWER, NONE, B16), {"trsm_win_bf16": n_sv})
+    residual_cols(f"bf16 trsm lower non-unit K={K_SM} (shifted bench)", Sl16, X16, host64(B16), bf_tol)
+    out.update(N16=N16, b16=b16, B16=B16, form16=form)
+    # bf16 mm on the bench operand
+    A16 = tt.create_csr(m, m, ptr, ind, torch.from_numpy(val).to(torch.bfloat16), device=dev)
+    tt.set_mm_hint(A16, NONE, GEN, nop=1000)
+    tt.optimize(A16)
+    kinds = [f.kind for f in A16.plan.exec_forms.values()]
+    if kinds != ["bandtm"]:
+        raise AssertionError(f"bf16 bench operand planned for mm as {kinds}, want bandtm")
+    Bm16 = torch.from_numpy(np.random.default_rng(SEED_B).standard_normal((m, K_MM)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    S16 = sp.csr_matrix((torch.from_numpy(val).to(torch.bfloat16).double().numpy(), ind, ptr), shape=(m, m))
+    C16 = counted(f"bf16 mm K={K_MM}", lambda: tt.mm(1.0, A16, GEN, NONE, Bm16, 0.0), {"spmm_band_bf16": 1})
+    if C16.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 mm returned {C16.dtype}")
+    check_mv(f"bf16 mm K={K_MM} (bandtm) against float64 scipy", C16, S16 @ host64(Bm16), bf_tol)
+    out.update(A16=A16, Bm16=Bm16)
+
+    # the complex stencil: trsv, ilu_smoother, sorv (the level kernel, c64)
+    mh = len(hptr) - 1
+    hcv = complex_stencil(hptr, hind, hval, np.complex64)
+    Sc = sp.csr_matrix((hcv.astype(np.complex128), hind, hptr), shape=(mh, mh))
+    Lc, Uc, Dc = sp.tril(Sc, -1).tocsr(), sp.triu(Sc, 1).tocsr(), sp.diags(Sc.diagonal())
+    crng = np.random.default_rng(97)
+    bc = (crng.standard_normal(mh) + 1j * crng.standard_normal(mh)).astype(np.complex64)
+    bc_d, bcref = torch.from_numpy(bc).to(dev), bc.astype(np.complex128)
+    if tt.ilu0_factorize(Hc) is not hstc:
+        raise AssertionError("ilu0_factorize did not return the complex handle's cached factors")
+    engine = ttri.sv_engine_for(Hc.plan, LOWER, NONE, dev)
+    log(f"  complex stencil: default sv engine {engine}; mv form {Hc.plan.exec_form_for(GEN, NONE).kind}")
+    xc = counted("complex64 stencil trsv", lambda: tt.trsv(1.0, Hc, LOWER, NONE, bc_d), {"trsv_level_c64": 1})
+    check_residual("complex64 stencil trsv lower non-unit", sp.tril(Sc).tocsr(), xc, bcref, c_tol)
+    lu = hstc.lu.to(torch.complex128).cpu().numpy()
+    rows = np.repeat(np.arange(mh), np.diff(hptr))
+    low = hind < rows
+    Lf = sp.csr_matrix((np.r_[lu[low], np.ones(mh)], (np.r_[rows[low], np.arange(mh)],
+                        np.r_[hind[low], np.arange(mh)])), shape=(mh, mh))
+    Uf = sp.csr_matrix((lu[~low], (rows[~low], hind[~low])), shape=(mh, mh))
+    LU = spla.aslinearoperator(Lf) @ spla.aslinearoperator(Uf)
+    xs = counted("complex64 stencil ilu_smoother", lambda: tt.ilu_smoother(Hc, GEN, bc_d), {"trsv_level_c64": 2})
+    check_residual("complex64 stencil ilu_smoother: L (U x) = b", LU, xs, bcref, c_tol)
+    omega, alpha = 1.2 + 0.1j, 0.7 - 0.2j
+    x0 = (crng.standard_normal(mh) + 1j * crng.standard_normal(mh)).astype(np.complex64)
+    want = spla.spsolve_triangular((Dc + omega * Lc).tocsr(),
+                                   omega * bcref - (omega * Uc + (omega - 1.0) * Dc) @ (alpha * x0.astype(np.complex128)),
+                                   lower=True)
+    check_mv(f"complex64 stencil sorv (omega {omega}, alpha {alpha})",
+             counted("complex64 stencil sorv", lambda: tt.sorv(tt.SorType.forward, GEN, Hc, omega, alpha,
+                                                                torch.from_numpy(x0).to(dev), bc_d),
+                     {"trsv_level_c64": 1}), want, c_tol)
+    # ILU0-GMRES through pgmres_solve and itsol_solve, SGS-CG through itsol
+    per_mv = launches_of(lambda: tt.mv(1.0, Hc, GEN, NONE, bc_d, 0.0))
+    per_ilu = launches_of(lambda: tt.ilu_smoother(Hc, GEN, bc_d))
+    per_sgs = launches_of(lambda: tt.symgs(NONE, Hc, GEN, 1.0, bc_d))
+    log(f"  complex stencil unit launches: mv {per_mv}, ILU0 apply {per_ilu}, SGS apply {per_sgs}")
+    if per_ilu != {"trsv_level_c64": 2} or per_sgs != {"trsv_level_c64": 2}:
+        raise AssertionError("the complex stencil's ILU0 and SGS applies must be two complex64 level solves each")
+    c0 = read_counts()
+    t0 = time.perf_counter()
+    xg, itg, rg = tt.pgmres_solve(Hc, bc_d, rtol=rtol, atol=0.0, restart=20, precond="ilu0")
+    torch.cuda.synchronize()
+    t_g = time.perf_counter() - t0
+    c1 = read_counts()
+    res = check_residual("complex64 stencil pgmres ILU0", Sc, xg, bcref, res_tol)
+    log(f"  complex64 stencil pgmres_solve precond=ilu0: {itg} iterations in {t_g:.3f} s, estimate {rg:.3e}, "
+        f"true rel residual {res:.3e} (tol {res_tol:.1e})")
+    fused_gmres_launches("complex stencil pgmres ilu0", {k: c1[k] - c0[k] for k in c1}, itg, 20, per_mv, per_ilu)
+    GM = {"iterative method": "GMRES", "gmres rel tolerance": rtol, "gmres abs tolerance": 0.0,
+          "gmres preconditioner": "ILU0"}
+    x, it, cyc, delta, t = itsol_run(Hc, bc_d, GM, torch.complex64)
+    res = check_residual("complex64 stencil itsol ILU0-GMRES", Sc, x, bcref, res_tol)
+    log(f"  complex64 stencil itsol ILU0-GMRES: {it} iterations, {cyc} cycles in {t:.3f} s, true rel residual "
+        f"{res:.3e}")
+    expect_launches("complex stencil itsol ILU0-GMRES", delta, [(it + cyc, per_mv, "mv (steps + cycles)"),
+                                                                (it, per_ilu, "applies (steps)")])
+    if abs(it - itg) > 20:
+        raise AssertionError(f"complex ILU0-GMRES: RCI {it} and fused {itg} iterations differ by more than the restart")
+    cg = {"iterative method": "CG", "cg preconditioner": "SGS", "cg rel tolerance": rtol, "cg abs tolerance": 0.0}
+    x, itc, _cyc, delta, t = itsol_run(Hc, bc_d, cg, torch.complex64)
+    res = check_residual("complex64 stencil itsol SGS-CG", Sc, x, bcref, res_tol)
+    log(f"  complex64 stencil itsol SGS-CG (unconjugated dots): {itc} iterations in {t:.3f} s, true rel residual "
+        f"{res:.3e}")
+    expect_launches("complex stencil itsol SGS-CG", delta, [(itc + 1, per_mv, "mv (steps + 1)"),
+                                                            (itc, per_sgs, "applies (steps)")])
+    out.update(Hc=Hc, bc=bc_d, gmres_c=(itg, rg), bcnorm=float(np.linalg.norm(bcref)), cg_c=itc)
+    # complex128: trsv on the stencil's lower triangle (the c128 instance)
+    t0 = time.perf_counter()
+    Hc128 = tt.create_csr(mh, mh, hptr, hind, hcv.astype(np.complex128), device=dev)
+    x128 = counted("complex128 stencil trsv", lambda: tt.trsv(1.0, Hc128, LOWER, NONE, bc_d.to(torch.complex128)),
+                   {"trsv_level_c128": 1})
+    check_residual("complex128 stencil trsv lower non-unit", sp.tril(Sc).tocsr(), x128, bcref,
+                   expected_precision(torch.complex128))
+    log(f"  complex128 stencil trsv (level form built on the first call) {time.perf_counter() - t0:.2f} s")
+    del Hc128
+
+    # ILU0-GMRES on the complex nonsymmetric bench operand: the plain route
+    t0 = time.perf_counter()
+    nrows = np.repeat(np.arange(m), np.diff(nptr))
+    ncv = (nval.astype(np.float64) + 1j * SIGMA * (nrows == nind)).astype(np.complex64)
+    Nc = tt.create_csr(m, m, nptr, nind, ncv, device=dev)
+    nst = tt.ilu0_factorize(Nc)
+    torch.cuda.synchronize()
+    fl = nst.l_form
+    nlev = sum(_factor_nlev(nst))
+    log(f"  complex64 shifted bench operand: ILU0 forms {fl.kind} / {nst.u_form.kind} (nb={fl.nb}, WL={fl.WL}, "
+        f"nblk={fl.nblk}), {nlev} levels in L and U, engine {ttri.pick_sv_engine(fl, lambda: nlev, dev)}; "
+        f"create_csr + ilu0_factorize {time.perf_counter() - t0:.2f} s")
+    if (fl.kind, nst.u_form.kind) != ("win", "win") or ttri.has_solve_kernel("win", torch.complex64):
+        raise AssertionError("the complex bench operand's ILU0 forms must be win forms with no kernel instance")
+    bn = (crng.standard_normal(m) + 1j * crng.standard_normal(m)).astype(np.complex64)
+    bn_d = torch.from_numpy(bn).to(dev)
+    Snc = sp.csr_matrix((ncv.astype(np.complex128), nind, nptr), shape=(m, m))
+    if launches_of(lambda: tt.ilu_smoother(Nc, GEN, bn_d)):
+        raise AssertionError("the complex bench operand's ILU0 apply launched a kernel: want the plain route")
+    t0 = time.perf_counter()
+    xn, itn, rn = tt.pgmres_solve(Nc, bn_d, rtol=rtol, atol=0.0, restart=20, precond="ilu0")
+    torch.cuda.synchronize()
+    res = check_residual("complex64 bench pgmres ILU0 (plain win route)", Snc, xn, bn.astype(np.complex128), res_tol)
+    log(f"  complex64 shifted bench pgmres_solve precond=ilu0: {itn} iterations in {time.perf_counter() - t0:.3f} s, "
+        f"estimate {rn:.3e}, true rel residual {res:.3e}")
+    out.update(Nc=Nc, nst=nst, bn=bn_d)
+    return out
+
+
 def fixed_restart(restart, it, res, bnorm, digits=30.0):
     """The restart r of a fixed-length GMRES timing (rtol = atol = 0, r and
     2 r steps, whole cycles): its f32 Givens estimate falls at about the
@@ -2137,6 +2426,40 @@ def solver_timings(sf):
     return out
 
 
+def lowprec_timings(lp):
+    """Phase 6's times of phase 5g's calls: the bf16 trsv, trsm and mm calls
+    (CUDA events around back-to-back calls: the call's time, host work
+    included), and on the complex stencil an ILU0-GMRES and an itsol SGS-CG
+    iteration (host clock, the difference of two fixed-length solves,
+    median of three turns) with one profiler window of an ILU0-GMRES cycle."""
+    N16, b16, B16 = lp["N16"], lp["b16"], lp["B16"]
+    t_sv = cuda_ms(lambda: tt.trsv(1.0, N16, LOWER, NONE, b16), reps=5, inner=3)
+    t_sm = cuda_ms(lambda: tt.trsm(1.0, N16, LOWER, NONE, B16), reps=5, inner=3)
+    t_mm = cuda_ms(lambda: tt.mm(1.0, lp["A16"], GEN, NONE, lp["Bm16"], 0.0), reps=5, inner=3)
+    log(f"  bf16 calls (shifted bench operand): trsv {t_sv:.4f} ms, trsm K={K_SM} {t_sm:.4f} ms; mm K={K_MM} "
+        f"(bandtm) {t_mm:.4f} ms")
+    Hc, bc = lp["Hc"], lp["bc"]
+    r = fixed_restart(20, *lp["gmres_c"], lp["bcnorm"])
+    t_it, t_all = iteration_ms(lambda kk: tt.pgmres_solve(Hc, bc, rtol=0.0, atol=0.0, maxit=kk, restart=r,
+                                                          precond="ilu0")[1], r, 2 * r)
+    log(f"  complex64 stencil ILU0-GMRES iteration (pgmres_solve, restart {r}, {r} and {2 * r} steps): {t_it:.4f} ms "
+        f"(host clock, median of {[round(t, 4) for t in t_all]}; {lp['gmres_c'][0]} iterations to rtol 1e-6)")
+    profile_mv(f"complex64 stencil ILU0-GMRES, one cycle of {r} steps", lambda: tt.pgmres_solve(
+        Hc, bc, rtol=0.0, atol=0.0, maxit=r, restart=r, precond="ilu0"), calls=1, top=6)
+
+    def sgs_cg(kk):
+        h = tt.itsol_init(torch.complex64)
+        for key, v in {"cg preconditioner": "sgs", "cg rel tolerance": 0.0, "cg abs tolerance": 0.0,
+                       "cg iteration limit": kk - 1}.items():
+            tt.itsol_option_set(h, key, v)
+        _x, rinfo, _status = tt.itsol_solve(h, bc.shape[0], Hc, GEN, bc)
+        return int(rinfo[30])
+
+    t_it, t_all = iteration_ms(sgs_cg, 2, 6)
+    log(f"  complex64 stencil itsol SGS-CG iteration: {t_it:.4f} ms (host clock, median of "
+        f"{[round(t, 4) for t in t_all]}; {lp['cg_c']} iterations to rtol 1e-6)")
+
+
 def coo_csr(rows, cols, vals, m):
     """(ptr, ind, val) of an m x m COO triangle, sorted by row and column."""
     S = sp.csr_matrix((vals, (rows, cols)), shape=(m, m))
@@ -2183,7 +2506,7 @@ def main() -> int:
     # chain kernels index no register array at run time: no stack frame,
     # no spills
     names = ("benes_pass_kernel", "oh_accum_kernel", "spmv_mxu_kernel", "spmv_bwd_kernel", "win_block_kernel",
-             "win_chain_kernel", "win_fix_kernel", "spmm_band_mxu_f32_kernel", "spmm_band_mxu_bf16_kernel",
+             "win_chain_kernel", "win_fix_kernel", "win_round_kernel", "spmm_band_mxu_f32_kernel", "spmm_band_mxu_bf16_kernel",
              "band_gemm_kernel", "spmm_band_kernel", "spmm_diag_kernel", "trsv_blocked_kernel", "trsv_level_kernel")
     res = ptxas_resources(ptxas, names)
     for fn, (frame, stores, loads, regs) in sorted(res.items()):
@@ -2376,6 +2699,22 @@ def main() -> int:
                 same_bits("trsm_win_f64", label, lambda: trsm_win(dT, lT, bm64, nb_, WL_, ops)),
                 trsm_win_plain(dT, lT, bm64, nb_, WL_), errs)
         del dT, lT, ops, b64, bm64
+    # the bf16 instance on the ILU0 L form's operands rounded to bf16 (its
+    # card operands P and F in f32), K = 1 and K_SM, against the plain
+    # version, which rounds where the Pallas kernels round
+    dT16, lT16 = (t.to(torch.bfloat16) for t in ilu_ops["L"][:2])
+    fL = st.l_form
+    ops16 = win_solve_operands(dT16, lT16, fL.nb, fL.WL)
+    bw16, bwm16 = bw.to(torch.bfloat16), bw_m.to(torch.bfloat16)
+    label = f"ILU0 L in bf16 (nb={fL.nb}, WL={fL.WL}, nblk={fL.nblk}, groups of {ops16.group})"
+    got16 = same_bits("trsv_win_bf16", label, lambda: trsv_win(dT16, lT16, bw16, fL.nb, fL.WL, ops16))
+    compare("trsv_win_bf16", label, got16, trsv_win_plain(dT16, lT16, bw16, fL.nb, fL.WL), errs)
+    log(f"  {label}: against the f32 plain solve on the f32 operands max rel err "
+        f"{near_error(host64(got16), host64(trsv_win_plain(*ilu_ops['L'][:2], bw, fL.nb, fL.WL))):.3e}")
+    compare("trsm_win_bf16", f"{label} K={K_SM}",
+            same_bits("trsm_win_bf16", label, lambda: trsm_win(dT16, lT16, bwm16, fL.nb, fL.WL, ops16)),
+            trsm_win_plain(dT16, lT16, bwm16, fL.nb, fL.WL), errs)
+    del got16
     # the same shape with tails of spectral norm 0.95: the far part of each
     # group weighs, and a zeroed F must fail the comparison
     fL = st.l_form
@@ -2466,6 +2805,19 @@ def main() -> int:
             compare(f"spmm_band_{inst}", label, same_bits(f"spmm_band_{inst}", label,
                                                           lambda: spmm_band(v_r, B_r, 3, Wr // 2)),
                     spmm_band_plain(v_r, B_r, 3, Wr // 2), errs)
+    # the bf16 band instance (a bf16 handle's bandtm form: B and C f32) on
+    # the bench band rounded to bf16, and on random bands at W = 2 and at
+    # the cap (400), K = 300
+    v16 = tm32.bwd_val.to(torch.bfloat16)
+    label = f"bench bf16 band K={K_MM}"
+    compare("spmm_band_bf16", label, same_bits("spmm_band_bf16", label, lambda: spmm_band(v16, Bm, *targs)),
+            spmm_band_plain(v16, Bm, *targs), errs)
+    for mr, Wr, Kr in ((90, 2, 300), (4099, band_max_w(torch.bfloat16), 300)):
+        v_r = torch.from_numpy(brng.standard_normal((mr, Wr)).astype(np.float32)).to(dev, torch.bfloat16)
+        B_r = torch.from_numpy(brng.standard_normal((mr + 7, Kr)).astype(np.float32)).to(dev)
+        label = f"random bf16 band W={Wr} (m={mr}, K={Kr}, start=3, padL={Wr // 2})"
+        compare("spmm_band_bf16", label, same_bits("spmm_band_bf16", label, lambda: spmm_band(v_r, B_r, 3, Wr // 2)),
+                spmm_band_plain(v_r, B_r, 3, Wr // 2), errs)
     del v_r, B_r
     dt32, dtbf = tm32.band_mxu_dt(), tm32.band_mxu_dt(bf16=True)
     W_mm = tm32.bwd_W
@@ -2717,6 +3069,10 @@ def main() -> int:
     t0 = time.perf_counter()
     level_kernel_checks(hst, hst64, Qh, Qd, errs)
     log(f"  level-solve kernel checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    Hc = tt.create_csr(mh, mh, hptr, hind, complex_stencil(hptr, hind, hval, np.complex64), device="cuda")
+    hstc = complex_level_checks(Hc, errs)
+    log(f"  complex level-solve kernel checks: {time.perf_counter() - t0:.1f} s")
 
     # 4. the main path, counted
     phase("phase 4: main path (create_csr -> set_mv_hint -> optimize -> mv)")
@@ -2932,7 +3288,7 @@ def main() -> int:
     launches = read_counts()
     log(f"  main-path launches: {launches}")
     for kernel, count in launches.items():
-        if count == 0 and kernel not in GEN_PATH + SPGEMM_PATH + FORMATS_PATH + MEASURE_PATH:
+        if count == 0 and kernel not in GEN_PATH + SPGEMM_PATH + FORMATS_PATH + MEASURE_PATH + LOWPREC_PATH:
             raise AssertionError(f"kernel {kernel} never launched on the main path")
 
     # 5b. the general-structure path, counted on its own
@@ -3172,13 +3528,28 @@ def main() -> int:
     # 5f. the solver framework, counted on its own
     phase("phase 5f: solver framework (itsol RCI and forward interfaces, options, restarted GMRES, matrix-free "
           "operators)")
+    # the nonsymmetric bench operand of phases 5f and 5g, built once
+    nonsym = shifted_operand(ptr, ind, val, m)
     reset_counts()
-    sf = solver_framework(ptr, ind, val, H, hptr, hind, hval, wptr, wind, wval, dev, rtol, stencil_iters["sgs"])
+    sf = solver_framework(nonsym, H, hptr, hind, hval, wptr, wind, wval, dev, rtol, stencil_iters["sgs"])
     sf_launches = read_counts()
     log(f"  solver framework launches: {({k: sf_launches[k] for k in SOLVER_PATH})}")
     for kernel in SOLVER_PATH:
         if sf_launches[kernel] == 0:
             raise AssertionError(f"kernel {kernel} never launched on the solver framework's path")
+
+    # 5g. bf16 and complex solves, counted on their own
+    phase("phase 5g: bf16 trsv, trsm and mm (bench operand); complex64 trsv, ilu_smoother, sorv, ILU0-GMRES "
+          "(pgmres, itsol) and SGS-CG (itsol) on the 104^3 stencil + i I; complex128 trsv; complex ILU0-GMRES on "
+          "the bench operand (plain route)")
+    reset_counts()
+    lp = lowprec_complex_path(ptr, ind, val, nonsym, hptr, hind, hval, Hc, hstc, dev, rtol)
+    lp_launches = read_counts()
+    log(f"  bf16 and complex path launches: {({k: lp_launches[k] for k in LOWPREC_PATH})}")
+    for kernel in LOWPREC_PATH:
+        if lp_launches[kernel] == 0:
+            raise AssertionError(f"kernel {kernel} never launched on the bf16 and complex path")
+        launches[kernel] = lp_launches[kernel]
 
     # 6. timing
     phase("phase 6: timing (CUDA events or host clock, median of repeats)")
@@ -3358,6 +3729,19 @@ def main() -> int:
              lambda: torch.triangular_solve(bmm, Lt, upper=False, unitriangular=True), one)
         log(f"  {kernel}: K={K_SM} solve costs {ms[kernel] / ms[f'trsv_win_{inst}']:.2f}x the K=1 solve")
     del dT64, lT64, ops64, b64, bm64
+    # the bf16 instance on the same form's operands in bf16: its bound counts
+    # the bf16 triangle of dinvT, lwT, b and x; bf16 products at the tensor
+    # cores' rate; cuSPARSE has no bf16 triangular solve (library: none)
+    tri16 = fL.nblk * fL.nb * (fL.nb + 1) // 2 * 2
+    for kernel, call, plain, bb, K in (
+            ("trsv_win_bf16", lambda: trsv_win(dT16, lT16, bw16, fL.nb, fL.WL, ops16),
+             lambda: trsv_win_plain(dT16, lT16, bw16, fL.nb, fL.WL), bw16, 1),
+            ("trsm_win_bf16", lambda: trsm_win(dT16, lT16, bwm16, fL.nb, fL.WL, ops16),
+             lambda: trsm_win_plain(dT16, lT16, bwm16, fL.nb, fL.WL), bwm16, K_SM)):
+        turns(kernel, call, plain, kreps=(15, 5), preps=(1, 1), kwarm=2, pwarm=0)
+        win_passes(kernel, call, fL, K, 4, rounds=True)
+        note(kernel, tri16 + nbytes(lT16) + 2 * nbytes(bb), nz_bytes(dT16, lT16) + 2 * nbytes(bb), step_flops * K)
+        log(f"  {kernel}: {ms[kernel] / ms[kernel.replace('bf16', 'f32')]:.2f}x the f32 instance's time")
     mm_flops = 2 * tm32.bwd_val.numel() * K_MM
     for inst, v, Bx, Ax in (("f32", tm32.bwd_val, Bm, A32), ("f64", tm64.bwd_val, Bm64, A64)):
         kernel = f"spmm_band_{inst}"
@@ -3371,6 +3755,19 @@ def main() -> int:
         log(f"  {kernel}: tile {BAND_TM} rows x {256 // es} columns, band chunks of {BAND_JC[es]} j in a "
             f"{BAND_STAGES}-stage ring, B through a {BAND_RING}-row ring ({(BAND_TM + Wb - 1) / BAND_TM:.2f} reads a "
             f"B row at W={Wb}); {m * K_MM * Wb / ms[kernel] / 1e9:.1f} G FMA/s")
+    # the bf16 band instance (B and C f32): bf16 widens to f32 exactly, so
+    # cuSPARSE's f32 product on the bench CSR with its values rounded to
+    # bf16 computes the same function (f32 sums) in one library call
+    kernel = "spmm_band_bf16"
+    turns(kernel, lambda: spmm_band(v16, Bm, *targs), lambda: spmm_band_plain(v16, Bm, *targs),
+          kreps=(15, 5), preps=(3, 1))
+    c_bytes = nbytes(Bm) * m // n
+    A16w = csr_tensor(ptr, ind, torch.from_numpy(val.astype(np.float32)).to(torch.bfloat16).float().numpy(), dev,
+                      torch.float32)
+    note(kernel, nbytes(v16, Bm) + c_bytes, nz_bytes(v16, Bm) + c_bytes, mm_flops,
+         lambda: torch.sparse.mm(A16w, Bm), dict(reps=5, inner=2))
+    log(f"  {kernel}: band chunks of {BAND_JC[2]} j (column pairs); {ms[kernel] / ms['spmm_band_f32']:.2f}x the f32 "
+        f"instance's time; {m * K_MM * v16.shape[1] / ms[kernel] / 1e9:.1f} G FMA/s")
     for inst, dt_ in (("f32", dt32), ("bf16", dtbf)):
         kernel = f"spmm_band_mxu_{inst}"
         turns(kernel, lambda: spmm_band_mxu(dt_, Bm, *targs, m, W_mm),
@@ -3544,6 +3941,57 @@ def main() -> int:
         f"a level, t_step {t_step['f32']:.3f} / {t_step['f64']:.3f} us a step; the planner's T_LEVEL_US "
         f"{ttri.T_LEVEL_US}, T_STEP_US {ttri.T_STEP_US}")
     del cform, Cb
+    # the level kernel's complex instances on the complex stencil's ILU0 L
+    # (complex128: the same form's values widened), against their plain
+    # version and cuSPARSE's complex triangular solve on the CSR triangle; a
+    # complex multiply-add is 8 real operations
+    lu_c = hstc.lu.to(torch.complex128).cpu().numpy()
+    lform_c = _level_forms(hstc)[0]
+    for inst, dt_, lf in (("c64", torch.complex64, lform_c),
+                          ("c128", torch.complex128, widen_level_form(lform_c, torch.complex128))):
+        kernel = f"trsv_level_{inst}"
+        crng = np.random.default_rng(101)
+        bl = torch.from_numpy(crng.standard_normal(mh) + 1j * crng.standard_normal(mh)).to(dev, dt_)
+        turns(kernel, lambda: trsv_level(lf, bl), lambda: trsv_level_plain(lf, bl),
+              kreps=(9, 5), preps=(1, 1), kwarm=1, pwarm=0)
+        Lt = csr_tensor(*coo_csr(np.r_[hrows[hlow], np.arange(mh)], np.r_[hind[hlow], np.arange(mh)],
+                                 np.r_[lu_c[hlow], np.ones(mh)], mh), dev, dt_)
+        lbytes = level_bytes(lf, bl)
+        note(kernel, lbytes, lbytes, 8 * lf.lcol.numel() + 8 * mh,
+             lambda: torch.triangular_solve(bl[:, None], Lt, upper=False, unitriangular=True), one)
+        log(f"  {kernel} (complex stencil ILU0 L, {lf.nlev} levels): {ms[kernel] * 1e3 / lf.nlev:.3f} us a level; "
+            f"{ms[kernel] / ms[kernel.replace(inst, 'f32' if inst == 'c64' else 'f64')]:.2f}x the real instance's "
+            f"time; the library's solve {ratio(lib[kernel], ms[kernel])}x its time")
+        del Lt
+    # mv KID 6, the stencil's mv form since the mv rule's diag branch: the
+    # plain spmv_diag (no hand kernel yet), against cuSPARSE CSR @ x and the
+    # bytes it must move (the 27 diagonals once, x read and y written)
+    hdf = H.plan.exec_form_for(GEN, NONE)
+    xh = torch.from_numpy(np.random.default_rng(103).standard_normal(mh).astype(np.float32)).to(dev)
+    t_diag = cuda_ms(lambda: spmv_diag(hdf.dia_val, hdf.dia_offs, xh, mh, hdf.dia_L, hdf.dia_n_pad), backlog=True)
+    t_mv_h = cuda_ms(lambda: tt.mv(1.0, H, GEN, NONE, xh, 0.0))
+    t_lib_h, err = library_ms(lambda: H32 @ xh, backlog=True)
+    d_bytes = nbytes(hdf.dia_val, xh) + mh * 4
+    d_nz = nz_bytes(hdf.dia_val) + nbytes(xh) + mh * 4
+    t_b, by = bound_of(d_bytes, 2 * hdf.dia_val.numel(), "f32", peak)
+    log(f"  mv KID 6 (plain spmv_diag) on the stencil's diag form ({hdf.dia_val.shape[0]} diagonals): "
+        f"{t_diag:.4f} ms, mv call {t_mv_h:.4f} ms, cuSPARSE CSR @ x "
+        f"{f'{t_lib_h:.4f} ms' if t_lib_h is not None else err}; bound {t_b:.4f} ms ({by}; {d_bytes / 1e6:.1f} MB) "
+        f"= {t_b / t_diag:.3f}; nonzeros only {bound_of(d_nz, 2 * hind.size, 'f32', peak)[0]:.4f} ms")
+    profile_mv("stencil mv (diag form, plain spmv_diag)", lambda: tt.mv(1.0, H, GEN, NONE, xh, 0.0), calls=5)
+    # the complex plain win route: one ILU0 L solve of the complex bench
+    # operand (the plain block loop on the card: no complex window kernel)
+    fl_c = lp["nst"].l_form
+    rc = torch.zeros(fl_c.m_pad, dtype=torch.complex64, device=dev)
+    rc[:m] = lp["bn"]
+    t_plain_c = cuda_ms(lambda: fl_c.solve(rc), reps=3, inner=1, warm=1)
+    dT_c, lT_c = fl_c.operands()
+    c_bytes = fl_c.nblk * fl_c.nb * (fl_c.nb + 1) // 2 * 8 + nbytes(lT_c) + 2 * nbytes(rc)
+    t_b, by = bound_of(c_bytes, 8 * fl_c.nblk * (fl_c.nb * (fl_c.nb + 1) // 2 + fl_c.WL * fl_c.nb), "c64", peak)
+    log(f"  complex64 win solve, the plain route (bench ILU0 L, nb={fl_c.nb} WL={fl_c.WL} nblk={fl_c.nblk}): "
+        f"{t_plain_c:.4f} ms a solve, {t_plain_c * 1e3 / fl_c.nblk:.2f} us a block; the bytes' bound "
+        f"{t_b:.4f} ms ({by}); the f32 kernel on the f32 form {ms['trsv_win_f32']:.4f} ms")
+    del dT_c, lT_c, rc
     Sq = sp.csr_matrix((qval.astype(np.float64), qind, qptr), shape=(qm, qm))
     Sql = sp.tril(Sq).tocsr()
     for inst, handle, dt_ in (("f32", Qh, torch.float32), ("f64", Qd, torch.float64)):
@@ -3601,6 +4049,10 @@ def main() -> int:
         f"{[round(t, 4) for t in t_all]})")
     profile_mv("stencil ILU0-PCG iteration (2 fixed iterations)",
                lambda: tt.pcg_solve(H, bs_d, rtol=0.0, maxit=2, precond="ilu0"), calls=1, top=6)
+    profile_mv("stencil SGS-PCG iteration (2 fixed iterations)",
+               lambda: tt.pcg_solve(H, bs_d, rtol=0.0, maxit=2, precond="sgs"), calls=1, top=6)
+    profile_mv("stencil CG iteration (5 fixed iterations)", lambda: tt.pcg_solve(H, bs_d, rtol=0.0, maxit=5),
+               calls=1, top=6)
 
     # the spill-route kernels on the webbase spill route (after
     # update_values: the same structure, new values)
@@ -3770,8 +4222,9 @@ def main() -> int:
         f"engine {t_qdev:.4f} ms, on the host engine (pinned) {t_qhost:.4f} ms; cuSPARSE SpGEMM {lib_s}")
     profile_mv("sp2m finalize (scatter Q.Q, device expansion engine)", fin_q, calls=3)
     del Qt
-    # the solver framework's iterations (phase 5f's operands)
+    # the solver framework's iterations (phase 5f's operands), phase 5g's
     solver_timings(sf)
+    lowprec_timings(lp)
     phase("done")
 
     kernels = [

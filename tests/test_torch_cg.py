@@ -110,9 +110,10 @@ def test_slice_end_to_end_matches_jax(ast):
 def test_pcg_errors():
     m, ptr, ind, val = _spd_band(m=50)
     T = tt.create_csr(m, m, ptr, ind, val, device="cpu")
-    # ilu0 and sgs are ported (tests/test_torch_pcg_precond.py); a complex
-    # operand has no triangular solve yet
-    Z = tt.create_csr(m, m, ptr, ind, val.astype(np.complex128), device="cpu")
+    # ilu0 and sgs are ported for every dtype (tests/test_torch_pcg_precond.py,
+    # tests/test_torch_gmres.py for complex); a float16 operand has no
+    # triangular solve
+    Z = tt.create_csr(m, m, ptr, ind, torch.from_numpy(val).to(torch.float16), device="cpu")
     for A, precond, status in ((Z, "ilu0", tt.Status.not_implemented), (Z, "sgs", tt.Status.not_implemented),
                                (T, "jacobi", tt.Status.invalid_value)):
         with pytest.raises(tt.AoclSparseError) as e:

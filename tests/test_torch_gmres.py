@@ -191,17 +191,39 @@ def test_pgmres_complex_solves_matches_jax(ast):
     assert abs(it - it_rci) <= 12
 
 
-@pytest.mark.parametrize("solver", ["pcg", "pgmres"])
-def test_complex_ilu0_not_implemented(solver):
-    """Replaces test_pgmres_complex_ilu0: the port's triangular solves take
-    real f32/f64 only (ROADMAP.md item 12), so a complex ILU0 solve raises
-    what check_solve_dtype raises."""
-    dense = complex_general(8, 48, cut=1.5, diag=48 + 0.5j)
-    T = tt.create_csr(48, 48, *csr(dense), device="cpu")
-    fn = tt.pcg_solve if solver == "pcg" else tt.pgmres_solve
-    with pytest.raises(tt.AoclSparseError) as e:
-        fn(T, torch.from_numpy(rhs(8, 48, np.complex128)), rtol=1e-8, maxit=200, precond="ilu0")
-    assert e.value.status == tt.Status.not_implemented
+def complex_symmetric(seed, m):
+    """A complex-symmetric operand (test_pcg_complex_symmetric_matches_rci)."""
+    rng = np.random.default_rng(seed)
+    B = rng.standard_normal((m, m)) + 1j * rng.standard_normal((m, m))
+    B[np.abs(B) < 1.2] = 0
+    dense = B @ B.T + m * np.eye(m)
+    dense[np.abs(dense) < 1e-12] = 0
+    return (dense + dense.T) / 2
+
+
+@pytest.mark.parametrize("solver, precond", [("pcg", "ilu0"), ("pcg", "sgs"), ("pgmres", "ilu0")])
+def test_complex_preconditioned_solves_match_jax(ast, solver, precond):
+    """test_pgmres_complex_ilu0 and test_pcg_complex_symmetric_matches_rci
+    with a preconditioner: the JAX package's count, x and estimate (f64
+    model tolerance), on a complex general operand for GMRES (ILU0:
+    pgmres_solve takes no SGS, as in the JAX package) and a
+    complex-symmetric one for CG (unconjugated dots); ILU0 takes no more
+    GMRES iterations than none."""
+    if solver == "pgmres":
+        dense = complex_general(8, 48, cut=1.5, diag=48 + 0.5j)
+        kw = dict(rtol=1e-8, maxit=200, restart=15)
+    else:
+        dense = complex_symmetric(8, 40)
+        kw = dict(rtol=1e-8, maxit=300)
+    J, T = pair(ast, dense)
+    b = rhs(8, dense.shape[0], np.complex128)
+    fn_t, fn_j = (tt.pcg_solve, ast.pcg_solve) if solver == "pcg" else (tt.pgmres_solve, ast.pgmres_solve)
+    got = fn_t(T, torch.from_numpy(b), precond=precond, **kw)
+    same_solve(got, fn_j(J, b, precond=precond, **kw), np.linalg.norm(b))
+    assert got[0].dtype == torch.complex128
+    np.testing.assert_allclose(dense @ got[0].numpy(), b, atol=1e-5)
+    if solver == "pgmres":
+        assert got[1] <= tt.pgmres_solve(T, torch.from_numpy(b), **kw)[1]
 
 
 def test_pgmres_errors():

@@ -202,29 +202,29 @@ def test_gmres_ilu0_no_more_iterations(dtype):
     T = tt.create_csr(40, 40, *csr(dense), device="cpu")
     b = torch.from_numpy(rhs(9, 40, dtype))
     _x0, r0, _s0 = tt.itsol_solve(init(tt, dtype, GM), 40, T, GEN, b)
-    if dtype == np.complex128:
-        # the port's triangular solves take real f32/f64 only (ROADMAP.md item 12)
-        with pytest.raises(tt.AoclSparseError) as e:
-            tt.itsol_solve(init(tt, dtype, dict(GM, **{"gmres preconditioner": "ILU0"})), 40, T, GEN, b)
-        assert e.value.status == tt.Status.not_implemented
-        return
     _x, r, s = tt.itsol_solve(init(tt, dtype, dict(GM, **{"gmres preconditioner": "ILU0"})), 40, T, GEN, b)
     assert s == tt.Status.success and r[RINFO_ITER] <= r0[RINFO_ITER]
 
 
 @pytest.mark.parametrize("precond, option", [("SGS", "cg preconditioner"), ("ILU0", "gmres preconditioner")])
-def test_complex_matrix_preconditioners_not_implemented(precond, option):
-    """Complex handles with the SGS or ILU0 option raise what the port's
-    triangular solves raise (check_solve_dtype); the options unlock."""
+def test_complex_matrix_preconditioners_match_jax(ast, precond, option):
+    """Complex handles with the SGS or ILU0 option (tests/test_itsol.py:241,
+    :258 with a preconditioner): the JAX package's x, rinfo and status
+    within the f64 model tolerance; the solve ends and the options unlock."""
     dense = complex_symmetric(6, 16)
-    T = tt.create_csr(16, 16, *csr(dense), device="cpu")
+    m = 16
+    J, T = handles(ast, dense, np.complex128)
     opts = {option: precond} if option.startswith("cg") else dict(GM, **{option: precond})
-    h = init(tt, np.complex128, opts)
-    with pytest.raises(tt.AoclSparseError) as e:
-        tt.itsol_solve(h, 16, T, GEN, torch.from_numpy(rhs(6, 16, np.complex128)))
-    assert e.value.status == tt.Status.not_implemented
-    assert not h.solving()
-    tt.itsol_option_set(h, option, "None")  # unlocked
+    b = rhs(6, m, np.complex128)
+    hj, ht = init(ast, np.complex128, opts), init(tt, np.complex128, opts)
+    xj, rj, sj = ast.itsol_solve(hj, m, J, ast.MatrixDescriptor(), b)
+    xt, rt, st = tt.itsol_solve(ht, m, T, GEN, torch.from_numpy(b))
+    assert int(st) == int(sj) == int(tt.Status.success)
+    assert_rinfo(rt, rj, np.complex128)
+    assert near_error(xt.numpy(), np.asarray(xj)) <= expected_precision(torch.float64)
+    np.testing.assert_allclose(dense @ xt.numpy(), b, atol=1e-6)
+    assert not ht.solving()
+    tt.itsol_option_set(ht, option, "None")  # unlocked
 
 
 def test_monitoring_user_stop(ast):

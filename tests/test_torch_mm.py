@@ -190,12 +190,17 @@ def test_mixed_mode_matches_jax_and_documented_bound(ast, pairs, monkeypatch, ki
 
 
 def test_default_form_rederived_for_hopper():
-    """Band operands take bandtm, wide-span stencils diag, scattered ones a
-    gather form, complex and bf16 ones a gather form (no kernel instance)."""
+    """Band operands take bandtm (bf16 too: the band kernel's bf16
+    instance), wide-span stencils diag, scattered ones a gather form,
+    complex ones a gather form (no kernel instance)."""
     T = tt.create_csr(M, M, *_csr(_operand(seed=11)), device="cpu")
     tt.set_mm_hint(T, NONE, GEN, nop=100)
     plan = tt.optimize(T)
     assert [k[-1] for k in plan.exec_forms] == ["bandtm"]
+    Sb = _operand(seed=11)
+    Tb = tt.create_csr(M, M, Sb.indptr, Sb.indices, torch.from_numpy(Sb.data).to(torch.bfloat16), device="cpu")
+    assert tt.mm(1.0, Tb, GEN, NONE, torch.ones(M, 2, dtype=torch.bfloat16), 0.0).dtype == torch.bfloat16
+    assert [k[-1] for k in Tb.plan.exec_forms] == ["bandtm"]
     nx = 24  # 27-point stencil: a span of 2 (nx^2 + nx + 1) rows, past any band tile
     Sd = _stencil27(nx)
     D = tt.create_csr(nx**3, nx**3, *_csr(Sd), device="cpu")

@@ -178,9 +178,9 @@ def test_sorv_matches_jax_and_scipy(ast, pair, omega, alpha):
 def test_sorv_statuses_and_divergences(ast, pair):
     """The reference's not_implemented cases (backward and symmetric
     sweeps, a non-general descriptor) and a missing diagonal, as in the JAX
-    package. Complex SOR: the JAX package runs it, the port's triangular
-    solves take real f32 / f64 only, so it raises not_implemented
-    (ROADMAP.md queue 1 item 12)."""
+    package. Complex SOR, with complex omega and alpha: both packages run
+    it (the reference stubs it), with the same x within the f64 model
+    tolerance."""
     J, T, m = pair
     x = b = np.ones(m)
     for sor, descr in ((ast.SorType.backward, "general"), (ast.SorType.symmetric, "general"),
@@ -198,12 +198,15 @@ def test_sorv_statuses_and_divergences(ast, pair):
         with pytest.raises(lib.AoclSparseError) as e:
             lib.sorv(lib.SorType.forward, lib.MatrixDescriptor(), A, 1.1, 1.0, arr, arr)
         assert e.value.status == lib.Status.invalid_value
-    Z = tt.create_csr(3, 3, np.array([0, 1, 2, 3]), np.array([0, 1, 2], np.int32), np.ones(3, np.complex128),
-                      device="cpu")
-    with pytest.raises(tt.AoclSparseError) as e:
-        tt.sorv(tt.SorType.forward, tt.MatrixDescriptor(), Z, 1.1, 1.0, torch.ones(3, dtype=torch.complex128),
-                torch.ones(3, dtype=torch.complex128))
-    assert e.value.status == tt.Status.not_implemented
+    zptr, zind = np.array([0, 1, 3, 5]), np.array([0, 0, 1, 1, 2], np.int32)
+    zval = np.array([2.0 + 1j, -0.5j, 3.0, 0.25 + 0.5j, 4.0 - 1j])
+    zx, zb = np.array([1.0, 1j, -1.0 + 0.5j]), np.array([0.5j, 2.0, 1.0 - 1j])
+    want = ast.sorv(ast.SorType.forward, ast.MatrixDescriptor(), ast.create_csr(3, 3, zptr, zind, zval), 1.1 + 0.2j,
+                    0.7 - 0.1j, zx, zb)
+    got = tt.sorv(tt.SorType.forward, tt.MatrixDescriptor(), tt.create_csr(3, 3, zptr, zind, zval, device="cpu"),
+                  1.1 + 0.2j, 0.7 - 0.1j, torch.from_numpy(zx), torch.from_numpy(zb))
+    assert got.dtype == torch.complex128
+    assert near_error(got.numpy(), np.asarray(want)) <= TOL64
 
 
 def test_symgs_and_sorv_hints(ast, pair):

@@ -171,19 +171,33 @@ def test_error_statuses_match_jax(ast):
     assert _status(lambda: tt.trsv_strided(1.0, T, dt, tt.Operation.none, bt, 0)) == int(tt.Status.invalid_size)
 
 
-def test_unported_routes_raise_not_implemented():
-    """bf16 and complex triangles are not ported yet: not_implemented from
-    every sv engine (the blocked solve, kid 1 the level engine, kid 2 the
-    host engine), never a silent fallback."""
+def test_bf16_and_complex_routes_match_jax(ast):
+    """bf16 and complex triangles through every sv engine (the blocked
+    solve, kid 1 the level engine, kid 2 the host engine) against the JAX
+    package's default solve: complex128 within the f64 model tolerance, bf16
+    within the bf16 one (4 sqrt(2^-6); both packages round at their own
+    places), each result in the handle's dtype. A dtype with no solve
+    (float16) raises not_implemented."""
+    import jax.numpy as jnp
+
     ptr, ind, val, _ = _operand(seed=5, m=60, halfw=3, far=0)
+    dj = ast.MatrixDescriptor(type=ast.MatrixType.triangular)
     d = tt.MatrixDescriptor(type=tt.MatrixType.triangular)
-    for v in (torch.from_numpy(val).to(torch.bfloat16), val.astype(np.complex128)):
-        C = tt.create_csr(60, 60, ptr, ind, v, device="cpu")
-        rhs = torch.ones(60, dtype=C.dtype)
+    rng = np.random.default_rng(5)
+    for jdt, tdt in ((jnp.bfloat16, torch.bfloat16), (jnp.complex128, torch.complex128)):
+        v = val + (1j * rng.standard_normal(val.size) if tdt.is_complex else 0.0)
+        J = ast.create_csr(60, 60, ptr, ind, jnp.asarray(v, dtype=jdt))
+        C = tt.create_csr(60, 60, ptr, ind, torch.from_numpy(v).to(tdt), device="cpu")
+        b = rng.standard_normal(60) + (1j * rng.standard_normal(60) if tdt.is_complex else 0.0)
+        want = np.asarray(ast.trsv(1.0, J, dj, ast.Operation.none, jnp.asarray(b, dtype=jdt)), dtype=np.complex128)
         for kid in (None, 0, 1, 2):
-            assert _status(lambda: tt.trsv(1.0, C, d, tt.Operation.none, rhs, kid=kid)) == int(
-                tt.Status.not_implemented
-            )
+            got = tt.trsv(1.0, C, d, tt.Operation.none, torch.from_numpy(b).to(tdt), kid=kid)
+            assert got.dtype == tdt
+            assert near_error(got.to(torch.complex128).numpy(), want) <= expected_precision(tdt)
+    H = tt.create_csr(60, 60, ptr, ind, torch.from_numpy(val).to(torch.float16), device="cpu")
+    assert _status(lambda: tt.trsv(1.0, H, d, tt.Operation.none, torch.ones(60, dtype=torch.float16))) == int(
+        tt.Status.not_implemented
+    )
 
 
 def test_update_values_flows_into_the_solve():

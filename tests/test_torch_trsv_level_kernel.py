@@ -379,7 +379,7 @@ def test_gate_on_real_forms(monkeypatch):
         assert ttri.sv_engine_for(plan, descr, NONE, cpu) == "level"
     assert ttri.sv_engine_for(D, _lower(), NONE, cpu) == "blocked"
     # a deep chain in a chain-kernel form: one level a row against m / 64 blocks
-    chain = types.SimpleNamespace(kind="dwin", nblk=-(-T.shape[0] // 64))
+    chain = types.SimpleNamespace(kind="dwin", nblk=-(-T.shape[0] // 64), D=torch.empty(0, 64, 64))
     assert ttri.pick_sv_engine(chain, lambda: T.shape[0], cpu) == "blocked"
     assert ttri.pick_sv_engine(chain, lambda: 5, cpu) == "level"
     assert ttri.pick_sv_engine(chain, lambda: 5, torch.device("meta")) == "blocked"

@@ -126,12 +126,13 @@ def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
-def _chain(Xf, steps, WL, R, tg, tt_):
+def _chain(Xf, steps, WL, R, tg, tt_, rb=False):
     """One chain launch: steps of (T, rows), T the (WL, R) operand and rows
     the step's R chain rows of Xf (C on entry, x on exit); the window is the
     last WL rows the earlier steps wrote, zero before the first. Each tile
     of tt window rows splits into tg contiguous slices, a slice sums its
-    rows in increasing order, the slices meet in slice order."""
+    rows in increasing order, the slices meet in slice order. rb: the bf16
+    instance, which rounds each chain row to bf16 as it enters the window."""
     K = Xf.shape[1]
     hist = torch.zeros(WL, K, dtype=Xf.dtype)
     for T, rows in steps:
@@ -145,8 +146,13 @@ def _chain(Xf, steps, WL, R, tg, tt_):
         s = acc[0]
         for g in range(1, tg):
             s = s + acc[g]
-        Xf[rows] = Xf[rows] - s
+        Xf[rows] = _round(Xf[rows] - s, rb)
         hist = torch.cat([hist, Xf[rows]])[-WL:]
+
+
+def _round(x, rb):
+    """x rounded to bf16 (held in f32) where rb, else x."""
+    return x.to(torch.bfloat16).float() if rb else x
 
 
 #: planted faults of a grouped solve, each of which a check must see: F
@@ -155,9 +161,13 @@ def _chain(Xf, steps, WL, R, tg, tt_):
 FAULTS = ("F zeroed", "F of the next group", "no group chain", "fix-up of two blocks")
 
 
-def _emulate(dinvT, ops, b, nb, WL, fault=None):
+def _emulate(dinvT, ops, b, nb, WL, fault=None, rb=False):
     """The passes in the kernels' order (module docstring); b of nblk*nb
-    values or (nblk*nb, K); `fault` one of FAULTS, or None."""
+    values or (nblk*nb, K); `fault` one of FAULTS, or None. rb: the bf16
+    instance (csrc/trsv_win.cu), on bf16 operands widened to f32 and f32 P
+    and F: the chain rows round to bf16 as they enter the window (pass L
+    and G in the chain, pass F in the fix-up), and x rounds to bf16 at the
+    end."""
     nblk = dinvT.shape[0]
     P, F, s = ops.P, ops.F, ops.group
     B = b.reshape(nblk, nb, -1)
@@ -176,7 +186,7 @@ def _emulate(dinvT, ops, b, nb, WL, fault=None):
         return slice(k * nb + r0, (k + 1) * nb)
 
     if not s:  # the plain chain
-        _chain(Xf, [(P[k, :, r0:], rows(k)) for k in range(nblk)], WL, R, tg, tt_)
+        _chain(Xf, [(P[k, :, r0:], rows(k)) for k in range(nblk)], WL, R, tg, tt_, rb)
     else:
         if fault == "F zeroed":
             F = torch.zeros_like(F)
@@ -184,11 +194,11 @@ def _emulate(dinvT, ops, b, nb, WL, fault=None):
             F = torch.roll(F, -s, dims=0)
         # L: each group's chain from a zero window
         for a in range(0, nblk, s):
-            _chain(Xf, [(P[k, :, r0:], rows(k)) for k in range(a, min(a + s, nblk))], WL, R, tg, tt_)
+            _chain(Xf, [(P[k, :, r0:], rows(k)) for k in range(a, min(a + s, nblk))], WL, R, tg, tt_, rb)
         # G: the full groups' last blocks through their products
         full = nblk // s
         if full >= 2 and fault != "no group chain":
-            _chain(Xf, [(F[g * s + s - 1], rows(g * s + s - 1)) for g in range(full)], WL, R, tg, tt_)
+            _chain(Xf, [(F[g * s + s - 1], rows(g * s + s - 1)) for g in range(full)], WL, R, tg, tt_, rb)
         # F: the other blocks of the groups after the first, from the chain
         # rows before their group
         for j in range(s, nblk):
@@ -201,7 +211,7 @@ def _emulate(dinvT, ops, b, nb, WL, fault=None):
             acc = torch.zeros(R, K, dtype=b.dtype)
             for t in range(WL):
                 acc += F[j, t, :, None] * w[t][None, :]
-            Xf[rows(j)] = Xf[rows(j)] - acc
+            Xf[rows(j)] = _round(Xf[rows(j)] - acc, rb)
     # C: rows r < r0 of blocks k >= 1 from the chain rows X[blk0 - WL, blk0)
     for k in range(1, nblk if r0 > 0 else 0):
         w = Xf[k * nb - WL : k * nb]
@@ -209,7 +219,7 @@ def _emulate(dinvT, ops, b, nb, WL, fault=None):
         for t in range(WL):
             acc += P[k, t, :r0, None] * w[t][None, :]
         X[k, :r0] = X[k, :r0] - acc
-    return X.reshape(b.shape)
+    return X.reshape(b.shape).to(torch.bfloat16) if rb else X.reshape(b.shape)
 
 
 def _far_weight(ops, x, nb, WL):
@@ -320,6 +330,30 @@ def test_emulated_passes_match_pallas_trsm(pallas_trsv, WL, K):
     dT, lT, Bd = _t(dinvT, lwT, B)
     got = _emulate(dT, win_solve_operands(dT, lT, nb, WL), Bd, nb, WL)
     assert near_error(got.numpy(), want) <= _tol(np.float32)
+
+
+@pytest.mark.parametrize("WL,nblk", [(8, 8), (64, 16), (128, 8), (256, 8)])
+def test_emulated_bf16_passes_match_pallas_trsv(pallas_trsv, WL, nblk):
+    """The bf16 instance's passes (f32 sums over bf16 operands, f32 P and
+    F, the window in bf16; grouped where WL <= nb, the plain chain at WL =
+    256 > nb) against pallas_trsv_win_inv8 on the same bf16 operands, which
+    also rounds s = w lwT and b - s to bf16 each block: within two bf16
+    units in the last place (2^-6; they differ by one rounding here), far
+    inside the bf16 model tolerance, and the plain version (which rounds as
+    the Pallas kernel does) within the f32 one."""
+    import jax.numpy as jnp
+
+    nb = 128
+    dinvT, lwT, b = (torch.from_numpy(a).to(torch.bfloat16) for a in _operands(WL + 3, nblk, nb, WL))
+    want = np.asarray(pallas_trsv.pallas_trsv_win_inv8(*(jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16)
+                                                          for t in (dinvT, lwT, b)), nb, WL, interpret=True))
+    want = want.astype(np.float32)
+    ops = win_solve_operands(dinvT, lwT, nb, WL)
+    assert ops.P.dtype == torch.float32 and (WL > nb or ops.group > 0)
+    got = _emulate(dinvT.float(), ops, b.float(), nb, WL, rb=True)
+    assert got.dtype == torch.bfloat16
+    assert near_error(got.float().numpy(), want) <= 2 * 2.0**-7 <= expected_precision(torch.bfloat16)
+    assert near_error(trsv_win_plain(dinvT, lwT, b, nb, WL).float().numpy(), want) <= _tol(np.float32)
 
 
 @pytest.mark.parametrize("K", [None, 16])
