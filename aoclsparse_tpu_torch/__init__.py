@@ -8,7 +8,7 @@ level-1 sparse-vector ops, hints and the planner, ``mv``/``dotmv``/
 structure), ``route``, ``diag``, ``sell``, gather and native-format forms
 and the host engine, the format-direct ``csrmv``/``ellmv``/``elltmv``/
 ``ellthybmv``/``diamv``/``bsrmv``/``blkcsrmv``, ``mm`` through the
-``bandtm``, ``diag``, ``bwdg`` and gather forms, ``trsv`` and ``trsm``
+``bandtm``, ``diag``, ``gen``, ``bwdg`` and gather forms, ``trsv`` and ``trsm``
 (blocked ``win``, ``dwin`` and ``gather`` forms, the level engine and the
 host engine; f32, f64, bf16, complex64 and complex128 triangles, complex
 ones on the level kernel or the blocked forms' plain loops; bf16 ``dwin``
@@ -32,8 +32,14 @@ csrc/spmv_mxu.cu, csrc/stream_read.cu; utils/profiling.py times them),
 built with nvcc at first use; on CPU tensors they run the kernels' plain
 PyTorch versions. The host C++ library (native/) builds
 with g++ at first use. Tensors go to ``cuda:0`` unless a device is named.
-ROADMAP.md lists what is still to port (autotune, the plan cache,
-checkpoints).
+``mm`` KID 6, the general-structure composite, runs its band leg on the
+band SpMM kernel. The tuners ``autotune_mv``, ``autotune_mm``,
+``autotune_trsv`` and ``autotune_spgemm`` (kernels/autotune.py) time the
+candidate forms and pin the fastest on the plan; ``io`` saves and loads
+plans (``save_plan``/``load_plan``) and handles with their ILU0 factor
+(``save_matrix``/``load_matrix``); ``utils.reference`` holds the numpy
+oracles and ``utils.debug`` the NaN/Inf trap and the deterministic mode.
+ROADMAP.md lists what is still to port (the distributed layer).
 """
 
 from .core.types import (  # noqa: F401
@@ -82,6 +88,12 @@ from .core.auxiliary import (  # noqa: F401
     set_precision_mode,
 )
 from .core.context import get_context  # noqa: F401
+from .kernels.autotune import (  # noqa: F401
+    autotune_mm,
+    autotune_mv,
+    autotune_spgemm,
+    autotune_trsv,
+)
 from .kernels.registry import debug_dispatcher  # noqa: F401
 from .ops import (  # noqa: F401
     MvOperator,

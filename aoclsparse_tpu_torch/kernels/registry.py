@@ -47,11 +47,11 @@ solve takes it where planner/triangular.py `sv_engine_for` says the DAG is
 shallow against the chain); KID 2, the host sequential
 substitution (native/, priority -2: an explicit kid only).
 
-The mm table keeps the JAX package's KIDs 0-5 and 7 (ops/level3/csrmm.py:
-38-57): the plain gather and group forms 0-3, and the hand-written kernels
-of the bandtm form (4, the default there; 5, the block-window twin) and of
-the diag form (7). KID 6 (the general-sparsity composite) is not ported
-yet; ops/level3/csrmm.py answers it with not_implemented.
+The mm table keeps the JAX package's KIDs 0-7 (ops/level3/csrmm.py:38-57):
+the plain gather and group forms 0-3, the hand-written kernels of the
+bandtm form (4, the default there; 5, the block-window twin), the
+general-structure composite (6, kernels/spmm_gen.py, its band leg on the
+band SpMM kernel) and the diag form (7).
 """
 
 from __future__ import annotations
@@ -69,6 +69,7 @@ from .host import HOST_MV_KID, spmv_host_csr
 from .plain_spmv import spmv_bsr, spmv_bwdg, spmv_dia, spmv_diag, spmv_ell, spmv_ellhyb, spmv_segsum
 from .spmm_band import spmm_bandmxu, spmm_bandtm
 from .spmm_diag import spmm_diag
+from .spmm_gen import spmm_gen
 from .spmv_bwd import spmv_bwd_any
 from .spmm_plain import spmm_bwd, spmm_ell, spmm_ellhyb, spmm_segsum
 from .spmv_gen import spmv_gen, spmv_route
@@ -188,6 +189,8 @@ registry.register("mm", KernelEntry(2, "torch_ellhyb", spmm_ellhyb, "ellhyb", "a
 registry.register("mm", KernelEntry(3, "torch_bwdg", spmm_bwd, "bwdg", "any", 1))
 registry.register("mm", KernelEntry(4, "cuda_bandtm", spmm_bandtm, "bandtm", "any", 2))
 registry.register("mm", KernelEntry(5, "cuda_bandmxu", spmm_bandmxu, "bandtm", "any", 1))
+# the general-structure composite: its band leg on the band SpMM kernel
+registry.register("mm", KernelEntry(6, "cuda_gen", spmm_gen, "gen", "any", 1))
 registry.register("mm", KernelEntry(7, "cuda_diag", spmm_diag, "diag", "any", 1))
 
 

@@ -37,23 +37,28 @@ from .spmm_plain import spmm_bwd
 __all__ = ["spmv_gen", "spmv_gen_p", "spmv_route"]
 
 
+def _flip_mask(form, ndim: int) -> torch.Tensor:
+    """The flip flags shaped to broadcast over (nblk, B, ...) blocks."""
+    return form.gen_flip.view((-1,) + (1,) * ndim)
+
+
 def _permute_in(form, x: torch.Tensor) -> torch.Tensor:
-    """xp = P x over m_pad values (x zero-padded)."""
+    """xp = P x over m_pad rows (x zero-padded); x is (m,) or (m, k)."""
     B, m_pad = form.gen_B, form.gen_m_pad
-    xb = torch.zeros(m_pad, dtype=x.dtype, device=x.device)
+    xb = torch.zeros((m_pad,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     xb[: x.shape[0]] = x
-    xpb = xb.view(-1, B)[form.gen_perm]
+    xpb = xb.view((-1, B) + tuple(x.shape[1:]))[form.gen_perm]
     if form.gen_flip is not None:
-        xpb = torch.where(form.gen_flip[:, None], xpb.flip(1), xpb)
-    return xpb.reshape(-1)
+        xpb = torch.where(_flip_mask(form, x.dim()), xpb.flip(1), xpb)
+    return xpb.reshape((m_pad,) + tuple(x.shape[1:]))
 
 
 def _permute_out(form, yp: torch.Tensor) -> torch.Tensor:
-    """y = P^T yp, the first m values."""
-    ypb = yp.view(-1, form.gen_B)
+    """y = P^T yp, the first m rows."""
+    ypb = yp.view((-1, form.gen_B) + tuple(yp.shape[1:]))
     if form.gen_flip is not None:
-        ypb = torch.where(form.gen_flip[:, None], ypb.flip(1), ypb)
-    return ypb[form.gen_out].reshape(-1)[: form.m]
+        ypb = torch.where(_flip_mask(form, yp.dim()), ypb.flip(1), ypb)
+    return ypb[form.gen_out].reshape(yp.shape)[: form.m]
 
 
 def _core(form, xp: torch.Tensor, x_hub: Optional[torch.Tensor], mixed: bool, route) -> torch.Tensor:

@@ -17,8 +17,9 @@ operation, as the reference's format switch does (mv.cpp:179), and go
 through the planner's CSR otherwise. `mv_operator` keeps a gen operand's
 iterations in permuted space. A product whose values are still pending
 runs on its seeded band without materializing them. The host engine (KID
-11, kernels/host.py) runs only when `kid=11` asks for it, and then returns
-a CPU tensor.
+11, kernels/host.py) runs when `kid=11` asks for it, or without a kid
+where `autotune_mv` pinned it on an existing plan (`plan._mv_engine`, the
+JAX package's mv.py:552-560), and then returns a CPU tensor.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from ...core.validate import check_base_match, check_dtype_compat, host_array
 from ...kernels.host import HOST_MV_KID
 from ...kernels.registry import registry
 from ...planner.plan import get_plan
+from ...utils.debug import check_finite
 
 __all__ = ["mv", "dotmv", "mv_operator", "MvOperator"]
 
@@ -297,8 +299,8 @@ def mv(
     of x and y and returns a CPU tensor."""
     if A is None or descr is None or x is None:
         raise AoclSparseError(Status.invalid_pointer, "null argument to mv")
-    if kid == HOST_MV_KID:
-        return _mv_host(alpha, A, descr, op, x, beta, y)
+    if kid == HOST_MV_KID or (kid is None and _host_pinned(A, descr, op)):
+        return check_finite("mv", _mv_host(alpha, A, descr, op, x, beta, y))
     op, x, y, ny = _validate(A, descr, op, x, y)
     check_dtype_compat(A.dtype, x.dtype, "x")
     dtype = torch.promote_types(A.dtype, x.dtype)
@@ -317,11 +319,24 @@ def mv(
         zeros = torch.zeros(ny, dtype=dtype, device=dev)
         if beta_is_zero:
             return zeros
-        return (alpha * 0) * zeros + beta * y0
+        return check_finite("mv", (alpha * 0) * zeros + beta * y0)
     ax = _spmv_core(A, descr, op, x.to(A.dtype), kid).to(dtype)
     if beta_is_zero:
-        return ax if isinstance(alpha, Number) and alpha == 1 else alpha * ax
-    return alpha * ax + beta * y0
+        return check_finite("mv", ax if isinstance(alpha, Number) and alpha == 1 else alpha * ax)
+    return check_finite("mv", alpha * ax + beta * y0)
+
+
+def _host_pinned(A: SparseMatrix, descr: MatrixDescriptor, op) -> bool:
+    """Has autotune_mv pinned the host engine for (descr, op)? Only an
+    existing plan is asked: no plan is built and no lazy values are
+    materialized to look (mv.py:552-560 of the JAX package); native-format
+    handles keep their own products."""
+    if A.values_pending or A.plan is None:
+        return False
+    general_n = MatrixType(descr.type) == MatrixType.general and Operation(op) == Operation.none
+    if general_n and isinstance(A.data, (ELL, DIA, BSR)):
+        return False
+    return A.plan._mv_engine.get((descr.type, descr.fill_mode, descr.diag_type, Operation(op))) == "host"
 
 
 class MvOperator:

@@ -49,6 +49,7 @@ from ...planner.triangular import (
     trsv_level_form_for,
     trsv_level_stats_for,
 )
+from ...utils.debug import check_finite
 from .mv import _as_operand
 
 __all__ = ["trsv", "trsv_strided", "csrsv"]
@@ -98,11 +99,17 @@ def _solve(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, rhs: torch.T
         )
     entry = registry.select("sv", kid=kid, device=rhs.device)  # KID validation + engine
     plan = get_plan(A)
+    key = (descr.fill_mode, descr.diag_type, op)
+    pin = plan._trsv_engine.get(key) if kid is None else None
+    if pin == "level" or (pin == "host" and rhs.dim() == 1):
+        # an autotune_trsv engine pin (ops/level2/trsv.py:73-77, :104-109 of
+        # the JAX package): the host engine for trsv's single right-hand
+        # side only, the level engine for every solve
+        entry = registry.select("sv", kid=1 if pin == "level" else 2)
     if entry.fmt == "host":
         return trsv_host_form_for(plan, descr, op).solve(rhs)
     if entry.fmt == "level":
         return trsv_level_form_for(plan, descr, op).solve(rhs)
-    key = (descr.fill_mode, descr.diag_type, op)
     try:
         if kid is None and key in plan.trsv_refused:
             raise AoclSparseError(Status.memory_error, "blocked form refused (cached)")
@@ -145,7 +152,7 @@ def trsv(alpha, A: SparseMatrix, descr: MatrixDescriptor, op: Operation, b, kid:
         rhs = b.to(A.dtype)
     else:
         rhs = (alpha * b.to(dtype)).to(A.dtype)
-    return _solve(A, descr, op, rhs, kid).to(dtype)
+    return check_finite("trsv", _solve(A, descr, op, rhs, kid).to(dtype))
 
 
 def csrsv(alpha, A, descr, op, b, kid=None):

@@ -8,18 +8,25 @@ picks the kernel for the form (kernels/registry.py).
 
 Without a kid the form is `choose_mm_format`'s (planner/plan.py): the band
 SpMM kernel on band operands, the diagonal kernel on few-diagonal ones
-(stencils), the gather forms otherwise; `MemoryPolicy.restricted` takes
-segsum. `order=Order.column` reads B and C transposed (the caller passes
-B^T and C^T) and returns C^T. The mixed precision mode streams bf16 block
-windows through KID 5, bf16 diagonals through KID 7 and bf16 groups
-through KID 3, accumulating in f32. The AOCLSPARSE_TPU_MIXED_PRECISION
-variable decides it when set ("1" on, "0" off), as in the JAX package
+(stencils), the general-structure composite (KID 6, kernels/spmm_gen.py:
+its band leg on the band SpMM kernel) on square general structure whose
+permuted band passes KID 6's gate (`gen_mm_ok`), the gather forms
+otherwise; `MemoryPolicy.restricted` takes segsum. Where KID 6's gate fails
+(a band wider than the kernel's plan, complex values, a structure the gen
+planner rejects) the form is rebuilt as a gather form (`Plan.mm_form_for`),
+as the JAX package does (csrmm.py:225-241 there), and an explicit ``kid=6``
+then finds no kernel row for it and raises ``invalid_kid``, as there. An
+`autotune_mm` pin (`plan._mm_tuned`, kernels/autotune.py) replaces the
+default for its (descriptor, op, K); an explicit kid replaces both.
+`order=Order.column` reads B and C transposed (the caller passes B^T and
+C^T) and returns C^T.
+The mixed precision mode streams bf16 block windows through KID 5, a bf16
+band through KID 6, bf16 diagonals through KID 7 and bf16 groups through
+KID 3, accumulating in f32. The AOCLSPARSE_TPU_MIXED_PRECISION variable
+decides it when set ("1" on, "0" off), as in the JAX package
 (csrmm.py:251-336 there); unset, the handle's mode decides
 (`set_precision_mode(A, "mixed")`, docs/precision.md), which the JAX
 package's mm does not read (ROADMAP.md queue 3).
-
-Not ported yet: KID 6, the general-sparsity composite (ROADMAP.md queue 1
-item 14), and the autotune pin `_mm_tuned` (item 16).
 """
 
 from __future__ import annotations
@@ -31,25 +38,37 @@ import torch
 
 from ...core.descr import MatrixDescriptor
 from ...core.matrix import SparseMatrix
-from ...core.types import AoclSparseError, MatrixType, Operation, Order, Status
+from ...core.types import AoclSparseError, MatrixType, MemoryPolicy, Operation, Order, Status
 from ...core.validate import check_base_match, check_dtype_compat
 from ...kernels.registry import registry
 from ...planner.plan import get_plan, mm_kind
+from ...utils.debug import check_finite
 from ..level2.mv import _as_operand, _is_zero, mixed_env
 
 __all__ = ["mm"]
 
-#: mm KIDs of the JAX package that the port does not run yet
-_UNPORTED_KIDS = {6: "the general-sparsity composite spmm_gen (ROADMAP.md queue 1 item 14)"}
+#: the autotune label of mm KID 5, which shares the bandtm form with KID 4
+#: (kernels/autotune.py, the JAX package's csrmm.py:133-145)
+MXU_LABEL, MXU_KID = "bandmxu", 5
+
+
+def _tuned(plan, descr: MatrixDescriptor, op: Operation, k: int):
+    """(kind, kid) of an `autotune_mm` pin for (descr, op, K), or (None, None)."""
+    kind = plan._mm_tuned.get((descr.type, descr.fill_mode, descr.diag_type, op, k))
+    if kind == MXU_LABEL:
+        return "bandtm", MXU_KID
+    return kind, None
 
 
 def _mm_core(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, B: torch.Tensor, kid):
     """op(descr(A)) @ B in A's dtype, without the alpha/beta epilogue."""
-    if kid in _UNPORTED_KIDS:
-        raise AoclSparseError(Status.not_implemented, f"mm kid {kid}: {_UNPORTED_KIDS[kid]} is not ported yet")
     plan = get_plan(A)
     if kid is None:
-        kind = mm_kind(A, plan, descr, op)
+        kind = None
+        if A.mem_policy != MemoryPolicy.restricted:
+            kind, kid = _tuned(plan, descr, op, B.shape[1])
+        if kind is None:
+            kind = mm_kind(A, plan, descr, op)
     else:
         for e in registry.table("mm"):
             if e.kid == kid:
@@ -57,7 +76,7 @@ def _mm_core(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, B: torch.T
                 break
         else:
             raise AoclSparseError(Status.invalid_kid, f"kid {kid} not in table for 'mm'")
-    form = plan.exec_form_for(descr, op, kind=kind)
+    form = plan.mm_form_for(descr, op, kind)
     env = mixed_env()
     return _run_mm_form(form, B, kid, mixed=env if env is not None else A.precision_mode == "mixed")
 
@@ -70,8 +89,10 @@ def _run_mm_form(form, B: torch.Tensor, kid: Optional[int], mixed: bool = False)
     rounds to the result dtype."""
     e = registry.select("mm", fmt=form.kind, kid=kid, device=B.device)
     mixed = mixed and B.dtype == torch.float32
-    if B.dtype == torch.bfloat16 and form.kind in ("bandtm", "diag"):
+    if B.dtype == torch.bfloat16 and form.kind in ("bandtm", "diag", "gen"):
         B = B.float()
+    if form.kind == "gen":
+        return e.fn(form, B, mixed=mixed)
     if form.kind == "bandtm":
         spill = (form.sp_val, form.sp_ind, form.sp_rows)
         if e.kid == 5:
@@ -134,7 +155,7 @@ def mm(
     dev = A.device
 
     def out(x):
-        return x.T if order == Order.column else x
+        return check_finite("mm", x.T if order == Order.column else x)
 
     # beta == 0: C is not read, so NaN/Inf in C stays out (the reference
     # overwrites C, csrmv_kr.hpp:54-56 semantics shared by csrmm); a NaN/Inf

@@ -68,6 +68,7 @@ from ...kernels.spgemm_band import (
     extract_values,
 )
 from ...planner.plan import EffectiveCSR, get_plan
+from ...utils.debug import check_finite
 
 __all__ = [
     "sp2m",
@@ -122,11 +123,10 @@ class SpgemmPlan:
     conj_b: bool = False
     band: object = None  # BandGemmPlan when both operands band-compress
     P: Optional[int] = None  # product count (set even without pa/pb/pc)
-    #: the host numeric engine, pinned (autotune_spgemm in the JAX package;
-    #: not ported yet, so it stays at its default)
+    #: the host numeric engine, pinned by kernels/autotune.py autotune_spgemm
     _host_engine: bool = False
     #: the lazy extraction's route, "gather" or "host" (likewise pinned by
-    #: autotune_spgemm; the default here)
+    #: autotune_spgemm)
     _extract_route: str = "gather"
 
 
@@ -368,8 +368,8 @@ def _numeric_auto(plan: SpgemmPlan, effA, effB, conj_a: bool, conj_b: bool, lazy
         band._last_cband = cband
         if not lazy:
             return extract_values(band, cband)
-        # the host extraction runs only where a plan pins it (autotune in the
-        # JAX package, not ported): the default is the device gather
+        # the host extraction runs only where autotune_spgemm pinned it: the
+        # default is the device gather
         if plan._extract_route == "host":
 
             def _host_extract(va=effA.val, vb=effB.val):
@@ -458,6 +458,8 @@ def sp2m(
         dtype = torch.promote_types(effA.val.dtype, effB.val.dtype)
         lazy = plan.band is not None and _lazy_values_enabled()
         val = _numeric_auto(plan, effA, effB, plan.conj_a, plan.conj_b, lazy=lazy)
+        # lazy values are checked on their C band: no extraction to look
+        check_finite("sp2m finalize", plan.band._last_cband if isinstance(val, tuple) else val)
         _install(C, plan, val, dtype, effA.val.device)
         C.invalidate()  # the handle's cached plan holds pre-finalize values
         _seed_cband(C, plan, dtype)

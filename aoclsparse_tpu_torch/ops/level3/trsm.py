@@ -24,6 +24,7 @@ from ...core.descr import MatrixDescriptor
 from ...core.matrix import SparseMatrix
 from ...core.types import AoclSparseError, Operation, Order, Status
 from ...core.validate import check_dtype_compat
+from ...utils.debug import check_finite
 from ..level2.mv import _as_operand
 from ..level2.trsv import _solve
 
@@ -56,4 +57,4 @@ def trsm(
     else:
         rhs = (alpha * B.to(dtype)).to(A.dtype)
     X = _solve(A, descr, op, rhs, kid).to(dtype)
-    return X.T if order == Order.column else X
+    return check_finite("trsm", X.T if order == Order.column else X)

@@ -62,6 +62,7 @@ __all__ = [
     "choose_mm_format",
     "choose_mv_format",
     "gather_fallback_kind",
+    "gen_mm_ok",
     "get_plan",
     "mm_kind",
     "optimize",
@@ -587,6 +588,22 @@ class ExecForm:
             return self._derive("mxu_bf16", lambda: self.band_mxu_dt().to(torch.bfloat16))
         rows = self.bwd_val.t() if self.kind == "bandt" else self.bwd_val
         return self._derive("mxu", lambda: band_mxu_blocks(rows, self.bwd_W))
+
+    def bandt_rows(self, bf16: bool = False) -> torch.Tensor:
+        """Row-aligned (m_pad, W) band of a gen form in the band kernel's
+        layout, v[i, j] = A_p[i, i + lo + j]: the transpose of its (W, m_pad)
+        band, for mm KID 6's band leg on the band SpMM kernel
+        (kernels/spmm_gen.py), the counterpart of the JAX package's
+        `ExecForm.bandt_rows` (planner/plan.py:630-650 there). Built once on
+        the form's device, cached per dtype (bf16: the mixed mode's band),
+        dropped by refresh()."""
+        if self.kind != "gen" or not self.gen_bandt:
+            raise AoclSparseError(
+                Status.invalid_kid, f"the row-aligned band needs a gen form in the band layout, got {self.kind}"
+            )
+        if bf16:
+            return self._derive("rows_bf16", lambda: self.bwd_val.t().to(torch.bfloat16).contiguous())
+        return self._derive("rows", lambda: self.bwd_val.t().contiguous())
 
     def bandt_tiles(self, TM: int, bf16: bool = False) -> torch.Tensor:
         """(ntile, W, TM) tile-major band of a bandt form for the tile-major
@@ -1465,12 +1482,17 @@ def choose_mm_format(eff: EffectiveCSR) -> str:
     - otherwise `diag` (KID 7) when the diagonals pass the JAX package's
       own diag test (plan.py:845-848): <= DIA_MAX diagonals with padding
       within BWD_CAP x nnz, or <= DIA_MAX_WIDE within 8 x nnz;
+    - otherwise `gen` (KID 6, the general-structure composite) where
+      `choose_mv_format` takes `gen` for the operand: the JAX package's TPU
+      default, whose kind=None slot holds the mv form and sends it to KID
+      6. `mm_kind` keeps it only where the built form's band passes KID 6's
+      gate (`gen_mm_ok`: the band kernel's layout, W <= band_max_w);
     - otherwise the gather form `gather_fallback_kind` picks.
 
     The kernels have f32, f64 and bf16 instances (a bf16 band or bf16
     diagonals with f32 B and C, the instances the mixed mode also uses), so
-    a bf16 handle takes `bandtm` or `diag` by the same rule; complex takes
-    the gather forms."""
+    a bf16 handle takes `bandtm`, `diag` or `gen` by the same rule; complex
+    takes the gather forms."""
     from ..kernels.spmm_band import band_max_w
 
     if eff.m == 0 or eff.nnz == 0 or eff.val.dtype not in (torch.float32, torch.float64, torch.bfloat16):
@@ -1481,10 +1503,58 @@ def choose_mm_format(eff: EffectiveCSR) -> str:
         return "bandtm"
     if _diag_ok(eff):
         return "diag"
+    if choose_mv_format(eff) == "gen":
+        return "gen"
     return gather_fallback_kind(eff)
 
 
+def gen_mm_ok(form: Optional[ExecForm]) -> bool:
+    """mm KID 6's gate, re-derived from the band SpMM kernel (#8): a gen
+    form whose band has the kernel's (W, m_pad) layout, hence a dtype the
+    kernel has (f32, f64, bf16), and a width within its plan for the dtype
+    (`band_max_w`: 400 f32 and bf16, 184 f64), for any K. The JAX gate is a
+    TPU's (ops/level3/csrmm.py:186-208 there: Mosaic dtypes, K padded to
+    128, W <= 256)."""
+    from ..kernels.spmm_band import band_max_w
+
+    return (
+        form is not None
+        and form.kind == "gen"
+        and form.gen_bandt
+        and form.bwd_W <= band_max_w(form.bwd_val.dtype)
+    )
+
+
+def _gen_fallback_kind(eff: EffectiveCSR) -> str:
+    """Where the composite rejects the structure: the whole-matrix route
+    when it qualifies, else a gather form (plan.py:1629-1640 of the JAX
+    package, without its catch-all: a failed route build raises)."""
+    return "route" if _route_ok(eff) else gather_fallback_kind(eff)
+
+
+def _is_allocation_failure(e: BaseException) -> bool:
+    """numpy's MemoryError, the card's OutOfMemoryError, or the RuntimeError
+    torch's CPU allocator raises when the host refuses an allocation."""
+    return isinstance(e, (MemoryError, torch.OutOfMemoryError)) or (
+        isinstance(e, RuntimeError) and "DefaultCPUAllocator" in str(e)
+    )
+
+
 def build_exec_form(eff: EffectiveCSR, kind: Optional[str] = None) -> ExecForm:
+    """The execution form of `kind` (the cost model's where None). A layout
+    the host or the card cannot allocate (a padded window of a structure
+    far from the form's class) raises ``memory_error``, the reference's
+    status for a failed allocation, so a caller that tries forms (the
+    tuners, kernels/autotune.py) can tell it from a fault."""
+    try:
+        return _build_exec_form(eff, kind)
+    except (MemoryError, RuntimeError) as e:
+        if not _is_allocation_failure(e):
+            raise
+        raise AoclSparseError(Status.memory_error, f"the {kind} form does not fit: {e}") from e
+
+
+def _build_exec_form(eff: EffectiveCSR, kind: Optional[str]) -> ExecForm:
     if kind is None:
         kind = choose_mv_format(eff)
     m, n = eff.shape
@@ -1492,10 +1562,7 @@ def build_exec_form(eff: EffectiveCSR, kind: Optional[str] = None) -> ExecForm:
         form = _build_gen(eff)
         if form is not None:
             return form
-        # the composite rejected the structure: the whole-matrix route when
-        # it qualifies, else a gather form (plan.py:1629-1640 of the JAX
-        # package, without its catch-all: a failed route build raises)
-        kind = "route" if _route_ok(eff) else gather_fallback_kind(eff)
+        kind = _gen_fallback_kind(eff)
     if kind == "route":
         return _build_route(eff)
     if kind == "bandt":
@@ -1554,6 +1621,15 @@ class Plan:
         #: their level statistics (ops/level2/trsv.py): structure only
         self.trsv_refused: set = set()
         self.trsv_level_stats: Dict[Tuple, Tuple[int, int]] = {}
+        #: (descriptor, op) keys whose structure `_build_gen` rejected
+        self.gen_rejected: set = set()
+        # the pins of kernels/autotune.py, as in the JAX package: mv's host
+        # engine by (type, fill, diag, op); mm's form by (type, fill, diag,
+        # op, K); the triangular solve's nb and engine by (fill, diag, op)
+        self._mv_engine: Dict[Tuple, str] = {}
+        self._mm_tuned: Dict[Tuple, str] = {}
+        self._trsv_tuned: Dict[Tuple, int] = {}
+        self._trsv_engine: Dict[Tuple, str] = {}
 
     def effective_for(
         self, descr: MatrixDescriptor, op: Operation, dtype=None
@@ -1579,8 +1655,49 @@ class Plan:
             if default is not None and default.kind == kind:
                 form = default
         if form is None:
-            form = self.exec_forms[key] = build_exec_form(eff, kind)
+            if kind is None:
+                kind = choose_mv_format(eff)
+                if kind == "gen":  # one gen form for mv and mm KID 6
+                    form = self.gen_form_for(descr, op)
+                    if form is None:
+                        kind = _gen_fallback_kind(eff)
+            if form is None:
+                form = build_exec_form(eff, kind)
+            self.exec_forms[key] = form
         return form
+
+    def gen_form_for(self, descr: MatrixDescriptor, op: Operation) -> Optional[ExecForm]:
+        """The gen form of (descr, op), or None where `_build_gen` rejects
+        the structure. It is kept under kind "gen", the one form the mv
+        default, mv kid=7 and mm KID 6 share, so a pin that replaces the
+        default (kernels/autotune.py) leaves it to KID 6; a snapshot's
+        default may hold it alone. Never the route or gather form
+        `build_exec_form` falls back to, which mm KID 6 cannot use."""
+        key = (descr.type, descr.fill_mode, descr.diag_type, Operation(op))
+        for slot in (None, "gen"):
+            form = self.exec_forms.get(key + (slot,))
+            if form is not None and form.kind == "gen":
+                return form
+        if key + ("gen",) in self.exec_forms or key in self.gen_rejected:
+            return None
+        form = _build_gen(self.effective_for(descr, op))
+        if form is None:
+            self.gen_rejected.add(key)
+            return None
+        self.exec_forms[key + ("gen",)] = form
+        return form
+
+    def mm_form_for(self, descr: MatrixDescriptor, op: Operation, kind: str) -> ExecForm:
+        """The form `mm` runs for `kind`. For ``gen``: the gen form where it
+        passes KID 6's gate (`gen_mm_ok`), else the gather form
+        `gather_fallback_kind` picks, the JAX package's gather rebuild
+        (ops/level3/csrmm.py:225-241 there)."""
+        if kind == "gen":
+            form = self.gen_form_for(descr, op)
+            if gen_mm_ok(form):
+                return form
+            kind = gather_fallback_kind(self.effective_for(descr, op))
+        return self.exec_form_for(descr, op, kind=kind)
 
     def seed_bwdg(self, form: ExecForm) -> None:
         """Seat a ready group-band form as the (general, none) mv form: the
@@ -1611,14 +1728,40 @@ class Plan:
 
 
 def optimize(A: SparseMatrix) -> Plan:
-    """Walk the hint list and prebuild what the hints ask for."""
+    """Walk the hint list and prebuild what the hints ask for.
+
+    With AOCLSPARSE_TPU_AUTOTUNE=1, mv hints of at least
+    AOCLSPARSE_TPU_AUTOTUNE_NOP calls (default 1000) are measured: every
+    buildable execution form is timed through the live dispatch and the
+    winner pinned (kernels/autotune.py `autotune_mv`), as the JAX package
+    does (planner/plan.py:1816-1850 there). A failed measurement warns and
+    keeps the cost model's form."""
     if A is None:
         raise AoclSparseError(Status.invalid_pointer, "null matrix handle")
     plan = get_plan(A)
+    tune = os.environ.get("AOCLSPARSE_TPU_AUTOTUNE", "0") in ("1", "true")
+    try:
+        tune_nop = int(os.environ.get("AOCLSPARSE_TPU_AUTOTUNE_NOP", "1000"))
+    except ValueError:
+        tune_nop = 1000
     for h in A.hints:
         if h.done:
             continue
-        if h.action in ("mv", "dotmv"):
+        if tune and h.action == "mv" and h.nop >= tune_nop:
+            from ..kernels.autotune import autotune_mv
+
+            try:
+                autotune_mv(A, h.descr, h.trans)
+            except Exception as e:  # the cost model's form serves instead
+                import warnings
+
+                warnings.warn(
+                    f"AOCLSPARSE_TPU_AUTOTUNE requested but measurement failed "
+                    f"({type(e).__name__}: {e}); using the cost model",
+                    RuntimeWarning,
+                )
+                plan.exec_form_for(h.descr, h.trans)
+        elif h.action in ("mv", "dotmv"):
             plan.exec_form_for(h.descr, h.trans)
         elif h.action == "mm":
             plan.exec_form_for(h.descr, h.trans, kind=mm_kind(A, plan, h.descr, h.trans))
@@ -1636,7 +1779,11 @@ def mm_kind(A: SparseMatrix, plan: Plan, descr: MatrixDescriptor, op: Operation)
         return "segsum"
     key = (descr.type, descr.fill_mode, descr.diag_type, Operation(op))
     if key not in plan.mm_kinds:
-        plan.mm_kinds[key] = choose_mm_format(plan.effective_for(descr, op))
+        eff = plan.effective_for(descr, op)
+        kind = choose_mm_format(eff)
+        if kind == "gen":
+            kind = plan.mm_form_for(descr, op, kind).kind
+        plan.mm_kinds[key] = kind
     return plan.mm_kinds[key]
 
 

@@ -44,6 +44,15 @@ package's `_trsv_engine` pin (ops/level2/trsv.py:105-109 there, which
 chain kernel takes one dependent step a block, gives way to the level
 kernel where `nlev` levels cost less than `nblk` chain steps
 (`level_wins`); a ``win`` form's grouped chain takes few steps and stays.
+
+The pins of `autotune_trsv` (kernels/autotune.py), keyed by (fill, diag,
+op), override that gate wherever it is read (trsv, trsm, the smoothers and
+preconditioners on the plan's triangles): an engine pin ``"level"`` takes
+the level engine; a block-size pin (``plan._trsv_tuned``) takes the
+blocked form at that nb (`trsv_form_for` reads it), the gate not
+consulted; an engine pin ``"host"`` takes the host engine in trsv's
+single-right-hand-side solve only, as in the JAX package, and elsewhere
+the gate decides as with no pin. With no pin the gate decides.
 """
 
 from __future__ import annotations
@@ -567,8 +576,12 @@ def trsv_form_for(
     plan: Plan, descr: MatrixDescriptor, op: Operation, nb: Optional[int] = None
 ) -> TrsvForm:
     """Cached TrsvForm lookup on the matrix plan (planner/triangular.py:571).
-    The native builder serves op=none; the numpy builder the rest."""
+    The native builder serves op=none; the numpy builder the rest. nb=None
+    takes autotune_trsv's pinned block size for (fill, diag, op) where
+    there is one (planner/triangular.py:580-583 there), else `adaptive_nb`."""
     check_solve_dtype(plan.clean.val.dtype)
+    if nb is None:
+        nb = plan._trsv_tuned.get((descr.fill_mode, descr.diag_type, Operation(op)))
     if nb is None:
         nb = adaptive_nb(plan.clean.m, dtype=plan.clean.val.dtype)
     tri = _tri_descr(descr)
@@ -791,8 +804,13 @@ def sv_engine_for(plan: Plan, descr: MatrixDescriptor, op: Operation, device,
     """The default solve's engine for a triangle of a matrix plan ("level"
     or "blocked"), with its blocked form (`trsv_form_for`, or `form` where
     the caller has it) and the level count cached in plan.trsv_level_stats
-    (`trsv_level_stats_for`)."""
+    (`trsv_level_stats_for`). An autotune_trsv pin overrides the gate: a
+    level pin takes "level", a block-size pin "blocked"."""
     key = (descr.fill_mode, descr.diag_type, Operation(op))
+    if plan._trsv_engine.get(key) == "level":
+        return "level"
+    if key in plan._trsv_tuned:
+        return "blocked"
 
     def nlev() -> int:
         if key not in plan.trsv_level_stats:

@@ -52,6 +52,7 @@ from ..core.types import (
 from ..ops.level2.mv import _run_exec_form
 from ..ops.level2.trsv import default_solver
 from ..planner.plan import get_plan
+from ..utils.debug import check_finite
 
 __all__ = ["make_cg_operator", "make_gmres_operator", "pcg_solve", "pgmres_solve"]
 
@@ -71,6 +72,7 @@ def _build_cg_run(matvec: Callable, apply: Optional[Callable], maxit: int):
 
         def go_on(rnorm, k):
             # the one host read of the iteration
+            check_finite("CG iteration", rnorm)
             return k < maxit and bool((rnorm > atol) & (rnorm > brtol))
 
         brtol = rtol * nrm(b)
@@ -326,7 +328,7 @@ def _build_gmres_run(matvec: Callable, apply: Optional[Callable], mr: int, maxit
             res, n_inner = beta, 0
             while n_inner < mr and res > tol:
                 j = n_inner
-                w = op(V[j])
+                w = check_finite("GMRES iteration", op(V[j]))
                 hc = torch.conj(V[: j + 1]) @ w
                 w = w - hc @ V[: j + 1]
                 hh_t = nrm(w)
@@ -365,7 +367,7 @@ def _build_gmres_run(matvec: Callable, apply: Optional[Callable], mr: int, maxit
             return x + upd, res, n_inner
 
         x, it = x0, 0
-        res = nrm(b - matvec(x0)).item()
+        res = check_finite("GMRES iteration", nrm(b - matvec(x0))).item()
         while res > tol and it < maxit:
             x, res, n_inner = cycle(x)
             it += n_inner

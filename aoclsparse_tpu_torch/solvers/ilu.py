@@ -59,6 +59,7 @@ from ..core.types import (
 )
 from ..ops.level2.trsv import pad_solve
 from ..planner.plan import CleanCSR, build_effective_csr, get_plan, host_values
+from ..utils.debug import check_finite
 from ..planner.triangular import (
     TrsvForm,
     adaptive_nb,
@@ -124,10 +125,19 @@ def ilu0_factorize(A: SparseMatrix) -> IluState:
         raise AoclSparseError(Status.invalid_size, "ILU0 requires square A")
     check_solve_dtype(A.dtype)
     clean = get_plan(A).clean
-    lu = _ilu0_host(clean.m, clean.ptr, clean.ind, clean.host_val())
+    A.ilu_state = ilu_state_from(clean, _ilu0_host(clean.m, clean.ptr, clean.ind, clean.host_val()), A.dtype)
+    return A.ilu_state
+
+
+def ilu_state_from(clean: CleanCSR, lu: np.ndarray, dtype: torch.dtype) -> IluState:
+    """The IluState of host LU values `lu` on the clean structure, in
+    `dtype` on the clean values' device, with its solve forms: the native
+    builder's, else the numpy builder's; where that refuses them
+    (memory_error), both stay None and the applies take the level sweeps.
+    Shared by `ilu0_factorize` and io/checkpoint.py's `load_matrix`."""
     dev = clean.val.device
-    lu_t = torch.from_numpy(lu).to(A.dtype)
-    if A.dtype == torch.bfloat16:
+    lu_t = torch.from_numpy(lu).to(dtype)
+    if dtype == torch.bfloat16:
         lu = lu_t.float().numpy()  # the host copy holds the rounded factor
     lu_clean = CleanCSR(
         ptr=clean.ptr,
@@ -142,9 +152,9 @@ def ilu0_factorize(A: SparseMatrix) -> IluState:
         val_host=lu,
     )
     st = IluState(lu=lu_clean.val, lu_clean=lu_clean)
-    nb = adaptive_nb(lu_clean.m, dtype=A.dtype)
-    st.l_form = build_trsv_form_native(lu_clean, L_DESCR, Operation.none, nb, lu, dev, A.dtype)
-    st.u_form = build_trsv_form_native(lu_clean, U_DESCR, Operation.none, nb, lu, dev, A.dtype)
+    nb = adaptive_nb(lu_clean.m, dtype=dtype)
+    st.l_form = build_trsv_form_native(lu_clean, L_DESCR, Operation.none, nb, lu, dev, dtype)
+    st.u_form = build_trsv_form_native(lu_clean, U_DESCR, Operation.none, nb, lu, dev, dtype)
     if st.l_form is None or st.u_form is None:
         try:
             _ilu_numpy_forms(st, lu_clean, lu, nb)
@@ -152,7 +162,6 @@ def ilu0_factorize(A: SparseMatrix) -> IluState:
             if e.status != Status.memory_error:
                 raise
             st.l_form = st.u_form = None
-    A.ilu_state = st
     return st
 
 
@@ -301,7 +310,7 @@ def ilu_smoother(
     if b.dim() not in (1, 2) or b.shape[0] != A.shape[0]:
         raise AoclSparseError(Status.invalid_size, "b size mismatch")
     if kid == 2:
-        return _host_lu_apply(st, b)
+        return check_finite("ilu_smoother", _host_lu_apply(st, b))
     if kid == 1 or st.l_form is None:
         if kid is None and _level_depth(st) > LEVEL_MAX_NLEV:
             raise AoclSparseError(
@@ -310,5 +319,5 @@ def ilu_smoother(
                 "call kid=2 (the host substitution, which returns a CPU tensor)",
             )
         l_lvl, u_lvl = _level_forms(st)
-        return u_lvl.solve(l_lvl.solve(b))
-    return ilu_apply(st, b, pin_blocked=kid == 0)
+        return check_finite("ilu_smoother", u_lvl.solve(l_lvl.solve(b)))
+    return check_finite("ilu_smoother", ilu_apply(st, b, pin_blocked=kid == 0))

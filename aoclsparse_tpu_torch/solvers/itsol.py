@@ -36,6 +36,7 @@ from ..core.descr import MatrixDescriptor
 from ..core.matrix import SparseMatrix
 from ..core.types import AoclSparseError, Operation, Status, check_value_dtype
 from ..ops.level2.mv import mv
+from ..utils.debug import check_finite
 from .fused import _HOST_DTYPE
 from .options import (
     OptionRegistry,
@@ -563,7 +564,7 @@ def _drive(handle: ItsolHandle, x0, matvec: Callable, precond_fn: Optional[Calla
         job, u = rci.step()
         while job != RciJob.stop:
             if job == RciJob.mv:
-                job, u = rci.step(matvec(u))
+                job, u = rci.step(check_finite("itsol_solve iteration", matvec(u)))
             elif job == RciJob.precond:
                 if precond_fn is None:
                     job, u = rci.step(u)

@@ -35,6 +35,7 @@ from ..ops.level2.mv import mv
 from ..ops.level2.trsv import pad_solve
 from ..planner.plan import Plan, _dev_index, build_effective_csr, get_plan
 from ..planner.triangular import adaptive_nb, build_trsv_form, check_solve_dtype, sv_engine_for
+from ..utils.debug import check_finite
 
 __all__ = ["sorv"]
 
@@ -96,7 +97,7 @@ def sorv(sor_type: SorType, descr: MatrixDescriptor, A: SparseMatrix, omega, alp
         base=A.base,  # the internal mv carries the handle's base
     )
     u_x0 = mv(1.0, A, tri_us, Operation.none, x0, 0.0)
-    return solve(omega * b - (omega * u_x0 + (omega - 1.0) * diag * x0))
+    return check_finite("sorv", solve(omega * b - (omega * u_x0 + (omega - 1.0) * diag * x0)))
 
 
 _TRI_L = MatrixDescriptor(type=MatrixType.triangular, fill_mode=FillMode.lower)

@@ -32,6 +32,7 @@ from ..ops.level2.mv import _run_exec_form, mv
 from ..ops.level2.trsv import default_solver, trsv
 from ..planner.plan import get_plan
 from ..planner.triangular import check_solve_dtype
+from ..utils.debug import check_finite
 
 __all__ = ["lu_view_selection", "symgs", "symgs_mv"]
 
@@ -62,13 +63,13 @@ def symgs(trans: Operation, A: SparseMatrix, descr: MatrixDescriptor, alpha, b, 
           kid: Optional[int] = None) -> torch.Tensor:
     """One symmetric GS sweep; returns x (aoclsparse_?symgs)."""
     x, _ = _symgs_core(trans, A, descr, alpha, b, x0, fuse_mv=False, kid=kid)
-    return x
+    return check_finite("symgs", x)
 
 
 def symgs_mv(trans: Operation, A: SparseMatrix, descr: MatrixDescriptor, alpha, b, x0=None,
              kid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused sweep + y = A x (aoclsparse_?symgs_mv); returns (x, y)."""
-    return _symgs_core(trans, A, descr, alpha, b, x0, fuse_mv=True, kid=kid)
+    return check_finite("symgs_mv", _symgs_core(trans, A, descr, alpha, b, x0, fuse_mv=True, kid=kid))
 
 
 def _symgs_core(trans, A, descr, alpha, b, x0, fuse_mv, kid):

@@ -202,6 +202,28 @@ failure (exit code != 0, no result line):
    the shifted bench operand, whose win forms have no complex kernel
    instance: the plain block loops; each by its residual (10 rtol for the
    solvers) and its launches;
+5h. the tuning and persistence path, counted on its own (its kernel vs
+   plain checks first, uncounted): the scircuit stand-in
+   (benchmarks/realmat.py:151-176, copied, seed 7: m = 170,998, about 959k
+   nnz, its published size) planned through create_csr + hints +
+   optimize into gen; mm KID 6 at K = 64, f32 and a bf16 handle, the
+   composite with the band SpMM kernel against the same composite with
+   its plain band leg, the entry point against float64 scipy and cuSPARSE
+   (torch.sparse CSR @ B), one band SpMM launch a call, the default mm
+   taking gen; the call, the kernel alone on the gen band (warm and
+   cold), the gather form the default took before and cuSPARSE, timed,
+   with a profiler window of 5 calls (the idle share); autotune_mv on
+   scircuit, autotune_mm on the 104^3 stencil at K = 64 (its default's
+   diag among the candidates), autotune_trsv on the stencil's ILU0 L (a
+   handle of the factor, unit lower) and autotune_spgemm on the cant
+   stand-in's A.A, each pin the arg-min of its results and the next call
+   dispatching the pinned form (its kernels' counters; none for a plain
+   form) with the unpinned call's value; save_plan / load_plan of
+   scircuit (load against plan seconds; mv and mm kid=6 bit-equal on the
+   loaded plan); save_matrix / load_matrix of the stencil with its ILU0
+   (ILU0-PCG on the loaded handle in phase 5's iteration count); and mv
+   with an Inf in x raising FloatingPointError under nan_checks, and
+   returning it outside;
 6. time kernel vs plain version vs one PyTorch library call (torch.sparse
    CSR products and triangular solves, index_add_ and a permutation
    gather, timed here as yardsticks only; each behind a device spin that
@@ -259,12 +281,14 @@ failure (exit code != 0, no result line):
 
 Launch counts are reset just before phase 4 and read after phase 5, reset
 again just before phase 5b and read after it, and again around phases 5c,
-5d, 5e, 5f and 5g (the kernels line takes the spill-route kernels' counts
-from 5b, the band GEMM's from 5c, the group-window kernel's from 5d, the
-measurement path's kernels' from 5e and the bf16 and complex instances'
-from 5g; the gather instances of the chain kernel count in 5b, its dwin
-instances and the level kernel's real ones on the main path; 5f launches
-only kernels counted before, and checks its own counts). The second-to-last line is {"kernels": [...]}; the last is
+5d, 5e, 5f, 5g and 5h (the kernels line takes the spill-route kernels'
+counts from 5b, the band GEMM's from 5c, the group-window kernel's from 5d,
+the measurement path's kernels' from 5e and the bf16 and complex instances'
+from 5g, and adds 5h's band SpMM launches, mm KID 6's band leg, to the
+band SpMM's f32 and bf16 counts; the gather instances of the chain kernel
+count in 5b, its dwin instances and the level kernel's real ones on the
+main path; 5f launches only kernels counted before, and checks its own
+counts). The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
 
@@ -273,6 +297,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import os
 import statistics
 from pathlib import Path
 import subprocess
@@ -289,6 +314,8 @@ import torch
 import aoclsparse_tpu_torch as tt
 from aoclsparse_tpu_torch import interop, native
 from aoclsparse_tpu_torch.kernels import build
+from aoclsparse_tpu_torch.kernels import spmm_gen as spmm_gen_mod
+from aoclsparse_tpu_torch.kernels import spmv_gen as spmv_gen_mod
 from aoclsparse_tpu_torch.kernels.band_gemm import band_gemm, band_gemm_plain, band_gemm_steps
 from aoclsparse_tpu_torch.kernels.band_spmv import band_spmv, band_spmv_plain, spmv_bandt
 from aoclsparse_tpu_torch.kernels.band_tiles import (
@@ -322,7 +349,7 @@ from aoclsparse_tpu_torch.kernels.spmm_diag import diag_schedule, spmm_diag, spm
 from aoclsparse_tpu_torch.kernels.spmv_bwd import spmv_bwd, spmv_bwd_plain
 from aoclsparse_tpu_torch.kernels.spmv_mxu import spmv_band_mxu, spmv_band_mxu_plain, spmv_bandmxu
 from aoclsparse_tpu_torch.kernels.stream_read import stream_read, stream_read_plain
-from aoclsparse_tpu_torch.io import read_mtx, write_mtx
+from aoclsparse_tpu_torch.io import load_matrix, load_plan, read_mtx, save_matrix, save_plan, write_mtx
 from aoclsparse_tpu_torch.kernels.trsv_blocked import trsv_dwin, trsv_dwin_plain, trsv_gather, trsv_gather_plain
 from aoclsparse_tpu_torch.kernels.trsv_level import build_level_form, trsv_level, trsv_level_plain
 from aoclsparse_tpu_torch.kernels.trsv_win import (
@@ -340,10 +367,12 @@ from aoclsparse_tpu_torch.ops.level2.mv import _spill_route_on
 from aoclsparse_tpu_torch.ops.level3.spgemm import _effective
 from aoclsparse_tpu_torch.planner.spill_route import build_spill_route, spill_route_apply
 from aoclsparse_tpu_torch.planner import triangular as ttri
+from aoclsparse_tpu_torch.planner.plan import gather_fallback_kind, gen_mm_ok
 from aoclsparse_tpu_torch.planner.triangular import invert_diag_blocks, trsv_form_for
 from aoclsparse_tpu_torch.solvers import fused as fused_mod
 from aoclsparse_tpu_torch.solvers.ilu import _factor_nlev, _level_forms, ilu0_factorize
 from aoclsparse_tpu_torch.utils import profiling
+from aoclsparse_tpu_torch.utils.debug import deterministic_mode, nan_checks
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
 
 GEN = tt.MatrixDescriptor()
@@ -440,6 +469,10 @@ MEASURE_PATH = ("band_spmv_tiles_f32", "band_spmv_tiles_bf16", "band_spmv_tiles_
                 "band_spmv_tiles_dbuf_bf16", "spmv_band_mxu_f32", "spmv_band_mxu_bf16", "stream_read_f32")
 #: the kernels of the bf16 and complex path (phase 5g), counted there
 LOWPREC_PATH = ("trsv_win_bf16", "trsm_win_bf16", "spmm_band_bf16", "trsv_level_c64", "trsv_level_c128")
+#: the kernels of the tuning and persistence path (phase 5h: mm KID 6's
+#: band leg, f32 and the bf16 band), counted there and added to the
+#: kernels line's counts
+TUNING_PATH = ("spmm_band_f32", "spmm_band_bf16")
 #: the complex stencil of phases 3, 5g and 6: HPCG's operand shifted by
 #: i SIGMA I, the shifted-Laplacian setting of Helmholtz preconditioning
 SIGMA = 1.0
@@ -850,6 +883,31 @@ def webbase_1m(rng, diag_boost=0.0):
     r = np.concatenate([rows_l, rows_h, rows_r])
     c = np.concatenate([cols_l, cols_h, cols_r])
     return _finish(r, c, m, m, rng, diag_boost, sym_vals=False)
+
+
+def scircuit(rng, diag_boost=0.0):
+    """The Hamm/scircuit stand-in of benchmarks/realmat.py:151-176 (copied,
+    as webbase_1m; a CPU test holds the copy equal for seed 7): n = 170,998,
+    about 4 local couplings a row within +-24, 24 power and ground rail
+    nodes of 120-353 entries a row and a column, and a uniform scatter
+    tail, structurally symmetric, about 959k nnz: (m, n, ptr, ind, val f32)."""
+    m = 170998
+    k_loc = 2
+    rows = np.repeat(np.arange(m, dtype=np.int64), k_loc)
+    cols = rows + rng.integers(-24, 25, rows.size)
+    n_rail = 24
+    rails = rng.choice(m, n_rail, replace=False).astype(np.int64)
+    deg = np.clip(rng.zipf(1.35, n_rail), 120, 353)
+    rr = np.repeat(rails, deg)
+    rc = rng.integers(0, m, rr.size)
+    n_sc = 67000
+    sr = rng.integers(0, m, n_sc)
+    sc = rng.integers(0, m, n_sc)
+    r = np.concatenate([rows, rr, sr])
+    c = np.concatenate([np.clip(cols, 0, m - 1), rc, sc])
+    r2 = np.concatenate([r, c])
+    c2 = np.concatenate([c, r])
+    return _finish(r2, c2, m, m, rng, diag_boost, sym_vals=False)
 
 
 def _grid_block_mesh(dims, dof, neigh_offsets, rng, corner_frac=0.0):
@@ -2460,6 +2518,270 @@ def lowprec_timings(lp):
         f"{[round(t, 4) for t in t_all]}; {lp['cg_c']} iterations to rtol 1e-6)")
 
 
+def gen_mm_plain(form, B, mixed=False):
+    """mm KID 6's composite (kernels/spmm_gen.py) with the band leg's plain
+    version, spmm_band_plain, in place of the kernel: the reference of the
+    composite on the card."""
+    kernel = spmm_gen_mod.spmm_band
+    spmm_gen_mod.spmm_band = spmm_band_plain
+    try:
+        return spmm_gen_mod.spmm_gen(form, B, mixed)
+    finally:
+        spmm_gen_mod.spmm_band = kernel
+
+
+def tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, ilu_iters, peak, errs, smoke_dir):
+    """Phase 5h: mm KID 6 on the scircuit stand-in, each tuner once at full
+    size, plan snapshots and handle checkpoints, the NaN trap. Kernel vs
+    plain checks come first, uncounted; the main path's launches are counted
+    from the reset inside. Returns (launches, the phase's numbers)."""
+    out = {}
+    f32tol = MV_TOL["f32"]
+    # the operand, planned from scratch through its handle (the host seconds
+    # a plan snapshot saves)
+    t0 = time.perf_counter()
+    sm, _sn, sptr, sind, sval = scircuit(np.random.default_rng(7))
+    log(f"  scircuit stand-in built in {time.perf_counter() - t0:.1f} s (m={sm}, nnz={sind.size})")
+    t0 = time.perf_counter()
+    S = tt.create_csr(sm, sm, sptr, sind, sval, device=dev)
+    tt.set_mv_hint(S, NONE, GEN, nop=1000)
+    tt.set_mm_hint(S, NONE, GEN, nop=1000)
+    tt.optimize(S)
+    torch.cuda.synchronize()
+    out["t_plan"] = time.perf_counter() - t0
+    form = S.plan.exec_form_for(GEN, NONE)
+    if form.kind != "gen" or not form.gen_bandt:
+        raise AssertionError(f"scircuit planned as {form.kind}, want gen in the band layout")
+    nsp = 0 if not form.has_spill else form.sp_ind.numel()
+    nhub = 0 if form.hub_cols is None else form.hub_cols.numel()
+    nhubr = 0 if form.hubr_rows is None else form.hubr_rows.numel()
+    log(f"  scircuit: create_csr + hints + optimize {out['t_plan']:.2f} s; gen W={form.bwd_W} m_pad={form.gen_m_pad} "
+        f"B={form.gen_B} padL={form.bwd_padL} start={form.bandt_start}, {nhub} hub columns, {nhubr} hub rows, "
+        f"{nsp} spilled (band_max_w f32 {band_max_w(torch.float32)})")
+    if not gen_mm_ok(form):
+        raise AssertionError("the scircuit gen band fails KID 6's gate")
+    Ssp = sp.csr_matrix((sval.astype(np.float64), sind, sptr), shape=(sm, sm))
+    Sb = tt.create_csr(sm, sm, sptr, sind, torch.from_numpy(sval).to(torch.bfloat16), device=dev)
+    formb = tt.optimize(Sb).exec_form_for(GEN, NONE)
+    rngb = np.random.default_rng(SEED_B + 7)
+    B32 = torch.from_numpy(rngb.standard_normal((sm, K_MM)).astype(np.float32)).to(dev)
+    Bbf = B32.to(torch.bfloat16)
+    # kernel vs plain version: the composite with #8 and with its plain band
+    # leg, f32 and the bf16 band (B and C f32, before mm's rounding); the
+    # spill's index_add_ sums in a run-dependent order (utils/debug.py)
+    compare("spmm_band_f32", f"mm KID 6 composite on scircuit (K={K_MM}, W={form.bwd_W})",
+            spmm_gen_mod.spmm_gen(form, B32), gen_mm_plain(form, B32), errs)
+    compare("spmm_band_bf16", f"mm KID 6 composite on scircuit, bf16 handle (K={K_MM}, W={formb.bwd_W})",
+            spmm_gen_mod.spmm_gen(formb, Bbf.float()), gen_mm_plain(formb, Bbf.float()), errs)
+
+    reset_counts()
+    # mm KID 6 through the entry point: one band SpMM launch a call, against
+    # a float64 scipy product and cuSPARSE
+    ref = Ssp @ B32.double().cpu().numpy()
+    C6 = counted("scircuit mm kid=6", lambda: tt.mm(1.0, S, GEN, NONE, B32, 0.0, kid=6), {"spmm_band_f32": 1})
+    check_mv(f"scircuit mm kid=6 (K={K_MM})", C6, ref, f32tol)
+    Slib = csr_tensor(sptr, sind, sval, dev, torch.float32)
+    Cl = Slib @ B32
+    err = near_error(host64(C6), host64(Cl))
+    log(f"  scircuit mm kid=6 vs cuSPARSE (torch.sparse CSR @ B): max rel err {err:.3e} (tol {f32tol:.3e})")
+    if not err <= f32tol:
+        raise AssertionError("mm kid=6 disagrees with cuSPARSE")
+    Cd = counted("scircuit mm default", lambda: tt.mm(1.0, S, GEN, NONE, B32, 0.0), {"spmm_band_f32": 1})
+    if S.plan.mm_kinds[(GEN.type, GEN.fill_mode, GEN.diag_type, NONE)] != "gen":
+        raise AssertionError("the default mm on scircuit does not take gen (mm KID 6)")
+    check_mv("scircuit mm default (gen)", Cd, ref, f32tol)
+    Cb = counted("scircuit bf16 mm kid=6", lambda: tt.mm(1.0, Sb, GEN, NONE, Bbf, 0.0, kid=6), {"spmm_band_bf16": 1})
+    refb = sp.csr_matrix((torch.from_numpy(sval).to(torch.bfloat16).double().numpy(), sind, sptr), shape=(sm, sm)) \
+        @ Bbf.double().cpu().numpy()
+    check_mv(f"scircuit bf16 mm kid=6 (K={K_MM})", Cb, refb, expected_precision(torch.bfloat16))
+    # times: the call, #8 alone on the gen band (warm and cold), the gather
+    # form the default took before (gather_fallback_kind), cuSPARSE
+    eff = S.plan.effective_for(GEN, NONE)
+    gkind = gather_fallback_kind(eff)
+    gkid = {"segsum": 0, "ell": 1, "ellhyb": 2}[gkind]
+    v = form.bandt_rows()
+    Bp = spmv_gen_mod._permute_in(form, B32)
+    flush = torch.empty(COLD_VALUES, dtype=torch.float32, device=dev)
+    call = lambda: tt.mm(1.0, S, GEN, NONE, B32, 0.0, kid=6)  # noqa: E731
+    out["kid6_call_ms"] = cuda_ms(call, reps=9, inner=5)
+    out["kid6_device_ms"] = cuda_ms(call, reps=9, inner=5, backlog=True)
+    out["band_ms"] = cuda_ms(lambda: spmm_band(v, Bp, form.bandt_start, form.bwd_padL), backlog=True)
+    out["band_cold_ms"] = cold_ms(lambda: spmm_band(v, Bp, form.bandt_start, form.bwd_padL), flush)
+    out["band_plain_ms"] = cuda_ms(lambda: spmm_band_plain(v, Bp, form.bandt_start, form.bwd_padL), reps=5, inner=2,
+                                   backlog=True)
+    out["gather_ms"] = cuda_ms(lambda: tt.mm(1.0, S, GEN, NONE, B32, 0.0, kid=gkid), reps=5, inner=3)
+    out["lib_ms"], lerr = library_ms(lambda: Slib @ B32, reps=9, inner=5, backlog=True)
+    sp_bytes = nbytes(*(t for t in (form.sp_val, form.sp_ind, form.sp_rows, form.hub_slab, form.hub_cols,
+                                    form.hubr_slab, form.hubr_rows, form.gen_perm, form.gen_out) if t is not None))
+    io_bytes = 2 * sm * K_MM * 4
+    band_flops = 2 * v.numel() * K_MM
+    out["band_bound"] = bound_of(nbytes(v) + 2 * form.gen_m_pad * K_MM * 4, band_flops, "f32", peak)
+    out["call_bound"] = bound_of(nbytes(v) + sp_bytes + io_bytes, band_flops + 2 * K_MM * (
+        (0 if form.hub_slab is None else form.hub_slab.numel()) + nsp
+        + (0 if form.hubr_slab is None else form.hubr_slab.numel())), "f32", peak)
+    out["nz_bound"] = bound_of(sind.size * 8 + io_bytes, 2 * sind.size * K_MM, "f32", peak)
+    lib_s = f"{out['lib_ms']:.4f} ms" if out["lib_ms"] is not None else f"none ({lerr})"
+    log(f"  scircuit mm K={K_MM}: kid=6 call {out['kid6_call_ms']:.4f} ms (device {out['kid6_device_ms']:.4f}); "
+        f"#8 on the gen band {out['band_ms']:.4f} ms warm, {out['band_cold_ms']:.4f} cold, plain "
+        f"{out['band_plain_ms']:.4f}, bound {out['band_bound'][0]:.4f} ({out['band_bound'][1]}) = "
+        f"{out['band_bound'][0] / out['band_ms']:.3f}; the gather form before ({gkind}, kid={gkid}) "
+        f"{out['gather_ms']:.4f} ms; cuSPARSE {lib_s}; the call's bound {out['call_bound'][0]:.4f} ms "
+        f"({out['call_bound'][1]}), nonzeros-only {out['nz_bound'][0]:.4f} ms")
+    profile_mv("scircuit mm kid=6", call)
+    del flush, Bp, Slib, Cl
+
+    # each tuner once, at full size: the pin is the arg-min of its results
+    # and the next call dispatches the pinned form (its kernel's counter)
+    route = {"oh_select_f32", "oh_accum_f32", "benes_route_f32"}
+    mv_kernels = {"bandt": {"band_spmv_f32"}, "bwd": {"spmv_bwd_f32"}, "route": route,
+                  "gen": {"band_spmv_f32"} | (route if _spill_route_on(form, dev) else set())}
+    mm_kernels = {"bandtm": {"spmm_band_f32"}, "gen": {"spmm_band_f32"}, "bandmxu": {"spmm_band_mxu_f32"},
+                  "diag": {"spmm_diag_f32"}}
+
+    def pinned(name, results, kernels, run, before, watch=None):
+        """The pin is the arg-min of `results`; the next call (run) launches
+        each kernel of the pinned kind's set (kernels[kind], none for a
+        plain form) and no other kernel of `watch` (default: the table's),
+        and agrees with the unpinned call (`before`) within the f32 model
+        tolerance."""
+        win = min(results, key=results.get)
+        log(f"  {name}: " + ", ".join(f"{k} {t * 1e3:.4f} ms" for k, t in sorted(results.items(), key=lambda r: r[1]))
+            + f"; pinned {win}")
+        c0 = read_counts()
+        got = run()
+        c1 = read_counts()
+        moved = {k: c1[k] - c0[k] for k in (watch or set().union(*kernels.values()))}
+        want = kernels.get(win, set())
+        log(f"  {name}: the next call launched {moved}")
+        if any((n > 0) != (k in want) for k, n in moved.items()):
+            raise AssertionError(f"{name}: the next call launched {moved}, want only {sorted(want)} for the pin {win}")
+        err = near_error(host64(got), host64(before))
+        log(f"  {name}: pinned call vs unpinned max rel err {err:.3e} (tol {f32tol:.3e})")
+        if not err <= f32tol:
+            raise AssertionError(f"{name}: the pinned call disagrees with the unpinned one")
+        return win
+
+    xs = torch.from_numpy(np.random.default_rng(81).standard_normal(sm).astype(np.float32)).to(dev)
+    y0 = tt.mv(1.0, S, GEN, NONE, xs, 0.0)
+    t0 = time.perf_counter()
+    res = tt.autotune_mv(S)
+    out["tune_mv"] = (res, time.perf_counter() - t0)
+    out["pin_mv"] = pinned("autotune_mv (scircuit)", res, mv_kernels, lambda: tt.mv(1.0, S, GEN, NONE, xs, 0.0), y0)
+    if S.plan.exec_forms[(GEN.type, GEN.fill_mode, GEN.diag_type, NONE, None)].kind != out["pin_mv"]:
+        raise AssertionError("autotune_mv did not plant its winner in the auto slot")
+    Bh = torch.from_numpy(np.random.default_rng(SEED_B + 8).standard_normal((len(hptr) - 1, K_MM))
+                          .astype(np.float32)).to(dev)
+    C0 = tt.mm(1.0, H, GEN, NONE, Bh, 0.0)
+    forms_before = set(H.plan.exec_forms)
+    t0 = time.perf_counter()
+    # two chunks of two calls a candidate: the gather forms take about
+    # 0.16 s a call here, and the pin needs only the arg-min of what is timed
+    res = tt.autotune_mm(H, k=K_MM, B=Bh, iters=2, chunks=2)
+    out["tune_mm"] = (res, time.perf_counter() - t0)
+    if "diag" not in res:
+        raise AssertionError(f"autotune_mm on the stencil did not time the default's diag form: {res}")
+    out["pin_mm"] = pinned("autotune_mm (stencil, K=64)", res, mm_kernels, lambda: tt.mm(1.0, H, GEN, NONE, Bh, 0.0),
+                           C0)
+    # the stencil's later phases run its default again, without the
+    # candidates' forms
+    H.plan._mm_tuned.clear()
+    for key in set(H.plan.exec_forms) - forms_before:
+        del H.plan.exec_forms[key]
+    del Bh, C0
+    # the stencil's ILU0 L as a handle of its own: the factor's lower
+    # triangle with a unit diagonal
+    mh = len(hptr) - 1
+    Lh = tt.create_csr(mh, mh, hst.lu_clean.ptr, hst.lu_clean.ind, hst.lu, device=dev)
+    unit_l = tt.MatrixDescriptor(type=tt.MatrixType.triangular, fill_mode=tt.FillMode.lower,
+                                 diag_type=tt.DiagType.unit)
+    bl = torch.from_numpy(np.random.default_rng(83).standard_normal(mh).astype(np.float32)).to(dev)
+    x0 = tt.trsv(1.0, Lh, unit_l, NONE, bl)
+    t0 = time.perf_counter()
+    res = tt.autotune_trsv(Lh, unit_l)
+    out["tune_trsv"] = (res, time.perf_counter() - t0)
+    # a block-size pin runs its blocked form's kernel: the window solve or
+    # the chain kernel, by the form's kind
+    blocked = {"win": "trsv_win_f32", "dwin": "trsv_dwin_f32", "gather": "trsv_gather_f32"}
+    win_sv = min(res, key=res.get)
+    sv_kernels = {"level": {"trsv_level_f32"}}
+    if win_sv not in ("level", "host"):
+        sv_kernels[win_sv] = {blocked[ttri.trsv_form_for(Lh.plan, unit_l, NONE, nb=win_sv).kind]}
+    out["pin_trsv"] = pinned("autotune_trsv (stencil ILU0 L)", res, sv_kernels,
+                             lambda: tt.trsv(1.0, Lh, unit_l, NONE, bl), x0,
+                             watch={"trsv_level_f32"} | set(blocked.values()))
+    del Lh
+    # SpGEMM on the cant stand-in's A.A (phase 5c's handle and product)
+    before = tt.sp2m(NONE, GEN, Ac, NONE, GEN, Ac, request=tt.Request.finalize, C=Cc).data.val
+    t0 = time.perf_counter()
+    Cq, res = tt.autotune_spgemm(Ac, Ac)
+    out["tune_spgemm"] = (res, time.perf_counter() - t0)
+    engines = {k: v for k, v in res.items() if k in ("expand", "band", "host")}
+    pin = pinned("autotune_spgemm (cant A.A)", engines, {"band": {"band_gemm_f32"}},
+                 lambda: tt.sp2m(NONE, GEN, Ac, NONE, GEN, Ac, request=tt.Request.finalize, C=Cq).data.val,
+                 before)
+    out["pin_spgemm"] = (pin, res.get("extract_gather"), Cq._spgemm_plan._extract_route)
+    log(f"  autotune_spgemm: extraction gather {res.get('extract_gather')}, route pinned "
+        f"{Cq._spgemm_plan._extract_route}; tuning took {out['tune_spgemm'][1]:.1f} s")
+    del Cq, before
+
+    # plan snapshot of scircuit: load against plan from scratch; mv and
+    # mm(kid=6) on the loaded plan bit-equal to the original's
+    smoke_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    save_plan(S, smoke_dir / "plan_scircuit.npz")
+    out["t_save_plan"] = time.perf_counter() - t0
+    S2 = tt.create_csr(sm, sm, sptr, sind, sval, device=dev)
+    t0 = time.perf_counter()
+    nform = load_plan(S2, smoke_dir / "plan_scircuit.npz")
+    torch.cuda.synchronize()
+    out["t_load_plan"] = time.perf_counter() - t0
+    log(f"  save_plan (scircuit) {out['t_save_plan']:.2f} s, load_plan {out['t_load_plan']:.2f} s ({nform} forms) "
+        f"against {out['t_plan']:.2f} s to plan from scratch")
+    # bit for bit needs a fixed sum order: index_add_ takes its
+    # deterministic path in deterministic_mode
+    for name, fn in (("mv", lambda A: tt.mv(1.0, A, GEN, NONE, xs, 0.0)),
+                     ("mm kid=6", lambda A: tt.mm(1.0, A, GEN, NONE, B32, 0.0, kid=6))):
+        with deterministic_mode():
+            a, b = fn(S), fn(S2)
+            torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} on the loaded plan differs from the original handle's")
+        log(f"  {name} on the loaded plan: bit-equal to the original handle's")
+    del S2
+    # a checkpoint of the stencil with its ILU0: ILU0-PCG on the loaded
+    # handle takes the same iteration count (phase 5's b)
+    t0 = time.perf_counter()
+    save_matrix(smoke_dir / "stencil_ilu0.npz", H)
+    out["t_save_matrix"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    H2 = load_matrix(smoke_dir / "stencil_ilu0.npz", device=dev)
+    torch.cuda.synchronize()
+    out["t_load_matrix"] = time.perf_counter() - t0
+    if H2.ilu_state is None:
+        raise AssertionError("load_matrix dropped the ILU0 factor")
+    b = torch.from_numpy(np.random.default_rng(71).standard_normal(mh).astype(np.float32)).to(dev)
+    _xp, k, rnorm = tt.pcg_solve(H2, b, rtol=rtol, maxit=1000, precond="ilu0")
+    out["ilu_iters_loaded"] = k
+    log(f"  save_matrix (stencil + ILU0) {out['t_save_matrix']:.2f} s, load_matrix {out['t_load_matrix']:.2f} s; "
+        f"ILU0-PCG on the loaded handle: {k} iterations (phase 5: {ilu_iters}), ||r||={rnorm:.3e}")
+    if k != ilu_iters:
+        raise AssertionError("ILU0-PCG on the checkpoint-loaded stencil took another iteration count")
+    del H2
+    # the NaN/Inf trap on the card
+    bad = xs.clone()
+    bad[17] = float("inf")
+    with nan_checks():
+        try:
+            tt.mv(1.0, S, GEN, NONE, bad, 0.0)
+        except FloatingPointError as e:
+            log(f"  nan_checks: mv with an Inf in x raised FloatingPointError ({e})")
+        else:
+            raise AssertionError("nan_checks did not trap the non-finite mv")
+    if torch.isfinite(tt.mv(1.0, S, GEN, NONE, bad, 0.0)).all():
+        raise AssertionError("outside nan_checks the non-finite value did not come back")
+    return read_counts(), out
+
+
 def coo_csr(rows, cols, vals, m):
     """(ptr, ind, val) of an m x m COO triangle, sorted by row and column."""
     S = sp.csr_matrix((vals, (rows, cols)), shape=(m, m))
@@ -2471,7 +2793,8 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def phase(title):
-        log(f"{title} (at {time.perf_counter() - t_start:.1f} s)")
+        gpu = f"; device peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB" if torch.cuda.is_available() else ""
+        log(f"{title} (at {time.perf_counter() - t_start:.1f} s{gpu})")
 
     # 1. the card
     if not torch.cuda.is_available():
@@ -3550,6 +3873,17 @@ def main() -> int:
         if lp_launches[kernel] == 0:
             raise AssertionError(f"kernel {kernel} never launched on the bf16 and complex path")
         launches[kernel] = lp_launches[kernel]
+
+    # 5h. tuning and persistence, counted on their own
+    phase("phase 5h: mm KID 6 on the scircuit stand-in (f32, bf16), autotune_mv/mm/trsv/spgemm at full size, "
+          "save_plan/load_plan, save_matrix/load_matrix, nan_checks")
+    tl_launches, th = tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, stencil_iters["ilu0"], ctx.hbm_gbps,
+                                              errs, Path(__file__).resolve().parent / "_smoke")
+    log(f"  tuning and persistence path launches: {({k: tl_launches[k] for k in TUNING_PATH})}")
+    for kernel in TUNING_PATH:
+        if tl_launches[kernel] == 0:
+            raise AssertionError(f"kernel {kernel} never launched on the tuning and persistence path")
+        launches[kernel] += tl_launches[kernel]
 
     # 6. timing
     phase("phase 6: timing (CUDA events or host clock, median of repeats)")

@@ -259,7 +259,11 @@ def test_error_statuses(ast, pairs):
             tt.mm(*args, **kw)
         return e.value.status
 
-    assert status(1.0, T, GEN, NONE, B, 0.0, kid=6) == tt.Status.not_implemented
+    # KID 6's gate fails on complex values (no band kernel instance): the
+    # gather rebuild has no KID 6 row, as in the JAX package
+    Sc = _operand(seed=11)
+    Zc = tt.create_csr(M, M, Sc.indptr, Sc.indices, Sc.data.astype(np.complex128), device="cpu")
+    assert status(1.0, Zc, GEN, NONE, B.to(torch.complex128), 0.0, kid=6) == tt.Status.invalid_kid
     assert status(1.0, T, GEN, NONE, B, 0.0, kid=9) == tt.Status.invalid_kid
     assert status(1.0, T, GEN, NONE, B[:-1], 0.0) == tt.Status.invalid_size
     assert status(1.0, T, GEN, NONE, B[:, 0], 0.0) == tt.Status.invalid_size
