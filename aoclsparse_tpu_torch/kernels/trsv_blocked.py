@@ -21,18 +21,23 @@ accelerator and substitutes on the CPU.
 loop over blocks: the CPU tensors' path and the tests' reference. The
 kernel (``csrc/trsv_blocked.cu``, built by ``kernels/build.py``) runs the
 ``inv=True`` contract over dinvT = Dinv transposed, (nblk, nb, nb), whose
-upper triangle it reads, in one launch a solve: one CTA a chunk of
-`chunk_cols` columns walks the blocks (the source's header has the
-design). `trsv_dwin` and `trsv_gather` have one rule: a CPU tensor takes
-the plain version, a CUDA tensor launches the kernel or raises.
-`trsv_dwin.launches` and `trsv_gather.launches` count launches per
-instance.
+upper triangle it reads, in one launch a solve: a thread-block cluster a
+chunk of `chunk_cols` columns, whose CTA 0 walks the blocks over shared
+memory only while the other CTAs sum each block's far left terms ahead of
+it (the source's header has the design). A gather row is read only over
+its stored left slots (`TrsvForm.counts()`, int32 (nblk, nb)), so the
+kernel differs from the plain version, which multiplies the padding, only
+where solved x[0] is Inf or NaN. Instances: f32, f64, bf16 (f32 sums, x
+rounded to bf16 as each block is solved), complex64 and complex128.
+`trsv_dwin` and `trsv_gather` have one rule: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel or raises. `trsv_dwin.launches`
+and `trsv_gather.launches` count launches per instance.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -41,8 +46,12 @@ from .build import load_library
 
 __all__ = [
     "DTYPES",
+    "KERNEL_MAX_NB",
     "MAX_NB",
+    "chain_slices",
     "chunk_cols",
+    "gather_counts",
+    "kernel_layout",
     "trsv_dwin",
     "trsv_dwin_plain",
     "trsv_gather",
@@ -53,11 +62,16 @@ __all__ = [
 _INSTANCES = {
     torch.float32: ("f32", "trsv_blocked_f32"),
     torch.float64: ("f64", "trsv_blocked_f64"),
+    torch.bfloat16: ("bf16", "trsv_blocked_bf16"),
+    torch.complex64: ("c64", "trsv_blocked_c64"),
+    torch.complex128: ("c128", "trsv_blocked_c128"),
 }
 #: operand dtypes the kernel has instances for
 DTYPES = tuple(_INSTANCES)
-#: widest block: one thread a row (times the CTA's slices), 1024 at most
+#: widest block of the plain versions' contract
 MAX_NB = 1024
+#: widest block the kernel takes (one chain thread a row, 512 threads a CTA)
+KERNEL_MAX_NB = 256
 _MODE = {"dwin": 0, "gather": 1}
 
 _fns = {}
@@ -67,17 +81,55 @@ def _entry(symbol: str):
     fn = _fns.get(symbol)
     if fn is None:
         fn = getattr(load_library(), symbol)
-        fn.argtypes = [ctypes.c_int64] + [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [ctypes.c_void_p] * 2
+        fn.argtypes = [ctypes.c_int64] + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 5 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return fn
 
 
+def kernel_layout(nb: int, K: int, dtype) -> dict:
+    """The launch an instance takes for nb rows and K columns: its ring
+    depth D, helpers H, slices S (of the chain's rows; helper groups a
+    CTA), dinvT stages P, threads a CTA, bytes of shared memory its buffers
+    take and near entries a row NR (from the library, so on a machine that
+    can build it)."""
+    te = torch.empty(0, dtype=dtype).element_size()
+    ta = 4 if dtype == torch.bfloat16 else te
+    fn = getattr(load_library(), "trsv_blocked_layout")
+    fn.argtypes = [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int64 * 7)()
+    rc = fn(int(nb), chunk_cols(K), te, ta, ctypes.addressof(out))
+    return dict(zip(("D", "H", "S", "P", "threads", "smem", "NR"), list(out)), fits=rc == 0)
+
+
+def gather_counts(Lind: torch.Tensor, Lval: torch.Tensor) -> torch.Tensor:
+    """Each gather row's count of left slots the kernel reads, (nblk, nb)
+    int32: one past its last slot whose index or value is nonzero. A form
+    built here keeps its rows' exact left counts instead; these cover
+    every stored entry but a trailing one of value 0 on column 0, which
+    adds 0 * x[0] in the plain version."""
+    nz = (Lind != 0) | (Lval != 0)
+    w = torch.arange(1, Lind.shape[2] + 1, dtype=torch.int32, device=Lind.device)
+    return (nz.to(torch.int32) * w).amax(dim=2).to(torch.int32) if Lind.shape[2] else \
+        torch.zeros(Lind.shape[:2], dtype=torch.int32, device=Lind.device)
+
+
 def chunk_cols(K: int) -> int:
-    """Columns a CTA takes (csrc/trsv_blocked.cu KC): 4 from K = 4 on, so a
-    loaded operand value serves four sums, else 2 or 1; the chunks' chains
-    run side by side, one SM each."""
+    """Columns a cluster takes (csrc/trsv_blocked.cu KC): 4 from K = 4 on,
+    so a loaded operand value serves four sums, else 2 or 1; the chunks'
+    clusters run side by side."""
     return 4 if K >= 4 else (2 if K >= 2 else 1)
+
+
+def chain_slices(nb: int) -> int:
+    """Slices of a chain row's triangle product (csrc/trsv_blocked.cu
+    plan_layout): as many 32-row-rounded copies of the block's rows as fit
+    in 448 threads, at most 4; slice s takes the batches s, s + S, ... of
+    8 / chunk_cols(K) rows of the triangle, and a row's partials meet in
+    slice order."""
+    rp = _up(nb, 32)
+    return max(1, min(4, 448 // rp))
 
 
 def _up(v: int, m: int) -> int:
@@ -166,11 +218,13 @@ def _check(dinvT, left, b, nb: int, aux, aux_shape, left_shape):
     return inst
 
 
-def _launch(symbol: str, name: str, mode: str, dinvT, left, aux, b, nb: int) -> torch.Tensor:
+def _launch(symbol: str, name: str, mode: str, dinvT, left, aux, b, nb: int, counts=None) -> torch.Tensor:
     """One launch of csrc/trsv_blocked.cu on b's device, current stream,
     not synchronised."""
     if b.device.type != "cuda":
         raise AoclSparseError(Status.not_implemented, f"no blocked-solve kernel for {b.device}")
+    if nb > KERNEL_MAX_NB:
+        raise AoclSparseError(Status.invalid_size, f"nb={nb}: the chain kernel takes blocks of 1..{KERNEL_MAX_NB}")
     B = b if b.dim() == 2 else b[:, None]
     X = torch.empty_like(B)
     K = B.shape[1]
@@ -184,6 +238,7 @@ def _launch(symbol: str, name: str, mode: str, dinvT, left, aux, b, nb: int) -> 
             dinvT.data_ptr(),
             left.data_ptr(),
             aux.data_ptr(),
+            counts.data_ptr() if counts is not None else None,
             B.data_ptr(),
             X.data_ptr(),
             dinvT.shape[0],
@@ -216,16 +271,24 @@ def trsv_dwin(dinvT: torch.Tensor, Dv: torch.Tensor, offs: torch.Tensor, b: torc
 trsv_dwin.launches = {name: 0 for name, _sym in _INSTANCES.values()}
 
 
-def trsv_gather(dinvT: torch.Tensor, Lind: torch.Tensor, Lval: torch.Tensor, b: torch.Tensor, nb: int):
+def trsv_gather(dinvT: torch.Tensor, Lind: torch.Tensor, Lval: torch.Tensor, b: torch.Tensor, nb: int,
+                counts: Optional[torch.Tensor] = None):
     """Solve by the gather contract with inv=True: dinvT as for
     `trsv_dwin`, Lind (int32) and Lval (nblk, nb, W), b (m_pad,) or
-    (m_pad, K). The plain version on a CPU tensor, one kernel launch on a
-    CUDA tensor."""
+    (m_pad, K); counts (nblk, nb) int32, each row's stored left slots
+    (`TrsvForm.counts()`), required on a CUDA tensor. The plain version on
+    a CPU tensor (which reads no counts), one kernel launch on a CUDA
+    tensor."""
     W = Lval.shape[2] if Lval.dim() == 3 else -1
     name, symbol = _check(dinvT, Lval, b, nb, Lind, lambda nblk: (nblk, nb, W), (nb, W))
     if b.device.type == "cpu":
         return trsv_gather_plain(dinvT.transpose(1, 2), Lind, Lval, b, nb, inv=True)
-    x = _launch(symbol, name, "gather", dinvT, Lval, Lind, b, nb)
+    if counts is None or counts.dtype != torch.int32 or tuple(counts.shape) != tuple(Lind.shape[:2]) \
+            or not counts.is_contiguous() or counts.device != b.device:
+        got = None if counts is None else f"{counts.dtype} {tuple(counts.shape)} on {counts.device}"
+        raise AoclSparseError(Status.invalid_value, f"counts must be contiguous int32 {tuple(Lind.shape[:2])} on "
+                              f"{b.device}, got {got}")
+    x = _launch(symbol, name, "gather", dinvT, Lval, Lind, b, nb, counts)
     trsv_gather.launches[name] += 1
     return x
 

@@ -75,7 +75,7 @@ from ..core.types import (
     to_torch_dtype,
 )
 from ..kernels.trsv_blocked import DTYPES as CHAIN_DTYPES
-from ..kernels.trsv_blocked import trsv_dwin, trsv_dwin_plain, trsv_gather, trsv_gather_plain
+from ..kernels.trsv_blocked import gather_counts, trsv_dwin, trsv_dwin_plain, trsv_gather, trsv_gather_plain
 from ..kernels.trsv_level import DTYPES as LEVEL_DTYPES
 from ..kernels.trsv_win import DTYPES as WIN_DTYPES
 from ..kernels.trsv_win import WinSolveOps, trsm_win, trsm_win_plain, trsv_win, trsv_win_plain, win_solve_operands
@@ -104,8 +104,10 @@ DEFAULT_BLOCK = 64
 MAX_WL = 8192
 #: the farthest left offset a ``dwin`` form may carry (the JAX package's)
 MAX_DWIN_OFFSET = 65536
-#: the widest block of a ``dwin`` or ``gather`` form (`adaptive_nb`)
-CHAIN_NB = 64
+#: the widest block of a ``dwin`` or ``gather`` form (`adaptive_nb`): of
+#: 4-byte and 2-byte values (f32, bf16), and of wider ones (f64, complex)
+CHAIN_NB = 128
+CHAIN_NB_WIDE = 64
 #: the forms whose solve is the chain kernel (csrc/trsv_blocked.cu)
 CHAIN_KINDS = ("dwin", "gather")
 #: the level engine's reach in levels, as the default's choice and as the
@@ -115,20 +117,23 @@ LEVEL_MAX_NLEV = 4096
 #: CPU's default stays the blocked form (a test adds "cpu" to drive the
 #: routing through the plain versions)
 SV_LEVEL_DEVICES = ("cuda",)
-#: the gate's constants in microseconds, measured by chip_smoke.py phase 6
-#: on an NVIDIA H100 80GB HBM3 at 700 W: the level kernel's time a level
-#: (a solve of the 104^3 stencil's lower triangle over its 722 levels) and
-#: the chain kernel's time a step (its dwin solve over 17,576 blocks of 64)
+#: the gate's constants in microseconds, measured on an NVIDIA H100 80GB
+#: HBM3 at 700 W: the level kernel's time a level (chip_smoke.py phase 6: a
+#: solve of the 104^3 stencil's lower triangle over its 722 levels) and the
+#: chain kernel's time a step (scripts/chain_bench.py: its dwin solve of
+#: the stencil's ILU0 L over 8,788 blocks of 128, f32; 17,576 blocks of 64
+#: take 1.17 us a step in f64)
 T_LEVEL_US = 2.43
-T_STEP_US = 2.48
+T_STEP_US = 1.85
 
 #: the dtypes of a triangular solve: those of the JAX package's handles
 SOLVE_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.complex64, torch.complex128)
 #: the blocked forms' solve kernels by kind, and the dtypes they have
-#: instances for; a complex form runs its kernel's plain version, chosen by
-#: dtype in `solve`, as the JAX package runs every complex solve on its XLA
-#: scans (planner/triangular.py:133-221 there gates its Pallas routes off);
-#: a bf16 ``dwin``/``gather`` form does so on the CPU and raises on the card
+#: instances for: the chain kernel every solve dtype, the window solves
+#: f32, f64 and bf16; a complex ``win`` form runs its kernel's plain
+#: version, chosen by dtype in `solve`, as the JAX package runs every
+#: complex solve on its XLA scans (planner/triangular.py:133-221 there gates
+#: its Pallas routes off)
 KERNEL_DTYPES = {"win": WIN_DTYPES, "dwin": CHAIN_DTYPES, "gather": CHAIN_DTYPES}
 
 
@@ -154,17 +159,27 @@ def adaptive_nb(m: int, dtype=None) -> int:
     traffic. Complex takes the base branch, as in the JAX package: its
     solves run the plain block loops, where halving nb doubles the steps.
 
-    A ``dwin`` or ``gather`` form takes at most CHAIN_NB = 64 rows a block
-    (`build_trsv_form` builds it again at that width): its chain kernel
-    (csrc/trsv_blocked.cu) runs on one SM, and past 64 rows its step time
-    grows faster than the step count falls. A solve of the 104^3 stencil's
-    lower triangle (f32, one right-hand side; chip_smoke.py phase 6 on an
-    NVIDIA H100 80GB HBM3 at 700 W) took 64.75 ms at nb = 32, 43.85 at 64,
-    47.10 at 128 and 70.62 at 256 (1.84, 2.50, 5.36 and 16.07 us a step)."""
+    A ``dwin`` or ``gather`` form takes at most `chain_nb` rows a block
+    (`build_trsv_form` builds it again at that width): CHAIN_NB = 128 for
+    f32 and bf16, CHAIN_NB_WIDE = 64 for f64 and complex. Its chain kernel
+    (csrc/trsv_blocked.cu) pays about 1 us a step whatever the block, and
+    its triangle product grows with nb; at 128 rows the wider values' dinvT
+    stages no longer fit twice beside its rings. Solves of scircuit's lower
+    triangle and the stencil's (scripts/chain_bench.py on an NVIDIA H100
+    80GB HBM3 at 700 W, one right-hand side) took, at nb = 32 / 64 / 128:
+    f32 6.19 / 3.57 / 2.94 and 34.34 / 18.86 / 16.18 ms; f64 6.44 / 3.81 /
+    6.46 and 36.21 / 20.44 / 41.12 ms; complex64 at 64 / 128 4.09 / 6.74 and
+    24.79 / 46.06 ms."""
     base = int(min(512, max(DEFAULT_BLOCK, 1 << int(np.ceil(np.log2(max(m / 512, 1)))))))
     if m >= 8 * 128 and (dtype is None or to_torch_dtype(dtype) in WIN_DTYPES):
         return int(min(256, max(128, base)))
     return base
+
+
+def chain_nb(itemsize: int) -> int:
+    """The widest block of a chain-kernel form of `itemsize`-byte values:
+    CHAIN_NB up to 4 bytes, CHAIN_NB_WIDE past that."""
+    return CHAIN_NB if itemsize <= 4 else CHAIN_NB_WIDE
 
 
 def invert_diag_blocks(D: torch.Tensor) -> torch.Tensor:
@@ -210,6 +225,9 @@ class TrsvForm:
     WL: int = 0
     #: gather: (nblk, nb, W) int32 column indices into the padded x
     Lind: Optional[torch.Tensor] = None
+    #: gather: (nblk, nb) int32 count of each row's stored left slots (the
+    #: chain kernel reads no others), structure only: `refresh` keeps it
+    Lcnt: Optional[torch.Tensor] = None
     #: dwin: the ascending left offsets of Lval's diagonals
     dwin_offs: Optional[Tuple[int, ...]] = None
     #: "eff": maps index an effective CSR's values; "clean": the clean
@@ -270,30 +288,30 @@ class TrsvForm:
             self._offs_t = torch.tensor(self.dwin_offs, dtype=torch.int32, device=self.device)
         return self._offs_t
 
+    def counts(self) -> torch.Tensor:
+        """The gather rows' left counts (``Lcnt``), derived from Lind and
+        Lval for a form carried across without them (`gather_counts`)."""
+        if self.Lcnt is None:
+            self.Lcnt = gather_counts(self.Lind, self.Lval)
+        return self.Lcnt
+
     def solve(self, r: torch.Tensor) -> torch.Tensor:
         """Solve on a padded (m_pad,) or (m_pad, k) right-hand side in block
         order, by kind (planner/triangular.py:115-226 there): the window-solve
         kernels for ``win`` (a single column takes the single-RHS solve and
         wider ones the multi-RHS solve, as the JAX package splits them), the
-        blocked-solve chain kernel for ``dwin`` and ``gather``; their plain
-        versions on a CPU tensor (which build no card operands). Complex
-        (no window or chain instance, `has_solve_kernel`) takes the plain
-        route on any device; a bf16 ``dwin`` or ``gather`` form (no chain
-        instance) takes it on the CPU and raises `not_implemented` on the
-        card (ROADMAP item 29)."""
+        blocked-solve chain kernel for ``dwin`` and ``gather`` (every solve
+        dtype); their plain versions on a CPU tensor (which build no card
+        operands). A complex ``win`` form (no window instance,
+        `has_solve_kernel`) takes the plain route on any device."""
         dinvT, left = self.operands()
         r = r.to(dinvT.dtype).contiguous()
         if not has_solve_kernel(self.kind, dinvT.dtype):
-            if r.device.type != "cpu" and not dinvT.dtype.is_complex:
-                raise AoclSparseError(
-                    Status.not_implemented,
-                    f"no {dinvT.dtype} instance of the chain kernel for a {self.kind} form on "
-                    f"{r.device} (ROADMAP item 29)")
             return self._solve_plain(dinvT, left, r)
         if self.kind == "dwin":
             return trsv_dwin(dinvT, left, self.offsets(), r, self.nb, self.WL)
         if self.kind == "gather":
-            return trsv_gather(dinvT, self.Lind, left, r, self.nb)
+            return trsv_gather(dinvT, self.Lind, left, r, self.nb, self.counts() if r.is_cuda else None)
         ops = self.solve_ops() if r.device.type == "cuda" else None
         if r.dim() == 1:
             return trsv_win(dinvT, left, r, self.nb, self.WL, ops)
@@ -387,16 +405,16 @@ def build_trsv_form(
     WL = max(8, -(-WL_need // 8) * 8)
     itemsize = eff.val.element_size()
     cap = float(os.environ.get("AOCLSPARSE_TPU_TRSV_WIN_CAP", "1.2e9"))
-    L_ind = None
+    L_ind = L_cnt = None
     dwin_offs = None
     if (nblk * nb * WL) <= max(8 * cols.size, 64 * nb * nb) and WL <= MAX_WL:
         kind = "win"
         t_l = (cols - blk0 + WL)[lmask]
         L_dest = ((blk_of_row[lmask] * nb + r_in_blk[lmask]) * WL + t_l).astype(np.int64)
         L_shape = (nblk, nb, WL)
-    elif nb > CHAIN_NB:
+    elif nb > chain_nb(itemsize):
         # the chain kernel's forms take narrower blocks (adaptive_nb)
-        return build_trsv_form(descr, op, eff, CHAIN_NB, val_override)
+        return build_trsv_form(descr, op, eff, chain_nb(itemsize), val_override)
     else:
         # the diagonal window first: wide windows whose left part carries
         # few distinct element diagonals (stencils, FEM), O(ndg * m_pad)
@@ -438,6 +456,9 @@ def build_trsv_form(
             ind_np = np.zeros((nblk, nb, W), dtype=np.int32)
             ind_np[blk_of_row[lmask], r_in_blk[lmask], t_l] = cols[lmask].astype(np.int32)
             L_ind = torch.from_numpy(ind_np).to(eff.val.device)
+            cnt_np = np.zeros(m_pad, dtype=np.int32)
+            cnt_np[:m] = left_counts
+            L_cnt = torch.from_numpy(cnt_np.reshape(nblk, nb)).to(eff.val.device)
             L_dest = ((blk_of_row[lmask] * nb + r_in_blk[lmask]) * W + t_l).astype(np.int64)
             L_shape = (nblk, nb, W)
             WL = 0
@@ -474,6 +495,7 @@ def build_trsv_form(
         kind=kind,
         WL=WL,
         Lind=L_ind,
+        Lcnt=L_cnt,
         dwin_offs=dwin_offs,
         dtype=eff.val.dtype,
     )
@@ -784,12 +806,12 @@ def pick_sv_engine(form: Optional[TrsvForm], nlev_of: Callable[[], int], device)
     `form`; nlev_of() gives the triangle's level count (read from the
     structure, cached by the caller) and runs only where the count decides,
     on a device of SV_LEVEL_DEVICES. By dtype: a dtype with no level-kernel
-    instance (bf16) stays blocked (a bf16 ``dwin``/``gather`` form then
-    raises in `TrsvForm.solve` on the card); a dtype whose blocked form has
-    no kernel instance (complex: no window or chain instance) takes the
-    level kernel wherever its levels are at most LEVEL_MAX_NLEV, whatever
-    the form's kind, and the plain block loops past that; the rest follow
-    `level_wins`."""
+    instance (bf16) stays blocked (its ``dwin``/``gather`` forms on the
+    chain kernel's bf16 instance); a form with no kernel instance (a
+    complex ``win`` form: no window-solve instance) takes the level kernel
+    wherever its levels are at most LEVEL_MAX_NLEV, and the plain block
+    loops past that; the rest, complex ``dwin``/``gather`` forms included,
+    follow `level_wins` (past LEVEL_MAX_NLEV: the chain kernel)."""
     if form is None or torch.device(device).type not in SV_LEVEL_DEVICES or form.D.dtype not in LEVEL_DTYPES:
         return "blocked"
     if not has_solve_kernel(form.kind, form.D.dtype):

@@ -14,8 +14,10 @@ failure (exit code != 0, no result line):
    window-solve (passes A, B, C and the bf16 rounding; every instance),
    block-window SpMM (both instances), band GEMM (both instances), band
    SpMM (every instance), diagonal SpMM (every instance), blocked-solve
-   chain (every instance) and level-solve (every instance, complex
-   included) kernels no stack frame and no spills (their registers logged);
+   chain (all 30 instances: f32, f64, bf16, complex64, complex128 by dwin
+   and gather by 1, 2 and 4 columns) and level-solve (every instance,
+   complex included) kernels no stack frame and no spills (their
+   registers logged);
 3. hold each kernel instance against its plain PyTorch version:
    - the band kernel on the bench operand (m = n = 262144, 64 nnz/row,
      half-bandwidth 64, seed 7, built as bench.py:220-233) in f32, bf16
@@ -84,8 +86,11 @@ failure (exit code != 0, no result line):
      handles, K = 1 and 16), on the gather forms of the scatter operand's
      lower and upper triangles (f32 and f64, K = 1 and 16), and on small
      synthetic forms (one block; a ragged last block; an offset past
-     m_pad; a unit diagonal; K = 1 and 3), each called twice for the same
-     bits;
+     m_pad; a unit diagonal; K = 1 and 3); its bf16, complex64 and
+     complex128 instances on the stencil factors' dwin forms (bf16: the f32
+     factors rounded; complex: the factors of the stencil + SIGMA i I) and
+     on ragged synthetic dwin and gather forms; each called twice for the
+     same bits;
    - the level-solve kernel (csrc/trsv_level.cu) on the level forms of the
      same ILU0 L and U factors (722 levels each; f32 and f64, K = 1 and 16)
      and of the scatter operand's lower and upper triangles (f32 and f64,
@@ -224,6 +229,19 @@ failure (exit code != 0, no result line):
    (ILU0-PCG on the loaded handle in phase 5's iteration count); and mv
    with an Inf in x raising FloatingPointError under nan_checks, and
    returning it outside;
+5i. the circuit path, counted on its own (its kernel vs plain checks first,
+   uncounted): the scircuit stand-in with benchmarks/run_real.py:54's
+   diagonal boost 80, create_csr -> optimize -> ilu0_factorize, whose
+   factors are gather forms past the level kernel's 4096 levels; the chain
+   kernel against its plain version on their L and U in every instance
+   (f32, f64, bf16, complex64, complex128; K = 1 and 16); then
+   pgmres_solve(precond="ilu0") with no kid (the gate keeps the chain: two
+   gather launches an apply), the default trsv of f32, f64, bf16,
+   complex64 and complex128 handles, complex64 ILU0-GMRES on the twin
+   A + SIGMA i I, and the dwin instances on the 104^3 stencil (a bf16
+   handle's default trsv, the complex stencil's ilu_smoother(kid=0), a
+   complex128 handle's trsv(kid=0)); each by its float64 residual and its
+   launches;
 6. time kernel vs plain version vs one PyTorch library call (torch.sparse
    CSR products and triangular solves, index_add_ and a permutation
    gather, timed here as yardsticks only; each behind a device spin that
@@ -277,18 +295,23 @@ failure (exit code != 0, no result line):
    pgmres_solve on the nonsymmetric bench operand, itsol SGS-CG on the
    stencil, permuted GMRES on the shifted webbase: the difference of two
    fixed-length solves, whole cycles) and a profile of two ILU0-GMRES
-   cycles.
+   cycles; the chain kernel's dwin rows in bf16, complex64 and complex128 on
+   the stencil's ILU0 L; its gather rows in every instance on scircuit's
+   ILU0 L (the kernels line's gather entries), each beside its latency
+   floor (the solve's steps times a minimal step of the same instance) and
+   its bound over the stored entries only; scircuit's ILU0-GMRES iteration
+   (f32 and complex64), a profile of one cycle, and its L solve by kid=2.
 
 Launch counts are reset just before phase 4 and read after phase 5, reset
 again just before phase 5b and read after it, and again around phases 5c,
-5d, 5e, 5f, 5g and 5h (the kernels line takes the spill-route kernels'
+5d, 5e, 5f, 5g, 5h and 5i (the kernels line takes the spill-route kernels'
 counts from 5b, the band GEMM's from 5c, the group-window kernel's from 5d,
 the measurement path's kernels' from 5e and the bf16 and complex instances'
 from 5g, and adds 5h's band SpMM launches, mm KID 6's band leg, to the
-band SpMM's f32 and bf16 counts; the gather instances of the chain kernel
-count in 5b, its dwin instances and the level kernel's real ones on the
-main path; 5f launches only kernels counted before, and checks its own
-counts). The second-to-last line is {"kernels": [...]}; the last is
+band SpMM's f32 and bf16 counts; the chain kernel's gather instances and
+its bf16 and complex dwin instances count in 5i, its real dwin instances
+and the level kernel's real ones on the main path; 5f launches only kernels
+counted before, and checks its own counts). The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
 
@@ -350,6 +373,7 @@ from aoclsparse_tpu_torch.kernels.spmv_bwd import spmv_bwd, spmv_bwd_plain
 from aoclsparse_tpu_torch.kernels.spmv_mxu import spmv_band_mxu, spmv_band_mxu_plain, spmv_bandmxu
 from aoclsparse_tpu_torch.kernels.stream_read import stream_read, stream_read_plain
 from aoclsparse_tpu_torch.io import load_matrix, load_plan, read_mtx, save_matrix, save_plan, write_mtx
+from aoclsparse_tpu_torch.kernels import trsv_blocked as trsv_blocked_mod
 from aoclsparse_tpu_torch.kernels.trsv_blocked import trsv_dwin, trsv_dwin_plain, trsv_gather, trsv_gather_plain
 from aoclsparse_tpu_torch.kernels.trsv_level import build_level_form, trsv_level, trsv_level_plain
 from aoclsparse_tpu_torch.kernels.trsv_win import (
@@ -457,9 +481,24 @@ KERNELS = {
     "spmm_band_bf16": ("aoclsparse_tpu_torch/csrc/spmm_band.cu", "aoclsparse_tpu/kernels/pallas/spmv.py:173"),
     "trsv_level_c64": ("aoclsparse_tpu_torch/csrc/trsv_level.cu", "aoclsparse_tpu/kernels/xla/trsv_level.py:138"),
     "trsv_level_c128": ("aoclsparse_tpu_torch/csrc/trsv_level.cu", "aoclsparse_tpu/kernels/xla/trsv_level.py:138"),
+    # the chain kernel's bf16 and complex instances (the XLA scans run every
+    # dtype the JAX package solves)
+    "trsv_dwin_bf16": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:103"),
+    "trsv_dwin_c64": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:103"),
+    "trsv_dwin_c128": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:103"),
+    "trsv_gather_bf16": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:152"),
+    "trsv_gather_c64": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:152"),
+    "trsv_gather_c128": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:152"),
 }
 #: the kernels of the general-structure path (phase 5b), counted there
-GEN_PATH = ("oh_select_f32", "oh_accum_f32", "benes_route_f32", "trsv_gather_f32", "trsv_gather_f64")
+GEN_PATH = ("oh_select_f32", "oh_accum_f32", "benes_route_f32")
+#: the kernels of the circuit path (phase 5i: scircuit's deep triangles on
+#: the chain kernel by the gate, the bf16 and complex instances), counted there
+CIRCUIT_PATH = ("trsv_gather_f32", "trsv_gather_f64", "trsv_gather_bf16", "trsv_gather_c64", "trsv_gather_c128",
+                "trsv_dwin_bf16", "trsv_dwin_c64", "trsv_dwin_c128")
+#: the instances of the chain kernel the build must hold: 5 dtypes x 2
+#: forms x 3 column chunks
+CHAIN_INSTANCES = 30
 #: the kernels of the SpGEMM path (phase 5c), counted there
 SPGEMM_PATH = ("band_gemm_f32", "band_gemm_f64")
 #: the kernels of the formats path (phase 5d), counted there
@@ -500,6 +539,10 @@ COUNTERS = {
     "trsv_gather": trsv_gather.launches,
     "trsv_level": trsv_level.launches,
 }
+#: the bf16 solves (window and chain kernels) against their plain versions,
+#: and the relative residuals of the bf16 chain solves: four bf16 units in
+#: the last place (2^-5)
+BF16_SOLVE_TOL = 4 * 2.0**-7
 #: kernel vs plain: the same products summed in another order, so the
 #: accumulation dtype's model tolerance (utils/tolerances.py, scale 1);
 #: the bf16 instance accumulates in f32 over the same bf16 band values
@@ -550,6 +593,17 @@ KERNEL_TOL = {
     "trsv_dwin_f64": expected_precision(torch.float64),
     "trsv_gather_f32": expected_precision(torch.float32),
     "trsv_gather_f64": expected_precision(torch.float64),
+    # bf16: f32 sums and x rounded to bf16 a block, against the plain bf16
+    # loop (bf16 products and sums): four bf16 units in the last place (2^-5),
+    # as the window solve's bf16 instance below (the two differ by about one
+    # rounding of x: tests/test_torch_chain_redesign.py); complex: the model
+    # tolerance of the real part's dtype
+    "trsv_dwin_bf16": BF16_SOLVE_TOL,
+    "trsv_gather_bf16": BF16_SOLVE_TOL,
+    "trsv_dwin_c64": expected_precision(torch.complex64),
+    "trsv_dwin_c128": expected_precision(torch.complex128),
+    "trsv_gather_c64": expected_precision(torch.complex64),
+    "trsv_gather_c128": expected_precision(torch.complex128),
     # the same products summed in another order (32 lanes a row meeting in
     # a fixed butterfly), the dtype's model tolerance
     "trsv_level_f32": expected_precision(torch.float32),
@@ -559,8 +613,8 @@ KERNEL_TOL = {
     # four bf16 units in the last place (2^-5), far inside the bf16 model
     # tolerance (0.5); the two differ by one rounding of x on the emulated
     # operands (tests/test_torch_win_solve_passes.py) and on the SPD ILU0 L
-    "trsv_win_bf16": 4 * 2.0**-7,
-    "trsm_win_bf16": 4 * 2.0**-7,
+    "trsv_win_bf16": BF16_SOLVE_TOL,
+    "trsm_win_bf16": BF16_SOLVE_TOL,
     # the same bf16 band values and f32 B, f32 sums in another order
     "spmm_band_bf16": expected_precision(torch.float32),
     # complex multiply-adds in another order (a fixed butterfly): the
@@ -1732,10 +1786,13 @@ def check_chain_form(form, label, K, errs):
     right-hand side ((m_pad,) for K = 1, else (m_pad, K)), twice for the
     same bits."""
     dT, left = form.operands()
-    inst = "f32" if dT.dtype == torch.float32 else "f64"
-    kernel = f"trsv_{form.kind}_{inst}"
+    kernel = f"trsv_{form.kind}_{INST[dT.dtype]}"
     shape = (form.m_pad,) if K == 1 else (form.m_pad, K)
-    b = torch.from_numpy(np.random.default_rng(K).standard_normal(shape)).to(dT.device, dT.dtype)
+    rng = np.random.default_rng(K)
+    b = rng.standard_normal(shape)
+    if dT.dtype.is_complex:
+        b = b + 1j * rng.standard_normal(shape)
+    b = torch.from_numpy(b).to(dT.device, dT.dtype)
     full = f"{label} (nb={form.nb}, nblk={form.nblk}, {form.kind}"
     if form.kind == "dwin":
         full += f" ndg={len(form.dwin_offs)} WL={form.WL}) K={K}"
@@ -1743,9 +1800,98 @@ def check_chain_form(form, label, K, errs):
         want = trsv_dwin_plain(dT.transpose(1, 2), left, b, form.nb, form.WL, form.dwin_offs)
     else:
         full += f" W={left.shape[2]}) K={K}"
-        got = same_bits(kernel, full, lambda: trsv_gather(dT, form.Lind, left, b, form.nb))
+        got = same_bits(kernel, full, lambda: trsv_gather(dT, form.Lind, left, b, form.nb, form.counts()))
         want = trsv_gather_plain(dT.transpose(1, 2), form.Lind, left, b, form.nb)
     compare(kernel, full, got, want, errs)
+
+
+def cast_chain_form(form, dtype):
+    """A dwin or gather TrsvForm with its values in `dtype` (the structure
+    shared; bf16 inverts its blocks in f32 and rounds once, as a bf16
+    handle's form does)."""
+    return dataclasses.replace(form, D=form.D.to(dtype), Lval=form.Lval.to(dtype), _ops=None, _solve_ops=None,
+                               _offs_t=None, dtype=dtype)
+
+
+def chain_instance_checks(hst, hstc, dev, errs):
+    """Phase 3's checks of the chain kernel's bf16 and complex instances on
+    the dwin forms of the 104^3 stencil's ILU0 factors: bf16 on the f32
+    factors rounded, complex64 on the complex stencil's (A + SIGMA i I),
+    complex128 on those widened; K = 1 and K_SM; and on small synthetic
+    forms of each (a ragged dwin block, a gather form), each called twice
+    for the same bits."""
+    for name, fr, fc in (("L", hst.l_form, hstc.l_form), ("U", hst.u_form, hstc.u_form)):
+        if fc.kind != "dwin":
+            raise AssertionError(f"the complex stencil's ILU0 {name} took {fc.kind}, want dwin")
+        for form in (cast_chain_form(fr, torch.bfloat16), fc, cast_chain_form(fc, torch.complex128)):
+            for K in (1, K_SM):
+                check_chain_form(form, f"104^3 stencil ILU0 {name}", K, errs)
+            form._ops = None
+    for dtype in (torch.bfloat16, torch.complex64, torch.complex128):
+        for label, form in (
+            ("ragged last block", synthetic_chain_form("dwin", 8, 128, 1000, 2, np.float64, dev, offs=(1, 127, 300))),
+            ("ragged last block", synthetic_chain_form("gather", 9, 96, 800, 6, np.float64, dev, W=5)),
+        ):
+            for K in (1, 3):
+                check_chain_form(cast_chain_form(form, dtype), f"edge: {label}", K, errs)
+
+
+def minimal_chain_form(nblk, nb, dtype, dev):
+    """A gather form whose block k > 0 holds one left entry (row 0 on row
+    blk0 - 1) and an identity diagonal block: a chain step with the least
+    work, whose time a step is the kernel's latency floor a step."""
+    D = np.broadcast_to(np.eye(nb), (nblk, nb, nb)).copy()
+    Lval = np.zeros((nblk, nb, 1))
+    Lind = np.zeros((nblk, nb, 1), dtype=np.int32)
+    Lval[1:, 0, 0] = -0.5
+    Lind[1:, 0, 0] = np.arange(1, nblk) * nb - 1
+    arrays = dict(D=D, Lval=Lval, Lind=Lind, nb=nb, nblk=nblk, m=nblk * nb, WL=0, reversed_=False,
+                  unit_diag=False, kind="gather")
+    return cast_chain_form(interop.trsv_form_from_jax(arrays, device=dev), dtype)
+
+
+#: the chain kernel's minimal step by (dtype, nb), us (chain_floor_note)
+CHAIN_FLOOR_US = {}
+
+
+def chain_floor_note(form, t_ms):
+    """The latency floor of a chain solve, logged beside its time: the
+    solve's steps times a minimal step of the same instance and nb (a
+    gather form whose 4096 blocks hold one left entry each, timed once a
+    run)."""
+    dt_ = form.D.dtype
+    key = (dt_, form.nb)
+    if key not in CHAIN_FLOOR_US:
+        mf = minimal_chain_form(4096, form.nb, dt_, form.D.device)
+        bm = torch.ones(mf.m_pad, dtype=dt_, device=form.D.device)
+        dT_m, lv_m = mf.operands()
+        CHAIN_FLOOR_US[key] = cuda_ms(lambda: trsv_gather(dT_m, mf.Lind, lv_m, bm, mf.nb, mf.counts()), reps=5,
+                                      inner=3, warm=1, backlog=True) * 1e3 / 4096
+    step = CHAIN_FLOOR_US[key]
+    lat = step * form.nblk / 1e3
+    return (f"latency floor {form.nblk} x {step:.3f} us (a minimal {INST[dt_]} step at nb={form.nb}) = {lat:.4f} ms, "
+            f"{lat / t_ms:.3f} of the solve's time")
+
+
+def chain_stored_bytes(form, K=1):
+    """Bytes the chain's function needs of a form, stored entries only:
+    dinvT's upper triangles, the left entries it holds (a dwin slot left of
+    its block at a row >= 0, its value; a gather slot below its row's
+    count, its value and int32 index, and the counts), b read and x
+    written once."""
+    dT, left = form.operands()
+    es = dT.element_size()
+    tri = form.nblk * form.nb * (form.nb + 1) // 2 * es
+    if form.kind == "dwin":
+        offs = torch.tensor(form.dwin_offs, device=left.device)
+        r = torch.arange(form.nb, device=left.device)
+        src = (torch.arange(form.nblk, device=left.device) * form.nb)[:, None, None] - offs[None, :, None] + r
+        n_left = int(((r[None, :] < offs[:, None])[None] & (src >= 0)).sum())
+        left_b = n_left * es + 4 * len(form.dwin_offs)
+    else:
+        n_left = int(form.counts().sum())
+        left_b = n_left * (es + 4) + form.counts().numel() * 4
+    return tri + left_b + 2 * form.m_pad * K * es, n_left
 
 
 def chain_kernel_checks(H, H64, Q, Q64, dev, errs):
@@ -2518,6 +2664,233 @@ def lowprec_timings(lp):
         f"{[round(t, 4) for t in t_all]}; {lp['cg_c']} iterations to rtol 1e-6)")
 
 
+def circuit_path(H, Hc, hptr, hind, hval, dev, rtol, errs):
+    """Phase 5i: scircuit's deep triangles on the chain kernel. The scircuit
+    stand-in (benchmarks/realmat.py:151-176, copied, seed 7; m = 170,998,
+    its published size) with benchmarks/run_real.py:54's diagonal boost 80:
+    create_csr -> optimize -> ilu0_factorize; its ILU0 factors plan as
+    gather forms past the level kernel's reach (LEVEL_MAX_NLEV), so the gate
+    keeps them on the chain kernel. First, uncounted: the kernel against its
+    plain version on the factors' L and U in every instance (f32; f64 of a
+    float64 handle; bf16, the f32 factors rounded; complex64, the factors of
+    the complex twin A + SIGMA i I; complex128, those widened), K = 1 and
+    K_SM, twice for the same bits. Then, counted: pgmres_solve(precond=
+    "ilu0") with no kid on the f32 handle (two gather launches an apply),
+    the default trsv on the lower triangle of the f32, float64, bf16,
+    complex64 and complex128 handles (one gather launch each), ILU0-GMRES on
+    the complex twin; and the dwin forms' bf16 and complex instances on the
+    104^3 stencil: the default trsv of a bf16 handle (no level instance:
+    the chain), ilu_smoother(kid=0) on the complex stencil, trsv(kid=0) of a
+    complex128 handle. Each result by its float64 residual (10 rtol for the
+    solvers) and its launches. Returns (the launches, what phase 6 times)."""
+    res_tol = 10 * rtol
+    t0 = time.perf_counter()
+    sm, _sn, sptr, sind, sval = scircuit(np.random.default_rng(7), diag_boost=80.0)
+    S = sp.csr_matrix((sval.astype(np.float64), sind, sptr), shape=(sm, sm))
+    srows = np.repeat(np.arange(sm), np.diff(sptr))
+    scv = (sval.astype(np.float64) + 1j * SIGMA * (srows == sind))
+    Sc = sp.csr_matrix((scv, sind, sptr), shape=(sm, sm))
+    A = tt.create_csr(sm, sm, sptr, sind, sval, device=dev)
+    tt.optimize(A)
+    st = tt.ilu0_factorize(A)
+    A64 = tt.create_csr(sm, sm, sptr, sind, sval.astype(np.float64), device=dev)
+    st64 = tt.ilu0_factorize(A64)
+    Ac = tt.create_csr(sm, sm, sptr, sind, scv.astype(np.complex64), device=dev)
+    stc = tt.ilu0_factorize(Ac)
+    torch.cuda.synchronize()
+    fl = st.l_form
+    nlev = _factor_nlev(st)
+    engine = ttri.pick_sv_engine(fl, lambda: nlev[0], dev)
+    log(f"  scircuit (m={sm}, nnz={sind.size}, boost 80): create_csr + optimize + ilu0_factorize (f32, f64, c64) "
+        f"{time.perf_counter() - t0:.2f} s; ILU0 forms {fl.kind} / {st.u_form.kind} (nb={fl.nb}, nblk={fl.nblk}, "
+        f"W={fl.Lval.shape[-1]}, {int(fl.counts().sum())} stored left entries), {nlev[0]} / {nlev[1]} levels; "
+        f"engine {engine}; the kernel's launch {trsv_blocked_mod.kernel_layout(fl.nb, 1, torch.float32)}")
+    if (fl.kind, st.u_form.kind) != ("gather", "gather") or engine != "blocked" or min(nlev) <= ttri.LEVEL_MAX_NLEV:
+        raise AssertionError("scircuit's ILU0 factors must be gather forms past the level kernel's reach")
+    for name, f32_, f64_, fc_ in (("L", st.l_form, st64.l_form, stc.l_form), ("U", st.u_form, st64.u_form,
+                                                                               stc.u_form)):
+        for form in (f32_, f64_, cast_chain_form(f32_, torch.bfloat16), fc_, cast_chain_form(fc_, torch.complex128)):
+            for K in (1, K_SM):
+                check_chain_form(form, f"scircuit ILU0 {name}", K, errs)
+            if form is not f32_ and form is not fc_:
+                form._ops = None
+    out = dict(A=A, st=st, A64=A64, st64=st64, Ac=Ac, stc=stc, S=S, Sc=Sc, nlev=nlev)
+
+    reset_counts()
+    b = np.random.default_rng(107).standard_normal(sm)
+    bref = b.astype(np.float32).astype(np.float64)
+    b_d = torch.from_numpy(b.astype(np.float32)).to(dev)
+    per_mv = launches_of(lambda: tt.mv(1.0, A, GEN, NONE, b_d, 0.0))
+    per_ilu = launches_of(lambda: tt.ilu_smoother(A, GEN, b_d))
+    if per_ilu != {"trsv_gather_f32": 2}:
+        raise AssertionError(f"scircuit ILU0 apply launched {per_ilu}, want two gather launches")
+    c0 = read_counts()
+    t0 = time.perf_counter()
+    x, it, r = tt.pgmres_solve(A, b_d, rtol=rtol, atol=0.0, restart=20, precond="ilu0")
+    torch.cuda.synchronize()
+    t_g = time.perf_counter() - t0
+    c1 = read_counts()
+    res = check_residual("scircuit pgmres ILU0", S, x, bref, res_tol)
+    log(f"  scircuit pgmres_solve precond=ilu0 (no kid): {it} iterations in {t_g:.3f} s, estimate {r:.3e}, true rel "
+        f"residual {res:.3e} (tol {res_tol:.1e})")
+    fused_gmres_launches("scircuit pgmres ilu0", {k: c1[k] - c0[k] for k in c1}, it, 20, per_mv, per_ilu)
+    out.update(b=b_d, gmres=(it, r), bnorm=float(np.linalg.norm(bref)))
+    Sl = sp.tril(S).tocsr()
+    x1 = counted("scircuit trsv (default)", lambda: tt.trsv(1.0, A, LOWER, NONE, b_d),
+                 {"trsv_gather_f32": 1, "trsv_level_f32": 0})
+    check_residual("scircuit trsv lower f32 (default: the chain kernel)", Sl, x1, bref,
+                   expected_precision(torch.float32))
+    x1 = counted("scircuit f64 trsv (default)", lambda: tt.trsv(1.0, A64, LOWER, NONE, b_d.double()),
+                 {"trsv_gather_f64": 1, "trsv_level_f64": 0})
+    check_residual("scircuit trsv lower f64", Sl, x1, bref, expected_precision(torch.float64))
+    v16 = torch.from_numpy(sval).to(torch.bfloat16)
+    A16 = tt.create_csr(sm, sm, sptr, sind, v16, device=dev)
+    b16 = b_d.to(torch.bfloat16)
+    S16l = sp.tril(sp.csr_matrix((v16.double().numpy(), sind, sptr), shape=(sm, sm))).tocsr()
+    x1 = counted("scircuit bf16 trsv (default)", lambda: tt.trsv(1.0, A16, LOWER, NONE, b16),
+                 {"trsv_gather_bf16": 1})
+    check_residual("scircuit trsv lower bf16 (scipy on the bf16 values)", S16l, x1, b16.double().cpu().numpy(),
+                   BF16_SOLVE_TOL)
+    out.update(A16=A16, b16=b16)
+    crng = np.random.default_rng(109)
+    bc = (crng.standard_normal(sm) + 1j * crng.standard_normal(sm)).astype(np.complex64)
+    bc_d = torch.from_numpy(bc).to(dev)
+    Scl = sp.tril(Sc).tocsr()
+    x1 = counted("scircuit complex64 trsv (default)", lambda: tt.trsv(1.0, Ac, LOWER, NONE, bc_d),
+                 {"trsv_gather_c64": 1, "trsv_level_c64": 0})
+    check_residual("scircuit trsv lower complex64 (past 4096 levels: the chain kernel)", Scl, x1,
+                   bc.astype(np.complex128), expected_precision(torch.complex64))
+    Ac128 = tt.create_csr(sm, sm, sptr, sind, scv, device=dev)
+    x1 = counted("scircuit complex128 trsv (default)", lambda: tt.trsv(1.0, Ac128, LOWER, NONE, bc_d.to(
+        torch.complex128)), {"trsv_gather_c128": 1, "trsv_level_c128": 0})
+    check_residual("scircuit trsv lower complex128", Scl, x1, bc.astype(np.complex128),
+                   expected_precision(torch.complex128))
+    del Ac128
+    per_mvc = launches_of(lambda: tt.mv(1.0, Ac, GEN, NONE, bc_d, 0.0))
+    per_iluc = launches_of(lambda: tt.ilu_smoother(Ac, GEN, bc_d))
+    if per_iluc != {"trsv_gather_c64": 2}:
+        raise AssertionError(f"complex scircuit ILU0 apply launched {per_iluc}, want two gather launches")
+    c0 = read_counts()
+    t0 = time.perf_counter()
+    xc, itc, rc_ = tt.pgmres_solve(Ac, bc_d, rtol=rtol, atol=0.0, restart=20, precond="ilu0")
+    torch.cuda.synchronize()
+    c1 = read_counts()
+    res = check_residual("complex64 scircuit pgmres ILU0", Sc, xc, bc.astype(np.complex128), res_tol)
+    log(f"  complex64 scircuit pgmres_solve precond=ilu0: {itc} iterations in {time.perf_counter() - t0:.3f} s, "
+        f"true rel residual {res:.3e}")
+    fused_gmres_launches("complex scircuit pgmres ilu0", {k: c1[k] - c0[k] for k in c1}, itc, 20, per_mvc, per_iluc)
+    out.update(bc=bc_d, gmres_c=(itc, rc_), bcnorm=float(np.linalg.norm(bc)))
+
+    # the dwin forms' bf16 and complex instances on the 104^3 stencil
+    mh = len(hptr) - 1
+    Sh = sp.csr_matrix((hval.astype(np.float64), hind, hptr), shape=(mh, mh))
+    bh = np.random.default_rng(113).standard_normal(mh)
+    t0 = time.perf_counter()
+    H16 = tt.create_csr(mh, mh, hptr, hind, torch.from_numpy(hval).to(torch.bfloat16), device=dev)
+    bh16 = torch.from_numpy(bh).to(dev, torch.bfloat16)
+    x1 = counted("stencil bf16 trsv (default)", lambda: tt.trsv(1.0, H16, LOWER, NONE, bh16), {"trsv_dwin_bf16": 1})
+    check_residual("stencil trsv lower bf16 (dwin)", sp.tril(Sh).tocsr(), x1, bh16.double().cpu().numpy(),
+                   BF16_SOLVE_TOL)
+    log(f"  stencil bf16 handle: its dwin form and solve {time.perf_counter() - t0:.2f} s")
+    hcv = complex_stencil(hptr, hind, hval, np.complex128)
+    Shc = sp.csr_matrix((hcv, hind, hptr), shape=(mh, mh))
+    bhc = torch.from_numpy(bh + 0.5j * bh).to(dev, torch.complex64)
+    stc_h = tt.ilu0_factorize(Hc)
+    xs = counted("complex stencil ilu_smoother kid=0", lambda: tt.ilu_smoother(Hc, GEN, bhc, kid=0),
+                 {"trsv_dwin_c64": 2, "trsv_level_c64": 0})
+    lu = stc_h.lu.to(torch.complex128).cpu().numpy()
+    rows = np.repeat(np.arange(mh), np.diff(hptr))
+    low = hind < rows
+    Lf = sp.csr_matrix((np.r_[lu[low], np.ones(mh)], (np.r_[rows[low], np.arange(mh)], np.r_[hind[low], np.arange(mh)])),
+                       shape=(mh, mh))
+    Uf = sp.csr_matrix((lu[~low], (rows[~low], hind[~low])), shape=(mh, mh))
+    check_residual("complex stencil ilu_smoother kid=0: L (U x) = b",
+                   spla.aslinearoperator(Lf) @ spla.aslinearoperator(Uf), xs, bhc.to(torch.complex128).cpu().numpy(),
+                   expected_precision(torch.complex64))
+    t0 = time.perf_counter()
+    Hc128 = tt.create_csr(mh, mh, hptr, hind, hcv, device=dev)
+    x1 = counted("complex128 stencil trsv kid=0", lambda: tt.trsv(1.0, Hc128, LOWER, NONE, bhc.to(torch.complex128),
+                                                                 kid=0), {"trsv_dwin_c128": 1})
+    check_residual("complex128 stencil trsv lower kid=0 (dwin)", sp.tril(Shc).tocsr(), x1,
+                   bhc.to(torch.complex128).cpu().numpy(), expected_precision(torch.complex128))
+    log(f"  complex128 stencil handle: its dwin form and solve {time.perf_counter() - t0:.2f} s")
+    del Hc128, H16
+    return read_counts(), out
+
+
+def circuit_timings(ci, ms, plain_ms, bounds, turns, note):
+    """Phase 6's chain-kernel rows beyond the stencil's: on scircuit's ILU0
+    L the f32 and f64 instances (the kernels line's gather rows) and the
+    bf16, complex64 and complex128 ones, each in turns with its plain
+    version, its bound over the stored entries only, its latency floor (the
+    solve's steps times a minimal step of the same instance and nb) and
+    the library's solve (torch.triangular_solve on the CSR factor; complex:
+    cuSPARSE's complex solve; bf16: none); the ILU0-GMRES iteration on
+    scircuit (host clock, two fixed-length solves), a profiler window of one
+    cycle (the idle share), and the same L solve by kid=2 (the host engine)."""
+    st, st64, stc = ci["st"], ci["st64"], ci["stc"]
+    S = ci["S"]
+    sm = S.shape[0]
+    one = dict(once=True)
+    lu = st.lu.double().cpu().numpy()
+    sptr, sind = S.indptr, S.indices
+    rows = np.repeat(np.arange(sm), np.diff(sptr))
+    low = sind < rows
+    for inst, form, dt_, lu_src in (("f32", st.l_form, torch.float32, st), ("f64", st64.l_form, torch.float64, st64),
+                                    ("bf16", cast_chain_form(st.l_form, torch.bfloat16), torch.bfloat16, st),
+                                    ("c64", stc.l_form, torch.complex64, stc),
+                                    ("c128", cast_chain_form(stc.l_form, torch.complex128), torch.complex128, stc)):
+        kernel = f"trsv_gather_{inst}"
+        dT, Lv = form.operands()
+        cnt = form.counts()
+        rng_ = np.random.default_rng(127)
+        bq = rng_.standard_normal(form.m_pad)
+        if dt_.is_complex:
+            bq = bq + 1j * rng_.standard_normal(form.m_pad)
+        bq = torch.from_numpy(bq).to("cuda", dt_)
+        turns(kernel, lambda: trsv_gather(dT, form.Lind, Lv, bq, form.nb, cnt),
+              lambda: trsv_gather_plain(dT.transpose(1, 2), form.Lind, Lv, bq, form.nb),
+              kreps=(9, 5), preps=(1, 1), kwarm=1, pwarm=0)
+        need, n_left = chain_stored_bytes(form)
+        tri_ops = form.nblk * form.nb * (form.nb + 1) // 2
+        mult = 8 if dt_.is_complex else 2
+        flops = mult * (tri_ops + n_left)
+        lib_fn = None
+        if dt_ != torch.bfloat16:
+            luv = lu_src.lu.to(torch.complex128 if dt_.is_complex else torch.float64).cpu().numpy()
+            Lt = csr_tensor(*coo_csr(np.r_[rows[low], np.arange(sm)], np.r_[sind[low], np.arange(sm)],
+                                     np.r_[luv[low], np.ones(sm)], sm), "cuda", dt_)
+            bl = bq[:sm, None]
+            lib_fn = lambda: torch.triangular_solve(bl, Lt, upper=False, unitriangular=True)  # noqa: E731
+        note(kernel, need, need, flops, lib_fn, one)
+        log(f"  {kernel} (scircuit ILU0 L, nb={form.nb} nblk={form.nblk} W={Lv.shape[2]}, {n_left} stored left "
+            f"entries): {ms[kernel] * 1e3 / form.nblk:.3f} us a step; {chain_floor_note(form, ms[kernel])}; bytes' "
+            f"bound {bounds[kernel][0]:.4f} ms")
+        if lib_fn is not None:
+            del Lt
+        form._ops = None if form is not st.l_form and form is not stc.l_form else form._ops
+    # the ILU0-GMRES iteration, its profile, the host engine
+    A, b_d = ci["A"], ci["b"]
+    r = fixed_restart(20, *ci["gmres"], ci["bnorm"])
+    t_it, t_all = iteration_ms(lambda kk: tt.pgmres_solve(A, b_d, rtol=0.0, atol=0.0, maxit=kk, restart=r,
+                                                          precond="ilu0")[1], r, 2 * r)
+    log(f"  scircuit ILU0-GMRES iteration (pgmres_solve, restart {r}, {r} and {2 * r} steps; its solves on the chain "
+        f"kernel by the gate): {t_it:.4f} ms (host clock, median of {[round(t, 4) for t in t_all]}; "
+        f"{ci['gmres'][0]} iterations to rtol 1e-6)")
+    profile_mv(f"scircuit ILU0-GMRES, one cycle of {r} steps", lambda: tt.pgmres_solve(
+        A, b_d, rtol=0.0, atol=0.0, maxit=r, restart=r, precond="ilu0"), calls=1, top=8)
+    t_def = cuda_ms(lambda: tt.trsv(1.0, A, LOWER, NONE, b_d), reps=5, inner=3, warm=1)
+    t_host = cuda_ms(lambda: tt.trsv(1.0, A, LOWER, NONE, b_d, kid=2), reps=3, inner=1, warm=1)
+    log(f"  scircuit trsv lower f32: default (the chain kernel) {t_def:.4f} ms a call, kid=2 (host engine, its "
+        f"copies included) {t_host:.4f} ms a call")
+    Ac, bc = ci["Ac"], ci["bc"]
+    r = fixed_restart(20, *ci["gmres_c"], ci["bcnorm"])
+    t_it, t_all = iteration_ms(lambda kk: tt.pgmres_solve(Ac, bc, rtol=0.0, atol=0.0, maxit=kk, restart=r,
+                                                          precond="ilu0")[1], r, 2 * r)
+    log(f"  complex64 scircuit ILU0-GMRES iteration (restart {r}): {t_it:.4f} ms (host clock, median of "
+        f"{[round(t, 4) for t in t_all]})")
+
+
 def gen_mm_plain(form, B, mixed=False):
     """mm KID 6's composite (kernels/spmm_gen.py) with the band leg's plain
     version, spmm_band_plain, in place of the kernel: the reference of the
@@ -2838,6 +3211,11 @@ def main() -> int:
     missing = [nm for nm in names if not any(nm in fn for fn in res)]
     if missing or any(any(v[:3]) for v in res.values()):
         raise AssertionError(f"kernels with a stack frame or spills, or not found ({missing}): {res}")
+    n_chain = sum("trsv_blocked_kernel" in fn for fn in res)
+    if n_chain != CHAIN_INSTANCES:
+        raise AssertionError(f"{n_chain} chain-kernel instances in the build, want {CHAIN_INSTANCES}")
+    log(f"  chain kernel: {n_chain} instances (f32, f64, bf16, c64, c128 x dwin, gather x KC 1, 2, 4), no stack "
+        "frame, no spills")
     t0 = time.perf_counter()
     # a numpy ILU0 at this size would stand in silently: require the C++ one
     if not native.available():
@@ -3395,7 +3773,8 @@ def main() -> int:
     t0 = time.perf_counter()
     Hc = tt.create_csr(mh, mh, hptr, hind, complex_stencil(hptr, hind, hval, np.complex64), device="cuda")
     hstc = complex_level_checks(Hc, errs)
-    log(f"  complex level-solve kernel checks: {time.perf_counter() - t0:.1f} s")
+    chain_instance_checks(hst, hstc, dev, errs)
+    log(f"  complex level-solve kernel and chain-kernel instance checks: {time.perf_counter() - t0:.1f} s")
 
     # 4. the main path, counted
     phase("phase 4: main path (create_csr -> set_mv_hint -> optimize -> mv)")
@@ -3611,7 +3990,8 @@ def main() -> int:
     launches = read_counts()
     log(f"  main-path launches: {launches}")
     for kernel, count in launches.items():
-        if count == 0 and kernel not in GEN_PATH + SPGEMM_PATH + FORMATS_PATH + MEASURE_PATH + LOWPREC_PATH:
+        if count == 0 and kernel not in (GEN_PATH + SPGEMM_PATH + FORMATS_PATH + MEASURE_PATH + LOWPREC_PATH
+                                         + CIRCUIT_PATH):
             raise AssertionError(f"kernel {kernel} never launched on the main path")
 
     # 5b. the general-structure path, counted on its own
@@ -3884,6 +4264,16 @@ def main() -> int:
         if tl_launches[kernel] == 0:
             raise AssertionError(f"kernel {kernel} never launched on the tuning and persistence path")
         launches[kernel] += tl_launches[kernel]
+
+    # 5i. scircuit's deep triangles on the chain kernel, counted on their own
+    phase("phase 5i: the scircuit stand-in's ILU0-GMRES and trsv on the chain kernel by the gate (f32, f64, bf16, "
+          "complex64, complex128), the dwin forms' bf16 and complex instances on the 104^3 stencil")
+    ci_launches, ci = circuit_path(H, Hc, hptr, hind, hval, dev, rtol, errs)
+    log(f"  circuit path launches: {({k: ci_launches[k] for k in CIRCUIT_PATH})}")
+    for kernel in CIRCUIT_PATH:
+        if ci_launches[kernel] == 0:
+            raise AssertionError(f"kernel {kernel} never launched on the circuit path")
+        launches[kernel] = ci_launches[kernel]
 
     # 6. timing
     phase("phase 6: timing (CUDA events or host clock, median of repeats)")
@@ -4217,15 +4607,17 @@ def main() -> int:
         lu = st_.lu.double().cpu().numpy()
         Lt = csr_tensor(*coo_csr(np.r_[hrows[hlow], np.arange(mh)], np.r_[hind[hlow], np.arange(mh)],
                                      np.r_[lu[hlow], np.ones(mh)], mh), dev, dt_)
-        tri_bytes = form.nblk * form.nb * (form.nb + 1) // 2 * dT.element_size()
         io = 2 * mh * dT.element_size()
-        flops = 2 * form.nblk * (form.nb * (form.nb + 1) // 2 + Dv.shape[1] * form.nb)
+        stored, n_left = chain_stored_bytes(form)
+        flops = 2 * form.nblk * form.nb * (form.nb + 1) // 2 + 2 * n_left
         nz_need = int(hlow.sum()) * (dT.element_size() + 4) + io
-        note(kernel, tri_bytes + nbytes(Dv, offs_t) + io, nz_need, flops,
+        note(kernel, stored, nz_need, flops,
              lambda: torch.triangular_solve(bb[:mh, None], Lt, upper=False, unitriangular=True), one,
              need_flops=2 * int(hlow.sum()))
-        log(f"  {kernel} (stencil ILU0 L, nb={form.nb} nblk={form.nblk} ndg={Dv.shape[1]} WL={form.WL}): "
-            f"{ms[kernel] * 1e3 / form.nblk:.3f} us a step; plain {plain_ms[kernel] * 1e3 / form.nblk:.3f} us a step")
+        log(f"  {kernel} (stencil ILU0 L, nb={form.nb} nblk={form.nblk} ndg={Dv.shape[1]} WL={form.WL}, "
+            f"{n_left} stored left entries): {ms[kernel] * 1e3 / form.nblk:.3f} us a step; plain "
+            f"{plain_ms[kernel] * 1e3 / form.nblk:.3f} us a step; {chain_floor_note(form, ms[kernel])}; launch "
+            f"{trsv_blocked_mod.kernel_layout(form.nb, 1, dt_)}")
         # the level kernel on the factor's level form, the same b and library call
         lform, lkernel, bl = _level_forms(st_)[0], f"trsv_level_{inst}", bb[:mh]
         turns(lkernel, lambda: trsv_level(lform, bl), lambda: trsv_level_plain(lform, bl),
@@ -4238,6 +4630,41 @@ def main() -> int:
             f"{t_level[inst]:.3f} us a level; {ms[kernel] / ms[lkernel]:.2f}x faster than the chain, "
             f"the library's solve {ratio(lib[lkernel], ms[lkernel])}x its time")
         del Lt
+    # the dwin form's bf16 and complex instances on the stencil's ILU0 L:
+    # bf16 the f32 factor rounded (no library call: cuSPARSE has no bf16
+    # triangular solve), complex64 the complex stencil's factor, complex128
+    # it widened, beside cuSPARSE's complex solve on the CSR factor
+    lu_cx = hstc.lu.to(torch.complex128).cpu().numpy()
+    for inst, form, dt_ in (("bf16", cast_chain_form(hst.l_form, torch.bfloat16), torch.bfloat16),
+                            ("c64", hstc.l_form, torch.complex64),
+                            ("c128", cast_chain_form(hstc.l_form, torch.complex128), torch.complex128)):
+        dT, Dv = form.operands()
+        offs_t = form.offsets()
+        crng = np.random.default_rng(79)
+        bb = crng.standard_normal(form.m_pad)
+        if dt_.is_complex:
+            bb = bb + 1j * crng.standard_normal(form.m_pad)
+        bb = torch.from_numpy(bb).to(dev, dt_)
+        kernel = f"trsv_dwin_{inst}"
+        turns(kernel, lambda: trsv_dwin(dT, Dv, offs_t, bb, form.nb, form.WL),
+              lambda: trsv_dwin_plain(dT.transpose(1, 2), Dv, bb, form.nb, form.WL, form.dwin_offs),
+              kreps=(9, 3), preps=(1, 1), kwarm=1, pwarm=0)
+        stored, n_left = chain_stored_bytes(form)
+        mult = 8 if dt_.is_complex else 2
+        lib_fn = None
+        if dt_.is_complex:
+            Lt = csr_tensor(*coo_csr(np.r_[hrows[hlow], np.arange(mh)], np.r_[hind[hlow], np.arange(mh)],
+                                     np.r_[lu_cx[hlow], np.ones(mh)], mh), dev, dt_)
+            lib_fn = lambda: torch.triangular_solve(bb[:mh, None], Lt, upper=False, unitriangular=True)  # noqa: E731
+        note(kernel, stored, stored, mult * (form.nblk * form.nb * (form.nb + 1) // 2 + n_left), lib_fn, one)
+        log(f"  {kernel} (stencil ILU0 L, nb={form.nb} nblk={form.nblk}): {ms[kernel] * 1e3 / form.nblk:.3f} us a step, "
+            f"{chain_floor_note(form, ms[kernel])}, "
+            f"{ms[kernel] / ms[f'trsv_dwin_{INST[torch.float64] if dt_ == torch.complex128 else INST[torch.float32]}']:.2f}"
+            f"x its real twin's time; launch {trsv_blocked_mod.kernel_layout(form.nb, 1, dt_)}")
+        if lib_fn is not None:
+            del Lt
+        del dT, Dv
+        form._ops = form._ops if form is hstc.l_form else None
     # the chain forms' block size (planner/triangular.py adaptive_nb): one
     # solve of the stencil's lower triangle, f32, K = 1, at nb = 32 to 256,
     # each form built at that width (CHAIN_NB lifted for the sweep)
@@ -4333,19 +4760,19 @@ def main() -> int:
         dT, Lv = form.operands()
         bq = torch.from_numpy(np.random.default_rng(83).standard_normal(form.m_pad)).to(dev, dt_)
         kernel = f"trsv_gather_{inst}"
-        turns(kernel, lambda: trsv_gather(dT, form.Lind, Lv, bq, form.nb),
+        turns(kernel, lambda: trsv_gather(dT, form.Lind, Lv, bq, form.nb, form.counts()),
               lambda: trsv_gather_plain(dT.transpose(1, 2), form.Lind, Lv, bq, form.nb),
               kreps=(9, 3), preps=(1, 1), kwarm=1, pwarm=0)
         Qlt = csr_tensor(Sql.indptr, Sql.indices, Sql.data, dev, dt_)
-        tri_bytes = form.nblk * form.nb * (form.nb + 1) // 2 * dT.element_size()
         io = 2 * qm * dT.element_size()
-        n_left = int(torch.count_nonzero(Lv))
+        stored, n_left = chain_stored_bytes(form)
         flops = 2 * form.nblk * form.nb * (form.nb + 1) // 2 + 2 * n_left
         nz_need = (Sql.nnz - qm) * (dT.element_size() + 4) + qm * dT.element_size() + io
-        note(kernel, tri_bytes + nbytes(Lv, form.Lind) + io, nz_need, flops,
+        note(kernel, stored, nz_need, flops,
              lambda: torch.triangular_solve(bq[:qm, None], Qlt, upper=False), one, need_flops=2 * Sql.nnz)
         log(f"  {kernel} (scatter lower, nb={form.nb} nblk={form.nblk} W={Lv.shape[2]}): "
-            f"{ms[kernel] * 1e3 / form.nblk:.3f} us a step")
+            f"{ms[kernel] * 1e3 / form.nblk:.3f} us a step, {chain_floor_note(form, ms[kernel])} (the kernels line "
+            "takes scircuit's, below)")
         # the level kernel on the triangle's level form (logged beside the
         # stencil's, which the kernels line carries)
         lform, bl = ttri.trsv_level_form_for(handle.plan, LOWER, NONE), bq[:qm]
@@ -4559,6 +4986,7 @@ def main() -> int:
     # the solver framework's iterations (phase 5f's operands), phase 5g's
     solver_timings(sf)
     lowprec_timings(lp)
+    circuit_timings(ci, ms, plain_ms, bounds, turns, note)
     phase("done")
 
     kernels = [

@@ -11,8 +11,8 @@ inputs (small sizes).
 - complex `trsv`, `trsm` and `ilu_smoother` for every fill, diagonal and
   op (conjugate transpose included), complex `symgs` and `sorv` (complex
   omega and alpha), and bf16 `trsv` and `ilu_smoother`; bf16 `dwin` and
-  `gather` forms (no chain-kernel instance) solve by the plain loops on
-  the CPU and raise on the card;
+  `gather` forms solve by the plain loops on the CPU and on the chain
+  kernel's bf16 instance on the card;
 - the `mv` rule: a 27-point stencil's default form is `diag` (the JAX
   rule's branch, plan.py:838-851 there) and its value is the JAX package's
   on its explicitly requested `diag` form; a full band stays on `bandt`.
@@ -53,8 +53,8 @@ BF16 = expected_precision(torch.bfloat16)
 C64 = expected_precision(torch.complex64)
 C128 = expected_precision(torch.complex128)
 F32 = expected_precision(torch.float32)
-#: the bf16 window-solve kernel against its plain version: four bf16 units
-#: in the last place (2^-5), as chip_smoke.py's KERNEL_TOL holds it
+#: the bf16 window-solve and chain kernels against their plain versions: four
+#: bf16 units in the last place (2^-5), as chip_smoke.py's KERNEL_TOL holds them
 WIN_BF16 = 4 * 2.0**-7
 
 
@@ -280,8 +280,8 @@ def test_complex_trsm_matches_jax(ast, jnp, cpair, fill, op):
 
 
 def test_complex64_trsv_and_ilu_smoother_match_jax(ast, jnp):
-    """complex64: the blocked form (the plain route: no window or chain
-    kernel instance) and the level form, within the f32 model tolerance."""
+    """complex64: the blocked form (on the CPU the plain route) and the
+    level form, within the f32 model tolerance."""
     J, T = pair(ast, jnp, *complex_stencil(5, dtype=np.complex64))
     b = rhs(T.shape[0], 7).astype(np.complex64)
     for kid in (None, 1):
@@ -373,10 +373,11 @@ BF16_CHAIN = {"stencil16": (lambda: stencil27(16), "dwin"), "deep": (lambda: dee
 
 @pytest.mark.parametrize("name", sorted(BF16_CHAIN))
 def test_bf16_chain_forms_take_the_plain_route_on_the_cpu(ast, jnp, name):
-    """A bf16 triangle whose blocked form is ``dwin`` or ``gather`` (the
-    chain kernel has no bf16 instance): on a CPU tensor its solve is the
-    plain block loop, within the bf16 model tolerance of the JAX package's
-    bf16 trsv (its XLA scan) and of float64 scipy on the bf16 values."""
+    """A bf16 triangle whose blocked form is ``dwin`` or ``gather``: on a
+    CPU tensor its solve is the plain block loop (the card's is the chain
+    kernel's bf16 instance), within the bf16 model tolerance of the JAX
+    package's bf16 trsv (its XLA scan) and of float64 scipy on the bf16
+    values."""
     build, kind = BF16_CHAIN[name]
     ptr, ind, val = build()
     J, T = pair(ast, jnp, ptr, ind, val.astype(np.float32), jdtype=jnp.bfloat16, tdtype=torch.bfloat16)
@@ -394,10 +395,11 @@ def test_bf16_chain_forms_take_the_plain_route_on_the_cpu(ast, jnp, name):
 
 
 def test_sv_engine_rule_by_dtype():
-    """pick_sv_engine on a device of SV_LEVEL_DEVICES: a complex form (no
-    window or chain kernel instance) takes the level kernel within
-    LEVEL_MAX_NLEV levels whatever its kind; a bf16 one (no level-kernel
-    instance) stays blocked; f32 follows the chain gate."""
+    """pick_sv_engine on a device of SV_LEVEL_DEVICES for a win form: a
+    complex one (no window-solve instance) takes the level kernel within
+    LEVEL_MAX_NLEV levels and the plain route past them; a bf16 one (no
+    level-kernel instance) stays blocked; f32 follows the chain gate.
+    (The chain forms' rule: tests/test_torch_chain_redesign.py.)"""
     ptr, ind, val = complex_stencil(5)
     m = len(ptr) - 1
     dev = torch.device("cuda")
@@ -519,17 +521,55 @@ def test_cuda_complex_level_kernel_matches_plain(cuda, dtype, K):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(BF16_CHAIN))
-def test_cuda_bf16_chain_forms_raise(cuda, name):
-    """On the card a bf16 ``dwin`` or ``gather`` form has no chain-kernel
-    instance: trsv raises not_implemented, naming ROADMAP item 29, by
-    default and with kid=0, rather than run the plain block loops there."""
+def test_cuda_bf16_chain_forms_solve_on_the_kernel(cuda, name):
+    """On the card a bf16 ``dwin`` or ``gather`` form solves on the chain
+    kernel's bf16 instance, by default and with kid=0, one launch a solve,
+    within WIN_BF16 (four bf16 units in the last place, as the window
+    solve's bf16 instance is held) of its plain version (the CPU's solve of
+    the same handle) and of float64 scipy on the bf16 values."""
+    from aoclsparse_tpu_torch.kernels import trsv_blocked as tb
+
     build, kind = BF16_CHAIN[name]
     ptr, ind, val = build()
     m = len(ptr) - 1
-    T = tt.create_csr(m, m, ptr, ind, torch.from_numpy(val).to(torch.bfloat16), device=cuda)
-    b = torch.ones(m, dtype=torch.bfloat16, device=cuda)
+    vals = torch.from_numpy(val).to(torch.bfloat16)
+    T = tt.create_csr(m, m, ptr, ind, vals, device=cuda)
+    C = tt.create_csr(m, m, ptr, ind, vals, device="cpu")
+    b = torch.from_numpy(rhs(m, 21, complex_=False)).to(torch.bfloat16)
+    want = tt.trsv(1.0, C, tri(tt, "lower", "non_unit"), NONE, b)
+    L = sp.tril(sp.csr_matrix((vals.double().numpy(), ind, ptr), shape=(m, m)))
+    exact = spsolve_triangular(L.tocsr(), b.double().numpy(), lower=True)
+    counter = tb.trsv_dwin.launches if kind == "dwin" else tb.trsv_gather.launches
     for kid in (None, 0):
-        with pytest.raises(tt.AoclSparseError) as e:
-            tt.trsv(1.0, T, tri(tt, "lower", "non_unit"), NONE, b, kid=kid)
-        assert e.value.status == tt.Status.not_implemented and "item 29" in str(e.value)
+        before = counter["bf16"]
+        got = tt.trsv(1.0, T, tri(tt, "lower", "non_unit"), NONE, b.to(cuda), kid=kid)
+        torch.cuda.synchronize()
+        assert counter["bf16"] == before + 1 and got.dtype == torch.bfloat16
+        assert err(got.cpu(), want.double().numpy()) <= WIN_BF16
+        assert near_error(got.double().cpu().numpy(), exact) <= WIN_BF16
     assert ttri.trsv_form_for(T.plan, tri(tt, "lower", "non_unit"), NONE).kind == kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_cuda_deep_complex_triangle_takes_the_chain_kernel(cuda, dtype, monkeypatch):
+    """A complex gather triangle past the level kernel's reach (the gate's
+    LEVEL_MAX_NLEV lowered below its depth) solves on the chain kernel's
+    complex instance, one launch, not the plain block loop."""
+    from aoclsparse_tpu_torch.kernels import trsv_blocked as tb
+
+    monkeypatch.setattr(ttri, "LEVEL_MAX_NLEV", 64)
+    ptr, ind, val = deep_triangle(3000, 19)
+    m = len(ptr) - 1
+    rows = np.repeat(np.arange(m), np.diff(ptr))
+    cv = torch.from_numpy(val + 1j * (rows == ind)).to(dtype)
+    T = tt.create_csr(m, m, ptr, ind, cv, device=cuda)
+    b = torch.from_numpy(rhs(m, 23)).to(dtype)
+    name = "c64" if dtype == torch.complex64 else "c128"
+    before = tb.trsv_gather.launches[name]
+    got = tt.trsv(1.0, T, tri(tt, "lower", "non_unit"), NONE, b.to(cuda))
+    torch.cuda.synchronize()
+    assert tb.trsv_gather.launches[name] == before + 1
+    L = sp.tril(sp.csr_matrix((cv.to(torch.complex128).numpy(), ind, ptr), shape=(m, m)))
+    assert err(got.cpu(), spsolve_triangular(L.tocsr(), b.to(torch.complex128).numpy(), lower=True)) <= \
+        expected_precision(dtype)

@@ -424,8 +424,8 @@ def test_cuda_kernel_matches_plain(cuda, dtype):
                 again = trsv_dwin(dinvT, left, form.offsets(), b, form.nb, form.WL)
                 want = trsv_dwin_plain(dinvT.transpose(1, 2), left, b, form.nb, form.WL, form.dwin_offs)
             else:
-                got = trsv_gather(dinvT, form.Lind, left, b, form.nb)
-                again = trsv_gather(dinvT, form.Lind, left, b, form.nb)
+                got = trsv_gather(dinvT, form.Lind, left, b, form.nb, form.counts())
+                again = trsv_gather(dinvT, form.Lind, left, b, form.nb, form.counts())
                 want = trsv_gather_plain(dinvT.transpose(1, 2), form.Lind, left, b, form.nb)
             torch.cuda.synchronize()
             assert counter[name] - c0 == 2
