@@ -108,6 +108,9 @@ class LevelForm:
     #: the kernel's ready flags on the card and the epoch of its last launch
     _ready: Optional[torch.Tensor] = None
     _epoch: int = 0
+    #: bumped by refresh: copies of the values kept elsewhere
+    #: (parallel/trsv.py) are valid for one epoch
+    values_epoch: int = 0
 
     def _vals_for(self, v: torch.Tensor, Ls: np.ndarray, Ds: np.ndarray):
         dev = v.device
@@ -125,6 +128,7 @@ class LevelForm:
         effective values."""
         self._run_vals = tuple(self._vals_for(eff_val, Ls, Ds) for Ls, Ds in zip(self._run_srcL, self._run_srcD))
         self.lval, self.dinv = self._vals_for(eff_val, self._srcL, self._srcD)
+        self.values_epoch += 1
 
     def next_epoch(self, dev: torch.device) -> int:
         """The epoch of the next launch on `dev`: the flags are made (zero)

@@ -1630,6 +1630,9 @@ class Plan:
         self._mm_tuned: Dict[Tuple, str] = {}
         self._trsv_tuned: Dict[Tuple, int] = {}
         self._trsv_engine: Dict[Tuple, str] = {}
+        #: bumped by refresh_values: caches of value copies outside the
+        #: plan (parallel/sweeps.py) are valid for one epoch
+        self.values_epoch = 0
 
     def effective_for(
         self, descr: MatrixDescriptor, op: Operation, dtype=None
@@ -1720,6 +1723,7 @@ class Plan:
         for key, form in self.exec_forms.items():
             form.refresh(self.effective[key[:4]].val)
         self.levels = None  # solve forms rebuild from the new values
+        self.values_epoch += 1
 
 
 # ---------------------------------------------------------------------------

@@ -242,6 +242,26 @@ failure (exit code != 0, no result line):
    handle's default trsv, the complex stencil's ilu_smoother(kid=0), a
    complex128 handle's trsv(kid=0)); each by its float64 residual and its
    launches;
+5j. the distributed layer (aoclsparse_tpu_torch.parallel), counted on its
+   own: four gloo ranks sharing the card (parallel.spawn_world, spawned;
+   every transfer staged through pinned host memory) make their operands
+   from the seeds and run, at full size, the band halo SpMV and its
+   overlapped variant (kernel #4) on the bench operand's full-window bwd
+   form, the group-band SpMM halo at K = 64, the halo and the pipelined CG
+   on its SPD twin, the ring pipeline and dist_trsm at K = 16 (kernel #14)
+   on that twin's ILU0 L, the halo GMRES(20) on its nonsymmetric twin, the
+   general halo SpMV and block-Jacobi CG on the 104^3 stencil's ELL form,
+   the level sweeps (dist_trsv_levels on its ILU0 L, dist_ilu_apply and
+   dist_symgs with engine="level") and the cant stand-in's A.A numeric
+   stage, each held on rank 0 to the port's single-process answer on the
+   same operand (uncounted; solvers by their float64 true residual and the
+   single-process count), with fixed-length iteration times and a profiler
+   window a solver (the card's idle share, the host staging share); then in
+   this process cg_bandv_jit on the SPD twin's f32 and bf16 bands (kernels
+   #1, #2) and a one-rank NCCL world through the halo CG. A rank's failure
+   fails the phase. It runs right after the build, before phase 3: its
+   ranks need the card's memory, which the later phases fill.
+   `--phase-5j-only` stops after it (no result line);
 6. time kernel vs plain version vs one PyTorch library call (torch.sparse
    CSR products and triangular solves, index_add_ and a permutation
    gather, timed here as yardsticks only; each behind a device spin that
@@ -304,27 +324,32 @@ failure (exit code != 0, no result line):
 
 Launch counts are reset just before phase 4 and read after phase 5, reset
 again just before phase 5b and read after it, and again around phases 5c,
-5d, 5e, 5f, 5g, 5h and 5i (the kernels line takes the spill-route kernels'
+5d, 5e, 5f, 5g, 5h, 5i and 5j (the kernels line takes the spill-route kernels'
 counts from 5b, the band GEMM's from 5c, the group-window kernel's from 5d,
 the measurement path's kernels' from 5e and the bf16 and complex instances'
 from 5g, and adds 5h's band SpMM launches, mm KID 6's band leg, to the
 band SpMM's f32 and bf16 counts; the chain kernel's gather instances and
 its bf16 and complex dwin instances count in 5i, its real dwin instances
 and the level kernel's real ones on the main path; 5f launches only kernels
-counted before, and checks its own counts). The second-to-last line is {"kernels": [...]}; the last is
+counted before, and checks its own counts; 5j adds the ranks' launches of the group-window
+kernel and the multi-RHS window solve and this process's band-kernel launches
+to those kernels' counts). The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import os
 import statistics
 from pathlib import Path
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -336,6 +361,8 @@ import torch
 
 import aoclsparse_tpu_torch as tt
 from aoclsparse_tpu_torch import interop, native
+from aoclsparse_tpu_torch import parallel as dpar
+from aoclsparse_tpu_torch.parallel import sweeps as dsweeps
 from aoclsparse_tpu_torch.kernels import build
 from aoclsparse_tpu_torch.kernels import spmm_gen as spmm_gen_mod
 from aoclsparse_tpu_torch.kernels import spmv_gen as spmv_gen_mod
@@ -388,9 +415,12 @@ from aoclsparse_tpu_torch.kernels.trsv_win import (
     win_solve_operands,
 )
 from aoclsparse_tpu_torch.ops.level2.mv import _spill_route_on
+from aoclsparse_tpu_torch.ops.level2.trsv import pad_solve
+from aoclsparse_tpu_torch.ops.level3 import spgemm as sgemm
 from aoclsparse_tpu_torch.ops.level3.spgemm import _effective
 from aoclsparse_tpu_torch.planner.spill_route import build_spill_route, spill_route_apply
 from aoclsparse_tpu_torch.planner import triangular as ttri
+from aoclsparse_tpu_torch.planner import plan as tplan
 from aoclsparse_tpu_torch.planner.plan import gather_fallback_kind, gen_mm_ok
 from aoclsparse_tpu_torch.planner.triangular import invert_diag_blocks, trsv_form_for
 from aoclsparse_tpu_torch.solvers import fused as fused_mod
@@ -518,6 +548,19 @@ SIGMA = 1.0
 #: the solver framework's path (phase 5f), counted there
 SOLVER_PATH = ("band_spmv_f32", "band_spmv_f64", "trsv_win_f32", "trsv_win_f64", "trsv_level_f32", "oh_select_f32",
                "oh_accum_f32", "benes_route_f32")
+#: the distributed layer's path (phase 5j): the group-window kernel (#4)
+#: and the multi-RHS window solve (#14) in the ranks, the band kernel's f32
+#: and bf16 instances (#1, #2) in cg_bandv_jit here; counted there and added
+#: to the kernels line's counts
+DIST_PATH = ("spmv_bwd_f32", "trsm_win_f32", "band_spmv_f32", "band_spmv_bf16")
+#: gloo ranks sharing the card in phase 5j (the script needs one card)
+DIST_RANKS = 4
+SEED_DIST = 37  # the right-hand sides of phase 5j
+#: phase 5j's sizes: the bench operand, HPCG's 104^3 stencil, the cant
+#: stand-in's A.A; fixed-length iterations (short, long) and timed calls
+#: fixed-length solve pairs a timed loop (`_fixed_ms`): the median is reported with the range
+FIXED_PAIRS = 5
+DIST_CFG = dict(m=262144, nx=104, spgemm="cant", spgemm_m=0, rtol=1e-6, cg_k=(10, 40), reps=5)
 #: launch counters of the wrappers, by kernel-name prefix
 COUNTERS = {
     "band_spmv": band_spmv.launches,
@@ -1270,7 +1313,7 @@ def residual_cols(name, T, X, B, tol):
         raise AssertionError(f"{name}: residual above tolerance")
 
 
-def cuda_ms(fn, reps=15, inner=10, warm=3, backlog=False):
+def cuda_ms(fn, reps=9, inner=10, warm=3, backlog=False):
     """Median over `reps` of the mean time of `inner` back-to-back calls,
     by CUDA events, after `warm` warm-up calls: a call's time, which is the
     host's enqueue time where the host is slower than the device. backlog:
@@ -1294,7 +1337,7 @@ def cuda_ms(fn, reps=15, inner=10, warm=3, backlog=False):
     return statistics.median(times)
 
 
-def cold_ms(fn, flush, reps=15):
+def cold_ms(fn, flush, reps=9):
     """Median device time of one call right after `flush` (a buffer larger
     than the 50 MB L2) is written, by CUDA events, each behind a device spin
     that outlasts the host's enqueue of the flush and the call."""
@@ -1460,7 +1503,7 @@ def plain_chain_solve(dT, P, B, nb, WL):
     return call
 
 
-def iteration_ms(solve, k_lo, k_hi, turns=3):
+def iteration_ms(solve, k_lo, k_hi, turns=2):
     """ms of one solver iteration: the difference of two fixed-length
     solves (rtol = 0) on the host clock, median of `turns`."""
     t_iter = []
@@ -3155,6 +3198,601 @@ def tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, ilu_iters, peak, er
     return read_counts(), out
 
 
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside do not count: a comparison with a reference, not the
+    path (the counters come back to their values on entry)."""
+    saved = {prefix: dict(counts) for prefix, counts in COUNTERS.items()}
+    try:
+        yield
+    finally:
+        for prefix, counts in COUNTERS.items():
+            counts.update(saved[prefix])
+
+
+def full_window_bwd(A):
+    """A's group-window (bwd) form over its full window, no peel: the halo
+    paths refuse a spill, and the planner peels the bench operand's
+    outliers (planner/plan.py `_bwd_peel_window`)."""
+    eff = tplan.get_plan(A).effective_for(GEN, NONE, A.dtype)
+    m, n = eff.shape
+    rows, rel = tplan._rows_rel(eff)
+    lo = (int(rel.min()) // 8) * 8
+    W = -(-(int(rel.max()) - lo + 1) // 8) * 8
+    form = tplan._build_bwd_coo(rows, eff.ind.astype(np.int64), None, m, n, (lo, W), eff.val.device, G=8,
+                                kind="bwd")
+    form.refresh(eff.val)
+    if form.has_spill:
+        raise AssertionError("the full-window bwd form spilled")
+    return form
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _fixed_ms(dev, solve, k_lo, k_hi, mesh=None, pairs=FIXED_PAIRS):
+    """ms an iteration, one sample a pair: the difference of two
+    fixed-length solves (rtol 0), host clock; solve(k) returns its count.
+    On a mesh the ranks start each solve together (a barrier). One untimed
+    solve first. Returns the sorted samples (`_spread` reports them)."""
+    solve(k_lo)
+    out = []
+    for _ in range(pairs):
+        t = {}
+        for kk in (k_lo, k_hi):
+            _sync(dev)
+            if mesh is not None:
+                torch.distributed.barrier()
+            t0 = time.perf_counter()
+            done = solve(kk)
+            _sync(dev)
+            t[kk] = time.perf_counter() - t0
+            if done != kk:
+                raise AssertionError(f"fixed-length solve ran {done} of {kk} iterations")
+        out.append((t[k_hi] - t[k_lo]) / (k_hi - k_lo) * 1e3)
+    return sorted(out)
+
+
+def _spread(v):
+    """'median (min-max over n)' of _fixed_ms's samples; a float as it is."""
+    if not isinstance(v, list):
+        return f"{v:.4f}"
+    return f"{float(np.median(v)):.4f} ({v[0]:.4f}-{v[-1]:.4f} over {len(v)} pairs)"
+
+
+def _kernel_spans(prof, dev_rank):
+    """(window, kernels) of a profiler window in absolute ns (the trace's
+    baseTimeNanoseconds plus each event's offset, one clock for every
+    process on the host): the "timed calls" range and the kernels' spans.
+    None where the trace gives no base or no kernels."""
+    fd, path = tempfile.mkstemp(suffix=".json", prefix=f"smoke_trace_{dev_rank}_")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    finally:
+        os.unlink(path)
+    base = trace.get("baseTimeNanoseconds")
+    events = trace.get("traceEvents", [])
+    mark = next((e for e in events if e.get("name") == "timed calls" and e.get("ph") == "X"
+                 and e.get("cat") in ("user_annotation", "cpu_op")), None)
+    kernels = [(base + int(e["ts"] * 1000), base + int((e["ts"] + e["dur"]) * 1000)) for e in events
+               if base is not None and e.get("cat") == "kernel" and e.get("ph") == "X"]
+    if base is None or mark is None or not kernels:
+        return None
+    return (base + int(mark["ts"] * 1000), base + int((mark["ts"] + mark["dur"]) * 1000)), kernels
+
+
+def _window(mesh, call):
+    """One profiler window over call() on this rank: (device busy us, wall
+    us, staging us, collective us, spans, trace); busy None where the
+    profiler recorded no device time or the rank is on the CPU. `spans`
+    (absolute ns, `_kernel_spans`) let the parent take the card's busy time
+    as the union over the ranks, whose kernels take turns on the card;
+    `trace` (the mesh's collective trace, one host clock) lets it split the
+    collectives' time into waiting for the last rank and the rest
+    (`collective_wait`)."""
+    dev = mesh.device
+    call()
+    _sync(dev)
+    torch.distributed.barrier()
+    mesh.reset_stats()
+    trace = mesh.trace = []
+    try:
+        return _window_traced(mesh, call) + (trace,)
+    finally:
+        mesh.trace = None
+
+
+def _window_traced(mesh, call):
+    dev = mesh.device
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        call()
+        return None, (time.perf_counter() - t0) * 1e6, mesh.stats.get("staging", 0.0) * 1e6, None, None
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    spans = None
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.record_function("timed calls"):
+                t0 = time.perf_counter()
+                call()
+                _sync(dev)
+                wall = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+    except RuntimeError as e:  # the profiler could not trace: time the window alone
+        log(f"  rank {mesh.rank}: profiler failed ({e}); device busy not measured")
+        mesh.reset_stats()
+        t0 = time.perf_counter()
+        call()
+        _sync(dev)
+        wall, events = (time.perf_counter() - t0) * 1e6, []
+    else:
+        try:  # the kernels' absolute spans, for the card's idle share; a trace we cannot read leaves it unmeasured
+            spans = _kernel_spans(prof, mesh.rank)
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            log(f"  rank {mesh.rank}: the trace gave no kernel spans ({e!r})")
+    mark = next((e for e in events if e.name == "timed calls"), None)
+    busy = sum(e.time_range.elapsed_us() for e in events
+               if mark is not None and e.device_type == torch.autograd.DeviceType.CUDA and e.name != mark.name
+               and e.time_range.start >= mark.time_range.start and e.time_range.elapsed_us() > 0)
+    coll_s = sum(v for k, v in mesh.stats.items() if not k.endswith("_n") and k != "staging")
+    return (busy or None), wall, mesh.stats.get("staging", 0.0) * 1e6, coll_s * 1e6, spans
+
+
+def collective_wait(windows):
+    """The ranks' collectives in one window, call by call (every rank runs
+    the same sequence), by kind: {kind: [calls, seconds from the first
+    rank's arrival to the last's, summed; seconds from the last arrival to
+    the last return, summed; how often each rank arrived last]}. For a
+    blocking call the first is the time ranks spent waiting for a late
+    rank and the second the transfer with its staging; an asynchronous
+    call's span (the pipelined CG's all-reduce, the overlapped halos) also
+    holds the work overlapped with it. None where the traces do not line
+    up."""
+    traces = [w[5] for w in windows]
+    n = len(traces[0])
+    if n == 0 or any(len(t) != n for t in traces):
+        return None
+    out = {}
+    for i in range(n):
+        calls = [t[i] for t in traces]
+        if len({c[0] for c in calls}) != 1:
+            return None
+        enter = [c[1] for c in calls]
+        row = out.setdefault(calls[0][0], [0, 0.0, 0.0, [0] * len(traces)])
+        row[0] += 1
+        row[1] += max(enter) - min(enter)
+        row[2] += max(c[2] for c in calls) - max(enter)
+        row[3][enter.index(max(enter))] += 1
+    return out
+
+
+def card_idle_share(windows):
+    """The card's idle share in one window of every rank: 1 - the union of
+    all ranks' kernel spans over the union of their windows (absolute
+    clock). None where a rank's spans are missing."""
+    spans = [w[4] for w in windows]
+    if any(s is None for s in spans):
+        return None
+    lo = min(s[0][0] for s in spans)
+    hi = max(s[0][1] for s in spans)
+    ivs = sorted((max(a, lo), min(b, hi)) for s in spans for a, b in s[1] if b > lo and a < hi)
+    busy, cur_a, cur_b = 0, None, None
+    for a, b in ivs:
+        if cur_b is None or a > cur_b:
+            if cur_b is not None:
+                busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    if cur_b is not None:
+        busy += cur_b - cur_a
+    return 1.0 - busy / (hi - lo)
+
+
+def dist_rank_setup(mesh, cfg):
+    """Phase 5j's operands on one rank, made from their seeds (every rank
+    holds the same host arrays): the bench operand with its full-window bwd
+    form, its SPD twin with its full-window form and ILU0, its nonsymmetric
+    twin, the stencil with its ELL form, block inverses, ILU0 level forms and
+    dist_symgs's level operands, and the cant stand-in's A.A plan with this
+    rank's products on the card. Runs while this process's parent works
+    through phase 3 (the card's memory allows both); no path runs here.
+    Rank 0 also computes the references that need the plan's full product
+    list, so the others can drop it."""
+    dev = mesh.device
+    o = {"setup_s": {}}
+    t0 = time.perf_counter()
+    ptr, ind, val, x = bench_operand(m=cfg["m"])
+    m = len(ptr) - 1
+    o["A"] = tt.create_csr(m, m, ptr, ind, val, device=dev)
+    o["fa"] = full_window_bwd(o["A"])
+    o["x"] = x
+    o["setup_s"]["bench"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    o["Sspd"], cptr, cind, cval = spd_operand(ptr, ind, val, m)
+    o["S"] = tt.create_csr(m, m, cptr, cind, cval, device=dev)
+    o["fs"] = full_window_bwd(o["S"])
+    o["setup_s"]["spd"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    o["lf"] = tt.ilu0_factorize(o["S"]).l_form
+    o["setup_s"]["spd ilu0"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    o["Sn"], nptr, nind, nval = shifted_operand(ptr, ind, val, m)
+    o["N"] = tt.create_csr(m, m, nptr, nind, nval, device=dev)
+    o["fn"] = full_window_bwd(o["N"])
+    o["setup_s"]["nonsym"] = time.perf_counter() - t0
+    del ptr, ind, val, cptr, cind, cval, nptr, nind, nval
+    t0 = time.perf_counter()
+    hptr, hind, hval = stencil27(cfg["nx"])
+    mh = len(hptr) - 1
+    o["Sh"] = sp.csr_matrix((hval.astype(np.float64), hind, hptr), shape=(mh, mh))
+    H = o["H"] = tt.create_csr(mh, mh, hptr, hind, hval, device=dev)
+    o["fe"] = tplan.get_plan(H).exec_form_for(GEN, NONE, kind="ell")
+    o["setup_s"]["stencil"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mh_pad = -(-mh // (8 * mesh.size)) * 8 * mesh.size
+    o["dblk"] = dpar.block_jacobi_inv(tplan.get_plan(H).effective_for(GEN, NONE, H.dtype), 8, mh_pad)
+    o["setup_s"]["block_jacobi_inv"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    o["l_lvl"] = _level_forms(tt.ilu0_factorize(H))[0]
+    o["setup_s"]["stencil ilu0 + level forms"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dsweeps._sweep_ops(mesh, H, GEN, tt.MatrixType.general, "x", "level")
+    o["setup_s"]["dist_symgs level operands"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if cfg["spgemm"] == "cant":
+        cm, _cn, gptr, gind, gval = cant(np.random.default_rng(7))
+    else:
+        gptr, gind, gval = scatter_operand(m=cfg["spgemm_m"])[:3]
+        cm = len(gptr) - 1
+    G = tt.create_csr(cm, cm, gptr, gind, gval, device=dev)
+    effG = o["effG"] = _effective(G, GEN, NONE)
+    gplan = o["gplan"] = sgemm._symbolic(effG, effG)
+    o["spgemm"] = (cm, int(np.asarray(gplan.pa).size), int(gplan.nnz))
+    dpar.dist_spgemm_numeric(mesh, gplan, effG.val, effG.val)  # this rank's products onto the card
+    if mesh.rank == 0:
+        with uncounted():
+            o["spgemm_ref"] = sgemm._numeric_plan(gplan, effG.val, effG.val, False, False).cpu()
+        gplan._dev_trip = None
+    gplan.pa = gplan.pb = gplan.pc = None  # the full product list: no longer needed
+    o["setup_s"]["spgemm symbolic + products"] = time.perf_counter() - t0
+    gc.collect()
+    return o
+
+
+def dist_rank_path(mesh, cfg, go):
+    """Phase 5j on one rank of the gloo world: set-up (`dist_rank_setup`,
+    while the parent runs phase 3), then, once the parent has made the file
+    `go` (phase 3 done, the card free of it), the distributed paths at the
+    sizes of `cfg`, the launches they made on this rank, their times, and
+    on rank 0 each result's error against the port's single-process answer
+    on the same operand (uncounted)."""
+    dev = mesh.device
+    t_setup = time.perf_counter()
+    o = dist_rank_setup(mesh, cfg)
+    t_setup = time.perf_counter() - t_setup
+    while not os.path.exists(go):
+        time.sleep(0.2)
+    _sync(dev)
+    torch.distributed.barrier()
+    t_run = time.perf_counter()
+    nr = mesh.size
+    me0 = mesh.rank == 0
+    rtol = cfg["rtol"]
+    reset_counts()
+    out = {"setup_s": o["setup_s"], "ms": {}, "err": {}, "resid": {}, "window": {}, "spgemm": o["spgemm"]}
+    rng = np.random.default_rng(SEED_DIST)
+
+    def put_rows(v, mult):
+        pad = -(-v.shape[0] // mult) * mult - v.shape[0]
+        return dpar.put(np.pad(v, [(0, pad)] + [(0, 0)] * (v.ndim - 1)), mesh, dpar.P("x", *([None] * (v.ndim - 1))))
+
+    def dev_t(v):
+        return torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+
+    def err(name, got, want_fn, tol):
+        if me0:
+            with uncounted():
+                want = want_fn()
+            e = near_error(np.asarray(got, dtype=np.float64), host64(want) if isinstance(want, torch.Tensor) else want)
+            out["err"][name] = (e, tol)
+
+    def resid(name, Ssci, x, b, k, want_k=None):
+        """The true relative residual in float64 and the count beside the
+        single-process count."""
+        r = float(np.linalg.norm(Ssci @ np.asarray(x, np.float64) - b) / np.linalg.norm(b))
+        out["resid"][name] = (r, 10 * rtol, int(k), want_k)
+
+    def timed(name, call, reps=1):
+        """ms a call (host clock, the ranks started together); returns the
+        last call's result."""
+        _sync(dev)
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            res = call()
+        _sync(dev)
+        out["ms"][name] = (time.perf_counter() - t0) / reps * 1e3
+        return res
+
+    # the bench operand: its band halo SpMV (both variants), the group-band SpMM
+    A, fa, x = o["A"], o["fa"], o["x"]
+    m = A.shape[0]
+    out["bwd"] = (fa.bwd_W, fa.bwd_rel)
+    xs = put_rows(x, 8 * nr)
+    y = dpar.fetch(dpar.dist_spmv_bwd_halo(mesh, fa, xs), mesh)[:m]
+    y_ov = dpar.fetch(dpar.dist_spmv_bwd_halo_overlap(mesh, fa, xs), mesh)[:m]
+    ref_y = lambda: spmv_bwd(fa.bwd_val, dev_t(x), fa.bwd_base8, fa.bwd_padL, m)  # noqa: E731
+    err("dist_spmv_bwd_halo", y, ref_y, MV_TOL["f32"])
+    err("dist_spmv_bwd_halo_overlap", y_ov, ref_y, MV_TOL["f32"])
+    timed("spmv halo", lambda: dpar.dist_spmv_bwd_halo(mesh, fa, xs), cfg["reps"])
+    timed("spmv overlap", lambda: dpar.dist_spmv_bwd_halo_overlap(mesh, fa, xs), cfg["reps"])
+    fg = tplan.get_plan(A).exec_form_for(GEN, NONE, kind="bwdg")
+    out["bwdg"] = (fg.bwd_G, fg.bwd_W)
+    B = np.random.default_rng(SEED_B).standard_normal((m, K_MM)).astype(np.float32)
+    Bs = put_rows(B, fg.bwd_G * nr)
+    Cm = dpar.fetch(dpar.dist_spmm_bwd_halo(mesh, fg, Bs), mesh)[:m]
+    err("dist_spmm_bwd_halo", Cm, lambda: tt.mm(1.0, A, GEN, NONE, dev_t(B), 0.0), MV_TOL["f32"])
+    timed(f"spmm halo (K={K_MM})", lambda: dpar.dist_spmm_bwd_halo(mesh, fg, Bs), cfg["reps"])
+    del fg, Cm, B, Bs
+
+    # the SPD twin: halo CG, pipelined CG; its ILU0 L: the ring pipeline, dist_trsm
+    Sspd, fs, lf = o["Sspd"], o["fs"], o["lf"]
+    b = rng.standard_normal(m).astype(np.float32)
+    for name, fn in (("dist_cg_bwd_halo", dpar.dist_cg_bwd_halo), ("dist_cg_pipelined", dpar.dist_cg_pipelined)):
+        xr, k, _rn = fn(mesh, fs, b, rtol=rtol, maxit=1000)
+        xh = dpar.fetch(xr, mesh)
+        if me0:
+            with uncounted():
+                ks = cg_bwd_jit_count(fs, b, rtol)
+            resid(name, Sspd, xh, b, k, ks)
+        out["ms"][name] = _fixed_ms(dev, lambda kk, fn=fn: fn(mesh, fs, b, rtol=0.0, maxit=kk)[1], *cfg["cg_k"],
+                                    mesh=mesh)
+        out["window"][name] = _window(mesh, lambda fn=fn: fn(mesh, fs, b, rtol=0.0, maxit=cfg["cg_k"][0]))
+    out["ilu_l"] = (lf.kind, lf.nb, lf.nblk, lf.WL)
+    xl = dpar.fetch(timed("dist_trsv_pipeline", lambda: dpar.dist_trsv_pipeline(mesh, lf, b)))
+    err("dist_trsv_pipeline", xl, lambda: pad_solve(lf, dev_t(b)), expected_precision(torch.float32, 10))
+    Bk = rng.standard_normal((m, K_SM)).astype(np.float32)
+    Xk = dpar.fetch(dpar.dist_trsm(mesh, lf, Bk), mesh)
+    timed(f"dist_trsm (K={K_SM})", lambda: dpar.dist_trsm(mesh, lf, Bk), cfg["reps"])
+    err("dist_trsm", Xk, lambda: pad_solve(lf, dev_t(Bk)), expected_precision(torch.float32, 10))
+    del Xk, Bk, xl
+
+    # the nonsymmetric twin: halo GMRES
+    fn_ = o["fn"]
+    xr, it, _rn = dpar.dist_gmres_bwd_halo(mesh, fn_, b, rtol=rtol, restart=20, maxit=200)
+    xg = dpar.fetch(xr, mesh)
+    if me0:
+        with uncounted():
+            _x, cyc, _r = dpar.gmres_bwd_jit(fn_.bwd_val, dev_t(b), torch.zeros(m, device=dev), rtol, 0.0, 20, 10,
+                                             fn_.bwd_W, fn_.bwd_base8, fn_.bwd_padL, fn_.bwd_n_pad)
+        resid("dist_gmres_bwd_halo", o["Sn"], xg, b, it, int(cyc) * 20)
+    out["ms"]["dist_gmres_bwd_halo"] = _fixed_ms(
+        dev, lambda kk: dpar.dist_gmres_bwd_halo(mesh, fn_, b, rtol=0.0, restart=20, maxit=kk)[1], 20, 60, mesh=mesh)
+    out["window"]["dist_gmres_bwd_halo"] = _window(
+        mesh, lambda: dpar.dist_gmres_bwd_halo(mesh, fn_, b, rtol=0.0, restart=20, maxit=20))
+
+    # HPCG's stencil: the general halo SpMV, block-Jacobi CG, the level sweeps
+    H, fe, Sh = o["H"], o["fe"], o["Sh"]
+    mh = H.shape[0]
+    xh = rng.standard_normal(mh).astype(np.float32)
+    yh = dpar.fetch(timed("dist_spmv_ell_halo_plan (its host plan included)",
+                          lambda: dpar.dist_spmv_ell_halo_plan(mesh, fe.ell_ind, fe.ell_val, put_rows(xh, nr))),
+                    mesh)[:mh]
+    err("dist_spmv_ell_halo_plan", yh, lambda: tt.mv(1.0, H, GEN, NONE, dev_t(xh), 0.0), MV_TOL["f32"])
+    bh = Sh @ np.ones(mh)
+    xr, kh, _rn = timed("dist_cg_ell_halo, block-Jacobi (its host plan included)",
+                        lambda: dpar.dist_cg_ell_halo(mesh, fe.ell_ind, fe.ell_val, bh, rtol=rtol, maxit=1000,
+                                                      dinv=o["dblk"]))
+    xc = dpar.fetch(xr, mesh)
+    if me0:
+        with uncounted():
+            ks = block_jacobi_cg_count(H, o["dblk"], bh, rtol, dev)
+        resid("dist_cg_ell_halo", Sh, xc, bh, kh, ks)
+    l_lvl = o["l_lvl"]
+    out["levels"] = l_lvl.nlev
+    bl = rng.standard_normal(mh).astype(np.float32)
+    for name, call, ref in (
+        ("dist_trsv_levels", lambda: dpar.dist_trsv_levels(mesh, l_lvl, bl), lambda: l_lvl.solve(dev_t(bl))),
+        ("dist_ilu_apply (level)", lambda: dpar.dist_ilu_apply(mesh, H, bl, engine="level"),
+         lambda: tt.ilu_smoother(H, GEN, dev_t(bl))),
+        ("dist_symgs (level)", lambda: dpar.dist_symgs(mesh, H, GEN, 1.0, bl, engine="level"),
+         lambda: tt.symgs(NONE, H, GEN, 1.0, dev_t(bl))),
+    ):
+        got = dpar.fetch(timed(name, call))  # one call each: 722 all_gathers a sweep
+        err(name, got, ref, expected_precision(torch.float32, 10))
+
+    # SpGEMM: the numeric stage of the cant stand-in's A.A (planned in the set-up)
+    effG, gplan = o["effG"], o["gplan"]
+    cv = dpar.fetch(timed("dist_spgemm_numeric",
+                          lambda: dpar.dist_spgemm_numeric(mesh, gplan, effG.val, effG.val), cfg["reps"]), mesh)
+    if me0:
+        out["err"]["dist_spgemm_numeric"] = (near_error(cv.astype(np.float64), host64(o["spgemm_ref"])),
+                                             MV_TOL["f32"])
+    out["launches"] = read_counts()
+    out["stats"] = dict(mesh.stats)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
+    out["setup_total_s"], out["run_s"] = t_setup, time.perf_counter() - t_run
+    return out
+
+
+def cg_bwd_jit_count(form, b, rtol):
+    """The single-process CG's count on the same group-window form."""
+    dev = form.bwd_val.device
+    bt = torch.from_numpy(b).to(dev)
+    return int(dpar.cg_bwd_jit(form.bwd_val, bt, torch.zeros_like(bt), rtol, 0.0, 1000, form.bwd_W, form.bwd_base8,
+                               form.bwd_padL, form.bwd_n_pad)[1])
+
+
+def block_jacobi_cg_count(H, dblk, b, rtol, dev):
+    """The single-process block-Jacobi CG's count (make_cg_operator over the
+    port's mv and the same block inverses)."""
+    m = H.shape[0]
+    D = torch.from_numpy(dblk).to(dev, torch.float32)
+    nb = D.shape[1]
+
+    def prec(r):
+        rp = torch.nn.functional.pad(r, (0, D.shape[0] * nb - m))
+        return torch.bmm(D, rp.reshape(-1, nb, 1)).reshape(-1)[:m]
+
+    solve = tt.make_cg_operator(lambda v: tt.mv(1.0, H, GEN, NONE, v, 0.0), prec, maxit=1000, device=dev)
+    return solve(torch.from_numpy(b.astype(np.float32)).to(dev), rtol=rtol)[1]
+
+
+def start_distributed(dev, cfg):
+    """Start phase 5j's world: DIST_RANKS gloo ranks sharing `dev`, which
+    build their operands at once (overlapping this process's phase 3) and
+    run the paths when `finish_distributed` lets them. Returns the handle."""
+    tmp = tempfile.mkdtemp(prefix="smoke_5j_")
+    go = os.path.join(tmp, "go")
+    t0 = time.perf_counter()
+    world = dpar.start_world(dist_rank_path, DIST_RANKS, cfg, go, backend="gloo", device=str(dev), timeout_s=900)
+    return {"world": world, "go": go, "tmp": tmp, "t0": t0, "cfg": cfg, "dev": dev}
+
+
+def finish_distributed(h, C, Ssc):
+    """Phase 5j's second half: let the ranks run their paths (this process
+    idle meanwhile), then in this process cg_bandv_jit on the SPD twin's f32
+    and bf16 bands (#1, #2) and a one-rank NCCL world through the halo CG,
+    on C (the SPD twin's handle, Ssc its scipy CSR). Every result is held to
+    the port's single-process answer on the same operand; a rank's failure
+    fails the phase. Returns (the launches of the path, the phase's
+    numbers)."""
+    dev, cfg = h["dev"], h["cfg"]
+    rtol = cfg["rtol"]
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        log(f"  this process holds {torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB of the card "
+            f"({torch.cuda.memory_reserved(dev) / 2**30:.1f} GiB reserved) as the ranks run their paths")
+    t0 = time.perf_counter()
+    open(h["go"], "w").close()
+    ranks = h["world"].join()
+    os.unlink(h["go"])
+    os.rmdir(h["tmp"])
+    t_world, t_wait = time.perf_counter() - h["t0"], time.perf_counter() - t0
+    reset_counts()
+    r0 = ranks[0]
+    m = C.shape[0]
+    b = np.random.default_rng(SEED_DIST).standard_normal(m).astype(np.float32)
+    bd = torch.from_numpy(b).to(dev)
+    # this process's part of the path: cg_bandv_jit on f32 and bf16 bands
+    ft = tt.optimize(C).exec_form_for(GEN, NONE, kind="bandt")
+    sp_kw = dict(sp_ind=ft.sp_ind, sp_rows=ft.sp_rows, sp_val=ft.sp_val)
+    bandv = {}
+    for inst, band, rt in (("f32", ft.bwd_val, rtol), ("bf16", ft.band_bf16(), 1e-3)):
+        xr, k, _rn = dpar.cg_bandv_jit(band, bd, torch.zeros_like(bd), rt, 0.0, 1000, ft.bwd_W, ft.bwd_padL,
+                                       ft.bandt_start, **sp_kw)
+        ms = _fixed_ms(dev, lambda kk, band=band: dpar.cg_bandv_jit(band, bd, torch.zeros_like(bd), 0.0, 0.0, kk,
+                                                                    ft.bwd_W, ft.bwd_padL, ft.bandt_start,
+                                                                    **sp_kw)[1], *cfg["cg_k"])
+        bandv[inst] = (host64(xr), int(k), rt, ms)
+    # a one-rank NCCL world through the halo CG (on the CPU: gloo)
+    fc = full_window_bwd(C)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory(prefix="smoke_nccl_") as tmp:
+        dpar.init_multiprocess(f"file://{tmp}/rdv", 1, 0, backend=backend, device=dev)
+        try:
+            mesh1 = dpar.global_mesh()
+            xr, k1, _rn = dpar.dist_cg_bwd_halo(mesh1, fc, b, rtol=rtol, maxit=1000)
+            x1 = dpar.fetch(xr, mesh1)
+            ms1 = _fixed_ms(dev, lambda kk: dpar.dist_cg_bwd_halo(mesh1, fc, b, rtol=0.0, maxit=kk)[1], *cfg["cg_k"])
+            calls1 = {k: v for k, v in mesh1.stats.items() if k.endswith("_n")}
+        finally:
+            dpar.shutdown()
+    own = read_counts()
+    total = {k: own[k] + sum(r["launches"][k] for r in ranks) for k in own}
+
+    # held to the single-process port (uncounted)
+    checks = dict(r0["err"])
+    resids = dict(r0["resid"])
+    with uncounted():
+        for inst, (xh, k, rt, _ms) in bandv.items():
+            sci = Ssc if inst == "f32" else sp.csr_matrix(
+                (torch.from_numpy(Ssc.data.astype(np.float32)).to(torch.bfloat16).double().numpy(), Ssc.indices,
+                 Ssc.indptr), shape=(m, m))
+            ks = fused_mod.pcg_solve(C, bd, rtol=rt, maxit=1000)[1] if inst == "f32" else None
+            resids[f"cg_bandv_jit {inst}"] = (float(np.linalg.norm(sci @ xh - b) / np.linalg.norm(b)), 10 * rt, k, ks)
+        resids[f"dist_cg_bwd_halo ({backend}, 1 rank)"] = (
+            float(np.linalg.norm(Ssc @ x1.astype(np.float64) - b) / np.linalg.norm(b)), 10 * rtol, k1,
+            cg_bwd_jit_count(fc, b, rtol))
+    bad = []
+    for name, (e, tol) in checks.items():
+        log(f"  {name}: max error {e:.3e} against the single-process port (tolerance {tol:.3e})")
+        if not e <= tol:
+            bad.append(name)
+    for name, (r, tol, k, ks) in resids.items():
+        log(f"  {name}: {k} iterations (single-process {ks}), true relative residual {r:.3e} (<= {tol:.1e})")
+        if not r <= tol or (ks is not None and abs(k - ks) > max(3, ks // 10)):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"phase 5j: off the single-process port: {bad}")
+    nums = {"world_s": t_world, "wait_s": t_wait, "ranks": ranks, "bandv": {k: (v[1], v[3]) for k, v in bandv.items()},
+            "nccl": (k1, ms1, calls1)}
+    return total, nums
+
+
+def run_phase_5j(h, C, Ssc):
+    """Phase 5j's second half, logged and checked: returns its launches."""
+    dj_launches, dj = finish_distributed(h, C, Ssc)
+    log(f"  distributed path launches (ranks and this process): {({k: dj_launches[k] for k in DIST_PATH})}")
+    for kernel in DIST_PATH:
+        if dj_launches[kernel] == 0:
+            raise AssertionError(f"kernel {kernel} never launched on the distributed path")
+    dist_report(dj, h["cfg"])
+    return dj_launches
+
+
+def dist_report(nums, cfg):
+    """Phase 5j's numbers: the operands, set-up seconds, ms an iteration
+    and a call, the card's idle share in a profiler window (1 - the union of
+    every rank's kernel spans over the window; the contexts take turns on
+    the card, so a rank's own kernel time overstates its share) and the host
+    staging share of each rank's window."""
+    ranks = nums["ranks"]
+    r0 = ranks[0]
+    log(f"  world of {DIST_RANKS} gloo ranks sharing the card: {nums['world_s']:.1f} s from spawn, "
+        f"{nums['wait_s']:.1f} s of it after phase 3 (the paths; set-up {[round(r['setup_total_s'], 1) for r in ranks]} "
+        f"s by rank, overlapping phase 3; paths {[round(r['run_s'], 1) for r in ranks]} s); bench bwd W={r0['bwd'][0]} "
+        f"(window start {r0['bwd'][1]}), bwdg G={r0['bwdg'][0]} W={r0['bwdg'][1]}, ILU0 L {r0['ilu_l']}, stencil L "
+        f"{r0['levels']} levels, SpGEMM m={r0['spgemm'][0]} P={r0['spgemm'][1]} nnzC={r0['spgemm'][2]}")
+    log("  set-up s (rank 0): " + ", ".join(f"{k} {v:.2f}" for k, v in r0["setup_s"].items()))
+    log(f"  device peak by rank: {[r['peak_gib'] and round(r['peak_gib'], 2) for r in ranks]} GiB")
+    for key in r0["ms"]:
+        vals = [r["ms"][key] for r in ranks]
+        log(f"  {key}: ms (ranks {'; '.join(_spread(v) for v in vals)}; 4 ranks sharing one card, not a scaling "
+            "figure)")
+    for key in r0["window"]:
+        w = [r["window"][key] for r in ranks]
+        wall = max(x[1] for x in w)
+        busy = [x[0] for x in w]
+        idle = card_idle_share(w)
+        idle_s = "not measured" if idle is None else f"{idle:.3f}"
+        stage = [x[2] / x[1] for x in w]
+        n_it = 20 if "gmres" in key else cfg["cg_k"][0]
+        log(f"  {key} window ({n_it} iterations): wall {wall / 1e3:.3f} ms, each rank's kernels "
+            f"{[round(v / 1e3, 3) if v else None for v in busy]} ms, card idle share {idle_s}, host staging share "
+            f"{[round(v, 3) for v in stage]}, collectives {[round(x[3] / x[1], 3) if x[3] else None for x in w]} of the "
+            "window by rank")
+        cw = collective_wait(w)
+        if cw is None:
+            log(f"  {key} collectives: the ranks' traces do not line up; the wait is not split")
+        for kind, (n_calls, skew, rest, last) in (cw or {}).items():
+            log(f"  {key} {kind}: {n_calls} calls, first to last arrival {skew * 1e3:.3f} ms ({skew * 1e6 / wall:.3f} "
+                f"of the window), last arrival to last return {rest * 1e3:.3f} ms ({rest * 1e6 / wall:.3f}); "
+                f"arrived last by rank {last}")
+    for inst, (k, ms) in nums["bandv"].items():
+        log(f"  cg_bandv_jit {inst} band: {k} iterations, {_spread(ms)} ms an iteration (host clock)")
+    k1, ms1, calls1 = nums["nccl"]
+    log(f"  one-rank NCCL world: dist_cg_bwd_halo {k1} iterations, {_spread(ms1)} ms an iteration; backend calls "
+        f"{calls1}")
+
+
 def coo_csr(rows, cols, vals, m):
     """(ptr, ind, val) of an m x m COO triangle, sorted by row and column."""
     S = sp.csr_matrix((vals, (rows, cols)), shape=(m, m))
@@ -3221,6 +3859,20 @@ def main() -> int:
     if not native.available():
         raise AssertionError("the host C++ library (g++ build of host_kernels.cpp) did not load")
     log(f"host library: {time.perf_counter() - t0:.2f} s")
+
+    # 5j: its ranks start now and build their operands while this process
+    # runs phase 3; they run their paths after phase 3 (finish_distributed).
+    # Later phases leave too little of the card's memory (60 GiB held by 5i)
+    phase(f"phase 5j, first half: {DIST_RANKS} gloo ranks sharing the card start and build their operands "
+          "(overlapping phase 3)")
+    h5j = start_distributed(dev, DIST_CFG)
+    if "--phase-5j-only" in sys.argv[1:]:  # a development run: phase 5j alone, no result line
+        ptr, ind, val, _x = bench_operand(m=DIST_CFG["m"])
+        Sspd, cptr, cind, cval = spd_operand(ptr, ind, val, len(ptr) - 1)
+        C = tt.create_csr(len(ptr) - 1, len(ptr) - 1, cptr, cind, cval, device=dev)
+        run_phase_5j(h5j, C, Sspd)
+        phase("done")
+        return 0
 
     # 3. kernel vs plain version
     phase("phase 3: kernel vs plain version")
@@ -3777,6 +4429,12 @@ def main() -> int:
     log(f"  complex level-solve kernel and chain-kernel instance checks: {time.perf_counter() - t0:.1f} s")
 
     # 4. the main path, counted
+    # 5j, second half: the ranks run the distributed paths, then this process's part
+    phase("phase 5j: the distributed layer on 4 gloo ranks sharing the card (halo SpMV and SpMM, halo and pipelined "
+          "CG, halo GMRES, the ring pipeline and dist_trsm, the general halo and block-Jacobi CG, the level sweeps, the "
+          "SpGEMM numeric stage), cg_bandv_jit, a one-rank NCCL world")
+    dj_launches = run_phase_5j(h5j, C, Sspd)
+
     phase("phase 4: main path (create_csr -> set_mv_hint -> optimize -> mv)")
     S = sp.csr_matrix((val.astype(np.float64), ind, ptr), shape=(m, n))
     ref = S @ x.astype(np.float64)
@@ -4275,12 +4933,16 @@ def main() -> int:
             raise AssertionError(f"kernel {kernel} never launched on the circuit path")
         launches[kernel] = ci_launches[kernel]
 
+    # 5j's launches (counted at its run, after phase 3) join the kernels line
+    for kernel in DIST_PATH:
+        launches[kernel] += dj_launches[kernel]
+
     # 6. timing
     phase("phase 6: timing (CUDA events or host clock, median of repeats)")
     peak = ctx.hbm_gbps
     ms, plain_ms, bounds, lib = {}, {}, {}, {}
 
-    def turns(kernel, kern, plain, kreps=(15, 10), preps=(15, 10), kwarm=3, pwarm=1):
+    def turns(kernel, kern, plain, kreps=(9, 10), preps=(9, 10), kwarm=3, pwarm=1):
         """plain, kernel, kernel, plain: compare within one call, in turns."""
         p1 = cuda_ms(plain, reps=preps[0], inner=preps[1], warm=pwarm, backlog=True)
         k1 = cuda_ms(kern, reps=kreps[0], inner=kreps[1], warm=kwarm, backlog=True)
@@ -4419,7 +5081,7 @@ def main() -> int:
         # the plain loops walk 1024 blocks from Python: few repeats
         kernel = f"trsv_win_{inst}"
         turns(kernel, lambda: trsv_win(dT, lT, bb, fL.nb, fL.WL, ops),
-              lambda: trsv_win_plain(dT, lT, bb, fL.nb, fL.WL), kreps=(15, 5), preps=(1, 1), kwarm=2, pwarm=0)
+              lambda: trsv_win_plain(dT, lT, bb, fL.nb, fL.WL), kreps=(9, 5), preps=(1, 1), kwarm=2, pwarm=0)
         win_passes(kernel, lambda: trsv_win(dT, lT, bb, fL.nb, fL.WL, ops), fL, 1, dT.element_size())
         plain_chain_note(kernel, plain_chain_solve(dT, ops.P, bb, fL.nb, fL.WL), fL)
         op_bytes = nbytes(dT, lT)
@@ -4443,7 +5105,7 @@ def main() -> int:
              lambda: torch.triangular_solve(bb[:, None], Lt, upper=False, unitriangular=True), one)
         kernel = f"trsm_win_{inst}"
         turns(kernel, lambda: trsm_win(dT, lT, bmm, fL.nb, fL.WL, ops),
-              lambda: trsm_win_plain(dT, lT, bmm, fL.nb, fL.WL), kreps=(15, 5), preps=(1, 1), kwarm=2, pwarm=0)
+              lambda: trsm_win_plain(dT, lT, bmm, fL.nb, fL.WL), kreps=(9, 5), preps=(1, 1), kwarm=2, pwarm=0)
         win_passes(kernel, lambda: trsm_win(dT, lT, bmm, fL.nb, fL.WL, ops), fL, K_SM, dT.element_size())
         plain_chain_note(kernel, plain_chain_solve(dT, ops.P, bmm, fL.nb, fL.WL), fL)
         stored = op_bytes + 2 * nbytes(bmm)
@@ -4462,7 +5124,7 @@ def main() -> int:
              lambda: trsv_win_plain(dT16, lT16, bw16, fL.nb, fL.WL), bw16, 1),
             ("trsm_win_bf16", lambda: trsm_win(dT16, lT16, bwm16, fL.nb, fL.WL, ops16),
              lambda: trsm_win_plain(dT16, lT16, bwm16, fL.nb, fL.WL), bwm16, K_SM)):
-        turns(kernel, call, plain, kreps=(15, 5), preps=(1, 1), kwarm=2, pwarm=0)
+        turns(kernel, call, plain, kreps=(9, 5), preps=(1, 1), kwarm=2, pwarm=0)
         win_passes(kernel, call, fL, K, 4, rounds=True)
         note(kernel, tri16 + nbytes(lT16) + 2 * nbytes(bb), nz_bytes(dT16, lT16) + 2 * nbytes(bb), step_flops * K)
         log(f"  {kernel}: {ms[kernel] / ms[kernel.replace('bf16', 'f32')]:.2f}x the f32 instance's time")
@@ -4470,7 +5132,7 @@ def main() -> int:
     for inst, v, Bx, Ax in (("f32", tm32.bwd_val, Bm, A32), ("f64", tm64.bwd_val, Bm64, A64)):
         kernel = f"spmm_band_{inst}"
         turns(kernel, lambda: spmm_band(v, Bx, *targs), lambda: spmm_band_plain(v, Bx, *targs),
-              kreps=(15, 5), preps=(3, 1))
+              kreps=(9, 5), preps=(3, 1))
         c_bytes = nbytes(Bx) * m // n
         note(kernel, nbytes(v, Bx) + c_bytes, nz_bytes(v, Bx) + c_bytes, mm_flops,
              lambda: torch.sparse.mm(Ax, Bx), dict(reps=5, inner=2))
@@ -4484,7 +5146,7 @@ def main() -> int:
     # bf16 computes the same function (f32 sums) in one library call
     kernel = "spmm_band_bf16"
     turns(kernel, lambda: spmm_band(v16, Bm, *targs), lambda: spmm_band_plain(v16, Bm, *targs),
-          kreps=(15, 5), preps=(3, 1))
+          kreps=(9, 5), preps=(3, 1))
     c_bytes = nbytes(Bm) * m // n
     A16w = csr_tensor(ptr, ind, torch.from_numpy(val.astype(np.float32)).to(torch.bfloat16).float().numpy(), dev,
                       torch.float32)
@@ -4495,7 +5157,7 @@ def main() -> int:
     for inst, dt_ in (("f32", dt32), ("bf16", dtbf)):
         kernel = f"spmm_band_mxu_{inst}"
         turns(kernel, lambda: spmm_band_mxu(dt_, Bm, *targs, m, W_mm),
-              lambda: spmm_band_mxu_plain(dt_, Bm, *targs, m), kreps=(15, 5), preps=(3, 2))
+              lambda: spmm_band_mxu_plain(dt_, Bm, *targs, m), kreps=(9, 5), preps=(3, 2))
         # the same band product as spmm_band: the bound counts the windows'
         # parallelogram 0 <= c - s < W (128 W values a block), B and C, what
         # the function needs; the stored windows' bound (zero triangles and
@@ -4514,7 +5176,7 @@ def main() -> int:
                              ("f64", hv64, Bh64, H64)):
         kernel = f"spmm_diag_{inst}"
         turns(kernel, lambda: spmm_diag(dv, hf.dia_offs, Bx, offs_static=hoffs),
-              lambda: spmm_diag_plain(dv, hf.dia_offs, Bx), kreps=(15, 5), preps=(3, 1))
+              lambda: spmm_diag_plain(dv, hf.dia_offs, Bx), kreps=(9, 5), preps=(3, 1))
         c_bytes = nbytes(hf.dia_offs) + mh * K_MM * Bx.element_size()
         note(kernel, nbytes(dv, Bx) + c_bytes, nz_bytes(dv, Bx) + c_bytes, 2 * dv.numel() * K_MM,
              (lambda: torch.sparse.mm(Hx, Bx)) if Hx is not None else None, dict(reps=5, inner=2))
@@ -4563,7 +5225,7 @@ def main() -> int:
     for name, handle, Bx, mrows, nz, kid in (("mm bench (bandtm)", Amm, Bm, m, nnz, None),
                                              ("mm bench kid=5 (block windows)", Amm, Bm, m, nnz, 5),
                                              ("mm stencil (diag)", H, Bh, mh, hind.size, None)):
-        t = cuda_ms(lambda: tt.mm(1.0, handle, GEN, NONE, Bx, 0.0, kid=kid), reps=15, inner=5)
+        t = cuda_ms(lambda: tt.mm(1.0, handle, GEN, NONE, Bx, 0.0, kid=kid), reps=9, inner=5)
         eff = ((mrows + 1 + nz) * 4 + (nz + 2 * mrows * K_MM) * 4) / (t / 1e3) / 1e9
         log(f"  {name} K={K_MM} f32: {t:.4f} ms/call, effective {eff:.1f} GB/s = {eff / peak:.3f} of peak {peak} GB/s")
     t_trsm = cuda_ms(lambda: tt.trsm(1.0, C, LOWER, NONE, Bsm_d), reps=5, inner=1, warm=1)
