@@ -20,6 +20,10 @@ from the structure, as the triangular solve forms do, which the JAX
 package does not store either (their values are op-folded orderings);
 nothing raises for them.
 
+A ``segsum`` form's row pointers and CSR-kernel plan are stored with it;
+a snapshot written before the form carried them rebuilds them on load from
+the structure.
+
 Values are never taken from the snapshot: every restored form is refreshed
 from the live handle's values through its scatter maps, so a handle whose
 values changed since the save computes correctly. A form held in two
@@ -161,7 +165,7 @@ def load_plan(A, path) -> int:
     or another package's snapshot -> invalid_value). Every restored form is
     refreshed from A's live values, its tensors on A's device. Returns the
     number of forms restored."""
-    from ..planner.plan import get_plan
+    from ..planner.plan import attach_csr_plan, get_plan
 
     if A is None:
         raise AoclSparseError(Status.invalid_pointer, "null matrix handle")
@@ -187,6 +191,12 @@ def load_plan(A, path) -> int:
                 # values come from the LIVE handle, not the snapshot
                 eff = plan.effective_for(MatrixDescriptor(type=key[0], fill_mode=key[1], diag_type=key[2]), key[3], A.dtype)
                 form.refresh(eff.val)
+                if form.kind == "segsum":
+                    # row pointers and the CSR kernel's plan rebuilt where a
+                    # snapshot written before segsum forms carried them
+                    # lacks them; row ids kept only where the plain gather
+                    # runs the form on this device
+                    attach_csr_plan(form, eff.ptr)
             forms.append(form)
             plan.exec_forms[key] = form
     for name, enums in (("trsv_tuned", (FillMode, DiagType, Operation)),

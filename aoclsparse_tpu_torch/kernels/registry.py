@@ -12,9 +12,13 @@ the device of its operand. ``debug_dispatcher`` reports which kernel would
 run (aoclsparse_debug_dispatcher analog).
 
 The mv table keeps the JAX package's KID numbers and priorities
-(kernels/xla/__init__.py:13-54 there): 0 (segsum), 1 (ell), 2 (ellhyb), 3
+(kernels/xla/__init__.py:13-54 there): 0 (segsum), the CSR row-gather
+kernel (kernels/spmv_csr.py) for float32, float64, complex64 and
+complex128, the plain gather for the other dtypes, by dtype, the hand
+kernel of the JAX package's XLA row; 1 (ell), 2 (ellhyb), 3
 (bsr, a BSR handle's product), 4 (dia, a DIA handle's), 6 (the planner's
-diag form) and 10 (sell, sliced ELL), the gather and shifted forms in plain
+diag form) and 10 (sell, sliced ELL, whose flattened slices have no row
+pointers: the plain gather), the gather and shifted forms in plain
 torch; 5, the ``bwd`` group windows, whose hand-written kernel
 (kernels/spmv_bwd.py) serves float32, a bf16 band with float32 x (the mixed
 mode) and float64, while complex and float16 operands take its plain
@@ -71,6 +75,7 @@ from .spmm_band import spmm_bandmxu, spmm_bandtm
 from .spmm_diag import spmm_diag
 from .spmm_gen import spmm_gen
 from .spmv_bwd import spmv_bwd_any
+from .spmv_csr import spmv_csr_any
 from .spmm_plain import spmm_bwd, spmm_ell, spmm_ellhyb, spmm_segsum
 from .spmv_gen import spmv_gen, spmv_route
 from .trsv_level import trsv_level
@@ -162,7 +167,9 @@ class Registry:
 
 #: Global registry with the static mv, sv and mm KAT tables.
 registry = Registry()
-registry.register("mv", KernelEntry(0, "torch_segsum", spmv_segsum, "segsum", "any", 0))
+# the segsum form's CSR: the row-gather kernel (kernels/spmv_csr.py) for the
+# dtypes it has, the plain spmv_segsum for the rest, on every backend
+registry.register("mv", KernelEntry(0, "cuda_csr", spmv_csr_any, "segsum", "any", 0))
 registry.register("mv", KernelEntry(1, "torch_ell", spmv_ell, "ell", "any", 0))
 registry.register("mv", KernelEntry(2, "torch_ellhyb", spmv_ellhyb, "ellhyb", "any", 0))
 registry.register("mv", KernelEntry(3, "torch_bsr", spmv_bsr, "bsr", "any", 0))

@@ -11,15 +11,18 @@ y = alpha*op(A)x + beta*y is applied in the epilogue. This package runs the
 `bandt`, `bwd` (KID 5, the group-window kernel), `gen` (general structure,
 its spill through the spill-route kernels), `route` (the whole-matrix spill
 route), `bwdg` (a SpGEMM product's band, or KID 9), `diag` (KID 6), `sell`
-(KID 10), `ell`, `ellhyb` and `segsum` forms; ELL, DIA and BSR handles run
-their native products (KIDs 1, 4 and 3) on the general, untransposed
-operation, as the reference's format switch does (mv.cpp:179), and go
-through the planner's CSR otherwise. `mv_operator` keeps a gen operand's
-iterations in permuted space. A product whose values are still pending
-runs on its seeded band without materializing them. The host engine (KID
-11, kernels/host.py) runs when `kid=11` asks for it, or without a kid
-where `autotune_mv` pinned it on an existing plan (`plan._mv_engine`, the
-JAX package's mv.py:552-560), and then returns a CPU tensor.
+(KID 10), `ell`, `ellhyb` and `segsum` forms (KID 0, the CSR row-gather
+kernel, kernels/spmv_csr.py, which the card's default takes for general
+structure; like the JAX package's segsum it ignores the mixed-precision
+policy); ELL, DIA and BSR handles run their native products (KIDs 1, 4
+and 3) on the general, untransposed operation, as the reference's format
+switch does (mv.cpp:179), and go through the planner's CSR otherwise.
+`mv_operator` keeps a gen operand's iterations in permuted space. A
+product whose values are still pending runs on its seeded band without
+materializing them. The host engine (KID 11, kernels/host.py) runs when
+`kid=11` asks for it, or without a kid where `autotune_mv` pinned it on
+an existing plan (`plan._mv_engine`, the JAX package's mv.py:552-560),
+and then returns a CPU tensor.
 """
 
 from __future__ import annotations
@@ -136,7 +139,9 @@ def _spill_route_on(form, device: torch.device) -> bool:
 
 def _run_exec_form(form, x: torch.Tensor, kid: Optional[int]) -> torch.Tensor:
     e = registry.select("mv", fmt=form.kind, kid=kid, device=x.device)
-    if form.kind in ("segsum", "sell"):
+    if form.kind == "segsum":
+        return e.fn(form.ind, form.val, form.row_ids, x, form.m, form.ptr, form.csr_long, form.csr_lanes)
+    if form.kind == "sell":
         return e.fn(form.ind, form.val, form.row_ids, x, form.m)
     if form.kind == "bwd":
         band = form.band_bf16() if _mixed_enabled(form, x.dtype) else form.bwd_val

@@ -102,7 +102,7 @@ def _run_mm_form(form, B: torch.Tensor, kid: Optional[int], mixed: bool = False)
     if form.kind == "diag":
         return e.fn(form.dia_bf16() if mixed else form.dia_val, form.dia_offs, B, offs_static=form.dia_offs_static)
     if form.kind == "segsum":
-        return e.fn(form.ind, form.val, form.row_ids, B, form.m)
+        return e.fn(form.ind, form.val, form.segsum_rows(), B, form.m)
     if form.kind == "ell":
         return e.fn(form.ell_ind, form.ell_val, B)
     if form.kind == "ellhyb":

@@ -62,6 +62,8 @@ __all__ = [
     "choose_mm_format",
     "choose_mv_format",
     "gather_fallback_kind",
+    "pick_mv_format",
+    "structure_mv_format",
     "gen_mm_ok",
     "get_plan",
     "mm_kind",
@@ -72,6 +74,37 @@ __all__ = [
 def _dev_index(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host index map -> int64 device tensor (torch's native index type)."""
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)
+
+
+def _csr_index(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host CSR index array -> device tensor in its own int32 or int64
+    dtype (other integer types widen to int64): what the CSR kernel reads."""
+    a = np.asarray(a)
+    if a.dtype not in (np.int32, np.int64):
+        a = a.astype(np.int64)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def attach_csr_plan(form: "ExecForm", ptr: np.ndarray) -> None:
+    """Put a segsum form's row pointers and the CSR kernel's schedule
+    (kernels/spmv_csr.py `csr_plan`) on its device, where the form lacks
+    them (at build, and on loading a plan snapshot written before segsum
+    forms carried them). The row of each entry is kept only where the plain
+    gather runs the form's mv (a CPU form, a dtype the kernel has no
+    instance for); the kernel reads ptr, and mm builds the rows at first
+    use (`ExecForm.segsum_rows`)."""
+    from ..kernels.spmv_csr import KERNEL_DTYPES, csr_plan, row_ids_from_ptr
+
+    dev = form.val.device
+    if form.ptr is None:
+        form.ptr = _csr_index(ptr, dev)
+        form.csr_lanes, long_rows = csr_plan(ptr)
+        form.csr_long = _dev_index(long_rows, dev)
+    plain = dev.type == "cpu" or form.val.dtype not in KERNEL_DTYPES
+    if not plain:
+        form.row_ids = None
+    elif form.row_ids is None:
+        form.row_ids = row_ids_from_ptr(form.ptr, form.ind.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -465,6 +498,14 @@ class ExecForm:
     ind: Optional[torch.Tensor] = None
     val: Optional[torch.Tensor] = None
     row_ids: Optional[torch.Tensor] = None
+    # segsum: the row pointers (int32 or int64, as the effective CSR holds
+    # them; ind keeps its index dtype too) and the CSR kernel's plan
+    # (kernels/spmv_csr.py `csr_plan`): the sub-warp width and the int64
+    # rows past its long-row threshold. Its row_ids are kept only where the
+    # plain gather runs its mv (`attach_csr_plan`)
+    ptr: Optional[torch.Tensor] = None
+    csr_lanes: int = 0
+    csr_long: Optional[torch.Tensor] = None
     sell_dest: Optional[np.ndarray] = None  # (nnz,) flat slice positions of the entries
     sell_total: int = 0
     # host: numpy CSR of the host engine (kernels/host.py); the values are
@@ -659,11 +700,21 @@ class ExecForm:
             self._perm_maps = (_dev_index(src, dev), _dev_index(inv, dev), hub_p)
         return self._perm_maps
 
+    def segsum_rows(self) -> torch.Tensor:
+        """A segsum form's row of each entry (int64), built from ptr at
+        first use where the form does not keep them: mm's gather reads
+        them, the CSR kernel does not."""
+        if self.row_ids is None:
+            from ..kernels.spmv_csr import row_ids_from_ptr
+
+            self.row_ids = row_ids_from_ptr(self.ptr, self.ind.shape[0])
+        return self.row_ids
+
     def nbytes(self) -> int:
         """Device bytes of the form's operands (the route's included)."""
-        ts = (self.ind, self.val, self.row_ids, self.ell_ind, self.ell_val, self.sp_ind, self.sp_val,
-              self.sp_rows, self.sp_gptr, self.bwd_val, self.dia_val, self.dia_offs, self.gen_perm, self.gen_out,
-              self.gen_flip, self.hub_cols, self.hub_slab, self.hubr_rows, self.hubr_slab)
+        ts = (self.ind, self.val, self.row_ids, self.ptr, self.csr_long, self.ell_ind, self.ell_val, self.sp_ind,
+              self.sp_val, self.sp_rows, self.sp_gptr, self.bwd_val, self.dia_val, self.dia_offs, self.gen_perm,
+              self.gen_out, self.gen_flip, self.hub_cols, self.hub_slab, self.hubr_rows, self.hubr_slab)
         own = sum(t.numel() * t.element_size() for t in ts if t is not None)
         return own + (self._spill_route.nbytes() if self._spill_route is not None else 0)
 
@@ -759,8 +810,42 @@ def _rows_rel(eff: EffectiveCSR):
     return rows, eff.ind.astype(np.int64) - rows
 
 
-def choose_mv_format(eff: EffectiveCSR) -> str:
-    """Execution-format selection, re-derived for Hopper.
+def pick_mv_format(kind: str, device, dtype) -> str:
+    """The device's part of the mv rule: `kind`, the structure's form
+    (`structure_mv_format`), on `device` for values of `dtype`.
+
+    On a CUDA device, `gen` gives way to `segsum` for the
+    dtypes the CSR kernel has (csrc/spmv_csr.cu: float32 and float64 among
+    the band dtypes; complex is `segsum` already): general structure runs
+    the row-gather kernel, never the composite nor the whole-matrix `route`
+    it falls back to. The reason is bytes. The CSR kernel reads
+    nnz * (index + value) + (m + 1) * 4 + m * value, its x gathers mostly
+    L2 hits; the `gen` band reads W * m_pad values for nnz entries plus two
+    permutes of 2 * m * (4 + value), in three launches or more. On the
+    webbase stand-in the band alone is 2.912 GB against the CSR kernel's
+    36.7 MB (79x): `gen` took 1.2778 ms a call against cuSPARSE's 0.0380,
+    the `route` form on the scatter operand 1.0563 against a 0.0066 ms
+    bound (an H100, PERF.md section 5). bfloat16 keeps `gen` (the
+    band kernel's bf16 instance; the CSR kernel has none). Elsewhere the
+    structure's form stands. Pins are untouched: kid=7 or kind="gen" still
+    build `gen`, kind="route" `route`, and an autotune_mv pin replaces the
+    default."""
+    from ..kernels.spmv_csr import KERNEL_DTYPES
+
+    if kind == "gen" and torch.device(device).type == "cuda" and dtype in KERNEL_DTYPES:
+        return "segsum"
+    return kind
+
+
+def choose_mv_format(eff: EffectiveCSR, device=None) -> str:
+    """The default mv form of `eff` on `device` (the values' device where
+    None): `structure_mv_format`'s form, turned by `pick_mv_format` (on the
+    card, general structure takes `segsum`)."""
+    return pick_mv_format(structure_mv_format(eff), eff.val.device if device is None else device, eff.val.dtype)
+
+
+def structure_mv_format(eff: EffectiveCSR) -> str:
+    """Execution-format selection by structure, re-derived for Hopper.
 
     The JAX package's rule (plan.py:815-879) rests on a TPU fact: gathers run
     far below the stream rate, so it weighs several gather-free forms. On
@@ -794,9 +879,11 @@ def choose_mv_format(eff: EffectiveCSR) -> str:
       gather fallback, as in the JAX package;
     - otherwise `segsum`.
 
-    Complex and float16 operands have no band kernel instance and take
-    `segsum`. AOCLSPARSE_TPU_FORCE_GENERIC (enable_instructions("generic"))
-    sends every operand to the gather forms, as in the JAX package
+    `choose_mv_format` turns `gen` into `segsum` on the card
+    (`pick_mv_format`); mm's rule reads this one, so its `gen` (mm KID 6)
+    stands. Complex and float16 operands have no band kernel instance and
+    take `segsum`. AOCLSPARSE_TPU_FORCE_GENERIC
+    (enable_instructions("generic")) sends every operand to the gather forms, as in the JAX package
     (plan.py:831-879 there)."""
     if eff.m == 0 or eff.nnz == 0:
         return "segsum"
@@ -1483,10 +1570,11 @@ def choose_mm_format(eff: EffectiveCSR) -> str:
       own diag test (plan.py:845-848): <= DIA_MAX diagonals with padding
       within BWD_CAP x nnz, or <= DIA_MAX_WIDE within 8 x nnz;
     - otherwise `gen` (KID 6, the general-structure composite) where
-      `choose_mv_format` takes `gen` for the operand: the JAX package's TPU
-      default, whose kind=None slot holds the mv form and sends it to KID
-      6. `mm_kind` keeps it only where the built form's band passes KID 6's
-      gate (`gen_mm_ok`: the band kernel's layout, W <= band_max_w);
+      `structure_mv_format` takes `gen` for the operand: the JAX package's
+      TPU default, whose kind=None slot holds the mv form and sends it to
+      KID 6 (on the card the mv default takes `segsum` there, and mm keeps
+      `gen`). `mm_kind` keeps it only where the built form's band passes
+      KID 6's gate (`gen_mm_ok`: the band kernel's layout, W <= band_max_w);
     - otherwise the gather form `gather_fallback_kind` picks.
 
     The kernels have f32, f64 and bf16 instances (a bf16 band or bf16
@@ -1503,7 +1591,7 @@ def choose_mm_format(eff: EffectiveCSR) -> str:
         return "bandtm"
     if _diag_ok(eff):
         return "diag"
-    if choose_mv_format(eff) == "gen":
+    if structure_mv_format(eff) == "gen":
         return "gen"
     return gather_fallback_kind(eff)
 
@@ -1590,16 +1678,9 @@ def _build_exec_form(eff: EffectiveCSR, kind: Optional[str]) -> ExecForm:
     if kind in ("ell", "ellhyb"):
         return _build_ell(eff, hybrid=kind == "ellhyb")
     if kind == "segsum":
-        rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(eff.ptr.astype(np.int64)))
-        dev = eff.val.device
-        return ExecForm(
-            kind="segsum",
-            m=m,
-            n=n,
-            ind=_dev_index(eff.ind, dev),
-            val=eff.val,
-            row_ids=_dev_index(rows, dev),
-        )
+        form = ExecForm(kind="segsum", m=m, n=n, ind=_csr_index(eff.ind, eff.val.device), val=eff.val)
+        attach_csr_plan(form, eff.ptr)
+        return form
     raise AoclSparseError(Status.not_implemented, f"no execution form '{kind}'")
 
 

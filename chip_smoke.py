@@ -15,9 +15,10 @@ failure (exit code != 0, no result line):
    block-window SpMM (both instances), band GEMM (both instances), band
    SpMM (every instance), diagonal SpMM (every instance), blocked-solve
    chain (all 30 instances: f32, f64, bf16, complex64, complex128 by dwin
-   and gather by 1, 2 and 4 columns) and level-solve (every instance,
-   complex included) kernels no stack frame and no spills (their
-   registers logged);
+   and gather by 1, 2 and 4 columns), level-solve (every instance,
+   complex included) and CSR row-gather (every instance: 4 value types by
+   int32 / int64 pointers and indices, 5 sub-warp widths) kernels no
+   stack frame and no spills (their registers logged);
 3. hold each kernel instance against its plain PyTorch version:
    - the band kernel on the bench operand (m = n = 262144, 64 nnz/row,
      half-bandwidth 64, seed 7, built as bench.py:220-233) in f32, bf16
@@ -138,14 +139,24 @@ failure (exit code != 0, no result line):
    (level kernel) and kid=2 (host engine) against kid=0 (dwin), and trsv
    on a float64 handle by default and kid=0 (the f64 level and dwin
    instances);
-5b. the general-structure path, counted on its own: mv on the webbase
-   stand-in (default: gen with its spill on the route; kid=7; alpha/beta;
-   the mixed bf16 band; mv_operator in permuted space; update_values and a
-   re-run; a float64 handle, which the planner sends to the gather
-   fallback), mv on the scatter operand (the whole-matrix route), each
-   against a float64 scipy reference and with the launches each call
-   implies; and pcg_solve with no preconditioner on the symmetrised
-   webbase, in permuted space, to a true relative residual <= 10 rtol;
+5b. the general-structure path, counted on its own. The card's default
+   sends general structure to the CSR row-gather kernel (mv KID 0,
+   csrc/spmv_csr.cu), which is first held against its plain version
+   (uncounted; the same bits twice) on each
+   operand: mv on the webbase stand-in (default: the CSR kernel, no band
+   or route launch; alpha/beta; the mixed mode, which the segsum form
+   ignores; mv_operator in the original space; update_values and a
+   re-run; a float64 handle: the f64 instance), on the scatter operand and
+   on the scircuit stand-in (the CSR kernel) and scircuit's complex64 and
+   complex128 twins (the complex instances); the gen composite by pin
+   (kid=7: its band on #1, its spill on the route kernels; the mixed bf16
+   band; mv_operator in permuted space with gen planted in the default
+   slot; after update_values) and the scatter operand's whole-matrix
+   route by pin (the kind="route" form in the default slot); each against
+   a float64 scipy reference and with the launches each call implies;
+   pcg_solve with no preconditioner on the symmetrised webbase by
+   default (the CSR kernel, original space) and under the gen pin
+   (permuted space), each to a true relative residual <= 10 rtol;
    and trsv on the scatter operand's triangles (f32 lower, f64 upper) by
    default (the level kernel) and kid=0 (gather forms on the chain kernel),
    each by its float64 residual;
@@ -188,8 +199,9 @@ failure (exit code != 0, no result line):
    on mv (the matrix paths' iterations and x, bit for bit); on the 104^3
    stencil itsol_solve CG with "cg preconditioner" = "sgs" (within one
    iteration of pcg_solve's, its sweeps on the level kernel); on the
-   webbase stand-in with the same shift (gen, spill route) pgmres_solve
-   with none in permuted space (b and x0 permuted in, x out, once each):
+   webbase stand-in with the same shift pgmres_solve with none by default
+   (the CSR kernel) and, with its gen form pinned (spill route), in
+   permuted space (b and x0 permuted in, x out, once each):
    each to a true relative residual <= 10 rtol by a float64 scipy product,
    with the launches its counts imply (unit calls' launches times the
    solve's matvecs and preconditioner applies) and the RCI and fused
@@ -211,7 +223,7 @@ failure (exit code != 0, no result line):
    plain checks first, uncounted): the scircuit stand-in
    (benchmarks/realmat.py:151-176, copied, seed 7: m = 170,998, about 959k
    nnz, its published size) planned through create_csr + hints +
-   optimize into gen; mm KID 6 at K = 64, f32 and a bf16 handle, the
+   optimize (mv: segsum, the CSR kernel; mm: gen); mm KID 6 at K = 64, f32 and a bf16 handle, the
    composite with the band SpMM kernel against the same composite with
    its plain band leg, the entry point against float64 scipy and cuSPARSE
    (torch.sparse CSR @ B), one band SpMM launch a call, the default mm
@@ -281,9 +293,15 @@ failure (exit code != 0, no result line):
    P and F; the route and the accumulate also cold (after writing
    a 128 MiB buffer) beside their library calls; the spill-route engine
    against the gather + index_add_ tail (call and device time), the webbase
-   band kernel alone, mv on the webbase and
-   scatter operands with a profiler window each (device time by kernel,
-   idle share), and one permuted-space CG iteration; the band GEMM kernel
+   band kernel alone; the CSR kernel's four instances alone (webbase f32
+   and f64, scircuit's complex twins) against their plain versions,
+   cuSPARSE and their byte bounds; on webbase, scatter and scircuit, the
+   lower of two turns of the CSR kernel alone and its plain version
+   (device time), the default mv call, the gen call by kid=7 (scatter: the
+   route form pinned) and cuSPARSE's call (call time), with a profiler
+   window of the default call each (device time by kernel, idle share)
+   (the crossover on the permuted bench band: scripts/csr_bench.py); a CG iteration
+   on the symmetrised webbase by default and under the gen pin; the band GEMM kernel
    against its plain version and cuSPARSE SpGEMM (torch.sparse CSR @ CSR),
    a finalize, the extraction gather and the chained mv on the band, and
    the host seconds of the symbolic stage and of the band relayout; a
@@ -324,8 +342,8 @@ failure (exit code != 0, no result line):
 
 Launch counts are reset just before phase 4 and read after phase 5, reset
 again just before phase 5b and read after it, and again around phases 5c,
-5d, 5e, 5f, 5g, 5h, 5i and 5j (the kernels line takes the spill-route kernels'
-counts from 5b, the band GEMM's from 5c, the group-window kernel's from 5d,
+5d, 5e, 5f, 5g, 5h, 5i and 5j (the kernels line takes the CSR kernel's and
+the spill-route kernels' counts from 5b, the band GEMM's from 5c, the group-window kernel's from 5d,
 the measurement path's kernels' from 5e and the bf16 and complex instances'
 from 5g, and adds 5h's band SpMM launches, mm KID 6's band leg, to the
 band SpMM's f32 and bf16 counts; the chain kernel's gather instances and
@@ -397,6 +415,7 @@ from aoclsparse_tpu_torch.kernels.spgemm_band import build_band_gemm_plan, extra
 from aoclsparse_tpu_torch.kernels.plain_spmv import spmv_diag
 from aoclsparse_tpu_torch.kernels.spmm_diag import diag_schedule, spmm_diag, spmm_diag_plain
 from aoclsparse_tpu_torch.kernels.spmv_bwd import spmv_bwd, spmv_bwd_plain
+from aoclsparse_tpu_torch.kernels.spmv_csr import LONG_ROW_STEPS, csr_launches, spmv_csr, spmv_csr_plain
 from aoclsparse_tpu_torch.kernels.spmv_mxu import spmv_band_mxu, spmv_band_mxu_plain, spmv_bandmxu
 from aoclsparse_tpu_torch.kernels.stream_read import stream_read, stream_read_plain
 from aoclsparse_tpu_torch.io import load_matrix, load_plan, read_mtx, save_matrix, save_plan, write_mtx
@@ -519,9 +538,18 @@ KERNELS = {
     "trsv_gather_bf16": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:152"),
     "trsv_gather_c64": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:152"),
     "trsv_gather_c128": ("aoclsparse_tpu_torch/csrc/trsv_blocked.cu", "aoclsparse_tpu/kernels/xla/trsv.py:152"),
+    # the CSR row-gather SpMV (mv KID 0): the JAX package runs it as the XLA
+    # formulation spmv_segsum, no Pallas kernel
+    "spmv_csr_f32": ("aoclsparse_tpu_torch/csrc/spmv_csr.cu", "aoclsparse_tpu/kernels/xla/spmv.py:51"),
+    "spmv_csr_f64": ("aoclsparse_tpu_torch/csrc/spmv_csr.cu", "aoclsparse_tpu/kernels/xla/spmv.py:51"),
+    "spmv_csr_c64": ("aoclsparse_tpu_torch/csrc/spmv_csr.cu", "aoclsparse_tpu/kernels/xla/spmv.py:51"),
+    "spmv_csr_c128": ("aoclsparse_tpu_torch/csrc/spmv_csr.cu", "aoclsparse_tpu/kernels/xla/spmv.py:51"),
 }
-#: the kernels of the general-structure path (phase 5b), counted there
-GEN_PATH = ("oh_select_f32", "oh_accum_f32", "benes_route_f32")
+#: the kernels of the general-structure path (phase 5b), counted there:
+#: the CSR kernel of the card's default, the route kernels of the gen and
+#: route pins
+CSR_PATH = ("spmv_csr_f32", "spmv_csr_f64", "spmv_csr_c64", "spmv_csr_c128")
+GEN_PATH = ("oh_select_f32", "oh_accum_f32", "benes_route_f32") + CSR_PATH
 #: the kernels of the circuit path (phase 5i: scircuit's deep triangles on
 #: the chain kernel by the gate, the bf16 and complex instances), counted there
 CIRCUIT_PATH = ("trsv_gather_f32", "trsv_gather_f64", "trsv_gather_bf16", "trsv_gather_c64", "trsv_gather_c128",
@@ -581,6 +609,7 @@ COUNTERS = {
     "trsv_dwin": trsv_dwin.launches,
     "trsv_gather": trsv_gather.launches,
     "trsv_level": trsv_level.launches,
+    "spmv_csr": spmv_csr.launches,
 }
 #: the bf16 solves (window and chain kernels) against their plain versions,
 #: and the relative residuals of the bf16 chain solves: four bf16 units in
@@ -664,6 +693,12 @@ KERNEL_TOL = {
     # model tolerance of the real part's dtype
     "trsv_level_c64": expected_precision(torch.complex64),
     "trsv_level_c128": expected_precision(torch.complex128),
+    # the same products summed in another order (a sub-warp's butterfly, a
+    # long row's warp sums) than index_add_'s: the dtype's model tolerance
+    "spmv_csr_f32": expected_precision(torch.float32),
+    "spmv_csr_f64": expected_precision(torch.float64),
+    "spmv_csr_c64": expected_precision(torch.complex64),
+    "spmv_csr_c128": expected_precision(torch.complex128),
 }
 #: mv and mm against the float64 reference: the operand dtype's model tolerance
 MV_TOL = {"f32": expected_precision(torch.float32), "f64": expected_precision(torch.float64)}
@@ -2397,22 +2432,39 @@ def solver_framework(nonsym, H, hptr, hind, hval, wptr, wind, wval, dev, rtol, s
         raise AssertionError(f"itsol SGS-CG took {it} iterations, pcg_solve {sgs_iters}")
     out.update(H=H, bh=bh_d, sgs_cg=it)
 
-    # the webbase stand-in with the shift: permuted-space GMRES
+    # the webbase stand-in with the shift: GMRES by default on the CSR
+    # kernel, and in permuted space by the gen pin
     t0 = time.perf_counter()
     wm = len(wptr) - 1
     Sw, w2ptr, w2ind, w2val = shifted_operand(wptr, wind, wval, wm)
     Wn = tt.create_csr(wm, wm, w2ptr, w2ind, w2val, device=dev)
     tt.set_mv_hint(Wn, NONE, GEN, nop=1000)
     tt.optimize(Wn)
-    wform = Wn.plan.exec_form_for(GEN, NONE)
-    if not (wform.kind == "gen" and wform.gen_bandt and _spill_route_on(wform, dev)):
-        raise AssertionError(f"shifted webbase planned as {wform.kind}, want gen with a routed spill")
+    if default_mv_form(Wn).kind != "segsum":
+        raise AssertionError(f"shifted webbase planned as {default_mv_form(Wn).kind}, want segsum on the card")
+    wform = Wn.plan.gen_form_for(GEN, NONE)
+    if not (wform is not None and wform.gen_bandt and _spill_route_on(wform, dev)):
+        raise AssertionError("the shifted webbase's gen form (the pin) lacks the band layout or a routed spill")
     wroute = wform.spill_route()
     torch.cuda.synchronize()
-    log(f"  shifted webbase (nnz={w2ind.size}): plan + spill route {time.perf_counter() - t0:.2f} s; W={wform.bwd_W}, "
-        f"spilled {wform.sp_ind.numel()}; route {route_desc(wroute)}")
+    log(f"  shifted webbase (nnz={w2ind.size}): plan (segsum) + its gen form + spill route "
+        f"{time.perf_counter() - t0:.2f} s; W={wform.bwd_W}, spilled {wform.sp_ind.numel()}; route "
+        f"{route_desc(wroute)}")
     bw = np.random.default_rng(83).standard_normal(wm).astype(np.float32)
     bw_d = torch.from_numpy(bw).to(dev)
+    per_mv_d = launches_of(lambda: tt.mv(1.0, Wn, GEN, NONE, bw_d, 0.0))
+    c0 = read_counts()
+    t0 = time.perf_counter()
+    xw, itd, rd = tt.pgmres_solve(Wn, bw_d, rtol=rtol, atol=0.0, maxit=3000, restart=20)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    c1 = read_counts()
+    res = check_residual("GMRES default (webbase, the CSR kernel)", Sw, xw, bw.astype(np.float64), res_tol)
+    log(f"  pgmres_solve default (shifted webbase, restart 20, the CSR kernel): {itd} iterations in {t:.3f} s, "
+        f"estimate {rd:.3e}, true rel residual {res:.3e}")
+    fused_gmres_launches("GMRES default (webbase)", {k: c1[k] - c0[k] for k in c1}, itd, 20, per_mv_d)
+    # the gen pin, kept on the handle (phase 6 times the permuted GMRES)
+    Wn.plan.exec_forms[MV_SLOT] = wform
     per_mv_w = launches_of(lambda: tt.mv(1.0, Wn, GEN, NONE, bw_d, 0.0))
     permutes = {"to": 0, "from": 0}
     real = fused_mod._gen_pspace
@@ -2446,7 +2498,7 @@ def solver_framework(nonsym, H, hptr, hind, hval, wptr, wind, wval, dev, rtol, s
     if permutes != {"to": 2, "from": 1}:
         raise AssertionError(f"permuted GMRES permuted {permutes}: want b and x0 in once, x out once")
     fused_gmres_launches("permuted GMRES (webbase)", {k: c1[k] - c0[k] for k in c1}, itw, 20, per_mv_w)
-    out.update(W=Wn, bw=bw_d, wgmres=(itw, rw))
+    out.update(W=Wn, bw=bw_d, wgmres=(itw, rw), wgmres_default=(itd, rd))
     return out
 
 
@@ -2554,8 +2606,12 @@ def lowprec_complex_path(ptr, ind, val, nonsym, hptr, hind, hval, Hc, hstc, dev,
     per_ilu = launches_of(lambda: tt.ilu_smoother(Hc, GEN, bc_d))
     per_sgs = launches_of(lambda: tt.symgs(NONE, Hc, GEN, 1.0, bc_d))
     log(f"  complex stencil unit launches: mv {per_mv}, ILU0 apply {per_ilu}, SGS apply {per_sgs}")
-    if per_ilu != {"trsv_level_c64": 2} or per_sgs != {"trsv_level_c64": 2}:
-        raise AssertionError("the complex stencil's ILU0 and SGS applies must be two complex64 level solves each")
+    # the SGS apply's two strict-triangle products run on the CSR kernel's
+    # complex64 instance (a complex triangle's mv form is segsum; the
+    # stencil has no long row: one launch each)
+    if per_ilu != {"trsv_level_c64": 2} or per_sgs != {"trsv_level_c64": 2, "spmv_csr_c64": 2}:
+        raise AssertionError("the complex stencil's ILU0 and SGS applies must be two complex64 level solves each, "
+                             "and the SGS apply's products two launches of the CSR kernel's complex64 instance")
     c0 = read_counts()
     t0 = time.perf_counter()
     xg, itg, rg = tt.pgmres_solve(Hc, bc_d, rtol=rtol, atol=0.0, restart=20, precond="ilu0")
@@ -2965,9 +3021,13 @@ def tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, ilu_iters, peak, er
     tt.optimize(S)
     torch.cuda.synchronize()
     out["t_plan"] = time.perf_counter() - t0
-    form = S.plan.exec_form_for(GEN, NONE)
-    if form.kind != "gen" or not form.gen_bandt:
-        raise AssertionError(f"scircuit planned as {form.kind}, want gen in the band layout")
+    # the mv default takes the CSR kernel's segsum form on the card; mm's
+    # default keeps the gen form (mm KID 6), which gen_form_for holds
+    if default_mv_form(S).kind != "segsum":
+        raise AssertionError(f"scircuit's mv planned as {default_mv_form(S).kind}, want segsum on the card")
+    form = S.plan.gen_form_for(GEN, NONE)
+    if form is None or not form.gen_bandt:
+        raise AssertionError("scircuit's gen form (mm's default) is not in the band layout")
     nsp = 0 if not form.has_spill else form.sp_ind.numel()
     nhub = 0 if form.hub_cols is None else form.hub_cols.numel()
     nhubr = 0 if form.hubr_rows is None else form.hubr_rows.numel()
@@ -3050,7 +3110,8 @@ def tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, ilu_iters, peak, er
     # and the next call dispatches the pinned form (its kernel's counter)
     route = {"oh_select_f32", "oh_accum_f32", "benes_route_f32"}
     mv_kernels = {"bandt": {"band_spmv_f32"}, "bwd": {"spmv_bwd_f32"}, "route": route,
-                  "gen": {"band_spmv_f32"} | (route if _spill_route_on(form, dev) else set())}
+                  "gen": {"band_spmv_f32"} | (route if _spill_route_on(form, dev) else set()),
+                  "segsum": {"spmv_csr_f32"}}
     mm_kernels = {"bandtm": {"spmm_band_f32"}, "gen": {"spmm_band_f32"}, "bandmxu": {"spmm_band_mxu_f32"},
                   "diag": {"spmm_diag_f32"}}
 
@@ -3208,6 +3269,348 @@ def uncounted():
     finally:
         for prefix, counts in COUNTERS.items():
             counts.update(saved[prefix])
+
+
+MV_SLOT = (GEN.type, GEN.fill_mode, GEN.diag_type, NONE, None)
+
+
+def default_mv_form(A):
+    """The form A's default general mv runs (the plan's kind=None slot)."""
+    return tplan.get_plan(A).exec_form_for(GEN, NONE)
+
+
+@contextlib.contextmanager
+def pinned_form(A, form):
+    """Plant `form` in A's default mv slot for the block, the slot
+    autotune_mv pins: mv without a kid, mv_operator and the solvers run it.
+    The default's form comes back after the block."""
+    plan = tplan.get_plan(A)
+    saved = plan.exec_forms.get(MV_SLOT)
+    plan.exec_forms[MV_SLOT] = form
+    try:
+        yield form
+    finally:
+        if saved is None:
+            del plan.exec_forms[MV_SLOT]
+        else:
+            plan.exec_forms[MV_SLOT] = saved
+
+
+def csr_call(form, x):
+    """The CSR kernel's wrapper on a segsum form's operands."""
+    return spmv_csr(form.ptr, form.ind, form.val, x, form.csr_long, form.csr_lanes)
+
+
+def csr_plain(form, x):
+    """The kernel's plain version on the same operands, over the form's row
+    ids (built from ptr at the first call: a form on the card keeps none)."""
+    return spmv_csr_plain(form.ptr, form.ind, form.val, x, form.segsum_rows())
+
+
+def csr_want(form, name="spmv_csr_f32"):
+    """The CSR kernel's launches in one call on `form`, and none of the
+    gen composite's band or of the route kernels."""
+    want = {"band_spmv_f32": 0, "oh_select_f32": 0, "oh_accum_f32": 0, "benes_route_f32": 0}
+    want[name] = csr_launches(form.m, form.csr_long.numel())
+    return want
+
+
+def csr_bytes(form, x):
+    """Bytes the CSR product must move: ptr, ind, val and x read once, y
+    written once (bench.py:60's useful bytes at the form's index widths)."""
+    return nbytes(form.ptr, form.ind, form.val, x) + form.m * form.val.element_size()
+
+
+def csr_flops(form):
+    """Operations of the CSR product: a multiply-add an entry, 8 real
+    operations for a complex one."""
+    return form.ind.numel() * (8 if form.val.is_complex() else 2)
+
+
+def pinned_call(A, form, x):
+    """One mv with `form` pinned in A's default slot."""
+    with pinned_form(A, form):
+        return tt.mv(1.0, A, GEN, NONE, x, 0.0)
+
+
+def check_csr_kernel(kernel, label, form, x, errs):
+    """The CSR kernel on a segsum form against its plain version; two calls
+    give the same bits (the int64 index instances: the cuda tests of
+    tests/test_torch_csr_spmv.py)."""
+    got = same_bits(kernel, label, lambda: csr_call(form, x))
+    compare(kernel, f"{label} ({form.csr_lanes} lanes, {form.csr_long.numel()} long rows)", got, csr_plain(form, x),
+            errs)
+
+
+def general_path(Wh, wform, wroute, wptr, wind, wval, Qh, qform, qptr, qind, qval, dev, rtol, errs):
+    """Phase 5b's mv and CG calls (the caller resets the counters first):
+    the CSR kernel by default, the gen and route forms by pin. Returns
+    what the phase's trsv calls and phase 6 use."""
+    res_tol = 10 * rtol
+    wm, qm = len(wptr) - 1, len(qptr) - 1
+    qstripes = qform._spill_route.stripes
+    Sw = sp.csr_matrix((wval.astype(np.float64), wind, wptr), shape=(wm, wm))
+    xw = np.random.default_rng(47).standard_normal(wm).astype(np.float32)
+    xw_d = torch.from_numpy(xw).to(dev)
+    refw = Sw @ xw.astype(np.float64)
+    wdef = default_mv_form(Wh)
+    log(f"  webbase segsum form: {wdef.csr_lanes} lanes a row, {wdef.csr_long.numel()} long rows (past "
+        f"{LONG_ROW_STEPS * wdef.csr_lanes} entries), ptr {wdef.ptr.dtype}, ind {wdef.ind.dtype}; form bytes "
+        f"{wdef.nbytes() / 1e6:.1f} MB")
+    with uncounted():
+        check_csr_kernel("spmv_csr_f32", "webbase", wdef, xw_d, errs)
+    check_mv("webbase mv default (segsum: the CSR kernel)",
+             counted("webbase mv", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0), csr_want(wdef)), refw,
+             MV_TOL["f32"])
+    yw = torch.from_numpy(np.random.default_rng(53).standard_normal(wm).astype(np.float32)).to(dev)
+    check_mv("webbase mv alpha=1.5 beta=-0.5 (CSR kernel)",
+             counted("alpha/beta", lambda: tt.mv(1.5, Wh, GEN, NONE, xw_d, -0.5, yw), csr_want(wdef)),
+             1.5 * refw - 0.5 * yw.double().cpu().numpy(), MV_TOL["f32"])
+    # the gen composite by pin (kid=7): its band on #1, its spill on the
+    # route kernels, held to the same reference
+    per_call = {"band_spmv_f32": 1, "oh_select_f32": 1, "oh_accum_f32": 1, "benes_route_f32": route_launches(wroute),
+                "spmv_csr_f32": 0}
+    check_mv("webbase mv kid=7 (gen, spill route)",
+             counted("kid=7", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0, kid=7), per_call), refw, MV_TOL["f32"])
+    tt.set_precision_mode(Wh, "mixed")
+    # the segsum form ignores the mixed mode, as the JAX package's does
+    check_mv("webbase mv mixed mode, default (the CSR kernel in f32)",
+             counted("mixed default", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0), csr_want(wdef)), refw,
+             MV_TOL["f32"])
+    mixed_call = dict(per_call, band_spmv_f32=0, band_spmv_bf16=1)
+    ymix = counted("mixed kid=7", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0, kid=7), mixed_call
+                   ).double().cpu().numpy()
+    tt.set_precision_mode(Wh, "full")
+    # docs/precision.md: the bf16 band rounds one operand of each band product
+    bound = 2.0**-8 * (abs(Sw) @ np.abs(xw.astype(np.float64))) + row_nnz(wptr) * 2.0**-23 * np.abs(refw)
+    worst = float(np.max(np.abs(ymix - refw) / bound))
+    log(f"  webbase mv mixed kid=7 (gen, bf16 band): max |err| / documented bound {worst:.3f} (must be <= 1)")
+    if not (np.all(np.isfinite(ymix)) and worst <= 1.0):
+        raise AssertionError("webbase mixed-precision mv outside the documented error bound")
+    op = tt.mv_operator(Wh)
+    if op.space != "original":
+        raise AssertionError(f"mv_operator on the segsum form iterates in the {op.space} space")
+    check_mv("webbase mv_operator (default: original space, the CSR kernel)",
+             counted("mv_operator default", lambda: op.from_space(op(op.to_space(xw_d))), csr_want(wdef)), refw,
+             MV_TOL["f32"])
+    with pinned_form(Wh, wform):
+        op = tt.mv_operator(Wh)
+        if op.space != "permuted":
+            raise AssertionError(f"mv_operator on the gen pin iterates in the {op.space} space")
+        check_mv("webbase mv_operator (gen pin: permuted space, round trip)",
+                 counted("mv_operator gen", lambda: op.from_space(op(op.to_space(xw_d))), per_call), refw,
+                 MV_TOL["f32"])
+    wval2 = np.random.default_rng(59).standard_normal(wval.size).astype(np.float32)
+    t0 = time.perf_counter()
+    tt.update_values(Wh, wval2)
+    torch.cuda.synchronize()
+    log(f"  webbase update_values: {time.perf_counter() - t0:.2f} s")
+    refw2 = sp.csr_matrix((wval2.astype(np.float64), wind, wptr), shape=(wm, wm)) @ xw.astype(np.float64)
+    check_mv("webbase mv after update_values (CSR kernel)",
+             counted("update_values", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0), csr_want(wdef)), refw2,
+             MV_TOL["f32"])
+    check_mv("webbase mv kid=7 after update_values (gen)",
+             counted("update_values kid=7", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0, kid=7), per_call), refw2,
+             MV_TOL["f32"])
+    t0 = time.perf_counter()
+    W64 = tt.create_csr(wm, wm, wptr, wind, wval.astype(np.float64), device=dev)
+    tt.set_mv_hint(W64, NONE, GEN, nop=1000)
+    tt.optimize(W64)
+    w64form = default_mv_form(W64)
+    # f64 general structure: the CSR kernel's f64 instance (the gather
+    # fallback, ellhyb, before the card's rule sent it there)
+    if w64form.kind != "segsum":
+        raise AssertionError(f"float64 webbase planned as {w64form.kind}, want segsum on the card")
+    xw64_d = xw_d.double()
+    with uncounted():
+        check_csr_kernel("spmv_csr_f64", "webbase f64", w64form, xw64_d, errs)
+    check_mv("webbase mv float64 (the CSR kernel's f64 instance)",
+             counted("f64", lambda: tt.mv(1.0, W64, GEN, NONE, xw64_d, 0.0),
+                     dict(csr_want(w64form, "spmv_csr_f64"), spmv_csr_f32=0, band_spmv_f64=0)), refw, MV_TOL["f64"])
+    log(f"  float64 webbase: plan + mv {time.perf_counter() - t0:.2f} s")
+    Sq = sp.csr_matrix((qval.astype(np.float64), qind, qptr), shape=(qm, qm))
+    xq = np.random.default_rng(61).standard_normal(qm).astype(np.float32)
+    xq_d = torch.from_numpy(xq).to(dev)
+    refq = Sq @ xq.astype(np.float64)
+    qdef = default_mv_form(Qh)
+    with uncounted():
+        check_csr_kernel("spmv_csr_f32", "scatter", qdef, xq_d, errs)
+    check_mv("scatter mv default (segsum: the CSR kernel)",
+             counted("scatter mv", lambda: tt.mv(1.0, Qh, GEN, NONE, xq_d, 0.0), csr_want(qdef)), refq, MV_TOL["f32"])
+    q_call = {"oh_select_f32": len(qstripes), "oh_accum_f32": len(qstripes),
+              "benes_route_f32": sum(route_launches(s) for s in qstripes), "band_spmv_f32": 0, "spmv_csr_f32": 0}
+    with pinned_form(Qh, qform):
+        check_mv("scatter mv, the whole-matrix route pinned",
+                 counted("scatter mv route", lambda: tt.mv(1.0, Qh, GEN, NONE, xq_d, 0.0), q_call), refq,
+                 MV_TOL["f32"])
+    # scircuit, real and complex (its values plus i times a second draw)
+    t0 = time.perf_counter()
+    rcm, _rcn, rcptr, rcind, rcval = scircuit(np.random.default_rng(7))
+    RC = tt.create_csr(rcm, rcm, rcptr, rcind, rcval, device=dev)
+    tt.set_mv_hint(RC, NONE, GEN, nop=1000)
+    tt.optimize(RC)
+    rcdef = default_mv_form(RC)
+    if rcdef.kind != "segsum":
+        raise AssertionError(f"scircuit planned as {rcdef.kind}, want segsum on the card")
+    xrc = np.random.default_rng(63).standard_normal(rcm).astype(np.float32)
+    xrc_d = torch.from_numpy(xrc).to(dev)
+    Src = sp.csr_matrix((rcval.astype(np.float64), rcind, rcptr), shape=(rcm, rcm))
+    log(f"  scircuit (m={rcm}, nnz={rcind.size}): plan {time.perf_counter() - t0:.2f} s, {rcdef.csr_lanes} lanes a "
+        f"row, {rcdef.csr_long.numel()} long rows")
+    with uncounted():
+        check_csr_kernel("spmv_csr_f32", "scircuit", rcdef, xrc_d, errs)
+    check_mv("scircuit mv default (segsum: the CSR kernel)",
+             counted("scircuit mv", lambda: tt.mv(1.0, RC, GEN, NONE, xrc_d, 0.0), csr_want(rcdef)),
+             Src @ xrc.astype(np.float64), MV_TOL["f32"])
+    rcval_c = rcval + 1j * np.random.default_rng(65).standard_normal(rcval.size).astype(np.float32)
+    xrcc = xrc + 1j * np.random.default_rng(66).standard_normal(rcm).astype(np.float32)
+    ref_rcc = (sp.csr_matrix((rcval_c.astype(np.complex128), rcind, rcptr), shape=(rcm, rcm))
+               @ xrcc.astype(np.complex128))
+    cplx = {}
+    for inst, npdt, tdt in (("c64", np.complex64, torch.complex64), ("c128", np.complex128, torch.complex128)):
+        Sk = tt.create_csr(rcm, rcm, rcptr, rcind, rcval_c.astype(npdt), device=dev)
+        kform = default_mv_form(Sk)
+        if kform.kind != "segsum":
+            raise AssertionError(f"{inst} scircuit planned as {kform.kind}, want segsum")
+        xk = torch.from_numpy(xrcc.astype(npdt)).to(dev)
+        with uncounted():
+            check_csr_kernel(f"spmv_csr_{inst}", f"scircuit {inst}", kform, xk, errs)
+        check_mv(f"scircuit mv {inst} (the CSR kernel's {inst} instance)",
+                 counted(f"scircuit {inst}", lambda: tt.mv(1.0, Sk, GEN, NONE, xk, 0.0),
+                         csr_want(kform, f"spmv_csr_{inst}")), ref_rcc, expected_precision(tdt))
+        cplx[inst] = (Sk, kform, xk)
+    # CG on the symmetrised webbase: by default on the CSR kernel, in
+    # original space; by the gen pin in permuted space
+    t0 = time.perf_counter()
+    Sws, gptr, gind, gval = spd_operand(wptr, wind, wval, wm)
+    G = tt.create_csr(wm, wm, gptr, gind, gval, device=dev)
+    tt.set_mv_hint(G, NONE, GEN, nop=1000)
+    tt.optimize(G)
+    gdef = default_mv_form(G)
+    if gdef.kind != "segsum":
+        raise AssertionError(f"symmetrised webbase planned as {gdef.kind}, want segsum on the card")
+    gform = G.plan.gen_form_for(GEN, NONE)
+    if not (gform is not None and gform.gen_bandt and _spill_route_on(gform, dev)):
+        raise AssertionError("the symmetrised webbase's gen form (the pin) lacks the band layout or a routed spill")
+    groute = gform.spill_route()
+    torch.cuda.synchronize()
+    log(f"  symmetrised webbase (nnz={gind.size}): plan (segsum) + its gen form + spill route "
+        f"{time.perf_counter() - t0:.2f} s; segsum {gdef.csr_lanes} lanes, {gdef.csr_long.numel()} long rows; gen "
+        f"W={gform.bwd_W}, spilled {gform.sp_ind.numel()}, hub columns {gform.hub_cols.numel()}, hub rows "
+        f"{0 if gform.hubr_rows is None else gform.hubr_rows.numel()}; route {route_desc(groute)}")
+    bg = np.random.default_rng(67).standard_normal(wm).astype(np.float32)
+    bg_d = torch.from_numpy(bg).to(dev)
+    c0 = read_counts()
+    t0 = time.perf_counter()
+    xg, kd, rd = tt.pcg_solve(G, bg_d, rtol=rtol, maxit=1000)
+    torch.cuda.synchronize()
+    t_dcg = time.perf_counter() - t0
+    c1 = read_counts()
+    true_d = float(np.linalg.norm(bg - Sws @ xg.double().cpu().numpy()) / np.linalg.norm(bg.astype(np.float64)))
+    log(f"  pcg default (symmetrised webbase, the CSR kernel): {kd} iterations in {t_dcg:.3f} s, ||r||={rd:.3e}, "
+        f"true rel residual {true_d:.3e} (tol {res_tol:.1e})")
+    if not (kd < 1000 and np.isfinite(true_d) and true_d <= res_tol):
+        raise AssertionError("CG on the CSR kernel did not converge to the tolerance")
+    d_call = {k: (kd + 1) * v for k, v in csr_want(gdef).items()}
+    if {k: c1[k] - c0[k] for k in d_call} != d_call:
+        raise AssertionError(f"CG launches {({k: c1[k] - c0[k] for k in d_call})}, want {d_call}")
+    with pinned_form(G, gform):
+        c0 = read_counts()
+        t0 = time.perf_counter()
+        xg, kg, rg = tt.pcg_solve(G, bg_d, rtol=rtol, maxit=1000)
+        torch.cuda.synchronize()
+        t_gcg = time.perf_counter() - t0
+        c1 = read_counts()
+    true_g = float(np.linalg.norm(bg - Sws @ xg.double().cpu().numpy()) / np.linalg.norm(bg.astype(np.float64)))
+    log(f"  pcg permuted space (gen pin, symmetrised webbase): {kg} iterations in {t_gcg:.3f} s, ||r||={rg:.3e}, true "
+        f"rel residual {true_g:.3e} (tol {res_tol:.1e}); launches {({k: c1[k] - c0[k] for k in per_call})}")
+    if not (kg < 1000 and np.isfinite(true_g) and true_g <= res_tol):
+        raise AssertionError("permuted-space CG did not converge to the tolerance")
+    g_call = {"band_spmv_f32": kg + 1, "oh_select_f32": kg + 1, "oh_accum_f32": kg + 1,
+              "benes_route_f32": (kg + 1) * route_launches(groute), "spmv_csr_f32": 0}
+    if {k: c1[k] - c0[k] for k in g_call} != g_call:
+        raise AssertionError(f"permuted-space CG launches {({k: c1[k] - c0[k] for k in g_call})}, want {g_call}")
+    return dict(G=G, RC=RC, Sq=Sq, bg_d=bg_d, cplx=cplx, gform=gform, qdef=qdef, rcdef=rcdef, rcval_c=rcval_c,
+                w64form=w64form, wdef=wdef, wval2=wval2, xq_d=xq_d, xrc_d=xrc_d, xw64_d=xw64_d, xw_d=xw_d)
+
+
+def csr_timings(g5, Wh, Qh, qform, wval, dev, peak, ms, turns, note):
+    """Phase 6's times of the CSR kernel and of mv on general structure
+    (phase 5b's handles and forms, `g5`); the kernels line's entries of the
+    CSR kernel go into `ms` through `turns` and `note`."""
+    G, RC, bg_d, cplx, gform, qdef, rcdef, rcval_c, w64form, wdef, wval2, xq_d, xrc_d, xw64_d, xw_d = (
+        g5[k] for k in ("G", "RC", "bg_d", "cplx", "gform", "qdef", "rcdef", "rcval_c", "w64form", "wdef", "wval2",
+                        "xq_d", "xrc_d", "xw64_d", "xw_d"))
+    # the CSR kernel (mv KID 0): each instance alone, behind a device spin,
+    # against its plain version in turns, cuSPARSE (torch.sparse CSR @ x,
+    # the yardstick) and its bytes' bound (bench.py:60: each input once, y
+    # once), on the main path's operands: webbase f32 and f64, scircuit's
+    # complex twins
+    csr_cases = (
+        ("spmv_csr_f32", "webbase", wdef, xw_d, wval2),
+        ("spmv_csr_f64", "webbase f64", w64form, xw64_d, wval.astype(np.float64)),
+        ("spmv_csr_c64", "scircuit complex64", cplx["c64"][1], cplx["c64"][2], rcval_c.astype(np.complex64)),
+        ("spmv_csr_c128", "scircuit complex128", cplx["c128"][1], cplx["c128"][2], rcval_c.astype(np.complex128)),
+    )
+    for kernel, label, form, xv, vals in csr_cases:
+        pp, ii = form.ptr.cpu().numpy(), form.ind.cpu().numpy()
+        turns(kernel, lambda: csr_call(form, xv), lambda: csr_plain(form, xv))
+        At = csr_tensor(pp, ii, vals, dev, form.val.dtype)
+        nb = csr_bytes(form, xv)
+        note(kernel, nb, nb, csr_flops(form), lambda: At @ xv)
+        log(f"  {kernel} ({label}, {form.csr_lanes} lanes, {form.csr_long.numel()} long rows): "
+            f"{nb / ms[kernel] / 1e6:.1f} GB/s of its {nb / 1e6:.1f} MB")
+        del At
+    # mv on the general-structure operands, the lower of two turns each:
+    # the CSR kernel alone and its plain version (device time); the default
+    # mv call, the call pinned as a user pins it (gen: kid=7; the route,
+    # which has no mv kid: its form in the default slot, where autotune_mv
+    # writes it) and cuSPARSE's call (call time, the host's dispatch
+    # included); then the card's idle share in a profile of the default
+    # call. The crossover on the permuted bench band: scripts/csr_bench.py
+    gen_rows = (
+        ("webbase", Wh, wdef, xw_d, "gen kid=7", lambda xv: tt.mv(1.0, Wh, GEN, NONE, xv, 0.0, kid=7)),
+        ("scatter", Qh, qdef, xq_d, "route pinned", lambda xv: pinned_call(Qh, qform, xv)),
+        ("scircuit", RC, rcdef, xrc_d, "gen kid=7", lambda xv: tt.mv(1.0, RC, GEN, NONE, xv, 0.0, kid=7)),
+    )
+    for name, handle, form, xv, pin_name, pin_call in gen_rows:
+        pp, ii = form.ptr.cpu().numpy(), form.ind.cpu().numpy()
+        At = csr_tensor(pp, ii, form.val.cpu().numpy(), dev, torch.float32)
+        calls = {
+            "kernel": (lambda: csr_call(form, xv), True),
+            "plain": (lambda: csr_plain(form, xv), True),
+            "mv default": (lambda: tt.mv(1.0, handle, GEN, NONE, xv, 0.0), False),
+            f"mv {pin_name}": (lambda: pin_call(xv), False),
+            "cuSPARSE call": (lambda: At @ xv, False),
+        }
+        t = {}
+        for turn in (list(calls), list(reversed(calls))):
+            for key in turn:
+                fn, spin = calls[key]
+                t_ = cuda_ms(fn, reps=7, inner=5, backlog=spin)
+                t[key] = min(t.get(key, t_), t_)
+        bound = bound_of(csr_bytes(form, xv), csr_flops(form), "f32", peak)[0]
+        log(f"  {name} (m={form.m}, nnz={ii.size}, {form.csr_lanes} lanes, {form.csr_long.numel()} long rows; "
+            f"default {default_mv_form(handle).kind}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+            + f"; bound {bound:.4f} ms (bytes), kernel {bound / t['kernel']:.3f} of it, "
+            f"{csr_bytes(form, xv) / t['kernel'] / 1e6:.1f} GB/s; 1 - kernel / mv call "
+            f"{1 - t['kernel'] / t['mv default']:.3f}")
+        # 40 calls: a window of a few ms (5 calls of ~0.1 ms left the
+        # profiler no device event inside the window)
+        profile_mv(f"{name} mv default ({default_mv_form(handle).kind})",
+                   lambda: tt.mv(1.0, handle, GEN, NONE, xv, 0.0), calls=40)
+        del At
+    # CG on the symmetrised webbase: an iteration by default (the CSR
+    # kernel) and under the gen pin (permuted space, 1.47 ms before)
+    t_di, t_di_all = iteration_ms(lambda kk: tt.pcg_solve(G, bg_d, rtol=0.0, maxit=kk)[1], 5, 25)
+    log(f"  CG iteration, default (the CSR kernel; symmetrised webbase): {t_di:.4f} ms (host clock, median of "
+        f"{[round(t_, 4) for t_ in t_di_all]})")
+    with pinned_form(G, gform):
+        t_gi, t_gi_all = iteration_ms(lambda kk: tt.pcg_solve(G, bg_d, rtol=0.0, maxit=kk)[1], 5, 25)
+    log(f"  permuted-space CG iteration (gen pin; symmetrised webbase): {t_gi:.4f} ms (host clock, median of "
+        f"{[round(t_, 4) for t_ in t_gi_all]})")
+    profile_mv("CG default (symmetrised webbase, 5 fixed iterations)",
+               lambda: tt.pcg_solve(G, bg_d, rtol=0.0, maxit=5), calls=1, top=6)
 
 
 def full_window_bwd(A):
@@ -3604,7 +4007,7 @@ def dist_rank_path(mesh, cfg, go):
         ("dist_symgs (level)", lambda: dpar.dist_symgs(mesh, H, GEN, 1.0, bl, engine="level"),
          lambda: tt.symgs(NONE, H, GEN, 1.0, dev_t(bl))),
     ):
-        got = dpar.fetch(timed(name, call))  # one call each: 722 all_gathers a sweep
+        got = dpar.fetch(timed(name, call))  # one call each: an all_gather a level
         err(name, got, ref, expected_precision(torch.float32, 10))
 
     # SpGEMM: the numeric stage of the cant stand-in's A.A (planned in the set-up)
@@ -3836,12 +4239,13 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
     # the route, accumulate, block-window SpMV and SpMM, group-window,
-    # window-solve, band GEMM, band SpMM, diagonal SpMM and blocked-solve
-    # chain kernels index no register array at run time: no stack frame,
-    # no spills
+    # window-solve, band GEMM, band SpMM, diagonal SpMM, blocked-solve
+    # chain, level-solve and CSR row-gather kernels index no register
+    # array at run time: no stack frame, no spills
     names = ("benes_pass_kernel", "oh_accum_kernel", "spmv_mxu_kernel", "spmv_bwd_kernel", "win_block_kernel",
              "win_chain_kernel", "win_fix_kernel", "win_round_kernel", "spmm_band_mxu_f32_kernel", "spmm_band_mxu_bf16_kernel",
-             "band_gemm_kernel", "spmm_band_kernel", "spmm_diag_kernel", "trsv_blocked_kernel", "trsv_level_kernel")
+             "band_gemm_kernel", "spmm_band_kernel", "spmm_diag_kernel", "trsv_blocked_kernel", "trsv_level_kernel",
+             "spmv_csr_rows_kernel", "spmv_csr_long_kernel")
     res = ptxas_resources(ptxas, names)
     for fn, (frame, stores, loads, regs) in sorted(res.items()):
         short = next(fn[fn.index(nm):] for nm in names if nm in fn)[:48]
@@ -4289,15 +4693,23 @@ def main() -> int:
     tt.optimize(Wh)
     torch.cuda.synchronize()
     t_wplan = time.perf_counter() - t0
-    wform = next(iter(Wh.plan.exec_forms.values()))
-    if not (wform.kind == "gen" and wform.gen_bandt and _spill_route_on(wform, dev)):
-        raise AssertionError(f"webbase planned as {wform.kind} (band layout {wform.gen_bandt}), "
-                             "want gen in the band layout with its spill on the route")
+    # the card's default is the CSR kernel's segsum form; the gen
+    # composite, whose spill feeds the route kernels, is the kid=7 pin's
+    if default_mv_form(Wh).kind != "segsum":
+        raise AssertionError(f"webbase planned as {default_mv_form(Wh).kind}, want segsum on the card")
+    t0 = time.perf_counter()
+    wform = Wh.plan.gen_form_for(GEN, NONE)
+    torch.cuda.synchronize()
+    t_wgen = time.perf_counter() - t0
+    if not (wform is not None and wform.gen_bandt and _spill_route_on(wform, dev)):
+        raise AssertionError("webbase's gen form (the kid=7 pin) is not in the band layout with its spill on the "
+                             "route")
     t0 = time.perf_counter()
     wroute = wform.spill_route()
     torch.cuda.synchronize()
     t_wroute = time.perf_counter() - t0
-    log(f"  webbase gen form: create_csr + set_mv_hint + optimize {t_wplan:.2f} s, spill route plan {t_wroute:.2f} s; "
+    log(f"  webbase: create_csr + set_mv_hint + optimize (segsum) {t_wplan:.2f} s; its gen form (kid=7) "
+        f"{t_wgen:.2f} s, spill route plan {t_wroute:.2f} s; "
         f"B={wform.gen_B} m_pad={wform.gen_m_pad} W={wform.bwd_W} start={wform.bandt_start} padL={wform.bwd_padL}, "
         f"spilled {wform.sp_ind.numel()}, hub columns {wform.hub_cols.numel()}, hub rows "
         f"{0 if wform.hubr_rows is None else wform.hubr_rows.numel()}, flipped blocks "
@@ -4313,13 +4725,17 @@ def main() -> int:
     Qh = tt.create_csr(qm, qm, qptr, qind, qval, device="cuda")
     tt.set_mv_hint(Qh, NONE, GEN, nop=1000)
     tt.optimize(Qh)
+    if default_mv_form(Qh).kind != "segsum":
+        raise AssertionError(f"scatter operand planned as {default_mv_form(Qh).kind}, want segsum on the card")
+    # the whole-matrix route, which the CPU's default falls back to: by
+    # kind, pinned in phase 5b
+    qform = Qh.plan.exec_form_for(GEN, NONE, kind="route")
     torch.cuda.synchronize()
-    qform = next(iter(Qh.plan.exec_forms.values()))
     if qform.kind != "route":
-        raise AssertionError(f"scatter operand planned as {qform.kind}, want route")
+        raise AssertionError(f"scatter operand's kind='route' form is {qform.kind}")
     qstripes = qform._spill_route.stripes
-    log(f"  scatter operand (m={qm}, nnz={qind.size}): create_csr + set_mv_hint + optimize "
-        f"{time.perf_counter() - t0:.2f} s -> route form, {len(qstripes)} stripes, each "
+    log(f"  scatter operand (m={qm}, nnz={qind.size}): create_csr + set_mv_hint + optimize (segsum) + the "
+        f"kind='route' form {time.perf_counter() - t0:.2f} s -> route form, {len(qstripes)} stripes, each "
         f"{sorted({s.k for s in qstripes})}; stripe 0 rows [{qform._spill_route.row_lo[0]}, "
         f"{qform._spill_route.row_hi[0]}): {route_desc(qstripes[0])}; form bytes {qform.nbytes() / 1e6:.1f} MB")
     xq_d = torch.from_numpy(rrng.standard_normal(qm).astype(np.float32)).to(dev)
@@ -4653,99 +5069,11 @@ def main() -> int:
             raise AssertionError(f"kernel {kernel} never launched on the main path")
 
     # 5b. the general-structure path, counted on its own
-    phase("phase 5b: general-structure path (webbase gen + spill route, scatter route, permuted-space CG)")
+    phase("phase 5b: general-structure path (the CSR kernel by default on webbase, scatter, scircuit, f64 and "
+          "complex; gen + spill route and the whole-matrix route by pin; CG, permuted-space CG by pin)")
     reset_counts()
-    Sw = sp.csr_matrix((wval.astype(np.float64), wind, wptr), shape=(wm, wm))
-    xw = np.random.default_rng(47).standard_normal(wm).astype(np.float32)
-    xw_d = torch.from_numpy(xw).to(dev)
-    refw = Sw @ xw.astype(np.float64)
-    per_call = {"band_spmv_f32": 1, "oh_select_f32": 1, "oh_accum_f32": 1, "benes_route_f32": route_launches(wroute)}
-
-    check_mv("webbase mv default (gen, spill route)",
-             counted("webbase mv", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0), per_call), refw, MV_TOL["f32"])
-    check_mv("webbase mv kid=7", counted("kid=7", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0, kid=7), per_call),
-             refw, MV_TOL["f32"])
-    yw = torch.from_numpy(np.random.default_rng(53).standard_normal(wm).astype(np.float32)).to(dev)
-    check_mv("webbase mv alpha=1.5 beta=-0.5",
-             counted("alpha/beta", lambda: tt.mv(1.5, Wh, GEN, NONE, xw_d, -0.5, yw), per_call),
-             1.5 * refw - 0.5 * yw.double().cpu().numpy(), MV_TOL["f32"])
-    tt.set_precision_mode(Wh, "mixed")
-    mixed_call = dict(per_call, band_spmv_f32=0, band_spmv_bf16=1)
-    ymix = counted("mixed", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0), mixed_call).double().cpu().numpy()
-    tt.set_precision_mode(Wh, "full")
-    # docs/precision.md: the bf16 band rounds one operand of each band product
-    bound = 2.0**-8 * (abs(Sw) @ np.abs(xw.astype(np.float64))) + row_nnz(wptr) * 2.0**-23 * np.abs(refw)
-    worst = float(np.max(np.abs(ymix - refw) / bound))
-    log(f"  webbase mv mixed (bf16 band): max |err| / documented bound {worst:.3f} (must be <= 1)")
-    if not (np.all(np.isfinite(ymix)) and worst <= 1.0):
-        raise AssertionError("webbase mixed-precision mv outside the documented error bound")
-    op = tt.mv_operator(Wh)
-    if op.space != "permuted":
-        raise AssertionError(f"mv_operator on the gen form iterates in the {op.space} space")
-    check_mv("webbase mv_operator (permuted space, round trip)",
-             counted("mv_operator", lambda: op.from_space(op(op.to_space(xw_d))), per_call), refw, MV_TOL["f32"])
-    wval2 = np.random.default_rng(59).standard_normal(wval.size).astype(np.float32)
-    t0 = time.perf_counter()
-    tt.update_values(Wh, wval2)
-    torch.cuda.synchronize()
-    log(f"  webbase update_values: {time.perf_counter() - t0:.2f} s")
-    refw2 = sp.csr_matrix((wval2.astype(np.float64), wind, wptr), shape=(wm, wm)) @ xw.astype(np.float64)
-    check_mv("webbase mv after update_values",
-             counted("update_values", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0), per_call), refw2, MV_TOL["f32"])
-    t0 = time.perf_counter()
-    W64 = tt.create_csr(wm, wm, wptr, wind, wval.astype(np.float64), device="cuda")
-    tt.set_mv_hint(W64, NONE, GEN, nop=1000)
-    tt.optimize(W64)
-    w64form = next(iter(W64.plan.exec_forms.values()))
-    # at 8 B a value the gen cost model (the JAX package's constants) prices
-    # the band above GEN_MARGIN of the gather form, and the route serves
-    # float32 only: the gather fallback, as the JAX package plans it
-    if w64form.kind not in ("ell", "ellhyb", "segsum"):
-        raise AssertionError(f"float64 webbase planned as {w64form.kind}, want the gather fallback")
-    check_mv(f"webbase mv float64 (gather fallback: {w64form.kind})",
-             counted("f64", lambda: tt.mv(1.0, W64, GEN, NONE, xw_d.double(), 0.0),
-                     {"band_spmv_f64": 0, "oh_select_f32": 0}), refw, MV_TOL["f64"])
-    log(f"  float64 webbase: plan + mv {time.perf_counter() - t0:.2f} s")
-    del W64, w64form
-    Sq = sp.csr_matrix((qval.astype(np.float64), qind, qptr), shape=(qm, qm))
-    xq = np.random.default_rng(61).standard_normal(qm).astype(np.float32)
-    q_call = {"oh_select_f32": len(qstripes), "oh_accum_f32": len(qstripes),
-              "benes_route_f32": sum(route_launches(s) for s in qstripes), "band_spmv_f32": 0}
-    xq_d = torch.from_numpy(xq).to(dev)
-    check_mv("scatter mv default (whole-matrix route)",
-             counted("scatter mv", lambda: tt.mv(1.0, Qh, GEN, NONE, xq_d, 0.0), q_call),
-             Sq @ xq.astype(np.float64), MV_TOL["f32"])
-    # CG in permuted space on the symmetrised webbase
-    t0 = time.perf_counter()
-    Sws, gptr, gind, gval = spd_operand(wptr, wind, wval, wm)
-    G = tt.create_csr(wm, wm, gptr, gind, gval, device="cuda")
-    tt.set_mv_hint(G, NONE, GEN, nop=1000)
-    tt.optimize(G)
-    gform = next(iter(G.plan.exec_forms.values()))
-    if not (gform.kind == "gen" and gform.gen_bandt and _spill_route_on(gform, dev)):
-        raise AssertionError(f"symmetrised webbase planned as {gform.kind}, want gen with a routed spill")
-    groute = gform.spill_route()
-    torch.cuda.synchronize()
-    log(f"  symmetrised webbase (nnz={gind.size}): plan + spill route {time.perf_counter() - t0:.2f} s; "
-        f"W={gform.bwd_W}, spilled {gform.sp_ind.numel()}, hub columns {gform.hub_cols.numel()}, hub rows "
-        f"{0 if gform.hubr_rows is None else gform.hubr_rows.numel()}; route {route_desc(groute)}")
-    bg = np.random.default_rng(67).standard_normal(wm).astype(np.float32)
-    bg_d = torch.from_numpy(bg).to(dev)
-    c0 = read_counts()
-    t0 = time.perf_counter()
-    xg, kg, rg = tt.pcg_solve(G, bg_d, rtol=rtol, maxit=1000)
-    torch.cuda.synchronize()
-    t_gcg = time.perf_counter() - t0
-    c1 = read_counts()
-    true_g = float(np.linalg.norm(bg - Sws @ xg.double().cpu().numpy()) / np.linalg.norm(bg.astype(np.float64)))
-    log(f"  pcg permuted space (symmetrised webbase): {kg} iterations in {t_gcg:.3f} s, ||r||={rg:.3e}, true rel "
-        f"residual {true_g:.3e} (tol {res_tol:.1e}); launches {({k: c1[k] - c0[k] for k in per_call})}")
-    if not (kg < 1000 and np.isfinite(true_g) and true_g <= res_tol):
-        raise AssertionError("permuted-space CG did not converge to the tolerance")
-    g_call = {"band_spmv_f32": kg + 1, "oh_select_f32": kg + 1, "oh_accum_f32": kg + 1,
-              "benes_route_f32": (kg + 1) * route_launches(groute)}
-    if {k: c1[k] - c0[k] for k in g_call} != g_call:
-        raise AssertionError(f"permuted-space CG launches {({k: c1[k] - c0[k] for k in g_call})}, want {g_call}")
+    g5 = general_path(Wh, wform, wroute, wptr, wind, wval, Qh, qform, qptr, qind, qval, dev, rtol, errs)
+    Sq = g5["Sq"]
     # the scatter operand's triangles: the default takes the level kernel
     # (29 and 27 levels against 4,096 chain blocks), kid=0 the gather forms
     # on the chain kernel
@@ -4764,6 +5092,9 @@ def main() -> int:
         if gen_launches[kernel] == 0:
             raise AssertionError(f"kernel {kernel} never launched on the general-structure path")
         launches[kernel] = gen_launches[kernel]
+    # the gen pins ran the composite's band (f32, and bf16 in the mixed mode)
+    if not (gen_launches["band_spmv_f32"] and gen_launches["band_spmv_bf16"]):
+        raise AssertionError("the gen pins did not launch the band kernel")
 
     # 5c. the SpGEMM path, counted on its own
     phase("phase 5c: SpGEMM on the cant stand-in (sp2m two-stage, lazy product, chained mv, spmm, csr2m, syrk)")
@@ -5557,31 +5888,7 @@ def main() -> int:
     wband_bytes = nbytes(wform.bwd_val)
     log(f"  webbase band (W={wform.bwd_W}, {wband_bytes / 1e9:.3f} GB): band kernel {t_wband:.4f} ms = "
         f"{wband_bytes / t_wband / 1e6:.1f} GB/s ({wband_bytes / t_wband / 1e6 / peak:.3f} of peak)")
-    # mv on the general-structure operands, against torch.sparse CSR @ x
-    for name, handle, xv, (pp, ii, vv), extra in (
-        ("webbase mv (gen, spill route)", Wh, xw_d, (wptr, wind, wval2), {}),
-        ("webbase mv mixed (bf16 band)", Wh, xw_d, (wptr, wind, wval2), {"mixed": True}),
-        ("scatter mv (route)", Qh, xq_d, (qptr, qind, qval), {}),
-    ):
-        if extra:
-            tt.set_precision_mode(handle, "mixed")
-        t = cuda_ms(lambda: tt.mv(1.0, handle, GEN, NONE, xv, 0.0), reps=9, inner=5)
-        if extra:
-            tt.set_precision_mode(handle, "full")
-        mrows, nz = len(pp) - 1, ii.size
-        useful = ((mrows + 1 + nz) * 4 + (nz + 2 * mrows) * 4) / 1e9  # bench.py:60, f32
-        At = csr_tensor(pp, ii, vv, dev, torch.float32)
-        t_lib, err = library_ms(lambda: At @ xv, reps=9, inner=5)
-        lib_s = f"{t_lib:.4f} ms" if t_lib is not None else f"none ({err})"
-        log(f"  {name}: {t:.4f} ms/call, effective {useful / (t / 1e3):.1f} GB/s = "
-            f"{useful / (t / 1e3) / peak:.3f} of peak {peak} GB/s (bench.py:60 useful bytes); "
-            f"torch.sparse CSR @ x {lib_s}")
-        del At
-    profile_mv("webbase mv (gen, spill route)", lambda: tt.mv(1.0, Wh, GEN, NONE, xw_d, 0.0))
-    profile_mv("scatter mv (route)", lambda: tt.mv(1.0, Qh, GEN, NONE, xq_d, 0.0))
-    t_gi, t_gi_all = iteration_ms(lambda kk: tt.pcg_solve(G, bg_d, rtol=0.0, maxit=kk)[1], 5, 25)
-    log(f"  permuted-space CG iteration (symmetrised webbase): {t_gi:.4f} ms (host clock, median of "
-        f"{[round(t, 4) for t in t_gi_all]})")
+    csr_timings(g5, Wh, Qh, qform, wval, dev, peak, ms, turns, note)
 
     # the band GEMM kernel on the cant A.A plan; cuSPARSE SpGEMM (torch.sparse
     # CSR @ CSR) of the same product as the yardstick

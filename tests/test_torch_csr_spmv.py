@@ -1,0 +1,535 @@
+"""mv KID 0 of the PyTorch port: the CSR row-gather kernel's plan, its
+plain version against the JAX package's ``spmv_segsum``, and the card's
+default rule for general structure.
+
+- The plan (kernels/spmv_csr.py `csr_plan`): the sub-warp width from the
+  mean row length and the list of rows past LONG_ROW_STEPS strides, with
+  their edges (no rows, no entries, a row exactly at the threshold).
+- Parity: the port's ``mv(kid=0)`` (on the CPU, the plain version) against
+  the JAX package's ``mv(kid=0)`` (its XLA ``spmv_segsum``,
+  kernels/xla/spmv.py:51) and a float64 scipy product, in float32,
+  float64, complex64 and complex128: a power-law operand whose hub rows
+  pass the long-row threshold, empty rows, an all-empty matrix, one row of
+  10,000 entries, int32 and int64 row pointers, alpha and beta with op
+  transposed.
+- The rule (planner/plan.py `pick_mv_format`, `choose_mv_format(eff,
+  device)`): on ``cuda`` general structure takes ``segsum``, bands
+  ``bandt`` and HPCG's stencil ``diag``; on the CPU the forms stay as they
+  were (``gen``, then ``route`` or a gather form). Pins: kid=7 and an
+  autotune pin still give ``gen``; a plan snapshot of a ``segsum`` form,
+  and one written before the form carried its CSR plan, give the same mv.
+- On the card (marked cuda, skipped elsewhere): the kernel against its
+  plain version in every instance, with int32 and int64 indices, the same
+  bits twice, its launch count, and the default mv on general structure.
+
+All inputs are made with numpy from a seed. Tolerance: utils/tolerances.py
+`expected_precision` of the dtype on max |a - b| / max(|b|, 1); the kernel,
+the plain version and the JAX package sum the same products in three
+orders.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import aoclsparse_tpu_torch as tt
+from aoclsparse_tpu_torch.io import load_plan, save_plan
+from aoclsparse_tpu_torch.kernels import spmv_csr as csr_mod
+from aoclsparse_tpu_torch.kernels.plain_spmv import spmv_segsum
+from aoclsparse_tpu_torch.kernels.spmv_csr import (
+    LONG_ROW_STEPS,
+    csr_launches,
+    csr_plan,
+    long_row_min,
+    spmv_csr,
+    spmv_csr_any,
+    spmv_csr_plain,
+    sub_warp_width,
+)
+from aoclsparse_tpu_torch.planner import plan as tplan
+from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
+
+GEN = tt.MatrixDescriptor()
+NONE = tt.Operation.none
+DTYPES = (np.float32, np.float64, np.complex64, np.complex128)
+TORCH = {np.float32: torch.float32, np.float64: torch.float64, np.complex64: torch.complex64,
+         np.complex128: torch.complex128}
+
+
+def tol(dtype):
+    return expected_precision(TORCH[dtype])
+
+
+@pytest.fixture(scope="module")
+def ast():
+    jax = pytest.importorskip("jax")
+    jax.config.update("jax_enable_x64", True)
+    import aoclsparse_tpu
+
+    return aoclsparse_tpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: python -m pytest --noconftest tests/test_torch_csr_spmv.py there")
+    return torch.device("cuda", 0)
+
+
+# -- operands -----------------------------------------------------------------
+
+
+def _values(rng, n, dtype):
+    v = rng.standard_normal(n)
+    if np.issubdtype(dtype, np.complexfloating):
+        v = v + 1j * rng.standard_normal(n)
+    return v.astype(dtype)
+
+
+def _csr(rows, cols, m, n, dtype, seed):
+    """Deduplicated scipy CSR of the pattern with seeded values."""
+    S = sp.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(m, n))
+    S.sum_duplicates()
+    S.sort_indices()
+    S.data = _values(np.random.default_rng(seed), S.nnz, dtype)
+    return S
+
+
+def power_law(seed, m=3000, dtype=np.float32):
+    """A web graph in small: a few local links a row, a uniform tail, and
+    hub rows of up to 900 entries, far past the long-row threshold."""
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, m, 2 * m)
+    c = np.clip(r + rng.integers(-16, 17, r.size), 0, m - 1)
+    hubs = rng.choice(m, 12, replace=False)
+    deg = np.clip(rng.zipf(1.5, hubs.size) * 40, 60, 900)
+    rh = np.repeat(hubs, deg)
+    ch = rng.integers(0, m, rh.size)
+    rt, ct = rng.integers(0, m, m), rng.integers(0, m, m)
+    d = np.arange(m)
+    return _csr(np.r_[r, rh, rt, d], np.r_[c, ch, ct, d], m, m, dtype, seed + 1)
+
+
+def with_empty_rows(seed, m=700, dtype=np.float32):
+    """Rows of 0-12 entries, a third of them empty, non-square."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 13, m) * (rng.random(m) > 0.33)
+    r = np.repeat(np.arange(m), lens)
+    return _csr(r, rng.integers(0, m + 50, r.size), m, m + 50, dtype, seed + 1)
+
+
+def one_long_row(seed, m=64, n=20000, dtype=np.float32):
+    """Row 5 holds 10,000 entries; the rest hold 0-3."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 4, m)
+    r = np.repeat(np.arange(m), lens)
+    c = rng.integers(0, n, r.size)
+    cl = rng.choice(n, 10000, replace=False)
+    return _csr(np.r_[r, np.full(cl.size, 5)], np.r_[c, cl], m, n, dtype, seed + 1)
+
+
+def scatter(seed, m=2048, per_row=8, dtype=np.float32):
+    """chip_smoke.py's scatter operand in small: the diagonal plus uniform
+    random columns."""
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(m), per_row)
+    d = np.arange(m)
+    return _csr(np.r_[r, d], np.r_[rng.integers(0, m, r.size), d], m, m, dtype, seed + 1)
+
+
+def circuit(seed, m=4000, dtype=np.float32):
+    """The scircuit stand-in in small: local couplings, rail rows and
+    columns of 120-353 entries, a scatter tail, structurally symmetric."""
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(m), 2)
+    c = np.clip(r + rng.integers(-24, 25, r.size), 0, m - 1)
+    rails = rng.choice(m, 6, replace=False)
+    rr = np.repeat(rails, np.clip(rng.zipf(1.35, 6), 120, 353))
+    rc = rng.integers(0, m, rr.size)
+    sr, sc = rng.integers(0, m, m // 3), rng.integers(0, m, m // 3)
+    r1, c1 = np.r_[r, rr, sr], np.r_[c, rc, sc]
+    d = np.arange(m)
+    return _csr(np.r_[r1, c1, d], np.r_[c1, r1, d], m, m, dtype, seed + 1)
+
+
+def band(seed, m=2000, half_bw=8, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(m), 6)
+    return _csr(r, np.clip(r + rng.integers(-half_bw, half_bw + 1, r.size), 0, m - 1), m, m, dtype, seed + 1)
+
+
+def stencil27(nx=12, dtype=np.float32):
+    """HPCG's 27-point stencil on an nx^3 grid: 26 on the diagonal, -1 off."""
+    g = np.arange(nx)
+    z, y, x = np.meshgrid(g, g, g, indexing="ij")
+    rows, cols = [], []
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                ok = (0 <= z + dz) & (z + dz < nx) & (0 <= y + dy) & (y + dy < nx) & (0 <= x + dx) & (x + dx < nx)
+                i = (z * nx + y) * nx + x
+                rows.append(i[ok])
+                cols.append(i[ok] + (dz * nx + dy) * nx + dx)
+    r, c = np.concatenate(rows), np.concatenate(cols)
+    return sp.csr_matrix((np.where(r == c, 26.0, -1.0).astype(dtype), (r, c)), shape=(nx**3, nx**3))
+
+
+def _handle(S, device="cpu", ptr_dtype=np.int32):
+    return tt.create_csr(S.shape[0], S.shape[1], S.indptr.astype(ptr_dtype), S.indices, S.data, device=device)
+
+
+# -- the plan -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nnz,m,want", [(0, 5, 2), (5, 5, 2), (10, 5, 2), (11, 5, 4), (20, 5, 4), (21, 5, 8),
+                                        (3085975, 1000005, 4), (960978, 170998, 8), (9 * 4096, 4096, 16),
+                                        (16 * 7, 7, 16), (17 * 7, 7, 32), (64 * 100, 100, 32), (10**6, 1, 32),
+                                        (0, 0, 2)])
+def test_sub_warp_width_is_the_mean_rounded_up_to_a_power_of_two(nnz, m, want):
+    assert sub_warp_width(nnz, m) == want
+    assert long_row_min(want) == LONG_ROW_STEPS * want
+
+
+@pytest.mark.parametrize("ptr_dtype", [np.int32, np.int64])
+def test_long_rows_are_those_past_the_threshold(ptr_dtype):
+    # mean 3.5 -> 4 lanes, threshold 32: the row of 32 stays, 33 leaves
+    lens = np.array([0, 32, 33, 1, 0, 2] + [3] * 94)
+    lanes, long_rows = csr_plan(np.r_[0, np.cumsum(lens)].astype(ptr_dtype))
+    assert lanes == 4 and long_row_min(lanes) == 32
+    assert long_rows.tolist() == [2] and long_rows.dtype == np.int64
+    # a hub of 1000 lifts the mean to 13.48 -> 16 lanes, threshold 128
+    lens2 = np.r_[lens[:5], 1000, lens[6:]]
+    lanes2, long2 = csr_plan(np.r_[0, np.cumsum(lens2)].astype(ptr_dtype))
+    assert lanes2 == 16 and long2.tolist() == [5]
+
+
+def test_plan_edges():
+    lanes, long_rows = csr_plan(np.zeros(1, np.int32))  # no rows
+    assert lanes == 2 and long_rows.size == 0 and long_rows.dtype == np.int64
+    lanes, long_rows = csr_plan(np.zeros(9, np.int64))  # rows, no entries
+    assert lanes == 2 and long_rows.size == 0
+    lanes, long_rows = csr_plan(np.array([0, 10000, 10000, 10001]))  # one huge row
+    assert lanes == 32 and long_rows.tolist() == [0]
+    lanes, long_rows = csr_plan(np.array([5, 6, 7]))  # pointers need not start at 0
+    assert lanes == 2 and long_rows.size == 0
+    assert csr_launches(0, 0) == 0 and csr_launches(5, 0) == 1 and csr_launches(5, 3) == 2
+
+
+def test_segsum_form_carries_its_csr_plan():
+    S = power_law(3)
+    form = tplan.get_plan(_handle(S)).exec_form_for(GEN, NONE, kind="segsum")
+    lanes, long_rows = csr_plan(S.indptr)
+    assert form.csr_lanes == lanes == sub_warp_width(S.nnz, S.shape[0])
+    assert form.csr_long.tolist() == long_rows.tolist() and form.csr_long.numel() >= 6
+    assert form.csr_long.dtype == torch.int64
+    assert form.ptr.dtype == torch.int32 and form.ind.dtype == torch.int32
+    np.testing.assert_array_equal(form.ptr.numpy(), S.indptr)
+    assert form.nbytes() >= (form.ptr.numel() * 4 + form.csr_long.numel() * 8)
+
+
+# -- parity with the JAX package (its XLA spmv_segsum) --------------------------
+
+
+OPERANDS = {"power_law": power_law, "empty_rows": with_empty_rows, "one_long_row": one_long_row}
+
+
+def _both(ast, S, ptr_dtype=np.int32):
+    m, n = S.shape
+    ptr = S.indptr.astype(ptr_dtype)
+    return ast.create_csr(m, n, ptr, S.indices, S.data), tt.create_csr(m, n, ptr, S.indices, S.data, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d.__name__)
+@pytest.mark.parametrize("name", sorted(OPERANDS))
+def test_kid0_matches_jax_and_scipy(ast, name, dtype):
+    S = OPERANDS[name](11, dtype=dtype)
+    J, T = _both(ast, S)
+    x = _values(np.random.default_rng(12), S.shape[1], dtype)
+    yj = np.asarray(ast.mv(1.0, J, ast.MatrixDescriptor(), ast.Operation.none, x, 0.0, kid=0))
+    yt = tt.mv(1.0, T, GEN, NONE, torch.from_numpy(x), 0.0, kid=0).numpy()
+    ref = S.astype(np.complex128 if np.iscomplexobj(x) else np.float64) @ x
+    assert yt.dtype == dtype
+    assert near_error(yt, yj) <= tol(dtype)
+    assert near_error(yt, ref) <= tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d.__name__)
+@pytest.mark.parametrize("ptr_dtype", [np.int32, np.int64], ids=["ptr32", "ptr64"])
+def test_kid0_alpha_beta_transposed(ast, dtype, ptr_dtype):
+    S = power_law(13, m=900, dtype=dtype)
+    J, T = _both(ast, S, ptr_dtype)
+    rng = np.random.default_rng(14)
+    x, y = _values(rng, S.shape[0], dtype), _values(rng, S.shape[1], dtype)
+    alpha, beta = 1.5, -0.5
+    yj = np.asarray(ast.mv(alpha, J, ast.MatrixDescriptor(), ast.Operation.transpose, x, beta, y=y, kid=0))
+    yt = tt.mv(alpha, T, GEN, tt.Operation.transpose, torch.from_numpy(x), beta, torch.from_numpy(y), kid=0).numpy()
+    wide = np.complex128 if np.iscomplexobj(x) else np.float64
+    ref = alpha * (S.T.astype(wide) @ x) + beta * y
+    assert near_error(yt, yj) <= tol(dtype)
+    assert near_error(yt, ref) <= tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.complex128], ids=lambda d: d.__name__)
+def test_kid0_all_empty_matrix(ast, dtype):
+    m = 300
+    J = ast.create_csr(m, m, np.zeros(m + 1, np.int32), np.zeros(0, np.int32), np.zeros(0, dtype))
+    T = tt.create_csr(m, m, np.zeros(m + 1, np.int32), np.zeros(0, np.int32), np.zeros(0, dtype), device="cpu")
+    x = _values(np.random.default_rng(15), m, dtype)
+    y = _values(np.random.default_rng(16), m, dtype)
+    yj = np.asarray(ast.mv(2.0, J, ast.MatrixDescriptor(), ast.Operation.none, x, 0.5, y=y, kid=0))
+    yt = tt.mv(2.0, T, GEN, NONE, torch.from_numpy(x), 0.5, torch.from_numpy(y), kid=0).numpy()
+    np.testing.assert_allclose(yt, yj, rtol=0, atol=0)
+    np.testing.assert_allclose(yt, 0.5 * y, rtol=0, atol=0)
+    # the form of an empty matrix: one launch of nothing, no long rows
+    form = tplan.get_plan(T).exec_form_for(GEN, NONE, kind="segsum")
+    assert form.csr_lanes == 2 and form.csr_long.numel() == 0
+
+
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+def test_wrapper_plain_path_takes_either_index_width(idx):
+    S = one_long_row(17, dtype=np.float64)
+    lanes, long_rows = csr_plan(S.indptr)
+    ptr = torch.from_numpy(S.indptr).to(idx)
+    ind = torch.from_numpy(S.indices).to(idx)
+    val, x = torch.from_numpy(S.data), torch.from_numpy(np.random.default_rng(18).standard_normal(S.shape[1]))
+    got = spmv_csr(ptr, ind, val, x, torch.from_numpy(long_rows), lanes)
+    assert near_error(got.numpy(), S @ x.numpy()) <= tol(np.float64)
+    rows = torch.repeat_interleave(torch.arange(S.shape[0]), torch.from_numpy(np.diff(S.indptr)))
+    assert torch.equal(got, spmv_segsum(ind, val, rows, x, S.shape[0]))
+    # the dtype rule: bf16 and mixed dtypes take the plain gather on any device
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(spmv_csr_any(ind, val.to(torch.bfloat16), rows, xb, S.shape[0], ptr, None, lanes),
+                       spmv_segsum(ind, val.to(torch.bfloat16), rows, xb, S.shape[0]))
+    assert spmv_csr_any(ind, val, rows, x.float(), S.shape[0], ptr, None, lanes).dtype == torch.float64
+
+
+def test_wrapper_validates():
+    S = scatter(19, m=64)
+    lanes, long_rows = csr_plan(S.indptr)
+    ptr, ind = torch.from_numpy(S.indptr.astype(np.int32)), torch.from_numpy(S.indices)
+    val = torch.from_numpy(S.data)
+    x, lr = torch.ones(64), torch.from_numpy(long_rows)
+    for args, status in (
+        ((ptr, ind, val.to(torch.bfloat16), x.to(torch.bfloat16), lr, lanes), tt.Status.wrong_type),
+        ((ptr, ind, val, x.double(), lr, lanes), tt.Status.wrong_type),
+        ((ptr.to(torch.int16), ind, val, x, lr, lanes), tt.Status.wrong_type),
+        ((ptr, ind[:-1], val, x, lr, lanes), tt.Status.invalid_size),
+        ((ptr, ind, val, x, lr, 3), tt.Status.invalid_value),
+        ((ptr, ind, val, torch.ones(128)[::2], lr, lanes), tt.Status.invalid_value),
+        ((ptr, ind, val, x, lr.int(), lanes), tt.Status.wrong_type),
+    ):
+        with pytest.raises(tt.AoclSparseError) as e:
+            spmv_csr(*args)
+        assert e.value.status == status
+
+
+# -- the rule on the card, and pins ---------------------------------------------
+
+
+def test_rule_on_cuda_takes_segsum_for_general_structure():
+    """The device-taking rule on small stand-ins: scatter, webbase (a
+    scaled-down power law) and scircuit take segsum on cuda and gen on the
+    CPU; a band stays bandt and the 27-point stencil diag on both."""
+    cases = {"scatter": (scatter(21), "gen"), "webbase": (power_law(22), "gen"), "scircuit": (circuit(23), "gen"),
+             "band": (band(24), "bandt"), "stencil": (stencil27(12), "diag")}
+    for name, (S, cpu_kind) in cases.items():
+        eff = tplan.get_plan(_handle(S)).effective_for(GEN, NONE)
+        assert tplan.structure_mv_format(eff) == cpu_kind, name
+        assert tplan.choose_mv_format(eff) == cpu_kind, name
+        assert tplan.choose_mv_format(eff, device="cpu") == cpu_kind, name
+        want = "segsum" if cpu_kind == "gen" else cpu_kind
+        assert tplan.choose_mv_format(eff, device="cuda") == want, name
+        assert tplan.choose_mv_format(eff, device=torch.device("cuda", 0)) == want, name
+    for dt, want in ((torch.float32, "segsum"), (torch.float64, "segsum"), (torch.bfloat16, "gen")):
+        assert tplan.pick_mv_format("gen", "cuda", dt) == want
+        assert tplan.pick_mv_format("gen", "cpu", dt) == "gen"
+    for kind in ("bandt", "diag", "segsum", "ell"):
+        assert tplan.pick_mv_format(kind, "cuda", torch.float32) == kind
+    # mm keeps gen by structure (mm KID 6) on every device
+    eff = tplan.get_plan(_handle(circuit(23))).effective_for(GEN, NONE)
+    assert tplan.choose_mm_format(eff) == "gen"
+
+
+MV_SLOT = (GEN.type, GEN.fill_mode, GEN.diag_type, NONE, None)
+
+
+def _plant_segsum(A):
+    """The card's default asked of a CPU handle: the segsum form planted in
+    the default mv slot, where autotune_mv writes its pin."""
+    plan = tplan.get_plan(A)
+    plan.exec_form_for(GEN, NONE, kind="segsum")
+    plan.exec_forms[MV_SLOT] = plan.exec_forms.pop(MV_SLOT[:4] + ("segsum",))
+    return plan
+
+
+def test_default_form_on_the_cpu_is_unchanged_and_pins_give_gen():
+    S = circuit(25)
+    T = _handle(S)
+    plan = tplan.get_plan(T)
+    assert plan.exec_form_for(GEN, NONE).kind == "gen"
+    x = torch.from_numpy(np.random.default_rng(26).standard_normal(S.shape[0]).astype(np.float32))
+    ref = S.astype(np.float64) @ x.numpy().astype(np.float64)
+    y7 = tt.mv(1.0, T, GEN, NONE, x, 0.0, kid=7)
+    y0 = tt.mv(1.0, T, GEN, NONE, x, 0.0, kid=0)
+    assert near_error(y7.numpy(), ref) <= tol(np.float32) and near_error(y0.numpy(), ref) <= tol(np.float32)
+    # the card's default (segsum) planted on a CPU handle: gen by pin
+    U = _handle(S)
+    assert _plant_segsum(U).exec_form_for(GEN, NONE).kind == "segsum"
+    assert near_error(tt.mv(1.0, U, GEN, NONE, x, 0.0).numpy(), ref) <= tol(np.float32)
+    assert tplan.get_plan(U).exec_form_for(GEN, NONE, kind="gen").kind == "gen"
+    assert near_error(tt.mv(1.0, U, GEN, NONE, x, 0.0, kid=7).numpy(), ref) <= tol(np.float32)
+    res = tt.autotune_mv(U, kinds=("gen",), iters=1, chunks=1)
+    assert set(res) == {"gen", "segsum"}
+    winner = min(res, key=res.get)
+    assert tplan.get_plan(U).exec_forms[(GEN.type, GEN.fill_mode, GEN.diag_type, NONE, None)].kind == winner
+    # a gen pin planted in the default slot (what autotune_mv writes when
+    # gen wins) sends mv_operator and the solvers to permuted space
+    tplan.get_plan(U).exec_forms[(GEN.type, GEN.fill_mode, GEN.diag_type, NONE, None)] = \
+        tplan.get_plan(U).gen_form_for(GEN, NONE)
+    assert tt.mv_operator(U).space == "permuted"
+
+
+def test_plan_snapshot_of_a_segsum_form(tmp_path):
+    """save_plan / load_plan of a segsum form: the same mv bit for bit;
+    a snapshot without the CSR plan (as written before segsum forms carried
+    it) rebuilds it on load."""
+    S = power_law(27)
+    T = _handle(S)
+    _plant_segsum(T)
+    x = torch.from_numpy(np.random.default_rng(28).standard_normal(S.shape[0]).astype(np.float32))
+    y = tt.mv(1.0, T, GEN, NONE, x, 0.0)
+    form = tplan.get_plan(T).exec_form_for(GEN, NONE)
+    assert form.kind == "segsum"
+    path = tmp_path / "plan.npz"
+    save_plan(T, path)
+    T2 = _handle(S)
+    assert load_plan(T2, path) == 1
+    f2 = tplan.get_plan(T2).exec_form_for(GEN, NONE)
+    assert f2.kind == "segsum" and f2.csr_lanes == form.csr_lanes and torch.equal(f2.csr_long, form.csr_long)
+    assert torch.equal(f2.ptr, form.ptr) and f2.ptr.dtype == torch.int32
+    assert torch.equal(tt.mv(1.0, T2, GEN, NONE, x, 0.0), y)
+    # strip the CSR fields: the layout of a snapshot from before
+    with np.load(path) as npz:
+        arrays = {k: npz[k] for k in npz.files}
+    manifest = json.loads(bytes(arrays["__manifest__"]).decode())
+    for entry in manifest["exec_forms"]:
+        entry["kinds"] = {k: v for k, v in entry["kinds"].items() if k not in ("ptr", "csr_long")}
+        entry["kinds"]["ind"] = ["torch", "int64"]
+        entry["statics"].pop("csr_lanes", None)
+    arrays = {k: v for k, v in arrays.items() if not k.endswith(("::ptr", "::csr_long"))}
+    for k in [k for k in arrays if k.endswith("::ind")]:
+        arrays[k] = arrays[k].astype(np.int64)
+    arrays["__manifest__"] = np.frombuffer(json.dumps(manifest).encode(), dtype=np.uint8)
+    old = tmp_path / "old.npz"
+    np.savez_compressed(old, **arrays)
+    T3 = _handle(S)
+    assert load_plan(T3, old) == 1
+    f3 = tplan.get_plan(T3).exec_form_for(GEN, NONE)
+    assert f3.csr_lanes == form.csr_lanes and torch.equal(f3.csr_long, form.csr_long)
+    assert f3.ind.dtype == torch.int64 and torch.equal(f3.ptr, form.ptr)
+    assert torch.equal(tt.mv(1.0, T3, GEN, NONE, x, 0.0), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segsum_rows_are_built_from_ptr_where_missing(dtype):
+    """A segsum form's row ids: kept where the plain gather runs its mv (a
+    CPU form; on the card only a dtype without a kernel instance), else
+    built from ptr at first use by mm; mv without them derives them."""
+    S = with_empty_rows(37)
+    T = tt.create_csr(S.shape[0], S.shape[1], S.indptr, S.indices, S.data, device="cpu")
+    if dtype != torch.float32:
+        T = tt.create_csr(S.shape[0], S.shape[1], S.indptr, S.indices,
+                          torch.from_numpy(S.data).to(dtype), device="cpu")
+    form = tplan.get_plan(T).exec_form_for(GEN, NONE, kind="segsum")
+    want = np.repeat(np.arange(S.shape[0]), np.diff(S.indptr))
+    assert form.row_ids is not None and np.array_equal(form.row_ids.numpy(), want)
+    x = torch.from_numpy(np.random.default_rng(38).standard_normal(S.shape[1]).astype(np.float32)).to(dtype)
+    y = spmv_csr_any(form.ind, form.val, form.row_ids, x, form.m, form.ptr, form.csr_long, form.csr_lanes)
+    y_none = spmv_csr_any(form.ind, form.val, None, x, form.m, form.ptr, form.csr_long, form.csr_lanes)
+    assert torch.equal(y, y_none)
+    form.row_ids = None
+    rows = form.segsum_rows()
+    assert rows.dtype == torch.int64 and np.array_equal(rows.numpy(), want) and form.row_ids is rows
+    # attach_csr_plan on a CPU form without row ids gives them back
+    form.row_ids = None
+    tplan.attach_csr_plan(form, S.indptr)
+    assert np.array_equal(form.row_ids.numpy(), want)
+
+
+# -- on the card ------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d.__name__)
+@pytest.mark.parametrize("name", ["power_law", "empty_rows", "one_long_row", "scatter"])
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+def test_cuda_kernel_matches_plain(cuda, dtype, name, idx):
+    """The kernel against its plain version (both index widths), the same
+    bits twice, and 1 + (long rows present) launches a call."""
+    S = {**OPERANDS, "scatter": scatter}[name](31, dtype=dtype)
+    lanes, long_rows = csr_plan(S.indptr)
+    ptr = torch.from_numpy(S.indptr).to(cuda, idx)
+    ind = torch.from_numpy(S.indices).to(cuda, idx)
+    val = torch.from_numpy(S.data).to(cuda)
+    x = torch.from_numpy(_values(np.random.default_rng(32), S.shape[1], dtype)).to(cuda)
+    lr = torch.from_numpy(long_rows).to(cuda)
+    inst = {np.float32: "f32", np.float64: "f64", np.complex64: "c64", np.complex128: "c128"}[dtype]
+    before = spmv_csr.launches[inst]
+    got = spmv_csr(ptr, ind, val, x, lr, lanes)
+    torch.cuda.synchronize()
+    assert spmv_csr.launches[inst] - before == csr_launches(S.shape[0], long_rows.size)
+    want = spmv_csr_plain(ptr, ind, val, x)
+    assert near_error(got.cpu().numpy(), want.cpu().numpy()) <= tol(dtype)
+    assert torch.equal(spmv_csr(ptr, ind, val, x, lr, lanes), got)
+
+
+@pytest.mark.cuda
+def test_cuda_default_mv_on_general_structure_launches_the_csr_kernel(cuda):
+    from aoclsparse_tpu_torch.kernels.band_spmv import band_spmv
+
+    circuit_s = circuit(33)
+    for S in (circuit_s, power_law(34), scatter(35)):
+        A = _handle(S, device=cuda)
+        form = tplan.get_plan(A).exec_form_for(GEN, NONE)
+        assert form.kind == "segsum"
+        x = torch.from_numpy(np.random.default_rng(36).standard_normal(S.shape[0]).astype(np.float32)).to(cuda)
+        c0, b0 = spmv_csr.launches["f32"], band_spmv.launches["f32"]
+        y = tt.mv(1.0, A, GEN, NONE, x, 0.0)
+        torch.cuda.synchronize()
+        assert spmv_csr.launches["f32"] - c0 == csr_launches(S.shape[0], form.csr_long.numel())
+        assert band_spmv.launches["f32"] == b0
+        ref = S.astype(np.float64) @ x.cpu().numpy().astype(np.float64)
+        assert near_error(y.cpu().numpy(), ref) <= tol(np.float32)
+        # a gen pin still runs the composite, not the CSR kernel, where
+        # _build_gen takes the structure (the circuit-like operand does)
+        if tplan.get_plan(A).gen_form_for(GEN, NONE) is None:
+            assert S is not circuit_s
+            continue
+        c1 = spmv_csr.launches["f32"]
+        y7 = tt.mv(1.0, A, GEN, NONE, x, 0.0, kid=7)
+        torch.cuda.synchronize()
+        assert spmv_csr.launches["f32"] == c1
+        assert near_error(y7.cpu().numpy(), ref) <= tol(np.float32)
+    assert csr_mod.KERNEL_DTYPES == (torch.float32, torch.float64, torch.complex64, torch.complex128)
+
+
+@pytest.mark.cuda
+def test_cuda_segsum_form_keeps_no_row_ids(cuda):
+    """On the card a segsum form holds ptr, ind and val: no row ids until
+    mm's gather asks for them (built from ptr then), and mm and mv agree
+    with scipy."""
+    S = power_law(39)
+    A = _handle(S, device=cuda)
+    form = tplan.get_plan(A).exec_form_for(GEN, NONE)
+    assert form.kind == "segsum" and form.row_ids is None
+    assert form.nbytes() == sum(t.numel() * t.element_size() for t in (form.ptr, form.ind, form.val, form.csr_long))
+    B = np.random.default_rng(40).standard_normal((S.shape[1], 3)).astype(np.float32)
+    C = tt.mm(1.0, A, GEN, NONE, torch.from_numpy(B).to(cuda), 0.0, kid=0)
+    ref = S.astype(np.float64) @ B.astype(np.float64)
+    assert near_error(C.cpu().numpy(), ref) <= tol(np.float32)
+    # mm kid=0 shares the default's form and built its rows from ptr
+    assert tplan.get_plan(A).exec_form_for(GEN, NONE, kind="segsum") is form
+    assert np.array_equal(form.row_ids.cpu().numpy(), np.repeat(np.arange(S.shape[0]), np.diff(S.indptr)))
