@@ -21,23 +21,37 @@
 // below the card's flop:byte balance. A web graph's x (4 MB at a million
 // rows in f32) fits the 50 MB L2, so the gathers mostly hit L2 and the
 // stream of ind and val sets the time. Rows are short and uneven (a mean
-// of 3 entries on the webbase stand-in, with hub rows of 4,700), so the
-// design's aims are: no lane idle for long, and enough loads in flight.
+// of 3 entries on the webbase stand-in, with hub rows of 4,700), so what
+// the time depends on is how many bytes each SM has in flight, and that no
+// thread waits on a row much longer than its neighbours'.
 //
-// Design: two launches on one stream, which write disjoint rows.
-// - spmv_csr_rows_kernel: a sub-warp of L lanes a row (L a power of two
-//   from 2 to 32, chosen at plan time from the mean row length,
-//   kernels/spmv_csr.py `sub_warp_width`). The lanes stride along the row
-//   (lane l takes entries l, l + L, ...), read val, ind and x through the
-//   read-only path (__ldg), and meet in a __shfl_down_sync butterfly inside
-//   the sub-warp. A row longer than long_min = LONG_ROW_STEPS * L entries
-//   is skipped here: on its sub-warp it would hold its warp for more than
-//   LONG_ROW_STEPS strides while a row near the mean takes one.
-// - spmv_csr_long_kernel: one CTA of kLongThreads threads a row of the
-//   plan's long-row list (the rows past long_min, listed at plan time).
-//   The threads stride the row four strides at a time (four independent
-//   gathers in flight a thread), meet in warp shuffles, and thread 0 adds
-//   the kLongThreads / 32 warp sums in warp order.
+// Design (after CSR-Adaptive, Greathouse and Daga, SC'14): one launch, one
+// CTA of kThreads threads a row block of a plan-time schedule
+// (kernels/spmv_csr.py `csr_blocks`). A block is a run of whole rows whose
+// entries total at most Tile<T>::entries (2,048 for f32, 1,024 for the
+// wider types), with at most half as many rows; a row longer than
+// LONG_ROW (256) entries is a block of its own. The schedule is a table of
+// (first row, first entry) pairs, int64, one a block and one more for the
+// end (m, ptr[m]), so a CTA reads its whole range in one load.
+// - A block of several rows streams its entry range [s, e) in slots of V
+//   entries (V = 16 bytes over the wider of the index and value types):
+//   16-byte loads of ind and val where both pointers are 16-byte aligned,
+//   scalar loads for the head and tail slots; every load of a thread is
+//   issued before the first gather, and every gather before the first
+//   product is stored, so a thread keeps its S slots (all its loads) in
+//   flight. The products go to shared memory with the block's row
+//   pointers (ptr[r0 .. r1] less the block's aligned start), then each row
+//   is summed from shared memory by a group of G lanes, G the largest power
+//   of two with G * rows <= kThreads (1 to 32): lane l sums entries
+//   l, l + G, ... in four running sums, and the group meets in a
+//   __shfl_down_sync butterfly.
+// - A block of one row (a row past LONG_ROW, or one alone at a block's
+//   edge): the CTA strides the row four strides at a time (four
+//   independent gathers in flight a thread), meets in warp shuffles, and
+//   thread 0 adds the kThreads / 32 warp sums in warp order.
+// ind and val are read with the streaming hint (__ldcs: evict first), so
+// the 33 MB that stream past on the webbase stand-in leave x (4 MB f32,
+// 8 MB f64) in L2; x and the row pointers go through the read-only path.
 // The order of every sum is fixed by the structure (no atomics), so a run
 // repeats bit for bit; it is not index_add_'s order, so a comparison with
 // the plain version (kernels/plain_spmv.py spmv_segsum) takes the dtype's
@@ -46,20 +60,29 @@
 // Instances (plain C entry points, bound with ctypes), each for int32 or
 // int64 row pointers and int32 or int64 column indices:
 //   spmv_csr_f32, spmv_csr_f64, spmv_csr_c64 (float2), spmv_csr_c128 (double2)
-// Each launches on the given stream, does not synchronise, allocates
-// nothing, and returns the first cudaGetLastError() of its launches.
+// Each launches once on the given stream (nothing where the schedule has
+// no block, m = 0), does not synchronise, allocates nothing, and returns
+// cudaGetLastError() of its launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRowThreads = 256;   // threads a block of the rows kernel
-constexpr int kLongThreads = 256;  // threads a CTA of the long-row kernel
+constexpr int kThreads = 256;  // threads a CTA
 constexpr unsigned kFull = 0xffffffffu;
 
-// value arithmetic: acc + a * b, a sum, and a shuffle down a sub-warp of
-// width w (every lane of the warp takes part)
+// entries and rows a block of several rows holds at most (kernels/spmv_csr.py
+// tile_of, which the schedule follows): 8 entries a thread for f32, 4 for
+// the wider types, whose slots hold more registers (scripts/csr_tiles.py
+// times both on the card); shared memory holds the products and the row
+// pointers
+template <typename T>
+struct Tile {
+  static constexpr int entries = sizeof(T) > 4 ? 1024 : 2048;
+  static constexpr int rows = entries / 2;
+};
+
 __device__ __forceinline__ float vzero(float) { return 0.0f; }
 __device__ __forceinline__ double vzero(double) { return 0.0; }
 __device__ __forceinline__ float2 vzero(float2) { return make_float2(0.0f, 0.0f); }
@@ -96,60 +119,44 @@ __device__ __forceinline__ double2 vshfl(double2 v, int off, int w) {
   return make_double2(__shfl_down_sync(kFull, v.x, off, w), __shfl_down_sync(kFull, v.y, off, w));
 }
 
-// sub-warp rows: L lanes a row; rows past long_min are left to the
-// long-row kernel
-template <typename T, typename P, typename I, int L>
-__global__ void __launch_bounds__(kRowThreads)
-spmv_csr_rows_kernel(const P* __restrict__ ptr, const I* __restrict__ ind, const T* __restrict__ val,
-                     const T* __restrict__ x, T* __restrict__ y, long long m, long long long_min) {
-  const long long g = static_cast<long long>(blockIdx.x) * kRowThreads + threadIdx.x;
-  const long long row = g / L;
-  const int lane = static_cast<int>(g & (L - 1));
-  T acc = vzero(T());
-  // the one value live across the loop besides its own: where the row's
-  // sum goes (null past m, on a long row, or off lane 0), so the complex
-  // instances with 64-bit pointers keep every value in registers
-  T* out = nullptr;
-  if (row < m) {
-    const long long s = static_cast<long long>(__ldg(ptr + row));
-    const long long e = static_cast<long long>(__ldg(ptr + row + 1));
-    if (e - s <= long_min) {
-      if (lane == 0) out = y + row;
-      for (long long p = s + lane; p < e; p += L) {
-        acc = vmad(__ldg(val + p), __ldg(x + __ldg(ind + p)), acc);
-      }
-    }
-  }
-  // every lane of the warp reaches the butterfly (the grid covers whole
-  // warps; lanes past m or on a long row carry 0)
-#pragma unroll
-  for (int off = L / 2; off > 0; off >>= 1) acc = vadd(acc, vshfl(acc, off, L));
-  if (out != nullptr) *out = acc;
-}
+// V elements of U moved as one 4-, 8- or 16-byte word
+template <int N> struct RawOf;
+template <> struct RawOf<4> { using type = unsigned int; };
+template <> struct RawOf<8> { using type = uint2; };
+template <> struct RawOf<16> { using type = uint4; };
 
-// one CTA a long row: four strides in flight a thread, then warp shuffles
-// and the warp sums in warp order
-template <typename T, typename P, typename I>
-__global__ void __launch_bounds__(kLongThreads)
-spmv_csr_long_kernel(const P* __restrict__ ptr, const I* __restrict__ ind, const T* __restrict__ val,
-                     const T* __restrict__ x, T* __restrict__ y, const long long* __restrict__ rows) {
-  __shared__ T part[kLongThreads / 32];
-  const long long row = rows[blockIdx.x];
-  const long long s = static_cast<long long>(__ldg(ptr + row));
-  const long long e = static_cast<long long>(__ldg(ptr + row + 1));
+template <typename U, int V>
+union Pack {
+  using Raw = typename RawOf<static_cast<int>(sizeof(U)) * V>::type;
+  Raw raw;
+  U e[V];
+};
+
+// entries a slot: 16 bytes of the wider of the index and value types
+template <typename T, typename I>
+struct SlotWidth {
+  static constexpr int value = 16 / static_cast<int>(sizeof(T) > sizeof(I) ? sizeof(T) : sizeof(I));
+};
+
+// one row per CTA: four strides in flight a thread, then warp shuffles and
+// the warp sums in warp order (part: kThreads / 32 values of shared memory)
+template <typename T, typename I>
+__device__ __forceinline__ void long_row(const I* __restrict__ ind, const T* __restrict__ val,
+                                         const T* __restrict__ x, T* __restrict__ y, long long row, long long s,
+                                         long long e, T* part) {
   T a0 = vzero(T()), a1 = a0, a2 = a0, a3 = a0;
   long long p = s + threadIdx.x;
-  for (; p + 3 * kLongThreads < e; p += 4 * kLongThreads) {
-    const I c0 = __ldg(ind + p), c1 = __ldg(ind + p + kLongThreads);
-    const I c2 = __ldg(ind + p + 2 * kLongThreads), c3 = __ldg(ind + p + 3 * kLongThreads);
-    const T v0 = __ldg(val + p), v1 = __ldg(val + p + kLongThreads);
-    const T v2 = __ldg(val + p + 2 * kLongThreads), v3 = __ldg(val + p + 3 * kLongThreads);
+  for (; p + 3 * kThreads < e; p += 4 * kThreads) {
+    const I c0 = __ldcs(ind + p), c1 = __ldcs(ind + p + kThreads);
+    const I c2 = __ldcs(ind + p + 2 * kThreads), c3 = __ldcs(ind + p + 3 * kThreads);
+    const T v0 = __ldcs(val + p), v1 = __ldcs(val + p + kThreads);
+    const T v2 = __ldcs(val + p + 2 * kThreads), v3 = __ldcs(val + p + 3 * kThreads);
     a0 = vmad(v0, __ldg(x + c0), a0);
     a1 = vmad(v1, __ldg(x + c1), a1);
     a2 = vmad(v2, __ldg(x + c2), a2);
     a3 = vmad(v3, __ldg(x + c3), a3);
   }
-  for (; p < e; p += kLongThreads) a0 = vmad(__ldg(val + p), __ldg(x + __ldg(ind + p)), a0);
+  for (; p < e; p += kThreads) a0 = vmad(__ldcs(val + p), __ldg(x + __ldcs(ind + p)), a0);
   T acc = vadd(vadd(a0, a1), vadd(a2, a3));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc = vadd(acc, vshfl(acc, off, 32));
@@ -158,55 +165,150 @@ spmv_csr_long_kernel(const P* __restrict__ ptr, const I* __restrict__ ind, const
   if (threadIdx.x == 0) {
     T sum = part[0];
 #pragma unroll
-    for (int w = 1; w < kLongThreads / 32; ++w) sum = vadd(sum, part[w]);
+    for (int w = 1; w < kThreads / 32; ++w) sum = vadd(sum, part[w]);
     y[row] = sum;
   }
 }
 
-template <typename T, typename P, typename I, int L>
-cudaError_t launch_rows(const void* ptr, const void* ind, const void* val, const void* x, void* y, long long m,
-                        long long long_min, cudaStream_t s) {
-  const long long blocks = (m * L + kRowThreads - 1) / kRowThreads;
-  spmv_csr_rows_kernel<T, P, I, L><<<static_cast<unsigned>(blocks), kRowThreads, 0, s>>>(
-      static_cast<const P*>(ptr), static_cast<const I*>(ind), static_cast<const T*>(val),
-      static_cast<const T*>(x), static_cast<T*>(y), m, long_min);
-  return cudaGetLastError();
+template <typename T, typename P, typename I>
+__global__ void __launch_bounds__(kThreads)
+spmv_csr_blocks_kernel(const P* __restrict__ ptr, const I* __restrict__ ind, const T* __restrict__ val,
+                       const T* __restrict__ x, T* __restrict__ y, const long long* __restrict__ blocks, int vec) {
+  constexpr int V = SlotWidth<T, I>::value;
+  constexpr int kTile = Tile<T>::entries, kMaxRows = Tile<T>::rows;
+  constexpr int S = (kTile / V + 1 + kThreads - 1) / kThreads;  // slots a thread (the head adds one)
+  constexpr int R = (kMaxRows + 1 + kThreads - 1) / kThreads;   // row pointers a thread
+  __shared__ __align__(16) T prod[kTile + 4];
+  __shared__ int rp[kMaxRows + 1];
+  const int tid = threadIdx.x;
+  const long long* blk = blocks + 2 * static_cast<long long>(blockIdx.x);
+  const long long r0 = __ldg(blk), s = __ldg(blk + 1), r1 = __ldg(blk + 2), e = __ldg(blk + 3);
+  const int nr = static_cast<int>(r1 - r0);
+  if (nr == 1) {  // the same for the whole CTA
+    long_row(ind, val, x, y, r0, s, e, prod);
+    return;
+  }
+  // a schedule not made by csr_blocks would overrun the shared tiles
+  if (nr > kMaxRows || e - s > kTile) __trap();
+  const long long sa = s - s % V;  // the block's first slot boundary
+  const int nslot = static_cast<int>((e - sa + V - 1) / V);
+
+  // every load of ind, val and the row pointers, then every gather
+  I c[S][V];
+  T v[S][V];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int j = tid + k * kThreads;
+    const long long p0 = sa + static_cast<long long>(j) * V;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      c[k][i] = 0;
+      v[k][i] = vzero(T());
+    }
+    if (j < nslot) {
+      if (vec && p0 >= s && p0 + V <= e) {
+        Pack<I, V> pc;
+        Pack<T, V> pv;
+        pc.raw = __ldcs(reinterpret_cast<const typename Pack<I, V>::Raw*>(ind + p0));
+        pv.raw = __ldcs(reinterpret_cast<const typename Pack<T, V>::Raw*>(val + p0));
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          c[k][i] = pc.e[i];
+          v[k][i] = pv.e[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          if (p0 + i >= s && p0 + i < e) {
+            c[k][i] = __ldcs(ind + p0 + i);
+            v[k][i] = __ldcs(val + p0 + i);
+          }
+        }
+      }
+    }
+  }
+  P pr[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int i = tid + k * kThreads;
+    pr[k] = i <= nr ? __ldg(ptr + r0 + i) : P(0);
+  }
+  T xv[S][V];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const long long p0 = sa + static_cast<long long>(tid + k * kThreads) * V;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      xv[k][i] = (p0 + i >= s && p0 + i < e) ? __ldg(x + c[k][i]) : vzero(T());
+    }
+  }
+  // the products (a zero where a slot's entry lies outside the block; no
+  // row reads it) and the row pointers relative to sa
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int j = tid + k * kThreads;
+    if (j < nslot) {
+      Pack<T, V> pp;
+#pragma unroll
+      for (int i = 0; i < V; ++i) pp.e[i] = vmad(v[k][i], xv[k][i], vzero(T()));
+      *reinterpret_cast<typename Pack<T, V>::Raw*>(prod + j * V) = pp.raw;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int i = tid + k * kThreads;
+    if (i <= nr) rp[i] = static_cast<int>(static_cast<long long>(pr[k]) - sa);
+  }
+  __syncthreads();
+
+  // G lanes a row; every lane of the CTA takes the same number of passes,
+  // so each warp reaches the butterfly whole
+  const int G = nr >= kThreads ? 1 : min(32, 1 << (31 - __clz(kThreads / nr)));
+  const int per = kThreads / G;
+  const int grp = tid / G, lane = tid & (G - 1);
+  for (int base = 0; base < nr; base += per) {
+    const int r = base + grp;
+    T acc = vzero(T());
+    if (r < nr) {
+      T a0 = acc, a1 = acc, a2 = acc, a3 = acc;
+      const int qe = rp[r + 1];
+      int q = rp[r] + lane;
+      for (; q + 3 * G < qe; q += 4 * G) {
+        a0 = vadd(a0, prod[q]);
+        a1 = vadd(a1, prod[q + G]);
+        a2 = vadd(a2, prod[q + 2 * G]);
+        a3 = vadd(a3, prod[q + 3 * G]);
+      }
+      for (; q < qe; q += G) a0 = vadd(a0, prod[q]);
+      acc = vadd(vadd(a0, a1), vadd(a2, a3));
+    }
+    for (int off = G / 2; off > 0; off >>= 1) acc = vadd(acc, vshfl(acc, off, G));
+    if (lane == 0 && r < nr) y[r0 + r] = acc;
+  }
 }
 
 template <typename T, typename P, typename I>
-int launch(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* long_rows,
-           long long m, long long n_long, long long long_min, int lanes, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m > 0) {
-    cudaError_t err;
-    switch (lanes) {
-      case 2: err = launch_rows<T, P, I, 2>(ptr, ind, val, x, y, m, long_min, s); break;
-      case 4: err = launch_rows<T, P, I, 4>(ptr, ind, val, x, y, m, long_min, s); break;
-      case 8: err = launch_rows<T, P, I, 8>(ptr, ind, val, x, y, m, long_min, s); break;
-      case 16: err = launch_rows<T, P, I, 16>(ptr, ind, val, x, y, m, long_min, s); break;
-      case 32: err = launch_rows<T, P, I, 32>(ptr, ind, val, x, y, m, long_min, s); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (n_long > 0) {
-    spmv_csr_long_kernel<T, P, I><<<static_cast<unsigned>(n_long), kLongThreads, 0, s>>>(
-        static_cast<const P*>(ptr), static_cast<const I*>(ind), static_cast<const T*>(val),
-        static_cast<const T*>(x), static_cast<T*>(y), static_cast<const long long*>(long_rows));
-    return static_cast<int>(cudaGetLastError());
-  }
-  return static_cast<int>(cudaSuccess);
+int launch(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* blocks,
+           long long nblk, void* stream) {
+  if (nblk <= 0) return static_cast<int>(cudaSuccess);
+  // 16-byte loads of a slot need both streams 16-byte aligned (a tensor
+  // from PyTorch's allocator is; a view at an offset may not be)
+  const int vec = ((reinterpret_cast<uintptr_t>(ind) | reinterpret_cast<uintptr_t>(val)) & 15u) == 0;
+  spmv_csr_blocks_kernel<T, P, I><<<static_cast<unsigned>(nblk), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const P*>(ptr), static_cast<const I*>(ind), static_cast<const T*>(val), static_cast<const T*>(x),
+      static_cast<T*>(y), static_cast<const long long*>(blocks), vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* long_rows,
-             long long m, long long n_long, long long long_min, int lanes, int ptr64, int ind64, void* stream) {
+int dispatch(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* blocks,
+             long long nblk, int ptr64, int ind64, void* stream) {
   if (ptr64) {
-    return ind64 ? launch<T, long long, long long>(ptr, ind, val, x, y, long_rows, m, n_long, long_min, lanes, stream)
-                 : launch<T, long long, int>(ptr, ind, val, x, y, long_rows, m, n_long, long_min, lanes, stream);
+    return ind64 ? launch<T, long long, long long>(ptr, ind, val, x, y, blocks, nblk, stream)
+                 : launch<T, long long, int>(ptr, ind, val, x, y, blocks, nblk, stream);
   }
-  return ind64 ? launch<T, int, long long>(ptr, ind, val, x, y, long_rows, m, n_long, long_min, lanes, stream)
-               : launch<T, int, int>(ptr, ind, val, x, y, long_rows, m, n_long, long_min, lanes, stream);
+  return ind64 ? launch<T, int, long long>(ptr, ind, val, x, y, blocks, nblk, stream)
+               : launch<T, int, int>(ptr, ind, val, x, y, blocks, nblk, stream);
 }
 
 }  // namespace
@@ -214,27 +316,26 @@ int dispatch(const void* ptr, const void* ind, const void* val, const void* x, v
 extern "C" {
 
 // ptr (m + 1) and ind (nnz) int32 or int64 (ptr64, ind64), val (nnz) and
-// x (n) of the instance's type, y (m) written; long_rows: the n_long rows
-// (int64) past long_min, each given one CTA; lanes: the sub-warp width
-// (2, 4, 8, 16 or 32)
-int spmv_csr_f32(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* long_rows,
-                 int64_t m, int64_t n_long, int64_t long_min, int lanes, int ptr64, int ind64, void* stream) {
-  return dispatch<float>(ptr, ind, val, x, y, long_rows, m, n_long, long_min, lanes, ptr64, ind64, stream);
+// x (n) of the instance's type, y (m) written; blocks: the schedule,
+// (nblk + 1) x 2 int64 (first row, first entry) pairs, the last (m, ptr[m])
+int spmv_csr_f32(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* blocks,
+                 int64_t nblk, int ptr64, int ind64, void* stream) {
+  return dispatch<float>(ptr, ind, val, x, y, blocks, nblk, ptr64, ind64, stream);
 }
 
-int spmv_csr_f64(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* long_rows,
-                 int64_t m, int64_t n_long, int64_t long_min, int lanes, int ptr64, int ind64, void* stream) {
-  return dispatch<double>(ptr, ind, val, x, y, long_rows, m, n_long, long_min, lanes, ptr64, ind64, stream);
+int spmv_csr_f64(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* blocks,
+                 int64_t nblk, int ptr64, int ind64, void* stream) {
+  return dispatch<double>(ptr, ind, val, x, y, blocks, nblk, ptr64, ind64, stream);
 }
 
-int spmv_csr_c64(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* long_rows,
-                 int64_t m, int64_t n_long, int64_t long_min, int lanes, int ptr64, int ind64, void* stream) {
-  return dispatch<float2>(ptr, ind, val, x, y, long_rows, m, n_long, long_min, lanes, ptr64, ind64, stream);
+int spmv_csr_c64(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* blocks,
+                 int64_t nblk, int ptr64, int ind64, void* stream) {
+  return dispatch<float2>(ptr, ind, val, x, y, blocks, nblk, ptr64, ind64, stream);
 }
 
-int spmv_csr_c128(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* long_rows,
-                  int64_t m, int64_t n_long, int64_t long_min, int lanes, int ptr64, int ind64, void* stream) {
-  return dispatch<double2>(ptr, ind, val, x, y, long_rows, m, n_long, long_min, lanes, ptr64, ind64, stream);
+int spmv_csr_c128(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* blocks,
+                  int64_t nblk, int ptr64, int ind64, void* stream) {
+  return dispatch<double2>(ptr, ind, val, x, y, blocks, nblk, ptr64, ind64, stream);
 }
 
 }  // extern "C"

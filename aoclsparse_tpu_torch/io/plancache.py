@@ -96,13 +96,23 @@ def _pack_form(form, slot: str, arrays: Dict, entry: Dict) -> None:
     entry["kinds"] = kinds
 
 
+#: fields that snapshots of earlier versions of the port hold and the form
+#: no longer has: the CSR kernel's first schedule (its sub-warp width and
+#: long-row list); load_plan rebuilds the block schedule from ptr
+#: (attach_csr_plan)
+_RETIRED = ("csr_lanes", "csr_long")
+
+
 def _unpack_form(slot: str, npz, entry: Dict, device: torch.device):
     from ..planner.plan import ExecForm
 
     kw = {}
     for name, val in entry["statics"].items():
-        kw[name] = tuple(val["__tuple__"]) if isinstance(val, dict) else val
+        if name not in _RETIRED:
+            kw[name] = tuple(val["__tuple__"]) if isinstance(val, dict) else val
     for name, (kind, dtype) in entry["kinds"].items():
+        if name in _RETIRED:
+            continue
         arr = npz[f"{slot}::{name}"]
         if kind == "torch":
             t = torch.from_numpy(arr)
@@ -192,10 +202,11 @@ def load_plan(A, path) -> int:
                 eff = plan.effective_for(MatrixDescriptor(type=key[0], fill_mode=key[1], diag_type=key[2]), key[3], A.dtype)
                 form.refresh(eff.val)
                 if form.kind == "segsum":
-                    # row pointers and the CSR kernel's plan rebuilt where a
-                    # snapshot written before segsum forms carried them
-                    # lacks them; row ids kept only where the plain gather
-                    # runs the form on this device
+                    # row pointers and the CSR kernel's schedule rebuilt
+                    # where a snapshot lacks them (written before segsum
+                    # forms carried them, or with the earlier schedule);
+                    # row ids kept only where the plain gather runs the
+                    # form on this device
                     attach_csr_plan(form, eff.ptr)
             forms.append(form)
             plan.exec_forms[key] = form

@@ -14,19 +14,22 @@ XLA formulation ``spmv_segsum`` (kernels/xla/spmv.py:51, mv KID 0). Its
 plain version is ``kernels/plain_spmv.py`` `spmv_segsum` (gather, multiply,
 ``index_add_`` over the form's row ids).
 
-The schedule is fixed at plan time (`csr_plan`): a sub-warp of
-`sub_warp_width` lanes a row, from the mean row length, and the list of
-rows longer than ``LONG_ROW_STEPS`` strides of that sub-warp, each of which
-a second launch gives a CTA of 256 threads. So a call is one launch, or
-two where the list is not empty (`csr_launches`).
+The schedule is fixed at plan time (`csr_blocks`, after CSR-Adaptive):
+consecutive rows cut into blocks of at most a tile of entries and half as
+many rows (`tile_of` the value type: 2,048 entries for float32, 1,024
+for the wider types), a row past ``LONG_ROW`` entries a block of its own,
+as a table of (first row, first entry) pairs. A call is one launch, one CTA a
+block, whatever the rows (`csr_launches`: none where m = 0).
 
 `spmv_csr` has one rule: a CPU tensor takes the plain version, a CUDA
-tensor launches the kernel or raises. `spmv_csr.launches` counts kernel
-launches per instance. `spmv_csr_any`, the registry's KID 0 function, adds
-the dtype rule: dtypes the kernel has no instance for (bfloat16, float16,
-or val and x of two dtypes) take the plain version on any device; the rule
-reads the dtypes and nothing else, never the outcome of a build or a
-launch.
+tensor launches the kernel or raises; it checks every operand, for direct
+callers. `spmv_csr.launches` counts kernel launches per instance.
+`spmv_csr_any`, the registry's KID 0 function, adds the dtype rule:
+dtypes the kernel has no instance for (bfloat16, float16, or val and x of
+two dtypes) take the plain version on any device; the rule reads the
+dtypes and nothing else, never the outcome of a build or a launch. It
+launches without re-checking what the segsum form guarantees (its
+operands' types, shapes and device; `mv` has checked x's).
 """
 
 from __future__ import annotations
@@ -43,15 +46,15 @@ from .plain_spmv import spmv_segsum
 
 __all__ = [
     "KERNEL_DTYPES",
-    "LONG_ROW_STEPS",
+    "LONG_ROW",
+    "block_stats",
+    "csr_blocks",
     "csr_launches",
-    "csr_plan",
-    "long_row_min",
     "row_ids_from_ptr",
     "spmv_csr",
     "spmv_csr_any",
     "spmv_csr_plain",
-    "sub_warp_width",
+    "tile_of",
 ]
 
 #: value dtype -> (instance name, C entry point)
@@ -65,16 +68,11 @@ _INSTANCES = {
 KERNEL_DTYPES = tuple(_INSTANCES)
 _INDEX_DTYPES = (torch.int32, torch.int64)
 
-#: sub-warp widths the kernel has (powers of two)
-SUB_WARP_MIN, SUB_WARP_MAX = 2, 32
-#: a row longer than this many strides of its sub-warp goes to the
-#: long-row launch. A warp lasts as long as its longest row: at the plan's
-#: width a row near the mean takes one stride, so a row past 8 would hold
-#: its warp (and the SM slot it sits in) 8 times as long. On the webbase
-#: stand-in (width 4) that is the 202 rows past 32 entries, 2.9 % of the
-#: entries, up to 4,698 long (1,175 strides on 4 lanes, 19 strides of a CTA
-#: of 256, four in flight); on scircuit (width 8) its 24 rail rows past 64
-LONG_ROW_STEPS = 8
+#: a row with more entries is a block of its own, which the CTA strides
+#: from memory: in a block of short rows one thread would sum it alone
+#: while the block's other rows take a few additions each. On the webbase
+#: stand-in that is its hub rows of 257 to 4,698 entries
+LONG_ROW = 256
 
 _fns = {}
 
@@ -83,61 +81,84 @@ def _entry(symbol: str):
     fn = _fns.get(symbol)
     if fn is None:
         fn = getattr(load_library(), symbol)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return fn
 
 
-def sub_warp_width(nnz: int, m: int) -> int:
-    """Lanes a row: the least power of two at or above the mean row length,
-    within [SUB_WARP_MIN, SUB_WARP_MAX], so a row near the mean takes one
-    stride and a warp holds 32 / width rows."""
-    mean = int(np.ceil(nnz / m)) if m > 0 else 0
-    return min(max(1 << max(mean - 1, 0).bit_length(), SUB_WARP_MIN), SUB_WARP_MAX)
+def tile_of(dtype: torch.dtype) -> Tuple[int, int]:
+    """(entries, rows) a block of several rows holds at most for values of
+    `dtype` (csrc/spmv_csr.cu Tile): 8 entries a thread of the CTA's 256
+    for values of 4 bytes or fewer, 4 for the wider ones, whose slots hold
+    more registers (`scripts/csr_tiles.py` times both on the card); half as
+    many rows, the row pointers' shared tile, which a run of empty rows
+    fills."""
+    entries = 2048 if torch.empty(0, dtype=dtype).element_size() <= 4 else 1024
+    return entries, entries // 2
 
 
-def long_row_min(lanes: int) -> int:
-    """Entries above which a row leaves its sub-warp for a CTA of its own."""
-    return LONG_ROW_STEPS * lanes
-
-
-def csr_plan(ptr) -> Tuple[int, np.ndarray]:
-    """The kernel's schedule for a CSR with row pointers `ptr` (host):
-    (lanes, long_rows), the sub-warp width and the int64 rows longer than
-    `long_row_min(lanes)`, in row order."""
+def csr_blocks(ptr, tile: int, max_rows: int) -> np.ndarray:
+    """The kernel's schedule for a CSR with row pointers `ptr` (host, any
+    integer type; they need not start at 0), at `tile_of` the values'
+    dtype: the (nblk + 1, 2) int64 table of each block's (first row, first
+    entry), in row order, the last pair (m, ptr[m]). Rows go greedily into
+    a block while its entries stay within `tile` and its rows within
+    `max_rows`; a row past LONG_ROW entries is a block of its own. m = 0
+    gives no block."""
     p = np.asarray(ptr, dtype=np.int64)
     m = p.size - 1
-    if m <= 0:
-        return SUB_WARP_MIN, np.zeros(0, dtype=np.int64)
-    lanes = sub_warp_width(int(p[-1] - p[0]), m)
-    return lanes, np.nonzero(np.diff(p) > long_row_min(lanes))[0].astype(np.int64)
+    if m < 0:
+        raise AoclSparseError(Status.invalid_size, "row pointers need at least one entry")
+    lens = np.diff(p)
+    # the first long row at or after each row (m where none is)
+    nxt = np.where(lens > LONG_ROW, np.arange(m), m)
+    nxt = np.minimum.accumulate(nxt[::-1])[::-1]
+    starts = [0]
+    r = 0
+    while r < m:
+        if nxt[r] == r:
+            r += 1
+        else:
+            fit = int(np.searchsorted(p, p[r] + tile, side="right")) - 1
+            r = max(min(fit, r + max_rows, int(nxt[r])), r + 1)
+        starts.append(r)
+    rows = np.asarray(starts, dtype=np.int64)
+    return np.stack([rows, p[rows]], axis=1)
 
 
-def csr_launches(m: int, n_long: int) -> int:
-    """Kernel launches of one call: the rows launch (m > 0) and the
-    long-row launch (a non-empty list)."""
-    return int(m > 0) + int(n_long > 0)
+def block_stats(blocks) -> Tuple[int, int]:
+    """(blocks, blocks of one row) of a schedule (numpy or tensor): the
+    CTAs a call launches and those that stride a row from memory."""
+    rows = np.asarray(blocks.cpu() if isinstance(blocks, torch.Tensor) else blocks)[:, 0]
+    return rows.size - 1, int(np.count_nonzero(np.diff(rows) == 1))
 
 
-def _check(ptr, ind, val, x, long_rows, lanes: int):
+def csr_launches(nblk: int) -> int:
+    """Kernel launches of one call on a schedule of `nblk` blocks: one,
+    none where there is no block (m = 0)."""
+    return int(nblk > 0)
+
+
+def _check(ptr, ind, val, x, blocks):
     """Validate the operands; return the instance (name, symbol)."""
     inst = _INSTANCES.get(val.dtype)
     if inst is None or x.dtype != val.dtype:
         raise AoclSparseError(Status.wrong_type, f"CSR kernel has no instance for values {val.dtype} with x {x.dtype}")
-    if ptr.dtype not in _INDEX_DTYPES or ind.dtype not in _INDEX_DTYPES or long_rows.dtype != torch.int64:
-        raise AoclSparseError(Status.wrong_type, "ptr and ind must be int32 or int64, the long rows int64")
-    if ptr.dim() != 1 or ind.dim() != 1 or val.dim() != 1 or x.dim() != 1 or long_rows.dim() != 1:
-        raise AoclSparseError(Status.invalid_size, "ptr, ind, val, x and the long rows must be vectors")
+    if ptr.dtype not in _INDEX_DTYPES or ind.dtype not in _INDEX_DTYPES or blocks.dtype != torch.int64:
+        raise AoclSparseError(Status.wrong_type, "ptr and ind must be int32 or int64, the schedule int64")
+    if ptr.dim() != 1 or ind.dim() != 1 or val.dim() != 1 or x.dim() != 1:
+        raise AoclSparseError(Status.invalid_size, "ptr, ind, val and x must be vectors")
     if ptr.shape[0] < 1 or ind.shape[0] != val.shape[0]:
         raise AoclSparseError(Status.invalid_size, f"ptr of {ptr.shape[0]}, ind of {ind.shape[0]}, val of "
                               f"{val.shape[0]}: want m + 1 pointers and one index a value")
-    if lanes not in (2, 4, 8, 16, 32):
-        raise AoclSparseError(Status.invalid_value, f"sub-warp width {lanes}: want a power of two in [2, 32]")
-    if any(t.device != x.device for t in (ptr, ind, val, long_rows)):
-        raise AoclSparseError(Status.invalid_value, "ptr, ind, val, x and the long rows must share a device")
-    if not all(t.is_contiguous() for t in (ptr, ind, val, x, long_rows)):
-        raise AoclSparseError(Status.invalid_value, "ptr, ind, val, x and the long rows must be contiguous")
+    if blocks.dim() != 2 or blocks.shape[1] != 2 or blocks.shape[0] < 1:
+        raise AoclSparseError(Status.invalid_size, f"schedule of shape {tuple(blocks.shape)}: want (blocks + 1, 2) "
+                              "from csr_blocks")
+    if any(t.device != x.device for t in (ptr, ind, val, blocks)):
+        raise AoclSparseError(Status.invalid_value, "ptr, ind, val, x and the schedule must share a device")
+    if not all(t.is_contiguous() for t in (ptr, ind, val, x, blocks)):
+        raise AoclSparseError(Status.invalid_value, "ptr, ind, val, x and the schedule must be contiguous")
     return inst
 
 
@@ -156,51 +177,54 @@ def spmv_csr_plain(ptr, ind, val, x, row_ids: Optional[torch.Tensor] = None) -> 
     return spmv_segsum(ind, val, row_ids, x, ptr.shape[0] - 1)
 
 
-def spmv_csr(ptr, ind, val, x, long_rows, lanes: int, row_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y = A @ x over the CSR (ptr, ind, val) by the contract above, with
-    the plan's long rows and sub-warp width (`csr_plan`): the plain version
-    on a CPU tensor (over `row_ids` where given), the CUDA kernel on a CUDA
-    tensor (launched on the current stream, not synchronised)."""
-    name, symbol = _check(ptr, ind, val, x, long_rows, lanes)
+def _launch(ptr, ind, val, x, blocks, name: str, symbol: str) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA operands (x's device), on
+    the current stream, not synchronised."""
+    y = torch.empty(ptr.shape[0] - 1, dtype=val.dtype, device=x.device)
+    nblk = blocks.shape[0] - 1
+    if nblk == 0:
+        return y
+    args = (ptr.data_ptr(), ind.data_ptr(), val.data_ptr(), x.data_ptr(), y.data_ptr(), blocks.data_ptr(), nblk,
+            int(ptr.dtype == torch.int64), int(ind.dtype == torch.int64))
+    index = x.device.index
+    if index is None or index == torch.cuda.current_device():
+        rc = _entry(symbol)(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            rc = _entry(symbol)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"spmv_csr_{name} launch failed: CUDA error {rc}")
+    spmv_csr.launches[name] += 1
+    return y
+
+
+def spmv_csr(ptr, ind, val, x, blocks, row_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = A @ x over the CSR (ptr, ind, val) by the contract above, on the
+    plan's schedule (`csr_blocks(ptr, *tile_of(val.dtype))` on x's device;
+    the kernel traps on a block past its tile): the plain version on
+    a CPU tensor (over `row_ids` where given), the CUDA kernel on a CUDA
+    tensor (one launch on the current stream, not synchronised)."""
+    name, symbol = _check(ptr, ind, val, x, blocks)
     if x.device.type == "cpu":
         return spmv_csr_plain(ptr, ind, val, x, row_ids)
     if x.device.type != "cuda":
         raise AoclSparseError(Status.not_implemented, f"no CSR kernel for {x.device}")
-    m, n_long = ptr.shape[0] - 1, long_rows.shape[0]
-    y = torch.empty(m, dtype=val.dtype, device=x.device)
-    if m == 0:
-        return y
-    with torch.cuda.device(x.device):
-        rc = _entry(symbol)(
-            ptr.data_ptr(),
-            ind.data_ptr(),
-            val.data_ptr(),
-            x.data_ptr(),
-            y.data_ptr(),
-            long_rows.data_ptr() if n_long else None,
-            m,
-            n_long,
-            long_row_min(lanes),
-            lanes,
-            int(ptr.dtype == torch.int64),
-            int(ind.dtype == torch.int64),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"spmv_csr_{name} launch failed: CUDA error {rc}")
-    spmv_csr.launches[name] += csr_launches(m, n_long)
-    return y
+    return _launch(ptr, ind, val, x, blocks, name, symbol)
 
 
 spmv_csr.launches = {name: 0 for name, _sym in _INSTANCES.values()}
 
 
-def spmv_csr_any(ind, val, row_ids, x, m: int, ptr, long_rows, lanes: int) -> torch.Tensor:
+def spmv_csr_any(ind, val, row_ids, x, m: int, ptr, blocks) -> torch.Tensor:
     """mv KID 0 over a segsum form: the kernel where val and x share a dtype
     it has an instance for, else the plain `spmv_segsum` (bfloat16,
     float16, mixed dtypes), by dtype alone. `row_ids` may be None (a form
     on the card keeps none): the plain version then derives them from
-    ptr."""
-    if val.dtype not in _INSTANCES or x.dtype != val.dtype:
+    ptr. On the card it launches at once: the form holds ptr, ind, val and
+    the schedule checked and on its device, and mv holds x to it."""
+    inst = _INSTANCES.get(val.dtype)
+    if inst is None or x.dtype != val.dtype:
         return spmv_csr_plain(ptr, ind, val, x, row_ids)
-    return spmv_csr(ptr, ind, val, x, long_rows, lanes, row_ids)
+    if x.device.type == "cuda":
+        return _launch(ptr, ind, val, x.contiguous(), blocks, *inst)
+    return spmv_csr(ptr, ind, val, x, blocks, row_ids)

@@ -140,7 +140,7 @@ def _spill_route_on(form, device: torch.device) -> bool:
 def _run_exec_form(form, x: torch.Tensor, kid: Optional[int]) -> torch.Tensor:
     e = registry.select("mv", fmt=form.kind, kid=kid, device=x.device)
     if form.kind == "segsum":
-        return e.fn(form.ind, form.val, form.row_ids, x, form.m, form.ptr, form.csr_long, form.csr_lanes)
+        return e.fn(form.ind, form.val, form.row_ids, x, form.m, form.ptr, form.csr_blocks)
     if form.kind == "sell":
         return e.fn(form.ind, form.val, form.row_ids, x, form.m)
     if form.kind == "bwd":

@@ -86,20 +86,20 @@ def _csr_index(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def attach_csr_plan(form: "ExecForm", ptr: np.ndarray) -> None:
-    """Put a segsum form's row pointers and the CSR kernel's schedule
-    (kernels/spmv_csr.py `csr_plan`) on its device, where the form lacks
+    """Put a segsum form's row pointers and the CSR kernel's block schedule
+    (kernels/spmv_csr.py `csr_blocks`) on its device, where the form lacks
     them (at build, and on loading a plan snapshot written before segsum
-    forms carried them). The row of each entry is kept only where the plain
-    gather runs the form's mv (a CPU form, a dtype the kernel has no
-    instance for); the kernel reads ptr, and mm builds the rows at first
-    use (`ExecForm.segsum_rows`)."""
-    from ..kernels.spmv_csr import KERNEL_DTYPES, csr_plan, row_ids_from_ptr
+    forms carried them or with an earlier schedule). The row of each entry
+    is kept only where the plain gather runs the form's mv (a CPU form, a
+    dtype the kernel has no instance for); the kernel reads ptr, and mm
+    builds the rows at first use (`ExecForm.segsum_rows`)."""
+    from ..kernels.spmv_csr import KERNEL_DTYPES, csr_blocks, row_ids_from_ptr, tile_of
 
     dev = form.val.device
     if form.ptr is None:
         form.ptr = _csr_index(ptr, dev)
-        form.csr_lanes, long_rows = csr_plan(ptr)
-        form.csr_long = _dev_index(long_rows, dev)
+    if form.csr_blocks is None:
+        form.csr_blocks = _dev_index(csr_blocks(ptr, *tile_of(form.val.dtype)), dev)
     plain = dev.type == "cpu" or form.val.dtype not in KERNEL_DTYPES
     if not plain:
         form.row_ids = None
@@ -499,13 +499,13 @@ class ExecForm:
     val: Optional[torch.Tensor] = None
     row_ids: Optional[torch.Tensor] = None
     # segsum: the row pointers (int32 or int64, as the effective CSR holds
-    # them; ind keeps its index dtype too) and the CSR kernel's plan
-    # (kernels/spmv_csr.py `csr_plan`): the sub-warp width and the int64
-    # rows past its long-row threshold. Its row_ids are kept only where the
-    # plain gather runs its mv (`attach_csr_plan`)
+    # them; ind keeps its index dtype too) and the CSR kernel's schedule
+    # (kernels/spmv_csr.py `csr_blocks` at `tile_of` the values' dtype): the
+    # (blocks + 1, 2) int64 table of each row block's first row and first
+    # entry. Its row_ids are kept only
+    # where the plain gather runs its mv (`attach_csr_plan`)
     ptr: Optional[torch.Tensor] = None
-    csr_lanes: int = 0
-    csr_long: Optional[torch.Tensor] = None
+    csr_blocks: Optional[torch.Tensor] = None
     sell_dest: Optional[np.ndarray] = None  # (nnz,) flat slice positions of the entries
     sell_total: int = 0
     # host: numpy CSR of the host engine (kernels/host.py); the values are
@@ -712,7 +712,7 @@ class ExecForm:
 
     def nbytes(self) -> int:
         """Device bytes of the form's operands (the route's included)."""
-        ts = (self.ind, self.val, self.row_ids, self.ptr, self.csr_long, self.ell_ind, self.ell_val, self.sp_ind,
+        ts = (self.ind, self.val, self.row_ids, self.ptr, self.csr_blocks, self.ell_ind, self.ell_val, self.sp_ind,
               self.sp_val, self.sp_rows, self.sp_gptr, self.bwd_val, self.dia_val, self.dia_offs, self.gen_perm,
               self.gen_out, self.gen_flip, self.hub_cols, self.hub_slab, self.hubr_rows, self.hubr_slab)
         own = sum(t.numel() * t.element_size() for t in ts if t is not None)

@@ -415,7 +415,7 @@ from aoclsparse_tpu_torch.kernels.spgemm_band import build_band_gemm_plan, extra
 from aoclsparse_tpu_torch.kernels.plain_spmv import spmv_diag
 from aoclsparse_tpu_torch.kernels.spmm_diag import diag_schedule, spmm_diag, spmm_diag_plain
 from aoclsparse_tpu_torch.kernels.spmv_bwd import spmv_bwd, spmv_bwd_plain
-from aoclsparse_tpu_torch.kernels.spmv_csr import LONG_ROW_STEPS, csr_launches, spmv_csr, spmv_csr_plain
+from aoclsparse_tpu_torch.kernels.spmv_csr import block_stats, csr_launches, spmv_csr, spmv_csr_plain
 from aoclsparse_tpu_torch.kernels.spmv_mxu import spmv_band_mxu, spmv_band_mxu_plain, spmv_bandmxu
 from aoclsparse_tpu_torch.kernels.stream_read import stream_read, stream_read_plain
 from aoclsparse_tpu_torch.io import load_matrix, load_plan, read_mtx, save_matrix, save_plan, write_mtx
@@ -3298,7 +3298,14 @@ def pinned_form(A, form):
 
 def csr_call(form, x):
     """The CSR kernel's wrapper on a segsum form's operands."""
-    return spmv_csr(form.ptr, form.ind, form.val, x, form.csr_long, form.csr_lanes)
+    return spmv_csr(form.ptr, form.ind, form.val, x, form.csr_blocks)
+
+
+def csr_desc(form):
+    """A segsum form's block schedule: its blocks (the CTAs of its one
+    launch) and those of one row (a CTA strides the row)."""
+    nblk, single = block_stats(form.csr_blocks)
+    return f"{nblk} blocks, {single} of one row"
 
 
 def csr_plain(form, x):
@@ -3311,7 +3318,7 @@ def csr_want(form, name="spmv_csr_f32"):
     """The CSR kernel's launches in one call on `form`, and none of the
     gen composite's band or of the route kernels."""
     want = {"band_spmv_f32": 0, "oh_select_f32": 0, "oh_accum_f32": 0, "benes_route_f32": 0}
-    want[name] = csr_launches(form.m, form.csr_long.numel())
+    want[name] = csr_launches(block_stats(form.csr_blocks)[0])
     return want
 
 
@@ -3338,8 +3345,7 @@ def check_csr_kernel(kernel, label, form, x, errs):
     give the same bits (the int64 index instances: the cuda tests of
     tests/test_torch_csr_spmv.py)."""
     got = same_bits(kernel, label, lambda: csr_call(form, x))
-    compare(kernel, f"{label} ({form.csr_lanes} lanes, {form.csr_long.numel()} long rows)", got, csr_plain(form, x),
-            errs)
+    compare(kernel, f"{label} ({csr_desc(form)})", got, csr_plain(form, x), errs)
 
 
 def general_path(Wh, wform, wroute, wptr, wind, wval, Qh, qform, qptr, qind, qval, dev, rtol, errs):
@@ -3354,8 +3360,8 @@ def general_path(Wh, wform, wroute, wptr, wind, wval, Qh, qform, qptr, qind, qva
     xw_d = torch.from_numpy(xw).to(dev)
     refw = Sw @ xw.astype(np.float64)
     wdef = default_mv_form(Wh)
-    log(f"  webbase segsum form: {wdef.csr_lanes} lanes a row, {wdef.csr_long.numel()} long rows (past "
-        f"{LONG_ROW_STEPS * wdef.csr_lanes} entries), ptr {wdef.ptr.dtype}, ind {wdef.ind.dtype}; form bytes "
+    log(f"  webbase segsum form: {csr_desc(wdef)} (one launch a call), ptr {wdef.ptr.dtype}, ind "
+        f"{wdef.ind.dtype}; form bytes "
         f"{wdef.nbytes() / 1e6:.1f} MB")
     with uncounted():
         check_csr_kernel("spmv_csr_f32", "webbase", wdef, xw_d, errs)
@@ -3455,8 +3461,7 @@ def general_path(Wh, wform, wroute, wptr, wind, wval, Qh, qform, qptr, qind, qva
     xrc = np.random.default_rng(63).standard_normal(rcm).astype(np.float32)
     xrc_d = torch.from_numpy(xrc).to(dev)
     Src = sp.csr_matrix((rcval.astype(np.float64), rcind, rcptr), shape=(rcm, rcm))
-    log(f"  scircuit (m={rcm}, nnz={rcind.size}): plan {time.perf_counter() - t0:.2f} s, {rcdef.csr_lanes} lanes a "
-        f"row, {rcdef.csr_long.numel()} long rows")
+    log(f"  scircuit (m={rcm}, nnz={rcind.size}): plan {time.perf_counter() - t0:.2f} s, {csr_desc(rcdef)}")
     with uncounted():
         check_csr_kernel("spmv_csr_f32", "scircuit", rcdef, xrc_d, errs)
     check_mv("scircuit mv default (segsum: the CSR kernel)",
@@ -3495,7 +3500,7 @@ def general_path(Wh, wform, wroute, wptr, wind, wval, Qh, qform, qptr, qind, qva
     groute = gform.spill_route()
     torch.cuda.synchronize()
     log(f"  symmetrised webbase (nnz={gind.size}): plan (segsum) + its gen form + spill route "
-        f"{time.perf_counter() - t0:.2f} s; segsum {gdef.csr_lanes} lanes, {gdef.csr_long.numel()} long rows; gen "
+        f"{time.perf_counter() - t0:.2f} s; segsum {csr_desc(gdef)}; gen "
         f"W={gform.bwd_W}, spilled {gform.sp_ind.numel()}, hub columns {gform.hub_cols.numel()}, hub rows "
         f"{0 if gform.hubr_rows is None else gform.hubr_rows.numel()}; route {route_desc(groute)}")
     bg = np.random.default_rng(67).standard_normal(wm).astype(np.float32)
@@ -3558,7 +3563,7 @@ def csr_timings(g5, Wh, Qh, qform, wval, dev, peak, ms, turns, note):
         At = csr_tensor(pp, ii, vals, dev, form.val.dtype)
         nb = csr_bytes(form, xv)
         note(kernel, nb, nb, csr_flops(form), lambda: At @ xv)
-        log(f"  {kernel} ({label}, {form.csr_lanes} lanes, {form.csr_long.numel()} long rows): "
+        log(f"  {kernel} ({label}, {csr_desc(form)}): "
             f"{nb / ms[kernel] / 1e6:.1f} GB/s of its {nb / 1e6:.1f} MB")
         del At
     # mv on the general-structure operands, the lower of two turns each:
@@ -3590,7 +3595,7 @@ def csr_timings(g5, Wh, Qh, qform, wval, dev, peak, ms, turns, note):
                 t_ = cuda_ms(fn, reps=7, inner=5, backlog=spin)
                 t[key] = min(t.get(key, t_), t_)
         bound = bound_of(csr_bytes(form, xv), csr_flops(form), "f32", peak)[0]
-        log(f"  {name} (m={form.m}, nnz={ii.size}, {form.csr_lanes} lanes, {form.csr_long.numel()} long rows; "
+        log(f"  {name} (m={form.m}, nnz={ii.size}, {csr_desc(form)}; "
             f"default {default_mv_form(handle).kind}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
             + f"; bound {bound:.4f} ms (bytes), kernel {bound / t['kernel']:.3f} of it, "
             f"{csr_bytes(form, xv) / t['kernel'] / 1e6:.1f} GB/s; 1 - kernel / mv call "
@@ -4245,7 +4250,7 @@ def main() -> int:
     names = ("benes_pass_kernel", "oh_accum_kernel", "spmv_mxu_kernel", "spmv_bwd_kernel", "win_block_kernel",
              "win_chain_kernel", "win_fix_kernel", "win_round_kernel", "spmm_band_mxu_f32_kernel", "spmm_band_mxu_bf16_kernel",
              "band_gemm_kernel", "spmm_band_kernel", "spmm_diag_kernel", "trsv_blocked_kernel", "trsv_level_kernel",
-             "spmv_csr_rows_kernel", "spmv_csr_long_kernel")
+             "spmv_csr_blocks_kernel")
     res = ptxas_resources(ptxas, names)
     for fn, (frame, stores, loads, regs) in sorted(res.items()):
         short = next(fn[fn.index(nm):] for nm in names if nm in fn)[:48]
