@@ -19,14 +19,15 @@ triangle, both built once per structure:
   tensor operations a level (`level_step`);
 - the compact level-ordered CSR of the kernel (`lrow`, `lptr`, `lcol`,
   `lval`, `dinv`, `lvl_ptr`, rows and columns in the caller's index space),
-  with the kernel's ready flags and its epoch counter.
+  with the kernel's readiness words and flags and its epoch counter.
 
 `trsv_level` has the rule of every port kernel: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel (one launch a solve) or
-raises. The kernel has f32, f64, complex64 and complex128 instances; a
-bf16 form solves on the CPU only. `trsv_level.launches` counts launches per instance. The form keeps
-source positions into the effective values, so `refresh()` regathers both
-layouts' values on the device.
+plain version, a CUDA tensor launches the kernel (one launch a solve; its
+grid from `grid_for`) or raises. The kernel has f32, f64, complex64 and
+complex128 instances; a bf16 form solves on the CPU only.
+`trsv_level.launches` counts launches per instance. The form keeps source
+positions into the effective values, so `refresh()` regathers both layouts'
+values on the device.
 """
 
 from __future__ import annotations
@@ -46,34 +47,87 @@ __all__ = [
     "LevelForm",
     "build_level_form",
     "level_form_stats",
+    "grid_for",
+    "hop_probe",
     "level_step",
     "trsv_level",
     "trsv_level_plain",
 ]
 
-#: dtype -> (instance name, C entry point)
+#: dtype -> (instance name, C entry point, kind code of trsv_level_occupancy)
 _INSTANCES = {
-    torch.float32: ("f32", "trsv_level_f32"),
-    torch.float64: ("f64", "trsv_level_f64"),
-    torch.complex64: ("c64", "trsv_level_c64"),
-    torch.complex128: ("c128", "trsv_level_c128"),
+    torch.float32: ("f32", "trsv_level_f32", 0),
+    torch.float64: ("f64", "trsv_level_f64", 1),
+    torch.complex64: ("c64", "trsv_level_c64", 2),
+    torch.complex128: ("c128", "trsv_level_c128", 3),
 }
 #: operand dtypes the kernel has instances for
 DTYPES = tuple(_INSTANCES)
-#: the largest epoch before the ready flags are zeroed again
+#: the largest epoch before the readiness words and flags are zeroed again
 EPOCH_MAX = 2**31 - 1
+#: warps of a CTA (csrc/trsv_level.cu kThreads / 32), one row a warp
+CTA_WARPS = 16
+#: the grid's warps for each row of the triangle's mean level (m / nlev),
+#: at least a CTA an SM and at most what the card holds (`grid_for`; swept
+#: by scripts/level_bench.py)
+LEVEL_SLACK = 2.5
 
 _fns = {}
+_occupancy = {}
 
 
 def _entry(symbol: str):
     fn = _fns.get(symbol)
     if fn is None:
         fn = getattr(load_library(), symbol)
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 2
+        if symbol == "trsv_level_occupancy":
+            fn.argtypes = [ctypes.c_int64] * 2 + [ctypes.c_void_p]
+        elif symbol == "trsv_level_hop_probe":
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return fn
+
+
+def grid_for(m: int, nlev: int, sms: int, per_sm: int) -> int:
+    """CTAs of a launch over m rows in nlev levels, on a card of `sms` SMs
+    holding `per_sm` CTAs each: LEVEL_SLACK warps a row of the mean level,
+    so that a warp has a few levels' time for its loads and no more warps
+    poll than that, within [sms, sms * per_sm]."""
+    want = -(-int(LEVEL_SLACK * m / max(nlev, 1)) // CTA_WARPS)
+    return max(sms, min(sms * per_sm, want))
+
+
+def _resident(kind: int, K: int, dev: torch.device):
+    """(SMs, resident CTAs an SM) of the instance on `dev`, cached."""
+    key = (kind, K == 1, dev.index)
+    got = _occupancy.get(key)
+    if got is None:
+        out = (ctypes.c_int64 * 2)()
+        with torch.cuda.device(dev):
+            rc = _entry("trsv_level_occupancy")(kind, K, ctypes.addressof(out))
+        if rc != 0:
+            raise RuntimeError(f"level solve occupancy query failed: CUDA error {rc}")
+        got = _occupancy[key] = (int(out[0]), int(out[1]))
+    return got
+
+
+def hop_probe(word: torch.Tensor, smids: torch.Tensor, rounds: int, mode: int) -> None:
+    """One launch of the hop probe (csrc/trsv_level.cu): two CTAs on two
+    SMs pass a counter `rounds` times through the int64 `word` (zeroed by
+    the caller), relaxed (mode 0) or release / acquire (mode 1) at GPU
+    scope, or two warps of one CTA through shared memory (mode 2); a round
+    is two hops. `smids` (2,) int32 receives the CTAs' SMs. Not
+    synchronised."""
+    if word.device.type != "cuda" or word.dtype != torch.int64 or smids.dtype != torch.int32 or smids.numel() < 2:
+        raise AoclSparseError(Status.invalid_value, "hop_probe needs an int64 word and two int32 slots on the card")
+    with torch.cuda.device(word.device):
+        rc = _entry("trsv_level_hop_probe")(word.data_ptr(), smids.data_ptr(), rounds, mode,
+                                            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"hop probe launch failed: CUDA error {rc}")
 
 
 @dataclasses.dataclass
@@ -105,8 +159,10 @@ class LevelForm:
     dinv: Optional[torch.Tensor] = None  # (m,) inverted diagonal by position
     _srcL: Optional[np.ndarray] = None  # source positions of lval
     _srcD: Optional[np.ndarray] = None  # of dinv's diagonal, by position
-    #: the kernel's ready flags on the card and the epoch of its last launch
+    #: the kernel's ready flags (K > 1) and readiness words (K = 1) on the
+    #: card and the epoch of its last launch
     _ready: Optional[torch.Tensor] = None
+    _words: Optional[torch.Tensor] = None
     _epoch: int = 0
     #: bumped by refresh: copies of the values kept elsewhere
     #: (parallel/trsv.py) are valid for one epoch
@@ -130,16 +186,22 @@ class LevelForm:
         self.lval, self.dinv = self._vals_for(eff_val, self._srcL, self._srcD)
         self.values_epoch += 1
 
-    def next_epoch(self, dev: torch.device) -> int:
+    def next_epoch(self, dev: torch.device, nwords: int = 0) -> int:
         """The epoch of the next launch on `dev`: the flags are made (zero)
-        at the first launch and zeroed again when the counter passes
-        EPOCH_MAX."""
+        at the first launch, the readiness words (`nwords` 64-bit words a
+        row) at the first launch that asks for them, and both are zeroed
+        again when the counter passes EPOCH_MAX."""
         if self._ready is None or self._ready.device != dev:
             self._ready = torch.zeros(self.m, dtype=torch.int32, device=dev)
+            self._words = None
             self._epoch = 0
+        if nwords and self._words is None:
+            self._words = torch.zeros(self.m * nwords, dtype=torch.int64, device=dev)
         self._epoch += 1
         if self._epoch > EPOCH_MAX:
             self._ready.zero_()
+            if self._words is not None:
+                self._words.zero_()
             self._epoch = 1
         return self._epoch
 
@@ -193,14 +255,18 @@ def trsv_level(form: LevelForm, b: torch.Tensor) -> torch.Tensor:
     inst = _INSTANCES.get(b.dtype)
     if inst is None:
         raise AoclSparseError(Status.wrong_type, f"level solve has no instance for {b.dtype}")
-    name, symbol = inst
+    name, symbol, kind = inst
     B = (b[:, None] if b.dim() == 1 else b).contiguous()
     X = torch.empty_like(B)
     if form.m == 0 or B.shape[1] == 0:
         return X if b.dim() == 2 else X[:, 0]
-    epoch = form.next_epoch(b.device)
+    K = B.shape[1]
+    dev = b.device
+    grid = grid_for(form.m, form.nlev, *_resident(kind, K, dev))
+    epoch = form.next_epoch(dev, B.element_size() // 4 if K == 1 else 0)
+    sync = form._words if K == 1 else form._ready
     n = ctypes.c_int64(0)
-    with torch.cuda.device(b.device):
+    with torch.cuda.device(dev):
         rc = _entry(symbol)(
             form.lrow.data_ptr(),
             form.lptr.data_ptr(),
@@ -209,9 +275,10 @@ def trsv_level(form: LevelForm, b: torch.Tensor) -> torch.Tensor:
             form.dinv.data_ptr(),
             B.data_ptr(),
             X.data_ptr(),
-            form._ready.data_ptr(),
+            sync.data_ptr(),
             form.m,
-            B.shape[1],
+            K,
+            grid,
             epoch,
             torch.cuda.current_stream().cuda_stream,
             ctypes.addressof(n),
@@ -222,7 +289,7 @@ def trsv_level(form: LevelForm, b: torch.Tensor) -> torch.Tensor:
     return X if b.dim() == 2 else X[:, 0]
 
 
-trsv_level.launches = {name: 0 for name, _sym in _INSTANCES.values()}
+trsv_level.launches = {name: 0 for name, _sym, _kind in _INSTANCES.values()}
 
 
 def _level_runs(counts, wlev, slack: float = 1.6, max_runs: int = 16):

@@ -118,12 +118,12 @@ LEVEL_MAX_NLEV = 4096
 #: routing through the plain versions)
 SV_LEVEL_DEVICES = ("cuda",)
 #: the gate's constants in microseconds, measured on an NVIDIA H100 80GB
-#: HBM3 at 700 W: the level kernel's time a level (chip_smoke.py phase 6: a
-#: solve of the 104^3 stencil's lower triangle over its 722 levels) and the
-#: chain kernel's time a step (scripts/chain_bench.py: its dwin solve of
-#: the stencil's ILU0 L over 8,788 blocks of 128, f32; 17,576 blocks of 64
-#: take 1.17 us a step in f64)
-T_LEVEL_US = 2.43
+#: HBM3 at 700 W: the level kernel's time a level (scripts/level_bench.py
+#: and chip_smoke.py phase 6: a solve of the 104^3 stencil's ILU0 L over
+#: its 722 levels, f32, 0.756 ms) and the chain kernel's time a step
+#: (scripts/chain_bench.py: its dwin solve of the stencil's ILU0 L over
+#: 8,788 blocks of 128, f32; 17,576 blocks of 64 take 1.17 us a step in f64)
+T_LEVEL_US = 1.05
 T_STEP_US = 1.85
 
 #: the dtypes of a triangular solve: those of the JAX package's handles

@@ -316,12 +316,15 @@ failure (exit code != 0, no result line):
    version and torch.sum; the chain kernel's dwin (stencil ILU0 L) and
    gather (scatter lower) instances and the level kernel on the same
    triangles against their plain versions and torch.triangular_solve on
-   the CSR triangle, the level kernel's dependency round trip (a
-   bidiagonal chain, one level a row) and the sv gate's constants (us a
-   level, us a chain step) as measured, the level kernel's complex
-   instances on the complex stencil's ILU0 L beside cuSPARSE's complex
-   solve, mv KID 6 (the plain spmv_diag) on the stencil beside its bound
-   and cuSPARSE, the complex plain win route (one bench ILU0 L solve), the
+   the CSR triangle, the card's floor for one dependency hop (the level
+   kernel's hop probe: two SMs through one word of L2, relaxed and release
+   / acquire, and two warps through shared memory) and the level kernel's
+   time a level on a bidiagonal chain (one level a row), the sv gate's
+   constants (us a level, us a chain step) as measured, the level kernel's
+   complex instances on the complex stencil's ILU0 L beside cuSPARSE's
+   complex solve, mv KID 6 (the plain spmv_diag) on the stencil beside its
+   bound and cuSPARSE, the complex plain win route (one bench ILU0 L solve,
+   beside torch.triangular_solve on the CSR L), the
    window solves' bf16 instances (no library call) and the band SpMM's
    (beside cuSPARSE's f32 product on the bf16-rounded values), the
    stencil's trsv by kid, its
@@ -420,6 +423,7 @@ from aoclsparse_tpu_torch.kernels.spmv_mxu import spmv_band_mxu, spmv_band_mxu_p
 from aoclsparse_tpu_torch.kernels.stream_read import stream_read, stream_read_plain
 from aoclsparse_tpu_torch.io import load_matrix, load_plan, read_mtx, save_matrix, save_plan, write_mtx
 from aoclsparse_tpu_torch.kernels import trsv_blocked as trsv_blocked_mod
+from aoclsparse_tpu_torch.kernels import trsv_level as trsv_level_mod
 from aoclsparse_tpu_torch.kernels.trsv_blocked import trsv_dwin, trsv_dwin_plain, trsv_gather, trsv_gather_plain
 from aoclsparse_tpu_torch.kernels.trsv_level import build_level_form, trsv_level, trsv_level_plain
 from aoclsparse_tpu_torch.kernels.trsv_win import (
@@ -2025,7 +2029,7 @@ def chain_kernel_checks(H, H64, Q, Q64, dev, errs):
 def check_level_form(form, label, K, errs):
     """The level kernel on a LevelForm against its plain version on a
     random right-hand side ((m,) for K = 1, else (m, K)), twice for the
-    same bits."""
+    same bits, and for the same bits again on a grid of one CTA an SM."""
     kernel = f"trsv_level_{INST[form.lval.dtype]}"
     shape = (form.m,) if K == 1 else (form.m, K)
     rng = np.random.default_rng(K)
@@ -2035,6 +2039,13 @@ def check_level_form(form, label, K, errs):
     b = torch.from_numpy(b).to(form.lval.device, form.lval.dtype)
     full = f"{label} (m={form.m}, {form.nlev} levels, {form.lcol.numel()} strict entries) K={K}"
     got = same_bits(kernel, full, lambda: trsv_level(form, b))
+    keep, trsv_level_mod.LEVEL_SLACK = trsv_level_mod.LEVEL_SLACK, 0.0
+    try:
+        other = trsv_level(form, b)
+    finally:
+        trsv_level_mod.LEVEL_SLACK = keep
+    if not torch.equal(got, other):
+        raise AssertionError(f"{kernel} {full}: other bits on a grid of one CTA an SM")
     compare(kernel, full, got, trsv_level_plain(form, b), errs)
 
 
@@ -2059,11 +2070,39 @@ def level_kernel_checks(hst, hst64, Q, Q64, errs):
                 check_level_form(form, f"scatter {tri.fill_mode.name}", K, errs)
 
 
+def hop_floor(dev, rounds=200000):
+    """us a dependency hop on the card (kernels/trsv_level.py hop_probe):
+    two CTAs on two SMs through one 64-bit word, relaxed and release /
+    acquire at GPU scope, and two warps of one CTA through a relaxed 64-bit
+    shared word (a hop inside one SM);
+    the least of three launches of `rounds` round trips (two hops each), by
+    CUDA events."""
+    word = torch.zeros(1, dtype=torch.int64, device=dev)
+    smids = torch.zeros(2, dtype=torch.int32, device=dev)
+    out = {}
+    for mode, what in ((0, "relaxed, two SMs"), (1, "release/acquire, two SMs"), (2, "relaxed shared, one CTA")):
+        best = None
+        for _ in range(3):
+            word.zero_()
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            trsv_level_mod.hop_probe(word, smids, rounds, mode)
+            t1.record()
+            t1.synchronize()
+            us = t0.elapsed_time(t1) * 1e3 / (2 * rounds)
+            best = us if best is None else min(best, us)
+        if mode < 2 and smids[0].item() == smids[1].item():
+            raise AssertionError(f"hop probe: both CTAs on SM {smids[0].item()}")
+        out[what] = best
+    return out
+
+
 def widen_level_form(form, dtype):
     """A LevelForm with its values in `dtype` (its structure shared), with
-    its own ready flags."""
+    its own readiness flags and words."""
+    fresh = {f.name: f.default for f in dataclasses.fields(form) if f.name in ("_ready", "_words", "_epoch")}
     return dataclasses.replace(
-        form, lval=form.lval.to(dtype), dinv=form.dinv.to(dtype), _ready=None, _epoch=0,
+        form, lval=form.lval.to(dtype), dinv=form.dinv.to(dtype), **fresh,
         _run_vals=tuple((lv.to(dtype), di.to(dtype)) for lv, di in form._run_vals))
 
 
@@ -4249,8 +4288,8 @@ def main() -> int:
     # array at run time: no stack frame, no spills
     names = ("benes_pass_kernel", "oh_accum_kernel", "spmv_mxu_kernel", "spmv_bwd_kernel", "win_block_kernel",
              "win_chain_kernel", "win_fix_kernel", "win_round_kernel", "spmm_band_mxu_f32_kernel", "spmm_band_mxu_bf16_kernel",
-             "band_gemm_kernel", "spmm_band_kernel", "spmm_diag_kernel", "trsv_blocked_kernel", "trsv_level_kernel",
-             "spmv_csr_blocks_kernel")
+             "band_gemm_kernel", "spmm_band_kernel", "spmm_diag_kernel", "trsv_blocked_kernel", "level_words_kernel",
+             "level_cols_kernel", "spmv_csr_blocks_kernel")
     res = ptxas_resources(ptxas, names)
     for fn, (frame, stores, loads, regs) in sorted(res.items()):
         short = next(fn[fn.index(nm):] for nm in names if nm in fn)[:48]
@@ -5684,18 +5723,25 @@ def main() -> int:
             H.plan.levels[key] = kept
         del f_
     ttri.CHAIN_NB = chain_nb
-    # the level kernel's dependency round trip: a bidiagonal chain, one
-    # level a row, so a solve is m dependent rounds; the latency floor of a
-    # level solve is nlev times it
+    # the card's floor for one dependency hop (the level kernel's hop
+    # probe); nlev times the hop between two SMs is a level solve's latency
+    # floor
+    hop = hop_floor(dev)
+    t_trip = hop["relaxed, two SMs"] * 1e-3
+    log("  the card's hop floor (trsv_level_hop_probe, a round is two hops): "
+        + ", ".join(f"{k} {v:.3f} us" for k, v in hop.items()))
+    # the level kernel on a bidiagonal chain: one level a row, so a solve is
+    # m dependent hops from warp to warp
     mc = 20000
     Cb = sp.diags([np.full(mc - 1, -0.5), np.full(mc, 2.0)], [-1, 0]).tocsr()
     cform = build_level_form(Cb.indptr, Cb.indices, np.arange(Cb.nnz), mc, False, False,
                              torch.from_numpy(Cb.data.astype(np.float32)).to(dev))
     bc = torch.ones(mc, dtype=torch.float32, device=dev)
-    t_trip = cuda_ms(lambda: trsv_level(cform, bc), reps=5, inner=3, warm=1, backlog=True) / mc
+    t_chain = cuda_ms(lambda: trsv_level(cform, bc), reps=5, inner=3, warm=1, backlog=True) / mc
     nlev_h = _level_forms(hst)[0].nlev
-    log(f"  trsv_level_f32 dependency round trip (bidiagonal, {mc} levels): {t_trip * 1e3:.3f} us a level; "
-        f"the stencil factor's latency floor {nlev_h} x {t_trip * 1e3:.3f} us = {nlev_h * t_trip:.4f} ms")
+    log(f"  trsv_level_f32 on a bidiagonal chain ({mc} levels): {t_chain * 1e3:.3f} us a level; "
+        f"the stencil factor's latency floor {nlev_h} x {t_trip * 1e3:.3f} us (the card's hop) = "
+        f"{nlev_h * t_trip:.4f} ms against its solve's {ms['trsv_level_f32']:.4f} ms")
     log(f"  the sv gate's constants as measured (f32 / f64): t_level {t_level['f32']:.3f} / {t_level['f64']:.3f} us "
         f"a level, t_step {t_step['f32']:.3f} / {t_step['f64']:.3f} us a step; the planner's T_LEVEL_US "
         f"{ttri.T_LEVEL_US}, T_STEP_US {ttri.T_STEP_US}")
@@ -5750,7 +5796,19 @@ def main() -> int:
     log(f"  complex64 win solve, the plain route (bench ILU0 L, nb={fl_c.nb} WL={fl_c.WL} nblk={fl_c.nblk}): "
         f"{t_plain_c:.4f} ms a solve, {t_plain_c * 1e3 / fl_c.nblk:.2f} us a block; the bytes' bound "
         f"{t_b:.4f} ms ({by}); the f32 kernel on the f32 form {ms['trsv_win_f32']:.4f} ms")
-    del dT_c, lT_c, rc
+    # the library's complex solve of the same triangle: torch.triangular_solve
+    # (cuSPARSE) on the CSR of the unit L factor
+    _sn, nptr, nind, _nv = nonsym
+    nrows = np.repeat(np.arange(m), np.diff(nptr))
+    nlow = nind < nrows
+    lu_n = lp["nst"].lu.cpu().numpy()
+    Lnc = csr_tensor(*coo_csr(np.r_[nrows[nlow], np.arange(m)], np.r_[nind[nlow], np.arange(m)],
+                              np.r_[lu_n[nlow], np.ones(m)], m), dev, torch.complex64)
+    t_lib_c, err_c = library_ms(lambda: torch.triangular_solve(rc[:m, None], Lnc, upper=False, unitriangular=True),
+                                reps=3, inner=1, warm=1)
+    log(f"  complex64 win solve's library call (torch.triangular_solve on the CSR L, {int(nlow.sum())} strict "
+        f"entries): {f'{t_lib_c:.4f} ms' if t_lib_c is not None else err_c}")
+    del dT_c, lT_c, rc, Lnc
     Sq = sp.csr_matrix((qval.astype(np.float64), qind, qptr), shape=(qm, qm))
     Sql = sp.tril(Sq).tocsr()
     for inst, handle, dt_ in (("f32", Qh, torch.float32), ("f64", Qd, torch.float64)):

@@ -1,26 +1,30 @@
 """The level-solve kernel of the PyTorch port (csrc/trsv_level.cu, sv KID 1)
-on the CPU: its compact level-ordered layout, an emulation of its schedule,
-the gate that sends the default solve to it, and the routing of the solves
-and solvers through that gate.
+on the CPU: its compact level-ordered layout, its grid, an emulation of its
+schedule, the gate that sends the default solve to it, and the routing of
+the solves and solvers through that gate.
 
 Triangles, made with numpy from seeds: the ILU0 L and U factors of HPCG's
 27-point stencil on an 8^3 grid (the port's own factorization), the lower
 and upper triangles of a scatter operand (m = 2048, the diagonal 4.0 plus 8
 uniform random columns a row, seed 23), and the lower triangle of a
 tridiagonal (one level a row). Upper triangles solve reversed, as the
-planner orients them.
+planner orients them. Complex triangles carry the real values times
+(1 + 0.25i).
 
 The emulation replays the kernel's schedule (csrc/trsv_level.cu): a grid of
-resident warps deals the positions of the level order in turn (warp w takes
-w, w + W, ...), the warps visited in a seeded random order; a row solves
-only when every column's flag holds the launch's epoch, in the kernel's sum
-order (lane l of 32 sums entries l, l + 32, ... in order, then a fixed xor
-butterfly); unsolved rows of x hold NaN, as torch.empty may. It
-does not reproduce the card's fused multiply-add rounding: its results are
-held to the plain version, the JAX package's `solve_levels` and scipy's
-substitution at expected_precision of the dtype (utils/tolerances.py) on
-max |a - b| / max(|b|, 1), the same sums taken in another order, and to
-its own bits under other schedules.
+resident warps deals the positions of the level order in turn (warp w
+takes w, w + W, ...), the warps visited in a seeded random order; a row
+solves only when every column is ready: by its readiness word's epoch at
+K = 1 (the word carries the value), by its ready flag at K > 1 (the value
+is read from x, whose unsolved rows hold NaN as torch.empty may). Its
+value is summed in the kernel's order: at K = 1 lane l of 32 sums entries
+l, l + 32, ... in order, then a fixed xor butterfly; at K > 1 each column
+sums the row's entries in order. It does not reproduce the card's fused
+multiply-add rounding: its results are held to the plain version, the JAX
+package's `solve_levels` and scipy's substitution at expected_precision of
+the dtype (utils/tolerances.py) on max |a - b| / max(|b|, 1), the same
+sums taken in another order, and to its own bits under other grids and
+visiting orders.
 
 The cuda-marked tests hold the kernel to its plain version on the card.
 """
@@ -42,7 +46,7 @@ from aoclsparse_tpu_torch.solvers import ilu as ilu_mod
 from aoclsparse_tpu_torch.utils.tolerances import expected_precision, near_error
 
 NONE = tt.Operation.none
-DTYPES = {"f32": np.float32, "f64": np.float64}
+DTYPES = {"f32": np.float32, "f64": np.float64, "c64": np.complex64, "c128": np.complex128}
 
 
 @pytest.fixture(scope="module")
@@ -139,23 +143,38 @@ def oriented(T, upper):
     return ptr, c[order].astype(np.int64), order.astype(np.int64)
 
 
+def tri_values(name, dtype):
+    """The triangle's stored values in `dtype`: complex ones times (1 + 0.25i)."""
+    v = TRI[name][0].data
+    if np.issubdtype(dtype, np.complexfloating):
+        v = v * (1 + 0.25j)
+    return v.astype(dtype)
+
+
 def port_form(name, dtype):
     T, upper, unit = TRI[name]
     ptr, ind, src = oriented(T, upper)
-    return build_level_form(ptr, ind, src, T.shape[0], upper, unit, torch.from_numpy(T.data.astype(dtype)))
+    return build_level_form(ptr, ind, src, T.shape[0], upper, unit, torch.from_numpy(tri_values(name, dtype)))
 
 
-def dense_ref(name, b):
-    """scipy's substitution in float64 (the unit triangle with its 1s)."""
+def dense_ref(name, b, dtype=np.float64):
+    """scipy's substitution in float64 / complex128 (the unit triangle with
+    its 1s), on the values of `dtype`."""
     T, upper, unit = TRI[name]
+    wide = np.complex128 if np.issubdtype(dtype, np.complexfloating) else np.float64
+    T = sp.csr_matrix((tri_values(name, dtype).astype(wide), T.indices, T.indptr), shape=T.shape)
     if unit:
         T = (T + sp.eye(T.shape[0])).tocsr()
     return spla.spsolve_triangular(T, b, lower=not upper)
 
 
-def rhs(m, K, seed=7):
+def rhs(m, K, seed=7, dtype=np.float64):
     rng = np.random.default_rng(seed)
-    return rng.standard_normal(m) if K == 1 else rng.standard_normal((m, K))
+    shape = (m,) if K == 1 else (m, K)
+    b = rng.standard_normal(shape)
+    if np.issubdtype(dtype, np.complexfloating):
+        b = b + 1j * rng.standard_normal(shape)
+    return b.astype(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -163,47 +182,64 @@ def rhs(m, K, seed=7):
 # ---------------------------------------------------------------------------
 
 
-def _row_value(form_np, X, B, p):
-    """Row lrow[p]'s new values (K,) in the kernel's sum order: lane l of
-    the row's warp sums entries l, l + 32, ... in order, then the lanes
-    meet in the xor butterfly."""
+def _row_value(form_np, fetch, B, p):
+    """Row lrow[p]'s new values (K,) in the kernel's sum order, against
+    fetch(cols) (len(cols), K): at K = 1 lane l of the row's warp sums
+    entries l, l + 32, ... in order, then the lanes meet in the xor
+    butterfly; at K > 1 each column sums the entries in order."""
     lrow, lptr, lcol, lval, dinv = form_np
     dt = lval.dtype
     beg, end = int(lptr[p]), int(lptr[p + 1])
-    part = np.zeros((32, B.shape[1]), dtype=dt)
-    for lane in range(32):
-        for j in range(beg + lane, end, 32):
-            part[lane] = (lval[j] * X[lcol[j]] + part[lane]).astype(dt)
-    s = 16
-    while s:
-        part = (part + part[np.arange(32) ^ s]).astype(dt)
-        s //= 2
+    vals, xs = lval[beg:end, None], fetch(lcol[beg:end])
+    if B.shape[1] > 1:
+        acc = np.zeros(B.shape[1], dtype=dt)
+        for j in range(end - beg):
+            acc = (vals[j] * xs[j] + acc).astype(dt)
+        return ((B[lrow[p]] - acc) * dinv[p]).astype(dt)
+    part = np.zeros((32, 1), dtype=dt)
+    for t0 in range(0, end - beg, 32):
+        n = min(32, end - beg - t0)
+        part[:n] = (vals[t0:t0 + n] * xs[t0:t0 + n] + part[:n]).astype(dt)
+    sh = 16
+    while sh:
+        part = (part + part[np.arange(32) ^ sh]).astype(dt)
+        sh //= 2
     return ((B[lrow[p]] - part[0]) * dinv[p]).astype(dt)
 
 
-def emulate(form, b, warps=48, seed=0, epoch=1, ready=None, accept=None):
+def emulate(form, b, warps=48, seed=0, epoch=1, state=None, accept=None):
     """Replay the kernel's schedule on the host: `warps` resident warps,
     warp w taking positions w, w + warps, ... in order, visited in a seeded
-    random order; a row solves once every column's flag passes accept(flag,
-    epoch) (the kernel's test: flag == epoch), then flags its row. `ready`
-    carries across calls as the form's flags do. Raises on a round with no
-    progress (a deadlock). Returns (x, ready)."""
+    random order; a row solves once every column's word (K = 1) or flag
+    (K > 1) passes accept(ep, epoch) (the kernel's test: ep == epoch), then
+    marks its row. `state` carries the words (epoch and value) and flags
+    (epoch) across calls, as the form's do. Raises on a round with no
+    progress (a deadlock). Returns (x, state)."""
     form_np = tuple(t.numpy() for t in (form.lrow, form.lptr, form.lcol, form.lval, form.dinv))
     lrow, lptr, lcol = form_np[:3]
     m = form.m
     B = b.numpy().reshape(m, -1)
+    words = B.shape[1] == 1
     X = np.full(B.shape, np.nan, dtype=form_np[3].dtype)
-    ready = np.zeros(m, dtype=np.int64) if ready is None else ready
-    accept = accept or (lambda flag, ep: flag == ep)
+    if state is None:
+        state = {"ep": np.zeros(m, dtype=np.int64), "val": np.zeros(B.shape, dtype=X.dtype)}
+    accept = accept or (lambda ep, want: ep == want)
     rng = np.random.default_rng(seed)
+
+    def fetch(cols):
+        return state["val"][cols] if words else X[cols]
+
     at = {w: w for w in range(min(warps, m))}  # warp -> its current position
     while at:
         progress = False
         for w in rng.permutation(sorted(at)):
             p = at[w]
-            if all(accept(ready[c], epoch) for c in lcol[lptr[p]:lptr[p + 1]]):
-                X[lrow[p]] = _row_value(form_np, X, B, p)
-                ready[lrow[p]] = epoch
+            if np.all(accept(state["ep"][lcol[lptr[p]:lptr[p + 1]]], epoch)):
+                row = lrow[p]
+                X[row] = _row_value(form_np, fetch, B, p)
+                state["ep"][row] = epoch
+                if words:
+                    state["val"][row] = X[row]
                 progress = True
                 at[w] = p + warps
                 if at[w] >= m:
@@ -211,7 +247,7 @@ def emulate(form, b, warps=48, seed=0, epoch=1, ready=None, accept=None):
         if not progress:
             raise AssertionError("the emulated schedule made no progress")
     x = torch.from_numpy(X)
-    return (x[:, 0] if b.dim() == 1 else x), ready
+    return (x[:, 0] if b.dim() == 1 else x), state
 
 
 # ---------------------------------------------------------------------------
@@ -246,6 +282,48 @@ def test_compact_layout(name):
         assert f.nlev == m
 
 
+@pytest.mark.parametrize(
+    "m,nlev,sms,per_sm,want",
+    [
+        (1124864, 722, 132, 3, 244),  # the 104^3 stencil's factor: 2.5 warps a row of its mean level
+        (262144, 29, 132, 3, 396),  # the scatter triangle: wide levels fill the card
+        (20000, 20000, 132, 3, 132),  # a chain: at least a CTA an SM
+        (7, 1, 132, 1, 132),
+    ],
+)
+def test_grid_for(monkeypatch, m, nlev, sms, per_sm, want):
+    """The launch's grid: LEVEL_SLACK warps a row of the mean level, within
+    a CTA an SM and what the card holds."""
+    monkeypatch.setattr(tl, "LEVEL_SLACK", 2.5)
+    assert tl.grid_for(m, nlev, sms, per_sm) == want
+
+
+def _emulated_vs_references(ast, name, K, dtype, check_bits=True):
+    from aoclsparse_tpu.kernels.xla import trsv_level as jl
+
+    T, upper, unit = TRI[name]
+    m = T.shape[0]
+    npdt = DTYPES[dtype]
+    f = port_form(name, npdt)
+    b = torch.from_numpy(rhs(m, K, dtype=npdt))
+    tol = expected_precision(f.lval.dtype)
+    plain = trsv_level_plain(f, b).numpy()
+    ptr, ind, src = oriented(T, upper)
+    jf = jl.build_level_form(ptr, ind, src, m, upper, unit, tri_values(name, npdt))
+    want_j = np.asarray(jl.solve_levels(jf, b.numpy()))
+    want_s = dense_ref(name, b.numpy().astype(np.complex128 if np.iscomplexobj(b.numpy()) else np.float64), npdt)
+    assert near_error(plain, want_s) <= tol
+    x, _st = emulate(f, b)
+    x = x.numpy()
+    for want in (plain, want_j, want_s):
+        assert near_error(x, want) <= tol
+    if check_bits:
+        for warps, seed in ((7, 99), (301, 5)):
+            again, _st = emulate(f, b, warps=warps, seed=seed)
+            assert np.array_equal(x, again.numpy())
+    return f, b, x
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("K", [1, 4])
 @pytest.mark.parametrize("name", sorted(TRI))
@@ -254,44 +332,41 @@ def test_emulated_schedule_matches_plain_jax_and_scipy(ast, name, K, dtype):
     solve_levels on the same structure and scipy, at the dtype's model
     tolerance; its bits depend neither on the grid's size nor on the order
     the warps run in."""
-    from aoclsparse_tpu.kernels.xla import trsv_level as jl
+    _emulated_vs_references(ast, name, K, dtype)
 
-    T, upper, unit = TRI[name]
-    m = T.shape[0]
-    f = port_form(name, DTYPES[dtype])
-    b = torch.from_numpy(rhs(m, K).astype(DTYPES[dtype]))
-    tol = expected_precision(f.lval.dtype)
-    plain = trsv_level_plain(f, b).numpy()
-    ptr, ind, src = oriented(T, upper)
-    jf = jl.build_level_form(ptr, ind, src, m, upper, unit, T.data.astype(DTYPES[dtype]))
-    want_j = np.asarray(jl.solve_levels(jf, b.numpy()))
-    want_s = dense_ref(name, b.numpy().astype(np.float64))
-    assert near_error(plain, want_s) <= tol
-    x, _r = emulate(f, b)
-    x = x.numpy()
-    for want in (plain, want_j, want_s):
-        assert near_error(x, want) <= tol
-    for warps, seed in ((7, 99), (301, 5)):
-        again, _r = emulate(f, b, warps=warps, seed=seed)
-        assert np.array_equal(x, again.numpy())
+
+@pytest.mark.parametrize("dtype", ["f32", "c128"])
+@pytest.mark.parametrize("name", ["ilu_L", "scatter_U"])
+def test_emulated_schedule_k16(ast, name, dtype):
+    """trsm's width, K = 16 (16 of a warp's lanes, one column each), as
+    above, on two grids."""
+    f, b, x = _emulated_vs_references(ast, name, 16, dtype, check_bits=False)
+    again, _st = emulate(f, b, warps=5, seed=4)
+    assert np.array_equal(x, again.numpy())
 
 
 @pytest.mark.parametrize("name", ["ilu_L", "scatter_U", "tridiag_L"])
 def test_epoch_flags_across_launches(name):
-    """Three emulated launches on one set of flags (epochs 1, 2, 3) each
-    give the plain solve of their own rhs; a wait that took any set flag as
-    ready would read rows not yet solved in this launch (NaN), so the epoch
-    carries the ordering and no launch resets the flags."""
+    """Three emulated launches on one set of readiness words (K = 1) and of
+    ready flags (K = 2), epochs 1, 2, 3, each give the plain solve of their
+    own rhs; a wait that took any set word or flag as ready would read the
+    last launch's values (words: a wrong solve) or rows not yet solved in
+    this launch (flags: NaN), so the epoch carries the ordering and no
+    launch resets them."""
     f = port_form(name, np.float64)
-    ready = None
-    for epoch in (1, 2, 3):
-        b = torch.from_numpy(rhs(f.m, 1, seed=epoch))
-        x, ready = emulate(f, b, epoch=epoch, ready=ready, seed=epoch)
-        assert near_error(x.numpy(), trsv_level_plain(f, b).numpy()) <= expected_precision(torch.float64)
-        assert np.all(ready == epoch)
-    b = torch.from_numpy(rhs(f.m, 1, seed=4))
-    stale, _r = emulate(f, b, epoch=4, ready=ready, accept=lambda flag, ep: flag > 0)
-    assert not np.all(np.isfinite(stale.numpy()))
+    for K in (1, 2):
+        state = None
+        for epoch in (1, 2, 3):
+            b = torch.from_numpy(rhs(f.m, K, seed=epoch))
+            x, state = emulate(f, b, epoch=epoch, state=state, seed=epoch)
+            assert near_error(x.numpy(), trsv_level_plain(f, b).numpy()) <= expected_precision(torch.float64)
+            assert np.all(state["ep"] == epoch)
+        b = torch.from_numpy(rhs(f.m, K, seed=4))
+        stale, _st = emulate(f, b, epoch=4, state=state, accept=lambda ep, want: ep > 0)
+        if K == 1:
+            assert near_error(stale.numpy(), trsv_level_plain(f, b).numpy()) > 1e-3
+        else:
+            assert not np.all(np.isfinite(stale.numpy()))
 
 
 def test_refresh_regathers_compact_values():
@@ -307,7 +382,7 @@ def test_refresh_regathers_compact_values():
     f.refresh(torch.from_numpy(new))
     assert torch.equal(f.lval, fresh.lval) and torch.equal(f.dinv, fresh.dinv)
     b = torch.from_numpy(rhs(m, 1))
-    x, _r = emulate(f, b)
+    x, _st = emulate(f, b)
     want = spla.spsolve_triangular(sp.csr_matrix((new, T.indices, T.indptr), shape=(m, m)), b.numpy(), lower=False)
     assert near_error(x.numpy(), want) <= expected_precision(torch.float64)
     S = scatter(2048)
@@ -546,20 +621,20 @@ def _card_forms(dev, dtype):
         T, upper, unit = TRI[name]
         ptr, ind, src = oriented(T, upper)
         out.append((name, build_level_form(ptr, ind, src, T.shape[0], upper, unit,
-                                           torch.from_numpy(T.data.astype(dtype)).to(dev))))
+                                           torch.from_numpy(tri_values(name, dtype)).to(dev))))
     return out
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_cuda_kernel_matches_plain(cuda, dtype):
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64, np.complex128])
+def test_cuda_kernel_matches_plain(cuda, dtype, monkeypatch):
     """The kernel against its plain version at K = 1, 4 and 16 within the
     dtype's model tolerance, one launch a call, the same bits on a second
-    call."""
-    inst = "f32" if dtype == np.float32 else "f64"
+    call and on the smallest and the largest grid."""
+    inst = {np.float32: "f32", np.float64: "f64", np.complex64: "c64", np.complex128: "c128"}[dtype]
     for name, f in _card_forms(cuda, dtype):
         for K in (1, 4, 16):
-            b = torch.from_numpy(rhs(f.m, K).astype(dtype)).to(cuda)
+            b = torch.from_numpy(rhs(f.m, K, dtype=dtype)).to(cuda)
             c0 = trsv_level.launches[inst]
             got, again = trsv_level(f, b), trsv_level(f, b)
             torch.cuda.synchronize()
@@ -567,19 +642,25 @@ def test_cuda_kernel_matches_plain(cuda, dtype):
             assert torch.equal(got, again), (name, K)
             want = trsv_level_plain(f, b)
             assert near_error(got.cpu().numpy(), want.cpu().numpy()) <= expected_precision(f.lval.dtype), (name, K)
+            for slack in (0.0, 1e9):
+                monkeypatch.setattr(tl, "LEVEL_SLACK", slack)
+                assert torch.equal(trsv_level(f, b), got), (name, K, slack)
+                monkeypatch.undo()
 
 
 @pytest.mark.cuda
 def test_cuda_nonfinite_rhs(cuda):
     """An Inf and a NaN in the rhs spread as in the plain version: the
-    kernel multiplies every stored entry, so the same rows are non-finite."""
+    kernel multiplies every stored entry, so the same rows are non-finite,
+    at K = 1 (readiness words) and K = 16 (flags)."""
     for name, f in _card_forms(cuda, np.float64):
-        b = torch.from_numpy(rhs(f.m, 1)).to(cuda)
-        b[3], b[f.m // 2] = float("inf"), float("nan")
-        got, want = trsv_level(f, b).cpu().numpy(), trsv_level_plain(f, b).cpu().numpy()
-        assert np.array_equal(np.isnan(got), np.isnan(want)) and np.array_equal(np.isinf(got), np.isinf(want)), name
-        ok = np.isfinite(want)
-        assert near_error(got[ok], want[ok]) <= expected_precision(torch.float64), name
+        for K in (1, 16):
+            b = torch.from_numpy(rhs(f.m, K)).to(cuda)
+            b[3], b[f.m // 2] = float("inf"), float("nan")
+            got, want = trsv_level(f, b).cpu().numpy(), trsv_level_plain(f, b).cpu().numpy()
+            assert np.array_equal(np.isnan(got), np.isnan(want)) and np.array_equal(np.isinf(got), np.isinf(want)), name
+            ok = np.isfinite(want)
+            assert near_error(got[ok], want[ok]) <= expected_precision(torch.float64), name
 
 
 @pytest.mark.cuda
