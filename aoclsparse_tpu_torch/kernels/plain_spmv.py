@@ -5,8 +5,10 @@ and the native BSR and DIA products, in plain torch.
 PyTorch counterpart of ``aoclsparse_tpu/kernels/xla/spmv.py:51-125``
 (`spmv_segsum`, which serves `spmv_sell`'s form too, `spmv_ell`, `spmv_ellhyb`, `spmv_bsr`,
 `spmv_dia`), :553 (`spmv_bwdg`, mv KID 9) and :606 (`spmv_diag`, mv KID
-6). In the JAX package these are XLA-path code, not Pallas kernels, so they
-have no hand-written kernel here either. The ell forms are the gen form's
+6). In the JAX package these are XLA-path code, not Pallas kernels. Two of
+them have hand kernels on the card, and serve here as their plain versions,
+which the CPU runs: `spmv_segsum` (mv KID 0, kernels/spmv_csr.py) and
+`spmv_diag` (mv KID 6, kernels/spmv_diag.py). The ell forms are the gen form's
 gather fallback (planner/plan.py `gather_fallback_kind`); `bwdg` is the
 layout the SpGEMM band engine emits C in, so `mv` on a product runs on it;
 `spmv_bsr` and `spmv_dia` serve BSR and DIA handles and the format-direct
@@ -109,7 +111,9 @@ def spmv_diag(dvals, offs, x, m: int, L: int, n_pad: int) -> torch.Tensor:
     """Diagonal-form SpMV (mv KID 6) over the planner's ``diag`` form:
     dvals[d, i] = A[i, i + offs[d]], x zero-padded by L in front to n_pad;
     y = sum_d dvals[d] * xp[offs[d] + L : offs[d] + L + m], the diagonals
-    gathered DIAG_CHUNK at a time."""
+    gathered DIAG_CHUNK at a time, in the operands' dtype (for bfloat16,
+    each product rounded to bfloat16, as in the JAX package). The plain
+    version of the diagonal SpMV kernel (kernels/spmv_diag.py)."""
     xp = torch.nn.functional.pad(x, (L, n_pad - L - x.shape[0]))
     base = torch.arange(m, device=x.device) + L
     y = torch.zeros(m, dtype=torch.promote_types(dvals.dtype, x.dtype), device=x.device)

@@ -15,11 +15,13 @@ The mv table keeps the JAX package's KID numbers and priorities
 (kernels/xla/__init__.py:13-54 there): 0 (segsum), the CSR row-gather
 kernel (kernels/spmv_csr.py) for float32, float64, complex64 and
 complex128, the plain gather for the other dtypes, by dtype, the hand
-kernel of the JAX package's XLA row; 1 (ell), 2 (ellhyb), 3
-(bsr, a BSR handle's product), 4 (dia, a DIA handle's), 6 (the planner's
-diag form) and 10 (sell, sliced ELL, whose flattened slices have no row
-pointers: the plain gather), the gather and shifted forms in plain
-torch; 5, the ``bwd`` group windows, whose hand-written kernel
+kernel of the JAX package's XLA row; 6 (the planner's diag form), the
+diagonal SpMV kernel (kernels/spmv_diag.py) for float32, bfloat16 and
+float64, the plain shifted sum for the other dtypes, by dtype, also the
+hand kernel of an XLA row; 1 (ell), 2 (ellhyb), 3 (bsr, a BSR handle's
+product), 4 (dia, a DIA handle's) and 10 (sell, sliced ELL, whose
+flattened slices have no row pointers: the plain gather), the gather and
+shifted forms in plain torch; 5, the ``bwd`` group windows, whose hand-written kernel
 (kernels/spmv_bwd.py) serves float32, a bf16 band with float32 x (the mixed
 mode) and float64, while complex and float16 operands take its plain
 formulation by that dtype rule (the JAX package runs KID 5 as an XLA
@@ -70,12 +72,13 @@ from ..core.types import AoclSparseError, Status
 from ..native import trsv_seq
 from .band_spmv import spmv_bandt
 from .host import HOST_MV_KID, spmv_host_csr
-from .plain_spmv import spmv_bsr, spmv_bwdg, spmv_dia, spmv_diag, spmv_ell, spmv_ellhyb, spmv_segsum
+from .plain_spmv import spmv_bsr, spmv_bwdg, spmv_dia, spmv_ell, spmv_ellhyb, spmv_segsum
 from .spmm_band import spmm_bandmxu, spmm_bandtm
 from .spmm_diag import spmm_diag
 from .spmm_gen import spmm_gen
 from .spmv_bwd import spmv_bwd_any
 from .spmv_csr import spmv_csr_any
+from .spmv_diag import spmv_diag_any
 from .spmm_plain import spmm_bwd, spmm_ell, spmm_ellhyb, spmm_segsum
 from .spmv_gen import spmv_gen, spmv_route
 from .trsv_level import trsv_level
@@ -175,7 +178,9 @@ registry.register("mv", KernelEntry(2, "torch_ellhyb", spmv_ellhyb, "ellhyb", "a
 registry.register("mv", KernelEntry(3, "torch_bsr", spmv_bsr, "bsr", "any", 0))
 registry.register("mv", KernelEntry(4, "torch_dia", spmv_dia, "dia", "any", 0))
 registry.register("mv", KernelEntry(5, "cuda_bwd", spmv_bwd_any, "bwd", "any", 1))
-registry.register("mv", KernelEntry(6, "torch_diag", spmv_diag, "diag", "any", 1))
+# the diag form: the diagonal SpMV kernel (kernels/spmv_diag.py) for the
+# dtypes it has, the plain spmv_diag for the rest, on every backend
+registry.register("mv", KernelEntry(6, "cuda_diag", spmv_diag_any, "diag", "any", 1))
 registry.register("mv", KernelEntry(7, "gen_composite", spmv_gen, "gen", "any", 1))
 registry.register("mv", KernelEntry(9, "torch_bwdg", spmv_bwdg, "bwdg", "any", 1))
 registry.register("mv", KernelEntry(8, "cuda_bandt", spmv_bandt, "bandt", "any", 2))

@@ -61,6 +61,8 @@ __all__ = [
     "build_exec_form",
     "choose_mm_format",
     "choose_mv_format",
+    "DIAG_CSR_SLOTS",
+    "diag_beats_csr",
     "gather_fallback_kind",
     "pick_mv_format",
     "structure_mv_format",
@@ -840,11 +842,36 @@ def pick_mv_format(kind: str, device, dtype) -> str:
 def choose_mv_format(eff: EffectiveCSR, device=None) -> str:
     """The default mv form of `eff` on `device` (the values' device where
     None): `structure_mv_format`'s form, turned by `pick_mv_format` (on the
-    card, general structure takes `segsum`)."""
-    return pick_mv_format(structure_mv_format(eff), eff.val.device if device is None else device, eff.val.dtype)
+    card, general structure takes `segsum`). On the card, for the dtypes
+    the CSR kernel has, the diag branch also weighs the two kernels' bytes
+    (`diag_beats_csr`)."""
+    from ..kernels.spmv_csr import KERNEL_DTYPES
+
+    device = eff.val.device if device is None else device
+    card_csr = torch.device(device).type == "cuda" and eff.val.dtype in KERNEL_DTYPES
+    return pick_mv_format(structure_mv_format(eff, card_csr=card_csr), device, eff.val.dtype)
 
 
-def structure_mv_format(eff: EffectiveCSR) -> str:
+#: stored slots a nonzero up to which the diagonal SpMV kernel is no slower
+#: than the CSR kernel on the card, by value dtype: the measured crossovers
+#: (`scripts/diag_bench.py --cross` on an H100, kernel ms diag / CSR: f32
+#: 0.0532 / 0.0542 at 2.01 slots, 0.0537 / 0.0504 at 2.21; f64 0.0950 /
+#: 0.0982 at 1.71, 0.0948 / 0.0920 at 1.81)
+DIAG_CSR_SLOTS = {torch.float32: 2.05, torch.float64: 1.75}
+
+
+def diag_beats_csr(eff: EffectiveCSR, ndiag: int) -> bool:
+    """Is the diagonal kernel no slower than the CSR kernel on `eff`'s
+    diag form of `ndiag` diagonals (float32 or float64 values)? The
+    diagonal kernel reads every stored slot of its (ndiag, m) values, so
+    its time stays flat as the slots empty, while the CSR kernel's falls
+    with nnz; on the 27 offsets of a 104^3 stencil at m = 1,124,864 they
+    tie at DIAG_CSR_SLOTS slots a nonzero. So diag while
+    ndiag * m <= DIAG_CSR_SLOTS[dtype] * nnz."""
+    return ndiag * eff.m <= DIAG_CSR_SLOTS[eff.val.dtype] * eff.nnz
+
+
+def structure_mv_format(eff: EffectiveCSR, card_csr: bool = False) -> str:
     """Execution-format selection by structure, re-derived for Hopper.
 
     The JAX package's rule (plan.py:815-879) rests on a TPU fact: gathers run
@@ -862,14 +889,23 @@ def structure_mv_format(eff: EffectiveCSR) -> str:
       `bandt` and `gen` as in the JAX rule (plan.py:838-851 there): HPCG's
       27-point stencil (27 diagonals, W about 2 nx^2) runs mv KID 6 and not
       the whole-matrix `route`, while a full band (the bench operand: 129
-      diagonals in W = 136) stays on `bandt`. A divergence (ROADMAP item
+      diagonals in W = 136) stays on `bandt`. The factor 2 holds on the
+      card (an H100: 32 diagonals in W = 128 run 1.9x faster on the diagonal
+      kernel than on the band kernel, 80 of 128 1.3x slower). A divergence (ROADMAP item
       22): W and the fit are the port's peeled row window (`_bandt_window`,
       BANDT_MAX_W), not the JAX rule's unpeeled group window (`_bwd_window`,
       BWD_MAX_W), which is never narrower. So a band with a few far
       outliers stays on `bandt` (the band kernel, outliers spilled) where
-      the JAX rule takes `diag` (here plain torch), and the port picks
+      the JAX rule takes `diag` (here the diagonal kernel), and the port picks
       `diag` less often; the stencil and the bench band get the same form
       under both windows;
+      On the card (`card_csr`: a CUDA device and a dtype of the CSR
+      kernel, float32 or float64), `diag` also needs `diag_beats_csr`: it
+      is kept to operands whose diagonals store at most DIAG_CSR_SLOTS
+      slots a nonzero (2.05 float32, 1.75 float64), where the JAX test allows 16 (or 8 for
+      more than DIA_MAX diagonals); past that the rule goes on as below,
+      and general structure ends at `segsum`. A divergence from the JAX
+      rule (ROADMAP, deliberate divergences); bfloat16 and the CPU keep it;
     - otherwise, for a square matrix with m >= 2 * GEN_B, `gen`: general
       structure is made band-compressible (hub slabs, block RCM, a peeled
       band on the same kernel) and its spill rides the spill-route kernels,
@@ -895,7 +931,7 @@ def structure_mv_format(eff: EffectiveCSR) -> str:
     _lo, W, _spill = _bandt_window(rows, rel)
     bandt_ok = W <= BANDT_MAX_W and eff.m * W <= BWD_CAP * eff.nnz
     ndiag = int(_diag_stats(eff)[0].size)
-    if _diag_ok(eff, ndiag) and (not bandt_ok or 2 * ndiag < W):
+    if _diag_ok(eff, ndiag) and (not bandt_ok or 2 * ndiag < W) and (not card_csr or diag_beats_csr(eff, ndiag)):
         return "diag"
     if bandt_ok:
         return "bandt"

@@ -16,9 +16,10 @@ failure (exit code != 0, no result line):
    SpMM (every instance), diagonal SpMM (every instance), blocked-solve
    chain (all 30 instances: f32, f64, bf16, complex64, complex128 by dwin
    and gather by 1, 2 and 4 columns), level-solve (every instance,
-   complex included) and CSR row-gather (every instance: 4 value types by
-   int32 / int64 pointers and indices, 5 sub-warp widths) kernels no
-   stack frame and no spills (their registers logged);
+   complex included), CSR row-gather (every instance: 4 value types by
+   int32 / int64 pointers and indices, 5 sub-warp widths) and diagonal
+   SpMV (every instance: 3 value types)
+   kernels no stack frame and no spills (their registers logged);
 3. hold each kernel instance against its plain PyTorch version:
    - the band kernel on the bench operand (m = n = 262144, 64 nnz/row,
      half-bandwidth 64, seed 7, built as bench.py:220-233) in f32, bf16
@@ -54,6 +55,10 @@ failure (exit code != 0, no result line):
      f32, bf16 and f64, called twice for the same bits, on a small odd-m
      operand with negative offsets, and on 192 diagonals, a lone far
      diagonal with offsets past +-n, and the 12^3 stencil (K = 1, 13, 300);
+   - the diagonal SpMV kernel (mv KID 6) in f32, bf16 and f64 on the same
+     operands with one right-hand side, each called twice for the same
+     bits; bf16 also against f32 sums of the same bf16 values rounded
+     once;
    - the window-solve kernels (pass A, the chain, grouped on these forms,
      and pass C, over dinvT, P = lwT @ dinvT and F) on the ILU0 L and U
      forms of the SPD operand (the bench profile symmetrised plus a
@@ -128,7 +133,8 @@ failure (exit code != 0, no result line):
    the launch counts the composition implies (a window solve: its passes'
    launches, kernels/trsv_win.py solve_launches); then on the 104^3
    stencil, whose default mv form and strict triangles' mv forms are diag
-   (the mv rule's diag branch; mv KID 6, plain spmv_diag) and where the
+   (the mv rule's diag branch; mv KID 6, the diagonal SpMV kernel: one
+   launch a matvec, on the f32, float64 and a bf16 handle) and where the
    default solve takes the level kernel
    (planner/triangular.py sv_engine_for): ilu0_factorize (its factors
    cached since phase 3), ilu_smoother (default: two level launches;
@@ -311,7 +317,9 @@ failure (exit code != 0, no result line):
    writing a 128 MiB buffer), and one mv(kid=5) call and one mv call on
    each format's handle; the tile-major kernels and the block-window SpMV
    against their plain version and cuSPARSE CSR @ x (the block windows
-   warm and cold, their bound over the parallelogram they need); the
+   warm and cold, their bound over the parallelogram they need; each bf16
+   band instance, like the band kernel's, beside cuSPARSE's f32 product on
+   the bf16-rounded CSR); the
    read probe on the 128 MiB buffer and on the band slab against its plain
    version and torch.sum; the chain kernel's dwin (stencil ILU0 L) and
    gather (scatter lower) instances and the level kernel on the same
@@ -322,9 +330,12 @@ failure (exit code != 0, no result line):
    time a level on a bidiagonal chain (one level a row), the sv gate's
    constants (us a level, us a chain step) as measured, the level kernel's
    complex instances on the complex stencil's ILU0 L beside cuSPARSE's
-   complex solve, mv KID 6 (the plain spmv_diag) on the stencil beside its
-   bound and cuSPARSE, the complex plain win route (one bench ILU0 L solve,
-   beside torch.triangular_solve on the CSR L), the
+   complex solve, mv KID 6 (the diagonal SpMV kernel, every instance) on
+   the stencil beside its plain version, its bound and cuSPARSE (bf16:
+   cuSPARSE's f32 product on the bf16-rounded CSR and x), the kernel on
+   the stencil's strict lower triangle, the stencil's mv call and a
+   profile of it, the complex plain win route (one bench ILU0 L solve,
+   beside torch.triangular_solve on the CSR L, and its nonzero bound), the
    window solves' bf16 instances (no library call) and the band SpMM's
    (beside cuSPARSE's f32 product on the bf16-rounded values), the
    stencil's trsv by kid, its
@@ -415,10 +426,10 @@ from aoclsparse_tpu_torch.kernels.spmm_band import (
     spmm_bandtm,
 )
 from aoclsparse_tpu_torch.kernels.spgemm_band import build_band_gemm_plan, extract_values
-from aoclsparse_tpu_torch.kernels.plain_spmv import spmv_diag
 from aoclsparse_tpu_torch.kernels.spmm_diag import diag_schedule, spmm_diag, spmm_diag_plain
 from aoclsparse_tpu_torch.kernels.spmv_bwd import spmv_bwd, spmv_bwd_plain
 from aoclsparse_tpu_torch.kernels.spmv_csr import block_stats, csr_launches, spmv_csr, spmv_csr_plain
+from aoclsparse_tpu_torch.kernels.spmv_diag import diag_bytes, spmv_diag, spmv_diag_plain
 from aoclsparse_tpu_torch.kernels.spmv_mxu import spmv_band_mxu, spmv_band_mxu_plain, spmv_bandmxu
 from aoclsparse_tpu_torch.kernels.stream_read import stream_read, stream_read_plain
 from aoclsparse_tpu_torch.io import load_matrix, load_plan, read_mtx, save_matrix, save_plan, write_mtx
@@ -548,6 +559,11 @@ KERNELS = {
     "spmv_csr_f64": ("aoclsparse_tpu_torch/csrc/spmv_csr.cu", "aoclsparse_tpu/kernels/xla/spmv.py:51"),
     "spmv_csr_c64": ("aoclsparse_tpu_torch/csrc/spmv_csr.cu", "aoclsparse_tpu/kernels/xla/spmv.py:51"),
     "spmv_csr_c128": ("aoclsparse_tpu_torch/csrc/spmv_csr.cu", "aoclsparse_tpu/kernels/xla/spmv.py:51"),
+    # the diagonal-form SpMV (mv KID 6): the JAX package runs it as the XLA
+    # formulation spmv_diag (unrolled slices or a scan), no Pallas kernel
+    "spmv_diag_f32": ("aoclsparse_tpu_torch/csrc/spmv_diag.cu", "aoclsparse_tpu/kernels/xla/spmv.py:606"),
+    "spmv_diag_bf16": ("aoclsparse_tpu_torch/csrc/spmv_diag.cu", "aoclsparse_tpu/kernels/xla/spmv.py:606"),
+    "spmv_diag_f64": ("aoclsparse_tpu_torch/csrc/spmv_diag.cu", "aoclsparse_tpu/kernels/xla/spmv.py:606"),
 }
 #: the kernels of the general-structure path (phase 5b), counted there:
 #: the CSR kernel of the card's default, the route kernels of the gen and
@@ -614,7 +630,10 @@ COUNTERS = {
     "trsv_gather": trsv_gather.launches,
     "trsv_level": trsv_level.launches,
     "spmv_csr": spmv_csr.launches,
+    "spmv_diag": spmv_diag.launches,
 }
+#: one launch of the diagonal SpMV kernel (mv KID 6), by instance
+DIAG_ONE = {inst: {f"spmv_diag_{i}": int(i == inst) for i in ("f32", "bf16", "f64")} for inst in ("f32", "bf16", "f64")}
 #: the bf16 solves (window and chain kernels) against their plain versions,
 #: and the relative residuals of the bf16 chain solves: four bf16 units in
 #: the last place (2^-5)
@@ -703,6 +722,15 @@ KERNEL_TOL = {
     "spmv_csr_f64": expected_precision(torch.float64),
     "spmv_csr_c64": expected_precision(torch.complex64),
     "spmv_csr_c128": expected_precision(torch.complex128),
+    # the same products summed in another order (the offsets in order, one
+    # sum a row, against the plain version's chunks of 32); bf16: the plain
+    # version rounds each product to bf16 (the JAX package's arithmetic)
+    # and the kernel keeps them in f32, so the bf16 model tolerance (0.5);
+    # phase 3 also holds it to f32 sums of the same bf16 values, rounded
+    # once, within BF16_SOLVE_TOL
+    "spmv_diag_f32": expected_precision(torch.float32),
+    "spmv_diag_bf16": expected_precision(torch.bfloat16),
+    "spmv_diag_f64": expected_precision(torch.float64),
 }
 #: mv and mm against the float64 reference: the operand dtype's model tolerance
 MV_TOL = {"f32": expected_precision(torch.float32), "f64": expected_precision(torch.float64)}
@@ -1296,6 +1324,24 @@ def compare(kernel, label, got, want, errs):
     log(f"  {kernel} {label}: max rel err {rel:.3e} (tol {tol:.3e}) max abs {abs_err:.3e}")
     if not rel <= tol:
         raise AssertionError(f"{kernel} {label}: kernel disagrees with its plain version")
+
+
+def check_diag_spmv(inst, label, dv, offs, x, L, n_pad, errs):
+    """The diagonal SpMV kernel's `inst` instance against its plain version
+    (KERNEL_TOL), twice for the same bits; bf16 also against f32 sums of
+    the same bf16 values rounded once, the kernel's arithmetic
+    (BF16_SOLVE_TOL)."""
+    kernel = f"spmv_diag_{inst}"
+    m = dv.shape[1]
+    got = same_bits(kernel, label, lambda: spmv_diag(dv, offs, x, m, L, n_pad))
+    compare(kernel, label, got, spmv_diag_plain(dv, offs, x, m, L, n_pad), errs)
+    if inst == "bf16":
+        want = spmv_diag_plain(dv.float(), offs, x.float(), m, L, n_pad).to(torch.bfloat16)
+        rel = near_error(host64(got), host64(want))
+        log(f"  {kernel} {label}: against f32 sums of the bf16 values rounded once, max rel err {rel:.3e} "
+            f"(tol {BF16_SOLVE_TOL:.3e})")
+        if not rel <= BF16_SOLVE_TOL:
+            raise AssertionError(f"{kernel} {label}: kernel disagrees with f32 sums of its bf16 operands")
 
 
 def same_bits(kernel, label, call):
@@ -2140,8 +2186,11 @@ def stencil_solvers(H, H64, hst, hptr, hind, hval, dev, rtol, res_tol):
     apply: two level-kernel launches and no chain launch), symgs / symgs_mv
     (the level kernel) and sorv (the level kernel, through the same gate)
     against a float64 scipy sweep, trsv by default (the level kernel) and
-    kid=0, 1, 2, and trsv on the float64 handle (both f64 instances).
-    Returns the iteration counts."""
+    kid=0, 1, 2, and trsv on the float64 handle (both f64 instances). Every
+    matvec on the stencil and its strict triangles is one launch of the
+    diagonal SpMV kernel: mv on the f32, float64 and a bf16 handle (one
+    each), an ILU0-PCG iteration one, an SGS-PCG iteration two, symgs two,
+    symgs_mv three, sorv one. Returns the iteration counts."""
     mh = len(hptr) - 1
     Sh = sp.csr_matrix((hval.astype(np.float64), hind, hptr), shape=(mh, mh))
     Lh, Uh, Dh = sp.tril(Sh, -1).tocsr(), sp.triu(Sh, 1).tocsr(), sp.diags(Sh.diagonal())
@@ -2159,7 +2208,23 @@ def stencil_solvers(H, H64, hst, hptr, hind, hval, dev, rtol, res_tol):
                                           for k, f in forms.items()))
     if any(f.kind != "diag" for f in forms.values()):
         raise AssertionError(f"the stencil's default mv forms are {[f.kind for f in forms.values()]}, want diag")
-    check_mv("stencil mv (diag form)", tt.mv(1.0, H, GEN, NONE, b_d, 0.0), Sh @ bref, f32tol)
+    # one launch of the diagonal SpMV kernel a stencil mv, in each value
+    # type: the f32 handle, the float64 handle, and a bf16 handle of the
+    # stencil (x bf16: mv casts x to the handle's dtype)
+    check_mv("stencil mv (diag form)", counted("stencil mv", lambda: tt.mv(1.0, H, GEN, NONE, b_d, 0.0),
+                                               DIAG_ONE["f32"]), Sh @ bref, f32tol)
+    check_mv("stencil mv float64 (diag form)", counted("stencil mv f64", lambda: tt.mv(1.0, H64, GEN, NONE,
+                                                                                      b_d.double(), 0.0),
+                                                       DIAG_ONE["f64"]), Sh @ bref, expected_precision(torch.float64))
+    t0 = time.perf_counter()
+    H16 = tt.create_csr(mh, mh, hptr, hind, torch.from_numpy(hval).to(torch.bfloat16), device=dev)
+    b16 = b_d.to(torch.bfloat16)
+    y16 = counted("stencil mv bf16", lambda: tt.mv(1.0, H16, GEN, NONE, b16, 0.0), DIAG_ONE["bf16"])
+    if y16.dtype != torch.bfloat16 or H16.plan.exec_form_for(GEN, NONE).kind != "diag":
+        raise AssertionError("the bf16 stencil's mv must run its diag form and return bf16")
+    check_mv(f"stencil mv bf16 (diag form; create_csr + plan + call {time.perf_counter() - t0:.1f} s)", y16,
+             Sh @ host64(b16), expected_precision(torch.bfloat16))
+    del H16
     lu = hst.lu.double().cpu().numpy()
     rows = np.repeat(np.arange(mh), np.diff(hptr))
     low = hind < rows
@@ -2180,14 +2245,20 @@ def stencil_solvers(H, H64, hst, hptr, hind, hval, dev, rtol, res_tol):
         t_solve = time.perf_counter() - t0
         c1 = read_counts()
         dl, dc = c1["trsv_level_f32"] - c0["trsv_level_f32"], c1["trsv_dwin_f32"] - c0["trsv_dwin_f32"]
+        dd = c1["spmv_diag_f32"] - c0["spmv_diag_f32"]
         true_res = float(np.linalg.norm(bref - Sh @ xp.double().cpu().numpy()) / np.linalg.norm(bref))
         log(f"  stencil pcg precond={precond}: {k} iterations in {t_solve:.3f} s (set-up included), ||r||={rnorm:.3e}, "
-            f"true rel residual {true_res:.3e} (tol {res_tol:.1e}), level-kernel launches {dl}, dwin launches {dc}")
+            f"true rel residual {true_res:.3e} (tol {res_tol:.1e}), level-kernel launches {dl}, dwin launches {dc}, "
+            f"diag-kernel launches {dd}")
         if not (k < 1000 and np.isfinite(true_res) and true_res <= res_tol):
             raise AssertionError(f"stencil CG precond={precond}: not converged to the tolerance")
-        if (dl, dc) != (2 * k, 0):
-            raise AssertionError(f"stencil CG precond={precond}: {dl} level / {dc} dwin launches in {k} iterations, "
-                                 f"want {2 * k} / 0")
+        # an iteration: one apply (two level solves) and the matvec, on the
+        # diag form, and for SGS the apply's strict-lower matvec, also diag;
+        # the initial residual one matvec more
+        want_d = (2 if precond == "sgs" else 1) * k + 1
+        if (dl, dc, dd) != (2 * k, 0, want_d):
+            raise AssertionError(f"stencil CG precond={precond}: {dl} level / {dc} dwin / {dd} diag launches in {k} "
+                                 f"iterations, want {2 * k} / 0 / {want_d}")
         iters[precond] = k
     # one symmetric Gauss-Seidel sweep (symgs_ref) and one forward SOR
     # sweep, each against scipy in float64
@@ -2207,10 +2278,11 @@ def stencil_solvers(H, H64, hst, hptr, hind, hval, dev, rtol, res_tol):
     check_mv(f"stencil sorv (omega {omega}, alpha {alpha})", tt.sorv(tt.SorType.forward, GEN, H, omega, alpha, x0_d, b_d),
              want, f32tol)
     c1 = read_counts()
-    done = {k: c1[k] - c0[k] for k in ("trsv_level_f32", "trsv_dwin_f32")}
-    if done != {"trsv_level_f32": 5, "trsv_dwin_f32": 0}:
+    done = {k: c1[k] - c0[k] for k in ("trsv_level_f32", "trsv_dwin_f32", "spmv_diag_f32")}
+    if done != {"trsv_level_f32": 5, "trsv_dwin_f32": 0, "spmv_diag_f32": 6}:
         raise AssertionError(f"symgs, symgs_mv, sorv made {done} launches, want 5 level (two sweeps each, one "
-                             "for sorv's (D + omega L) solve) and no dwin")
+                             "for sorv's (D + omega L) solve), no dwin and 6 diag (the strict upper and lower "
+                             "matvecs of symgs and symgs_mv, symgs_mv's y = A x, sorv's strict upper matvec)")
     # the sv engines on the stencil's lower triangle: the default (the level
     # kernel), kid 0 (the chain kernel), 1 (the level kernel), 2 (host)
     x_0 = counted("stencil trsv kid=0", lambda: tt.trsv(1.0, H, LOWER, NONE, b_d, kid=0),
@@ -3150,7 +3222,7 @@ def tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, ilu_iters, peak, er
     route = {"oh_select_f32", "oh_accum_f32", "benes_route_f32"}
     mv_kernels = {"bandt": {"band_spmv_f32"}, "bwd": {"spmv_bwd_f32"}, "route": route,
                   "gen": {"band_spmv_f32"} | (route if _spill_route_on(form, dev) else set()),
-                  "segsum": {"spmv_csr_f32"}}
+                  "segsum": {"spmv_csr_f32"}, "diag": {"spmv_diag_f32"}}
     mm_kernels = {"bandtm": {"spmm_band_f32"}, "gen": {"spmm_band_f32"}, "bandmxu": {"spmm_band_mxu_f32"},
                   "diag": {"spmm_diag_f32"}}
 
@@ -4289,7 +4361,7 @@ def main() -> int:
     names = ("benes_pass_kernel", "oh_accum_kernel", "spmv_mxu_kernel", "spmv_bwd_kernel", "win_block_kernel",
              "win_chain_kernel", "win_fix_kernel", "win_round_kernel", "spmm_band_mxu_f32_kernel", "spmm_band_mxu_bf16_kernel",
              "band_gemm_kernel", "spmm_band_kernel", "spmm_diag_kernel", "trsv_blocked_kernel", "level_words_kernel",
-             "level_cols_kernel", "spmv_csr_blocks_kernel")
+             "level_cols_kernel", "spmv_csr_blocks_kernel", "spmv_diag_kernel")
     res = ptxas_resources(ptxas, names)
     for fn, (frame, stores, loads, regs) in sorted(res.items()):
         short = next(fn[fn.index(nm):] for nm in names if nm in fn)[:48]
@@ -4703,6 +4775,31 @@ def main() -> int:
                     same_bits(f"spmm_diag_{inst}", label, lambda: spmm_diag(dv_r, od_r, B_r, offs_static=offs_r)),
                     spmm_diag_plain(dv_r, od_r, B_r), errs)
     del dv_r, B_r
+    # the diagonal SpMV kernel (mv KID 6) in every instance on the same
+    # operands: the stencil's diag form (x of its dtype), the small odd-m
+    # form, 192 diagonals, the lone far diagonals and the 12^3 stencil,
+    # each twice for the same bits
+    xg = np.random.default_rng(SEED_B + 2).standard_normal(mh)
+    for inst, dv in (("f32", hf.dia_val), ("bf16", hf.dia_val.to(torch.bfloat16)), ("f64", hv64)):
+        xd = torch.from_numpy(xg).to(dev, dv.dtype)
+        check_diag_spmv(inst, f"stencil ({len(hoffs)} diagonals)", dv, hf.dia_offs, xd, hf.dia_L, hf.dia_n_pad,
+                        errs)
+    for inst, dt in (("f32", np.float32), ("bf16", np.float32), ("f64", np.float64)):
+        df = bandt_form(dptr, dind, dval.astype(dt), dev, kind="diag")
+        dv = df.dia_val.to(torch.bfloat16) if inst == "bf16" else df.dia_val
+        xd = torch.from_numpy(np.random.default_rng(37).standard_normal(df.n)).to(dev, dv.dtype)
+        check_diag_spmv(inst, f"small odd-m (m={df.m}, offsets {df.dia_offs_static})", dv, df.dia_offs, xd, df.dia_L,
+                        df.dia_n_pad, errs)
+    for mr, nr, offs_r in ((5000, 5000, tuple(range(-96, 96))), (1999, 1500, (-3000, -1, 0, 5, 1900)),
+                           (1728, 1728, st12), (1727, 1728, st12)):
+        L_r = max(0, -offs_r[0])
+        n_pad_r = max(L_r + nr, L_r + offs_r[-1] + mr)
+        for inst, dt in (("f32", torch.float32), ("bf16", torch.bfloat16), ("f64", torch.float64)):
+            dv_r = torch.from_numpy(drng.standard_normal((len(offs_r), mr))).to(dev, dt)
+            xd = torch.from_numpy(drng.standard_normal(nr)).to(dev, dt)
+            check_diag_spmv(inst, f"{len(offs_r)} offsets {offs_r[0]}..{offs_r[-1]} (m={mr}, n={nr})", dv_r,
+                            torch.tensor(offs_r, device=dev), xd, L_r, n_pad_r, errs)
+    del dv_r, xd
 
     # the spill-route kernels: on the webbase stand-in's gen spill (through
     # its handle, planned by optimize), on one stripe of the scatter
@@ -5349,10 +5446,16 @@ def main() -> int:
 
     A32 = csr_tensor(ptr, ind, val, dev, torch.float32)
     A64 = csr_tensor(ptr, ind, val, dev, torch.float64)
+    # the bf16 band instances' library call: cuSPARSE's f32 product on the
+    # bench CSR with its values rounded to bf16, which widen to f32 exactly:
+    # the same function (f32 sums of the bf16 values; x rounded too for the
+    # block windows, whose kernel rounds it)
+    A16r = csr_tensor(ptr, ind, torch.from_numpy(val).to(torch.bfloat16).float().numpy(), dev, torch.float32)
+    x32r = x32.to(torch.bfloat16).float()
     f64 = bandt_form(ptr, ind, val.astype(np.float64), dev)
     cases = {
         "band_spmv_f32": (f32.bwd_val, x32, args32, lambda: A32 @ x32),
-        "band_spmv_bf16": (vt_bf, x32, args32, None),
+        "band_spmv_bf16": (vt_bf, x32, args32, lambda: A16r @ x32),
         "band_spmv_f64": (f64.bwd_val, x64, (f64.bandt_start, f64.bwd_padL), lambda: A64 @ x64),
     }
     for kernel, (vt, xv, args, lib_fn) in cases.items():
@@ -5377,11 +5480,10 @@ def main() -> int:
             f"{ms[kernel]:.4f} ms = {need / ms[kernel] / 1e6:.1f} GB/s; bound {bounds[kernel][0]:.4f} ms")
 
     # the group-window kernel on the bench bwd form, against the same CSR
-    # products; the bf16 instance has no library call of its function;
-    # warm and cold
+    # products (bf16: the bf16-rounded CSR's); warm and cold
     bwd64 = bandt_form(ptr, ind, val.astype(np.float64), dev, kind="bwd")
     for kernel, form, band, xv, lib_fn in (("spmv_bwd_f32", bwd32, bwd32.bwd_val, x32, lambda: A32 @ x32),
-                                           ("spmv_bwd_bf16", bwd32, bwd_bf, x32, None),
+                                           ("spmv_bwd_bf16", bwd32, bwd_bf, x32, lambda: A16r @ x32),
                                            ("spmv_bwd_f64", bwd64, bwd64.bwd_val, x64, lambda: A64 @ x64)):
         bargs = bwd_args(form)
         turns(kernel, lambda: spmv_bwd(band, xv, *bargs), lambda: plain_bwd(band, xv, form))
@@ -5394,8 +5496,8 @@ def main() -> int:
         cold_note(kernel, lambda: spmv_bwd(band, xv, *bargs), lib_fn, nbytes(band) + io)
     del bwd64
     # the tile-major kernels and the block-window SpMV on the bench form's
-    # operands, against the same CSR product (no library call computes a
-    # bf16 band's product with f32 x). The tile-major bound counts the
+    # operands, against the same CSR product (bf16: the bf16-rounded CSR's,
+    # with x rounded for the block windows). The tile-major bound counts the
     # stored band; the block-window bound counts the windows' parallelogram
     # 0 <= c - s < W (128 W values a block), the bytes and operations the
     # function needs of them, beside (logged) the stored windows' bound,
@@ -5403,7 +5505,7 @@ def main() -> int:
     io = nbytes(x32) + m * 4
     Wm = f32.bwd_W
     for inst in ("f32", "bf16"):
-        lib_fn = (lambda: A32 @ x32) if inst == "f32" else None
+        lib_fn = (lambda: A32 @ x32) if inst == "f32" else (lambda: A16r @ x32)
         for kernel, op in ((f"band_spmv_tiles_{inst}", tiles[inst]), (f"band_spmv_tiles_dbuf_{inst}", tiles[inst])):
             kern = band_spmv_tiles if "dbuf" not in kernel else band_spmv_tiles_dbuf
             turns(kernel, lambda: kern(op, x32, *args32, m), lambda: band_spmv_tiles_plain(op, x32, *args32, m))
@@ -5418,6 +5520,8 @@ def main() -> int:
         log(f"  {kernel}: parallelogram stream {para * op.element_size() / ms[kernel] / 1e6:.1f} GB/s "
             f"({para * op.element_size() / ms[kernel] / 1e6 / peak:.3f} of peak {peak} GB/s); the stored windows' "
             f"bound {stored_ms:.4f} ms ({stored_by}; {nbytes(op) / 1e6:.1f} MB) = {stored_ms / ms[kernel]:.3f}")
+        if inst == "bf16":
+            lib_fn = lambda: A16r @ x32r  # noqa: E731
         note(kernel, need, nz_bytes(op) + io, 2 * para, lib_fn)
         cold_note(kernel, lambda: spmv_band_mxu(op, x32, *args32, m, Wm), lib_fn, need)
         # the same windows read as narrower or wider bands: W = 1 reads next
@@ -5428,7 +5532,7 @@ def main() -> int:
             + ", ".join(f"W={Ws} {t:.4f} ms" for Ws, t in sweep.items())
             + f"; W={Wm} against W=64: {(para - op.shape[0] * 128 * 64) * op.element_size() / 1e6:.1f} MB more "
             f"in {sweep[Wm] - sweep[64]:.4f} ms more")
-    del flush
+    del flush, A16r, x32r
     # the read probe: on the 128 MiB buffer (logged), then on the band slab
     # (the kernels line: the main path's operand); torch.sum is the yardstick
     t_cold = [cuda_ms(f, backlog=True) for f in (lambda: stream_read(cold), lambda: stream_read_plain(cold),
@@ -5769,21 +5873,54 @@ def main() -> int:
             f"time; the library's solve {ratio(lib[kernel], ms[kernel])}x its time")
         del Lt
     # mv KID 6, the stencil's mv form since the mv rule's diag branch: the
-    # plain spmv_diag (no hand kernel yet), against cuSPARSE CSR @ x and the
-    # bytes it must move (the 27 diagonals once, x read and y written)
+    # diagonal SpMV kernel in each instance against its plain version,
+    # cuSPARSE CSR @ x (bf16: cuSPARSE f32 on the bf16-rounded CSR and x,
+    # the same function: f32 sums of the bf16 values) and the bytes the
+    # function must move (kernels/spmv_diag.py diag_bytes: the values of the
+    # slots whose column lies in range once, x read, y written); the strict
+    # lower triangle (13 diagonals, the SGS apply's second matvec) in f32;
+    # the mv call and a profiler window of it
     hdf = H.plan.exec_form_for(GEN, NONE)
     xh = torch.from_numpy(np.random.default_rng(103).standard_normal(mh).astype(np.float32)).to(dev)
-    t_diag = cuda_ms(lambda: spmv_diag(hdf.dia_val, hdf.dia_offs, xh, mh, hdf.dia_L, hdf.dia_n_pad), backlog=True)
+    x16h, x64h = xh.to(torch.bfloat16), xh.double()
+    x16r = x16h.float()
+    H16r = csr_tensor(hptr, hind, torch.from_numpy(hval).to(torch.bfloat16).float().numpy(), dev, torch.float32)
+    Hs64 = csr_tensor(hptr, hind, hval, dev, torch.float64)
+    for inst, dv, xv, lib_fn in (("f32", hdf.dia_val, xh, lambda: H32 @ xh),
+                                 ("bf16", hdf.dia_val.to(torch.bfloat16), x16h, lambda: H16r @ x16r),
+                                 ("f64", hdf.dia_val.double(), x64h, lambda: Hs64 @ x64h)):
+        kernel = f"spmv_diag_{inst}"
+        dargs = (dv, hdf.dia_offs, xv, mh, hdf.dia_L, hdf.dia_n_pad)
+        turns(kernel, lambda: spmv_diag(*dargs), lambda: spmv_diag_plain(*dargs), preps=(5, 3))
+        d_bytes = diag_bytes(dv, hoffs, mh)
+        slots = d_bytes // dv.element_size() - 2 * mh
+        note(kernel, d_bytes, nz_bytes(dv) + 2 * mh * dv.element_size(), 2 * slots, lib_fn,
+             need_flops=2 * hind.size)
+        log(f"  {kernel} (stencil, {len(hoffs)} diagonals): "
+            f"{d_bytes / ms[kernel] / 1e6:.1f} GB/s of the {d_bytes / 1e6:.1f} MB it must move "
+            f"({d_bytes / ms[kernel] / 1e6 / peak:.3f} of peak {peak} GB/s); the plain version "
+            f"{plain_ms[kernel] / ms[kernel]:.1f}x its time, cuSPARSE {ratio(lib[kernel], ms[kernel])}x")
+    del H16r, Hs64, dv, xv, dargs
+    slf = H.plan.exec_form_for(tt.MatrixDescriptor(type=tt.MatrixType.triangular, fill_mode=tt.FillMode.lower,
+                                                   diag_type=tt.DiagType.zero), NONE)
+    if slf.kind != "diag":
+        raise AssertionError(f"the stencil's strict lower triangle's mv form is {slf.kind}, want diag")
+    # the stencil's rows keep their sorted columns: its strict lower CSR is
+    # a filter of them
+    lptr_s = np.concatenate([[0], np.cumsum(np.bincount(hrows[hlow], minlength=mh))])
+    L32s = csr_tensor(lptr_s, hind[hlow], hval[hlow], dev, torch.float32)
+    t_sl = cuda_ms(lambda: spmv_diag(slf.dia_val, slf.dia_offs, xh, mh, slf.dia_L, slf.dia_n_pad), backlog=True)
+    t_sl_lib, err = library_ms(lambda: L32s @ xh, backlog=True)
+    sl_bytes = diag_bytes(slf.dia_val, slf.dia_offs_static, mh)
+    t_b, by = bound_of(sl_bytes, 2 * slf.dia_val.numel(), "f32", peak)
+    log(f"  spmv_diag_f32 on the stencil's strict lower triangle ({len(slf.dia_offs_static)} diagonals): "
+        f"{t_sl:.4f} ms, cuSPARSE CSR @ x {f'{t_sl_lib:.4f} ms' if t_sl_lib is not None else err}; bound "
+        f"{t_b:.4f} ms ({by}; {sl_bytes / 1e6:.1f} MB) = {t_b / t_sl:.3f}")
+    del L32s
     t_mv_h = cuda_ms(lambda: tt.mv(1.0, H, GEN, NONE, xh, 0.0))
-    t_lib_h, err = library_ms(lambda: H32 @ xh, backlog=True)
-    d_bytes = nbytes(hdf.dia_val, xh) + mh * 4
-    d_nz = nz_bytes(hdf.dia_val) + nbytes(xh) + mh * 4
-    t_b, by = bound_of(d_bytes, 2 * hdf.dia_val.numel(), "f32", peak)
-    log(f"  mv KID 6 (plain spmv_diag) on the stencil's diag form ({hdf.dia_val.shape[0]} diagonals): "
-        f"{t_diag:.4f} ms, mv call {t_mv_h:.4f} ms, cuSPARSE CSR @ x "
-        f"{f'{t_lib_h:.4f} ms' if t_lib_h is not None else err}; bound {t_b:.4f} ms ({by}; {d_bytes / 1e6:.1f} MB) "
-        f"= {t_b / t_diag:.3f}; nonzeros only {bound_of(d_nz, 2 * hind.size, 'f32', peak)[0]:.4f} ms")
-    profile_mv("stencil mv (diag form, plain spmv_diag)", lambda: tt.mv(1.0, H, GEN, NONE, xh, 0.0), calls=5)
+    log(f"  stencil mv call (diag form): {t_mv_h:.4f} ms a call (host dispatch included) around the kernel's "
+        f"{ms['spmv_diag_f32']:.4f} ms")
+    profile_mv("stencil mv (diag form, the diagonal SpMV kernel)", lambda: tt.mv(1.0, H, GEN, NONE, xh, 0.0), calls=5)
     # the complex plain win route: one ILU0 L solve of the complex bench
     # operand (the plain block loop on the card: no complex window kernel)
     fl_c = lp["nst"].l_form
@@ -5793,9 +5930,13 @@ def main() -> int:
     dT_c, lT_c = fl_c.operands()
     c_bytes = fl_c.nblk * fl_c.nb * (fl_c.nb + 1) // 2 * 8 + nbytes(lT_c) + 2 * nbytes(rc)
     t_b, by = bound_of(c_bytes, 8 * fl_c.nblk * (fl_c.nb * (fl_c.nb + 1) // 2 + fl_c.WL * fl_c.nb), "c64", peak)
+    # the nonzero bound: the operands' nonzero entries only, b and x, as the
+    # f32 kernel's row (trsv_win_f32's need)
+    c_need = nz_bytes(dT_c, lT_c) + 2 * nbytes(rc)
     log(f"  complex64 win solve, the plain route (bench ILU0 L, nb={fl_c.nb} WL={fl_c.WL} nblk={fl_c.nblk}): "
         f"{t_plain_c:.4f} ms a solve, {t_plain_c * 1e3 / fl_c.nblk:.2f} us a block; the bytes' bound "
-        f"{t_b:.4f} ms ({by}); the f32 kernel on the f32 form {ms['trsv_win_f32']:.4f} ms")
+        f"{t_b:.4f} ms ({by}); nonzeros only {bound_of(c_need, 0, 'c64', peak)[0]:.4f} ms "
+        f"({c_need / 1e6:.1f} MB); the f32 kernel on the f32 form {ms['trsv_win_f32']:.4f} ms")
     # the library's complex solve of the same triangle: torch.triangular_solve
     # (cuSPARSE) on the CSR of the unit L factor
     _sn, nptr, nind, _nv = nonsym
@@ -5861,7 +6002,8 @@ def main() -> int:
             log(f"  stencil {precond.upper()}-PCG iteration ({label}): {t_it:.4f} ms (host clock, median of "
                 f"{[round(t, 4) for t in t_all]}; {stencil_iters[precond]} iterations to rtol {rtol:g})")
     ttri.SV_LEVEL_DEVICES = devices
-    t_it, t_all = iteration_ms(lambda kk: tt.pcg_solve(H, bs_d, rtol=0.0, maxit=kk)[1], 5, 25)
+    # 50 iterations apart: an iteration is about 0.25 ms on the diagonal kernel
+    t_it, t_all = iteration_ms(lambda kk: tt.pcg_solve(H, bs_d, rtol=0.0, maxit=kk)[1], 10, 60)
     log(f"  stencil CG iteration (no preconditioner): {t_it:.4f} ms (host clock, median of "
         f"{[round(t, 4) for t in t_all]})")
     profile_mv("stencil ILU0-PCG iteration (2 fixed iterations)",
