@@ -55,15 +55,18 @@
 // The order of every sum is fixed by the structure (no atomics), so a run
 // repeats bit for bit; it is not index_add_'s order, so a comparison with
 // the plain version (kernels/plain_spmv.py spmv_segsum) takes the dtype's
-// model tolerance. The sums are kept in the value type.
+// model tolerance. The sums are kept in the value type, except bf16's:
+// bf16 values and x sum in f32, and y is rounded to bf16 once.
 //
 // Instances (plain C entry points, bound with ctypes), each for int32 or
 // int64 row pointers and int32 or int64 column indices:
-//   spmv_csr_f32, spmv_csr_f64, spmv_csr_c64 (float2), spmv_csr_c128 (double2)
+//   spmv_csr_f32, spmv_csr_f64, spmv_csr_c64 (float2), spmv_csr_c128
+//   (double2), spmv_csr_bf16 (val, x and y bf16, f32 sums)
 // Each launches once on the given stream (nothing where the schedule has
 // no block, m = 0), does not synchronise, allocates nothing, and returns
 // cudaGetLastError() of its launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,14 +75,40 @@ namespace {
 constexpr int kThreads = 256;  // threads a CTA
 constexpr unsigned kFull = 0xffffffffu;
 
+// bf16 values are stored as their 16 bits (unsigned short), and sum in f32
+using Bf16Bits = unsigned short;
+
+// the sum type of a stored value type E
+template <typename E>
+struct Sum {
+  using type = E;
+};
+template <>
+struct Sum<Bf16Bits> {
+  using type = float;
+};
+
+// a stored value in its sum type, and a sum stored back (bf16: rounded to
+// nearest even, once)
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float2 widen(float2 v) { return v; }
+__device__ __forceinline__ double2 widen(double2 v) { return v; }
+__device__ __forceinline__ float widen(Bf16Bits v) { return __uint_as_float(static_cast<unsigned>(v) << 16); }
+template <typename E>
+__device__ __forceinline__ void put(E* p, E v) {
+  *p = v;
+}
+__device__ __forceinline__ void put(Bf16Bits* p, float v) { *p = __bfloat16_as_ushort(__float2bfloat16_rn(v)); }
+
 // entries and rows a block of several rows holds at most (kernels/spmv_csr.py
-// tile_of, which the schedule follows): 8 entries a thread for f32, 4 for
-// the wider types, whose slots hold more registers (scripts/csr_tiles.py
-// times both on the card); shared memory holds the products and the row
-// pointers
-template <typename T>
+// tile_of, which the schedule follows): 8 entries a thread for values of 4
+// bytes or fewer, 4 for the wider types, whose slots hold more registers
+// (scripts/csr_tiles.py times both on the card); shared memory holds the
+// products and the row pointers
+template <typename E>
 struct Tile {
-  static constexpr int entries = sizeof(T) > 4 ? 1024 : 2048;
+  static constexpr int entries = sizeof(E) > 4 ? 1024 : 2048;
   static constexpr int rows = entries / 2;
 };
 
@@ -140,23 +169,23 @@ struct SlotWidth {
 
 // one row per CTA: four strides in flight a thread, then warp shuffles and
 // the warp sums in warp order (part: kThreads / 32 values of shared memory)
-template <typename T, typename I>
-__device__ __forceinline__ void long_row(const I* __restrict__ ind, const T* __restrict__ val,
-                                         const T* __restrict__ x, T* __restrict__ y, long long row, long long s,
+template <typename E, typename I, typename T = typename Sum<E>::type>
+__device__ __forceinline__ void long_row(const I* __restrict__ ind, const E* __restrict__ val,
+                                         const E* __restrict__ x, E* __restrict__ y, long long row, long long s,
                                          long long e, T* part) {
   T a0 = vzero(T()), a1 = a0, a2 = a0, a3 = a0;
   long long p = s + threadIdx.x;
   for (; p + 3 * kThreads < e; p += 4 * kThreads) {
     const I c0 = __ldcs(ind + p), c1 = __ldcs(ind + p + kThreads);
     const I c2 = __ldcs(ind + p + 2 * kThreads), c3 = __ldcs(ind + p + 3 * kThreads);
-    const T v0 = __ldcs(val + p), v1 = __ldcs(val + p + kThreads);
-    const T v2 = __ldcs(val + p + 2 * kThreads), v3 = __ldcs(val + p + 3 * kThreads);
-    a0 = vmad(v0, __ldg(x + c0), a0);
-    a1 = vmad(v1, __ldg(x + c1), a1);
-    a2 = vmad(v2, __ldg(x + c2), a2);
-    a3 = vmad(v3, __ldg(x + c3), a3);
+    const T v0 = widen(__ldcs(val + p)), v1 = widen(__ldcs(val + p + kThreads));
+    const T v2 = widen(__ldcs(val + p + 2 * kThreads)), v3 = widen(__ldcs(val + p + 3 * kThreads));
+    a0 = vmad(v0, widen(__ldg(x + c0)), a0);
+    a1 = vmad(v1, widen(__ldg(x + c1)), a1);
+    a2 = vmad(v2, widen(__ldg(x + c2)), a2);
+    a3 = vmad(v3, widen(__ldg(x + c3)), a3);
   }
-  for (; p < e; p += kThreads) a0 = vmad(__ldcs(val + p), __ldg(x + __ldcs(ind + p)), a0);
+  for (; p < e; p += kThreads) a0 = vmad(widen(__ldcs(val + p)), widen(__ldg(x + __ldcs(ind + p))), a0);
   T acc = vadd(vadd(a0, a1), vadd(a2, a3));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc = vadd(acc, vshfl(acc, off, 32));
@@ -166,16 +195,17 @@ __device__ __forceinline__ void long_row(const I* __restrict__ ind, const T* __r
     T sum = part[0];
 #pragma unroll
     for (int w = 1; w < kThreads / 32; ++w) sum = vadd(sum, part[w]);
-    y[row] = sum;
+    put(y + row, sum);
   }
 }
 
-template <typename T, typename P, typename I>
+template <typename E, typename P, typename I>
 __global__ void __launch_bounds__(kThreads)
-spmv_csr_blocks_kernel(const P* __restrict__ ptr, const I* __restrict__ ind, const T* __restrict__ val,
-                       const T* __restrict__ x, T* __restrict__ y, const long long* __restrict__ blocks, int vec) {
-  constexpr int V = SlotWidth<T, I>::value;
-  constexpr int kTile = Tile<T>::entries, kMaxRows = Tile<T>::rows;
+spmv_csr_blocks_kernel(const P* __restrict__ ptr, const I* __restrict__ ind, const E* __restrict__ val,
+                       const E* __restrict__ x, E* __restrict__ y, const long long* __restrict__ blocks, int vec) {
+  using T = typename Sum<E>::type;
+  constexpr int V = SlotWidth<E, I>::value;
+  constexpr int kTile = Tile<E>::entries, kMaxRows = Tile<E>::rows;
   constexpr int S = (kTile / V + 1 + kThreads - 1) / kThreads;  // slots a thread (the head adds one)
   constexpr int R = (kMaxRows + 1 + kThreads - 1) / kThreads;   // row pointers a thread
   __shared__ __align__(16) T prod[kTile + 4];
@@ -208,20 +238,20 @@ spmv_csr_blocks_kernel(const P* __restrict__ ptr, const I* __restrict__ ind, con
     if (j < nslot) {
       if (vec && p0 >= s && p0 + V <= e) {
         Pack<I, V> pc;
-        Pack<T, V> pv;
+        Pack<E, V> pv;
         pc.raw = __ldcs(reinterpret_cast<const typename Pack<I, V>::Raw*>(ind + p0));
-        pv.raw = __ldcs(reinterpret_cast<const typename Pack<T, V>::Raw*>(val + p0));
+        pv.raw = __ldcs(reinterpret_cast<const typename Pack<E, V>::Raw*>(val + p0));
 #pragma unroll
         for (int i = 0; i < V; ++i) {
           c[k][i] = pc.e[i];
-          v[k][i] = pv.e[i];
+          v[k][i] = widen(pv.e[i]);
         }
       } else {
 #pragma unroll
         for (int i = 0; i < V; ++i) {
           if (p0 + i >= s && p0 + i < e) {
             c[k][i] = __ldcs(ind + p0 + i);
-            v[k][i] = __ldcs(val + p0 + i);
+            v[k][i] = widen(__ldcs(val + p0 + i));
           }
         }
       }
@@ -239,7 +269,7 @@ spmv_csr_blocks_kernel(const P* __restrict__ ptr, const I* __restrict__ ind, con
     const long long p0 = sa + static_cast<long long>(tid + k * kThreads) * V;
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      xv[k][i] = (p0 + i >= s && p0 + i < e) ? __ldg(x + c[k][i]) : vzero(T());
+      xv[k][i] = (p0 + i >= s && p0 + i < e) ? widen(__ldg(x + c[k][i])) : vzero(T());
     }
   }
   // the products (a zero where a slot's entry lies outside the block; no
@@ -283,32 +313,32 @@ spmv_csr_blocks_kernel(const P* __restrict__ ptr, const I* __restrict__ ind, con
       acc = vadd(vadd(a0, a1), vadd(a2, a3));
     }
     for (int off = G / 2; off > 0; off >>= 1) acc = vadd(acc, vshfl(acc, off, G));
-    if (lane == 0 && r < nr) y[r0 + r] = acc;
+    if (lane == 0 && r < nr) put(y + r0 + r, acc);
   }
 }
 
-template <typename T, typename P, typename I>
+template <typename E, typename P, typename I>
 int launch(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* blocks,
            long long nblk, void* stream) {
   if (nblk <= 0) return static_cast<int>(cudaSuccess);
   // 16-byte loads of a slot need both streams 16-byte aligned (a tensor
   // from PyTorch's allocator is; a view at an offset may not be)
   const int vec = ((reinterpret_cast<uintptr_t>(ind) | reinterpret_cast<uintptr_t>(val)) & 15u) == 0;
-  spmv_csr_blocks_kernel<T, P, I><<<static_cast<unsigned>(nblk), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const P*>(ptr), static_cast<const I*>(ind), static_cast<const T*>(val), static_cast<const T*>(x),
-      static_cast<T*>(y), static_cast<const long long*>(blocks), vec);
+  spmv_csr_blocks_kernel<E, P, I><<<static_cast<unsigned>(nblk), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const P*>(ptr), static_cast<const I*>(ind), static_cast<const E*>(val), static_cast<const E*>(x),
+      static_cast<E*>(y), static_cast<const long long*>(blocks), vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename E>
 int dispatch(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* blocks,
              long long nblk, int ptr64, int ind64, void* stream) {
   if (ptr64) {
-    return ind64 ? launch<T, long long, long long>(ptr, ind, val, x, y, blocks, nblk, stream)
-                 : launch<T, long long, int>(ptr, ind, val, x, y, blocks, nblk, stream);
+    return ind64 ? launch<E, long long, long long>(ptr, ind, val, x, y, blocks, nblk, stream)
+                 : launch<E, long long, int>(ptr, ind, val, x, y, blocks, nblk, stream);
   }
-  return ind64 ? launch<T, int, long long>(ptr, ind, val, x, y, blocks, nblk, stream)
-               : launch<T, int, int>(ptr, ind, val, x, y, blocks, nblk, stream);
+  return ind64 ? launch<E, int, long long>(ptr, ind, val, x, y, blocks, nblk, stream)
+               : launch<E, int, int>(ptr, ind, val, x, y, blocks, nblk, stream);
 }
 
 }  // namespace
@@ -336,6 +366,12 @@ int spmv_csr_c64(const void* ptr, const void* ind, const void* val, const void* 
 int spmv_csr_c128(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* blocks,
                   int64_t nblk, int ptr64, int ind64, void* stream) {
   return dispatch<double2>(ptr, ind, val, x, y, blocks, nblk, ptr64, ind64, stream);
+}
+
+// val, x and y bf16 (their 16 bits), f32 sums, y rounded once
+int spmv_csr_bf16(const void* ptr, const void* ind, const void* val, const void* x, void* y, const void* blocks,
+                  int64_t nblk, int ptr64, int ind64, void* stream) {
+  return dispatch<Bf16Bits>(ptr, ind, val, x, y, blocks, nblk, ptr64, ind64, stream);
 }
 
 }  // extern "C"

@@ -13,12 +13,12 @@ run (aoclsparse_debug_dispatcher analog).
 
 The mv table keeps the JAX package's KID numbers and priorities
 (kernels/xla/__init__.py:13-54 there): 0 (segsum), the CSR row-gather
-kernel (kernels/spmv_csr.py) for float32, float64, complex64 and
-complex128, the plain gather for the other dtypes, by dtype, the hand
-kernel of the JAX package's XLA row; 6 (the planner's diag form), the
-diagonal SpMV kernel (kernels/spmv_diag.py) for float32, bfloat16 and
-float64, the plain shifted sum for the other dtypes, by dtype, also the
-hand kernel of an XLA row; 1 (ell), 2 (ellhyb), 3 (bsr, a BSR handle's
+kernel (kernels/spmv_csr.py: float32, float64, complex64, complex128 and
+bfloat16 on the card, other dtypes raise there; the plain gather on the
+CPU), the hand kernel of the JAX package's XLA row; 6 (the planner's diag
+form), the diagonal SpMV kernel (kernels/spmv_diag.py: float32, bfloat16
+and float64 on the card; the plain shifted sum on the CPU), also the hand
+kernel of an XLA row; 1 (ell), 2 (ellhyb), 3 (bsr, a BSR handle's
 product), 4 (dia, a DIA handle's) and 10 (sell, sliced ELL, whose
 flattened slices have no row pointers: the plain gather), the gather and
 shifted forms in plain torch; 5, the ``bwd`` group windows, whose hand-written kernel
@@ -54,8 +54,12 @@ shallow against the chain); KID 2, the host sequential
 substitution (native/, priority -2: an explicit kid only).
 
 The mm table keeps the JAX package's KIDs 0-7 (ops/level3/csrmm.py:38-57):
-the plain gather and group forms 0-3, the hand-written kernels of the
-bandtm form (4, the default there; 5, the block-window twin), the
+0, the segsum form's CSR SpMM kernel (kernels/spmm_csr.py: float32,
+float64, complex64, complex128 and bf16 values with float32 B on the card,
+other dtypes raise there; the plain gather on the CPU), the hand kernel of
+the JAX package's XLA row, which the card's default takes for general
+structure; the plain gather and group forms 1-3, the hand-written kernels
+of the bandtm form (4, the default there; 5, the block-window twin), the
 general-structure composite (6, kernels/spmm_gen.py, its band leg on the
 band SpMM kernel) and the diag form (7).
 """
@@ -79,7 +83,8 @@ from .spmm_gen import spmm_gen
 from .spmv_bwd import spmv_bwd_any
 from .spmv_csr import spmv_csr_any
 from .spmv_diag import spmv_diag_any
-from .spmm_plain import spmm_bwd, spmm_ell, spmm_ellhyb, spmm_segsum
+from .spmm_csr import spmm_csr_any
+from .spmm_plain import spmm_bwd, spmm_ell, spmm_ellhyb
 from .spmv_gen import spmv_gen, spmv_route
 from .trsv_level import trsv_level
 from .trsv_win import trsv_win
@@ -170,8 +175,8 @@ class Registry:
 
 #: Global registry with the static mv, sv and mm KAT tables.
 registry = Registry()
-# the segsum form's CSR: the row-gather kernel (kernels/spmv_csr.py) for the
-# dtypes it has, the plain spmv_segsum for the rest, on every backend
+# the segsum form's CSR: the row-gather kernel (kernels/spmv_csr.py) on the
+# card, its plain spmv_segsum on the CPU
 registry.register("mv", KernelEntry(0, "cuda_csr", spmv_csr_any, "segsum", "any", 0))
 registry.register("mv", KernelEntry(1, "torch_ell", spmv_ell, "ell", "any", 0))
 registry.register("mv", KernelEntry(2, "torch_ellhyb", spmv_ellhyb, "ellhyb", "any", 0))
@@ -195,7 +200,9 @@ registry.register("mv", KernelEntry(HOST_MV_KID, "host_csr", spmv_host_csr, "hos
 registry.register("sv", KernelEntry(0, "cuda_trsv_win", trsv_win, "blocked", "any", 0))
 registry.register("sv", KernelEntry(1, "cuda_trsv_level", trsv_level, "level", "any", -1))
 registry.register("sv", KernelEntry(2, "host_sequential", trsv_seq, "host", "any", -2))
-registry.register("mm", KernelEntry(0, "torch_segsum", spmm_segsum, "segsum", "any", 0))
+# the segsum form's CSR: the CSR SpMM kernel (kernels/spmm_csr.py) on the
+# card, its plain spmm_segsum on the CPU
+registry.register("mm", KernelEntry(0, "cuda_segsum", spmm_csr_any, "segsum", "any", 0))
 registry.register("mm", KernelEntry(1, "torch_ell", spmm_ell, "ell", "any", 0))
 registry.register("mm", KernelEntry(2, "torch_ellhyb", spmm_ellhyb, "ellhyb", "any", 0))
 registry.register("mm", KernelEntry(3, "torch_bwdg", spmm_bwd, "bwdg", "any", 1))

@@ -6,8 +6,9 @@ Contract (``csrc/spmv_csr.cu``, built by ``kernels/build.py``):
     y[i] = sum_{ptr[i] <= p < ptr[i + 1]} val[p] * x[ind[p]],   0 <= i < m
 
 over the planner's CSR: ``ptr`` and ``ind`` int32 or int64, as the form
-holds them; ``val`` and ``x`` of one dtype, float32, float64, complex64 or
-complex128; y in that dtype, the sums kept in it.
+holds them; ``val`` and ``x`` of one dtype, float32, float64, complex64,
+complex128 or bfloat16; y in that dtype, the sums kept in it, except
+bfloat16's, which sum in float32 and round y once.
 
 It replaces no Pallas kernel: it is the hand kernel of the JAX package's
 XLA formulation ``spmv_segsum`` (kernels/xla/spmv.py:51, mv KID 0). Its
@@ -21,15 +22,19 @@ for the wider types), a row past ``LONG_ROW`` entries a block of its own,
 as a table of (first row, first entry) pairs. A call is one launch, one CTA a
 block, whatever the rows (`csr_launches`: none where m = 0).
 
-`spmv_csr` has one rule: a CPU tensor takes the plain version, a CUDA
-tensor launches the kernel or raises; it checks every operand, for direct
-callers. `spmv_csr.launches` counts kernel launches per instance.
-`spmv_csr_any`, the registry's KID 0 function, adds the dtype rule:
-dtypes the kernel has no instance for (bfloat16, float16, or val and x of
-two dtypes) take the plain version on any device; the rule reads the
-dtypes and nothing else, never the outcome of a build or a launch. It
-launches without re-checking what the segsum form guarantees (its
-operands' types, shapes and device; `mv` has checked x's).
+`spmv_csr` and `spmv_csr_any`, the registry's KID 0 function, have one
+rule: a CPU tensor takes the plain version, in every dtype; a CUDA tensor
+launches the kernel, or raises where val and x do not share a dtype it has
+an instance for (float16, or two dtypes): no CUDA tensor takes the plain
+version. `spmv_csr` checks every operand, for direct callers;
+`spmv_csr_any` launches without re-checking what the segsum form
+guarantees (its operands' types, shapes and device; `mv` has checked x's).
+`spmv_csr.launches` counts kernel launches per instance.
+
+For bfloat16 the plain version, as the kernel, sums in f32 and rounds y
+once, where the JAX package's ``spmv_segsum`` sums the bf16 products in
+bf16: a deliberate divergence (ROADMAP), within the bf16 model tolerance
+on rows of ordinary length.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ _INSTANCES = {
     torch.float64: ("f64", "spmv_csr_f64"),
     torch.complex64: ("c64", "spmv_csr_c64"),
     torch.complex128: ("c128", "spmv_csr_c128"),
+    torch.bfloat16: ("bf16", "spmv_csr_bf16"),
 }
 #: the value dtypes the kernel has instances for
 KERNEL_DTYPES = tuple(_INSTANCES)
@@ -90,7 +96,7 @@ def _entry(symbol: str):
 def tile_of(dtype: torch.dtype) -> Tuple[int, int]:
     """(entries, rows) a block of several rows holds at most for values of
     `dtype` (csrc/spmv_csr.cu Tile): 8 entries a thread of the CTA's 256
-    for values of 4 bytes or fewer, 4 for the wider ones, whose slots hold
+    for values of 4 bytes or fewer (bf16 too), 4 for the wider ones, whose slots hold
     more registers (`scripts/csr_tiles.py` times both on the card); half as
     many rows, the row pointers' shared tile, which a run of empty rows
     fills."""
@@ -171,9 +177,12 @@ def row_ids_from_ptr(ptr: torch.Tensor, nnz: int) -> torch.Tensor:
 
 def spmv_csr_plain(ptr, ind, val, x, row_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: `spmv_segsum` over the row
-    ids (derived from ptr where not given)."""
+    ids (derived from ptr where not given); bf16 values and x sum in f32,
+    y rounded to bf16 once, as the kernel does."""
     if row_ids is None:
         row_ids = row_ids_from_ptr(ptr, ind.shape[0])
+    if val.dtype == torch.bfloat16 and x.dtype == torch.bfloat16:
+        return spmv_segsum(ind, val.float(), row_ids, x.float(), ptr.shape[0] - 1).to(torch.bfloat16)
     return spmv_segsum(ind, val, row_ids, x, ptr.shape[0] - 1)
 
 
@@ -216,15 +225,15 @@ spmv_csr.launches = {name: 0 for name, _sym in _INSTANCES.values()}
 
 
 def spmv_csr_any(ind, val, row_ids, x, m: int, ptr, blocks) -> torch.Tensor:
-    """mv KID 0 over a segsum form: the kernel where val and x share a dtype
-    it has an instance for, else the plain `spmv_segsum` (bfloat16,
-    float16, mixed dtypes), by dtype alone. `row_ids` may be None (a form
-    on the card keeps none): the plain version then derives them from
-    ptr. On the card it launches at once: the form holds ptr, ind, val and
-    the schedule checked and on its device, and mv holds x to it."""
-    inst = _INSTANCES.get(val.dtype)
-    if inst is None or x.dtype != val.dtype:
+    """mv KID 0 over a segsum form: on the CPU the plain `spmv_segsum`,
+    every dtype (`row_ids` may be None: it then derives them from ptr); on
+    the card the kernel, launched at once (the form holds ptr, ind, val and
+    the schedule checked and on its device, and mv holds x to it), or an
+    error where val and x do not share a dtype it has an instance for."""
+    if x.device.type == "cpu":
         return spmv_csr_plain(ptr, ind, val, x, row_ids)
-    if x.device.type == "cuda":
-        return _launch(ptr, ind, val, x.contiguous(), blocks, *inst)
-    return spmv_csr(ptr, ind, val, x, blocks, row_ids)
+    inst = _INSTANCES.get(val.dtype)
+    if x.device.type != "cuda" or inst is None or x.dtype != val.dtype:
+        raise AoclSparseError(Status.wrong_type, f"CSR kernel has no instance for values {val.dtype} with x "
+                              f"{x.dtype} on {x.device}")
+    return _launch(ptr, ind, val, x.contiguous(), blocks, *inst)

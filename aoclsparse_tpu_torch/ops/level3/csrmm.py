@@ -10,12 +10,15 @@ Without a kid the form is `choose_mm_format`'s (planner/plan.py): the band
 SpMM kernel on band operands, the diagonal kernel on few-diagonal ones
 (stencils), the general-structure composite (KID 6, kernels/spmm_gen.py:
 its band leg on the band SpMM kernel) on square general structure whose
-permuted band passes KID 6's gate (`gen_mm_ok`), the gather forms
-otherwise; `MemoryPolicy.restricted` takes segsum. Where KID 6's gate fails
-(a band wider than the kernel's plan, complex values, a structure the gen
-planner rejects) the form is rebuilt as a gather form (`Plan.mm_form_for`),
-as the JAX package does (csrmm.py:225-241 there), and an explicit ``kid=6``
-then finds no kernel row for it and raises ``invalid_kid``, as there. An
+permuted band passes KID 6's gate (`gen_mm_ok`) and, on the card, beats
+the CSR SpMM kernel (`gen_beats_csr_mm`), the gather forms otherwise: on
+the card `segsum` (KID 0, the CSR SpMM kernel, kernels/spmm_csr.py), on the
+CPU the JAX rule's `ell` / `ellhyb`; `MemoryPolicy.restricted` takes
+segsum. Where KID 6's gate fails (a band wider than the kernel's plan,
+complex values, a structure the gen planner rejects) the form is rebuilt
+as that gather form (`Plan.mm_form_for`), as the JAX package does
+(csrmm.py:225-241 there), and an explicit ``kid=6`` then finds no kernel
+row for it and raises ``invalid_kid``, as there. An
 `autotune_mm` pin (`plan._mm_tuned`, kernels/autotune.py) replaces the
 default for its (descriptor, op, K); an explicit kid replaces both.
 `order=Order.column` reads B and C transposed (the caller passes B^T and
@@ -83,13 +86,13 @@ def _mm_core(A: SparseMatrix, descr: MatrixDescriptor, op: Operation, B: torch.T
 
 def _run_mm_form(form, B: torch.Tensor, kid: Optional[int], mixed: bool = False) -> torch.Tensor:
     """form @ B through the mm table's kernel for the form (and kid). The
-    mixed mode applies to float32 B only. A bf16 handle's band and diagonal
-    kernels take B widened to f32 (exact) and return f32, as the JAX
-    package's band kernel does (kernels/pallas/spmv.py:199 there); `mm`
+    mixed mode applies to float32 B only. A bf16 handle's band, diagonal
+    and CSR SpMM kernels take B widened to f32 (exact) and return f32, as
+    the JAX package's band kernel does (kernels/pallas/spmv.py:199 there); `mm`
     rounds to the result dtype."""
     e = registry.select("mm", fmt=form.kind, kid=kid, device=B.device)
     mixed = mixed and B.dtype == torch.float32
-    if B.dtype == torch.bfloat16 and form.kind in ("bandtm", "diag", "gen"):
+    if B.dtype == torch.bfloat16 and form.kind in ("bandtm", "diag", "gen", "segsum"):
         B = B.float()
     if form.kind == "gen":
         return e.fn(form, B, mixed=mixed)
@@ -102,7 +105,10 @@ def _run_mm_form(form, B: torch.Tensor, kid: Optional[int], mixed: bool = False)
     if form.kind == "diag":
         return e.fn(form.dia_bf16() if mixed else form.dia_val, form.dia_offs, B, offs_static=form.dia_offs_static)
     if form.kind == "segsum":
-        return e.fn(form.ind, form.val, form.segsum_rows(), B, form.m)
+        # the CSR SpMM kernel reads the row pointers and the block schedule
+        # (a form on the card keeps no row ids); the CPU's plain gather
+        # reads the form's row ids
+        return e.fn(form.ind, form.val, form.row_ids, B, form.m, form.ptr, form.csr_blocks)
     if form.kind == "ell":
         return e.fn(form.ell_ind, form.ell_val, B)
     if form.kind == "ellhyb":

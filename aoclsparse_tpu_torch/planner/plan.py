@@ -59,11 +59,16 @@ __all__ = [
     "build_clean_csr",
     "build_effective_csr",
     "build_exec_form",
+    "CARD_MV_CSR_DTYPES",
     "choose_mm_format",
     "choose_mv_format",
     "DIAG_CSR_SLOTS",
     "diag_beats_csr",
     "gather_fallback_kind",
+    "gen_beats_csr_mm",
+    "GEN_CSR_SLOTS",
+    "MM_CSR_DEVICES",
+    "mm_gather_kind",
     "pick_mv_format",
     "structure_mv_format",
     "gen_mm_ok",
@@ -88,22 +93,21 @@ def _csr_index(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def attach_csr_plan(form: "ExecForm", ptr: np.ndarray) -> None:
-    """Put a segsum form's row pointers and the CSR kernel's block schedule
+    """Put a segsum form's row pointers and the CSR kernels' block schedule
     (kernels/spmv_csr.py `csr_blocks`) on its device, where the form lacks
     them (at build, and on loading a plan snapshot written before segsum
     forms carried them or with an earlier schedule). The row of each entry
-    is kept only where the plain gather runs the form's mv (a CPU form, a
-    dtype the kernel has no instance for); the kernel reads ptr, and mm
-    builds the rows at first use (`ExecForm.segsum_rows`)."""
-    from ..kernels.spmv_csr import KERNEL_DTYPES, csr_blocks, row_ids_from_ptr, tile_of
+    is kept only on the CPU, where the plain gathers run the form's mv and
+    mm; on the card both kernels (csrc/spmv_csr.cu, csrc/spmm_csr.cu) read
+    ptr and the schedule."""
+    from ..kernels.spmv_csr import csr_blocks, row_ids_from_ptr, tile_of
 
     dev = form.val.device
     if form.ptr is None:
         form.ptr = _csr_index(ptr, dev)
     if form.csr_blocks is None:
         form.csr_blocks = _dev_index(csr_blocks(ptr, *tile_of(form.val.dtype)), dev)
-    plain = dev.type == "cpu" or form.val.dtype not in KERNEL_DTYPES
-    if not plain:
+    if dev.type != "cpu":
         form.row_ids = None
     elif form.row_ids is None:
         form.row_ids = row_ids_from_ptr(form.ptr, form.ind.shape[0])
@@ -501,11 +505,11 @@ class ExecForm:
     val: Optional[torch.Tensor] = None
     row_ids: Optional[torch.Tensor] = None
     # segsum: the row pointers (int32 or int64, as the effective CSR holds
-    # them; ind keeps its index dtype too) and the CSR kernel's schedule
+    # them; ind keeps its index dtype too) and the CSR kernels' schedule
     # (kernels/spmv_csr.py `csr_blocks` at `tile_of` the values' dtype): the
     # (blocks + 1, 2) int64 table of each row block's first row and first
-    # entry. Its row_ids are kept only
-    # where the plain gather runs its mv (`attach_csr_plan`)
+    # entry. Its row_ids are kept only on the CPU, where the plain gathers
+    # run its mv and mm (`attach_csr_plan`)
     ptr: Optional[torch.Tensor] = None
     csr_blocks: Optional[torch.Tensor] = None
     sell_dest: Optional[np.ndarray] = None  # (nnz,) flat slice positions of the entries
@@ -704,8 +708,8 @@ class ExecForm:
 
     def segsum_rows(self) -> torch.Tensor:
         """A segsum form's row of each entry (int64), built from ptr at
-        first use where the form does not keep them: mm's gather reads
-        them, the CSR kernel does not."""
+        first use where the form does not keep them (a form on the card):
+        the plain gathers read them, the CSR kernels do not."""
         if self.row_ids is None:
             from ..kernels.spmv_csr import row_ids_from_ptr
 
@@ -812,13 +816,22 @@ def _rows_rel(eff: EffectiveCSR):
     return rows, eff.ind.astype(np.int64) - rows
 
 
+#: the value dtypes for which the card's mv rule sends general structure to
+#: `segsum` (`pick_mv_format`) and weighs `diag` against the CSR kernel
+#: (`diag_beats_csr`). The CSR kernel also has a bfloat16 instance, which
+#: the restricted memory policy and a kid=0 pin reach; bfloat16 keeps the
+#: `gen` band's bf16 instance by default (the two not timed against each
+#: other)
+CARD_MV_CSR_DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
+
+
 def pick_mv_format(kind: str, device, dtype) -> str:
     """The device's part of the mv rule: `kind`, the structure's form
     (`structure_mv_format`), on `device` for values of `dtype`.
 
-    On a CUDA device, `gen` gives way to `segsum` for the
-    dtypes the CSR kernel has (csrc/spmv_csr.cu: float32 and float64 among
-    the band dtypes; complex is `segsum` already): general structure runs
+    On a CUDA device, `gen` gives way to `segsum` for
+    CARD_MV_CSR_DTYPES (csrc/spmv_csr.cu: float32 and float64 among the
+    band dtypes; complex is `segsum` already): general structure runs
     the row-gather kernel, never the composite nor the whole-matrix `route`
     it falls back to. The reason is bytes. The CSR kernel reads
     nnz * (index + value) + (m + 1) * 4 + m * value, its x gathers mostly
@@ -828,13 +841,11 @@ def pick_mv_format(kind: str, device, dtype) -> str:
     36.7 MB (79x): `gen` took 1.2778 ms a call against cuSPARSE's 0.0380,
     the `route` form on the scatter operand 1.0563 against a 0.0066 ms
     bound (an H100, PERF.md section 5). bfloat16 keeps `gen` (the
-    band kernel's bf16 instance; the CSR kernel has none). Elsewhere the
+    band kernel's bf16 instance). Elsewhere the
     structure's form stands. Pins are untouched: kid=7 or kind="gen" still
     build `gen`, kind="route" `route`, and an autotune_mv pin replaces the
     default."""
-    from ..kernels.spmv_csr import KERNEL_DTYPES
-
-    if kind == "gen" and torch.device(device).type == "cuda" and dtype in KERNEL_DTYPES:
+    if kind == "gen" and torch.device(device).type == "cuda" and dtype in CARD_MV_CSR_DTYPES:
         return "segsum"
     return kind
 
@@ -845,10 +856,8 @@ def choose_mv_format(eff: EffectiveCSR, device=None) -> str:
     card, general structure takes `segsum`). On the card, for the dtypes
     the CSR kernel has, the diag branch also weighs the two kernels' bytes
     (`diag_beats_csr`)."""
-    from ..kernels.spmv_csr import KERNEL_DTYPES
-
     device = eff.val.device if device is None else device
-    card_csr = torch.device(device).type == "cuda" and eff.val.dtype in KERNEL_DTYPES
+    card_csr = torch.device(device).type == "cuda" and eff.val.dtype in CARD_MV_CSR_DTYPES
     return pick_mv_format(structure_mv_format(eff, card_csr=card_csr), device, eff.val.dtype)
 
 
@@ -916,9 +925,10 @@ def structure_mv_format(eff: EffectiveCSR, card_csr: bool = False) -> str:
     - otherwise `segsum`.
 
     `choose_mv_format` turns `gen` into `segsum` on the card
-    (`pick_mv_format`); mm's rule reads this one, so its `gen` (mm KID 6)
-    stands. Complex and float16 operands have no band kernel instance and
-    take `segsum`. AOCLSPARSE_TPU_FORCE_GENERIC
+    (`pick_mv_format`); mm's rule reads this one, and on the card turns its
+    `gen` (mm KID 6) into `segsum` past the measured crossover
+    (`gen_beats_csr_mm`). Complex and float16 operands have no band kernel
+    instance and take `segsum`. AOCLSPARSE_TPU_FORCE_GENERIC
     (enable_instructions("generic")) sends every operand to the gather forms, as in the JAX package
     (plan.py:831-879 there)."""
     if eff.m == 0 or eff.nnz == 0:
@@ -1591,7 +1601,52 @@ def gather_fallback_kind(eff: EffectiveCSR) -> str:
     return "ell" if fill >= 0.5 or w0 <= 2 * max(float(lens.mean()), 1.0) else "ellhyb"
 
 
-def choose_mm_format(eff: EffectiveCSR) -> str:
+#: band slots a nonzero (the gen form's m_pad * W over nnz) up to which
+#: mm's `gen` composite (mm KID 6) is no slower than the CSR SpMM kernel
+#: (mm KID 0) on the card, by value dtype, at K = 64: the measured
+#: crossovers (scripts/csr_mm_bench.py --cross on an H100: the bench band
+#: under a random symmetric permutation, W = 144, thinned; mm call ms gen /
+#: kid=0: f32 0.6102 / 0.6465 at 3.38 slots, 0.6132 / 0.5469 at 4.0; f64
+#: 0.9042 / 0.9715 at 4.95, 0.9069 / 0.8609 at 5.63; bf16 0.7424 / 0.8001 at
+#: 3.0, 0.7411 / 0.7212 at 3.38; ties by log interpolation)
+GEN_CSR_SLOTS = {torch.float32: 3.6, torch.float64: 5.3, torch.bfloat16: 3.3}
+#: the devices whose mm rule weighs the CSR SpMM kernel (tests add "cpu" to
+#: drive the card's rule on the plain versions)
+MM_CSR_DEVICES = ("cuda",)
+
+
+def _card_csr_mm(eff: EffectiveCSR, device=None) -> bool:
+    """Does `eff`'s mm run on the card in a dtype the CSR SpMM kernel has
+    (csrc/spmm_csr.cu: float32, float64, complex64, complex128, bf16)?"""
+    from ..kernels.spmm_csr import KERNEL_DTYPES
+
+    device = eff.val.device if device is None else device
+    return torch.device(device).type in MM_CSR_DEVICES and eff.val.dtype in KERNEL_DTYPES
+
+
+def mm_gather_kind(eff: EffectiveCSR, device=None) -> str:
+    """mm's form for general structure where `gen` is not taken: on the
+    card (`device`, the values' device where None), for the CSR SpMM
+    kernel's dtypes, `segsum` (mm KID 0, the kernel); elsewhere the gather
+    form `gather_fallback_kind` picks, as the JAX package does."""
+    return "segsum" if _card_csr_mm(eff, device) else gather_fallback_kind(eff)
+
+
+def gen_beats_csr_mm(form: ExecForm, eff: EffectiveCSR, device=None) -> bool:
+    """Does mm's default keep a gen form that passes KID 6's gate? Off
+    the card, always (the JAX rule). On the card, for the CSR SpMM kernel's
+    dtypes, only where its band stores at most GEN_CSR_SLOTS slots a
+    nonzero (m_pad * W <= GEN_CSR_SLOTS * nnz): a recovered band, whose B
+    rows the band kernel (#8) reads once for W rows, beats the kernel's
+    gather of a B row an entry; a sparse band of a scattered matrix
+    (scircuit: W = 56 over 5.6 entries a row) does not. Complex values have
+    no gen band."""
+    if not _card_csr_mm(eff, device) or eff.val.dtype not in GEN_CSR_SLOTS:
+        return True
+    return form.gen_m_pad * form.bwd_W <= GEN_CSR_SLOTS[eff.val.dtype] * eff.nnz
+
+
+def choose_mm_format(eff: EffectiveCSR, device=None) -> str:
     """SpMM form selection, re-derived for Hopper.
 
     The JAX package decides by TPU facts (ops/level3/csrmm.py:146-184):
@@ -1608,19 +1663,29 @@ def choose_mm_format(eff: EffectiveCSR) -> str:
     - otherwise `gen` (KID 6, the general-structure composite) where
       `structure_mv_format` takes `gen` for the operand: the JAX package's
       TPU default, whose kind=None slot holds the mv form and sends it to
-      KID 6 (on the card the mv default takes `segsum` there, and mm keeps
-      `gen`). `mm_kind` keeps it only where the built form's band passes
-      KID 6's gate (`gen_mm_ok`: the band kernel's layout, W <= band_max_w);
-    - otherwise the gather form `gather_fallback_kind` picks.
+      KID 6 (on the card the mv default takes `segsum` there, and `gen` is
+      mm's candidate). `mm_kind` keeps it only where the built form's band passes
+      KID 6's gate (`gen_mm_ok`: the band kernel's layout, W <= band_max_w)
+      and, on the card, beats the CSR SpMM kernel (`gen_beats_csr_mm`);
+    - otherwise `mm_gather_kind(eff, device)`: on the card (`device`, the
+      values' device where None), for the CSR SpMM kernel's dtypes,
+      `segsum` (mm KID 0, csrc/spmm_csr.cu), which reads the CSR once and
+      a B row an entry where the gather forms build an (nnz, K) product
+      tile in plain torch and `gen` permutes B and C around a band far
+      wider than the rows (scircuit at K = 64: 5.8x cuSPARSE's time on
+      `gen`; PERF.md, PR 17); on the CPU the gather form
+      `gather_fallback_kind` picks, as the JAX package does.
 
-    The kernels have f32, f64 and bf16 instances (a bf16 band or bf16
+    The band kernels have f32, f64 and bf16 instances (a bf16 band or bf16
     diagonals with f32 B and C, the instances the mixed mode also uses), so
     a bf16 handle takes `bandtm`, `diag` or `gen` by the same rule; complex
-    takes the gather forms."""
+    takes `mm_gather_kind`. On the card this diverges from the JAX package,
+    which takes `gen` on its TPU (ops/level3/csrmm.py:186-208 there):
+    ROADMAP, deliberate divergences."""
     from ..kernels.spmm_band import band_max_w
 
     if eff.m == 0 or eff.nnz == 0 or eff.val.dtype not in (torch.float32, torch.float64, torch.bfloat16):
-        return gather_fallback_kind(eff)
+        return mm_gather_kind(eff, device)
     rows, rel = _rows_rel(eff)
     _lo, W, _spill = _bandt_window(rows, rel)
     if W <= band_max_w(eff.val.dtype) and eff.m * W <= BWD_CAP * eff.nnz:
@@ -1629,7 +1694,7 @@ def choose_mm_format(eff: EffectiveCSR) -> str:
         return "diag"
     if structure_mv_format(eff) == "gen":
         return "gen"
-    return gather_fallback_kind(eff)
+    return mm_gather_kind(eff, device)
 
 
 def gen_mm_ok(form: Optional[ExecForm]) -> bool:
@@ -1807,16 +1872,20 @@ class Plan:
         self.exec_forms[key + ("gen",)] = form
         return form
 
-    def mm_form_for(self, descr: MatrixDescriptor, op: Operation, kind: str) -> ExecForm:
+    def mm_form_for(self, descr: MatrixDescriptor, op: Operation, kind: str, default: bool = False) -> ExecForm:
         """The form `mm` runs for `kind`. For ``gen``: the gen form where it
-        passes KID 6's gate (`gen_mm_ok`), else the gather form
-        `gather_fallback_kind` picks, the JAX package's gather rebuild
-        (ops/level3/csrmm.py:225-241 there)."""
+        passes KID 6's gate (`gen_mm_ok`) and, for the `default` rule
+        (`mm_kind`), beats the CSR SpMM kernel on the card
+        (`gen_beats_csr_mm`), else `mm_gather_kind`'s form: the JAX
+        package's gather rebuild (ops/level3/csrmm.py:225-241 there) off the
+        card, `segsum` on it. A pin (kid=6, an autotune pin) reads the gate
+        alone."""
         if kind == "gen":
             form = self.gen_form_for(descr, op)
-            if gen_mm_ok(form):
+            eff = self.effective_for(descr, op)
+            if gen_mm_ok(form) and (not default or gen_beats_csr_mm(form, eff)):
                 return form
-            kind = gather_fallback_kind(self.effective_for(descr, op))
+            kind = mm_gather_kind(eff)
         return self.exec_form_for(descr, op, kind=kind)
 
     def seed_bwdg(self, form: ExecForm) -> None:
@@ -1903,7 +1972,7 @@ def mm_kind(A: SparseMatrix, plan: Plan, descr: MatrixDescriptor, op: Operation)
         eff = plan.effective_for(descr, op)
         kind = choose_mm_format(eff)
         if kind == "gen":
-            kind = plan.mm_form_for(descr, op, kind).kind
+            kind = plan.mm_form_for(descr, op, kind, default=True).kind
         plan.mm_kinds[key] = kind
     return plan.mm_kinds[key]
 

@@ -16,9 +16,10 @@ failure (exit code != 0, no result line):
    SpMM (every instance), diagonal SpMM (every instance), blocked-solve
    chain (all 30 instances: f32, f64, bf16, complex64, complex128 by dwin
    and gather by 1, 2 and 4 columns), level-solve (every instance,
-   complex included), CSR row-gather (every instance: 4 value types by
-   int32 / int64 pointers and indices, 5 sub-warp widths) and diagonal
-   SpMV (every instance: 3 value types)
+   complex included), CSR row-gather (every instance: 5 value types by
+   int32 / int64 pointers and indices), diagonal SpMV (every instance: 3
+   value types) and CSR SpMM (every instance: 5 value types by int32 /
+   int64 pointers and indices, one or two f32 columns a lane)
    kernels no stack frame and no spills (their registers logged);
 3. hold each kernel instance against its plain PyTorch version:
    - the band kernel on the bench operand (m = n = 262144, 64 nnz/row,
@@ -117,7 +118,8 @@ failure (exit code != 0, no result line):
    -> optimize -> mv (default form, kid=8, kid=12, alpha/beta with y, the
    mixed bf16 band, a float64 handle); and create_csr -> set_mm_hint(nop=
    1000) -> optimize -> mm at K = 64 on the bench operand (default, kid=4,
-   kid=5, kid=7, kid=0, alpha/beta with C, Order.column, op=transpose, the
+   kid=5, kid=7, kid=0 (the CSR SpMM kernel), alpha/beta with C,
+   Order.column, op=transpose, the
    mixed mode through kid=5 and kid=7, a float64 handle) and on the
    stencil (default and kid=7, full and mixed), each checked against a
    float64 scipy CSR reference, with exactly one kernel launch per call;
@@ -160,6 +162,10 @@ failure (exit code != 0, no result line):
    slot; after update_values) and the scatter operand's whole-matrix
    route by pin (the kind="route" form in the default slot); each against
    a float64 scipy reference and with the launches each call implies;
+   mm at K = 64 by default on the webbase stand-in (the CSR SpMM kernel,
+   csrc/spmm_csr.cu, held first to its plain version, uncounted; against
+   float64 scipy and cuSPARSE), by kid=0 on its float64 handle and by
+   default on scircuit's complex twins (its f64 and complex instances);
    pcg_solve with no preconditioner on the symmetrised webbase by
    default (the CSR kernel, original space) and under the gen pin
    (permuted space), each to a true relative residual <= 10 rtol;
@@ -229,21 +235,25 @@ failure (exit code != 0, no result line):
    plain checks first, uncounted): the scircuit stand-in
    (benchmarks/realmat.py:151-176, copied, seed 7: m = 170,998, about 959k
    nnz, its published size) planned through create_csr + hints +
-   optimize (mv: segsum, the CSR kernel; mm: gen); mm KID 6 at K = 64, f32 and a bf16 handle, the
-   composite with the band SpMM kernel against the same composite with
-   its plain band leg, the entry point against float64 scipy and cuSPARSE
-   (torch.sparse CSR @ B), one band SpMM launch a call, the default mm
-   taking gen; the call, the kernel alone on the gen band (warm and
-   cold), the gather form the default took before and cuSPARSE, timed,
-   with a profiler window of 5 calls (the idle share); autotune_mv on
+   optimize (mv: segsum, the CSR kernel; mm: segsum, the CSR SpMM kernel,
+   where the gen band passes the crossover GEN_CSR_SLOTS); mm KID 6 by pin
+   at K = 64, f32 and a bf16 handle, the composite with the band SpMM
+   kernel against the same composite with its plain band leg, the CSR
+   SpMM kernel (f32 and bf16) and the CSR kernel's bf16 instance against
+   their plain versions, the entry point against float64 scipy and
+   cuSPARSE (torch.sparse CSR @ B), one launch a call; the default mm
+   (f32 and bf16), the bf16 handle's mm and mv by kid=0; the kid=6 call,
+   #8 alone on the gen band (warm and cold), the CSR SpMM kernel alone,
+   the default call and cuSPARSE, timed, with a profiler window of 5
+   kid=6 calls (the idle share); autotune_mv on
    scircuit, autotune_mm on the 104^3 stencil at K = 64 (its default's
    diag among the candidates), autotune_trsv on the stencil's ILU0 L (a
    handle of the factor, unit lower) and autotune_spgemm on the cant
    stand-in's A.A, each pin the arg-min of its results and the next call
    dispatching the pinned form (its kernels' counters; none for a plain
    form) with the unpinned call's value; save_plan / load_plan of
-   scircuit (load against plan seconds; mv and mm kid=6 bit-equal on the
-   loaded plan); save_matrix / load_matrix of the stencil with its ILU0
+   scircuit (load against plan seconds; mv, the default mm and mm kid=6
+   bit-equal on the loaded plan); save_matrix / load_matrix of the stencil with its ILU0
    (ILU0-PCG on the loaded handle in phase 5's iteration count); and mv
    with an Inf in x raising FloatingPointError under nan_checks, and
    returning it outside;
@@ -301,7 +311,10 @@ failure (exit code != 0, no result line):
    against the gather + index_add_ tail (call and device time), the webbase
    band kernel alone; the CSR kernel's four instances alone (webbase f32
    and f64, scircuit's complex twins) against their plain versions,
-   cuSPARSE and their byte bounds; on webbase, scatter and scircuit, the
+   cuSPARSE and their byte bounds; the CSR SpMM kernel's instances at
+   K = 64 alone (webbase f32 and f64, scircuit's complex twins, scircuit
+   bf16) and the CSR kernel's bf16 instance (scircuit bf16) likewise; on
+   webbase, scatter and scircuit, the
    lower of two turns of the CSR kernel alone and its plain version
    (device time), the default mv call, the gen call by kid=7 (scatter: the
    route form pinned) and cuSPARSE's call (call time), with a profiler
@@ -357,10 +370,12 @@ failure (exit code != 0, no result line):
 Launch counts are reset just before phase 4 and read after phase 5, reset
 again just before phase 5b and read after it, and again around phases 5c,
 5d, 5e, 5f, 5g, 5h, 5i and 5j (the kernels line takes the CSR kernel's and
-the spill-route kernels' counts from 5b, the band GEMM's from 5c, the group-window kernel's from 5d,
+the spill-route kernels' and the CSR SpMM kernel's f32, f64 and complex counts from 5b, the band GEMM's from 5c,
+the group-window kernel's from 5d,
 the measurement path's kernels' from 5e and the bf16 and complex instances'
 from 5g, and adds 5h's band SpMM launches, mm KID 6's band leg, to the
-band SpMM's f32 and bf16 counts; the chain kernel's gather instances and
+band SpMM's f32 and bf16 counts, and 5h's CSR SpMM f32 and bf16 and CSR
+bf16 launches to theirs; the chain kernel's gather instances and
 its bf16 and complex dwin instances count in 5i, its real dwin instances
 and the level kernel's real ones on the main path; 5f launches only kernels
 counted before, and checks its own counts; 5j adds the ranks' launches of the group-window
@@ -426,6 +441,7 @@ from aoclsparse_tpu_torch.kernels.spmm_band import (
     spmm_bandtm,
 )
 from aoclsparse_tpu_torch.kernels.spgemm_band import build_band_gemm_plan, extract_values
+from aoclsparse_tpu_torch.kernels.spmm_csr import spmm_csr, spmm_csr_plain
 from aoclsparse_tpu_torch.kernels.spmm_diag import diag_schedule, spmm_diag, spmm_diag_plain
 from aoclsparse_tpu_torch.kernels.spmv_bwd import spmv_bwd, spmv_bwd_plain
 from aoclsparse_tpu_torch.kernels.spmv_csr import block_stats, csr_launches, spmv_csr, spmv_csr_plain
@@ -455,7 +471,7 @@ from aoclsparse_tpu_torch.ops.level3.spgemm import _effective
 from aoclsparse_tpu_torch.planner.spill_route import build_spill_route, spill_route_apply
 from aoclsparse_tpu_torch.planner import triangular as ttri
 from aoclsparse_tpu_torch.planner import plan as tplan
-from aoclsparse_tpu_torch.planner.plan import gather_fallback_kind, gen_mm_ok
+from aoclsparse_tpu_torch.planner.plan import gen_mm_ok
 from aoclsparse_tpu_torch.planner.triangular import invert_diag_blocks, trsv_form_for
 from aoclsparse_tpu_torch.solvers import fused as fused_mod
 from aoclsparse_tpu_torch.solvers.ilu import _factor_nlev, _level_forms, ilu0_factorize
@@ -559,6 +575,14 @@ KERNELS = {
     "spmv_csr_f64": ("aoclsparse_tpu_torch/csrc/spmv_csr.cu", "aoclsparse_tpu/kernels/xla/spmv.py:51"),
     "spmv_csr_c64": ("aoclsparse_tpu_torch/csrc/spmv_csr.cu", "aoclsparse_tpu/kernels/xla/spmv.py:51"),
     "spmv_csr_c128": ("aoclsparse_tpu_torch/csrc/spmv_csr.cu", "aoclsparse_tpu/kernels/xla/spmv.py:51"),
+    "spmv_csr_bf16": ("aoclsparse_tpu_torch/csrc/spmv_csr.cu", "aoclsparse_tpu/kernels/xla/spmv.py:51"),
+    # the CSR SpMM (mm KID 0): the JAX package runs it as the XLA
+    # formulation spmm_segsum, no Pallas kernel
+    "spmm_csr_f32": ("aoclsparse_tpu_torch/csrc/spmm_csr.cu", "aoclsparse_tpu/kernels/xla/spmm.py:21"),
+    "spmm_csr_f64": ("aoclsparse_tpu_torch/csrc/spmm_csr.cu", "aoclsparse_tpu/kernels/xla/spmm.py:21"),
+    "spmm_csr_c64": ("aoclsparse_tpu_torch/csrc/spmm_csr.cu", "aoclsparse_tpu/kernels/xla/spmm.py:21"),
+    "spmm_csr_c128": ("aoclsparse_tpu_torch/csrc/spmm_csr.cu", "aoclsparse_tpu/kernels/xla/spmm.py:21"),
+    "spmm_csr_bf16": ("aoclsparse_tpu_torch/csrc/spmm_csr.cu", "aoclsparse_tpu/kernels/xla/spmm.py:21"),
     # the diagonal-form SpMV (mv KID 6): the JAX package runs it as the XLA
     # formulation spmv_diag (unrolled slices or a scan), no Pallas kernel
     "spmv_diag_f32": ("aoclsparse_tpu_torch/csrc/spmv_diag.cu", "aoclsparse_tpu/kernels/xla/spmv.py:606"),
@@ -566,10 +590,11 @@ KERNELS = {
     "spmv_diag_f64": ("aoclsparse_tpu_torch/csrc/spmv_diag.cu", "aoclsparse_tpu/kernels/xla/spmv.py:606"),
 }
 #: the kernels of the general-structure path (phase 5b), counted there:
-#: the CSR kernel of the card's default, the route kernels of the gen and
-#: route pins
+#: the CSR kernel and the CSR SpMM kernel of the card's defaults, the route
+#: kernels of the gen and route pins
 CSR_PATH = ("spmv_csr_f32", "spmv_csr_f64", "spmv_csr_c64", "spmv_csr_c128")
-GEN_PATH = ("oh_select_f32", "oh_accum_f32", "benes_route_f32") + CSR_PATH
+CSR_MM_PATH = ("spmm_csr_f32", "spmm_csr_f64", "spmm_csr_c64", "spmm_csr_c128")
+GEN_PATH = ("oh_select_f32", "oh_accum_f32", "benes_route_f32") + CSR_PATH + CSR_MM_PATH
 #: the kernels of the circuit path (phase 5i: scircuit's deep triangles on
 #: the chain kernel by the gate, the bf16 and complex instances), counted there
 CIRCUIT_PATH = ("trsv_gather_f32", "trsv_gather_f64", "trsv_gather_bf16", "trsv_gather_c64", "trsv_gather_c128",
@@ -577,6 +602,10 @@ CIRCUIT_PATH = ("trsv_gather_f32", "trsv_gather_f64", "trsv_gather_bf16", "trsv_
 #: the instances of the chain kernel the build must hold: 5 dtypes x 2
 #: forms x 3 column chunks
 CHAIN_INSTANCES = 30
+#: the instances of the CSR SpMM kernel the build must hold: 5 value types
+#: by int32 / int64 pointers and indices, and one or two f32 columns a lane
+#: for the two with float sums
+SPMM_CSR_INSTANCES = 28
 #: the kernels of the SpGEMM path (phase 5c), counted there
 SPGEMM_PATH = ("band_gemm_f32", "band_gemm_f64")
 #: the kernels of the formats path (phase 5d), counted there
@@ -587,9 +616,10 @@ MEASURE_PATH = ("band_spmv_tiles_f32", "band_spmv_tiles_bf16", "band_spmv_tiles_
 #: the kernels of the bf16 and complex path (phase 5g), counted there
 LOWPREC_PATH = ("trsv_win_bf16", "trsm_win_bf16", "spmm_band_bf16", "trsv_level_c64", "trsv_level_c128")
 #: the kernels of the tuning and persistence path (phase 5h: mm KID 6's
-#: band leg, f32 and the bf16 band), counted there and added to the
-#: kernels line's counts
-TUNING_PATH = ("spmm_band_f32", "spmm_band_bf16")
+#: band leg by pin, f32 and the bf16 band; the CSR SpMM kernel of mm's
+#: default on scircuit, f32 and a bf16 handle; the CSR kernel's bf16
+#: instance by kid=0), counted there and added to the kernels line's counts
+TUNING_PATH = ("spmm_band_f32", "spmm_band_bf16", "spmm_csr_f32", "spmm_csr_bf16", "spmv_csr_bf16")
 #: the complex stencil of phases 3, 5g and 6: HPCG's operand shifted by
 #: i SIGMA I, the shifted-Laplacian setting of Helmholtz preconditioning
 SIGMA = 1.0
@@ -631,6 +661,7 @@ COUNTERS = {
     "trsv_level": trsv_level.launches,
     "spmv_csr": spmv_csr.launches,
     "spmv_diag": spmv_diag.launches,
+    "spmm_csr": spmm_csr.launches,
 }
 #: one launch of the diagonal SpMV kernel (mv KID 6), by instance
 DIAG_ONE = {inst: {f"spmv_diag_{i}": int(i == inst) for i in ("f32", "bf16", "f64")} for inst in ("f32", "bf16", "f64")}
@@ -722,6 +753,18 @@ KERNEL_TOL = {
     "spmv_csr_f64": expected_precision(torch.float64),
     "spmv_csr_c64": expected_precision(torch.complex64),
     "spmv_csr_c128": expected_precision(torch.complex128),
+    # bf16: the kernel and its plain version sum the bf16 products in f32,
+    # in another order, and round y once: four bf16 units in the last place
+    "spmv_csr_bf16": BF16_SOLVE_TOL,
+    # the same products summed in another order (a row's entries in order
+    # in one lane, a long row's warps meeting in warp order) than
+    # index_add_'s: the sum dtype's model tolerance; bf16: the same bf16
+    # values and f32 B, f32 sums on both sides
+    "spmm_csr_f32": expected_precision(torch.float32),
+    "spmm_csr_f64": expected_precision(torch.float64),
+    "spmm_csr_c64": expected_precision(torch.complex64),
+    "spmm_csr_c128": expected_precision(torch.complex128),
+    "spmm_csr_bf16": expected_precision(torch.float32),
     # the same products summed in another order (the offsets in order, one
     # sum a row, against the plain version's chunks of 32); bf16: the plain
     # version rounds each product to bf16 (the JAX package's arithmetic)
@@ -3114,10 +3157,13 @@ def gen_mm_plain(form, B, mixed=False):
 
 
 def tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, ilu_iters, peak, errs, smoke_dir):
-    """Phase 5h: mm KID 6 on the scircuit stand-in, each tuner once at full
-    size, plan snapshots and handle checkpoints, the NaN trap. Kernel vs
-    plain checks come first, uncounted; the main path's launches are counted
-    from the reset inside. Returns (launches, the phase's numbers)."""
+    """Phase 5h: mm on the scircuit stand-in (the default's CSR SpMM kernel,
+    KID 6 by pin), f32 and a bf16 handle (also its mv by kid=0: the CSR
+    kernel's bf16 instance), each tuner once at full size, plan snapshots
+    and handle checkpoints, the NaN trap. Kernel vs plain checks come
+    first, uncounted; the main path's launches are counted from the reset
+    inside. Returns (launches, the phase's numbers; "bf16": what phase 6
+    times of the bf16 instances)."""
     out = {}
     f32tol = MV_TOL["f32"]
     # the operand, planned from scratch through its handle (the host seconds
@@ -3132,8 +3178,10 @@ def tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, ilu_iters, peak, er
     tt.optimize(S)
     torch.cuda.synchronize()
     out["t_plan"] = time.perf_counter() - t0
-    # the mv default takes the CSR kernel's segsum form on the card; mm's
-    # default keeps the gen form (mm KID 6), which gen_form_for holds
+    # the mv default takes the CSR kernel's segsum form on the card, and so
+    # does mm's where the gen band (mm KID 6, which gen_form_for holds for
+    # the kid=6 pin) stores more slots a nonzero than the measured crossover
+    # (planner/plan.py GEN_CSR_SLOTS)
     if default_mv_form(S).kind != "segsum":
         raise AssertionError(f"scircuit's mv planned as {default_mv_form(S).kind}, want segsum on the card")
     form = S.plan.gen_form_for(GEN, NONE)
@@ -3147,12 +3195,21 @@ def tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, ilu_iters, peak, er
         f"{nsp} spilled (band_max_w f32 {band_max_w(torch.float32)})")
     if not gen_mm_ok(form):
         raise AssertionError("the scircuit gen band fails KID 6's gate")
+    eff = S.plan.effective_for(GEN, NONE)
+    mm_want = "gen" if tplan.gen_beats_csr_mm(form, eff) else "segsum"
+    log(f"  scircuit gen band: {form.gen_m_pad * form.bwd_W / eff.nnz:.2f} slots a nonzero against the crossover "
+        f"GEN_CSR_SLOTS {tplan.GEN_CSR_SLOTS[torch.float32]}: mm default {mm_want}")
+    if S.plan.mm_kinds[MM_KEY] != mm_want:
+        raise AssertionError(f"scircuit's mm planned as {S.plan.mm_kinds[MM_KEY]}, want {mm_want} on the card")
     Ssp = sp.csr_matrix((sval.astype(np.float64), sind, sptr), shape=(sm, sm))
     Sb = tt.create_csr(sm, sm, sptr, sind, torch.from_numpy(sval).to(torch.bfloat16), device=dev)
     formb = tt.optimize(Sb).exec_form_for(GEN, NONE)
     rngb = np.random.default_rng(SEED_B + 7)
     B32 = torch.from_numpy(rngb.standard_normal((sm, K_MM)).astype(np.float32)).to(dev)
     Bbf = B32.to(torch.bfloat16)
+    seg = S.plan.exec_form_for(GEN, NONE, kind="segsum")
+    segb = Sb.plan.exec_form_for(GEN, NONE, kind="segsum")
+    xb = torch.from_numpy(np.random.default_rng(82).standard_normal(sm).astype(np.float32)).to(dev, torch.bfloat16)
     # kernel vs plain version: the composite with #8 and with its plain band
     # leg, f32 and the bf16 band (B and C f32, before mm's rounding); the
     # spill's index_add_ sums in a run-dependent order (utils/debug.py)
@@ -3160,6 +3217,11 @@ def tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, ilu_iters, peak, er
             spmm_gen_mod.spmm_gen(form, B32), gen_mm_plain(form, B32), errs)
     compare("spmm_band_bf16", f"mm KID 6 composite on scircuit, bf16 handle (K={K_MM}, W={formb.bwd_W})",
             spmm_gen_mod.spmm_gen(formb, Bbf.float()), gen_mm_plain(formb, Bbf.float()), errs)
+    # the CSR SpMM kernel (f32; bf16 values with B widened to f32) and the
+    # CSR kernel's bf16 instance against their plain versions
+    check_mm_csr_kernel("spmm_csr_f32", "scircuit", seg, B32, errs)
+    check_mm_csr_kernel("spmm_csr_bf16", "scircuit bf16", segb, Bbf.float(), errs)
+    check_csr_kernel("spmv_csr_bf16", "scircuit bf16", segb, xb, errs)
 
     reset_counts()
     # mm KID 6 through the entry point: one band SpMM launch a call, against
@@ -3173,19 +3235,32 @@ def tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, ilu_iters, peak, er
     log(f"  scircuit mm kid=6 vs cuSPARSE (torch.sparse CSR @ B): max rel err {err:.3e} (tol {f32tol:.3e})")
     if not err <= f32tol:
         raise AssertionError("mm kid=6 disagrees with cuSPARSE")
-    Cd = counted("scircuit mm default", lambda: tt.mm(1.0, S, GEN, NONE, B32, 0.0), {"spmm_band_f32": 1})
-    if S.plan.mm_kinds[(GEN.type, GEN.fill_mode, GEN.diag_type, NONE)] != "gen":
-        raise AssertionError("the default mm on scircuit does not take gen (mm KID 6)")
-    check_mv("scircuit mm default (gen)", Cd, ref, f32tol)
+    on_csr = mm_want == "segsum"
+    Cd = counted("scircuit mm default", lambda: tt.mm(1.0, S, GEN, NONE, B32, 0.0),
+                 {"spmm_csr_f32": int(on_csr), "spmm_band_f32": int(not on_csr)})
+    check_mv(f"scircuit mm default ({mm_want})", Cd, ref, f32tol)
     Cb = counted("scircuit bf16 mm kid=6", lambda: tt.mm(1.0, Sb, GEN, NONE, Bbf, 0.0, kid=6), {"spmm_band_bf16": 1})
-    refb = sp.csr_matrix((torch.from_numpy(sval).to(torch.bfloat16).double().numpy(), sind, sptr), shape=(sm, sm)) \
-        @ Bbf.double().cpu().numpy()
+    sb64 = sp.csr_matrix((torch.from_numpy(sval).to(torch.bfloat16).double().numpy(), sind, sptr), shape=(sm, sm))
+    refb = sb64 @ Bbf.double().cpu().numpy()
     check_mv(f"scircuit bf16 mm kid=6 (K={K_MM})", Cb, refb, expected_precision(torch.bfloat16))
-    # times: the call, #8 alone on the gen band (warm and cold), the gather
-    # form the default took before (gather_fallback_kind), cuSPARSE
-    eff = S.plan.effective_for(GEN, NONE)
-    gkind = gather_fallback_kind(eff)
-    gkid = {"segsum": 0, "ell": 1, "ellhyb": 2}[gkind]
+    # the bf16 handle's default by the same rule, and kid=0: the CSR SpMM
+    # kernel's bf16 instance (B widened to f32, a bf16 result)
+    effb = Sb.plan.effective_for(GEN, NONE)
+    b_csr = not tplan.gen_beats_csr_mm(formb, effb)
+    Cbd = counted("scircuit bf16 mm default", lambda: tt.mm(1.0, Sb, GEN, NONE, Bbf, 0.0),
+                  {"spmm_csr_bf16": int(b_csr), "spmm_band_bf16": int(not b_csr)})
+    check_mv(f"scircuit bf16 mm default ({Sb.plan.mm_kinds[MM_KEY]})", Cbd, refb, expected_precision(torch.bfloat16))
+    Cb0 = counted("scircuit bf16 mm kid=0", lambda: tt.mm(1.0, Sb, GEN, NONE, Bbf, 0.0, kid=0), {"spmm_csr_bf16": 1})
+    if Cb0.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 mm kid=0 returned {Cb0.dtype}")
+    check_mv(f"scircuit bf16 mm kid=0 (the CSR SpMM kernel's bf16 instance, K={K_MM})", Cb0, refb,
+             expected_precision(torch.bfloat16))
+    yb = counted("scircuit bf16 mv kid=0", lambda: tt.mv(1.0, Sb, GEN, NONE, xb, 0.0, kid=0), {"spmv_csr_bf16": 1})
+    check_mv("scircuit bf16 mv kid=0 (the CSR kernel's bf16 instance)", yb, sb64 @ xb.double().cpu().numpy(),
+             expected_precision(torch.bfloat16))
+    del Cbd, Cb0
+    # times: the call, #8 alone on the gen band (warm and cold), the CSR SpMM
+    # kernel alone and the default call, cuSPARSE
     v = form.bandt_rows()
     Bp = spmv_gen_mod._permute_in(form, B32)
     flush = torch.empty(COLD_VALUES, dtype=torch.float32, device=dev)
@@ -3196,7 +3271,9 @@ def tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, ilu_iters, peak, er
     out["band_cold_ms"] = cold_ms(lambda: spmm_band(v, Bp, form.bandt_start, form.bwd_padL), flush)
     out["band_plain_ms"] = cuda_ms(lambda: spmm_band_plain(v, Bp, form.bandt_start, form.bwd_padL), reps=5, inner=2,
                                    backlog=True)
-    out["gather_ms"] = cuda_ms(lambda: tt.mm(1.0, S, GEN, NONE, B32, 0.0, kid=gkid), reps=5, inner=3)
+    out["csr_ms"] = cuda_ms(lambda: mm_csr_call(seg, B32), backlog=True)
+    out["default_ms"] = cuda_ms(lambda: tt.mm(1.0, S, GEN, NONE, B32, 0.0), reps=9, inner=5)
+    out["csr_bound"] = bound_of(mm_csr_bytes(seg, B32), mm_csr_flops(seg, K_MM), "f32", peak)
     out["lib_ms"], lerr = library_ms(lambda: Slib @ B32, reps=9, inner=5, backlog=True)
     sp_bytes = nbytes(*(t for t in (form.sp_val, form.sp_ind, form.sp_rows, form.hub_slab, form.hub_cols,
                                     form.hubr_slab, form.hubr_rows, form.gen_perm, form.gen_out) if t is not None))
@@ -3211,9 +3288,10 @@ def tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, ilu_iters, peak, er
     log(f"  scircuit mm K={K_MM}: kid=6 call {out['kid6_call_ms']:.4f} ms (device {out['kid6_device_ms']:.4f}); "
         f"#8 on the gen band {out['band_ms']:.4f} ms warm, {out['band_cold_ms']:.4f} cold, plain "
         f"{out['band_plain_ms']:.4f}, bound {out['band_bound'][0]:.4f} ({out['band_bound'][1]}) = "
-        f"{out['band_bound'][0] / out['band_ms']:.3f}; the gather form before ({gkind}, kid={gkid}) "
-        f"{out['gather_ms']:.4f} ms; cuSPARSE {lib_s}; the call's bound {out['call_bound'][0]:.4f} ms "
-        f"({out['call_bound'][1]}), nonzeros-only {out['nz_bound'][0]:.4f} ms")
+        f"{out['band_bound'][0] / out['band_ms']:.3f}; the CSR SpMM kernel {out['csr_ms']:.4f} ms, bound "
+        f"{out['csr_bound'][0]:.4f} ({out['csr_bound'][1]}) = {out['csr_bound'][0] / out['csr_ms']:.3f}; the default "
+        f"call ({mm_want}) {out['default_ms']:.4f} ms; cuSPARSE {lib_s}; the kid=6 call's bound "
+        f"{out['call_bound'][0]:.4f} ms ({out['call_bound'][1]}), nonzeros-only {out['nz_bound'][0]:.4f} ms")
     profile_mv("scircuit mm kid=6", call)
     del flush, Bp, Slib, Cl
 
@@ -3224,7 +3302,7 @@ def tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, ilu_iters, peak, er
                   "gen": {"band_spmv_f32"} | (route if _spill_route_on(form, dev) else set()),
                   "segsum": {"spmv_csr_f32"}, "diag": {"spmv_diag_f32"}}
     mm_kernels = {"bandtm": {"spmm_band_f32"}, "gen": {"spmm_band_f32"}, "bandmxu": {"spmm_band_mxu_f32"},
-                  "diag": {"spmm_diag_f32"}}
+                  "diag": {"spmm_diag_f32"}, "segsum": {"spmm_csr_f32"}}
 
     def pinned(name, results, kernels, run, before, watch=None):
         """The pin is the arg-min of `results`; the next call (run) launches
@@ -3328,6 +3406,7 @@ def tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, ilu_iters, peak, er
     # bit for bit needs a fixed sum order: index_add_ takes its
     # deterministic path in deterministic_mode
     for name, fn in (("mv", lambda A: tt.mv(1.0, A, GEN, NONE, xs, 0.0)),
+                     ("mm default", lambda A: tt.mm(1.0, A, GEN, NONE, B32, 0.0)),
                      ("mm kid=6", lambda A: tt.mm(1.0, A, GEN, NONE, B32, 0.0, kid=6))):
         with deterministic_mode():
             a, b = fn(S), fn(S2)
@@ -3367,6 +3446,7 @@ def tuning_persistence_path(H, hst, hptr, Ac, Cc, dev, rtol, ilu_iters, peak, er
             raise AssertionError("nan_checks did not trap the non-finite mv")
     if torch.isfinite(tt.mv(1.0, S, GEN, NONE, bad, 0.0)).all():
         raise AssertionError("outside nan_checks the non-finite value did not come back")
+    out["bf16"] = dict(segb=segb, B=Bbf.float(), x=xb, ptr=sptr, ind=sind, val=sval)
     return read_counts(), out
 
 
@@ -3383,6 +3463,9 @@ def uncounted():
 
 
 MV_SLOT = (GEN.type, GEN.fill_mode, GEN.diag_type, NONE, None)
+#: the plan's key of mm's default kind (plan.mm_kinds) for the general
+#: untransposed descriptor
+MM_KEY = MV_SLOT[:4]
 
 
 def default_mv_form(A):
@@ -3459,6 +3542,35 @@ def check_csr_kernel(kernel, label, form, x, errs):
     compare(kernel, f"{label} ({csr_desc(form)})", got, csr_plain(form, x), errs)
 
 
+def mm_csr_call(form, B):
+    """The CSR SpMM kernel's wrapper on a segsum form's operands."""
+    return spmm_csr(form.ptr, form.ind, form.val, B, form.csr_blocks)
+
+
+def mm_csr_plain(form, B):
+    """The CSR SpMM kernel's plain version on the same operands."""
+    return spmm_csr_plain(form.ptr, form.ind, form.val, B, form.segsum_rows())
+
+
+def mm_csr_bytes(form, B):
+    """Bytes the CSR SpMM must move: ptr, ind, val and B read once, C
+    written once (in B's dtype)."""
+    return nbytes(form.ptr, form.ind, form.val, B) + form.m * B.shape[1] * B.element_size()
+
+
+def mm_csr_flops(form, K):
+    """Operations of the CSR SpMM: a multiply-add an entry and column, 8
+    real operations for a complex one."""
+    return form.ind.numel() * K * (8 if form.val.is_complex() else 2)
+
+
+def check_mm_csr_kernel(kernel, label, form, B, errs):
+    """The CSR SpMM kernel on a segsum form against its plain version; two
+    calls give the same bits."""
+    got = same_bits(kernel, label, lambda: mm_csr_call(form, B))
+    compare(kernel, f"{label} (K={B.shape[1]}, {csr_desc(form)})", got, mm_csr_plain(form, B), errs)
+
+
 def general_path(Wh, wform, wroute, wptr, wind, wval, Qh, qform, qptr, qind, qval, dev, rtol, errs):
     """Phase 5b's mv and CG calls (the caller resets the counters first):
     the CSR kernel by default, the gen and route forms by pin. Returns
@@ -3483,6 +3595,24 @@ def general_path(Wh, wform, wroute, wptr, wind, wval, Qh, qform, qptr, qind, qva
     check_mv("webbase mv alpha=1.5 beta=-0.5 (CSR kernel)",
              counted("alpha/beta", lambda: tt.mv(1.5, Wh, GEN, NONE, xw_d, -0.5, yw), csr_want(wdef)),
              1.5 * refw - 0.5 * yw.double().cpu().numpy(), MV_TOL["f32"])
+    # mm at K = 64: the card's default takes the CSR SpMM kernel on the same
+    # segsum form (the gen band, W = 728, fails KID 6's gate; the JAX rule's
+    # gather form is ellhyb in plain torch), held to float64 scipy and to
+    # cuSPARSE (torch.sparse CSR @ B)
+    Bw = torch.from_numpy(np.random.default_rng(SEED_B + 11).standard_normal((wm, K_MM)).astype(np.float32)).to(dev)
+    with uncounted():
+        check_mm_csr_kernel("spmm_csr_f32", "webbase", wdef, Bw, errs)
+    Cw = counted("webbase mm", lambda: tt.mm(1.0, Wh, GEN, NONE, Bw, 0.0), {"spmm_csr_f32": 1, "spmm_band_f32": 0})
+    if Wh.plan.mm_kinds[MM_KEY] != "segsum":
+        raise AssertionError(f"webbase's mm planned as {Wh.plan.mm_kinds[MM_KEY]}, want segsum on the card")
+    refmw = Sw @ Bw.double().cpu().numpy()
+    check_mv(f"webbase mm default (segsum: the CSR SpMM kernel, K={K_MM})", Cw, refmw, MV_TOL["f32"])
+    Wlib = csr_tensor(wptr, wind, wval, dev, torch.float32)
+    err = near_error(host64(Cw), host64(Wlib @ Bw))
+    log(f"  webbase mm default vs cuSPARSE (torch.sparse CSR @ B): max rel err {err:.3e} (tol {MV_TOL['f32']:.3e})")
+    if not err <= MV_TOL["f32"]:
+        raise AssertionError("webbase mm disagrees with cuSPARSE")
+    del Cw, Wlib
     # the gen composite by pin (kid=7): its band on #1, its spill on the
     # route kernels, held to the same reference
     per_call = {"band_spmv_f32": 1, "oh_select_f32": 1, "oh_accum_f32": 1, "benes_route_f32": route_launches(wroute),
@@ -3545,6 +3675,13 @@ def general_path(Wh, wform, wroute, wptr, wind, wval, Qh, qform, qptr, qind, qva
              counted("f64", lambda: tt.mv(1.0, W64, GEN, NONE, xw64_d, 0.0),
                      dict(csr_want(w64form, "spmv_csr_f64"), spmv_csr_f32=0, band_spmv_f64=0)), refw, MV_TOL["f64"])
     log(f"  float64 webbase: plan + mv {time.perf_counter() - t0:.2f} s")
+    # its mm by kid=0: the CSR SpMM kernel's f64 instance on the same form
+    Bw64 = Bw.double()
+    with uncounted():
+        check_mm_csr_kernel("spmm_csr_f64", "webbase f64", w64form, Bw64, errs)
+    check_mv(f"webbase mm float64 kid=0 (the CSR SpMM kernel's f64 instance, K={K_MM})",
+             counted("f64 mm", lambda: tt.mm(1.0, W64, GEN, NONE, Bw64, 0.0, kid=0), {"spmm_csr_f64": 1}), refmw,
+             MV_TOL["f64"])
     Sq = sp.csr_matrix((qval.astype(np.float64), qind, qptr), shape=(qm, qm))
     xq = np.random.default_rng(61).standard_normal(qm).astype(np.float32)
     xq_d = torch.from_numpy(xq).to(dev)
@@ -3580,8 +3717,13 @@ def general_path(Wh, wform, wroute, wptr, wind, wval, Qh, qform, qptr, qind, qva
              Src @ xrc.astype(np.float64), MV_TOL["f32"])
     rcval_c = rcval + 1j * np.random.default_rng(65).standard_normal(rcval.size).astype(np.float32)
     xrcc = xrc + 1j * np.random.default_rng(66).standard_normal(rcm).astype(np.float32)
-    ref_rcc = (sp.csr_matrix((rcval_c.astype(np.complex128), rcind, rcptr), shape=(rcm, rcm))
-               @ xrcc.astype(np.complex128))
+    Src_c = sp.csr_matrix((rcval_c.astype(np.complex128), rcind, rcptr), shape=(rcm, rcm))
+    ref_rcc = Src_c @ xrcc.astype(np.complex128)
+    # complex mm at K = 64: the card's default takes the CSR SpMM kernel
+    # (no complex band: the JAX rule's gather forms before)
+    rng_bc = np.random.default_rng(SEED_B + 12)
+    Bc = (rng_bc.standard_normal((rcm, K_MM)) + 1j * rng_bc.standard_normal((rcm, K_MM))).astype(np.complex64)
+    ref_mcc = Src_c @ Bc.astype(np.complex128)
     cplx = {}
     for inst, npdt, tdt in (("c64", np.complex64, torch.complex64), ("c128", np.complex128, torch.complex128)):
         Sk = tt.create_csr(rcm, rcm, rcptr, rcind, rcval_c.astype(npdt), device=dev)
@@ -3594,7 +3736,15 @@ def general_path(Wh, wform, wroute, wptr, wind, wval, Qh, qform, qptr, qind, qva
         check_mv(f"scircuit mv {inst} (the CSR kernel's {inst} instance)",
                  counted(f"scircuit {inst}", lambda: tt.mv(1.0, Sk, GEN, NONE, xk, 0.0),
                          csr_want(kform, f"spmv_csr_{inst}")), ref_rcc, expected_precision(tdt))
-        cplx[inst] = (Sk, kform, xk)
+        Bk = torch.from_numpy(Bc.astype(npdt)).to(dev)
+        with uncounted():
+            check_mm_csr_kernel(f"spmm_csr_{inst}", f"scircuit {inst}", kform, Bk, errs)
+        check_mv(f"scircuit mm {inst} default (segsum: the CSR SpMM kernel's {inst} instance, K={K_MM})",
+                 counted(f"scircuit {inst} mm", lambda: tt.mm(1.0, Sk, GEN, NONE, Bk, 0.0), {f"spmm_csr_{inst}": 1}),
+                 ref_mcc, expected_precision(tdt))
+        if Sk.plan.mm_kinds[MM_KEY] != "segsum":
+            raise AssertionError(f"{inst} scircuit's mm planned as {Sk.plan.mm_kinds[MM_KEY]}, want segsum")
+        cplx[inst] = (Sk, kform, xk, Bk)
     # CG on the symmetrised webbase: by default on the CSR kernel, in
     # original space; by the gen pin in permuted space
     t0 = time.perf_counter()
@@ -3647,16 +3797,17 @@ def general_path(Wh, wform, wroute, wptr, wind, wval, Qh, qform, qptr, qind, qva
     if {k: c1[k] - c0[k] for k in g_call} != g_call:
         raise AssertionError(f"permuted-space CG launches {({k: c1[k] - c0[k] for k in g_call})}, want {g_call}")
     return dict(G=G, RC=RC, Sq=Sq, bg_d=bg_d, cplx=cplx, gform=gform, qdef=qdef, rcdef=rcdef, rcval_c=rcval_c,
-                w64form=w64form, wdef=wdef, wval2=wval2, xq_d=xq_d, xrc_d=xrc_d, xw64_d=xw64_d, xw_d=xw_d)
+                w64form=w64form, wdef=wdef, wval2=wval2, xq_d=xq_d, xrc_d=xrc_d, xw64_d=xw64_d, xw_d=xw_d, Bw=Bw,
+                Bw64=Bw64)
 
 
 def csr_timings(g5, Wh, Qh, qform, wval, dev, peak, ms, turns, note):
     """Phase 6's times of the CSR kernel and of mv on general structure
     (phase 5b's handles and forms, `g5`); the kernels line's entries of the
     CSR kernel go into `ms` through `turns` and `note`."""
-    G, RC, bg_d, cplx, gform, qdef, rcdef, rcval_c, w64form, wdef, wval2, xq_d, xrc_d, xw64_d, xw_d = (
+    G, RC, bg_d, cplx, gform, qdef, rcdef, rcval_c, w64form, wdef, wval2, xq_d, xrc_d, xw64_d, xw_d, Bw, Bw64 = (
         g5[k] for k in ("G", "RC", "bg_d", "cplx", "gform", "qdef", "rcdef", "rcval_c", "w64form", "wdef", "wval2",
-                        "xq_d", "xrc_d", "xw64_d", "xw_d"))
+                        "xq_d", "xrc_d", "xw64_d", "xw_d", "Bw", "Bw64"))
     # the CSR kernel (mv KID 0): each instance alone, behind a device spin,
     # against its plain version in turns, cuSPARSE (torch.sparse CSR @ x,
     # the yardstick) and its bytes' bound (bench.py:60: each input once, y
@@ -3676,6 +3827,25 @@ def csr_timings(g5, Wh, Qh, qform, wval, dev, peak, ms, turns, note):
         note(kernel, nb, nb, csr_flops(form), lambda: At @ xv)
         log(f"  {kernel} ({label}, {csr_desc(form)}): "
             f"{nb / ms[kernel] / 1e6:.1f} GB/s of its {nb / 1e6:.1f} MB")
+        del At
+    # the CSR SpMM kernel (mm KID 0) at K = 64 in the same way: its bound
+    # counts the CSR, B and C once each; the gathered B rows (a K-wide row
+    # an entry) are logged beside it
+    mm_cases = (
+        ("spmm_csr_f32", "webbase", wdef, Bw, wval2),
+        ("spmm_csr_f64", "webbase f64", w64form, Bw64, wval.astype(np.float64)),
+        ("spmm_csr_c64", "scircuit complex64", cplx["c64"][1], cplx["c64"][3], rcval_c.astype(np.complex64)),
+        ("spmm_csr_c128", "scircuit complex128", cplx["c128"][1], cplx["c128"][3], rcval_c.astype(np.complex128)),
+    )
+    for kernel, label, form, Bx, vals in mm_cases:
+        pp, ii = form.ptr.cpu().numpy(), form.ind.cpu().numpy()
+        turns(kernel, lambda: mm_csr_call(form, Bx), lambda: mm_csr_plain(form, Bx), kreps=(9, 5), preps=(5, 2))
+        At = csr_tensor(pp, ii, vals, dev, form.val.dtype)
+        nb = mm_csr_bytes(form, Bx)
+        note(kernel, nb, nb, mm_csr_flops(form, K_MM), lambda: At @ Bx, dict(reps=5, inner=2))
+        gathered = ii.size * Bx.shape[1] * Bx.element_size()
+        log(f"  {kernel} ({label}, K={K_MM}, {csr_desc(form)}): {nb / ms[kernel] / 1e6:.1f} GB/s of its "
+            f"{nb / 1e6:.1f} MB; gathered B rows {gathered / 1e6:.1f} MB, {gathered / ms[kernel] / 1e6:.1f} GB/s")
         del At
     # mv on the general-structure operands, the lower of two turns each:
     # the CSR kernel alone and its plain version (device time); the default
@@ -4374,6 +4544,17 @@ def main() -> int:
         raise AssertionError(f"{n_chain} chain-kernel instances in the build, want {CHAIN_INSTANCES}")
     log(f"  chain kernel: {n_chain} instances (f32, f64, bf16, c64, c128 x dwin, gather x KC 1, 2, 4), no stack "
         "frame, no spills")
+    # the CSR SpMM kernel: every instance built; ptxas gives its f64
+    # instances with int32 indices an 8-byte stack frame at 48 registers (an
+    # allocation choice, not pressure: 255 are allowed); no instance may
+    # spill more than that
+    mm_res = ptxas_resources(ptxas, ("spmm_csr_kernel",))
+    for fn, (frame, stores, loads, regs) in sorted(mm_res.items()):
+        log(f"  {fn[fn.index('spmm_csr_kernel'):][:48]}: {regs} registers, {frame} bytes stack frame, {stores} / "
+            f"{loads} bytes spill stores / loads")
+    if len(mm_res) != SPMM_CSR_INSTANCES or any(f > 8 or s > 8 or ld > 16 for f, s, ld, _r in mm_res.values()):
+        raise AssertionError(f"CSR SpMM kernel: {len(mm_res)} instances (want {SPMM_CSR_INSTANCES}) or a stack "
+                             f"frame past 8 bytes: {mm_res}")
     t0 = time.perf_counter()
     # a numpy ILU0 at this size would stand in silently: require the C++ one
     if not native.available():
@@ -5057,7 +5238,7 @@ def main() -> int:
     mm_case("mm kid=4", Amm, "spmm_band_f32", ref_mm, f32tol, 1.0, NONE, Bm, 0.0, kid=4)
     mm_case("mm kid=5 (block windows)", Amm, "spmm_band_mxu_f32", ref_mm, f32tol, 1.0, NONE, Bm, 0.0, kid=5)
     mm_case("mm kid=7 (diag form)", Amm, "spmm_diag_f32", ref_mm, f32tol, 1.0, NONE, Bm, 0.0, kid=7)
-    mm_case("mm kid=0 (segsum, plain torch)", Amm, None, ref_mm, f32tol, 1.0, NONE, Bm, 0.0, kid=0)
+    mm_case("mm kid=0 (segsum: the CSR SpMM kernel)", Amm, "spmm_csr_f32", ref_mm, f32tol, 1.0, NONE, Bm, 0.0, kid=0)
     Cin = torch.from_numpy(np.random.default_rng(41).standard_normal((m, K_MM)).astype(np.float32)).to(dev)
     mm_case("mm alpha=1.5 beta=-0.5", Amm, "spmm_band_f32", 1.5 * ref_mm - 0.5 * Cin.double().cpu().numpy(),
             f32tol, 1.5, NONE, Bm, -0.5, Cin)
@@ -5206,7 +5387,7 @@ def main() -> int:
     log(f"  main-path launches: {launches}")
     for kernel, count in launches.items():
         if count == 0 and kernel not in (GEN_PATH + SPGEMM_PATH + FORMATS_PATH + MEASURE_PATH + LOWPREC_PATH
-                                         + CIRCUIT_PATH):
+                                         + CIRCUIT_PATH + TUNING_PATH):
             raise AssertionError(f"kernel {kernel} never launched on the main path")
 
     # 5b. the general-structure path, counted on its own
@@ -6094,6 +6275,25 @@ def main() -> int:
     log(f"  webbase band (W={wform.bwd_W}, {wband_bytes / 1e9:.3f} GB): band kernel {t_wband:.4f} ms = "
         f"{wband_bytes / t_wband / 1e6:.1f} GB/s ({wband_bytes / t_wband / 1e6 / peak:.3f} of peak)")
     csr_timings(g5, Wh, Qh, qform, wval, dev, peak, ms, turns, note)
+    # the bf16 instances of the CSR kernels on phase 5h's bf16 scircuit
+    # handle: the SpMM (bf16 values, B and C f32) and the SpMV (f32 sums, y
+    # rounded once); the library: cuSPARSE's f32 product on the
+    # bf16-rounded CSR (bf16 widens to f32 exactly: the same function
+    # before y's rounding)
+    hb = th.pop("bf16")
+    segb, Bbw, xbf = hb["segb"], hb["B"], hb["x"]
+    Ab = csr_tensor(hb["ptr"], hb["ind"], torch.from_numpy(hb["val"]).to(torch.bfloat16).float().numpy(), dev,
+                    torch.float32)
+    turns("spmm_csr_bf16", lambda: mm_csr_call(segb, Bbw), lambda: mm_csr_plain(segb, Bbw), kreps=(9, 5),
+          preps=(5, 2))
+    nb = mm_csr_bytes(segb, Bbw)
+    note("spmm_csr_bf16", nb, nb, mm_csr_flops(segb, K_MM), lambda: Ab @ Bbw, dict(reps=5, inner=2))
+    turns("spmv_csr_bf16", lambda: csr_call(segb, xbf), lambda: csr_plain(segb, xbf))
+    nb = csr_bytes(segb, xbf)
+    note("spmv_csr_bf16", nb, nb, csr_flops(segb), lambda: Ab @ xbf.float())
+    log(f"  spmm_csr_bf16 / spmv_csr_bf16 (scircuit bf16, {csr_desc(segb)}): {ms['spmm_csr_bf16']:.4f} / "
+        f"{ms['spmv_csr_bf16']:.4f} ms")
+    del Ab, hb, segb, Bbw, xbf
 
     # the band GEMM kernel on the cant A.A plan; cuSPARSE SpGEMM (torch.sparse
     # CSR @ CSR) of the same product as the yardstick

@@ -490,13 +490,37 @@ def test_wrapper_plain_path_takes_either_index_width(idx):
     assert near_error(got.numpy(), S @ x.numpy()) <= tol(np.float64)
     rows = torch.repeat_interleave(torch.arange(S.shape[0]), torch.from_numpy(np.diff(S.indptr)))
     assert torch.equal(got, spmv_segsum(ind, val, rows, x, S.shape[0]))
-    # the dtype rule: bf16 and mixed dtypes take the plain gather on any device
+    # on the CPU every dtype takes the plain version: bf16 sums in f32 and
+    # rounds once (the kernel's arithmetic), mixed dtypes promote
     xb = x.to(torch.bfloat16)
-    assert torch.equal(spmv_csr_any(ind, val.to(torch.bfloat16), rows, xb, S.shape[0], ptr, None),
-                       spmv_segsum(ind, val.to(torch.bfloat16), rows, xb, S.shape[0]))
+    vb = val.to(torch.bfloat16)
+    assert torch.equal(spmv_csr_any(ind, vb, rows, xb, S.shape[0], ptr, None),
+                       spmv_segsum(ind, vb.float(), rows, xb.float(), S.shape[0]).to(torch.bfloat16))
     assert spmv_csr_any(ind, val, rows, x.float(), S.shape[0], ptr, None).dtype == torch.float64
     # and on the CPU the kernel's dtypes take the wrapper's plain path
     assert torch.equal(spmv_csr_any(ind, val, rows, x, S.shape[0], ptr, blocks), got)
+
+
+def test_bf16_segsum_sums_in_f32(ast):
+    """A bf16 handle's mv by kid=0 sums in f32 and rounds once (the
+    kernel's arithmetic, on the CPU its plain version): within 2^-8 of
+    float64 scipy on the bf16 values, where the JAX package's mv(kid=0)
+    sums the bf16 products in bf16; the two agree within the bf16 model
+    tolerance on rows of 0-12 entries (a deliberate divergence, ROADMAP)."""
+    import jax.numpy as jnp
+
+    S = with_empty_rows(47)
+    vb = torch.from_numpy(S.data).to(torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(48).standard_normal(S.shape[1])).to(torch.bfloat16)
+    T = tt.create_csr(S.shape[0], S.shape[1], S.indptr, S.indices, vb, device="cpu")
+    got = tt.mv(1.0, T, GEN, NONE, x, 0.0, kid=0)
+    assert got.dtype == torch.bfloat16
+    Sb = sp.csr_matrix((vb.double().numpy(), S.indices, S.indptr), shape=S.shape)
+    assert near_error(got.double().numpy(), Sb @ x.double().numpy()) <= 2.0**-8
+    J = ast.create_csr(S.shape[0], S.shape[1], S.indptr, S.indices, jnp.asarray(vb.float().numpy(), dtype=jnp.bfloat16))
+    want = ast.mv(1.0, J, ast.MatrixDescriptor(), ast.Operation.none, jnp.asarray(x.float().numpy(),
+                                                                                  dtype=jnp.bfloat16), 0.0, kid=0)
+    assert near_error(got.double().numpy(), np.asarray(want).astype(np.float64)) <= expected_precision(torch.bfloat16)
 
 
 def test_wrapper_validates():
@@ -505,7 +529,7 @@ def test_wrapper_validates():
     val = torch.from_numpy(S.data)
     x, bl = torch.ones(64), torch.from_numpy(csr_blocks(S.indptr, TILE, MAX_ROWS))
     for args, status in (
-        ((ptr, ind, val.to(torch.bfloat16), x.to(torch.bfloat16), bl), tt.Status.wrong_type),
+        ((ptr, ind, val.to(torch.float16), x.to(torch.float16), bl), tt.Status.wrong_type),
         ((ptr, ind, val, x.double(), bl), tt.Status.wrong_type),
         ((ptr.to(torch.int16), ind, val, x, bl), tt.Status.wrong_type),
         ((ptr, ind[:-1], val, x, bl), tt.Status.invalid_size),
@@ -767,14 +791,15 @@ def test_cuda_default_mv_on_general_structure_launches_the_csr_kernel(cuda):
         torch.cuda.synchronize()
         assert spmv_csr.launches["f32"] == c1
         assert near_error(y7.cpu().numpy(), ref) <= tol(np.float32)
-    assert csr_mod.KERNEL_DTYPES == (torch.float32, torch.float64, torch.complex64, torch.complex128)
+    assert csr_mod.KERNEL_DTYPES == (torch.float32, torch.float64, torch.complex64, torch.complex128, torch.bfloat16)
+    assert tplan.CARD_MV_CSR_DTYPES == csr_mod.KERNEL_DTYPES[:4]
 
 
 @pytest.mark.cuda
 def test_cuda_segsum_form_keeps_no_row_ids(cuda):
-    """On the card a segsum form holds ptr, ind and val: no row ids until
-    mm's gather asks for them (built from ptr then), and mm and mv agree
-    with scipy."""
+    """On the card a segsum form holds ptr, ind and val: no row ids, since
+    mm's CSR SpMM kernel reads ptr too (the plain version's comparison
+    builds them from ptr), and mm and mv agree with scipy."""
     S = power_law(39)
     A = _handle(S, device=cuda)
     form = tplan.get_plan(A).exec_form_for(GEN, NONE)
@@ -784,6 +809,60 @@ def test_cuda_segsum_form_keeps_no_row_ids(cuda):
     C = tt.mm(1.0, A, GEN, NONE, torch.from_numpy(B).to(cuda), 0.0, kid=0)
     ref = S.astype(np.float64) @ B.astype(np.float64)
     assert near_error(C.cpu().numpy(), ref) <= tol(np.float32)
-    # mm kid=0 shares the default's form and built its rows from ptr
-    assert tplan.get_plan(A).exec_form_for(GEN, NONE, kind="segsum") is form
-    assert np.array_equal(form.row_ids.cpu().numpy(), np.repeat(np.arange(S.shape[0]), np.diff(S.indptr)))
+    # mm kid=0 shares the default's form and builds no rows; segsum_rows
+    # builds them from ptr for the plain version
+    assert tplan.get_plan(A).exec_form_for(GEN, NONE, kind="segsum") is form and form.row_ids is None
+    assert np.array_equal(form.segsum_rows().cpu().numpy(), np.repeat(np.arange(S.shape[0]), np.diff(S.indptr)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["power_law", "empty_rows", "one_long_row", "scatter", "tile_exact"])
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+def test_cuda_bf16_instance(cuda, name, idx):
+    """The bf16 instance (f32 sums, y rounded once) against its plain
+    version, f32 sums of the same bf16 values rounded once (the sums in
+    another order: four bf16 units in the last place), and against float64
+    scipy on the bf16 values (two units); the same bits twice, one launch a
+    call; a bf16 handle's mv by kid=0 and under the restricted memory policy
+    launches it."""
+    S = {**OPERANDS, **REPLAYED, "scatter": scatter}[name](31, dtype=np.float32)
+    ptr, ind, val, x, _b = _on_card(S, np.float32, idx, cuda)
+    val, x = val.to(torch.bfloat16), x.to(torch.bfloat16)
+    blocks = torch.from_numpy(csr_blocks(S.indptr, *tile_of(torch.bfloat16))).to(cuda)
+    before = spmv_csr.launches["bf16"]
+    got = spmv_csr(ptr, ind, val, x, blocks)
+    torch.cuda.synchronize()
+    assert spmv_csr.launches["bf16"] - before == 1 and got.dtype == torch.bfloat16
+    f32 = spmv_csr_plain(ptr, ind, val, x)
+    assert f32.dtype == torch.bfloat16
+    assert near_error(got.double().cpu().numpy(), f32.double().cpu().numpy()) <= 4 * 2.0**-7
+    Sb = sp.csr_matrix((val.double().cpu().numpy(), S.indices, S.indptr), shape=S.shape)
+    assert near_error(got.double().cpu().numpy(), Sb @ x.double().cpu().numpy()) <= 2 * 2.0**-7
+    assert torch.equal(spmv_csr(ptr, ind, val, x, blocks), got)
+    if name == "power_law":
+        A = tt.create_csr(S.shape[0], S.shape[1], S.indptr, S.indices, torch.from_numpy(S.data).to(torch.bfloat16),
+                          device=cuda)
+        for run in (lambda: tt.mv(1.0, A, GEN, NONE, x, 0.0, kid=0),
+                    lambda: (tt.set_memory_hint(A, tt.MemoryPolicy.restricted), tt.mv(1.0, A, GEN, NONE, x, 0.0))[1]):
+            c0 = spmv_csr.launches["bf16"]
+            y = run()
+            torch.cuda.synchronize()
+            assert spmv_csr.launches["bf16"] - c0 == 1
+            assert near_error(y.double().cpu().numpy(), f32.double().cpu().numpy()) <= 4 * 2.0**-7
+
+
+@pytest.mark.cuda
+def test_cuda_other_dtypes_raise(cuda):
+    """No CUDA tensor takes the plain version: float16 values, and values
+    and x of two dtypes, raise in the registry's KID 0 function; a float16
+    handle's mv on general structure (a segsum form) raises (a deliberate
+    divergence: the JAX package computes it)."""
+    S = power_law(45)
+    ptr, ind, val, x, blocks = _on_card(S, np.float32, torch.int32, cuda)
+    for v, xx in ((val.half(), x.half()), (val, x.double()), (val.to(torch.bfloat16), x)):
+        with pytest.raises(tt.AoclSparseError):
+            spmv_csr_any(ind, v, None, xx, S.shape[0], ptr, blocks)
+    A = tt.create_csr(S.shape[0], S.shape[1], S.indptr, S.indices, torch.from_numpy(S.data).half(), device=cuda)
+    assert tplan.get_plan(A).exec_form_for(GEN, NONE).kind == "segsum"
+    with pytest.raises(tt.AoclSparseError):
+        tt.mv(1.0, A, GEN, NONE, x.half(), 0.0)
